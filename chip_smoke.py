@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one H100 and check it end to end.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases (any failure exits non-zero; nothing is caught to keep going):
+
+  1. environment: card name and power limit, torch/CUDA versions,
+     compute capability (must be (9, 0));
+  2. build: compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
+  3. kernels: each of the four CUDA kernels against its plain PyTorch
+     version at the OPT-6.7B main-path shapes, with its time, the plain
+     version's time, one PyTorch library call's time and the card's
+     least possible time for the same work (bytes or operations);
+  4. serve: full-width OPT-6.7B (random weights from ``--seed``,
+     BCQ-quantized on the card at 3 bits, g = 128) through the paged
+     engine with fused paged attention, once with ``--backend auto``
+     (bcq_matmul) and once with ``--backend lut_pallas`` (lut_gemm);
+     the first prefill's logits are held against the plain path and
+     every kernel must have launched during the serve runs.
+
+The line before the last is a JSON object ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device": {...}}``.  Full results also go to
+``chiprun_out/chip_smoke.json``.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def bound(nbytes: float, flops: float):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / BF16_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+class Timer:
+    """Per-launch CUDA-event timing of device work, L2 flushed before each
+    call (the serve path streams each weight once per step, cold).
+
+    A spin kernel queued ahead of the events keeps the card busy while
+    the host runs the Python wrapper and enqueues the work, so the events
+    bracket device time only, not the host's dispatch time."""
+
+    SPIN_CYCLES = 4_000_000          # ~2 ms at H100 clocks
+
+    def __init__(self, torch, iters: int = 10, warmup: int = 2):
+        self.torch = torch
+        self.iters, self.warmup = iters, warmup
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        for _ in range(self.warmup):
+            fn()
+        total = 0.0
+        for _ in range(self.iters):
+            self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            total += a.elapsed_time(b)
+        return total / self.iters
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_gemms(torch, timer, gen, results):
+    from repro_torch.core import bcq
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.lut_gemm import dense_ref, lut_gemm, lut_ref
+
+    tol = 1e-3          # relative to max |plain|: the reference's gate
+    rows_list = (1, 8, 512)
+    shapes = ((4096, 4096), (16384, 4096), (4096, 16384))
+    out = {"bcq_matmul": [], "lut_gemm": []}
+    for m, n in shapes:
+        w_dense = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+        w = bcq.quantize(w_dense, bits=3, group_size=128)
+        del w_dense
+        dense_bf16 = dequantize(w, torch.bfloat16)
+        q = w.bits
+        wbytes = w.nbytes()
+        for rows in rows_list:
+            x = (torch.randn((rows, n), generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+            plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
+            scale = float(plain.abs().max()) + 1e-12
+            nbytes = rows * n * 2 + wbytes + rows * m * 4
+            flops = 2.0 * rows * m * n
+            b_ms, b_by = bound(nbytes, flops)
+            t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
+            t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
+            for name, fn in (
+                    ("bcq_matmul",
+                     lambda: bcq_matmul(x, w, out_dtype=torch.float32)),
+                    ("lut_gemm",
+                     lambda: lut_gemm(x, w, out_dtype=torch.float32))):
+                got = fn()
+                torch.cuda.synchronize()
+                if got.shape != plain.shape or not torch.isfinite(got).all():
+                    fail(f"{name} [{rows}x{n}]x[{m}x{n}]^T: bad output")
+                err = float((got - plain).abs().max())
+                rel = err / scale
+                if name == "lut_gemm" and rows == 1:
+                    lr = lut_ref(x, w, mu=4, half_lut=True,
+                                 out_dtype=torch.float32)
+                    rel = max(rel, float((got - lr).abs().max()) / scale)
+                ok = rel <= tol
+                t = timer(fn)
+                rec = dict(m=m, n=n, rows=rows, bits=q, max_abs_err=err,
+                           rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
+                           library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+                out[name].append(rec)
+                log(f"{name:10s} rows={rows:4d} M={m:5d} N={n:5d}: "
+                    f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
+                    f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
+                    f"torch.matmul {t_lib:.4f} ms  bound {b_ms:.4f} ms "
+                    f"({b_by})")
+                if not ok:
+                    fail(f"{name} disagrees with its plain version")
+        del w, dense_bf16
+    # lut_gemm also at mu = 2 and with the full table, small and ragged
+    w = bcq.from_uniform(torch.randn((33, 136), generator=gen,
+                                     device="cuda"), bits=3, group_size=8)
+    x = torch.randn((5, 136), generator=gen, device="cuda")
+    for mu in (2, 4):
+        for half in (True, False):
+            got = lut_gemm(x, w, mu=mu, half_lut=half,
+                           out_dtype=torch.float32)
+            want = dense_ref(x, w, torch.float32)
+            torch.cuda.synchronize()
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            log(f"lut_gemm ragged mu={mu} half={half}: rel {rel:.2e}")
+            if rel > tol:
+                fail(f"lut_gemm mu={mu} half={half} disagrees")
+    got = bcq_matmul(x, w, out_dtype=torch.float32)
+    want = bcq_matmul_ref(x, w, torch.float32)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    log(f"bcq_matmul ragged f32: rel {rel:.2e}")
+    if rel > tol:
+        fail("bcq_matmul ragged f32 disagrees")
+    results.update(out)
+
+
+def pool_case(torch, gen, seed, *, b, h, d, nb, bs, pages, dtype,
+              prefill_c=0):
+    """Scrambled paged problem: random live lengths, -1 table pads, a
+    recycled block with stale positions, an idle row (decode) or pad
+    query rows (prefill)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    k = torch.randn((nb, bs, h, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((nb, bs, h, d), generator=gen, device="cuda").to(dtype)
+    tables = np.full((b, pages), -1, np.int32)
+    pos = np.full((nb, bs), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, nb)))
+    cap = pages * bs
+    if prefill_c:
+        positions = np.full((b, prefill_c), -1, np.int32)
+    else:
+        positions = np.zeros(b, np.int32)
+    for row in range(b):
+        if prefill_c:
+            ctx = int(rng.integers(0, cap - prefill_c + 1))
+            real = prefill_c - (int(rng.integers(1, 9)) if row == b - 1
+                                else 0)
+            live = ctx + real
+            positions[row, :real] = ctx + np.arange(real)
+        else:
+            if row == 0:
+                continue                    # idle decode row
+            live = int(rng.integers(1, cap + 1))
+            positions[row] = live - 1
+        for j in range(-(-live // bs)):
+            blk = free.pop()
+            tables[row, j] = blk
+            pos[blk] = j * bs + np.arange(bs)
+    stale = free.pop()
+    pos[stale] = np.arange(bs)
+    row = b - 1
+    j = int(np.argmax(tables[row] < 0)) if (tables[row] < 0).any() else 0
+    if j > 0:
+        tables[row, j] = stale
+    q_shape = (b, prefill_c, h, d) if prefill_c else (b, h, d)
+    q = torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    return q, k, v, t(pos), t(tables), t(positions)
+
+
+def _visited(tables, positions, bs):
+    """(row, page) pairs the kernels read: allocated and not past the
+    row's last query position."""
+    import numpy as np
+    tables = np.asarray(tables.cpu())
+    qmax = np.asarray(positions.cpu()).reshape(tables.shape[0], -1).max(1)
+    n = 0
+    for r in range(tables.shape[0]):
+        if qmax[r] < 0:
+            continue
+        last = min(tables.shape[1] - 1, qmax[r] // bs)
+        n += int((tables[r, :last + 1] >= 0).sum())
+    return n
+
+
+def check_paged(torch, timer, gen, results, args_seed):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (gather_view,
+                                                     paged_attention,
+                                                     paged_decode_ref,
+                                                     paged_prefill,
+                                                     paged_prefill_ref)
+    h, d, bs, pages, nb = 32, 128, 16, 32, 257
+    out = {"paged_decode": [], "paged_prefill": []}
+    cases = [("paged_decode", 8, 0), ("paged_prefill", 2, 128),
+             ("paged_prefill", 1, 512)]
+    for name, b, c in cases:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            q, k, v, pos, tables, positions = pool_case(
+                torch, gen, args_seed + b + c, b=b, h=h, d=d, nb=nb, bs=bs, pages=pages,
+                dtype=dtype, prefill_c=c)
+            if c:
+                kern = lambda: paged_prefill(q, k, v, pos, tables,
+                                             positions,
+                                             out_dtype=torch.float32)
+                plain = lambda: paged_prefill_ref(q, k, v, pos, tables,
+                                                  positions,
+                                                  out_dtype=torch.float32)
+            else:
+                kern = lambda: paged_attention(q, k, v, pos, tables,
+                                               positions,
+                                               out_dtype=torch.float32)
+                plain = lambda: paged_decode_ref(q, k, v, pos, tables,
+                                                 positions,
+                                                 out_dtype=torch.float32)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                fail(f"{name}: bad output")
+            err = float((got - want).abs().max())
+            ok = err <= tol
+            tag = f"{name:13s} B={b} C={max(c, 1):3d} {str(dtype)[6:]:8s}"
+            if dtype == torch.float32:
+                log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}")
+                if not ok:
+                    fail(f"{name} (f32 pool) disagrees with its plain version")
+                continue
+            # bf16 pools: the main path's type — check and time
+            visited = _visited(tables, positions, bs)
+            slots = visited * bs
+            kv_bytes = visited * bs * h * d * 2 * 2 + visited * bs * 4
+            nq = b * max(c, 1)
+            nbytes = kv_bytes + nq * h * d * 2 + nq * h * d * 4 \
+                + tables.numel() * 4 + positions.numel() * 4
+            flops = 4.0 * max(c, 1) * h * slots * d
+            b_ms, b_by = bound(nbytes, flops)
+            kv = gather_view(k, tables).permute(0, 2, 1, 3)   # [B, H, L, D]
+            vv = gather_view(v, tables).permute(0, 2, 1, 3)
+            vpos = gather_view(pos, tables)
+            L = vpos.shape[1]
+            iota = torch.arange(L, device="cuda")[None]
+            live = torch.repeat_interleave(tables >= 0, bs, dim=1) & \
+                (vpos == iota)
+            qpos = positions.reshape(b, -1)
+            mask = (live[:, None, :] & (vpos[:, None, :] <= qpos[:, :, None])
+                    )[:, None]                                  # [B,1,Q,L]
+            qs = (q.reshape(b, -1, h, d) if c else q[:, None]).permute(
+                0, 2, 1, 3)
+            t_lib = timer(lambda: F.scaled_dot_product_attention(
+                qs, kv, vv, attn_mask=mask))
+            t_k, t_p = timer(kern), timer(plain)
+            rec = dict(b=b, c=max(c, 1), h=h, d=d, block_size=bs,
+                       max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
+                       library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                       visited_pages=visited)
+            out[name].append(rec)
+            log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}  kernel {t_k:.4f} "
+                f"ms  plain {t_p:.4f} ms  sdpa {t_lib:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({b_by}, {visited} live pages)")
+            if not ok:
+                fail(f"{name} (bf16 pool) disagrees with its plain version")
+    results.update(out)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve full-width OPT-6.7B
+# ---------------------------------------------------------------------------
+
+
+def step_kernel_ms(results, name, layers):
+    """Device time of one decode step's kernels at batch 8: the phase-3
+    per-call times times the step's launches (6 GEMMs + 1 attention per
+    layer), for comparison with the measured step time."""
+    t = {(r["m"], r["n"]): r["ms"] for r in results[name] if r["rows"] == 8}
+    gemms = 4 * t[(4096, 4096)] + t[(16384, 4096)] + t[(4096, 16384)]
+    attn = [r["ms"] for r in results["paged_decode"] if r["b"] == 8][0]
+    return layers * (gemms + attn)
+
+
+def serve(torch, args, power_line, results):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec, quantize_model
+    from repro_torch.serve import PagedServeEngine, Request
+
+    cfg = get_config("opt_6_7b")
+    if args.layers != cfg.n_layers:
+        cfg = cfg.replace(n_layers=args.layers)
+    log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth={cfg.n_layers} "
+        f"layers (full depth 32)")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init_params(gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    t0 = time.perf_counter()
+    manifest = quantize_model(model, spec)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    log(f"init {t_init:.1f} s; BCQ on the card {t_quant:.1f} s: "
+        f"{manifest.summary()}")
+    rng = np.random.default_rng(args.seed)
+    lens = [int(rng.integers(48, 401)) for _ in range(8)]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    eng_kw = dict(num_blocks=256, block_size=16, max_batch=8,
+                  max_seq_len=512, prefill_buckets=(32, 128, 512))
+
+    # the first prefill on the kernel path vs the plain path.  Each GEMM
+    # and attention kernel agrees with its plain version to ~1e-5 of its
+    # output scale (phase 3), but the residual stream is re-rounded to
+    # bf16 twice per layer, and over 32 layers single-ulp flips compound:
+    # the stated tolerance is 5e-2 of the largest |logit|.
+    tol = 5e-2
+    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
+    plain = model.with_config(quant=spec.replace(backend="dense"),
+                              paged_kernel="gather")
+
+    def first_logits(m):
+        cache = m.init_paged_cache(1, 64, 16, 32)
+        table = np.full((1, 32), -1, np.int32)
+        table[0, :8] = [9, 2, 17, 5, 33, 11, 40, 3]
+        from repro_torch.models import set_block_tables
+        cache = set_block_tables(cache, table)
+        logits, _ = m.prefill_chunk(toks, cache, 0, toks.shape[1] - 1)
+        torch.cuda.synchronize()
+        return logits
+
+    want = first_logits(plain)
+    serve_out = {}
+    totals = {k: 0 for k in _lib.KERNELS}
+    for backend in ("auto", "lut_pallas"):
+        m = model.with_config(quant=spec.replace(backend=backend),
+                              paged_kernel="fused")
+        got = first_logits(m)
+        if not torch.isfinite(got).all() or got.shape != want.shape:
+            fail(f"serve[{backend}]: first-prefill logits not finite")
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        log(f"serve[{backend}] first prefill logits vs plain path "
+            f"(dense dequant + gathered attention): rel err {rel:.3e} "
+            f"<= {tol:g}: {rel <= tol}; argmax equal: "
+            f"{int(got.argmax())} vs {int(want.argmax())}")
+        if rel > tol:
+            fail(f"serve[{backend}]: kernel path disagrees with plain path")
+        eng = PagedServeEngine(m, paged_kernel="fused", **eng_kw)
+        step_ms, step_launches = [], []
+        inner = eng.model.decode_step
+
+        def timed_decode(*a, **kw):
+            before = dict(_lib.launch_counts)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = inner(*a, **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            step_launches.append({k: _lib.launch_counts[k] - before[k]
+                                  for k in before})
+            return r
+        eng.model.decode_step = timed_decode
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run(reqs, max_ticks=4000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launch_counts)
+        for k in totals:
+            totals[k] += counts[k]
+        bad = [r.uid for r in done if r.error or len(r.out_tokens) != 32]
+        if len(done) != len(reqs) or bad:
+            fail(f"serve[{backend}]: requests incomplete: {bad}")
+        if any(not 0 <= t < cfg.vocab_size for r in done
+               for t in r.out_tokens):
+            fail(f"serve[{backend}]: token outside the vocabulary")
+        s = eng.metrics.summary()
+        toks_out = s["counters"]["tokens_out"]
+        steps = sorted(step_ms)
+        p50 = steps[len(steps) // 2] if steps else float("nan")
+        gemm = "bcq_matmul" if backend == "auto" else "lut_gemm"
+        kern_ms = step_kernel_ms(results, gemm, cfg.n_layers)
+        per_step = step_launches[len(step_launches) // 2] \
+            if step_launches else {}
+        serve_out[backend] = dict(
+            requests=len(done), prompt_lens=lens, tokens_out=toks_out,
+            wall_s=wall, tokens_per_s=toks_out / wall,
+            ttft_p50_ms=s["ttft_s"]["p50"] * 1e3,
+            decode_step_ms_p50=p50, decode_steps=len(steps),
+            launches=counts, launches_per_decode_step=per_step,
+            decode_path=eng.decode_path, prefill_path=eng.prefill_path,
+            first_prefill_rel_err=rel, step_kernel_ms=kern_ms)
+        log(f"serve[{backend}]: {len(done)} requests, {toks_out} tokens in "
+            f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
+            f"{s['ttft_s']['p50'] * 1e3:.1f} ms; decode step p50 "
+            f"{p50:.2f} ms over {len(steps)} steps (its kernels: "
+            f"{kern_ms:.2f} ms of device time by the phase-3 times); "
+            f"launches {counts}; "
+            f"per decode step {per_step}; card {power_line}")
+        del eng
+        torch.cuda.empty_cache()
+    return serve_out, totals
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=32,
+                    help="serve depth (full width is always kept)")
+    args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail("src/repro_torch/csrc not found next to chip_smoke.py: run "
+             "from the root of a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+
+    # phase 1: environment
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    power_line = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
+    cap = torch.cuda.get_device_capability(0)
+    log(f"card: {power_line}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; capability {cap}; python "
+        f"{sys.version.split()[0]}")
+    if cap != (9, 0):
+        fail(f"need compute capability (9, 0), got {cap}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: build
+    from repro_torch.kernels import _lib
+    t0 = time.perf_counter()
+    so = _lib.build(verbose=True)
+    _lib.lib()
+    log(f"built {so.name} in {time.perf_counter() - t0:.1f} s")
+
+    # phase 3: kernels vs plain versions
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    timer = Timer(torch)
+    results = {}
+    check_gemms(torch, timer, gen, results)
+    check_paged(torch, timer, gen, results, args.seed)
+    del timer
+    torch.cuda.empty_cache()
+
+    # phase 4: serve
+    serve_out, totals = serve(torch, args, power_line, results)
+    missing = [k for k, n in totals.items() if n <= 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+
+    src = {"bcq_matmul": "src/repro_torch/csrc/bcq_matmul.cu",
+           "lut_gemm": "src/repro_torch/csrc/lut_gemm.cu",
+           "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
+           "paged_prefill": "src/repro_torch/csrc/paged_attention.cu"}
+    replaces = {
+        "bcq_matmul": "src/repro/kernels/bcq_matmul/bcq_matmul.py:81",
+        "lut_gemm": "src/repro/kernels/lut_gemm/lut_gemm.py:104",
+        "paged_decode":
+            "src/repro/kernels/paged_attention/paged_attention.py:173",
+        "paged_prefill":
+            "src/repro/kernels/paged_attention/paged_attention.py:530"}
+    # the representative main-path case of each kernel: a decode-batch
+    # GEMM on the widest weight, B = 8 decode, the C = 512 prefill chunk
+    rep = {"bcq_matmul": dict(rows=8, m=16384, n=4096),
+           "lut_gemm": dict(rows=8, m=16384, n=4096),
+           "paged_decode": dict(b=8), "paged_prefill": dict(c=512)}
+    kernels = []
+    for name in _lib.KERNELS:
+        sel = [r for r in results[name]
+               if all(r.get(k) == v for k, v in rep[name].items())][0]
+        kernels.append(dict(
+            name=name, route="cuda", source=src[name],
+            replaces=replaces[name], launches=totals[name],
+            max_abs_err=sel["max_abs_err"], ms=sel["ms"],
+            plain_ms=sel["plain_ms"], bound_ms=sel["bound_ms"],
+            bound_by=sel["bound_by"], library_ms=sel["library_ms"],
+            case={k: sel[k] for k in rep[name]}))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        dict(card=power_line, torch=torch.__version__,
+             cuda=torch.version.cuda, kernels=results, serve=serve_out,
+             build_s=_lib.build_seconds,
+             total_s=time.perf_counter() - t_start), indent=1))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(power_line)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

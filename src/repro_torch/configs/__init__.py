@@ -1,0 +1,4 @@
+from repro_torch.configs.base import (ARCH_IDS, ModelConfig, get_config,
+                                     get_reduced)
+
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_reduced"]

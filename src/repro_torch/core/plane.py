@@ -1,0 +1,126 @@
+"""Plane-native weight layout: the one quantize -> kernel handoff.
+
+Counterpart of ``repro.core.plane``.  A :class:`PlaneBundle` holds
+packed sign planes, per-(row, group) scale rows and layout metadata:
+
+  * ``packed``  uint8 [q, out, in_pad // 8], 8 weights per byte,
+    LSB-first along the input dim; bit 1 encodes +1;
+  * ``alpha``   f32 [q, out, n_groups], one scale row per plane;
+  * ``z``       f32 [out, n_groups] offset row (or ``None``).
+
+Only ``kind="bcq"`` is carried by this slice of the port; the ternary
+kind (sign + mask planes) comes with the ternary kernel.
+
+The CUDA kernels mask ragged edges in-kernel, so :func:`pad_operands`
+is only the plain versions' helper: it zero-pads the activation batch
+to the weight's padded input width (what ``tile_operands`` does on the
+reference side, without the per-call weight copy).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+__all__ = ["PlaneBundle", "KINDS", "pack_planes", "unpack_planes",
+           "dequantize", "pad_operands"]
+
+KINDS = ("bcq",)
+
+
+@dataclasses.dataclass
+class PlaneBundle:
+    """Plane-packed quantized weight tensor (a small dataclass of tensors)."""
+
+    packed: torch.Tensor
+    alpha: torch.Tensor
+    z: Optional[torch.Tensor]
+    group_size: int
+    in_features: int
+    out_features: int
+    kind: str = "bcq"
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(
+                f"bundle kind {self.kind!r} is not ported yet (ported: "
+                f"{KINDS}); see ROADMAP.md queue 1 item 7")
+
+    @property
+    def bits(self) -> int:
+        return self.packed.shape[-3]
+
+    @property
+    def effective_bits(self) -> float:
+        return float(self.bits)
+
+    @property
+    def n_groups(self) -> int:
+        return self.alpha.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def nbytes(self) -> int:
+        n = (self.packed.numel() * self.packed.element_size()
+             + self.alpha.numel() * self.alpha.element_size())
+        if self.z is not None:
+            n += self.z.numel() * self.z.element_size()
+        return n
+
+    def to(self, device) -> "PlaneBundle":
+        return dataclasses.replace(
+            self, packed=self.packed.to(device), alpha=self.alpha.to(device),
+            z=None if self.z is None else self.z.to(device))
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return dequantize(self, dtype=dtype)
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(8, dtype=torch.uint8, device=device)
+
+
+def pack_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Pack {-1,+1} (or {0,1}) planes [q, out, in] into uint8 [q, out, in//8]."""
+    q, out, n = planes.shape
+    if n % 8 != 0:
+        raise ValueError(f"input dim {n} not divisible by 8; pad first")
+    bits = (planes > 0).to(torch.uint8).reshape(q, out, n // 8, 8)
+    return (bits << _shifts(planes.device)).sum(dim=-1, dtype=torch.uint8)
+
+
+def unpack_planes(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_planes`: returns **±1** planes [q, out, in]."""
+    q, out, nb = packed.shape
+    bits = (packed[..., None] >> _shifts(packed.device)) & 1
+    return (bits.to(dtype) * 2 - 1).reshape(q, out, nb * 8)
+
+
+def dequantize(w: PlaneBundle, dtype=torch.float32) -> torch.Tensor:
+    """Dense W[out, in] from a bundle: sum_i alpha_i * b_i + z, in f32.
+
+    The plane sum runs in plane order and the offset is added last, the
+    order of the reference's ``(pm1 * alpha).sum(0) + z``."""
+    q, out, nb = w.packed.shape
+    g = w.group_size
+    pm1 = unpack_planes(w.packed, torch.float32)          # [q, out, in_pad]
+    alpha_cols = w.alpha.float().repeat_interleave(g, dim=-1)
+    dense = pm1[0] * alpha_cols[0]
+    for i in range(1, q):
+        dense = dense + pm1[i] * alpha_cols[i]
+    if w.z is not None:
+        dense = dense + w.z.float().repeat_interleave(g, dim=-1)
+    return dense[:, : w.in_features].to(dtype)
+
+
+def pad_operands(x2: torch.Tensor, w: PlaneBundle) -> torch.Tensor:
+    """Zero-pad a flattened activation batch [b, in_features] to the
+    weight's padded input width ``packed.shape[-1] * 8``.  Zero columns
+    add nothing to LUT entries, activation sums or products."""
+    n_pad = w.packed.shape[-1] * 8
+    if x2.shape[-1] == n_pad:
+        return x2
+    return torch.nn.functional.pad(x2, (0, n_pad - x2.shape[-1]))

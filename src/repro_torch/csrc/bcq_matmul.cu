@@ -1,0 +1,312 @@
+// bcq_matmul: y[B, M] = x[B, N] . (sum_i alpha_i (2 b_i - 1) + z)^T
+//
+// Replaces: src/repro/kernels/bcq_matmul/bcq_matmul.py::_bcq_matmul_kernel
+// (launcher bcq_matmul_tiled), the dequant-in-VMEM TPU matmul.
+//
+// What bounds it on an H100: at decode (B <= 8) it is bound by bytes —
+// the packed planes (q/8 B per weight) plus the f32 alpha and z rows
+// (4 (q+1) / group_size B per weight) are read once and every weight
+// feeds at most 8 products.  At prefill (B = 128..512) it is bound by
+// operations: 2 B M N of them.
+//
+// What the design does about it: the weight is never written back
+// dense.  At decode (B <= 8) a weight-streaming GEMV runs (see
+// bcq_gemv_kernel below): many warps, each streaming whole plane rows.
+// Otherwise each block owns a 64-row slice of M and a tile of B rows, and
+// walks the whole reduction axis itself (CUDA blocks run in no order,
+// so nothing is carried between blocks the way the Pallas grid revisits
+// its output block).  Per 64-column step it stages the x tile in shared
+// memory, unpacks the LSB-first plane bytes to +-1, applies alpha per
+// group and z, stages that f32 weight tile in shared memory (row stride
+// 65 floats, so the 32 lanes reading one column hit 32 banks) and
+// accumulates in f32 registers with FMAs.  Ragged M / N / B edges are
+// masked in-kernel instead of padded by a copy per call.  Tensor cores
+// (wgmma on a bf16 dequantized tile) and TMA staging are left to a
+// later change: this version is the simple, right one.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 64;   // weight rows per block
+constexpr int BK = 64;   // reduction columns per step
+constexpr int NT = 256;  // threads per block
+
+template <typename T, int TB, int TX>
+__global__ void __launch_bounds__(NT) bcq_matmul_kernel(
+    const T* __restrict__ x, const uint8_t* __restrict__ packed,
+    const float* __restrict__ alpha, const float* __restrict__ z,
+    float* __restrict__ y, int B, int M, int N, int NB, int G, int q,
+    int gs) {
+  constexpr int TY = NT / TX;
+  constexpr int RB = TB / TY;  // batch rows per thread
+  constexpr int RM = BM / TX;  // weight rows per thread
+  __shared__ float xs[TB][BK];
+  __shared__ float ws[BM][BK + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.x * BM, b0 = blockIdx.y * TB;
+  const int K = NB * 8;
+  float acc[RB][RM];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int j = 0; j < RM; ++j) acc[r][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < TB * BK; i += NT) {
+      const int bb = i / BK, kk = i % BK;
+      const int b = b0 + bb, k = k0 + kk;
+      xs[bb][kk] = (b < B && k < N) ? to_f32(x[(size_t)b * N + k]) : 0.f;
+    }
+    for (int i = tid; i < BM * (BK / 8); i += NT) {
+      const int mm = i / (BK / 8), jb = i % (BK / 8);
+      const int m = m0 + mm, col = k0 / 8 + jb;
+      float w[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) w[e] = 0.f;
+      if (m < M && col < NB) {
+        const int grp = (col * 8) / gs;
+        for (int p = 0; p < q; ++p) {
+          const uint32_t byte = packed[((size_t)p * M + m) * NB + col];
+          const float a = alpha[((size_t)p * M + m) * G + grp];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) w[e] += ((byte >> e) & 1u) ? a : -a;
+        }
+        const float zz = z ? z[(size_t)m * G + grp] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) w[e] += zz;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ws[mm][jb * 8 + e] = w[e];
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float xv[RB], wv[RM];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) xv[r] = xs[ty * RB + r][kk];
+#pragma unroll
+      for (int j = 0; j < RM; ++j) wv[j] = ws[tx + TX * j][kk];
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int j = 0; j < RM; ++j) acc[r][j] = fmaf(xv[r], wv[j], acc[r][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    const int b = b0 + ty * RB + r;
+#pragma unroll
+    for (int j = 0; j < RM; ++j) {
+      const int m = m0 + tx + TX * j;
+      if (b < B && m < M) y[(size_t)b * M + m] = acc[r][j];
+    }
+  }
+}
+
+// Decode shape (B <= 8): a weight-streaming GEMV.  Each warp owns GR
+// weight rows; each lane takes 16 consecutive plane bytes (128 columns)
+// of every row and plane per step, so a warp streams 512 contiguous
+// bytes of each plane row with 16-byte loads, and all GR x Q of them are
+// issued before any is used — enough bytes in flight per SM to keep
+// the weight stream moving (a byte per lane per step, one load at a
+// time, left the first version latency-bound at ~55 GB/s).  The planes
+// are unpacked to +-1, scaled per group and offset in registers (the
+// reference's order: plane sum, then z), and multiplied against the B
+// activation rows read from global memory (L1/L2-resident).  Partial
+// sums are reduced across the warp with shuffles.
+constexpr int GR = 4;                 // weight rows per warp
+constexpr int GW = 8;                 // warps per block
+constexpr int GB = 8;                 // max batch rows
+constexpr int GBYTES = 16;            // plane bytes per lane per step
+
+template <typename T>
+__device__ __forceinline__ void load_x8(const T* __restrict__ x, size_t off,
+                                        int col, int N, bool vec,
+                                        float (&v)[8]) {
+  if (vec && col + 8 <= N) {
+    if constexpr (sizeof(T) == 2) {
+      const uint4 u = *reinterpret_cast<const uint4*>(x + off);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(x + off);
+      const float4 b = *reinterpret_cast<const float4*>(x + off + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = (col + e < N) ? to_f32(x[off + e]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ uint4 load_bytes16(const uint8_t* __restrict__ row,
+                                              int c0, int NB, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(row + c0);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  for (int j = 0; j < GBYTES && c0 + j < NB; ++j)
+    w[j / 4] |= static_cast<uint32_t>(row[c0 + j]) << (8 * (j % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T, int Q>
+__global__ void __launch_bounds__(GW * 32) bcq_gemv_kernel(
+    const T* __restrict__ x, const uint8_t* __restrict__ packed,
+    const float* __restrict__ alpha, const float* __restrict__ z,
+    float* __restrict__ y, int B, int M, int N, int NB, int G, int gs,
+    bool pvec, bool xvec) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m0 = (blockIdx.x * GW + warp) * GR;
+  float acc[GR][GB];
+#pragma unroll
+  for (int r = 0; r < GR; ++r)
+#pragma unroll
+    for (int b = 0; b < GB; ++b) acc[r][b] = 0.f;
+
+  for (int c0 = lane * GBYTES; c0 < NB; c0 += 32 * GBYTES) {
+    uint32_t pk[GR][Q][4];
+#pragma unroll
+    for (int r = 0; r < GR; ++r)
+#pragma unroll
+      for (int p = 0; p < Q; ++p) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (m0 + r < M)
+          u = load_bytes16(packed + ((size_t)p * M + m0 + r) * NB, c0, NB,
+                           pvec);
+        pk[r][p][0] = u.x; pk[r][p][1] = u.y;
+        pk[r][p][2] = u.z; pk[r][p][3] = u.w;
+      }
+    // scale rows of the current group, reloaded only when a byte of this
+    // step starts a new group (once per step when 128 | group_size)
+    float aa[GR][Q], zr[GR];
+    int cur = -1;
+    // pk must be indexed by constants to stay in registers: the word
+    // index jw is unrolled, the byte within the word (jb) is a shift
+#pragma unroll
+    for (int jw = 0; jw < GBYTES / 4; ++jw)
+#pragma unroll 1
+    for (int jb = 0; jb < 4; ++jb) {
+      const int c = c0 + jw * 4 + jb;
+      if (c >= NB) break;
+      const int col = c * 8;
+      const int grp = col / gs;
+      if (grp != cur) {
+        cur = grp;
+#pragma unroll
+        for (int r = 0; r < GR; ++r) {
+          const int m = min(m0 + r, M - 1);
+#pragma unroll
+          for (int p = 0; p < Q; ++p)
+            aa[r][p] = alpha[((size_t)p * M + m) * G + grp];
+          zr[r] = z ? z[(size_t)m * G + grp] : 0.f;
+        }
+      }
+      float w[GR][8];
+#pragma unroll
+      for (int r = 0; r < GR; ++r) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) w[r][e] = 0.f;
+#pragma unroll
+        for (int p = 0; p < Q; ++p) {
+          const uint32_t byte = (pk[r][p][jw] >> (8 * jb)) & 0xffu;
+          const float a = aa[r][p];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) w[r][e] += ((byte >> e) & 1u) ? a : -a;
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) w[r][e] += zr[r];
+      }
+#pragma unroll
+      for (int b = 0; b < GB; ++b) {
+        if (b >= B) break;
+        float xv[8];
+        load_x8<T>(x, (size_t)b * N + col, col, N, xvec, xv);
+#pragma unroll
+        for (int r = 0; r < GR; ++r) {
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s = fmaf(w[r][e], xv[e], s);
+          acc[r][b] += s;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < GR; ++r)
+#pragma unroll
+    for (int b = 0; b < GB; ++b) {
+      float v = acc[r][b];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      acc[r][b] = v;
+    }
+  // GR * GB == 32: lane l writes row l / GB, batch row l % GB
+  const int r = lane / GB, b = lane % GB;
+  float v = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < GR; ++rr)
+#pragma unroll
+    for (int bb = 0; bb < GB; ++bb)
+      if (rr == r && bb == b) v = acc[rr][bb];
+  if (m0 + r < M && b < B) y[(size_t)b * M + m0 + r] = v;
+}
+
+template <typename T, int Q>
+void launch_gemv(const T* x, const uint8_t* packed, const float* alpha,
+                 const float* z, float* y, int B, int M, int N, int NB, int G,
+                 int gs, cudaStream_t s) {
+  const bool pvec = NB % GBYTES == 0 &&
+                    reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  const bool xvec = (N * sizeof(T)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  dim3 grid(ceil_div(M, GW * GR));
+  bcq_gemv_kernel<T, Q><<<grid, GW * 32, 0, s>>>(x, packed, alpha, z, y, B, M,
+                                                 N, NB, G, gs, pvec, xvec);
+}
+
+template <typename T>
+void launch_t(const void* x, const void* packed, const void* alpha,
+              const void* z, void* y, int B, int M, int N, int NB, int G,
+              int q, int gs, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  const uint8_t* pp = static_cast<const uint8_t*>(packed);
+  const float* ap = static_cast<const float*>(alpha);
+  const float* zp = static_cast<const float*>(z);
+  float* yp = static_cast<float*>(y);
+  if (B <= GB) {
+    switch (q) {
+#define GEMV_CASE(QQ) \
+  case QQ: launch_gemv<T, QQ>(xp, pp, ap, zp, yp, B, M, N, NB, G, gs, s); break;
+      GEMV_CASE(1) GEMV_CASE(2) GEMV_CASE(3) GEMV_CASE(4)
+      GEMV_CASE(5) GEMV_CASE(6) GEMV_CASE(7) GEMV_CASE(8)
+#undef GEMV_CASE
+    }
+  } else {
+    dim3 grid(ceil_div(M, BM), ceil_div(B, 32));
+    bcq_matmul_kernel<T, 32, 16><<<grid, NT, 0, s>>>(xp, pp, ap, zp, yp, B,
+                                                     M, N, NB, G, q, gs);
+  }
+}
+
+}  // namespace
+
+extern "C" int launch_bcq_matmul(const void* x, const void* packed,
+                                 const void* alpha, const void* z, void* y,
+                                 int B, int M, int N, int NB, int G, int q,
+                                 int gs, int x_is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q < 1 || q > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (x_is_bf16)
+    launch_t<__nv_bfloat16>(x, packed, alpha, z, y, B, M, N, NB, G, q, gs, s);
+  else
+    launch_t<float>(x, packed, alpha, z, y, B, M, N, NB, G, q, gs, s);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,252 @@
+// Float paged attention straight from the KV block pool: decode and
+// chunked prefill.
+//
+// Replaces:
+//   paged_decode  -> src/repro/kernels/paged_attention/paged_attention.py
+//                    ::_paged_attn_kernel (launcher paged_attention_tiled)
+//   paged_prefill -> the same file ::_paged_prefill_kernel, float flavour
+//                    (launcher paged_prefill_tiled with k_scale=None)
+//
+// What bounds them on an H100: decode reads every live KV block once per
+// (row, kv head) for O(rep) flops per element, so it is bound by bytes.
+// Chunked prefill re-reads each block once per query tile and does
+// 4 * C * L * D flops per (row, head), so at C = 512 it leans to
+// operations, though this first version runs them on CUDA cores.
+//
+// What the design does about it: a block owns one (batch row, kv head)
+// and — for prefill — one tile of the chunk's queries, and walks the
+// row's block table itself.  The online-softmax state (running max,
+// running sum, f32 accumulator) lives in shared memory for the block's
+// whole walk: the Pallas grid carries it across its innermost page axis
+// in VMEM scratch, but CUDA blocks cannot carry anything between each
+// other.  Per live page it stages the K/V block (converted to f32) and
+// the slot liveness in shared memory; K rows and Q rows use a stride of
+// D + 1 floats so the per-(query, slot) dot products read distinct banks.
+// Liveness is the paged_view rule: a slot counts iff its table entry is
+// >= 0, its stored position equals its logical index j * BS + i, and it
+// is causally visible (pos <= the query's position).  Table entries < 0
+// (which the reference reads through trash block 0 and masks) and pages
+// that start past the tile's last query position hold no live slot, so
+// they are skipped outright: the result is identical, and the work
+// follows the data.  Masked probabilities are forced to 0, probabilities
+// are rounded to the storage type before the PV product while the
+// running sum keeps them unrounded (the reference's ordering), and a
+// query with no live slot — an idle decode row or a prefill pad row at
+// position -1 — outputs exactly 0.
+#include "common.cuh"
+
+namespace {
+
+template <typename T>
+__device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kpool,
+                            const T* __restrict__ vpool,
+                            const int* __restrict__ pos_pool,
+                            const int* __restrict__ tables,
+                            const int* __restrict__ positions,
+                            float* __restrict__ out, int b, int h, int c0,
+                            int nq, int C, int Hkv, int rep, int D, int BS,
+                            int pages, float* smem) {
+  const int rows = nq * rep;  // query vectors: row = cc * rep + r
+  const int DP = D + 1;
+  float* qs = smem;               // rows x DP
+  float* ks = qs + rows * DP;     // BS x DP
+  float* vs = ks + BS * DP;       // BS x D
+  float* sc = vs + BS * D;        // rows x BS (scores, then probabilities)
+  float* acc = sc + rows * BS;    // rows x D
+  float* mrow = acc + rows * D;   // rows
+  float* lrow = mrow + rows;      // rows
+  float* corr = lrow + rows;      // rows
+  int* qp = reinterpret_cast<int*>(corr + rows);  // nq
+  int* slot = qp + nq;                           // BS
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int i = tid; i < rows * D; i += nt) {
+    const int row = i / D, d = i % D;
+    const int cc = row / rep, r = row % rep;
+    qs[row * DP + d] =
+        to_f32(q[((((size_t)b * C + c0 + cc) * Hkv + h) * rep + r) * D + d]);
+    acc[i] = 0.f;
+  }
+  for (int i = tid; i < rows; i += nt) {
+    mrow[i] = NEG_INF_F;
+    lrow[i] = 0.f;
+  }
+  for (int i = tid; i < nq; i += nt) qp[i] = positions[(size_t)b * C + c0 + i];
+  __syncthreads();
+
+  int qmax = -1;
+  for (int i = 0; i < nq; ++i) qmax = max(qmax, qp[i]);
+  const int last = qmax < 0 ? -1 : min(pages - 1, qmax / BS);
+
+  for (int j = 0; j <= last; ++j) {
+    const int entry = tables[(size_t)b * pages + j];
+    if (entry < 0) continue;  // uniform across the block
+    for (int i = tid; i < BS * D; i += nt) {
+      const int ii = i / D, d = i % D;
+      const size_t off = (((size_t)entry * BS + ii) * Hkv + h) * D + d;
+      ks[ii * DP + d] = to_f32(kpool[off]);
+      vs[ii * D + d] = to_f32(vpool[off]);
+    }
+    for (int i = tid; i < BS; i += nt) {
+      const int sp = pos_pool[(size_t)entry * BS + i];
+      slot[i] = (sp == j * BS + i) ? sp : -1;
+    }
+    __syncthreads();
+    for (int i = tid; i < rows * BS; i += nt) {
+      const int row = i / BS, ii = i % BS;
+      const int sp = slot[ii];
+      float v = NEG_INF_F;
+      if (sp >= 0 && sp <= qp[row / rep]) {
+        const float* qr = qs + row * DP;
+        const float* kr = ks + ii * DP;
+        float dot = 0.f;
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+        v = dot;
+      }
+      sc[i] = v;
+    }
+    __syncthreads();
+    for (int row = tid; row < rows; row += nt) {
+      const int qpos = qp[row / rep];
+      const float mp = mrow[row];
+      float mx = mp;
+      for (int ii = 0; ii < BS; ++ii) mx = fmaxf(mx, sc[row * BS + ii]);
+      float lsum = 0.f;
+      for (int ii = 0; ii < BS; ++ii) {
+        const int sp = slot[ii];
+        const bool ok = sp >= 0 && sp <= qpos;
+        const float p = ok ? expf(sc[row * BS + ii] - mx) : 0.f;
+        lsum += p;
+        sc[row * BS + ii] = round_to<T>(p);
+      }
+      const float cr = expf(mp - mx);
+      lrow[row] = lrow[row] * cr + lsum;
+      mrow[row] = mx;
+      corr[row] = cr;
+    }
+    __syncthreads();
+    for (int i = tid; i < rows * D; i += nt) {
+      const int row = i / D, d = i % D;
+      float a = acc[i] * corr[row];
+      for (int ii = 0; ii < BS; ++ii) a = fmaf(sc[row * BS + ii], vs[ii * D + d], a);
+      acc[i] = a;
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < rows * D; i += nt) {
+    const int row = i / D, d = i % D;
+    const int cc = row / rep, r = row % rep;
+    out[((((size_t)b * C + c0 + cc) * Hkv + h) * rep + r) * D + d] =
+        acc[i] / fmaxf(lrow[row], 1e-30f);
+  }
+}
+
+template <typename T>
+__global__ void paged_decode_kernel(const T* q, const T* kpool,
+                                    const T* vpool, const int* pos_pool,
+                                    const int* tables, const int* positions,
+                                    float* out, int Hkv, int rep, int D,
+                                    int BS, int pages) {
+  extern __shared__ float smem[];
+  attend_tile<T>(q, kpool, vpool, pos_pool, tables, positions, out,
+                 blockIdx.y, blockIdx.x, 0, 1, 1, Hkv, rep, D, BS, pages,
+                 smem);
+}
+
+template <typename T>
+__global__ void paged_prefill_kernel(const T* q, const T* kpool,
+                                     const T* vpool, const int* pos_pool,
+                                     const int* tables, const int* positions,
+                                     float* out, int C, int Hkv, int rep,
+                                     int D, int BS, int pages, int qt) {
+  extern __shared__ float smem[];
+  const int c0 = blockIdx.x * qt;
+  attend_tile<T>(q, kpool, vpool, pos_pool, tables, positions, out,
+                 blockIdx.z, blockIdx.y, c0, min(qt, C - c0), C, Hkv, rep, D,
+                 BS, pages, smem);
+}
+
+size_t smem_bytes(int rows, int nq, int D, int BS) {
+  const size_t floats = (size_t)rows * (D + 1) + (size_t)BS * (D + 1) +
+                        (size_t)BS * D + (size_t)rows * BS +
+                        (size_t)rows * D + 3 * (size_t)rows;
+  return floats * sizeof(float) + (size_t)(nq + BS) * sizeof(int);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T>
+cudaError_t decode_t(const void* q, const void* k, const void* v,
+                     const void* pos, const void* tables,
+                     const void* positions, void* out, int B, int Hkv,
+                     int rep, int D, int BS, int pages, cudaStream_t s) {
+  const size_t bytes = smem_bytes(rep, 1, D, BS);
+  cudaError_t e = allow_smem(paged_decode_kernel<T>, bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(Hkv, B);
+  paged_decode_kernel<T><<<grid, 128, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(pos),
+      static_cast<const int*>(tables), static_cast<const int*>(positions),
+      static_cast<float*>(out), Hkv, rep, D, BS, pages);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t prefill_t(const void* q, const void* k, const void* v,
+                      const void* pos, const void* tables,
+                      const void* positions, void* out, int B, int C,
+                      int Hkv, int rep, int D, int BS, int pages,
+                      cudaStream_t s) {
+  const int qt = max(1, 16 / rep);
+  const size_t bytes = smem_bytes(qt * rep, qt, D, BS);
+  cudaError_t e = allow_smem(paged_prefill_kernel<T>, bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(ceil_div(C, qt), Hkv, B);
+  paged_prefill_kernel<T><<<grid, 256, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(pos),
+      static_cast<const int*>(tables), static_cast<const int*>(positions),
+      static_cast<float*>(out), C, Hkv, rep, D, BS, pages, qt);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int launch_paged_decode(const void* q, const void* k,
+                                   const void* v, const void* pos,
+                                   const void* tables, const void* positions,
+                                   void* out, int B, int C, int Hkv, int rep,
+                                   int D, int BS, int pages, int kv_is_bf16,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e =
+      kv_is_bf16 ? decode_t<__nv_bfloat16>(q, k, v, pos, tables, positions,
+                                           out, B, Hkv, rep, D, BS, pages, s)
+                 : decode_t<float>(q, k, v, pos, tables, positions, out, B,
+                                   Hkv, rep, D, BS, pages, s);
+  return static_cast<int>(e);
+}
+
+extern "C" int launch_paged_prefill(const void* q, const void* k,
+                                    const void* v, const void* pos,
+                                    const void* tables, const void* positions,
+                                    void* out, int B, int C, int Hkv, int rep,
+                                    int D, int BS, int pages, int kv_is_bf16,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e =
+      kv_is_bf16 ? prefill_t<__nv_bfloat16>(q, k, v, pos, tables, positions,
+                                            out, B, C, Hkv, rep, D, BS, pages,
+                                            s)
+                 : prefill_t<float>(q, k, v, pos, tables, positions, out, B,
+                                    C, Hkv, rep, D, BS, pages, s);
+  return static_cast<int>(e);
+}

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+  * ``bcq_matmul``      — packed-plane GEMM, dequant in shared memory;
+  * ``lut_gemm``        — FIGLUT's LUT GEMM (``lut_common`` holds the math);
+  * ``paged_attention`` — float paged decode and chunked prefill.
+
+The CUDA sources live in ``repro_torch/csrc``; ``_lib`` builds them at
+first use and keeps the per-kernel launch counts.
+"""
+from ._lib import launch_counts, reset_launch_counts
+
+__all__ = ["launch_counts", "reset_launch_counts"]

@@ -1,0 +1,157 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources under ``repro_torch/csrc`` are compiled at first use with
+``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started
+together, then one link into a shared library with a plain C
+interface) and loaded with ``ctypes``.  Nothing here runs when the
+module is imported: the CPU tests import every module of the port.
+
+The library lands in ``build/repro_torch/`` at the root of the checkout
+(``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the sources
+and flags, so a rebuilt source never loads a stale library.
+
+``launch_counts`` holds one integer per kernel; a wrapper adds one at
+the point where it launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+KERNELS = ("bcq_matmul", "lut_gemm", "paged_decode", "paged_prefill")
+launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_LIB: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # x, packed, alpha, z, y, B, M, N, NB, G, q, group_size, x_is_bf16, stream
+    "launch_bcq_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+    # ... + mu, half_lut, chunk
+    "launch_lut_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P],
+    # q, k, v, pos, tables, positions, out, B, C, Hkv, rep, D, BS, pages,
+    # kv_is_bf16, stream
+    "launch_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _P],
+    "launch_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def count_launch(kernel: str) -> None:
+    launch_counts[kernel] += 1
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    # src/repro_torch/kernels/_lib.py -> <checkout>/build/repro_torch
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (set NVCC or PATH)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` (in parallel) and link one ``.so``.
+    Returns its path; a library already built from the same sources is
+    reused."""
+    global build_seconds
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"librepro_torch_{_digest()}.so"
+    if lib.exists():
+        build_seconds = 0.0 if build_seconds is None else build_seconds
+        return lib
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    procs, objs = [], []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}_{_digest()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+        objs.append(str(obj))
+    failed = []
+    for src, p in procs:
+        out, _ = p.communicate()
+        if verbose or p.returncode:
+            print(f"[nvcc {src.name}]\n{out}")
+        if p.returncode:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}")
+    tmp = lib.with_suffix(".tmp.so")
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *objs]
+    r = subprocess.run(link, capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{r.stdout}{r.stderr}")
+    os.replace(tmp, lib)
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = handle
+    return _LIB
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise on the ``cudaGetLastError()`` code a launcher returned."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

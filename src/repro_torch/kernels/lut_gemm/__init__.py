@@ -1,0 +1,5 @@
+"""FIGLUT LUT GEMM (CUDA) and its plain versions."""
+from .ops import lut_gemm
+from .ref import dense_ref, lut_ref
+
+__all__ = ["lut_gemm", "dense_ref", "lut_ref"]

@@ -1,0 +1,82 @@
+"""Plain versions of float paged decode and chunked prefill.
+
+Counterpart of ``repro.kernels.paged_attention.ref``: gather the
+per-sequence view of the pool through the block table, then attend with
+a full masked softmax and f32 accumulation.  A slot is live iff its
+table entry is allocated, its stored position equals its logical view
+index, and it is causally visible; rows with no live slot return zeros.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def gather_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """[NB, BS, ...] pool + [B, pages] tables -> [B, pages*BS, ...]."""
+    b, pages = tables.shape
+    bs = pool.shape[1]
+    safe = torch.clamp(tables, min=0).reshape(-1).long()
+    g = pool.index_select(0, safe)
+    return g.reshape(b, pages * bs, *pool.shape[2:])
+
+
+def _live(pos_pool, tables):
+    b, pages = tables.shape
+    bs = pos_pool.shape[1]
+    vpos = gather_view(pos_pool, tables)                       # [B, L]
+    allocated = torch.repeat_interleave(tables >= 0, bs, dim=1)
+    iota = torch.arange(pages * bs, dtype=vpos.dtype,
+                        device=vpos.device)[None]
+    return allocated & (vpos == iota), vpos
+
+
+def paged_decode_ref(q, k_pool, v_pool, pos_pool, tables, positions, *,
+                     scale=None, out_dtype=None):
+    """q: [B, H, D]; pools [NB, BS, Hkv, D]; pos_pool [NB, BS]; tables
+    [B, pages]; positions [B].  Returns [B, H, D]."""
+    b, h, d = q.shape
+    hkv = k_pool.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    kv = gather_view(k_pool, tables)
+    vv = gather_view(v_pool, tables)
+    live, vpos = _live(pos_pool, tables)
+    ok = live & (vpos <= positions[:, None])
+    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(k_pool.dtype)
+    s = torch.einsum("bhrd,blhd->bhrl", qg.float(), kv.float())
+    okb = ok[:, None, None, :]
+    s = torch.where(okb, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(okb, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(-1)
+    out = torch.einsum("bhrl,blhd->bhrd", p.to(v_pool.dtype).float(),
+                       vv.float())
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, d).to(out_dtype or q.dtype)
+
+
+def paged_prefill_ref(q, k_pool, v_pool, pos_pool, tables, positions, *,
+                      scale=None, out_dtype=None):
+    """q: [B, C, H, D]; positions [B, C] (-1 on pad rows, which return
+    zeros).  Returns [B, C, H, D]."""
+    b, c, h, d = q.shape
+    hkv = k_pool.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    kv = gather_view(k_pool, tables)
+    vv = gather_view(v_pool, tables)
+    live, vpos = _live(pos_pool, tables)
+    ok = live[:, None, :] & (vpos[:, None, :] <= positions[:, :, None])
+    qg = (q.reshape(b, c, hkv, rep, d).float() * scale).to(k_pool.dtype)
+    s = torch.einsum("bchrd,blhd->bchrl", qg.float(), kv.float())
+    okb = ok[:, :, None, None, :]
+    s = torch.where(okb, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(okb, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(-1)
+    p = p / torch.clamp(l, min=1e-30)[..., None]
+    out = torch.einsum("bchrl,blhd->bchrd", p.to(v_pool.dtype).float(),
+                       vv.float())
+    return out.reshape(b, c, h, d).to(out_dtype or q.dtype)

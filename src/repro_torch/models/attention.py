@@ -1,0 +1,284 @@
+"""GQA/MHA attention over a paged KV pool (float KV).
+
+Counterpart of the GQA subset of ``repro.models.attention``.
+
+Paged layout: every layer's cache is a shared pool ``k, v: [NB, BS, Hkv,
+D]`` plus ``pos: [NB, BS]`` (the absolute position stored in each slot,
+-1 = empty) and a ``block_tables: [B, max_blocks_per_seq]`` leaf mapping
+each sequence's logical block to a physical one (-1 = unallocated).
+Physical block 0 is the trash block: writes with a negative position, a
+logical block past the table or an unallocated entry land there, and no
+read ever counts its slots.  A slot is live iff its table entry is
+allocated AND its stored position equals its logical index (which makes
+recycled blocks safe) AND it is causally visible.
+
+The port writes the pool **in place** (``index_put_`` into views of the
+pool tensors) where the reference returns an updated copy: at full
+width one layer's pool is tens of megabytes per step.
+
+Decode and chunked prefill route to the fused CUDA kernels
+(``kernels/paged_attention``) or to the gathered plain path
+(``paged_view`` + ``decode_attend`` / ``blockwise_attention``), by the
+reference's rule: ``fused`` forces the kernels (on the CPU their
+wrappers run the plain versions), ``auto`` takes them where they are
+native (an H100), ``gather`` never does.  int8 KV, MLA and sliding
+windows raise ``NotImplementedError`` (ROADMAP.md queue 1 item 7).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import Linear
+
+NEG_INF = -1e30
+PAGED_KERNEL_MODES = ("auto", "fused", "gather")
+
+
+def check_supported(cfg) -> None:
+    """Refuse the attention variants this slice does not carry."""
+    if cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"attention={cfg.attention!r} is not ported yet (ROADMAP.md "
+            "queue 1 item 7: MLA)")
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention is not ported "
+                                  "yet (ROADMAP.md queue 1 item 7)")
+    if cfg.kv_cache_bits != 16:
+        raise NotImplementedError("int8 KV cache is not ported yet "
+                                  "(ROADMAP.md queue 1 item 7)")
+    if cfg.pos == "rope":
+        raise NotImplementedError("rotary positions are not ported yet "
+                                  "(ROADMAP.md queue 1 item 8)")
+
+
+# ---------------------------------------------------------------------------
+# plain attention
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, scale=None):
+    """Masked softmax attention, f32 accumulation (the plain version of the
+    reference's online-softmax ``blockwise_attention``: one block).
+
+    q: [B, Sq, H, D]; k, v: [B, Sk, Hkv, D]; qpos [B, Sq]; kpos [B, Sk]
+    (-1 = empty).  Returns [B, Sq, H, D] in q.dtype."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = (q.reshape(b, sq, hkv, rep, d).float() * scale).to(q.dtype)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qg.float(),
+                     k.to(q.dtype).float())
+    ok = kpos[:, None, :] >= 0
+    if causal:
+        ok = ok & (kpos[:, None, :] <= qpos[:, :, None])
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, :, None, None, :]
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1)
+    out = torch.einsum("bqhrk,bkhd->bqhrd", p.to(v.dtype).float(), v.float())
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def decode_attend(q, cache, positions, *, scale=None):
+    """Single-token attention against a contiguous view.
+    q: [B, 1, H, D]; positions: [B, 1]."""
+    k, v, kpos = cache["k"], cache["v"], cache["pos"]
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(k.dtype)
+    sc = torch.einsum("bhrd,blhd->bhrl", qg.float(), k.float())
+    ok = (kpos >= 0) & (kpos <= positions[:, :1])
+    sc = torch.where(ok[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhrl,blhd->bhrd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged cache
+# ---------------------------------------------------------------------------
+
+
+def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
+                           max_blocks_per_seq: int, device) -> dict:
+    """One layer's pool + block table (``paged_cache_desc`` + init)."""
+    check_supported(cfg)
+    hkv = cfg.n_kv_heads * cfg.kv_replication
+    dt = getattr(torch, cfg.dtype)
+    shape = (num_blocks, block_size, hkv, cfg.head_dim_)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "pos": torch.full((num_blocks, block_size), -1, dtype=torch.int32,
+                          device=device),
+        "block_tables": torch.full((batch, max_blocks_per_seq), -1,
+                                   dtype=torch.int32, device=device),
+    }
+
+
+def is_paged(cache: dict) -> bool:
+    return "block_tables" in cache
+
+
+def kv_entry_bytes(cfg) -> int:
+    """KV-cache bytes per (token, layer)."""
+    hkv = cfg.n_kv_heads * cfg.kv_replication
+    return 2 * hkv * cfg.head_dim_ * getattr(torch, cfg.dtype).itemsize
+
+
+def paged_view(cache: dict) -> dict:
+    """Per-sequence contiguous view [B, nblk * bs, ...]; ``pos`` is -1
+    wherever the slot is not live."""
+    table = cache["block_tables"]
+    b, nblk = table.shape
+    bs = cache["pos"].shape[1]
+    safe = torch.clamp(table, min=0).reshape(-1).long()
+    view = {}
+    for key, val in cache.items():
+        if key == "block_tables":
+            continue
+        g = val.index_select(0, safe)
+        view[key] = g.reshape(b, nblk * bs, *val.shape[2:])
+    allocated = torch.repeat_interleave(table >= 0, bs, dim=1)
+    iota = torch.arange(nblk * bs, dtype=torch.int32, device=table.device)
+    live = allocated & (view["pos"] == iota[None])
+    view["pos"] = torch.where(live, view["pos"],
+                              torch.full_like(view["pos"], -1))
+    return view
+
+
+def _paged_insert(cache: dict, updates: dict, at: torch.Tensor) -> dict:
+    """Scatter S new entries into the pool through the block table, in
+    place.  Position p of row b lives at slot ``table[b, p // bs] * bs +
+    p % bs``; invalid writes go to trash block 0."""
+    table = cache["block_tables"]
+    nb, bs = cache["pos"].shape
+    b, nblk = table.shape
+    s = next(iter(updates.values())).shape[1]
+    at = torch.as_tensor(at, dtype=torch.int32, device=table.device)
+    if at.ndim == 0:
+        at = at.expand(b)
+    positions = at[:, None] + torch.arange(s, dtype=torch.int32,
+                                           device=table.device)[None]
+    blk = torch.div(positions, bs, rounding_mode="floor")
+    phys = torch.gather(table, 1, torch.clamp(blk, 0, nblk - 1).long())
+    valid = (positions >= 0) & (blk < nblk) & (phys >= 0)
+    phys = torch.where(valid, phys, torch.zeros_like(phys))
+    flat = (phys * bs + torch.remainder(positions, bs)).reshape(-1).long()
+    for key, val in updates.items():
+        buf = cache[key]
+        fb = buf.view(nb * bs, *buf.shape[2:])
+        fb[flat] = val.reshape(b * s, *val.shape[2:]).to(buf.dtype)
+    posf = cache["pos"].view(nb * bs)
+    posf[flat] = torch.where(valid, positions,
+                             torch.full_like(positions, -1)).reshape(-1)
+    return cache
+
+
+def cache_insert(cache: dict, updates: dict, at) -> dict:
+    """Write S new entries starting at absolute position ``at`` (scalar
+    or per-row [B])."""
+    if not is_paged(cache):
+        raise NotImplementedError("the contiguous cache is not ported yet "
+                                  "(ROADMAP.md queue 1 item 8: slots engine)")
+    return _paged_insert(cache, updates, at)
+
+
+def fused_selected(mode: str) -> bool:
+    """The fused-vs-gather routing rule for float GQA pools."""
+    if mode not in PAGED_KERNEL_MODES:
+        raise ValueError(f"paged_kernel must be one of "
+                         f"{PAGED_KERNEL_MODES}, got {mode!r}")
+    if mode == "gather":
+        return False
+    if mode == "fused":
+        return True
+    from repro_torch.quant.backends import on_h100
+    return on_h100()
+
+
+def paged_kernel_mode(cfg) -> str:
+    """Host-side label of the path a paged step takes ("fused"|"gather");
+    decode and chunked prefill resolve alike for float GQA pools."""
+    return "fused" if fused_selected(cfg.paged_kernel) else "gather"
+
+
+def paged_decode_attend(q, cache, positions, *, scale=None, mode="auto"):
+    """Single-token attention on a paged cache.  q [B, 1, H, D]."""
+    if fused_selected(mode):
+        from repro_torch.kernels.paged_attention import paged_attention
+        out = paged_attention(q[:, 0], cache["k"], cache["v"], cache["pos"],
+                              cache["block_tables"], positions[:, 0],
+                              scale=scale)
+        return out[:, None]
+    return decode_attend(q, paged_view(cache), positions, scale=scale)
+
+
+def paged_prefill_attend(q, cache, positions, *, scale=None, mode="auto"):
+    """Chunked-prefill attention on a paged cache (chunk already inserted).
+    q [B, C, H, D]; positions [B, C]."""
+    if fused_selected(mode):
+        from repro_torch.kernels.paged_attention import paged_prefill
+        return paged_prefill(q, cache["k"], cache["v"], cache["pos"],
+                             cache["block_tables"], positions, scale=scale)
+    kv = paged_view(cache)
+    return blockwise_attention(q, kv["k"], kv["v"], positions, kv["pos"],
+                               causal=True, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """GQA/MHA self-attention: q/k/v/o linears + paged KV."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        hd = cfg.head_dim_
+        d = cfg.d_model
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        self.q = Linear(h * hd, d, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device)
+        self.k = Linear(hkv * hd, d, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device)
+        self.v = Linear(hkv * hd, d, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device)
+        self.o = Linear(d, h * hd, bias=False, dtype=dtype, device=device)
+
+    def forward(self, x, positions, *, cache: Optional[dict] = None,
+                cache_at=None, causal: bool = True, backend=None,
+                paged_kernel: str = "auto"):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd = cfg.head_dim_
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        q = self.q(x, backend).reshape(b, s, h, hd)
+        k = self.k(x, backend).reshape(b, s, hkv, hd)
+        v = self.v(x, backend).reshape(b, s, hkv, hd)
+        if cfg.kv_replication > 1:
+            k = torch.repeat_interleave(k, cfg.kv_replication, dim=2)
+            v = torch.repeat_interleave(v, cfg.kv_replication, dim=2)
+        if cache is None:
+            out = blockwise_attention(q, k, v, positions, positions,
+                                      causal=causal)
+        else:
+            cache = cache_insert(cache, {"k": k, "v": v}, cache_at)
+            if s == 1:
+                out = paged_decode_attend(q, cache, positions,
+                                          mode=paged_kernel)
+            else:
+                out = paged_prefill_attend(q, cache, positions,
+                                           mode=paged_kernel)
+        out = self.o(out.reshape(b, s, h * hd), backend)
+        return (out, cache) if cache is not None else out

@@ -1,0 +1,137 @@
+"""Shared building blocks: linears, norms, MLP, embeddings.
+
+Counterpart of ``repro.models.layers``.  Every linear weight is an
+[out, in] tensor or a :class:`~repro_torch.core.plane.PlaneBundle` held
+by a :class:`Linear` and executed through ``linear_apply``, the single
+dispatch point of the model stack.  Weights are plain tensor attributes
+on the modules, created on an explicit device; ``quantize_model``
+swaps a dense weight for its bundle in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.quantized_linear import linear_apply
+
+_INIT_SCALE = 0.02
+
+
+def _normal_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """N(0, 0.02) drawn in f32 then cast, as the reference's init."""
+    t.copy_(torch.randn(t.shape, generator=generator, device=t.device,
+                        dtype=torch.float32) * _INIT_SCALE)
+
+
+class Linear(nn.Module):
+    """y = x @ W^T (+ bias); W dense [out, in] or a PlaneBundle."""
+
+    def __init__(self, out_features: int, in_features: int, *, bias: bool,
+                 dtype, device):
+        super().__init__()
+        self.weight = torch.empty((out_features, in_features), dtype=dtype,
+                                  device=device)
+        self.bias = (torch.zeros(out_features, dtype=torch.float32,
+                                 device=device) if bias else None)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        _normal_(self.weight, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, backend: Optional[str] = None,
+                out_dtype=None) -> torch.Tensor:
+        return linear_apply(self.weight, x, self.bias, backend=backend,
+                            out_dtype=out_dtype)
+
+
+class Norm(nn.Module):
+    """LayerNorm (scale + bias) or RMSNorm (scale), computed in f32."""
+
+    def __init__(self, dim: int, kind: str, device, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = torch.ones(dim, dtype=torch.float32, device=device)
+        self.bias = (torch.zeros(dim, dtype=torch.float32, device=device)
+                     if kind == "layernorm" else None)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.bias is not None:
+            mu = xf.mean(-1, keepdim=True)
+            var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+            y = (xf - mu) * torch.rsqrt(var + self.eps)
+            y = y * self.scale + self.bias
+        else:
+            ms = (xf * xf).mean(-1, keepdim=True)
+            y = xf * torch.rsqrt(ms + self.eps) * self.scale
+        return y.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """GELU MLP with biases (OPT), or SwiGLU."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.act = cfg.mlp_act
+        if self.act == "swiglu":
+            self.gate = Linear(f, d, bias=False, dtype=dtype, device=device)
+            self.up = Linear(f, d, bias=False, dtype=dtype, device=device)
+            self.down = Linear(d, f, bias=False, dtype=dtype, device=device)
+        else:
+            self.up = Linear(f, d, bias=True, dtype=dtype, device=device)
+            self.down = Linear(d, f, bias=True, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, backend=None) -> torch.Tensor:
+        if self.act == "swiglu":
+            g = self.gate(x, backend)
+            u = self.up(x, backend)
+            h = F.silu(g.float()).to(x.dtype) * u
+            return self.down(h, backend)
+        h = self.up(x, backend)
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        return self.down(h, backend)
+
+
+class Embed(nn.Module):
+    """Token embedding + learned positions (clamped at >= 0); the tied
+    unembedding reuses ``tok`` with an f32 output."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.tok = torch.empty((cfg.padded_vocab, cfg.d_model), dtype=dtype,
+                               device=device)
+        self.pos = (torch.empty((cfg.max_seq_len, cfg.d_model), dtype=dtype,
+                                device=device)
+                    if cfg.pos == "learned" else None)
+        self.unembed = (None if cfg.tie_embeddings else
+                        Linear(cfg.padded_vocab, cfg.d_model, bias=False,
+                               dtype=dtype, device=device))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        _normal_(self.tok, generator)
+        if self.pos is not None:
+            _normal_(self.pos, generator)
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.tok[tokens.long()]
+        if self.pos is not None and positions is not None:
+            x = x + self.pos[torch.clamp(positions, min=0).long()]
+        return x
+
+    def logits(self, x: torch.Tensor, backend=None) -> torch.Tensor:
+        if self.unembed is not None:
+            return self.unembed(x, backend, out_dtype=torch.float32)
+        return linear_apply(self.tok, x, backend=backend,
+                            out_dtype=torch.float32)

@@ -1,0 +1,264 @@
+"""Top-level decoder: embeddings -> stack -> final norm -> tied head.
+
+Counterpart of ``repro.models.model`` for the paths serving uses:
+``forward`` (full-sequence logits), ``prefill_chunk`` and
+``decode_step`` over a paged cache.  The parameters live on the modules
+(created on an explicit device); :func:`from_jax_params` carries a
+reference parameter tree, handed over as numpy arrays, into a model.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import default_device
+from repro_torch.core.plane import PlaneBundle
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import Embed, Linear, Norm
+from repro_torch.models.transformer import Stack
+
+
+class Model(nn.Module):
+    """Decoder-only LM.  ``dtype`` is the linears' and embeddings' storage
+    type (bf16 by default, as in the reference); activations follow the
+    embedding dtype and the KV pool uses ``cfg.dtype``."""
+
+    def __init__(self, cfg, *, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        attn.check_supported(cfg)
+        self.cfg = cfg
+        self.device = default_device(device)
+        self.embed = Embed(cfg, dtype=dtype, device=self.device)
+        self.stack = Stack(cfg, dtype=dtype, device=self.device)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, self.device)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "Model":
+        """Random weights from ``generator``: N(0, 0.02) linears and
+        embeddings, zero biases, unit norm scales."""
+        for mod in self.modules():
+            if mod is not self and hasattr(mod, "init_params"):
+                mod.init_params(generator)
+        return self
+
+    def n_params(self) -> int:
+        n = 0
+        for mod in self.modules():
+            for t in _tensors_of(mod):
+                n += t.numel()
+        return n
+
+    def with_config(self, **kw) -> "Model":
+        """A view of this model (shared weights) under a changed config,
+        e.g. another backend preference or paged-kernel mode."""
+        import copy
+        other = copy.copy(self)
+        other.cfg = self.cfg.replace(**kw)
+        return other
+
+    # ------------------------------------------------------------------
+    def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,
+                         max_blocks_per_seq: int) -> dict:
+        return {"layers": [
+            attn.init_paged_layer_cache(self.cfg, batch, num_blocks,
+                                        block_size, max_blocks_per_seq,
+                                        self.device)
+            for _ in range(self.cfg.n_layers)]}
+
+    # ------------------------------------------------------------------
+    def _positions(self, tokens: torch.Tensor, start_pos) -> torch.Tensor:
+        b, s = tokens.shape
+        start = torch.as_tensor(start_pos, dtype=torch.int32,
+                                device=tokens.device)
+        if start.ndim == 0:
+            start = start.expand(b)
+        return start[:, None] + torch.arange(s, dtype=torch.int32,
+                                             device=tokens.device)[None]
+
+    def _run(self, tokens, positions, cache, cache_at):
+        cfg = self.cfg
+        x = self.embed(tokens, positions if cfg.pos == "learned" else None)
+        return self.stack(x, positions, caches=cache, cache_at=cache_at,
+                          backend=cfg.backend_preference,
+                          paged_kernel=cfg.paged_kernel)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.final_norm(x)
+        logits = self.embed.logits(x, backend=self.cfg.backend_preference)
+        return logits[..., : self.cfg.vocab_size]
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence logits [B, S, V] (no cache)."""
+        tokens = tokens.to(self.device)
+        positions = self._positions(tokens, 0)
+        x, _ = self._run(tokens, positions, None, None)
+        return self._head(x)
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens: torch.Tensor, cache: dict, start_pos,
+                      last_idx):
+        """One chunk of a chunked prefill: tokens [B, C] at absolute
+        positions ``start_pos + [0, C)``, written into the paged cache.
+        ``last_idx`` [B] (or scalar) picks each row's last real token.
+        Returns (logits [B, V] f32, cache)."""
+        tokens = tokens.to(self.device)
+        positions = self._positions(tokens, start_pos)
+        x, cache = self._run(tokens, positions, cache, positions[:, 0])
+        b = x.shape[0]
+        idx = torch.as_tensor(last_idx, dtype=torch.long, device=x.device)
+        if idx.ndim == 0:
+            idx = idx.expand(b)
+        x = x[torch.arange(b, device=x.device), idx][:, None]
+        return self._head(x)[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache: dict, pos):
+        """One decode step: tokens [B, 1]; pos scalar or [B] absolute
+        position of the new token.  Returns (logits [B, V] f32, cache)."""
+        tokens = tokens.to(self.device)
+        b = tokens.shape[0]
+        pos_arr = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+        if pos_arr.ndim == 0:
+            pos_arr = pos_arr.expand(b)
+        positions = pos_arr[:, None]
+        x, cache = self._run(tokens, positions, cache, pos_arr)
+        return self._head(x)[:, 0], cache
+
+
+def set_block_tables(cache: dict, tables) -> dict:
+    """Return ``cache`` with every layer's ``block_tables`` set to
+    ``tables`` [B, max_blocks_per_seq] (all layers share one table); the
+    pools are shared, not copied."""
+    layers = cache["layers"]
+    dev = layers[0]["pos"].device if layers else None
+    t = torch.as_tensor(np.asarray(tables), dtype=torch.int32, device=dev)
+    return {**cache, "layers": [{**c, "block_tables": t} for c in layers]}
+
+
+def _tensors_of(mod):
+    for v in vars(mod).values():
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif isinstance(v, PlaneBundle):
+            yield from (t for t in (v.packed, v.alpha, v.z) if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# reference parameter trees -> port model
+# ---------------------------------------------------------------------------
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)      # a writable copy
+
+
+def _leaf(a, device):
+    """A dense leaf, or a PlaneBundle leaf given as a dict of arrays +
+    static fields."""
+    if isinstance(a, dict):
+        z = a.get("z")
+        return PlaneBundle(
+            packed=_to_tensor(a["packed"], device),
+            alpha=_to_tensor(a["alpha"], device),
+            z=None if z is None else _to_tensor(z, device),
+            group_size=int(a["group_size"]),
+            in_features=int(a["in_features"]),
+            out_features=int(a["out_features"]),
+            kind=a.get("kind", "bcq"))
+    return _to_tensor(a, device)
+
+
+def _index(tree, r: int):
+    """Slice the stacked-layers axis of every leaf (bundles included)."""
+    if isinstance(tree, dict) and "packed" in tree:
+        out = dict(tree)
+        for k in ("packed", "alpha", "z"):
+            if out.get(k) is not None:
+                out[k] = np.asarray(out[k])[r]
+        return out
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def _reps(tree) -> int:
+    if isinstance(tree, dict) and "packed" in tree:
+        return np.asarray(tree["packed"]).shape[0]
+    if isinstance(tree, dict):
+        return _reps(next(iter(tree.values())))
+    return np.asarray(tree).shape[0]
+
+
+def layer_trees(stack: dict, n_layers: int) -> list:
+    """Per-layer parameter trees from either stack layout:
+    ``{"layers": [...]}`` (unrolled) or ``{"prefix": [...], "scan":
+    [group_0, ...]}`` where group j stacks layers prefix+j, prefix+j+P, ..."""
+    if "layers" in stack:
+        return list(stack["layers"])
+    prefix = list(stack.get("prefix", []))
+    groups = stack.get("scan", [])
+    out = [None] * n_layers
+    for i, t in enumerate(prefix):
+        out[i] = t
+    period = len(groups)
+    for j, g in enumerate(groups):
+        for r in range(_reps(g)):
+            out[len(prefix) + j + r * period] = _index(g, r)
+    if any(t is None for t in out):
+        raise ValueError("stacked parameter tree does not cover every layer")
+    return out
+
+
+def _set_linear(lin: Linear, tree: dict, name: str, device) -> None:
+    lin.weight = _leaf(tree[name], device)
+    bias_key = f"{name}_b"
+    if bias_key in tree:
+        lin.bias = _leaf(tree[bias_key], device)
+
+
+def _set_norm(norm: Norm, tree: dict, device) -> None:
+    norm.scale = _leaf(tree["scale"], device)
+    if "bias" in tree:
+        norm.bias = _leaf(tree["bias"], device)
+
+
+def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
+    """Build a :class:`Model` holding the reference's parameters.
+
+    ``params_np`` is the reference tree with numpy leaves; quantized
+    leaves are dicts ``{packed, alpha, z, group_size, in_features,
+    out_features, kind}``.  Both stack layouts are accepted; scan-stacked
+    leaves are unstacked per layer.  Leaf dtypes are kept."""
+    tok = params_np["embed"]["tok"]
+    dtype = _to_tensor(np.asarray(tok)[:1], "cpu").dtype
+    model = Model(cfg, device=device, dtype=dtype)
+    dev = model.device
+    emb = params_np["embed"]
+    model.embed.tok = _leaf(emb["tok"], dev)
+    if "pos" in emb:
+        model.embed.pos = _leaf(emb["pos"], dev)
+    if "unembed" in emb:
+        model.embed.unembed.weight = _leaf(emb["unembed"], dev)
+    for block, tree in zip(model.stack.layers,
+                           layer_trees(params_np["stack"], cfg.n_layers)):
+        _set_norm(block.ln1, tree["ln1"], dev)
+        _set_norm(block.ln2, tree["ln2"], dev)
+        for name in ("q", "k", "v", "o"):
+            _set_linear(getattr(block.mixer, name), tree["mixer"], name, dev)
+        for name in ("gate", "up", "down"):
+            if name in tree["mlp"]:
+                _set_linear(getattr(block.mlp, name), tree["mlp"], name, dev)
+    _set_norm(model.final_norm, params_np["final_norm"], dev)
+    return model
+
+
+__all__ = ["Model", "from_jax_params", "layer_trees", "set_block_tables"]

@@ -1,0 +1,89 @@
+"""On the card: each CUDA kernel of the port against its plain version.
+
+Marked ``cuda``; every test skips on a host without a (9, 0) device.
+The file imports neither JAX nor the reference package, so it also runs
+on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances: 1e-3 of the output scale for the GEMMs, 1e-4 for float paged
+decode and prefill on f32 pools (the reference's gates).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bcq
+from repro_torch.kernels import _lib
+from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+from repro_torch.kernels.lut_gemm import lut_gemm, lut_ref
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_decode_ref,
+                                                 paged_prefill,
+                                                 paged_prefill_ref)
+
+from torch_port_cases import pool_case, require_cuda
+
+GEMM_TOL = 1e-3
+PAGED_TOL = 1e-4
+
+
+def _close(got, want, tol):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    scale = float(np.abs(want).max()) + 1e-6
+    np.testing.assert_allclose(got / scale, want / scale, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,b", [(64, 128, 1), (96, 200, 5), (33, 136, 2),
+                                   (4096, 4096, 8), (512, 1024, 40)])
+def test_cuda_gemms_match_plain(m, n, b):
+    require_cuda()
+    rng = np.random.default_rng(m + b)
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    wt = bcq.from_uniform(w.to("cuda"), bits=3,
+                          group_size=64 if n % 64 == 0 else 8)
+    x = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = x.to("cuda", dtype)
+        want = bcq_matmul_ref(xt, wt, torch.float32)
+        _lib.reset_launch_counts()
+        _close(bcq_matmul(xt, wt, out_dtype=torch.float32), want, GEMM_TOL)
+        for mu in (2, 4):
+            for half in (True, False):
+                got = lut_gemm(xt, wt, mu=mu, half_lut=half,
+                               out_dtype=torch.float32)
+                _close(got, want, GEMM_TOL)
+        _close(lut_gemm(xt, wt, out_dtype=torch.float32),
+               lut_ref(xt, wt, out_dtype=torch.float32), GEMM_TOL)
+        assert _lib.launch_counts["bcq_matmul"] == 1
+        assert _lib.launch_counts["lut_gemm"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+def test_cuda_paged_match_plain(h, hkv):
+    require_cuda()
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    q, k, v, pos, tables, positions = map(dev, pool_case(0, h=h, hkv=hkv))
+    got = paged_attention(q, k, v, pos, tables, positions)
+    want = paged_decode_ref(q, k, v, pos, tables, positions)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=PAGED_TOL)
+    q, k, v, pos, tables, positions = map(
+        dev, pool_case(3, h=h, hkv=hkv, chunk=5))
+    got = paged_prefill(q, k, v, pos, tables, positions)
+    want = paged_prefill_ref(q, k, v, pos, tables, positions)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=PAGED_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_bad_operands():
+    require_cuda()
+    w = bcq.from_uniform(torch.randn(16, 64, device="cuda"), bits=2,
+                         group_size=32)
+    with pytest.raises(TypeError):
+        bcq_matmul(torch.ones(2, 64, device="cuda", dtype=torch.float16), w)
+    with pytest.raises(ValueError):
+        lut_gemm(torch.ones(2, 64, device="cuda"), w, mu=3)

@@ -1,0 +1,121 @@
+"""Port parity: the four kernel modules.
+
+On the CPU each port ``ops.py`` wrapper runs its plain version; it is
+held against the reference ``ops.py`` run in Pallas interpret mode on
+the same numpy inputs.  Tolerances are the reference's own gates
+(``benchmarks/baselines/BENCH_kernels.json``): 1e-3 (relative to the
+output scale) for the GEMMs, 1e-4 for float paged decode and prefill.
+The CUDA kernels themselves are held against these plain versions on
+the card by ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bcq as jbcq
+from repro.kernels.bcq_matmul import ops as j_mxu
+from repro.kernels.lut_gemm import ops as j_lut
+from repro.kernels.paged_attention import paged_attention as j_decode
+from repro.kernels.paged_attention import paged_prefill as j_prefill
+from repro_torch.kernels import _lib
+from repro_torch.kernels.bcq_matmul import bcq_matmul
+from repro_torch.kernels.lut_gemm import dense_ref, lut_gemm
+from repro_torch.kernels.paged_attention import paged_attention, paged_prefill
+
+from torch_port_cases import pool_case, torch_bundle
+
+GEMM_TOL = 1e-3
+PAGED_TOL = 1e-4
+
+SHAPES = [(64, 128, 1), (96, 200, 5), (33, 130, 2)]
+
+
+def _gemm_case(m, n, b, bits, seed, g=64):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    x = rng.normal(size=(b, n)).astype(np.float32)
+    wj = jbcq.from_uniform(jnp.asarray(w), bits=bits, group_size=g)
+    return x, wj, torch_bundle(wj)
+
+
+def _close(got, want, tol):
+    scale = float(np.abs(want).max()) + 1e-6
+    np.testing.assert_allclose(got / scale, want / scale, atol=tol)
+
+
+@pytest.mark.parametrize("m,n,b", SHAPES)
+@pytest.mark.parametrize("bits", [2, 3])
+def test_bcq_matmul_matches_reference(m, n, b, bits):
+    x, wj, wt = _gemm_case(m, n, b, bits, seed=m + n + bits)
+    want = np.asarray(j_mxu.bcq_matmul(jnp.asarray(x), wj, interpret=True))
+    got = bcq_matmul(torch.from_numpy(x), wt).numpy()
+    assert got.shape == want.shape
+    _close(got, want, GEMM_TOL)
+
+
+@pytest.mark.parametrize("m,n,b", SHAPES)
+@pytest.mark.parametrize("mu,half", [(4, True), (4, False), (2, True),
+                                     (2, False)])
+def test_lut_gemm_matches_reference(m, n, b, mu, half):
+    x, wj, wt = _gemm_case(m, n, b, 3, seed=2 * m + n)
+    want = np.asarray(j_lut.lut_gemm(jnp.asarray(x), wj, mu=mu,
+                                     half_lut=half, interpret=True))
+    got = lut_gemm(torch.from_numpy(x), wt, mu=mu, half_lut=half).numpy()
+    assert got.shape == want.shape
+    _close(got, want, GEMM_TOL)
+
+
+def test_lut_read_modes_are_one_function():
+    x, wj, wt = _gemm_case(32, 128, 3, 2, seed=9)
+    xt = torch.from_numpy(x)
+    outs = [lut_gemm(xt, wt, read_mode=r).numpy()
+            for r in ("select", "onehot", "gather")]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], outs[2])
+    _close(outs[0], dense_ref(xt, wt).numpy(), GEMM_TOL)
+    with pytest.raises(ValueError):
+        lut_gemm(xt, wt, read_mode="mxu")
+
+
+def test_gemm_3d_batch_and_bf16():
+    x, wj, wt = _gemm_case(48, 128, 6, 3, seed=5)
+    x3 = torch.from_numpy(x).reshape(2, 3, 128)
+    for fn in (bcq_matmul, lut_gemm):
+        y = fn(x3, wt)
+        assert y.shape == (2, 3, 48) and y.dtype == torch.float32
+        yb = fn(x3.to(torch.bfloat16), wt)
+        assert yb.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_paged_decode_matches_reference(h, hkv, seed):
+    q, k, v, pos, tables, positions = pool_case(seed, h=h, hkv=hkv)
+    want = np.asarray(j_decode(*map(jnp.asarray, (q, k, v, pos, tables,
+                                                  positions)),
+                               interpret=True))
+    got = paged_attention(*map(torch.from_numpy, (q, k, v, pos, tables,
+                                                  positions))).numpy()
+    np.testing.assert_allclose(got, want, atol=PAGED_TOL)
+    assert np.abs(got[0]).max() == 0.0          # the idle row outputs 0
+
+
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+def test_paged_prefill_matches_reference(h, hkv):
+    q, k, v, pos, tables, positions = pool_case(3, h=h, hkv=hkv, chunk=5)
+    want = np.asarray(j_prefill(*map(jnp.asarray, (q, k, v, pos, tables,
+                                                   positions)),
+                                interpret=True))
+    got = paged_prefill(*map(torch.from_numpy, (q, k, v, pos, tables,
+                                                positions))).numpy()
+    np.testing.assert_allclose(got, want, atol=PAGED_TOL)
+    assert np.abs(got[-1, -2:]).max() == 0.0    # pad query rows output 0
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    _lib.reset_launch_counts()
+    x, wj, wt = _gemm_case(32, 64, 2, 2, seed=1)
+    bcq_matmul(torch.from_numpy(x), wt)
+    lut_gemm(torch.from_numpy(x), wt)
+    assert all(n == 0 for n in _lib.launch_counts.values())

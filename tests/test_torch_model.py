@@ -1,0 +1,119 @@
+"""Port parity: reduced OPT, dense and BCQ, both packages in float32.
+
+``prefill_chunk`` (into a scrambled, non-contiguous block table) and
+``decode_step`` logits must agree within 1e-4 relative to the logit
+scale; so must full-sequence ``forward`` logits after carrying a
+scan-stacked parameter tree across (``from_jax_params``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import quant as jquant
+from repro.configs import get_reduced as j_reduced
+from repro.models import Model as JModel
+from repro.serve import set_block_tables as j_set_tables
+from repro_torch.configs import get_reduced as t_reduced
+from repro_torch.models import from_jax_params, set_block_tables
+from repro_torch.quant import QuantSpec
+
+from torch_port_cases import f32_params, to_numpy_tree
+
+TOL = 1e-4
+G = 32          # group size for the reduced widths (d_model 64, d_ff 128)
+
+
+def _pair(quantized: bool, scan: bool = False, paged_kernel="auto"):
+    over = dict(dtype="float32", paged_kernel=paged_kernel,
+                scan_layers=scan)
+    jcfg = j_reduced("opt_6_7b").replace(remat=False, **over)
+    jm = JModel(jcfg)
+    params = f32_params(jm.init(jax.random.PRNGKey(0)))
+    tcfg = t_reduced("opt_6_7b").replace(**over)
+    if quantized:
+        jspec = jquant.QuantSpec(bits=3, group_size=G, iters=2)
+        params, _ = jquant.quantize_model(params, jspec, jm.axes())
+        jm = JModel(jcfg.replace(quant=jspec))
+        tcfg = tcfg.replace(quant=QuantSpec(bits=3, group_size=G, iters=2))
+    tm = from_jax_params(to_numpy_tree(params), tcfg, device="cpu")
+    return jm, params, tm
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_prefill_chunk_and_decode_match(quantized):
+    jm, params, tm = _pair(quantized)
+    vocab = jm.cfg.vocab_size
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, vocab, (1, 20)).astype(np.int32)
+    bs, nblk = 4, 8
+    table = np.full((1, nblk), -1, np.int32)
+    table[0, :6] = [11, 3, 7, 14, 2, 9]
+    jc = j_set_tables(jm.init_paged_cache(1, 16, bs, nblk), table)
+    tc = set_block_tables(tm.init_paged_cache(1, 16, bs, nblk), table)
+    for c0, c1, pad in ((0, 7, 1), (7, 16, 0)):
+        chunk = np.zeros((1, c1 - c0 + pad), np.int32)
+        chunk[0, :c1 - c0] = toks[0, c0:c1]
+        jl, jc = jm.prefill_chunk(params, {"tokens": jnp.asarray(chunk)}, jc,
+                                  jnp.int32(c0), jnp.int32(c1 - c0 - 1))
+        tl, tc = tm.prefill_chunk(torch.from_numpy(chunk), tc, c0,
+                                  c1 - c0 - 1)
+        assert tl.shape == (1, vocab) and tl.dtype == torch.float32
+        assert _rel(tl, jl) < TOL
+    for t in range(16, 19):
+        step = toks[:, t:t + 1]
+        jl, jc = jm.decode_step(params, jnp.asarray(step), jc, t)
+        tl, tc = tm.decode_step(torch.from_numpy(step), tc, t)
+        assert _rel(tl, jl) < TOL
+    # the pools hold the same KV at the same slots
+    np.testing.assert_array_equal(tc["layers"][0]["pos"].numpy(),
+                                  np.asarray(jc["layers"][0]["self"]["pos"]))
+    np.testing.assert_allclose(tc["layers"][1]["k"].numpy(),
+                               np.asarray(jc["layers"][1]["self"]["k"]),
+                               atol=1e-5)
+
+
+def test_fused_paged_path_matches_gathered():
+    """paged_kernel='fused' (the kernels' plain versions on the CPU) and
+    'gather' give the same logits."""
+    _, _, tm = _pair(True)
+    tg = tm.with_config(paged_kernel="gather")
+    tf = tm.with_config(paged_kernel="fused")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 9)).astype(np.int32))
+    table = np.array([[4, 9, 1, -1], [6, 2, 12, -1]], np.int32)
+    outs = []
+    for m in (tg, tf):
+        c = set_block_tables(m.init_paged_cache(2, 16, 4, 4), table)
+        lp, c = m.prefill_chunk(toks, c, 0, 8)
+        ld, c = m.decode_step(toks[:, :1], c, torch.tensor([9, 9]))
+        outs.append((lp, ld))
+    assert _rel(outs[1][0], outs[0][0]) < TOL
+    assert _rel(outs[1][1], outs[0][1]) < TOL
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_scan_stacked_tree_forward_matches(quantized):
+    jm, params, tm = _pair(quantized, scan=True)
+    assert "scan" in params["stack"]
+    toks = np.random.default_rng(2).integers(0, 256, (2, 12)).astype(
+        np.int32)
+    want = jm.forward(params, {"tokens": jnp.asarray(toks)})
+    got = tm.forward(torch.from_numpy(toks))
+    assert got.shape == tuple(want.shape)
+    assert _rel(got, want) < TOL
+
+
+def test_unported_variants_raise():
+    from repro_torch.models import Model
+    cfg = t_reduced("opt_6_7b")
+    for over in (dict(kv_cache_bits=8), dict(attention="mla"),
+                 dict(sliding_window=8), dict(pos="rope")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Model(cfg.replace(**over), device="cpu")

@@ -1,0 +1,98 @@
+"""Shared helpers for the port's parity tests (``tests/test_torch_*.py``).
+
+Inputs are made with numpy from a seed and handed to both packages;
+reference parameter trees cross over as numpy arrays.  Whether a card is
+present is decided inside tests (``require_cuda``), never at import.
+"""
+import numpy as np
+import pytest
+import torch
+
+
+def require_cuda():
+    """Skip the calling test unless an H100-class CUDA device is present
+    (the kernels are built for sm_90a)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs compute capability (9, 0) for sm_90a kernels")
+
+
+def to_numpy_tree(tree):
+    """Reference parameter tree -> numpy leaves; PlaneBundle leaves become
+    dicts of arrays + static fields (what ``from_jax_params`` takes)."""
+    import jax
+    from repro.core.plane import PlaneBundle
+
+    def leaf(x):
+        if isinstance(x, PlaneBundle):
+            return {"packed": np.asarray(x.packed),
+                    "alpha": np.asarray(x.alpha),
+                    "z": None if x.z is None else np.asarray(x.z),
+                    "group_size": x.group_size,
+                    "in_features": x.in_features,
+                    "out_features": x.out_features, "kind": x.kind}
+        return np.asarray(x)
+    return jax.tree_util.tree_map(
+        leaf, tree, is_leaf=lambda x: isinstance(x, PlaneBundle))
+
+
+def torch_bundle(wj):
+    """A reference PlaneBundle as the port's PlaneBundle (CPU)."""
+    from repro_torch.core.plane import PlaneBundle
+    return PlaneBundle(
+        packed=torch.from_numpy(np.asarray(wj.packed).copy()),
+        alpha=torch.from_numpy(np.asarray(wj.alpha).copy()),
+        z=None if wj.z is None else torch.from_numpy(np.asarray(wj.z).copy()),
+        group_size=wj.group_size, in_features=wj.in_features,
+        out_features=wj.out_features)
+
+
+def f32_params(params):
+    import jax
+    import jax.numpy as jnp
+    return jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x,
+        params)
+
+
+def pool_case(seed, *, b=3, h=8, hkv=4, d=16, nb=24, bs=4, pages=6,
+              chunk=0):
+    """Scrambled paged problem as numpy arrays: ragged live lengths, -1
+    table pads, a recycled block holding stale positions, an idle row
+    (decode) or pad query rows at position -1 (prefill, ``chunk`` > 0)."""
+    assert nb > b * pages
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(nb, bs, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(nb, bs, hkv, d)).astype(np.float32)
+    tables = np.full((b, pages), -1, np.int32)
+    pos = np.full((nb, bs), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, nb)))
+    cap = pages * bs
+    if chunk:
+        positions = np.full((b, chunk), -1, np.int32)
+        q = rng.normal(size=(b, chunk, h, d)).astype(np.float32)
+    else:
+        positions = np.zeros(b, np.int32)
+        q = rng.normal(size=(b, h, d)).astype(np.float32)
+    for row in range(b):
+        if chunk:
+            ctx = int(rng.integers(0, cap - chunk + 1))
+            real = chunk - (2 if row == b - 1 else 0)
+            positions[row, :real] = ctx + np.arange(real)
+            live = ctx + real
+        else:
+            if row == 0:
+                continue                       # idle row: all entries -1
+            live = int(rng.integers(1, cap))
+            positions[row] = live - 1
+        for j in range(-(-live // bs)):
+            blk = free.pop()
+            tables[row, j] = blk
+            pos[blk] = j * bs + np.arange(bs)
+    stale = free.pop()
+    pos[stale] = np.arange(bs)                 # claims positions 0..bs-1
+    j = int(np.argmax(tables[b - 1] < 0))
+    if j > 0:                                  # at a logical index != 0
+        tables[b - 1, j] = stale
+    return q, k, v, pos, tables, positions
