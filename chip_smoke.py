@@ -8,16 +8,20 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
   1. environment: card name and power limit, torch/CUDA versions,
      compute capability (must be (9, 0));
   2. build: compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
-  3. kernels: each of the four CUDA kernels against its plain PyTorch
+  3. kernels: each of the seven CUDA kernels against its plain PyTorch
      version at the OPT-6.7B main-path shapes, with its time, the plain
      version's time, one PyTorch library call's time and the card's
      least possible time for the same work (bytes or operations);
-  4. serve: full-width OPT-6.7B (random weights from ``--seed``,
-     BCQ-quantized on the card at 3 bits, g = 128) through the paged
-     engine with fused paged attention, once with ``--backend auto``
-     (bcq_matmul) and once with ``--backend lut_pallas`` (lut_gemm);
-     the first prefill's logits are held against the plain path and
-     every kernel must have launched during the serve runs.
+     ternary_matmul also to 0 error on exact inputs, the int8 paged
+     kernels also to 1e-4 in f32 with power-of-two scales;
+  4. serve: full-width OPT-6.7B (random weights from ``--seed``)
+     through the paged engine with fused paged attention, three times:
+     BCQ-quantized on the card at 3 bits, g = 128, with ``--backend
+     auto`` (bcq_matmul) and ``--backend lut_pallas`` (lut_gemm); then
+     ternary-quantized on the card (g = 128) with an int8 KV cache and
+     ``--backend auto`` (ternary_matmul, int8 paged decode and prefill).
+     Each run's first prefill logits are held against the plain path,
+     and every kernel must have launched during the serve runs.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -308,19 +312,296 @@ def check_paged(torch, timer, gen, results, args_seed):
     results.update(out)
 
 
+def check_ternary(torch, timer, gen, results):
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels.ternary_matmul import dense_ref, ternary_matmul
+    from repro_torch.quant.formats import quantize_ternary
+
+    tol = 1e-3          # relative to max |plain|: the reference's gate
+    out = []
+    for m, n in ((4096, 4096), (16384, 4096), (4096, 16384)):
+        w_dense = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+        w = quantize_ternary(w_dense, group_size=128)
+        del w_dense
+        dense_bf16 = dequantize(w, torch.bfloat16)
+        wbytes = w.nbytes()
+        for rows in (1, 8, 512):
+            x = (torch.randn((rows, n), generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+            plain = dense_ref(x, w, torch.float32)
+            scale = float(plain.abs().max()) + 1e-12
+            fn = lambda: ternary_matmul(x, w, out_dtype=torch.float32)
+            got = fn()
+            torch.cuda.synchronize()
+            if got.shape != plain.shape or not torch.isfinite(got).all():
+                fail(f"ternary_matmul [{rows}x{n}]x[{m}x{n}]^T: bad output")
+            err = float((got - plain).abs().max())
+            rel = err / scale
+            ok = rel <= tol
+            b_ms, b_by = bound(rows * n * 2 + wbytes + rows * m * 4,
+                               2.0 * rows * m * n)
+            t = timer(fn)
+            t_plain = timer(lambda: dense_ref(x, w, torch.float32))
+            t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
+            out.append(dict(m=m, n=n, rows=rows, max_abs_err=err,
+                            rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
+                            library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                            weight_bytes=wbytes))
+            log(f"ternary_matmul rows={rows:4d} M={m:5d} N={n:5d}: "
+                f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
+                f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
+                f"torch.matmul {t_lib:.4f} ms  bound {b_ms:.4f} ms "
+                f"({b_by})")
+            if not ok:
+                fail("ternary_matmul disagrees with its plain version")
+        del w, dense_bf16
+        # exact inputs: 0.5 * {-1, 0, +1} weights (alpha 0.5), integer
+        # activations; every partial sum is exact, so the error must be 0
+        exact_err(torch, gen, m, n, 8, 128, out)
+    # ragged M, N and B (a partial LUT chunk, the split-sum launch)
+    exact_err(torch, gen, 1000, 1032, 19, 8, out)
+    results["ternary_matmul"] = out
+
+
+def exact_err(torch, gen, m, n, rows, g, out):
+    from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_matmul,
+                                                    ternary_ref)
+    from repro_torch.quant.formats import quantize_ternary
+    we = torch.randint(-1, 2, (m, n), generator=gen, device="cuda").float()
+    wq = quantize_ternary(we * 0.5, group_size=g)
+    xe = torch.randint(-8, 9, (rows, n), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    got = ternary_matmul(xe, wq, out_dtype=torch.float32)
+    err = max(float((got - ternary_ref(xe, wq, out_dtype=torch.float32)
+                     ).abs().max()),
+              float((got - dense_ref(xe, wq, torch.float32)).abs().max()))
+    torch.cuda.synchronize()
+    out.append(dict(m=m, n=n, rows=rows, exact_inputs=True,
+                    max_abs_err=err, tol=0.0))
+    log(f"ternary_matmul exact inputs rows={rows} M={m} N={n} g={g}: "
+        f"err {err:.3e} == 0: {err == 0.0}")
+    if err != 0.0:
+        fail("ternary_matmul is not exact on exact inputs")
+
+
+def check_paged_int8(torch, timer, gen, results, args_seed):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (gather_view,
+                                                     paged_attention_int8,
+                                                     paged_decode_int8_ref,
+                                                     paged_prefill,
+                                                     paged_prefill_ref)
+    from repro_torch.models.attention import _quantize_kv
+    h, d, bs, pages, nb = 32, 128, 16, 32, 257
+    out = {"paged_decode_int8": [], "paged_prefill_int8": []}
+    cases = [("paged_decode_int8", 8, 0), ("paged_prefill_int8", 2, 128),
+             ("paged_prefill_int8", 1, 512)]
+    for name, b, c in cases:
+        q, k, v, pos, tables, positions = pool_case(
+            torch, gen, args_seed + b + c, b=b, h=h, d=d, nb=nb, bs=bs,
+            pages=pages, dtype=torch.float32, prefill_c=c)
+
+        def run(kq, vq, ks, vs, cdt):
+            if c:
+                kern = lambda: paged_prefill(
+                    q, kq, vq, pos, tables, positions, k_scale=ks,
+                    v_scale=vs, out_dtype=torch.float32, compute_dtype=cdt)
+                plain = lambda: paged_prefill_ref(
+                    q, kq, vq, pos, tables, positions, k_scale=ks,
+                    v_scale=vs, out_dtype=torch.float32, compute_dtype=cdt)
+            else:
+                kern = lambda: paged_attention_int8(
+                    q, kq, vq, ks, vs, pos, tables, positions,
+                    out_dtype=torch.float32, compute_dtype=cdt)
+                plain = lambda: paged_decode_int8_ref(
+                    q, kq, vq, ks, vs, pos, tables, positions,
+                    out_dtype=torch.float32, compute_dtype=cdt)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                fail(f"{name}: bad output")
+            err = float((got - want).abs().max())
+            return kern, plain, err, err / (float(want.abs().max()) + 1e-12)
+
+        tag = f"{name:18s} B={b} C={max(c, 1):3d}"
+        # f32 compute with power-of-two scales: the arithmetic is exact up
+        # to f32 rounding, so kernel and plain agree within 1e-4
+        shape = tuple(k.shape)
+        kq = torch.randint(-127, 128, shape, generator=gen,
+                           device="cuda").to(torch.int8)
+        vq = torch.randint(-127, 128, shape, generator=gen,
+                           device="cuda").to(torch.int8)
+        ks, vs = (2.0 ** torch.randint(-9, -5, shape[:3], generator=gen,
+                                       device="cuda").float()
+                  for _ in range(2))
+        _, _, err, rel = run(kq, vq, ks, vs, torch.float32)
+        log(f"{tag} f32, pow2 scales: rel err {rel:.3e} <= 1e-4: "
+            f"{rel <= 1e-4}")
+        if rel > 1e-4:
+            fail(f"{name} (f32 compute) disagrees with its plain version")
+        # the main path: pools quantized by the serve path's _quantize_kv,
+        # bf16 compute; bound 5e-2 of the output scale (the reference's
+        # int8 gate: the kernel rounds p * v_scale before normalizing)
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        kern, plain, err, rel = run(kq, vq, ks, vs, None)
+        ok = rel <= 5e-2
+        visited = _visited(tables, positions, bs)
+        slots = visited * bs
+        kv_bytes = slots * h * d * 2 + slots * h * 4 * 2 + slots * 4
+        nq = b * max(c, 1)
+        nbytes = kv_bytes + nq * h * d * 2 + nq * h * d * 4 \
+            + tables.numel() * 4 + positions.numel() * 4
+        b_ms, b_by = bound(nbytes, 4.0 * max(c, 1) * h * slots * d)
+        deq = lambda t, s_: (gather_view(t, tables).float() * gather_view(
+            s_, tables)[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
+        kv, vv = deq(kq, ks), deq(vq, vs)                    # [B, H, L, D]
+        vpos = gather_view(pos, tables)
+        L = vpos.shape[1]
+        iota = torch.arange(L, device="cuda")[None]
+        live = torch.repeat_interleave(tables >= 0, bs, dim=1) & \
+            (vpos == iota)
+        qpos = positions.reshape(b, -1)
+        mask = (live[:, None, :] & (vpos[:, None, :] <= qpos[:, :, None])
+                )[:, None]                                    # [B,1,Q,L]
+        qb = q.to(torch.bfloat16)
+        qs = (qb.reshape(b, -1, h, d) if c else qb[:, None]).permute(
+            0, 2, 1, 3)
+        t_lib = timer(lambda: F.scaled_dot_product_attention(
+            qs, kv, vv, attn_mask=mask))
+        t_k, t_p = timer(kern), timer(plain)
+        out[name].append(dict(
+            b=b, c=max(c, 1), h=h, d=d, block_size=bs, max_abs_err=err,
+            rel_err=rel, tol=5e-2, ms=t_k, plain_ms=t_p, library_ms=t_lib,
+            bound_ms=b_ms, bound_by=b_by, visited_pages=visited,
+            bytes=nbytes))
+        log(f"{tag} bf16: err {err:.3e} (rel {rel:.2e} <= 5e-2: {ok})  "
+            f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {t_lib:.4f} ms"
+            f"  bound {b_ms:.4f} ms ({b_by}, {visited} live pages, "
+            f"{nbytes / 1e6:.1f} MB)")
+        if not ok:
+            fail(f"{name} (bf16 compute) disagrees with its plain version")
+        del kv, vv
+    results.update(out)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve full-width OPT-6.7B
 # ---------------------------------------------------------------------------
 
 
-def step_kernel_ms(results, name, layers):
+def step_kernel_ms(results, gemm, attn, layers):
     """Device time of one decode step's kernels at batch 8: the phase-3
     per-call times times the step's launches (6 GEMMs + 1 attention per
     layer), for comparison with the measured step time."""
-    t = {(r["m"], r["n"]): r["ms"] for r in results[name] if r["rows"] == 8}
+    t = {(r["m"], r["n"]): r["ms"] for r in results[gemm]
+         if r["rows"] == 8 and "ms" in r}
     gemms = 4 * t[(4096, 4096)] + t[(16384, 4096)] + t[(4096, 16384)]
-    attn = [r["ms"] for r in results["paged_decode"] if r["b"] == 8][0]
-    return layers * (gemms + attn)
+    attn_ms = [r["ms"] for r in results[attn] if r["b"] == 8][0]
+    return layers * (gemms + attn_ms)
+
+
+def first_logits(torch, m, toks):
+    """Logits of one 128-token prefill chunk into a scrambled block table."""
+    import numpy as np
+    from repro_torch.models import set_block_tables
+    cache = m.init_paged_cache(1, 64, 16, 32)
+    table = np.full((1, 32), -1, np.int32)
+    table[0, :8] = [9, 2, 17, 5, 33, 11, 40, 3]
+    cache = set_block_tables(cache, table)
+    logits, _ = m.prefill_chunk(toks, cache, 0, toks.shape[1] - 1)
+    torch.cuda.synchronize()
+    return logits
+
+
+def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
+              attn, prefill, totals, power_line, manifest):
+    """One serve run of the 8-request mix on model view ``m``: the first
+    prefill's logits against the plain path's ``want``, then the engine
+    with the launch counters set to 0 just before and read just after."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models.attention import kv_entry_bytes
+    from repro_torch.serve import PagedServeEngine, Request
+
+    cfg = m.cfg
+    # each GEMM and attention kernel agrees with its plain version to
+    # ~1e-5 of its output scale (phase 3; int8 attention to its bf16
+    # rounding), but the residual stream is re-rounded to bf16 twice per
+    # layer, and over 32 layers single-ulp flips compound: the stated
+    # tolerance is 5e-2 of the largest |logit|.
+    tol = 5e-2
+    got = first_logits(torch, m, toks)
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        fail(f"serve[{tag}]: first-prefill logits not finite")
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    log(f"serve[{tag}] first prefill logits vs plain path "
+        f"(dense dequant + gathered attention): rel err {rel:.3e} "
+        f"<= {tol:g}: {rel <= tol}; argmax equal: "
+        f"{int(got.argmax())} vs {int(want.argmax())}")
+    if rel > tol:
+        fail(f"serve[{tag}]: kernel path disagrees with plain path")
+    eng = PagedServeEngine(m, paged_kernel="fused", **eng_kw)
+    step_ms, step_launches = [], []
+    inner = eng.model.decode_step
+
+    def timed_decode(*a, **kw):
+        before = dict(_lib.launch_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = inner(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_launches.append({k: _lib.launch_counts[k] - before[k]
+                              for k in before})
+        return r
+    eng.model.decode_step = timed_decode
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs, max_ticks=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_lib.launch_counts)
+    for k in totals:
+        totals[k] += counts[k]
+    bad = [r.uid for r in done if r.error or len(r.out_tokens) != 32]
+    if len(done) != len(reqs) or bad:
+        fail(f"serve[{tag}]: requests incomplete: {bad}")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+        fail(f"serve[{tag}]: token outside the vocabulary")
+    for k in (gemm, attn, prefill):
+        if counts[k] <= 0:
+            fail(f"serve[{tag}]: {k} never launched on the main path")
+    s = eng.metrics.summary()
+    toks_out = s["counters"]["tokens_out"]
+    steps = sorted(step_ms)
+    p50 = steps[len(steps) // 2] if steps else float("nan")
+    kern_ms = step_kernel_ms(results, gemm, attn, cfg.n_layers)
+    per_step = step_launches[len(step_launches) // 2] \
+        if step_launches else {}
+    kv_tok = kv_entry_bytes(cfg) * cfg.n_layers
+    out = dict(
+        requests=len(done), prompt_lens=[len(p) for p in prompts],
+        tokens_out=toks_out, wall_s=wall, tokens_per_s=toks_out / wall,
+        ttft_p50_ms=s["ttft_s"]["p50"] * 1e3, decode_step_ms_p50=p50,
+        decode_steps=len(steps), launches=counts,
+        launches_per_decode_step=per_step, decode_path=eng.decode_path,
+        prefill_path=eng.prefill_path, first_prefill_rel_err=rel,
+        step_kernel_ms=kern_ms, weight_bytes=manifest.quant_bytes,
+        kv_bytes_per_token=kv_tok, kv_cache_bits=cfg.kv_cache_bits)
+    log(f"serve[{tag}]: {len(done)} requests, {toks_out} tokens in "
+        f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
+        f"{s['ttft_s']['p50'] * 1e3:.1f} ms; decode step p50 "
+        f"{p50:.2f} ms over {len(steps)} steps (its kernels: "
+        f"{kern_ms:.2f} ms of device time by the phase-3 times); "
+        f"weights {manifest.quant_bytes / 1e9:.3f} GB; KV "
+        f"{kv_tok} B per token ({cfg.kv_cache_bits}-bit); "
+        f"launches {counts}; per decode step {per_step}; card {power_line}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve(torch, args, power_line, results):
@@ -329,7 +610,6 @@ def serve(torch, args, power_line, results):
     from repro_torch.kernels import _lib
     from repro_torch.models import Model
     from repro_torch.quant import QuantSpec, quantize_model
-    from repro_torch.serve import PagedServeEngine, Request
 
     cfg = get_config("opt_6_7b")
     if args.layers != cfg.n_layers:
@@ -337,116 +617,49 @@ def serve(torch, args, power_line, results):
     log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth={cfg.n_layers} "
         f"layers (full depth 32)")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda").init_params(gen)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    spec = QuantSpec(format="bcq", bits=3, group_size=128)
-    t0 = time.perf_counter()
-    manifest = quantize_model(model, spec)
-    torch.cuda.synchronize()
-    t_quant = time.perf_counter() - t0
-    log(f"init {t_init:.1f} s; BCQ on the card {t_quant:.1f} s: "
-        f"{manifest.summary()}")
     rng = np.random.default_rng(args.seed)
     lens = [int(rng.integers(48, 401)) for _ in range(8)]
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
     eng_kw = dict(num_blocks=256, block_size=16, max_batch=8,
                   max_seq_len=512, prefill_buckets=(32, 128, 512))
-
-    # the first prefill on the kernel path vs the plain path.  Each GEMM
-    # and attention kernel agrees with its plain version to ~1e-5 of its
-    # output scale (phase 3), but the residual stream is re-rounded to
-    # bf16 twice per layer, and over 32 layers single-ulp flips compound:
-    # the stated tolerance is 5e-2 of the largest |logit|.
-    tol = 5e-2
-    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
-    plain = model.with_config(quant=spec.replace(backend="dense"),
-                              paged_kernel="gather")
-
-    def first_logits(m):
-        cache = m.init_paged_cache(1, 64, 16, 32)
-        table = np.full((1, 32), -1, np.int32)
-        table[0, :8] = [9, 2, 17, 5, 33, 11, 40, 3]
-        from repro_torch.models import set_block_tables
-        cache = set_block_tables(cache, table)
-        logits, _ = m.prefill_chunk(toks, cache, 0, toks.shape[1] - 1)
-        torch.cuda.synchronize()
-        return logits
-
-    want = first_logits(plain)
     serve_out = {}
     totals = {k: 0 for k in _lib.KERNELS}
-    for backend in ("auto", "lut_pallas"):
-        m = model.with_config(quant=spec.replace(backend=backend),
-                              paged_kernel="fused")
-        got = first_logits(m)
-        if not torch.isfinite(got).all() or got.shape != want.shape:
-            fail(f"serve[{backend}]: first-prefill logits not finite")
-        rel = float((got - want).abs().max()) / float(want.abs().max())
-        log(f"serve[{backend}] first prefill logits vs plain path "
-            f"(dense dequant + gathered attention): rel err {rel:.3e} "
-            f"<= {tol:g}: {rel <= tol}; argmax equal: "
-            f"{int(got.argmax())} vs {int(want.argmax())}")
-        if rel > tol:
-            fail(f"serve[{backend}]: kernel path disagrees with plain path")
-        eng = PagedServeEngine(m, paged_kernel="fused", **eng_kw)
-        step_ms, step_launches = [], []
-        inner = eng.model.decode_step
-
-        def timed_decode(*a, **kw):
-            before = dict(_lib.launch_counts)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = inner(*a, **kw)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            step_launches.append({k: _lib.launch_counts[k] - before[k]
-                                  for k in before})
-            return r
-        eng.model.decode_step = timed_decode
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        _lib.reset_launch_counts()
+    runs = (
+        # (weight spec, KV bits, [(run name, backend, gemm kernel)],
+        #  decode and prefill attention kernels)
+        (QuantSpec(format="bcq", bits=3, group_size=128), 16,
+         [("auto", "auto", "bcq_matmul"),
+          ("lut_pallas", "lut_pallas", "lut_gemm")],
+         ("paged_decode", "paged_prefill")),
+        (QuantSpec(format="ternary", group_size=128), 8,
+         [("ternary_int8kv", "auto", "ternary_matmul")],
+         ("paged_decode_int8", "paged_prefill_int8")),
+    )
+    for spec, kv_bits, backends, (attn, prefill) in runs:
+        # the same random weights from --seed for every format
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
         t0 = time.perf_counter()
-        done = eng.run(reqs, max_ticks=4000)
+        model = Model(cfg, device="cuda").init_params(gen)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(_lib.launch_counts)
-        for k in totals:
-            totals[k] += counts[k]
-        bad = [r.uid for r in done if r.error or len(r.out_tokens) != 32]
-        if len(done) != len(reqs) or bad:
-            fail(f"serve[{backend}]: requests incomplete: {bad}")
-        if any(not 0 <= t < cfg.vocab_size for r in done
-               for t in r.out_tokens):
-            fail(f"serve[{backend}]: token outside the vocabulary")
-        s = eng.metrics.summary()
-        toks_out = s["counters"]["tokens_out"]
-        steps = sorted(step_ms)
-        p50 = steps[len(steps) // 2] if steps else float("nan")
-        gemm = "bcq_matmul" if backend == "auto" else "lut_gemm"
-        kern_ms = step_kernel_ms(results, gemm, cfg.n_layers)
-        per_step = step_launches[len(step_launches) // 2] \
-            if step_launches else {}
-        serve_out[backend] = dict(
-            requests=len(done), prompt_lens=lens, tokens_out=toks_out,
-            wall_s=wall, tokens_per_s=toks_out / wall,
-            ttft_p50_ms=s["ttft_s"]["p50"] * 1e3,
-            decode_step_ms_p50=p50, decode_steps=len(steps),
-            launches=counts, launches_per_decode_step=per_step,
-            decode_path=eng.decode_path, prefill_path=eng.prefill_path,
-            first_prefill_rel_err=rel, step_kernel_ms=kern_ms)
-        log(f"serve[{backend}]: {len(done)} requests, {toks_out} tokens in "
-            f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
-            f"{s['ttft_s']['p50'] * 1e3:.1f} ms; decode step p50 "
-            f"{p50:.2f} ms over {len(steps)} steps (its kernels: "
-            f"{kern_ms:.2f} ms of device time by the phase-3 times); "
-            f"launches {counts}; "
-            f"per decode step {per_step}; card {power_line}")
-        del eng
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        manifest = quantize_model(model, spec)
+        torch.cuda.synchronize()
+        log(f"init {t_init:.1f} s; {spec.format} on the card "
+            f"{time.perf_counter() - t0:.1f} s: {manifest.summary()}")
+        plain = model.with_config(quant=spec.replace(backend="dense"),
+                                  paged_kernel="gather",
+                                  kv_cache_bits=kv_bits)
+        want = first_logits(torch, plain, toks)
+        for tag, backend, gemm in backends:
+            m = model.with_config(quant=spec.replace(backend=backend),
+                                  paged_kernel="fused",
+                                  kv_cache_bits=kv_bits)
+            serve_out[tag] = serve_one(torch, tag, m, want, toks, prompts,
+                                       eng_kw, results, gemm, attn, prefill,
+                                       totals, power_line, manifest)
+        del model, plain, want
         torch.cuda.empty_cache()
     return serve_out, totals
 
@@ -494,6 +707,8 @@ def main():
     results = {}
     check_gemms(torch, timer, gen, results)
     check_paged(torch, timer, gen, results, args.seed)
+    check_ternary(torch, timer, gen, results)
+    check_paged_int8(torch, timer, gen, results, args.seed)
     del timer
     torch.cuda.empty_cache()
 
@@ -503,26 +718,36 @@ def main():
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
 
+    paged_cu = "src/repro_torch/csrc/paged_attention.cu"
     src = {"bcq_matmul": "src/repro_torch/csrc/bcq_matmul.cu",
            "lut_gemm": "src/repro_torch/csrc/lut_gemm.cu",
-           "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
-           "paged_prefill": "src/repro_torch/csrc/paged_attention.cu"}
+           "paged_decode": paged_cu, "paged_prefill": paged_cu,
+           "ternary_matmul": "src/repro_torch/csrc/ternary_matmul.cu",
+           "paged_decode_int8": paged_cu, "paged_prefill_int8": paged_cu}
     replaces = {
         "bcq_matmul": "src/repro/kernels/bcq_matmul/bcq_matmul.py:81",
         "lut_gemm": "src/repro/kernels/lut_gemm/lut_gemm.py:104",
         "paged_decode":
             "src/repro/kernels/paged_attention/paged_attention.py:173",
         "paged_prefill":
+            "src/repro/kernels/paged_attention/paged_attention.py:530",
+        "ternary_matmul":
+            "src/repro/kernels/ternary_matmul/ternary_matmul.py:97",
+        "paged_decode_int8":
+            "src/repro/kernels/paged_attention/paged_attention.py:289",
+        "paged_prefill_int8":
             "src/repro/kernels/paged_attention/paged_attention.py:530"}
     # the representative main-path case of each kernel: a decode-batch
     # GEMM on the widest weight, B = 8 decode, the C = 512 prefill chunk
     rep = {"bcq_matmul": dict(rows=8, m=16384, n=4096),
            "lut_gemm": dict(rows=8, m=16384, n=4096),
-           "paged_decode": dict(b=8), "paged_prefill": dict(c=512)}
+           "paged_decode": dict(b=8), "paged_prefill": dict(c=512),
+           "ternary_matmul": dict(rows=8, m=16384, n=4096),
+           "paged_decode_int8": dict(b=8), "paged_prefill_int8": dict(c=512)}
     kernels = []
     for name in _lib.KERNELS:
-        sel = [r for r in results[name]
-               if all(r.get(k) == v for k, v in rep[name].items())][0]
+        sel = [r for r in results[name] if "ms" in r
+               and all(r.get(k) == v for k, v in rep[name].items())][0]
         kernels.append(dict(
             name=name, route="cuda", source=src[name],
             replaces=replaces[name], launches=totals[name],
@@ -530,6 +755,10 @@ def main():
             plain_ms=sel["plain_ms"], bound_ms=sel["bound_ms"],
             bound_by=sel["bound_by"], library_ms=sel["library_ms"],
             case={k: sel[k] for k in rep[name]}))
+        if name == "ternary_matmul":
+            kernels[-1]["exact_inputs_max_abs_err"] = max(
+                r["max_abs_err"] for r in results[name]
+                if r.get("exact_inputs"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -3,7 +3,7 @@
 A second package beside ``repro`` (the JAX reference).  It keeps the
 reference's module layout so every module sits opposite its
 counterpart: ``core`` (plane layout, BCQ, linear execution), ``quant``
-(spec, formats, backends, ``quantize_model``), ``kernels`` (hand-written
+(spec, BCQ/RTN/ternary formats, backends, ``quantize_model``), ``kernels`` (hand-written
 CUDA kernels for Hopper, each beside its plain PyTorch version),
 ``configs``, ``models``, ``serve`` and ``launch``.
 

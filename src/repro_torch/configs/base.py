@@ -1,8 +1,9 @@
 """Model configuration (counterpart of ``repro.configs.base``).
 
-Carries the fields the ported decoder uses.  Architectures this slice
-does not build yet (MLA, MoE, SSM, enc-dec, sliding window, int8 KV)
-are refused where the model is built, naming their ROADMAP.md item.
+Carries the fields the ported decoder uses, ``kv_cache_bits`` (16, or 8
+for an int8 KV cache) among them.  Architectures the port does not build
+yet (MLA, MoE, SSM, enc-dec, sliding window, rotary positions) are
+refused where the model is built, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 

@@ -9,7 +9,13 @@ launcher's public vocabulary and stay the same:
                          PyTorch here);
   * ``bcq_xla_planes`` — per-plane grouped contraction (plain PyTorch);
   * ``mxu_pallas``     — the ``bcq_matmul`` CUDA kernel;
-  * ``lut_pallas``     — the ``lut_gemm`` CUDA kernel.
+  * ``lut_pallas``     — the ``lut_gemm`` CUDA kernel;
+  * ``ternary_pallas`` — the ``ternary_matmul`` CUDA kernel (only
+                         ``kind="ternary"`` bundles).
+
+``dense`` and ``bcq_xla`` go through the kind-aware ``dequantize``, so a
+ternary bundle runs on them too; ``bcq_xla_planes`` reads independent
+±1 planes and refuses it, as the reference does.
 
 Products of bf16 values are exact in f32, so ``bcq_xla`` multiplies the
 bf16-rounded operands as f32: that is the reference's arithmetic
@@ -22,7 +28,8 @@ import torch
 from repro_torch.core.plane import (PlaneBundle, dequantize, pad_operands,
                                     unpack_planes)
 
-BACKENDS = ("dense", "bcq_xla", "bcq_xla_planes", "mxu_pallas", "lut_pallas")
+BACKENDS = ("dense", "bcq_xla", "bcq_xla_planes", "mxu_pallas", "lut_pallas",
+            "ternary_pallas")
 
 
 def bcq_xla_matmul(x: torch.Tensor, w: PlaneBundle,
@@ -30,6 +37,10 @@ def bcq_xla_matmul(x: torch.Tensor, w: PlaneBundle,
     """Per-plane grouped contraction:
     y = sum_i sum_G alpha[i,m,G] (sum_{n in G} pm1[i,m,n] x[b,n]) + z-term."""
     out_dtype = out_dtype or x.dtype
+    if w.kind != "bcq":
+        raise ValueError(
+            f"bcq_xla_matmul reads independent ±1 planes (kind='bcq'); "
+            f"got kind={w.kind!r}: use bcq_xla or ternary_pallas")
     q, m, nb = w.packed.shape
     g = w.group_size
     n_groups = w.n_groups
@@ -69,4 +80,7 @@ def bcq_apply(x: torch.Tensor, w: PlaneBundle, backend: str = "bcq_xla",
     if backend == "mxu_pallas":
         from repro_torch.kernels.bcq_matmul import bcq_matmul
         return bcq_matmul(x, w, out_dtype=out_dtype)
+    if backend == "ternary_pallas":
+        from repro_torch.kernels.ternary_matmul import ternary_matmul
+        return ternary_matmul(x, w, out_dtype=out_dtype)
     raise ValueError(f"unknown backend {backend!r}")

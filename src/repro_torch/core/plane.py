@@ -8,8 +8,11 @@ packed sign planes, per-(row, group) scale rows and layout metadata:
   * ``alpha``   f32 [q, out, n_groups], one scale row per plane;
   * ``z``       f32 [out, n_groups] offset row (or ``None``).
 
-Only ``kind="bcq"`` is carried by this slice of the port; the ternary
-kind (sign + mask planes) comes with the ternary kernel.
+Two kinds exist, as in the reference: ``kind="bcq"`` (one ±1 plane and
+one alpha row per bit) and ``kind="ternary"`` (plane 0 is the sign bit,
+1 = +; plane 1 the nonzero mask, 1 = keep; a single alpha row and no
+offset: w = alpha * sign * mask).  A ternary bundle stores 2 planes but
+carries log2(3) bits per weight (:data:`TERNARY_BITS`).
 
 The CUDA kernels mask ragged edges in-kernel, so :func:`pad_operands`
 is only the plain versions' helper: it zero-pads the activation batch
@@ -23,10 +26,14 @@ from typing import Optional
 
 import torch
 
-__all__ = ["PlaneBundle", "KINDS", "pack_planes", "unpack_planes",
-           "dequantize", "pad_operands"]
+__all__ = ["PlaneBundle", "KINDS", "TERNARY_BITS", "pack_planes",
+           "unpack_planes", "dequantize", "pad_operands"]
 
-KINDS = ("bcq",)
+KINDS = ("bcq", "ternary")
+
+# the ternary format's information rate, log2(3) rounded as the
+# reference spells it (``repro/core/plane.py:60``)
+TERNARY_BITS = 1.585
 
 
 @dataclasses.dataclass
@@ -43,17 +50,18 @@ class PlaneBundle:
 
     def __post_init__(self):
         if self.kind not in KINDS:
-            raise ValueError(
-                f"bundle kind {self.kind!r} is not ported yet (ported: "
-                f"{KINDS}); see ROADMAP.md queue 1 item 7")
+            raise ValueError(f"unknown bundle kind {self.kind!r}; known: "
+                             f"{KINDS}")
 
     @property
     def bits(self) -> int:
+        """Stored plane count (2 for ternary: sign + mask)."""
         return self.packed.shape[-3]
 
     @property
     def effective_bits(self) -> float:
-        return float(self.bits)
+        """Information rate in bits/weight (log2 of the level count)."""
+        return TERNARY_BITS if self.kind == "ternary" else float(self.bits)
 
     @property
     def n_groups(self) -> int:
@@ -64,6 +72,8 @@ class PlaneBundle:
         return self.packed.device
 
     def nbytes(self) -> int:
+        """Stored bytes: every plane, every alpha row (one for ternary)
+        and the offset row where there is one."""
         n = (self.packed.numel() * self.packed.element_size()
              + self.alpha.numel() * self.alpha.element_size())
         if self.z is not None:
@@ -100,13 +110,18 @@ def unpack_planes(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def dequantize(w: PlaneBundle, dtype=torch.float32) -> torch.Tensor:
-    """Dense W[out, in] from a bundle: sum_i alpha_i * b_i + z, in f32.
+    """Dense W[out, in] from a bundle, in f32: sum_i alpha_i * b_i + z
+    for BCQ, alpha * sign * mask for ternary.
 
     The plane sum runs in plane order and the offset is added last, the
     order of the reference's ``(pm1 * alpha).sum(0) + z``."""
     q, out, nb = w.packed.shape
     g = w.group_size
     pm1 = unpack_planes(w.packed, torch.float32)          # [q, out, in_pad]
+    if w.kind == "ternary":
+        a_cols = w.alpha[0].float().repeat_interleave(g, dim=-1)
+        dense = a_cols * pm1[0] * ((pm1[1] + 1) * 0.5)
+        return dense[:, : w.in_features].to(dtype)
     alpha_cols = w.alpha.float().repeat_interleave(g, dim=-1)
     dense = pm1[0] * alpha_cols[0]
     for i in range(1, q):

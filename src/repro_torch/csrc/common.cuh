@@ -24,6 +24,11 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
+
 // round an f32 to the storage type and back (the reference casts the
 // softmax probabilities to the V dtype before the PV contraction)
 template <typename T>

@@ -1,17 +1,22 @@
-// Float paged attention straight from the KV block pool: decode and
-// chunked prefill.
+// Paged attention straight from the KV block pool: decode and chunked
+// prefill, over float pools and over int8 pools with per-slot scales.
 //
 // Replaces:
-//   paged_decode  -> src/repro/kernels/paged_attention/paged_attention.py
-//                    ::_paged_attn_kernel (launcher paged_attention_tiled)
-//   paged_prefill -> the same file ::_paged_prefill_kernel, float flavour
-//                    (launcher paged_prefill_tiled with k_scale=None)
+//   paged_decode       -> src/repro/kernels/paged_attention/paged_attention.py
+//                         ::_paged_attn_kernel (launcher paged_attention_tiled)
+//   paged_prefill      -> the same file ::_paged_prefill_kernel, float
+//                         flavour (launcher paged_prefill_tiled, k_scale=None)
+//   paged_decode_int8  -> ::_paged_attn_int8_kernel (launcher
+//                         paged_attention_int8_tiled)
+//   paged_prefill_int8 -> ::_paged_prefill_kernel, int8 flavour (launcher
+//                         paged_prefill_tiled with k_scale/v_scale)
 //
 // What bounds them on an H100: decode reads every live KV block once per
-// (row, kv head) for O(rep) flops per element, so it is bound by bytes.
-// Chunked prefill re-reads each block once per query tile and does
-// 4 * C * L * D flops per (row, head), so at C = 512 it leans to
-// operations, though this first version runs them on CUDA cores.
+// (row, kv head) for O(rep) flops per element, so it is bound by bytes
+// (an int8 pool halves them: 1 byte per element plus two f32 scales per
+// slot and head).  Chunked prefill re-reads each block once per query
+// tile and does 4 * C * L * D flops per (row, head), so at C = 512 it
+// leans to operations, though this first version runs them on CUDA cores.
 //
 // What the design does about it: a block owns one (batch row, kv head)
 // and — for prefill — one tile of the chunk's queries, and walks the
@@ -19,27 +24,40 @@
 // running sum, f32 accumulator) lives in shared memory for the block's
 // whole walk: the Pallas grid carries it across its innermost page axis
 // in VMEM scratch, but CUDA blocks cannot carry anything between each
-// other.  Per live page it stages the K/V block (converted to f32) and
-// the slot liveness in shared memory; K rows and Q rows use a stride of
-// D + 1 floats so the per-(query, slot) dot products read distinct banks.
+// other.  Per live page it stages the K/V block (converted to f32; int8
+// converts exactly), the slot liveness and, for int8 pools, the page's
+// k_scale / v_scale rows in shared memory; K rows and Q rows use a
+// stride of D + 1 floats so the per-(query, slot) dot products read
+// distinct banks.
 // Liveness is the paged_view rule: a slot counts iff its table entry is
 // >= 0, its stored position equals its logical index j * BS + i, and it
 // is causally visible (pos <= the query's position).  Table entries < 0
 // (which the reference reads through trash block 0 and masks) and pages
 // that start past the tile's last query position hold no live slot, so
 // they are skipped outright: the result is identical, and the work
-// follows the data.  Masked probabilities are forced to 0, probabilities
-// are rounded to the storage type before the PV product while the
-// running sum keeps them unrounded (the reference's ordering), and a
-// query with no live slot — an idle decode row or a prefill pad row at
+// follows the data.  Masked probabilities are forced to 0, and a query
+// with no live slot — an idle decode row or a prefill pad row at
 // position -1 — outputs exactly 0.
+// Rounding order (the reference's): q arrives scaled and rounded to the
+// compute type (the pool's type for float pools, bf16 for int8 pools).
+// For int8 pools each raw score is multiplied by k_scale[slot, head]
+// before the running max; the running sum adds the UNSCALED
+// probabilities, and the PV product uses round(p * v_scale[slot, head])
+// to the compute type.  For float pools p itself is rounded to the
+// storage type.  The float instantiations are the same code with the
+// scale steps compiled out.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
-__device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kpool,
-                            const T* __restrict__ vpool,
+// Q: the compute type q arrives in and p is rounded to; KV: the pool's
+// storage type; SCALED: int8 pools with per-slot k/v scales.
+template <typename Q, typename KV, bool SCALED>
+__device__ void attend_tile(const Q* __restrict__ q,
+                            const KV* __restrict__ kpool,
+                            const KV* __restrict__ vpool,
+                            const float* __restrict__ kscale,
+                            const float* __restrict__ vscale,
                             const int* __restrict__ pos_pool,
                             const int* __restrict__ tables,
                             const int* __restrict__ positions,
@@ -56,8 +74,10 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kpool
   float* mrow = acc + rows * D;   // rows
   float* lrow = mrow + rows;      // rows
   float* corr = lrow + rows;      // rows
-  int* qp = reinterpret_cast<int*>(corr + rows);  // nq
-  int* slot = qp + nq;                           // BS
+  float* ksc = corr + rows;       // BS (int8 pools only)
+  float* vsc = ksc + (SCALED ? BS : 0);
+  int* qp = reinterpret_cast<int*>(vsc + (SCALED ? BS : 0));  // nq
+  int* slot = qp + nq;                                        // BS
   const int tid = threadIdx.x, nt = blockDim.x;
 
   for (int i = tid; i < rows * D; i += nt) {
@@ -90,6 +110,11 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kpool
     for (int i = tid; i < BS; i += nt) {
       const int sp = pos_pool[(size_t)entry * BS + i];
       slot[i] = (sp == j * BS + i) ? sp : -1;
+      if (SCALED) {
+        const size_t so = ((size_t)entry * BS + i) * Hkv + h;
+        ksc[i] = kscale[so];
+        vsc[i] = vscale[so];
+      }
     }
     __syncthreads();
     for (int i = tid; i < rows * BS; i += nt) {
@@ -101,7 +126,7 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kpool
         const float* kr = ks + ii * DP;
         float dot = 0.f;
         for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        v = dot;
+        v = SCALED ? dot * ksc[ii] : dot;
       }
       sc[i] = v;
     }
@@ -117,7 +142,7 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kpool
         const bool ok = sp >= 0 && sp <= qpos;
         const float p = ok ? expf(sc[row * BS + ii] - mx) : 0.f;
         lsum += p;
-        sc[row * BS + ii] = round_to<T>(p);
+        sc[row * BS + ii] = round_to<Q>(SCALED ? p * vsc[ii] : p);
       }
       const float cr = expf(mp - mx);
       lrow[row] = lrow[row] * cr + lsum;
@@ -141,35 +166,40 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kpool
   }
 }
 
-template <typename T>
-__global__ void paged_decode_kernel(const T* q, const T* kpool,
-                                    const T* vpool, const int* pos_pool,
+template <typename Q, typename KV, bool SCALED>
+__global__ void paged_decode_kernel(const Q* q, const KV* kpool,
+                                    const KV* vpool, const float* kscale,
+                                    const float* vscale, const int* pos_pool,
                                     const int* tables, const int* positions,
                                     float* out, int Hkv, int rep, int D,
                                     int BS, int pages) {
   extern __shared__ float smem[];
-  attend_tile<T>(q, kpool, vpool, pos_pool, tables, positions, out,
-                 blockIdx.y, blockIdx.x, 0, 1, 1, Hkv, rep, D, BS, pages,
-                 smem);
+  attend_tile<Q, KV, SCALED>(q, kpool, vpool, kscale, vscale, pos_pool,
+                             tables, positions, out, blockIdx.y, blockIdx.x,
+                             0, 1, 1, Hkv, rep, D, BS, pages, smem);
 }
 
-template <typename T>
-__global__ void paged_prefill_kernel(const T* q, const T* kpool,
-                                     const T* vpool, const int* pos_pool,
-                                     const int* tables, const int* positions,
-                                     float* out, int C, int Hkv, int rep,
-                                     int D, int BS, int pages, int qt) {
+template <typename Q, typename KV, bool SCALED>
+__global__ void paged_prefill_kernel(const Q* q, const KV* kpool,
+                                     const KV* vpool, const float* kscale,
+                                     const float* vscale,
+                                     const int* pos_pool, const int* tables,
+                                     const int* positions, float* out, int C,
+                                     int Hkv, int rep, int D, int BS,
+                                     int pages, int qt) {
   extern __shared__ float smem[];
   const int c0 = blockIdx.x * qt;
-  attend_tile<T>(q, kpool, vpool, pos_pool, tables, positions, out,
-                 blockIdx.z, blockIdx.y, c0, min(qt, C - c0), C, Hkv, rep, D,
-                 BS, pages, smem);
+  attend_tile<Q, KV, SCALED>(q, kpool, vpool, kscale, vscale, pos_pool,
+                             tables, positions, out, blockIdx.z, blockIdx.y,
+                             c0, min(qt, C - c0), C, Hkv, rep, D, BS, pages,
+                             smem);
 }
 
-size_t smem_bytes(int rows, int nq, int D, int BS) {
+size_t smem_bytes(int rows, int nq, int D, int BS, bool scaled) {
   const size_t floats = (size_t)rows * (D + 1) + (size_t)BS * (D + 1) +
                         (size_t)BS * D + (size_t)rows * BS +
-                        (size_t)rows * D + 3 * (size_t)rows;
+                        (size_t)rows * D + 3 * (size_t)rows +
+                        (scaled ? 2 * (size_t)BS : 0);
   return floats * sizeof(float) + (size_t)(nq + BS) * sizeof(int);
 }
 
@@ -181,39 +211,44 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
-cudaError_t decode_t(const void* q, const void* k, const void* v,
-                     const void* pos, const void* tables,
-                     const void* positions, void* out, int B, int Hkv,
-                     int rep, int D, int BS, int pages, cudaStream_t s) {
-  const size_t bytes = smem_bytes(rep, 1, D, BS);
-  cudaError_t e = allow_smem(paged_decode_kernel<T>, bytes);
+// the pointers of one call, as the C entry points receive them
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *pos, *tables, *positions;
+  void* out;
+};
+
+template <typename Q, typename KV, bool SCALED>
+cudaError_t decode_t(const Args& a, int B, int Hkv, int rep, int D, int BS,
+                     int pages, cudaStream_t s) {
+  const size_t bytes = smem_bytes(rep, 1, D, BS, SCALED);
+  cudaError_t e = allow_smem(paged_decode_kernel<Q, KV, SCALED>, bytes);
   if (e != cudaSuccess) return e;
   dim3 grid(Hkv, B);
-  paged_decode_kernel<T><<<grid, 128, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pos),
-      static_cast<const int*>(tables), static_cast<const int*>(positions),
-      static_cast<float*>(out), Hkv, rep, D, BS, pages);
+  paged_decode_kernel<Q, KV, SCALED><<<grid, 128, bytes, s>>>(
+      static_cast<const Q*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),
+      static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.positions), static_cast<float*>(a.out), Hkv,
+      rep, D, BS, pages);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t prefill_t(const void* q, const void* k, const void* v,
-                      const void* pos, const void* tables,
-                      const void* positions, void* out, int B, int C,
-                      int Hkv, int rep, int D, int BS, int pages,
-                      cudaStream_t s) {
+template <typename Q, typename KV, bool SCALED>
+cudaError_t prefill_t(const Args& a, int B, int C, int Hkv, int rep, int D,
+                      int BS, int pages, cudaStream_t s) {
   const int qt = max(1, 16 / rep);
-  const size_t bytes = smem_bytes(qt * rep, qt, D, BS);
-  cudaError_t e = allow_smem(paged_prefill_kernel<T>, bytes);
+  const size_t bytes = smem_bytes(qt * rep, qt, D, BS, SCALED);
+  cudaError_t e = allow_smem(paged_prefill_kernel<Q, KV, SCALED>, bytes);
   if (e != cudaSuccess) return e;
   dim3 grid(ceil_div(C, qt), Hkv, B);
-  paged_prefill_kernel<T><<<grid, 256, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pos),
-      static_cast<const int*>(tables), static_cast<const int*>(positions),
-      static_cast<float*>(out), C, Hkv, rep, D, BS, pages, qt);
+  paged_prefill_kernel<Q, KV, SCALED><<<grid, 256, bytes, s>>>(
+      static_cast<const Q*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),
+      static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.positions), static_cast<float*>(a.out), C,
+      Hkv, rep, D, BS, pages, qt);
   return cudaGetLastError();
 }
 
@@ -227,11 +262,12 @@ extern "C" int launch_paged_decode(const void* q, const void* k,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, nullptr, nullptr, pos, tables, positions, out};
   cudaError_t e =
-      kv_is_bf16 ? decode_t<__nv_bfloat16>(q, k, v, pos, tables, positions,
-                                           out, B, Hkv, rep, D, BS, pages, s)
-                 : decode_t<float>(q, k, v, pos, tables, positions, out, B,
-                                   Hkv, rep, D, BS, pages, s);
+      kv_is_bf16
+          ? decode_t<__nv_bfloat16, __nv_bfloat16, false>(a, B, Hkv, rep, D,
+                                                          BS, pages, s)
+          : decode_t<float, float, false>(a, B, Hkv, rep, D, BS, pages, s);
   return static_cast<int>(e);
 }
 
@@ -242,11 +278,51 @@ extern "C" int launch_paged_prefill(const void* q, const void* k,
                                     int D, int BS, int pages, int kv_is_bf16,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, nullptr, nullptr, pos, tables, positions, out};
   cudaError_t e =
-      kv_is_bf16 ? prefill_t<__nv_bfloat16>(q, k, v, pos, tables, positions,
-                                            out, B, C, Hkv, rep, D, BS, pages,
-                                            s)
-                 : prefill_t<float>(q, k, v, pos, tables, positions, out, B,
-                                    C, Hkv, rep, D, BS, pages, s);
+      kv_is_bf16
+          ? prefill_t<__nv_bfloat16, __nv_bfloat16, false>(a, B, C, Hkv, rep,
+                                                           D, BS, pages, s)
+          : prefill_t<float, float, false>(a, B, C, Hkv, rep, D, BS, pages,
+                                           s);
+  return static_cast<int>(e);
+}
+
+// int8 pools: q in bf16 (the reference's compute type) or f32, k/v int8,
+// k_scale / v_scale f32 [NB, BS, Hkv]
+extern "C" int launch_paged_decode_int8(const void* q, const void* k,
+                                        const void* v, const void* ks,
+                                        const void* vs, const void* pos,
+                                        const void* tables,
+                                        const void* positions, void* out,
+                                        int B, int C, int Hkv, int rep, int D,
+                                        int BS, int pages, int q_is_bf16,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, ks, vs, pos, tables, positions, out};
+  cudaError_t e =
+      q_is_bf16 ? decode_t<__nv_bfloat16, int8_t, true>(a, B, Hkv, rep, D,
+                                                        BS, pages, s)
+                : decode_t<float, int8_t, true>(a, B, Hkv, rep, D, BS, pages,
+                                                s);
+  return static_cast<int>(e);
+}
+
+extern "C" int launch_paged_prefill_int8(const void* q, const void* k,
+                                         const void* v, const void* ks,
+                                         const void* vs, const void* pos,
+                                         const void* tables,
+                                         const void* positions, void* out,
+                                         int B, int C, int Hkv, int rep,
+                                         int D, int BS, int pages,
+                                         int q_is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, ks, vs, pos, tables, positions, out};
+  cudaError_t e =
+      q_is_bf16 ? prefill_t<__nv_bfloat16, int8_t, true>(a, B, C, Hkv, rep,
+                                                         D, BS, pages, s)
+                : prefill_t<float, int8_t, true>(a, B, C, Hkv, rep, D, BS,
+                                                 pages, s);
   return static_cast<int>(e);
 }

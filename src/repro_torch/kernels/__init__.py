@@ -2,7 +2,9 @@
 
   * ``bcq_matmul``      — packed-plane GEMM, dequant in shared memory;
   * ``lut_gemm``        — FIGLUT's LUT GEMM (``lut_common`` holds the math);
-  * ``paged_attention`` — float paged decode and chunked prefill.
+  * ``ternary_matmul``  — the ternary half-LUT GEMM (sign + mask planes);
+  * ``paged_attention`` — paged decode and chunked prefill over float
+                          pools and int8 pools with per-slot scales.
 
 The CUDA sources live in ``repro_torch/csrc``; ``_lib`` builds them at
 first use and keeps the per-kernel launch counts.

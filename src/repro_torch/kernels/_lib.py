@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-KERNELS = ("bcq_matmul", "lut_gemm", "paged_decode", "paged_prefill")
+KERNELS = ("bcq_matmul", "lut_gemm", "paged_decode", "paged_prefill",
+           "ternary_matmul", "paged_decode_int8", "paged_prefill_int8")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -50,6 +51,16 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "launch_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _P],
+    # x, packed, alpha, y, part, B, M, N, NB, G, group_size, x_is_bf16,
+    # splits, stream
+    "launch_ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
+    # q, k, v, k_scale, v_scale, pos, tables, positions, out, B, C, Hkv,
+    # rep, D, BS, pages, q_is_bf16, stream
+    "launch_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _P],
+    "launch_paged_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,9 +1,11 @@
 """Shared LUT math (FIGLUT §III-C/D/E) in plain PyTorch.
 
 Counterpart of ``repro.kernels.lut_common``: the sign matrix, the LUT
-build, mu-bit key extraction from packed planes and the half-table
-sign-decoding read.  The CUDA kernel (``csrc/lut_gemm.cu``) does the same
-math in shared memory; these functions are its plain version's pieces.
+build, mu-bit key extraction from packed planes, the half-table
+sign-decoding read and the ternary (sign, mask) -> (b1, b2) byte decode.
+The CUDA kernels (``csrc/lut_gemm.cu``, ``csrc/ternary_matmul.cu``) do
+the same math in shared memory and registers; these functions are their
+plain versions' pieces.
 
 ``read_mode`` (select / onehot / gather) names TPU lowerings of the
 keyed read.  On the card a direct keyed shared-memory read is the RAC,
@@ -59,3 +61,15 @@ def read_lut(lut: torch.Tensor, keys: torch.Tensor, mu: int,
     if sign is not None:
         vals = vals * sign[None]
     return vals
+
+
+def ternary_plane_bytes(sign_byte: torch.Tensor, mask_byte: torch.Tensor):
+    """A ternary bundle's (sign, mask) bytes -> BCQ plane bytes (b1, b2).
+
+    w = (a/2)(b1 + b2) with b1 = mask ? sign : +1 and b2 = mask ? sign :
+    -1; on the packed bit level (bit 1 = +1) that is b1 = sign | ~mask
+    and b2 = sign & mask.  Returns uint8 planes for :func:`extract_keys`.
+    """
+    s = sign_byte.to(torch.uint8)
+    m = mask_byte.to(torch.uint8)
+    return s | ~m, s & m

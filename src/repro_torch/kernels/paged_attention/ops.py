@@ -1,10 +1,12 @@
-"""Wrappers of the float paged decode and chunked-prefill CUDA kernels.
+"""Wrappers of the paged decode and chunked-prefill CUDA kernels.
 
-Both keep the reference's q handling: q is scaled in f32, then rounded
-to the pool's storage dtype before the score product
-(``repro/kernels/paged_attention/ops.py:60-63``).  On CPU tensors they
-run the plain versions in ``ref``; on CUDA tensors they launch the
-kernel or raise.
+Float pools keep the reference's q handling: q is scaled in f32, then
+rounded to the pool's storage dtype before the score product
+(``repro/kernels/paged_attention/ops.py:60-63``).  int8 pools (with
+per-slot ``k_scale``/``v_scale``) round q to the compute type instead,
+bf16 as in the reference (``ops.py:104-107``), never to int8.  On CPU
+tensors the wrappers run the plain versions in ``ref``; on CUDA tensors
+they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -16,9 +18,11 @@ from repro_torch.kernels import _lib
 from . import ref as _ref
 
 _KV_DTYPES = (torch.bfloat16, torch.float32)
+_Q_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions):
+def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions,
+                k_scale=None, v_scale=None):
     nb, bs, hkv, d = k_pool.shape
     if q.shape[-1] != d:
         raise ValueError(f"{name}: head_dim mismatch q {q.shape[-1]} vs "
@@ -29,32 +33,61 @@ def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions):
     if v_pool.shape != k_pool.shape or tuple(pos_pool.shape) != (nb, bs):
         raise ValueError(f"{name}: pool buffers disagree on "
                          "[num_blocks, block_size]")
-    if q.device.type == "cuda":
-        if k_pool.dtype not in _KV_DTYPES or v_pool.dtype != k_pool.dtype:
-            raise TypeError(f"{name}: float pools must be bf16 or f32, got "
+    int8 = k_scale is not None
+    if int8 and (v_scale is None or tuple(k_scale.shape) != (nb, bs, hkv)
+                 or tuple(v_scale.shape) != (nb, bs, hkv)):
+        raise ValueError(f"{name}: scale pools disagree with KV pool "
+                         "geometry")
+    if q.device.type != "cuda":
+        return
+    if int8:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise TypeError(f"{name}: scaled pools must be int8, got "
                             f"{k_pool.dtype}/{v_pool.dtype}")
-        for t in (k_pool, v_pool, pos_pool, tables, positions):
-            if t.device != q.device:
-                raise ValueError(f"{name}: operands on {t.device} and "
-                                 f"{q.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: pool/table operands must be "
-                                 "contiguous")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError(f"{name}: scales must be float32")
+    elif k_pool.dtype not in _KV_DTYPES or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"{name}: float pools must be bf16 or f32, got "
+                        f"{k_pool.dtype}/{v_pool.dtype}")
+    extra = (k_scale, v_scale) if int8 else ()
+    for t in (k_pool, v_pool, pos_pool, tables, positions) + extra:
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: pool/table operands must be "
+                             "contiguous")
 
 
-def _launch(fn_name, counter, qg, k_pool, v_pool, pos_pool, tables,
+def _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
             positions, out, b, c, hkv, rep, d, bs, pages):
     i32 = torch.int32
     pos_pool = pos_pool.to(i32).contiguous()
     tables = tables.to(i32).contiguous()
     positions = positions.to(i32).contiguous()
-    rc = getattr(_lib.lib(), fn_name)(
-        qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        pos_pool.data_ptr(), tables.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), b, c, hkv, rep, d, bs, pages,
-        int(k_pool.dtype == torch.bfloat16), _lib.stream_ptr(qg.device))
-    _lib.check(rc, counter)
-    _lib.count_launch(counter)
+    if scales:
+        flag = int(qg.dtype == torch.bfloat16)
+        ptrs = (qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                scales[0].data_ptr(), scales[1].data_ptr())
+    else:
+        flag = int(k_pool.dtype == torch.bfloat16)
+        ptrs = (qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+    rc = getattr(_lib.lib(), f"launch_{kernel}")(
+        *ptrs, pos_pool.data_ptr(), tables.data_ptr(), positions.data_ptr(),
+        out.data_ptr(), b, c, hkv, rep, d, bs, pages, flag,
+        _lib.stream_ptr(qg.device))
+    _lib.check(rc, kernel)
+    _lib.count_launch(kernel)
+
+
+def _compute_dtype(k_pool, int8, compute_dtype):
+    cdt = compute_dtype or (torch.bfloat16 if int8 else k_pool.dtype)
+    if int8 and cdt not in _Q_DTYPES:
+        raise TypeError(f"int8 pools compute in bf16 or f32, got {cdt}")
+    if not int8 and cdt != k_pool.dtype:
+        raise TypeError(f"float pools compute in their storage type "
+                        f"{k_pool.dtype}, got {cdt}")
+    return cdt
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -62,25 +95,52 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     tables: torch.Tensor, positions: torch.Tensor, *,
                     scale: Optional[float] = None,
                     out_dtype=None) -> torch.Tensor:
-    """Fused decode attention from the pool.  q [B, H, D]; positions [B].
-    Returns [B, H, D] in ``out_dtype`` (default q.dtype)."""
+    """Fused decode attention from a float pool.  q [B, H, D];
+    positions [B].  Returns [B, H, D] in ``out_dtype`` (default q.dtype)."""
     _check_pool("paged_attention", q, k_pool, v_pool, pos_pool, tables,
                 positions)
     if q.device.type == "cpu":
         return _ref.paged_decode_ref(q, k_pool, v_pool, pos_pool, tables,
                                      positions, scale=scale,
                                      out_dtype=out_dtype)
+    return _decode(q, k_pool, v_pool, None, pos_pool, tables, positions,
+                   scale, out_dtype, k_pool.dtype, "paged_decode")
+
+
+def paged_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor, pos_pool: torch.Tensor,
+                         tables: torch.Tensor, positions: torch.Tensor, *,
+                         scale: Optional[float] = None, out_dtype=None,
+                         compute_dtype=None) -> torch.Tensor:
+    """Fused int8-KV decode attention: the per-slot scales fold in the
+    kernel (``decode_attend``'s ordering).  q [B, H, D] float; pools int8
+    [NB, BS, Hkv, D]; k_scale / v_scale f32 [NB, BS, Hkv].  Returns
+    [B, H, D]."""
+    _check_pool("paged_attention_int8", q, k_pool, v_pool, pos_pool,
+                tables, positions, k_scale, v_scale)
+    cdt = _compute_dtype(k_pool, True, compute_dtype)
+    if q.device.type == "cpu":
+        return _ref.paged_decode_int8_ref(
+            q, k_pool, v_pool, k_scale, v_scale, pos_pool, tables,
+            positions, scale=scale, out_dtype=out_dtype, compute_dtype=cdt)
+    return _decode(q, k_pool, v_pool, (k_scale, v_scale), pos_pool, tables,
+                   positions, scale, out_dtype, cdt, "paged_decode_int8")
+
+
+def _decode(q, k_pool, v_pool, scales, pos_pool, tables, positions, scale,
+            out_dtype, cdt, kernel):
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {q.device}")
     b, h, d = q.shape
     nb, bs, hkv, _ = k_pool.shape
     rep = h // hkv
     scale = scale if scale is not None else d ** -0.5
-    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(k_pool.dtype)
-    qg = qg.contiguous()
+    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(cdt).contiguous()
     out = torch.empty((b, hkv, rep, d), dtype=torch.float32, device=q.device)
     if b:
-        _launch("launch_paged_decode", "paged_decode", qg, k_pool, v_pool,
-                pos_pool, tables, positions, out, b, 1, hkv, rep, d, bs,
-                tables.shape[1])
+        _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
+                positions, out, b, 1, hkv, rep, d, bs, tables.shape[1])
     return out.reshape(b, h, d).to(out_dtype or q.dtype)
 
 
@@ -88,28 +148,37 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, pos_pool: torch.Tensor,
                   tables: torch.Tensor, positions: torch.Tensor, *,
                   scale: Optional[float] = None,
-                  out_dtype=None) -> torch.Tensor:
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None,
+                  out_dtype=None, compute_dtype=None) -> torch.Tensor:
     """Fused chunked-prefill attention from the pool (the chunk is already
     inserted).  q [B, C, H, D]; positions [B, C], -1 on pad rows (which
-    return zeros).  Returns [B, C, H, D]."""
+    return zeros).  ``k_scale``/``v_scale`` (f32 [NB, BS, Hkv]) select
+    the int8 kernel.  Returns [B, C, H, D]."""
     _check_pool("paged_prefill", q, k_pool, v_pool, pos_pool, tables,
-                positions)
+                positions, k_scale, v_scale)
     b, c, h, d = q.shape
     if tuple(positions.shape) != (b, c):
         raise ValueError("positions must be [B, C] for chunked prefill")
+    int8 = k_scale is not None
+    cdt = _compute_dtype(k_pool, int8, compute_dtype)
     if q.device.type == "cpu":
         return _ref.paged_prefill_ref(q, k_pool, v_pool, pos_pool, tables,
                                       positions, scale=scale,
-                                      out_dtype=out_dtype)
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      out_dtype=out_dtype, compute_dtype=cdt)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill: unsupported device {q.device}")
     nb, bs, hkv, _ = k_pool.shape
     rep = h // hkv
     scale = scale if scale is not None else d ** -0.5
-    qg = (q.reshape(b, c, hkv, rep, d).float() * scale).to(k_pool.dtype)
+    qg = (q.reshape(b, c, hkv, rep, d).float() * scale).to(cdt)
     qg = qg.contiguous()
     out = torch.empty((b, c, hkv, rep, d), dtype=torch.float32,
                       device=q.device)
     if b and c:
-        _launch("launch_paged_prefill", "paged_prefill", qg, k_pool, v_pool,
+        _launch("paged_prefill_int8" if int8 else "paged_prefill", qg,
+                k_pool, v_pool, (k_scale, v_scale) if int8 else None,
                 pos_pool, tables, positions, out, b, c, hkv, rep, d, bs,
                 tables.shape[1])
     return out.reshape(b, c, h, d).to(out_dtype or q.dtype)

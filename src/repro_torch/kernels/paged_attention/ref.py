@@ -1,10 +1,17 @@
-"""Plain versions of float paged decode and chunked prefill.
+"""Plain versions of paged decode and chunked prefill, float and int8.
 
 Counterpart of ``repro.kernels.paged_attention.ref``: gather the
 per-sequence view of the pool through the block table, then attend with
 a full masked softmax and f32 accumulation.  A slot is live iff its
 table entry is allocated, its stored position equals its logical view
 index, and it is causally visible; rows with no live slot return zeros.
+
+int8 pools follow ``decode_attend``'s ordering: scores are computed from
+q and K in the compute type (bf16, as the reference), multiplied by the
+per-slot ``k_scale`` before the softmax, and the normalized
+probabilities are multiplied by ``v_scale`` and rounded to the compute
+type before the PV product.  ``compute_dtype`` may be set to f32 to
+check the arithmetic without bf16 rounding.
 """
 from __future__ import annotations
 
@@ -57,26 +64,65 @@ def paged_decode_ref(q, k_pool, v_pool, pos_pool, tables, positions, *,
     return out.reshape(b, h, d).to(out_dtype or q.dtype)
 
 
+def paged_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, pos_pool,
+                          tables, positions, *, scale=None, out_dtype=None,
+                          compute_dtype=torch.bfloat16):
+    """int8-KV decode.  q: [B, H, D] float; pools int8 [NB, BS, Hkv, D];
+    k_scale / v_scale f32 [NB, BS, Hkv].  Returns [B, H, D]."""
+    b, h, d = q.shape
+    hkv = k_pool.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    kv = gather_view(k_pool, tables).float()                # [B, L, Hkv, D]
+    vv = gather_view(v_pool, tables).float()
+    ksv = gather_view(k_scale, tables).transpose(1, 2)      # [B, Hkv, L]
+    vsv = gather_view(v_scale, tables).transpose(1, 2)
+    live, vpos = _live(pos_pool, tables)
+    ok = live & (vpos <= positions[:, None])
+    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(compute_dtype)
+    s = torch.einsum("bhrd,blhd->bhrl", qg.float(), kv)
+    s = s * ksv[:, :, None, :]                               # dequant fold
+    okb = ok[:, None, None, :]
+    s = torch.where(okb, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(okb, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(-1)
+    p = p / torch.clamp(l, min=1e-30)[..., None]             # softmax first
+    p = p * vsv[:, :, None, :]                               # then v_scale
+    out = torch.einsum("bhrl,blhd->bhrd", p.to(compute_dtype).float(), vv)
+    return out.reshape(b, h, d).to(out_dtype or q.dtype)
+
+
 def paged_prefill_ref(q, k_pool, v_pool, pos_pool, tables, positions, *,
-                      scale=None, out_dtype=None):
+                      scale=None, k_scale=None, v_scale=None,
+                      out_dtype=None, compute_dtype=None):
     """q: [B, C, H, D]; positions [B, C] (-1 on pad rows, which return
-    zeros).  Returns [B, C, H, D]."""
+    zeros).  ``k_scale``/``v_scale`` (f32 [NB, BS, Hkv]) select the int8
+    fold, computed in ``compute_dtype`` (default bf16; float pools use
+    their storage type).  Returns [B, C, H, D]."""
     b, c, h, d = q.shape
     hkv = k_pool.shape[2]
     rep = h // hkv
     scale = scale if scale is not None else d ** -0.5
+    int8 = k_scale is not None
+    cdt = compute_dtype or (torch.bfloat16 if int8 else k_pool.dtype)
     kv = gather_view(k_pool, tables)
     vv = gather_view(v_pool, tables)
     live, vpos = _live(pos_pool, tables)
     ok = live[:, None, :] & (vpos[:, None, :] <= positions[:, :, None])
-    qg = (q.reshape(b, c, hkv, rep, d).float() * scale).to(k_pool.dtype)
+    qg = (q.reshape(b, c, hkv, rep, d).float() * scale).to(cdt)
     s = torch.einsum("bchrd,blhd->bchrl", qg.float(), kv.float())
+    if int8:
+        ksv = gather_view(k_scale, tables).transpose(1, 2)  # [B, Hkv, L]
+        s = s * ksv[:, None, :, None, :]
     okb = ok[:, :, None, None, :]
     s = torch.where(okb, s, torch.full_like(s, NEG_INF))
     m = s.amax(-1, keepdim=True)
     p = torch.where(okb, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(-1)
     p = p / torch.clamp(l, min=1e-30)[..., None]
-    out = torch.einsum("bchrl,blhd->bchrd", p.to(v_pool.dtype).float(),
-                       vv.float())
+    if int8:
+        vsv = gather_view(v_scale, tables).transpose(1, 2)
+        p = p * vsv[:, None, :, None, :]
+    out = torch.einsum("bchrl,blhd->bchrd", p.to(cdt).float(), vv.float())
     return out.reshape(b, c, h, d).to(out_dtype or q.dtype)

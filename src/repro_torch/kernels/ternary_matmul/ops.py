@@ -1,0 +1,111 @@
+"""Wrapper of the hand-written ``ternary_matmul`` CUDA kernel.
+
+Takes only ``kind="ternary"`` bundles (sign + mask planes, one alpha
+row, no offset).  On a CPU tensor it runs the plain version
+(``ref.ternary_ref``, the same half-LUT algorithm); on a CUDA tensor it
+launches the kernel or raises.  ``read_mode`` is accepted for parity
+with the reference wrapper and does not change the math.
+
+The kernel walks the reduction axis in chunks of ``CHUNK`` columns, one
+LUT build each.  Where the (row, batch) tiles alone would leave the card
+under-filled, the chunks are split over ``splits`` blocks whose partial
+sums (scratch allocated here) a second pass adds in a fixed order, so
+the result does not depend on scheduling.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core.plane import PlaneBundle
+from repro_torch.kernels import _lib
+from repro_torch.kernels.lut_common import READ_MODES
+from . import ref as _ref
+
+CHUNK = 512          # columns per LUT build (csrc/ternary_matmul.cu: KC)
+ROWS, BATCH = 32, 8  # weight rows and batch rows per block (TM, TB)
+_X_DTYPES = (torch.bfloat16, torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(b: int, m: int, nb: int, sms: int) -> int:
+    """How many blocks share one (row, batch) tile's chunks: enough for
+    about four blocks per SM, never more than there are chunks."""
+    nchunks = -(-nb * 8 // CHUNK)
+    tiles = -(-m // ROWS) * -(-b // BATCH)
+    want = max(1, min(nchunks, -(-4 * sms // tiles)))
+    per = -(-nchunks // want)
+    return -(-nchunks // per)
+
+
+def _check_operands(x2: torch.Tensor, w: PlaneBundle) -> None:
+    if x2.dtype not in _X_DTYPES:
+        raise TypeError(f"ternary_matmul: x dtype {x2.dtype} not in "
+                        f"{_X_DTYPES}")
+    if w.group_size % 8:
+        raise ValueError(f"ternary_matmul: group_size {w.group_size} % 8 "
+                         "!= 0")
+    q, m, nb = w.packed.shape
+    if q != 2 or w.alpha.shape != (1, m, w.n_groups) or w.z is not None:
+        raise ValueError("ternary_matmul: a ternary bundle holds 2 planes, "
+                         "one alpha row and no offset")
+    if nb * 8 != w.n_groups * w.group_size:
+        raise ValueError("ternary_matmul: inconsistent bundle shapes")
+    if w.packed.dtype != torch.uint8 or w.alpha.dtype != torch.float32:
+        raise TypeError("ternary_matmul: packed must be uint8, alpha "
+                        "float32")
+    for t in (w.packed, w.alpha):
+        if t.device != x2.device:
+            raise ValueError(f"ternary_matmul: operands on {t.device} and "
+                             f"{x2.device}")
+        if not t.is_contiguous():
+            raise ValueError("ternary_matmul: weight operands must be "
+                             "contiguous")
+
+
+def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
+                   read_mode: Optional[str] = None,
+                   out_dtype=None) -> torch.Tensor:
+    """y = x @ dequant(w).T via the ternary half-LUT GEMM, f32
+    accumulation.  x: [..., in_features] -> [..., out_features]."""
+    if w.kind != "ternary":
+        raise ValueError(
+            f"ternary_matmul needs a kind='ternary' bundle, got {w.kind!r}; "
+            "generic BCQ weights take the lut_gemm/bcq_matmul kernels")
+    out_dtype = out_dtype or x.dtype
+    if read_mode is not None and read_mode not in READ_MODES:
+        raise ValueError(f"read_mode {read_mode!r} not in {READ_MODES}")
+    if x.shape[-1] != w.in_features:
+        raise ValueError(f"x last dim {x.shape[-1]} != in_features "
+                         f"{w.in_features}")
+    if x.device.type == "cpu":
+        return _ref.ternary_ref(x, w, mu=mu, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"ternary_matmul: unsupported device {x.device}")
+    if mu != 4:
+        raise ValueError(f"ternary_matmul: the kernel reads mu=4 groups, "
+                         f"got mu={mu}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    _check_operands(x2, w)
+    _, m, nb = w.packed.shape
+    b = x2.shape[0]
+    y = torch.empty((b, m), dtype=torch.float32, device=x.device)
+    if b:
+        splits = splits_for(b, m, nb, _sm_count(x.device.index or 0))
+        part = torch.empty((splits, b, m), dtype=torch.float32,
+                           device=x.device) if splits > 1 else y
+        rc = _lib.lib().launch_ternary_matmul(
+            x2.data_ptr(), w.packed.data_ptr(), w.alpha.data_ptr(),
+            y.data_ptr(), part.data_ptr(), b, m, w.in_features, nb,
+            w.n_groups, w.group_size, int(x2.dtype == torch.bfloat16),
+            splits, _lib.stream_ptr(x.device))
+        _lib.check(rc, "ternary_matmul")
+        _lib.count_launch("ternary_matmul")
+    return y.reshape(*lead, m).to(out_dtype)

@@ -1,0 +1,58 @@
+"""Plain versions of the ternary GEMM (counterpart of
+``repro.kernels.ternary_matmul.ref``).
+
+  * ``dense_ref``   — dequantize (alpha * sign * mask) to dense f32 and
+                      matmul: ground truth;
+  * ``ternary_ref`` — the algorithm the CUDA kernel runs: one half LUT
+                      per mu-group, the (sign, mask) bytes decoded into
+                      b1 = s | ~m and b2 = s & m, both planes read from
+                      the same table, y = sum_groups (alpha/2)(V1 + V2).
+                      It walks the batch in row blocks so its
+                      [rows, M, N/mu] reads stay bounded at full width.
+
+On exact inputs (integer activations, power-of-two alphas) every partial
+sum is an exact f32, so the two agree with the kernel bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.plane import PlaneBundle, dequantize, pad_operands
+from repro_torch.kernels import lut_common
+
+
+def dense_ref(x: torch.Tensor, w: PlaneBundle, out_dtype=None) -> torch.Tensor:
+    dense = dequantize(w, dtype=torch.float32)
+    y = torch.matmul(x.float(), dense.T)
+    return y.to(out_dtype or x.dtype)
+
+
+def ternary_ref(x: torch.Tensor, w: PlaneBundle, mu: int = 4,
+                out_dtype=None, max_elems: int = 1 << 26) -> torch.Tensor:
+    if w.kind != "ternary":
+        raise ValueError(f"ternary_ref needs a ternary bundle, got "
+                         f"{w.kind!r}")
+    if w.group_size % mu:
+        raise ValueError(f"group_size {w.group_size} must be divisible "
+                         f"by mu={mu}")
+    lead = x.shape[:-1]
+    x2 = pad_operands(x.reshape(-1, x.shape[-1]).float(), w)
+    b, n_pad = x2.shape
+    m = w.out_features
+    b1, b2 = lut_common.ternary_plane_bytes(w.packed[0], w.packed[1])
+    k1 = lut_common.extract_keys(b1, mu)                    # [M, N/mu]
+    k2 = lut_common.extract_keys(b2, mu)
+    n_ag = w.n_groups
+    per_ag = w.group_size // mu
+    half_alpha = w.alpha[0].float() * 0.5                   # [M, G]
+    rows = max(1, max_elems // max(1, m * (n_pad // mu)))
+    out = []
+    for r0 in range(0, b, rows):
+        xb = x2[r0:r0 + rows]
+        table = lut_common.build_lut(xb, mu, True)          # [rb, U, P/2]
+        vals = (lut_common.read_lut(table, k1, mu, True)
+                + lut_common.read_lut(table, k2, mu, True))  # [rb, M, U]
+        vals_ag = vals.reshape(*vals.shape[:-1], n_ag, per_ag).sum(-1)
+        out.append(torch.einsum("bma,ma->bm", vals_ag, half_alpha))
+    y = torch.cat(out) if out else torch.zeros((0, m), device=x.device)
+    return y.reshape(*lead, m).to(out_dtype or x.dtype)

@@ -6,8 +6,10 @@
 Runs on the card by default; ``--device cpu`` runs every kernel's plain
 version on the CPU (small shapes only).  Without a GPU and without
 ``--device cpu`` it stops with an error instead of falling back.
-Weights are random, drawn from ``--seed``; BCQ quantization runs on the
-device, one linear at a time.
+Weights are random, drawn from ``--seed``; quantization (BCQ, RTN or
+ternary with ``--method ternary``) runs on the device, one linear at a
+time.  The int8 KV cache is a config field (``kv_cache_bits=8``) reached
+through the engine API, as in the reference: there is no flag for it.
 """
 import argparse
 import json
@@ -20,14 +22,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", type=int, default=1)
     ap.add_argument("--bits", type=float, default=None,
                     help="weight bits (integer; 0 -> serve dense; "
-                         "default 4)")
+                         "default 4; ternary: 1.58)")
     ap.add_argument("--method", "--format", dest="format", default=None,
-                    choices=["bcq", "rtn", "uniform"])
+                    choices=["bcq", "rtn", "uniform", "ternary"])
     ap.add_argument("--group-size", type=int, default=None)
     ap.add_argument("--backend", default=None,
                     help="auto | dense | bcq_xla | bcq_xla_planes | "
                          "mxu_pallas (bcq_matmul kernel) | lut_pallas "
-                         "(lut_gemm kernel)")
+                         "(lut_gemm kernel) | ternary_pallas "
+                         "(ternary_matmul kernel, ternary weights only)")
     ap.add_argument("--engine", default="paged", choices=["paged"])
     ap.add_argument("--paged-kernel", default="auto",
                     choices=["auto", "fused", "gather"])

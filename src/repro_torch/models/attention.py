@@ -1,4 +1,4 @@
-"""GQA/MHA attention over a paged KV pool (float KV).
+"""GQA/MHA attention over a paged KV pool (float or int8 KV).
 
 Counterpart of the GQA subset of ``repro.models.attention``.
 
@@ -16,13 +16,20 @@ The port writes the pool **in place** (``index_put_`` into views of the
 pool tensors) where the reference returns an updated copy: at full
 width one layer's pool is tens of megabytes per step.
 
+With ``kv_cache_bits=8`` the pool holds int8 ``k``/``v`` plus f32
+``k_scale``/``v_scale`` [NB, BS, Hkv]: each new (token, head) vector is
+quantized symmetrically at insertion (``_quantize_kv``), and attention
+folds the scales in (k_scale on the scores before the softmax, v_scale on
+the probabilities after it).
+
 Decode and chunked prefill route to the fused CUDA kernels
-(``kernels/paged_attention``) or to the gathered plain path
-(``paged_view`` + ``decode_attend`` / ``blockwise_attention``), by the
+(``kernels/paged_attention``; float and int8 pools alike) or to the
+gathered plain path (``paged_view`` + ``decode_attend`` /
+``blockwise_attention``, int8 pools dequantized for prefill), by the
 reference's rule: ``fused`` forces the kernels (on the CPU their
 wrappers run the plain versions), ``auto`` takes them where they are
-native (an H100), ``gather`` never does.  int8 KV, MLA and sliding
-windows raise ``NotImplementedError`` (ROADMAP.md queue 1 item 7).
+native (an H100), ``gather`` never does.  MLA and sliding windows raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -46,9 +53,9 @@ def check_supported(cfg) -> None:
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window attention is not ported "
                                   "yet (ROADMAP.md queue 1 item 7)")
-    if cfg.kv_cache_bits != 16:
-        raise NotImplementedError("int8 KV cache is not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
+    if cfg.kv_cache_bits not in (8, 16):
+        raise ValueError(f"kv_cache_bits must be 8 or 16, got "
+                         f"{cfg.kv_cache_bits}")
     if cfg.pos == "rope":
         raise NotImplementedError("rotary positions are not ported yet "
                                   "(ROADMAP.md queue 1 item 8)")
@@ -86,18 +93,25 @@ def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, scale=None):
 
 def decode_attend(q, cache, positions, *, scale=None):
     """Single-token attention against a contiguous view.
-    q: [B, 1, H, D]; positions: [B, 1]."""
+    q: [B, 1, H, D]; positions: [B, 1].  int8 views compute in bf16 with
+    k_scale folded into the scores and v_scale into the probabilities."""
     k, v, kpos = cache["k"], cache["v"], cache["pos"]
     b, _, h, d = q.shape
     hkv = k.shape[2]
     rep = h // hkv
     scale = scale if scale is not None else d ** -0.5
-    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(k.dtype)
+    int8 = k.dtype == torch.int8
+    cdt = torch.bfloat16 if int8 else k.dtype
+    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(cdt)
     sc = torch.einsum("bhrd,blhd->bhrl", qg.float(), k.float())
+    if int8:
+        sc = sc * cache["k_scale"].transpose(1, 2)[:, :, None, :]
     ok = (kpos >= 0) & (kpos <= positions[:, :1])
     sc = torch.where(ok[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhrl,blhd->bhrd", p.to(v.dtype).float(), v.float())
+    if int8:
+        p = p * cache["v_scale"].transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bhrl,blhd->bhrd", p.to(cdt).float(), v.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -108,12 +122,14 @@ def decode_attend(q, cache, positions, *, scale=None):
 
 def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
                            max_blocks_per_seq: int, device) -> dict:
-    """One layer's pool + block table (``paged_cache_desc`` + init)."""
+    """One layer's pool + block table (``paged_cache_desc`` + init);
+    int8 pools add the f32 per-(slot, head) scale pools."""
     check_supported(cfg)
     hkv = cfg.n_kv_heads * cfg.kv_replication
-    dt = getattr(torch, cfg.dtype)
+    int8 = cfg.kv_cache_bits == 8
+    dt = torch.int8 if int8 else getattr(torch, cfg.dtype)
     shape = (num_blocks, block_size, hkv, cfg.head_dim_)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
         "pos": torch.full((num_blocks, block_size), -1, dtype=torch.int32,
@@ -121,6 +137,20 @@ def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
         "block_tables": torch.full((batch, max_blocks_per_seq), -1,
                                    dtype=torch.int32, device=device),
     }
+    if int8:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)
+    return cache
+
+
+def _quantize_kv(t: torch.Tensor):
+    """[B, S, H, D] -> (int8 values, f32 per-(token, head) scales):
+    scale = max|t| / 127 + 1e-9, round half to even, clip to ±127."""
+    tf = t.float()
+    scale = tf.abs().amax(dim=-1) / 127.0 + 1e-9
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def is_paged(cache: dict) -> bool:
@@ -128,8 +158,11 @@ def is_paged(cache: dict) -> bool:
 
 
 def kv_entry_bytes(cfg) -> int:
-    """KV-cache bytes per (token, layer)."""
+    """KV-cache bytes per (token, layer): int8 K/V plus their f32 scale
+    rows on an int8 pool."""
     hkv = cfg.n_kv_heads * cfg.kv_replication
+    if cfg.kv_cache_bits == 8:
+        return 2 * hkv * cfg.head_dim_ + 2 * hkv * 4
     return 2 * hkv * cfg.head_dim_ * getattr(torch, cfg.dtype).itemsize
 
 
@@ -192,7 +225,8 @@ def cache_insert(cache: dict, updates: dict, at) -> dict:
 
 
 def fused_selected(mode: str) -> bool:
-    """The fused-vs-gather routing rule for float GQA pools."""
+    """The fused-vs-gather routing rule for GQA pools (float and int8
+    alike: both have kernels)."""
     if mode not in PAGED_KERNEL_MODES:
         raise ValueError(f"paged_kernel must be one of "
                          f"{PAGED_KERNEL_MODES}, got {mode!r}")
@@ -206,31 +240,48 @@ def fused_selected(mode: str) -> bool:
 
 def paged_kernel_mode(cfg) -> str:
     """Host-side label of the path a paged step takes ("fused"|"gather");
-    decode and chunked prefill resolve alike for float GQA pools."""
+    decode and chunked prefill resolve alike for GQA pools, float and
+    int8 (the reference's ``paged_kernel_mode`` and
+    ``paged_prefill_mode`` in one)."""
     return "fused" if fused_selected(cfg.paged_kernel) else "gather"
 
 
 def paged_decode_attend(q, cache, positions, *, scale=None, mode="auto"):
     """Single-token attention on a paged cache.  q [B, 1, H, D]."""
     if fused_selected(mode):
-        from repro_torch.kernels.paged_attention import paged_attention
-        out = paged_attention(q[:, 0], cache["k"], cache["v"], cache["pos"],
-                              cache["block_tables"], positions[:, 0],
-                              scale=scale)
+        from repro_torch.kernels.paged_attention import (
+            paged_attention, paged_attention_int8)
+        if cache["k"].dtype == torch.int8:
+            out = paged_attention_int8(
+                q[:, 0], cache["k"], cache["v"], cache["k_scale"],
+                cache["v_scale"], cache["pos"], cache["block_tables"],
+                positions[:, 0], scale=scale)
+        else:
+            out = paged_attention(q[:, 0], cache["k"], cache["v"],
+                                  cache["pos"], cache["block_tables"],
+                                  positions[:, 0], scale=scale)
         return out[:, None]
     return decode_attend(q, paged_view(cache), positions, scale=scale)
 
 
 def paged_prefill_attend(q, cache, positions, *, scale=None, mode="auto"):
     """Chunked-prefill attention on a paged cache (chunk already inserted).
-    q [B, C, H, D]; positions [B, C]."""
+    q [B, C, H, D]; positions [B, C].  The gathered path dequantizes an
+    int8 view to q's dtype first."""
+    int8 = cache["k"].dtype == torch.int8
     if fused_selected(mode):
         from repro_torch.kernels.paged_attention import paged_prefill
         return paged_prefill(q, cache["k"], cache["v"], cache["pos"],
-                             cache["block_tables"], positions, scale=scale)
+                             cache["block_tables"], positions, scale=scale,
+                             k_scale=cache["k_scale"] if int8 else None,
+                             v_scale=cache["v_scale"] if int8 else None)
     kv = paged_view(cache)
-    return blockwise_attention(q, kv["k"], kv["v"], positions, kv["pos"],
-                               causal=True, scale=scale)
+    k, v = kv["k"], kv["v"]
+    if int8:
+        k = (k.float() * kv["k_scale"][..., None]).to(q.dtype)
+        v = (v.float() * kv["v_scale"][..., None]).to(q.dtype)
+    return blockwise_attention(q, k, v, positions, kv["pos"], causal=True,
+                               scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +324,13 @@ class Attention(nn.Module):
             out = blockwise_attention(q, k, v, positions, positions,
                                       causal=causal)
         else:
-            cache = cache_insert(cache, {"k": k, "v": v}, cache_at)
+            if cfg.kv_cache_bits == 8:
+                kq, ks = _quantize_kv(k)
+                vq, vs = _quantize_kv(v)
+                updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+            else:
+                updates = {"k": k, "v": v}
+            cache = cache_insert(cache, updates, cache_at)
             if s == 1:
                 out = paged_decode_attend(q, cache, positions,
                                           mode=paged_kernel)

@@ -110,7 +110,9 @@ def quantize_model(model, spec: QuantSpec) -> QuantManifest:
         qb = int(wq.nbytes())
         planes = int(wq.bits)
         layers.append({
-            "path": path, "format": spec.format, "plane_bits": planes,
+            "path": path,
+            "format": "ternary" if wq.kind == "ternary" else spec.format,
+            "plane_bits": planes,
             "effective_bits": float(wq.effective_bits),
             "group_size": int(wq.group_size), "shape": shape,
             "dense_bytes": 2 * n, "quant_bytes": qb,

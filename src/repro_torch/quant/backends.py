@@ -9,8 +9,10 @@ Counterpart of ``repro.quant.backends``, with the same registry,
     CUDA device with capability (9, 0) (the reference asks for a TPU);
   * ``supports(w)`` — per-weight capability.  The port keeps its own copy
     of the reference's matmul rules (``tune/dispatch.py:119-134``):
-    ``group_size % 8 == 0``, 1..8 planes and kind ``bcq``; the LUT kernel
-    also needs ``group_size % mu == 0``.
+    ``group_size % 8 == 0``, 1..8 planes, and the two-way kind rule:
+    ``ternary_matmul`` takes only ternary bundles, ``bcq_matmul`` and
+    ``lut_gemm`` never do; the LUT kernel also needs
+    ``group_size % mu == 0``.
 
 An explicit kernel preference on a host without the card resolves to
 the kernel's wrapper, which runs its plain version on the CPU tensors it
@@ -127,7 +129,7 @@ def matmul_unsupported_reason(kernel: str, w: PlaneBundle) -> Optional[str]:
         return "group_size"
     if not 1 <= w.bits <= 8:
         return "bits"
-    if w.kind != "bcq":
+    if (kernel == "ternary_matmul") != (w.kind == "ternary"):
         return "kind"
     if kernel == "lut_gemm" and w.group_size % LUT_MU:
         return "group_size"
@@ -177,6 +179,7 @@ register_backend(BackendInfo(
     description="dequant-in-shared-memory GEMM, hand-written CUDA kernel"))
 register_backend(BackendInfo(
     name="ternary_pallas", execute=_exec("ternary_pallas"),
-    supports=lambda w: False, available=lambda: False, native=lambda: False,
-    kernel="ternary_matmul",
-    description="not ported yet (ROADMAP.md queue 2 item 5)"))
+    supports=_supports_kernel("ternary_matmul"), available=lambda: True,
+    native=on_h100, kernel="ternary_matmul",
+    description="ternary half-LUT GEMM with in-register sign decode, "
+                "hand-written CUDA kernel"))

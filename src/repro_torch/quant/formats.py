@@ -1,16 +1,19 @@
 """Weight-format registry: every format lowers into a plane bundle.
 
 Counterpart of ``repro.quant.formats`` for ``bcq`` (alternating
-non-uniform BCQ) and ``rtn`` (uniform round-to-nearest mapped exactly
-into BCQ(+offset) planes).  The ternary format waits for its kernel.
+non-uniform BCQ), ``rtn`` (uniform round-to-nearest mapped exactly into
+BCQ(+offset) planes) and ``ternary`` ({-a, 0, +a} as a sign + mask
+bundle with one alpha row and no offset).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import torch
+
 from repro_torch.core import bcq as bcq_mod
-from repro_torch.core.plane import PlaneBundle
+from repro_torch.core.plane import PlaneBundle, pack_planes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +58,47 @@ def _quantize_rtn(w2d, *, bits: int, group_size: int,
     return bcq_mod.from_uniform(w2d, bits=bits, group_size=group_size)
 
 
+def quantize_ternary(w_dense: torch.Tensor, *, bits: int = 2,
+                     group_size: int = 128, iters: int = 0,
+                     clip_iters: int = 12) -> PlaneBundle:
+    """MSE-optimal ternarization as a ``kind="ternary"`` bundle.
+
+    Per (row, group) the octav clipping fixed point, from a0 = mean|w|:
+    keep = |w| > a/2, then a = mean(|w| over keep), ``clip_iters``
+    times.  The ragged last group is edge-padded.  Plane 0 is the sign
+    bit (w >= 0), plane 1 the nonzero mask; ``bits``/``iters`` are
+    accepted for the registry's signature and ignored.  Runs on the
+    device the weight lies on."""
+    del bits, iters
+    w = w_dense.float()
+    if w.ndim != 2:
+        raise ValueError(f"expected 2-D weight, got {tuple(w.shape)}")
+    out, n = w.shape
+    g = int(group_size)
+    wg = bcq_mod._grouped(w, g)                             # [out, G, g]
+    absw = wg.abs()
+    a = absw.mean(dim=-1)                                   # [out, G]
+    for _ in range(clip_iters):
+        mask = absw > (a[..., None] / 2.0)
+        cnt = torch.clamp(mask.sum(dim=-1), min=1)
+        a = (absw * mask).sum(dim=-1) / cnt
+    mask = absw > (a[..., None] / 2.0)
+    sign = torch.where(wg >= 0, 1.0, -1.0)
+    keep = torch.where(mask, 1.0, -1.0)                     # bit 1 = keep
+    planes = torch.stack([sign, keep]).reshape(2, out, -1)
+    return PlaneBundle(packed=pack_planes(planes),
+                       alpha=a[None].float().contiguous(), z=None,
+                       group_size=g, in_features=n, out_features=out,
+                       kind="ternary")
+
+
 register_format(FormatInfo(
     name="bcq", quantize=_quantize_bcq,
     description="alternating non-uniform BCQ (greedy init + LS refinement)"))
 register_format(FormatInfo(
     name="rtn", quantize=_quantize_rtn,
     description="uniform round-to-nearest, exact BCQ(+offset) mapping"))
+register_format(FormatInfo(
+    name="ternary", quantize=quantize_ternary, fixed_plane_bits=2,
+    description="octav-clipped {-a,0,+a} as a sign + mask plane bundle "
+                "(1 alpha row, no offset; ternary_matmul kernel)"))

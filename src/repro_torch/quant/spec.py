@@ -1,9 +1,11 @@
 """QuantSpec — the declarative description of a quantization run.
 
-Counterpart of ``repro.quant.spec`` for the formats this slice carries:
-``bcq`` and ``rtn`` (alias ``uniform``) at an integer bit width.
-Fractional (mixed-precision) widths and the ``ternary`` format raise
-``ValueError``: they are ROADMAP.md queue 1 items 2 and 7 of the port.
+Counterpart of ``repro.quant.spec`` for the formats the port carries:
+``bcq`` and ``rtn`` (alias ``uniform``) at an integer bit width, and
+``ternary`` at log2(3) bits (``bits`` None, 2, 1.58 or 1.585 all become
+:data:`TERNARY_BITS`; the bundle stores 2 planes).  A fractional width
+on any other format is mixed precision, which raises ``ValueError``
+naming ROADMAP.md queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -11,8 +13,11 @@ import dataclasses
 import json
 from typing import Mapping, Optional
 
+from repro_torch.core.plane import TERNARY_BITS
+
 _FORMAT_ALIASES = {"uniform": "rtn", "int": "rtn", "nonuniform": "bcq"}
-_PORTED_FORMATS = ("bcq", "rtn")
+_PORTED_FORMATS = ("bcq", "rtn", "ternary")
+_TERNARY_SPELLINGS = (2.0, 1.58, TERNARY_BITS)
 
 
 def canonical_format(name: str) -> str:
@@ -23,7 +28,7 @@ def canonical_format(name: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
     format: str = "bcq"
-    bits: Optional[int] = None        # None -> 4
+    bits: Optional[float] = None      # None -> 4 (ternary: 1.585)
     group_size: int = 128
     iters: int = 5
     backend: str = "auto"
@@ -31,21 +36,27 @@ class QuantSpec:
     def __post_init__(self):
         fmt = canonical_format(self.format)
         object.__setattr__(self, "format", fmt)
-        if fmt == "ternary":
-            raise ValueError(
-                "format 'ternary' is not ported yet (ROADMAP.md queue 1 "
-                "item 7: ternary format and kernel)")
         if fmt not in _PORTED_FORMATS:
             raise ValueError(f"unknown quant format {fmt!r}; ported: "
                              f"{list(_PORTED_FORMATS)}")
-        bits = 4 if self.bits is None else self.bits
-        if float(bits) != int(float(bits)):
-            raise ValueError(
-                f"fractional bits={bits} (mixed precision) is not ported "
-                "yet (ROADMAP.md queue 1 item 2: core/mixed_precision.py)")
-        bits = int(float(bits))
-        if bits < 0:
-            raise ValueError(f"bits must be >= 0, got {bits}")
+        if fmt == "ternary":
+            if self.bits is not None and \
+                    float(self.bits) not in _TERNARY_SPELLINGS:
+                raise ValueError(
+                    f"format 'ternary' stores 2 planes at rate log2(3); "
+                    f"bits={self.bits:g} conflicts (omit bits, or pass "
+                    f"1.58/1.585/2)")
+            bits = TERNARY_BITS
+        else:
+            bits = 4 if self.bits is None else self.bits
+            if float(bits) != int(float(bits)):
+                raise ValueError(
+                    f"fractional bits={bits} (mixed precision) is not "
+                    "ported yet (ROADMAP.md queue 1 item 2: "
+                    "core/mixed_precision.py)")
+            bits = int(float(bits))
+            if bits < 0:
+                raise ValueError(f"bits must be >= 0, got {bits}")
         object.__setattr__(self, "bits", bits)
         if self.group_size <= 0:
             raise ValueError(
@@ -53,7 +64,8 @@ class QuantSpec:
 
     @property
     def int_bits(self) -> int:
-        return int(self.bits)
+        """Stored planes per weight (2 for ternary: sign + mask)."""
+        return 2 if self.format == "ternary" else int(self.bits)
 
     def replace(self, **kw) -> "QuantSpec":
         return dataclasses.replace(self, **kw)

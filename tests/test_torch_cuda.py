@@ -7,7 +7,12 @@ on the machine with the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: 1e-3 of the output scale for the GEMMs, 1e-4 for float paged
-decode and prefill on f32 pools (the reference's gates).
+decode and prefill on f32 pools (the reference's gates); ternary_matmul
+exactly (0) on exact inputs (integer activations, power-of-two alphas);
+int8 paged decode and prefill 1e-4 of the output scale when they compute
+in f32 with power-of-two scales (no bf16 rounding, exact scale
+products), and the reference's int8 gate, 5e-2, in bf16 (the kernel
+rounds p * v_scale before normalizing, the plain version after).
 """
 import numpy as np
 import pytest
@@ -18,14 +23,20 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_int8,
+                                                 paged_decode_int8_ref,
                                                  paged_decode_ref,
                                                  paged_prefill,
                                                  paged_prefill_ref)
+from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_matmul,
+                                                ternary_ref)
+from repro_torch.quant.formats import quantize_ternary
 
-from torch_port_cases import pool_case, require_cuda
+from torch_port_cases import int8_pools, pool_case, require_cuda
 
 GEMM_TOL = 1e-3
 PAGED_TOL = 1e-4
+INT8_TOL = 5e-2
 
 
 def _close(got, want, tol):
@@ -79,6 +90,71 @@ def test_cuda_paged_match_plain(h, hkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,b", [(64, 128, 1), (96, 200, 5), (33, 136, 2),
+                                   (4096, 4096, 8), (1000, 1032, 19),
+                                   (512, 4096, 40)])
+def test_cuda_ternary_matches_plain(m, n, b):
+    """Exact inputs agree bit for bit; random ones within 1e-3.  The
+    shapes cover ragged M, N (a partial LUT chunk) and B, and both the
+    direct and the split-sum launches."""
+    require_cuda()
+    rng = np.random.default_rng(m + n + b)
+    g = 64 if n % 64 == 0 else 8
+    w_exact = (0.5 * rng.integers(-1, 2, (m, n))).astype(np.float32)
+    wt = quantize_ternary(torch.from_numpy(w_exact).to("cuda"), group_size=g)
+    x = torch.from_numpy(rng.integers(-8, 9, (b, n)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = x.to("cuda", dtype)
+        _lib.reset_launch_counts()
+        got = ternary_matmul(xt, wt, out_dtype=torch.float32)
+        assert _lib.launch_counts["ternary_matmul"] == 1
+        want = ternary_ref(xt, wt, out_dtype=torch.float32)
+        assert torch.equal(got, want)
+        assert torch.equal(got, dense_ref(xt, wt, torch.float32))
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    wt = quantize_ternary(torch.from_numpy(w).to("cuda"), group_size=g)
+    xr = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = xr.to("cuda", dtype)
+        _close(ternary_matmul(xt, wt, out_dtype=torch.float32),
+               dense_ref(xt, wt, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+def test_cuda_paged_int8_match_plain(h, hkv):
+    require_cuda()
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    for chunk in (0, 5):
+        q, k, v, pos, tables, positions = pool_case(3 + chunk, h=h, hkv=hkv,
+                                                    chunk=chunk)
+        for pow2, cdt, tol in ((True, torch.float32, PAGED_TOL),
+                               (False, torch.bfloat16, INT8_TOL)):
+            kq, vq, ks, vs = map(dev, int8_pools(k, v, seed=chunk,
+                                                 pow2=pow2))
+            qd, posd, td, pd = map(dev, (q, pos, tables, positions))
+            _lib.reset_launch_counts()
+            if chunk:
+                got = paged_prefill(qd, kq, vq, posd, td, pd, k_scale=ks,
+                                    v_scale=vs, compute_dtype=cdt)
+                want = paged_prefill_ref(qd, kq, vq, posd, td, pd,
+                                         k_scale=ks, v_scale=vs,
+                                         compute_dtype=cdt)
+                assert _lib.launch_counts["paged_prefill_int8"] == 1
+            else:
+                got = paged_attention_int8(qd, kq, vq, ks, vs, posd, td, pd,
+                                           compute_dtype=cdt)
+                want = paged_decode_int8_ref(qd, kq, vq, ks, vs, posd, td,
+                                             pd, compute_dtype=cdt)
+                assert _lib.launch_counts["paged_decode_int8"] == 1
+            _close(got, want, tol)
+            if chunk:
+                assert float(got[-1, -2:].abs().max()) == 0.0
+            else:
+                assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_operands():
     require_cuda()
     w = bcq.from_uniform(torch.randn(16, 64, device="cuda"), bits=2,
@@ -87,3 +163,8 @@ def test_cuda_wrapper_rejects_bad_operands():
         bcq_matmul(torch.ones(2, 64, device="cuda", dtype=torch.float16), w)
     with pytest.raises(ValueError):
         lut_gemm(torch.ones(2, 64, device="cuda"), w, mu=3)
+    t = quantize_ternary(torch.randn(16, 64, device="cuda"), group_size=32)
+    with pytest.raises(ValueError):
+        ternary_matmul(torch.ones(2, 64, device="cuda"), t, mu=2)
+    with pytest.raises(ValueError):
+        bcq_matmul(torch.ones(2, 64, device="cuda"), t)

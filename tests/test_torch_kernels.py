@@ -1,10 +1,16 @@
-"""Port parity: the four kernel modules.
+"""Port parity: the GEMM and paged-attention kernel modules.
 
 On the CPU each port ``ops.py`` wrapper runs its plain version; it is
 held against the reference ``ops.py`` run in Pallas interpret mode on
 the same numpy inputs.  Tolerances are the reference's own gates
 (``benchmarks/baselines/BENCH_kernels.json``): 1e-3 (relative to the
 output scale) for the GEMMs, 1e-4 for float paged decode and prefill.
+int8 pools: the plain versions follow the reference oracles' ordering
+(normalize, then v_scale, then round to bf16) and agree with them within
+1e-4; the reference kernels fold v_scale into the unnormalized
+probabilities before the bf16 rounding, a different rounding point, so
+against them the bound is the reference's int8 gate, 5e-2.  (The ternary
+module has its own file, ``test_torch_ternary.py``.)
 The CUDA kernels themselves are held against these plain versions on
 the card by ``tests/test_torch_cuda.py``.
 """
@@ -18,15 +24,20 @@ from repro.kernels.bcq_matmul import ops as j_mxu
 from repro.kernels.lut_gemm import ops as j_lut
 from repro.kernels.paged_attention import paged_attention as j_decode
 from repro.kernels.paged_attention import paged_prefill as j_prefill
+from repro.kernels.paged_attention import paged_attention_int8 as j_int8
+from repro.kernels.paged_attention import ref as j_paged_ref
 from repro_torch.kernels import _lib
 from repro_torch.kernels.bcq_matmul import bcq_matmul
 from repro_torch.kernels.lut_gemm import dense_ref, lut_gemm
-from repro_torch.kernels.paged_attention import paged_attention, paged_prefill
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_int8,
+                                                 paged_prefill)
 
-from torch_port_cases import pool_case, torch_bundle
+from torch_port_cases import int8_pools, pool_case, torch_bundle
 
 GEMM_TOL = 1e-3
 PAGED_TOL = 1e-4
+INT8_TOL = 5e-2
 
 SHAPES = [(64, 128, 1), (96, 200, 5), (33, 130, 2)]
 
@@ -111,6 +122,64 @@ def test_paged_prefill_matches_reference(h, hkv):
                                                 positions))).numpy()
     np.testing.assert_allclose(got, want, atol=PAGED_TOL)
     assert np.abs(got[-1, -2:]).max() == 0.0    # pad query rows output 0
+
+
+def _int8_case(seed, chunk=0, h=8, hkv=4):
+    q, k, v, pos, tables, positions = pool_case(seed, h=h, hkv=hkv,
+                                                chunk=chunk)
+    kq, vq, ks, vs = int8_pools(k, v)
+    return q, kq, vq, ks, vs, pos, tables, positions
+
+
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_paged_decode_int8_matches_reference(h, hkv, seed):
+    q, kq, vq, ks, vs, pos, tables, positions = _int8_case(seed, h=h,
+                                                           hkv=hkv)
+    args = (q, kq, vq, ks, vs, pos, tables, positions)
+    got = paged_attention_int8(*map(torch.from_numpy, args)).numpy()
+    want = np.asarray(j_paged_ref.paged_decode_int8_ref(
+        *map(jnp.asarray, args)))
+    np.testing.assert_allclose(got, want, atol=PAGED_TOL)
+    kern = np.asarray(j_int8(*map(jnp.asarray, args), interpret=True))
+    np.testing.assert_allclose(got, kern, atol=INT8_TOL)
+    assert np.abs(got[0]).max() == 0.0          # the idle row outputs 0
+
+
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+def test_paged_prefill_int8_matches_reference(h, hkv):
+    q, kq, vq, ks, vs, pos, tables, positions = _int8_case(3, chunk=5, h=h,
+                                                           hkv=hkv)
+    pool = (q, kq, vq, pos, tables, positions)
+    got = paged_prefill(*map(torch.from_numpy, pool),
+                        k_scale=torch.from_numpy(ks),
+                        v_scale=torch.from_numpy(vs)).numpy()
+    jpool = tuple(map(jnp.asarray, pool))
+    want = np.asarray(j_paged_ref.paged_prefill_ref(
+        *jpool, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    np.testing.assert_allclose(got, want, atol=PAGED_TOL)
+    kern = np.asarray(j_prefill(*jpool, k_scale=jnp.asarray(ks),
+                                v_scale=jnp.asarray(vs), interpret=True))
+    np.testing.assert_allclose(got, kern, atol=INT8_TOL)
+    assert np.abs(got[-1, -2:]).max() == 0.0    # pad query rows output 0
+
+
+def test_int8_wrappers_round_q_to_bf16_not_int8():
+    """int8 pools compute in bf16 by default; asking for f32 changes the
+    result only by bf16 rounding, and a float compute type on a float
+    pool other than its own is refused."""
+    q, kq, vq, ks, vs, pos, tables, positions = _int8_case(5)
+    t = list(map(torch.from_numpy, (q, kq, vq, ks, vs, pos, tables,
+                                    positions)))
+    bf = paged_attention_int8(*t)
+    f32 = paged_attention_int8(*t, compute_dtype=torch.float32)
+    assert 0 < float((bf - f32).abs().max()) < INT8_TOL
+    with pytest.raises(TypeError):
+        paged_attention_int8(*t, compute_dtype=torch.int8)
+    qf, k, v, posf, tf, pf = map(torch.from_numpy, pool_case(5))
+    with pytest.raises(TypeError):
+        paged_prefill(qf[:, None], k, v, posf, tf, pf[:, None],
+                      compute_dtype=torch.bfloat16)
 
 
 def test_wrappers_count_no_launch_on_cpu():

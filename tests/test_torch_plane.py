@@ -68,7 +68,12 @@ def test_pad_operands_zero_pads_to_weight_width():
 
 
 def test_unported_kind_raises():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tplane.PlaneBundle(packed=torch.zeros(2, 1, 1, dtype=torch.uint8),
-                           alpha=torch.zeros(1, 1, 1), z=None, group_size=8,
-                           in_features=8, out_features=1, kind="ternary")
+    """ternary is a bundle kind now; an unknown kind still raises."""
+    kw = dict(packed=torch.zeros(2, 1, 1, dtype=torch.uint8),
+              alpha=torch.zeros(1, 1, 1), z=None, group_size=8,
+              in_features=8, out_features=1)
+    w = tplane.PlaneBundle(kind="ternary", **kw)
+    assert w.effective_bits == tplane.TERNARY_BITS == jplane.TERNARY_BITS
+    assert tplane.KINDS == jplane.KINDS
+    with pytest.raises(ValueError, match="kind"):
+        tplane.PlaneBundle(kind="nf4", **kw)

@@ -72,8 +72,10 @@ def test_bcq_quantize_matches(m, n, bits, g):
 
 
 def test_spec_rejects_unported_formats():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        QuantSpec(format="ternary")
+    """ternary is ported; a fractional width on another format is mixed
+    precision, which is not."""
+    t = QuantSpec(format="ternary")
+    assert t.bits == 1.585 and t.int_bits == 2
     with pytest.raises(ValueError, match="ROADMAP"):
         QuantSpec(bits=2.4)
     s = QuantSpec(format="uniform", bits=3.0)

@@ -45,7 +45,7 @@ def torch_bundle(wj):
         alpha=torch.from_numpy(np.asarray(wj.alpha).copy()),
         z=None if wj.z is None else torch.from_numpy(np.asarray(wj.z).copy()),
         group_size=wj.group_size, in_features=wj.in_features,
-        out_features=wj.out_features)
+        out_features=wj.out_features, kind=wj.kind)
 
 
 def f32_params(params):
@@ -96,3 +96,27 @@ def pool_case(seed, *, b=3, h=8, hkv=4, d=16, nb=24, bs=4, pages=6,
     if j > 0:                                  # at a logical index != 0
         tables[b - 1, j] = stale
     return q, k, v, pos, tables, positions
+
+
+def int8_pools(k, v, seed=None, pow2=False):
+    """Float pools [NB, BS, Hkv, D] -> (int8 k, int8 v, f32 k_scale,
+    f32 v_scale), quantized per (slot, head) as ``_quantize_kv`` does.
+    With ``pow2`` the scales are powers of two (so products with them
+    are exact) and the int8 values are drawn from ``seed``."""
+    if pow2:
+        rng = np.random.default_rng(seed)
+        shape, sshape = k.shape, k.shape[:3]
+        kq = rng.integers(-127, 128, shape).astype(np.int8)
+        vq = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = (2.0 ** rng.integers(-9, -5, sshape)).astype(np.float32)
+        vs = (2.0 ** rng.integers(-9, -5, sshape)).astype(np.float32)
+        return kq, vq, ks, vs
+
+    def quant(t):
+        scale = (np.abs(t).max(-1) / np.float32(127.0)
+                 + np.float32(1e-9)).astype(np.float32)
+        q = np.clip(np.round(t / scale[..., None]), -127, 127)
+        return q.astype(np.int8), scale
+    kq, ks = quant(k)
+    vq, vs = quant(v)
+    return kq, vq, ks, vs
