@@ -1,9 +1,10 @@
 """Model configuration (counterpart of ``repro.configs.base``).
 
-Carries the fields the ported decoder uses, ``kv_cache_bits`` (16, or 8
-for an int8 KV cache) among them.  Architectures the port does not build
-yet (MLA, MoE, SSM, enc-dec, sliding window, rotary positions) are
-refused where the model is built, naming their ROADMAP.md item.
+Carries the fields the ported decoders use: ``kv_cache_bits`` (16, or 8
+for an int8 KV cache), the MLA widths and ``rope_theta`` among them.
+Architectures the port does not build yet (MoE, SSM, enc-dec, sliding
+window, GQA with rotary positions) are refused where the model is
+built, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -28,7 +29,14 @@ class ModelConfig:
     attention: str = "gqa"
     sliding_window: int = 0
     qkv_bias: bool = False
+    rope_theta: float = 10000.0
     pos: str = "rope"
+    # MLA (minicpm3)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     mlp_act: str = "swiglu"
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
@@ -56,7 +64,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_IDS = ["opt_6_7b"]
+ARCH_IDS = ["opt_6_7b", "minicpm3_4b"]
 
 
 def _module(arch: str):

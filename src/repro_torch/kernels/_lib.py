@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 KERNELS = ("bcq_matmul", "lut_gemm", "paged_decode", "paged_prefill",
-           "ternary_matmul", "paged_decode_int8", "paged_prefill_int8")
+           "ternary_matmul", "paged_decode_int8", "paged_prefill_int8",
+           "paged_decode_mla")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -61,6 +62,10 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _P],
     "launch_paged_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _P],
+    # q_eff, q_rope, ckv, krope, pos, tables, positions, out, B, H, lora,
+    # dr, BS, pages, scale, kv_is_bf16, stream
+    "launch_paged_decode_mla": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _F, _I, _P],
 }
 
 

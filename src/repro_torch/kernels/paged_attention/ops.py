@@ -1,4 +1,5 @@
-"""Wrappers of the paged decode and chunked-prefill CUDA kernels.
+"""Wrappers of the paged decode, chunked-prefill and MLA decode CUDA
+kernels.
 
 Float pools keep the reference's q handling: q is scaled in f32, then
 rounded to the pool's storage dtype before the score product
@@ -6,7 +7,9 @@ rounded to the pool's storage dtype before the score product
 per-slot ``k_scale``/``v_scale``) round q to the compute type instead,
 bf16 as in the reference (``ops.py:104-107``), never to int8.  On CPU
 tensors the wrappers run the plain versions in ``ref``; on CUDA tensors
-they launch the kernel or raise.
+they launch the kernel or raise.  MLA decode keeps q_eff and q_rope in
+f32, as the reference's ``paged_attention_mla`` does (no rounding to the
+pool's type).
 """
 from __future__ import annotations
 
@@ -182,3 +185,69 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                 pos_pool, tables, positions, out, b, c, hkv, rep, d, bs,
                 tables.shape[1])
     return out.reshape(b, c, h, d).to(out_dtype or q.dtype)
+
+
+
+def paged_attention_mla(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                        ckv_pool: torch.Tensor, krope_pool: torch.Tensor,
+                        pos_pool: torch.Tensor, tables: torch.Tensor,
+                        positions: torch.Tensor, *,
+                        scale: float) -> torch.Tensor:
+    """Fused absorbed MLA decode over the latent pool.  q_eff: f32 [B, H,
+    lora] (``w_uk`` absorbed by the caller); q_rope: f32 [B, H,
+    rope_dim]; ckv_pool [NB, BS, lora], krope_pool [NB, BS, rope_dim]
+    (bf16 or f32, one type); pos_pool int32 [NB, BS]; tables int32 [B,
+    pages]; positions int32 [B].  Returns the latent context, f32 [B, H,
+    lora]."""
+    name = "paged_attention_mla"
+    b, h, lora = q_eff.shape
+    nb, bs = pos_pool.shape
+    dr = q_rope.shape[-1]
+    if tuple(q_rope.shape) != (b, h, dr):
+        raise ValueError(f"{name}: q_rope {tuple(q_rope.shape)} disagrees "
+                         f"with q_eff {tuple(q_eff.shape)}")
+    if tuple(ckv_pool.shape) != (nb, bs, lora):
+        raise ValueError(f"{name}: ckv pool {tuple(ckv_pool.shape)} "
+                         f"disagrees with q_eff lora {lora} / pos pool")
+    if tuple(krope_pool.shape) != (nb, bs, dr):
+        raise ValueError(f"{name}: krope pool {tuple(krope_pool.shape)} "
+                         f"disagrees with q_rope / pos pool")
+    if tables.shape[0] != b or tuple(positions.shape) != (b,):
+        raise ValueError(f"{name}: tables / positions disagree with B={b}")
+    if q_eff.device.type == "cpu":
+        return _ref.paged_decode_mla_ref(q_eff, q_rope, ckv_pool, krope_pool,
+                                         pos_pool, tables, positions,
+                                         scale=scale)
+    if q_eff.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q_eff.device}")
+    if q_eff.dtype != torch.float32 or q_rope.dtype != torch.float32:
+        raise TypeError(f"{name}: q_eff and q_rope must be float32, got "
+                        f"{q_eff.dtype}/{q_rope.dtype}")
+    if ckv_pool.dtype not in _KV_DTYPES or krope_pool.dtype != ckv_pool.dtype:
+        raise TypeError(f"{name}: latent pools must be bf16 or f32 (one "
+                        f"type), got {ckv_pool.dtype}/{krope_pool.dtype}")
+    if pos_pool.dtype != torch.int32 or tables.dtype != torch.int32 \
+            or positions.dtype != torch.int32:
+        raise TypeError(f"{name}: pos pool, tables and positions must be "
+                        "int32")
+    for t in (q_rope, ckv_pool, krope_pool, pos_pool, tables, positions):
+        if t.device != q_eff.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{q_eff.device}")
+    for t in (q_eff, q_rope, ckv_pool, krope_pool, pos_pool, tables,
+              positions):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    out = torch.empty((b, h, lora), dtype=torch.float32,
+                      device=q_eff.device)
+    if b and h:
+        rc = _lib.lib().launch_paged_decode_mla(
+            q_eff.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
+            krope_pool.data_ptr(), pos_pool.data_ptr(), tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), b, h, lora, dr, bs,
+            tables.shape[1], float(scale),
+            int(ckv_pool.dtype == torch.bfloat16),
+            _lib.stream_ptr(q_eff.device))
+        _lib.check(rc, "paged_decode_mla")
+        _lib.count_launch("paged_decode_mla")
+    return out

@@ -1,4 +1,5 @@
-"""Plain versions of paged decode and chunked prefill, float and int8.
+"""Plain versions of paged decode and chunked prefill (float and int8
+pools) and of absorbed MLA decode over a latent pool.
 
 Counterpart of ``repro.kernels.paged_attention.ref``: gather the
 per-sequence view of the pool through the block table, then attend with
@@ -91,6 +92,24 @@ def paged_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, pos_pool,
     p = p * vsv[:, :, None, :]                               # then v_scale
     out = torch.einsum("bhrl,blhd->bhrd", p.to(compute_dtype).float(), vv)
     return out.reshape(b, h, d).to(out_dtype or q.dtype)
+
+
+def paged_decode_mla_ref(q_eff, q_rope, ckv_pool, krope_pool, pos_pool,
+                         tables, positions, *, scale):
+    """Absorbed MLA decode.  q_eff: f32 [B, H, lora]; q_rope: f32 [B, H,
+    rope_dim]; latent pools [NB, BS, lora] / [NB, BS, rope_dim].  Returns
+    the latent context, f32 [B, H, lora] (the caller applies ``w_uv``)."""
+    ckv = gather_view(ckv_pool, tables).float()               # [B, L, lora]
+    kr = gather_view(krope_pool, tables).float()              # [B, L, dr]
+    live, vpos = _live(pos_pool, tables)
+    ok = (live & (vpos <= positions[:, None]))[:, None, :]    # [B, 1, L]
+    s = (torch.einsum("bhl,bkl->bhk", q_eff.float(), ckv)
+         + torch.einsum("bhr,bkr->bhk", q_rope.float(), kr)) * scale
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return torch.einsum("bhk,bkl->bhl", p, ckv)
 
 
 def paged_prefill_ref(q, k_pool, v_pool, pos_pool, tables, positions, *,

@@ -2,6 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt_6_7b \\
         --reduced 0 --bits 3 --engine paged --paged-kernel fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3_4b \\
+        --reduced 0 --bits 3 --paged-kernel fused
+
+``--arch`` is ``opt_6_7b`` or ``minicpm3_4b`` (MLA: absorbed paged
+decode through its kernel; prefill on the gathered path).
 
 Runs on the card by default; ``--device cpu`` runs every kernel's plain
 version on the CPU (small shapes only).  Without a GPU and without
@@ -18,7 +23,8 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="opt_6_7b")
+    ap.add_argument("--arch", default="opt_6_7b",
+                    help="opt_6_7b | minicpm3_4b")
     ap.add_argument("--reduced", type=int, default=1)
     ap.add_argument("--bits", type=float, default=None,
                     help="weight bits (integer; 0 -> serve dense; "

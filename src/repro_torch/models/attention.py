@@ -1,6 +1,6 @@
-"""GQA/MHA attention over a paged KV pool (float or int8 KV).
+"""GQA/MHA and MLA attention over a paged KV pool.
 
-Counterpart of the GQA subset of ``repro.models.attention``.
+Counterpart of the GQA and MLA parts of ``repro.models.attention``.
 
 Paged layout: every layer's cache is a shared pool ``k, v: [NB, BS, Hkv,
 D]`` plus ``pos: [NB, BS]`` (the absolute position stored in each slot,
@@ -22,14 +22,21 @@ quantized symmetrically at insertion (``_quantize_kv``), and attention
 folds the scales in (k_scale on the scores before the softmax, v_scale on
 the probabilities after it).
 
+MLA (``attention="mla"``) pools hold the compressed latent instead:
+``ckv [NB, BS, kv_lora]`` and the shared rotary key ``krope [NB, BS,
+qk_rope]`` in ``cfg.dtype`` (``kv_cache_bits`` does not apply, as in the
+reference).  Decode uses the absorbed formulation (scores in latent
+space, ``paged_attention_mla``); prefill decompresses the gathered
+latent through ``kv_b`` and stays on the gathered path.
+
 Decode and chunked prefill route to the fused CUDA kernels
-(``kernels/paged_attention``; float and int8 pools alike) or to the
-gathered plain path (``paged_view`` + ``decode_attend`` /
-``blockwise_attention``, int8 pools dequantized for prefill), by the
-reference's rule: ``fused`` forces the kernels (on the CPU their
-wrappers run the plain versions), ``auto`` takes them where they are
-native (an H100), ``gather`` never does.  MLA and sliding windows raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 7).
+(``kernels/paged_attention``) or to the gathered plain path
+(``paged_view`` + ``decode_attend`` / ``blockwise_attention``, int8
+pools dequantized for prefill), by the reference's rule: ``fused``
+forces the kernels (on the CPU their wrappers run the plain versions),
+``auto`` takes them where they are native (an H100), ``gather`` never
+does.  Sliding windows and GQA with rotary positions raise
+``NotImplementedError`` (ROADMAP.md queue 1 items 7 and 8).
 """
 from __future__ import annotations
 
@@ -38,27 +45,27 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Linear
+from repro_torch.models.layers import Linear, apply_rope
 
 NEG_INF = -1e30
 PAGED_KERNEL_MODES = ("auto", "fused", "gather")
 
 
 def check_supported(cfg) -> None:
-    """Refuse the attention variants this slice does not carry."""
-    if cfg.attention != "gqa":
+    """Refuse the attention variants the port does not carry."""
+    if cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"attention={cfg.attention!r} is not ported yet (ROADMAP.md "
-            "queue 1 item 7: MLA)")
+            "queue 1 item 7)")
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window attention is not ported "
                                   "yet (ROADMAP.md queue 1 item 7)")
     if cfg.kv_cache_bits not in (8, 16):
         raise ValueError(f"kv_cache_bits must be 8 or 16, got "
                          f"{cfg.kv_cache_bits}")
-    if cfg.pos == "rope":
-        raise NotImplementedError("rotary positions are not ported yet "
-                                  "(ROADMAP.md queue 1 item 8)")
+    if cfg.attention == "gqa" and cfg.pos == "rope":
+        raise NotImplementedError("GQA with rotary positions is not ported "
+                                  "yet (ROADMAP.md queue 1 item 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -70,10 +77,10 @@ def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, scale=None):
     """Masked softmax attention, f32 accumulation (the plain version of the
     reference's online-softmax ``blockwise_attention``: one block).
 
-    q: [B, Sq, H, D]; k, v: [B, Sk, Hkv, D]; qpos [B, Sq]; kpos [B, Sk]
-    (-1 = empty).  Returns [B, Sq, H, D] in q.dtype."""
+    q, k: [B, Sq|Sk, H|Hkv, D]; v: [B, Sk, Hkv, Dv]; qpos [B, Sq]; kpos
+    [B, Sk] (-1 = empty).  Returns [B, Sq, H, Dv] in q.dtype."""
     b, sq, h, d = q.shape
-    hkv = k.shape[2]
+    hkv, dv = k.shape[2], v.shape[-1]
     rep = h // hkv
     scale = scale if scale is not None else d ** -0.5
     qg = (q.reshape(b, sq, hkv, rep, d).float() * scale).to(q.dtype)
@@ -88,7 +95,7 @@ def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, scale=None):
     l = p.sum(-1)
     out = torch.einsum("bqhrk,bkhd->bqhrd", p.to(v.dtype).float(), v.float())
     out = out / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
 def decode_attend(q, cache, positions, *, scale=None):
@@ -123,8 +130,22 @@ def decode_attend(q, cache, positions, *, scale=None):
 def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
                            max_blocks_per_seq: int, device) -> dict:
     """One layer's pool + block table (``paged_cache_desc`` + init);
-    int8 pools add the f32 per-(slot, head) scale pools."""
+    int8 pools add the f32 per-(slot, head) scale pools; MLA pools hold
+    the latent ``ckv`` and the shared rotary key ``krope``."""
     check_supported(cfg)
+    pos = torch.full((num_blocks, block_size), -1, dtype=torch.int32,
+                     device=device)
+    tables = torch.full((batch, max_blocks_per_seq), -1, dtype=torch.int32,
+                        device=device)
+    if cfg.attention == "mla":
+        dt = getattr(torch, cfg.dtype)
+        return {
+            "ckv": torch.zeros((num_blocks, block_size, cfg.kv_lora_rank),
+                               dtype=dt, device=device),
+            "krope": torch.zeros((num_blocks, block_size,
+                                  cfg.qk_rope_head_dim), dtype=dt,
+                                 device=device),
+            "pos": pos, "block_tables": tables}
     hkv = cfg.n_kv_heads * cfg.kv_replication
     int8 = cfg.kv_cache_bits == 8
     dt = torch.int8 if int8 else getattr(torch, cfg.dtype)
@@ -132,10 +153,7 @@ def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.full((num_blocks, block_size), -1, dtype=torch.int32,
-                          device=device),
-        "block_tables": torch.full((batch, max_blocks_per_seq), -1,
-                                   dtype=torch.int32, device=device),
+        "pos": pos, "block_tables": tables,
     }
     if int8:
         for key in ("k_scale", "v_scale"):
@@ -158,8 +176,11 @@ def is_paged(cache: dict) -> bool:
 
 
 def kv_entry_bytes(cfg) -> int:
-    """KV-cache bytes per (token, layer): int8 K/V plus their f32 scale
-    rows on an int8 pool."""
+    """KV-cache bytes per (token, layer): the latent + rotary key for
+    MLA; int8 K/V plus their f32 scale rows on an int8 pool."""
+    if cfg.attention == "mla":
+        return (cfg.kv_lora_rank + cfg.qk_rope_head_dim) \
+            * getattr(torch, cfg.dtype).itemsize
     hkv = cfg.n_kv_heads * cfg.kv_replication
     if cfg.kv_cache_bits == 8:
         return 2 * hkv * cfg.head_dim_ + 2 * hkv * 4
@@ -239,11 +260,19 @@ def fused_selected(mode: str) -> bool:
 
 
 def paged_kernel_mode(cfg) -> str:
-    """Host-side label of the path a paged step takes ("fused"|"gather");
-    decode and chunked prefill resolve alike for GQA pools, float and
-    int8 (the reference's ``paged_kernel_mode`` and
-    ``paged_prefill_mode`` in one)."""
+    """Host-side label of the path a paged decode step takes ("fused" |
+    "gather"): GQA pools (float and int8) and MLA latent pools all have
+    a decode kernel."""
     return "fused" if fused_selected(cfg.paged_kernel) else "gather"
+
+
+def paged_prefill_mode(cfg) -> str:
+    """Host-side label of the chunked-prefill path: as decode for GQA
+    pools; MLA prefill always resolves to "gather" (the latent must be
+    decompressed through ``kv_b``, which the prefill kernel does not
+    fold)."""
+    mode = paged_kernel_mode(cfg)
+    return "gather" if cfg.attention == "mla" else mode
 
 
 def paged_decode_attend(q, cache, positions, *, scale=None, mode="auto"):
@@ -324,7 +353,9 @@ class Attention(nn.Module):
             out = blockwise_attention(q, k, v, positions, positions,
                                       causal=causal)
         else:
-            if cfg.kv_cache_bits == 8:
+            # the pool's dtype decides, not this module's config: a
+            # ``with_config(kv_cache_bits=8)`` view shares the modules
+            if cache["k"].dtype == torch.int8:
                 kq, ks = _quantize_kv(k)
                 vq, vs = _quantize_kv(v)
                 updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -338,4 +369,155 @@ class Attention(nn.Module):
                 out = paged_prefill_attend(q, cache, positions,
                                            mode=paged_kernel)
         out = self.o(out.reshape(b, s, h * hd), backend)
+        return (out, cache) if cache is not None else out
+
+
+# ---------------------------------------------------------------------------
+# MLA block (minicpm3)
+# ---------------------------------------------------------------------------
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """The MLA latents' RMSNorm (eps 1e-6, not the blocks' 1e-5)."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * scale
+    return y.to(x.dtype)
+
+
+def _mla_absorbed_ctx(q_eff, q_rope, ckv_all, krope_all, kpos, positions,
+                      scale):
+    """Gathered absorbed-decode math: latent-space scores + softmax +
+    latent context.  q_eff: f32 [B, 1, H, lora]; returns [B, 1, H, lora]
+    f32 (the caller applies ``w_uv``).  ``kpos`` is -1 on every non-live
+    slot (``paged_view`` sets it)."""
+    sc = torch.einsum("bshl,bkl->bshk", q_eff, ckv_all.float())
+    sc = sc + torch.einsum("bshr,bkr->bshk", q_rope.float(),
+                           krope_all.float())
+    sc = sc * scale
+    m = (kpos >= 0)[:, None, None, :] & \
+        (kpos[:, None, None, :] <= positions[:, 0][:, None, None, None])
+    sc = torch.where(m, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bshk,bkl->bshl", p, ckv_all.float())
+
+
+def mla_paged_decode_attend(q_eff, q_rope, cache, positions, *, scale,
+                            mode="auto"):
+    """Absorbed MLA decode on a paged latent cache.  q_eff: f32 [B, 1, H,
+    lora] (``w_uk`` absorbed); q_rope: [B, 1, H, rope_dim].  Returns the
+    latent context f32 [B, 1, H, lora]; the caller applies ``w_uv``."""
+    if fused_selected(mode):
+        from repro_torch.kernels.paged_attention import paged_attention_mla
+        ctx = paged_attention_mla(
+            q_eff[:, 0].contiguous(), q_rope[:, 0].float().contiguous(),
+            cache["ckv"], cache["krope"], cache["pos"],
+            cache["block_tables"], positions[:, 0].contiguous(),
+            scale=float(scale))
+        return ctx[:, None]
+    kv = paged_view(cache)
+    return _mla_absorbed_ctx(q_eff, q_rope, kv["ckv"], kv["krope"],
+                             kv["pos"], positions, scale)
+
+
+class MLAttention(nn.Module):
+    """Multi-head latent attention (``mla_apply``): low-rank queries, a
+    compressed latent KV cache plus one shared rotary key head.
+
+    ``kv_b`` decompresses the latent into per-head ``w_uk [H, dn, lora]``
+    and ``w_uv [H, dv, lora]``.  The reference dequantizes it on every
+    call; here the f32 split is computed once per weight object and
+    reused while ``kv_b.weight`` is that same object (``quantize_model``
+    swapping the weight recomputes it)."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        lora = cfg.kv_lora_rank
+        if not cfg.q_lora_rank:
+            raise NotImplementedError("MLA without a query LoRA is not "
+                                      "ported yet (ROADMAP.md queue 1 item 7)")
+        self.q_a = Linear(cfg.q_lora_rank, d, bias=False, dtype=dtype,
+                          device=device)
+        self.q_a_norm = torch.ones(cfg.q_lora_rank, dtype=torch.float32,
+                                   device=device)
+        self.q_b = Linear(h * (dn + dr), cfg.q_lora_rank, bias=False,
+                          dtype=dtype, device=device)
+        self.kv_a = Linear(lora + dr, d, bias=False, dtype=dtype,
+                           device=device)
+        self.kv_a_norm = torch.ones(lora, dtype=torch.float32, device=device)
+        self.kv_b = Linear(h * (dn + dv), lora, bias=False, dtype=dtype,
+                           device=device)
+        self.o = Linear(d, h * dv, bias=False, dtype=dtype, device=device)
+        self._kv_b_split = None              # (weight, w_uk, w_uv)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        self.q_a_norm.fill_(1.0)
+        self.kv_a_norm.fill_(1.0)
+
+    def absorbed_weights(self):
+        """(w_uk [H, dn, lora], w_uv [H, dv, lora]) in f32 for the current
+        ``kv_b`` weight."""
+        w = self.kv_b.weight
+        if self._kv_b_split is None or self._kv_b_split[0] is not w:
+            from repro_torch.core.plane import PlaneBundle, dequantize
+            cfg = self.cfg
+            dense = (dequantize(w, torch.float32)
+                     if isinstance(w, PlaneBundle) else w.float())
+            w3 = dense.reshape(cfg.n_heads, cfg.qk_nope_head_dim
+                               + cfg.v_head_dim, cfg.kv_lora_rank)
+            dn = cfg.qk_nope_head_dim
+            self._kv_b_split = (w, w3[:, :dn].contiguous(),
+                                w3[:, dn:].contiguous())
+        return self._kv_b_split[1], self._kv_b_split[2]
+
+    def forward(self, x, positions, *, cache: Optional[dict] = None,
+                cache_at=None, backend=None, paged_kernel: str = "auto"):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = cfg.n_heads
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        dv, lora = cfg.v_head_dim, cfg.kv_lora_rank
+        scale = (dn + dr) ** -0.5
+
+        qa = _rms(self.q_a(x, backend), self.q_a_norm)
+        q = self.q_b(qa, backend).reshape(b, s, h, dn + dr)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+        kv_a = self.kv_a(x, backend)                         # [B, S, lora+dr]
+        ckv = _rms(kv_a[..., :lora], self.kv_a_norm)
+        krope = apply_rope(kv_a[..., lora:][:, :, None, :], positions,
+                           cfg.rope_theta)[:, :, 0, :]       # shared head
+        w_uk, w_uv = self.absorbed_weights()
+
+        if cache is not None:
+            cache = cache_insert(cache, {"ckv": ckv, "krope": krope},
+                                 cache_at)
+        if s == 1 and cache is not None:
+            # absorbed decode: scores and context in latent space
+            q_eff = torch.einsum("bshn,hnl->bshl", q_nope.float(), w_uk)
+            ctx = mla_paged_decode_attend(q_eff, q_rope, cache, positions,
+                                          scale=scale, mode=paged_kernel)
+            out = torch.einsum("bshl,hvl->bshv", ctx, w_uv)
+        else:
+            if cache is not None:
+                kv = paged_view(cache)
+                ckv_all, krope_all, kpos = kv["ckv"], kv["krope"], kv["pos"]
+            else:
+                ckv_all, krope_all, kpos = ckv, krope, positions
+            # decompress the latent (the reference's per-block kv_map, here
+            # over the whole view at once), all in f32
+            c = ckv_all.float()
+            k_nope = torch.einsum("bkl,hnl->bkhn", c, w_uk)
+            v = torch.einsum("bkl,hvl->bkhv", c, w_uv)
+            k_full = torch.cat([k_nope, krope_all.float()[:, :, None, :]
+                                .expand(-1, -1, h, dr)], dim=-1)
+            q_full = torch.cat([q_nope, q_rope], dim=-1).float()
+            out = blockwise_attention(q_full, k_full, v, positions, kpos,
+                                      causal=True, scale=scale)
+        out = self.o(out.reshape(b, s, h * dv).to(x.dtype), backend)
         return (out, cache) if cache is not None else out

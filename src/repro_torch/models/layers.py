@@ -1,4 +1,5 @@
-"""Shared building blocks: linears, norms, MLP, embeddings.
+"""Shared building blocks: linears, norms, rotary positions, MLP,
+embeddings.
 
 Counterpart of ``repro.models.layers``.  Every linear weight is an
 [out, in] tensor or a :class:`~repro_torch.core.plane.PlaneBundle` held
@@ -74,6 +75,29 @@ class Norm(nn.Module):
             ms = (xf * xf).mean(-1, keepdim=True)
             y = xf * torch.rsqrt(ms + self.eps) * self.scale
         return y.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary positions, "rotate half" layout: x [B, S, H, D] (D even),
+    positions [B, S] or [S].  Computed in f32, returned in x.dtype; pad
+    rows at position -1 are rotated too (they are masked later)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)              # [D/2]
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs                 # [B, S, D/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 class MLP(nn.Module):

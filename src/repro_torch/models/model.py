@@ -1,4 +1,4 @@
-"""Top-level decoder: embeddings -> stack -> final norm -> tied head.
+"""Top-level decoder: embeddings -> stack -> final norm -> LM head.
 
 Counterpart of ``repro.models.model`` for the paths serving uses:
 ``forward`` (full-sequence logits), ``prefill_chunk`` and
@@ -234,7 +234,9 @@ def _set_norm(norm: Norm, tree: dict, device) -> None:
 def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
     """Build a :class:`Model` holding the reference's parameters.
 
-    ``params_np`` is the reference tree with numpy leaves; quantized
+    ``params_np`` is the reference tree with numpy leaves (GQA: ``q``,
+    ``k``, ``v``, ``o`` and their biases; MLA: ``q_a``, ``q_a_norm``,
+    ``q_b``, ``kv_a``, ``kv_a_norm``, ``kv_b``, ``o``); quantized
     leaves are dicts ``{packed, alpha, z, group_size, in_features,
     out_features, kind}``.  Both stack layouts are accepted; scan-stacked
     leaves are unstacked per layer.  Leaf dtypes are kept."""
@@ -252,8 +254,15 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
                            layer_trees(params_np["stack"], cfg.n_layers)):
         _set_norm(block.ln1, tree["ln1"], dev)
         _set_norm(block.ln2, tree["ln2"], dev)
-        for name in ("q", "k", "v", "o"):
-            _set_linear(getattr(block.mixer, name), tree["mixer"], name, dev)
+        mixer = tree["mixer"]
+        if cfg.attention == "mla":
+            for name in ("q_a", "q_b", "kv_a", "kv_b", "o"):
+                getattr(block.mixer, name).weight = _leaf(mixer[name], dev)
+            for name in ("q_a_norm", "kv_a_norm"):
+                setattr(block.mixer, name, _leaf(mixer[name], dev))
+        else:
+            for name in ("q", "k", "v", "o"):
+                _set_linear(getattr(block.mixer, name), mixer, name, dev)
         for name in ("gate", "up", "down"):
             if name in tree["mlp"]:
                 _set_linear(getattr(block.mlp, name), tree["mlp"], name, dev)

@@ -5,17 +5,19 @@ from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import Attention, MLAttention
 from repro_torch.models.layers import MLP, Norm
 
 
 class Block(nn.Module):
-    """norm -> attention -> residual -> norm -> MLP -> residual."""
+    """norm -> attention (GQA or MLA) -> residual -> norm -> MLP ->
+    residual."""
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
-        self.mixer = Attention(cfg, dtype=dtype, device=device)
+        mixer = MLAttention if cfg.attention == "mla" else Attention
+        self.mixer = mixer(cfg, dtype=dtype, device=device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device)
         self.mlp = MLP(cfg, dtype=dtype, device=device)
 

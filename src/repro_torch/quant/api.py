@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.quant.api`` + the leaf walk of ``repro.quant.ptq``:
 every :class:`~repro_torch.models.layers.Linear` whose name is in
-``QUANT_KEYS`` (and not in ``_SKIP_KEYS``) has its dense weight replaced,
+``QUANT_KEYS`` (and not in ``_SKIP_KEYS``) — the MLA projections
+``q_a``/``q_b``/``kv_a``/``kv_b`` and an untied ``unembed`` included,
+as in the reference — has its dense weight replaced,
 in place and one layer at a time, by a :class:`PlaneBundle`.  Embeddings
 and norms stay FP.  Paths are the reference's ``/``-joined tree paths
 (``stack/layers/0/mixer/q``), so manifests of the two packages compare

@@ -22,7 +22,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.attention import kv_entry_bytes, paged_kernel_mode
+from repro_torch.models.attention import (kv_entry_bytes, paged_kernel_mode,
+                                          paged_prefill_mode)
 from repro_torch.models.model import set_block_tables
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.paging import BlockPool
@@ -83,7 +84,8 @@ class PagedServeEngine:
         self.max_seq_len = max_seq_len
         self.max_blocks_per_seq = -(-max_seq_len // block_size)
         self.decode_path = paged_kernel_mode(model.cfg)
-        self.prefill_path = self.decode_path
+        self.prefill_path = paged_prefill_mode(model.cfg)
+        # MLA: the latent + rotary key; int8 pools: with their scale rows
         self._kv_entry_bytes = kv_entry_bytes(model.cfg)
         self.cache = model.init_paged_cache(max_batch, num_blocks, block_size,
                                             self.max_blocks_per_seq)

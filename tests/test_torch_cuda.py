@@ -12,7 +12,10 @@ exactly (0) on exact inputs (integer activations, power-of-two alphas);
 int8 paged decode and prefill 1e-4 of the output scale when they compute
 in f32 with power-of-two scales (no bf16 rounding, exact scale
 products), and the reference's int8 gate, 5e-2, in bf16 (the kernel
-rounds p * v_scale before normalizing, the plain version after).
+rounds p * v_scale before normalizing, the plain version after).  MLA
+decode within 1e-4 of the output scale (the reference's
+``paged_attention_mla_maxerr`` gate): both sides compute in f32 from
+the same pools, only the summation order differs.
 """
 import numpy as np
 import pytest
@@ -24,7 +27,9 @@ from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_ref
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_int8,
+                                                 paged_attention_mla,
                                                  paged_decode_int8_ref,
+                                                 paged_decode_mla_ref,
                                                  paged_decode_ref,
                                                  paged_prefill,
                                                  paged_prefill_ref)
@@ -32,7 +37,8 @@ from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_matmul,
                                                 ternary_ref)
 from repro_torch.quant.formats import quantize_ternary
 
-from torch_port_cases import int8_pools, pool_case, require_cuda
+from torch_port_cases import (int8_pools, live_slots, mla_pool_case,
+                              pool_case, require_cuda)
 
 GEMM_TOL = 1e-3
 PAGED_TOL = 1e-4
@@ -155,6 +161,40 @@ def test_cuda_paged_int8_match_plain(h, hkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,lora,dr,bs,dtype", [
+    (8, 12, 8, 4, torch.float32), (6, 12, 8, 4, torch.float32),
+    (40, 256, 32, 16, torch.bfloat16), (40, 256, 32, 16, torch.float32),
+    (13, 20, 6, 5, torch.bfloat16)])
+def test_cuda_paged_mla_matches_plain(h, lora, dr, bs, dtype):
+    """Ragged head counts (6, 13, 40: no power of two), unaligned widths
+    (the element-copy staging), the MiniCPM3 widths; row 0 is idle and
+    must give zeros; a stale recycled block must not change the result."""
+    require_cuda()
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    qe, qr, ckv, kr, pos, tables, positions = map(dev, mla_pool_case(
+        h, b=3, h=h, lora=lora, dr=dr, bs=bs, nb=24, pages=6))
+    ckv, kr = ckv.to(dtype), kr.to(dtype)
+    sc = 96 ** -0.5
+    _lib.reset_launch_counts()
+    got = paged_attention_mla(qe, qr, ckv, kr, pos, tables, positions,
+                              scale=sc)
+    assert _lib.launch_counts["paged_decode_mla"] == 1
+    want = paged_decode_mla_ref(qe, qr, ckv, kr, pos, tables, positions,
+                                scale=sc)
+    _close(got, want, PAGED_TOL)
+    assert float(got[0].abs().max()) == 0.0
+    # poison every slot that is not live (unused and trash blocks, the
+    # recycled block's stale slots, slots past a row's position)
+    dead = ~torch.from_numpy(live_slots(*(t.cpu().numpy() for t in
+                                          (pos, tables, positions)))).cuda()
+    c2, r2 = ckv.clone(), kr.clone()
+    c2[dead], r2[dead] = 7.7, -7.7
+    again = paged_attention_mla(qe, qr, c2, r2, pos, tables, positions,
+                                scale=sc)
+    _close(again, got, 1e-6)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_operands():
     require_cuda()
     w = bcq.from_uniform(torch.randn(16, 64, device="cuda"), bits=2,
@@ -168,3 +208,11 @@ def test_cuda_wrapper_rejects_bad_operands():
         ternary_matmul(torch.ones(2, 64, device="cuda"), t, mu=2)
     with pytest.raises(ValueError):
         bcq_matmul(torch.ones(2, 64, device="cuda"), t)
+    qe, qr, ckv, kr, pos, tables, positions = (
+        torch.from_numpy(a).to("cuda") for a in mla_pool_case(0))
+    with pytest.raises(TypeError):          # q_eff is never rounded
+        paged_attention_mla(qe.to(torch.bfloat16), qr, ckv, kr, pos, tables,
+                            positions, scale=0.1)
+    with pytest.raises(ValueError):
+        paged_attention_mla(qe, qr, ckv[..., :-1], kr, pos, tables,
+                            positions, scale=0.1)

@@ -165,7 +165,29 @@ def test_scan_stacked_tree_forward_matches(quantized):
 def test_unported_variants_raise():
     from repro_torch.models import Model
     cfg = t_reduced("opt_6_7b")
-    for over in (dict(attention="mla"), dict(sliding_window=8),
-                 dict(pos="rope")):
+    for over in (dict(sliding_window=8), dict(pos="rope")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg.replace(**over), device="cpu")
+
+
+def test_kv_cache_bits_view_writes_int8_pools():
+    """A ``with_config(kv_cache_bits=8)`` view shares the attention
+    modules of a model built for a bf16 cache: its pools must still be
+    quantized by ``_quantize_kv`` (not cast), giving the logits of a
+    model built with ``kv_cache_bits=8``."""
+    _, _, built = _pair(True, kv_cache_bits=8)
+    _, _, base = _pair(True)
+    view = base.with_config(kv_cache_bits=8)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (1, 9)).astype(np.int32))
+    table = np.array([[4, 9, 1, -1]], np.int32)
+    outs = []
+    for m in (built, view):
+        c = set_block_tables(m.init_paged_cache(1, 16, 4, 4), table)
+        lp, c = m.prefill_chunk(toks, c, 0, 8)
+        ld, c = m.decode_step(toks[:, :1], c, 9)
+        assert float(c["layers"][0]["k_scale"].abs().max()) > 0
+        outs.append((lp, ld, c["layers"][1]["k"]))
+    assert torch.equal(outs[0][2], outs[1][2])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])

@@ -120,3 +120,31 @@ def int8_pools(k, v, seed=None, pow2=False):
     kq, ks = quant(k)
     vq, vs = quant(v)
     return kq, vq, ks, vs
+
+
+def mla_pool_case(seed, *, b=3, h=8, lora=12, dr=8, nb=24, bs=4, pages=6):
+    """Latent-pool analogue of ``pool_case`` (absorbed MLA decode inputs),
+    at the reference's ``_mla_pool_case`` shapes: the same scrambled
+    tables with a recycled stale block and an idle (zero-live) row 0."""
+    _, _, _, pos, tables, positions = pool_case(seed, b=b, nb=nb, bs=bs,
+                                                pages=pages)
+    rng = np.random.default_rng(seed + 200)
+    ckv = rng.normal(size=(nb, bs, lora)).astype(np.float32)
+    krope = rng.normal(size=(nb, bs, dr)).astype(np.float32)
+    q_eff = rng.normal(size=(b, h, lora)).astype(np.float32)
+    q_rope = rng.normal(size=(b, h, dr)).astype(np.float32)
+    return q_eff, q_rope, ckv, krope, pos, tables, positions
+
+
+def live_slots(pos, tables, positions):
+    """[NB, BS] bool: the pool slots some row's decode attends to (the
+    paged liveness rule, positions [B])."""
+    bs = pos.shape[1]
+    live = np.zeros(pos.shape, bool)
+    for row, table in enumerate(tables):
+        for j, entry in enumerate(table):
+            if entry >= 0:
+                want = j * bs + np.arange(bs)
+                live[entry] |= (pos[entry] == want) & \
+                    (pos[entry] <= positions[row])
+    return live
