@@ -15,6 +15,8 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      the card's least possible time for the same work (bytes or
      operations); ternary_matmul also to 0 error on exact inputs, the
      int8 paged kernels also to 1e-4 in f32 with power-of-two scales;
+     the chunked-prefill kernels (tensor cores in bf16) also with 8 kv
+     heads (GQA) at C 512 and on a ragged B 3, C 200 chunk;
   4. serve (random weights from ``--seed``, paged engine, fused paged
      attention), four runs: full-width OPT-6.7B BCQ-quantized on the card
      at 3 bits, g = 128, with ``--backend auto`` (bcq_matmul) and
@@ -24,7 +26,9 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      full-depth MiniCPM3-4B, BCQ 3-bit g = 128, ``--backend auto``
      (bcq_matmul, MLA paged decode; MLA prefill is gathered, as in the
      reference).  Each run's first prefill logits are held against the
-     plain path, and every kernel must have launched during the runs.
+     plain path, and every kernel must have launched during the runs;
+     each run prints its prefill kernel's time (phase-3 time x
+     launches) beside its TTFT.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -180,14 +184,15 @@ def check_gemms(torch, timer, gen, results):
 
 
 def pool_case(torch, gen, seed, *, b, h, d, nb, bs, pages, dtype,
-              prefill_c=0):
+              prefill_c=0, hkv=None):
     """Scrambled paged problem: random live lengths, -1 table pads, a
     recycled block with stale positions, an idle row (decode) or pad
-    query rows (prefill)."""
+    query rows (prefill); ``hkv`` kv heads (default ``h``)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    k = torch.randn((nb, bs, h, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((nb, bs, h, d), generator=gen, device="cuda").to(dtype)
+    hkv = hkv or h
+    k = torch.randn((nb, bs, hkv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((nb, bs, hkv, d), generator=gen, device="cuda").to(dtype)
     pos, tables, positions = paged_tables(torch, rng, b=b, nb=nb, bs=bs,
                                           pages=pages, prefill_c=prefill_c)
     q_shape = (b, prefill_c, h, d) if prefill_c else (b, h, d)
@@ -258,13 +263,19 @@ def check_paged(torch, timer, gen, results, args_seed):
                                                      paged_prefill_ref)
     h, d, bs, pages, nb = 32, 128, 16, 32, 257
     out = {"paged_decode": [], "paged_prefill": []}
-    cases = [("paged_decode", 8, 0), ("paged_prefill", 2, 128),
-             ("paged_prefill", 1, 512)]
-    for name, b, c in cases:
+    # (kernel, B, C, kv heads): decode at the serve batch; prefill at
+    # C 128 and at OPT's C 512 chunk, then GQA (rep 4) at C 512 and a
+    # ragged B 3, C 200 whose last row ends in pads
+    cases = [("paged_decode", 8, 0, h), ("paged_prefill", 2, 128, h),
+             ("paged_prefill", 1, 512, h), ("paged_prefill", 1, 512, 8),
+             ("paged_prefill", 3, 200, h)]
+    for name, b, c, hkv in cases:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            # the MHA cases keep their earlier seeds
+            seed = args_seed + b + c + (hkv if hkv != h else 0)
             q, k, v, pos, tables, positions = pool_case(
-                torch, gen, args_seed + b + c, b=b, h=h, d=d, nb=nb, bs=bs, pages=pages,
-                dtype=dtype, prefill_c=c)
+                torch, gen, seed, b=b, h=h, d=d, nb=nb, bs=bs, pages=pages,
+                dtype=dtype, prefill_c=c, hkv=hkv)
             if c:
                 kern = lambda: paged_prefill(q, k, v, pos, tables,
                                              positions,
@@ -285,7 +296,8 @@ def check_paged(torch, timer, gen, results, args_seed):
                 fail(f"{name}: bad output")
             err = float((got - want).abs().max())
             ok = err <= tol
-            tag = f"{name:13s} B={b} C={max(c, 1):3d} {str(dtype)[6:]:8s}"
+            tag = (f"{name:13s} B={b} C={max(c, 1):3d} Hkv={hkv:2d} "
+                   f"{str(dtype)[6:]:8s}")
             if dtype == torch.float32:
                 log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}")
                 if not ok:
@@ -294,7 +306,7 @@ def check_paged(torch, timer, gen, results, args_seed):
             # bf16 pools: the main path's type — check and time
             visited = _visited(tables, positions, bs)
             slots = visited * bs
-            kv_bytes = visited * bs * h * d * 2 * 2 + visited * bs * 4
+            kv_bytes = visited * bs * hkv * d * 2 * 2 + visited * bs * 4
             nq = b * max(c, 1)
             nbytes = kv_bytes + nq * h * d * 2 + nq * h * d * 4 \
                 + tables.numel() * 4 + positions.numel() * 4
@@ -313,9 +325,9 @@ def check_paged(torch, timer, gen, results, args_seed):
             qs = (q.reshape(b, -1, h, d) if c else q[:, None]).permute(
                 0, 2, 1, 3)
             t_lib = timer(lambda: F.scaled_dot_product_attention(
-                qs, kv, vv, attn_mask=mask))
+                qs, kv, vv, attn_mask=mask, enable_gqa=hkv != h))
             t_k, t_p = timer(kern), timer(plain)
-            rec = dict(b=b, c=max(c, 1), h=h, d=d, block_size=bs,
+            rec = dict(b=b, c=max(c, 1), h=h, hkv=hkv, d=d, block_size=bs,
                        max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
                        library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
                        visited_pages=visited)
@@ -410,12 +422,17 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
     from repro_torch.models.attention import _quantize_kv
     h, d, bs, pages, nb = 32, 128, 16, 32, 257
     out = {"paged_decode_int8": [], "paged_prefill_int8": []}
-    cases = [("paged_decode_int8", 8, 0), ("paged_prefill_int8", 2, 128),
-             ("paged_prefill_int8", 1, 512)]
-    for name, b, c in cases:
+    # as in check_paged: GQA (rep 4) and a ragged B 3, C 200 added
+    cases = [("paged_decode_int8", 8, 0, h),
+             ("paged_prefill_int8", 2, 128, h),
+             ("paged_prefill_int8", 1, 512, h),
+             ("paged_prefill_int8", 1, 512, 8),
+             ("paged_prefill_int8", 3, 200, h)]
+    for name, b, c, hkv in cases:
+        seed = args_seed + b + c + (hkv if hkv != h else 0)
         q, k, v, pos, tables, positions = pool_case(
-            torch, gen, args_seed + b + c, b=b, h=h, d=d, nb=nb, bs=bs,
-            pages=pages, dtype=torch.float32, prefill_c=c)
+            torch, gen, seed, b=b, h=h, d=d, nb=nb, bs=bs, pages=pages,
+            dtype=torch.float32, prefill_c=c, hkv=hkv)
 
         def run(kq, vq, ks, vs, cdt):
             if c:
@@ -439,7 +456,7 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
             err = float((got - want).abs().max())
             return kern, plain, err, err / (float(want.abs().max()) + 1e-12)
 
-        tag = f"{name:18s} B={b} C={max(c, 1):3d}"
+        tag = f"{name:18s} B={b} C={max(c, 1):3d} Hkv={hkv:2d}"
         # f32 compute with power-of-two scales: the arithmetic is exact up
         # to f32 rounding, so kernel and plain agree within 1e-4
         shape = tuple(k.shape)
@@ -464,7 +481,7 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
         ok = rel <= 5e-2
         visited = _visited(tables, positions, bs)
         slots = visited * bs
-        kv_bytes = slots * h * d * 2 + slots * h * 4 * 2 + slots * 4
+        kv_bytes = slots * hkv * d * 2 + slots * hkv * 4 * 2 + slots * 4
         nq = b * max(c, 1)
         nbytes = kv_bytes + nq * h * d * 2 + nq * h * d * 4 \
             + tables.numel() * 4 + positions.numel() * 4
@@ -484,10 +501,11 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
         qs = (qb.reshape(b, -1, h, d) if c else qb[:, None]).permute(
             0, 2, 1, 3)
         t_lib = timer(lambda: F.scaled_dot_product_attention(
-            qs, kv, vv, attn_mask=mask))
+            qs, kv, vv, attn_mask=mask, enable_gqa=hkv != h))
         t_k, t_p = timer(kern), timer(plain)
         out[name].append(dict(
-            b=b, c=max(c, 1), h=h, d=d, block_size=bs, max_abs_err=err,
+            b=b, c=max(c, 1), h=h, hkv=hkv, d=d, block_size=bs,
+            max_abs_err=err,
             rel_err=rel, tol=5e-2, ms=t_k, plain_ms=t_p, library_ms=t_lib,
             bound_ms=b_ms, bound_by=b_by, visited_pages=visited,
             bytes=nbytes))
@@ -735,7 +753,8 @@ def logit_error_by_depth(torch, kern, plain, toks, depths):
 
 
 def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
-              attn, required, totals, power_line, manifest, by_depth=None):
+              attn, prefill, required, totals, power_line, manifest,
+              by_depth=None):
     """One serve run of the 8-request mix on model view ``m``: the first
     prefill's logits against the plain path's ``want``, then the engine
     with the launch counters set to 0 just before and read just after;
@@ -817,6 +836,17 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     per_step = step_launches[len(step_launches) // 2] \
         if step_launches else {}
     kv_tok = kv_entry_bytes(cfg) * cfg.n_layers
+    # the prefill kernel's share of the run: its phase-3 time at the C 512
+    # chunk (MHA) times its launches (chunks of 32-512 rows, so an
+    # estimate from above)
+    pre_ms, pre_line = None, ""
+    if prefill:
+        t1 = [r["ms"] for r in results[prefill] if r.get("c") == 512
+              and r.get("hkv") == r.get("h") and "ms" in r][0]
+        pre_ms = t1 * counts[prefill]
+        pre_line = (f"; prefill kernel {prefill} {counts[prefill]} launches "
+                    f"x {t1:.4f} ms = {pre_ms:.2f} ms beside TTFT p50 "
+                    f"{s['ttft_s']['p50'] * 1e3:.1f} ms")
     out = dict(
         requests=len(done), prompt_lens=[len(p) for p in prompts],
         tokens_out=toks_out, wall_s=wall, tokens_per_s=toks_out / wall,
@@ -826,6 +856,7 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         prefill_path=eng.prefill_path, first_prefill_rel_err=rel,
         step_kernel_ms=kern_ms, weight_bytes=manifest.quant_bytes,
         kv_bytes_per_token=kv_tok, kv_cache_bits=cfg.kv_cache_bits,
+        prefill_kernel_ms=pre_ms,
         arch=cfg.name, layers=cfg.n_layers)
     log(f"serve[{tag}]: {len(done)} requests, {toks_out} tokens in "
         f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
@@ -835,7 +866,8 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         f"weights {manifest.quant_bytes / 1e9:.3f} GB; KV "
         f"{kv_tok} B per token"
         f"{'' if cfg.attention == 'mla' else f' ({cfg.kv_cache_bits}-bit)'}; "
-        f"launches {counts}; per decode step {per_step}; card {power_line}")
+        f"launches {counts}; per decode step {per_step}{pre_line}; card "
+        f"{power_line}")
     del eng
     torch.cuda.empty_cache()
     return out
@@ -924,7 +956,7 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
                              for d in (8, 16, 31, cfg.n_layers)})
             by_depth = logit_error_by_depth(torch, m, plain, toks, depths)
         serve_out[tag] = serve_one(torch, tag, m, want, toks, prompts,
-                                   eng_kw, results, gemm, attn,
+                                   eng_kw, results, gemm, attn, prefill,
                                    (gemm,) + required, totals, power_line,
                                    manifest, by_depth)
         serve_out[tag]["logit_error_by_depth"] = by_depth
@@ -1014,9 +1046,10 @@ def main():
     # GEMM on the widest weight, B = 8 decode, the C = 512 prefill chunk
     rep = {"bcq_matmul": dict(rows=8, m=16384, n=4096),
            "lut_gemm": dict(rows=8, m=16384, n=4096),
-           "paged_decode": dict(b=8), "paged_prefill": dict(c=512),
+           "paged_decode": dict(b=8), "paged_prefill": dict(c=512, hkv=32),
            "ternary_matmul": dict(rows=8, m=16384, n=4096),
-           "paged_decode_int8": dict(b=8), "paged_prefill_int8": dict(c=512),
+           "paged_decode_int8": dict(b=8),
+           "paged_prefill_int8": dict(c=512, hkv=32),
            "paged_decode_mla": dict(b=8)}
     kernels = []
     for name in _lib.KERNELS:

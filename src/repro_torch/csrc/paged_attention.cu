@@ -10,16 +10,20 @@
 //                         paged_attention_int8_tiled)
 //   paged_prefill_int8 -> ::_paged_prefill_kernel, int8 flavour (launcher
 //                         paged_prefill_tiled with k_scale/v_scale)
+// The two chunked-prefill entry points dispatch by dtype: bf16 compute
+// (bf16 pools; int8 pools computed in bf16, the main path) runs the
+// tensor-core kernel of paged_prefill.cu; f32 compute (f32 pools; int8
+// pools computed in f32, kept for exact checks) runs the CUDA-core
+// attend_tile body below, as do both decode kernels.
 //
 // What bounds them on an H100: decode reads every live KV block once per
 // (row, kv head) for O(rep) flops per element, so it is bound by bytes
 // (an int8 pool halves them: 1 byte per element plus two f32 scales per
-// slot and head).  Chunked prefill re-reads each block once per query
-// tile and does 4 * C * L * D flops per (row, head), so at C = 512 it
-// leans to operations, though this first version runs them on CUDA cores.
+// slot and head).  The f32 chunked prefill re-reads each block once per
+// query tile and does 4 * C * L * D flops per (row, head) on CUDA cores.
 //
-// What the design does about it: a block owns one (batch row, kv head)
-// and — for prefill — one tile of the chunk's queries, and walks the
+// What the CUDA-core body does about it: a block owns one (batch row,
+// kv head) and — for prefill — one tile of the chunk's queries, and walks the
 // row's block table itself.  The online-softmax state (running max,
 // running sum, f32 accumulator) lives in shared memory for the block's
 // whole walk: the Pallas grid carries it across its innermost page axis
@@ -47,6 +51,7 @@
 // storage type.  The float instantiations are the same code with the
 // scale steps compiled out.
 #include "common.cuh"
+#include "paged_prefill.cuh"
 
 namespace {
 
@@ -271,21 +276,34 @@ extern "C" int launch_paged_decode(const void* q, const void* k,
   return static_cast<int>(e);
 }
 
+// Float pools.  bf16 pools compute on the tensor cores (paged_prefill.cu):
+// q arrives unscaled in bf16 or f32 (q_is_bf16), the kernel scales it
+// and writes the output in bf16 or f32 (out_is_bf16).  f32 pools run the
+// CUDA-core body above: q arrives pre-scaled in f32, out is f32, and
+// scale / q_is_bf16 / out_is_bf16 must be 1 / 0 / 0.
 extern "C" int launch_paged_prefill(const void* q, const void* k,
                                     const void* v, const void* pos,
                                     const void* tables, const void* positions,
                                     void* out, int B, int C, int Hkv, int rep,
                                     int D, int BS, int pages, int kv_is_bf16,
-                                    void* stream) {
+                                    float scale, int q_is_bf16,
+                                    int out_is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_is_bf16) {
+    const PrefillMmaArgs a{q,      k,         v,     nullptr, nullptr,
+                           static_cast<const int*>(pos),
+                           static_cast<const int*>(tables),
+                           static_cast<const int*>(positions),
+                           out,    B,         C,     Hkv,     rep,
+                           D,      BS,        pages, scale,   q_is_bf16,
+                           out_is_bf16};
+    return static_cast<int>(prefill_mma_bf16(a, s));
+  }
+  if (q_is_bf16 || out_is_bf16 || scale != 1.f)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, nullptr, nullptr, pos, tables, positions, out};
-  cudaError_t e =
-      kv_is_bf16
-          ? prefill_t<__nv_bfloat16, __nv_bfloat16, false>(a, B, C, Hkv, rep,
-                                                           D, BS, pages, s)
-          : prefill_t<float, float, false>(a, B, C, Hkv, rep, D, BS, pages,
-                                           s);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      prefill_t<float, float, false>(a, B, C, Hkv, rep, D, BS, pages, s));
 }
 
 // int8 pools: q in bf16 (the reference's compute type) or f32, k/v int8,
@@ -309,6 +327,9 @@ extern "C" int launch_paged_decode_int8(const void* q, const void* k,
   return static_cast<int>(e);
 }
 
+// int8 pools.  bf16 compute (compute_bf16) runs on the tensor cores as
+// launch_paged_prefill does for bf16 pools; f32 compute runs the CUDA-core
+// body, q pre-scaled in f32, out f32.
 extern "C" int launch_paged_prefill_int8(const void* q, const void* k,
                                          const void* v, const void* ks,
                                          const void* vs, const void* pos,
@@ -316,13 +337,25 @@ extern "C" int launch_paged_prefill_int8(const void* q, const void* k,
                                          const void* positions, void* out,
                                          int B, int C, int Hkv, int rep,
                                          int D, int BS, int pages,
-                                         int q_is_bf16, void* stream) {
+                                         int compute_bf16, float scale,
+                                         int q_is_bf16, int out_is_bf16,
+                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (compute_bf16) {
+    const PrefillMmaArgs a{q,      k,         v,
+                           static_cast<const float*>(ks),
+                           static_cast<const float*>(vs),
+                           static_cast<const int*>(pos),
+                           static_cast<const int*>(tables),
+                           static_cast<const int*>(positions),
+                           out,    B,         C,     Hkv,   rep,
+                           D,      BS,        pages, scale, q_is_bf16,
+                           out_is_bf16};
+    return static_cast<int>(prefill_mma_int8(a, s));
+  }
+  if (q_is_bf16 || out_is_bf16 || scale != 1.f)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, ks, vs, pos, tables, positions, out};
-  cudaError_t e =
-      q_is_bf16 ? prefill_t<__nv_bfloat16, int8_t, true>(a, B, C, Hkv, rep,
-                                                         D, BS, pages, s)
-                : prefill_t<float, int8_t, true>(a, B, C, Hkv, rep, D, BS,
-                                                 pages, s);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      prefill_t<float, int8_t, true>(a, B, C, Hkv, rep, D, BS, pages, s));
 }

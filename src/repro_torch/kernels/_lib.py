@@ -50,8 +50,9 @@ _SIGNATURES = {
     # kv_is_bf16, stream
     "launch_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P],
+    # ... kv_is_bf16, scale, q_is_bf16, out_is_bf16, stream
     "launch_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _F, _I, _I, _P],
     # x, packed, alpha, y, part, B, M, N, NB, G, group_size, x_is_bf16,
     # splits, stream
     "launch_ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -60,8 +61,10 @@ _SIGNATURES = {
     # rep, D, BS, pages, q_is_bf16, stream
     "launch_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _P],
+    # ... pages, compute_bf16, scale, q_is_bf16, out_is_bf16, stream
     "launch_paged_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                  _P],
     # q_eff, q_rope, ckv, krope, pos, tables, positions, out, B, H, lora,
     # dr, BS, pages, scale, kv_is_bf16, stream
     "launch_paged_decode_mla": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

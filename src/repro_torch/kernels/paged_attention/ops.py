@@ -5,7 +5,11 @@ Float pools keep the reference's q handling: q is scaled in f32, then
 rounded to the pool's storage dtype before the score product
 (``repro/kernels/paged_attention/ops.py:60-63``).  int8 pools (with
 per-slot ``k_scale``/``v_scale``) round q to the compute type instead,
-bf16 as in the reference (``ops.py:104-107``), never to int8.  On CPU
+bf16 as in the reference (``ops.py:104-107``), never to int8.  Chunked
+prefill in bf16 runs the tensor-core kernel, which does that scaling
+and rounding itself and writes the output in ``out_dtype``; in f32 the
+wrapper pre-scales q and casts the f32 output as the decode wrappers
+do.  On CPU
 tensors the wrappers run the plain versions in ``ref``; on CUDA tensors
 they launch the kernel or raise.  MLA decode keeps q_eff and q_rope in
 f32, as the reference's ``paged_attention_mla`` does (no rounding to the
@@ -22,6 +26,8 @@ from . import ref as _ref
 
 _KV_DTYPES = (torch.bfloat16, torch.float32)
 _Q_DTYPES = (torch.bfloat16, torch.float32)
+# the widest head the tensor-core prefill takes (csrc/paged_prefill.cuh)
+MMA_MAX_HEAD_DIM = 256
 
 
 def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions,
@@ -63,21 +69,20 @@ def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions,
 
 
 def _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
-            positions, out, b, c, hkv, rep, d, bs, pages):
+            positions, out, b, c, hkv, rep, d, bs, pages, flag, extra=()):
+    """``flag``: kv_is_bf16 (float pools) or the bf16-compute flag (int8
+    pools); ``extra``: the prefill launchers' (scale, q_is_bf16,
+    out_is_bf16)."""
     i32 = torch.int32
     pos_pool = pos_pool.to(i32).contiguous()
     tables = tables.to(i32).contiguous()
     positions = positions.to(i32).contiguous()
+    ptrs = (qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
     if scales:
-        flag = int(qg.dtype == torch.bfloat16)
-        ptrs = (qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                scales[0].data_ptr(), scales[1].data_ptr())
-    else:
-        flag = int(k_pool.dtype == torch.bfloat16)
-        ptrs = (qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+        ptrs += (scales[0].data_ptr(), scales[1].data_ptr())
     rc = getattr(_lib.lib(), f"launch_{kernel}")(
         *ptrs, pos_pool.data_ptr(), tables.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), b, c, hkv, rep, d, bs, pages, flag,
+        out.data_ptr(), b, c, hkv, rep, d, bs, pages, flag, *extra,
         _lib.stream_ptr(qg.device))
     _lib.check(rc, kernel)
     _lib.count_launch(kernel)
@@ -143,7 +148,8 @@ def _decode(q, k_pool, v_pool, scales, pos_pool, tables, positions, scale,
     out = torch.empty((b, hkv, rep, d), dtype=torch.float32, device=q.device)
     if b:
         _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
-                positions, out, b, 1, hkv, rep, d, bs, tables.shape[1])
+                positions, out, b, 1, hkv, rep, d, bs, tables.shape[1],
+                int(cdt == torch.bfloat16))
     return out.reshape(b, h, d).to(out_dtype or q.dtype)
 
 
@@ -175,17 +181,35 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     nb, bs, hkv, _ = k_pool.shape
     rep = h // hkv
     scale = scale if scale is not None else d ** -0.5
-    qg = (q.reshape(b, c, hkv, rep, d).float() * scale).to(cdt)
-    qg = qg.contiguous()
+    kernel = "paged_prefill_int8" if int8 else "paged_prefill"
+    scales = (k_scale, v_scale) if int8 else None
+    pages = tables.shape[1]
+    out_dtype = out_dtype or q.dtype
+    if cdt == torch.bfloat16:
+        # the tensor-core kernel scales and rounds q and writes the output
+        # in its dtype itself: no pass of the wrapper's own
+        if d > MMA_MAX_HEAD_DIM:
+            raise ValueError(f"paged_prefill: bf16 compute takes head_dim "
+                             f"<= {MMA_MAX_HEAD_DIM}, got {d}")
+        qk = (q if q.dtype in _Q_DTYPES else q.float()).contiguous()
+        direct = out_dtype in _Q_DTYPES
+        out = torch.empty((b, c, h, d), device=q.device,
+                          dtype=out_dtype if direct else torch.float32)
+        if b and c:
+            _launch(kernel, qk, k_pool, v_pool, scales, pos_pool, tables,
+                    positions, out, b, c, hkv, rep, d, bs, pages, 1,
+                    (float(scale), int(qk.dtype == torch.bfloat16),
+                     int(out.dtype == torch.bfloat16)))
+        return out if direct else out.to(out_dtype)
+    # f32 compute (the CUDA-core body): q pre-scaled in f32, f32 out
+    qg = (q.reshape(b, c, hkv, rep, d).float() * scale).contiguous()
     out = torch.empty((b, c, hkv, rep, d), dtype=torch.float32,
                       device=q.device)
     if b and c:
-        _launch("paged_prefill_int8" if int8 else "paged_prefill", qg,
-                k_pool, v_pool, (k_scale, v_scale) if int8 else None,
-                pos_pool, tables, positions, out, b, c, hkv, rep, d, bs,
-                tables.shape[1])
-    return out.reshape(b, c, h, d).to(out_dtype or q.dtype)
-
+        _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
+                positions, out, b, c, hkv, rep, d, bs, pages, 0,
+                (1.0, 0, 0))
+    return out.reshape(b, c, h, d).to(out_dtype)
 
 
 def paged_attention_mla(q_eff: torch.Tensor, q_rope: torch.Tensor,

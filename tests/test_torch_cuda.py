@@ -12,7 +12,11 @@ exactly (0) on exact inputs (integer activations, power-of-two alphas);
 int8 paged decode and prefill 1e-4 of the output scale when they compute
 in f32 with power-of-two scales (no bf16 rounding, exact scale
 products), and the reference's int8 gate, 5e-2, in bf16 (the kernel
-rounds p * v_scale before normalizing, the plain version after).  MLA
+rounds p * v_scale before normalizing, the plain version after).  The
+tensor-core chunked prefill on bf16 pools: 2e-2 of the output scale
+(chip_smoke's bf16 gate: the kernel rounds the unnormalized
+probabilities to bf16 tile by tile, the plain version the normalized
+ones).  MLA
 decode within 1e-4 of the output scale (the reference's
 ``paged_attention_mla_maxerr`` gate): both sides compute in f32 from
 the same pools, only the summation order differs.
@@ -43,6 +47,7 @@ from torch_port_cases import (int8_pools, live_slots, mla_pool_case,
 GEMM_TOL = 1e-3
 PAGED_TOL = 1e-4
 INT8_TOL = 5e-2
+BF16_POOL_TOL = 2e-2
 
 
 def _close(got, want, tol):
@@ -158,6 +163,84 @@ def test_cuda_paged_int8_match_plain(h, hkv):
                 assert float(got[-1, -2:].abs().max()) == 0.0
             else:
                 assert float(got[0].abs().max()) == 0.0
+
+
+def _prefill_flavours(q, k, v, pos, tables, positions):
+    """(name, kernel call, plain call, tol) for the two bf16-compute
+    prefill flavours on one pool case: bf16 pools with bf16 q and output
+    (the main path's types), int8 pools with f32 q and output."""
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    qb = q.to(torch.bfloat16)
+    kq, vq, ks, vs = (torch.from_numpy(a).to("cuda") for a in int8_pools(
+        k.cpu().numpy(), v.cpu().numpy()))
+    rest = (pos, tables, positions)
+    return [
+        ("paged_prefill", lambda: paged_prefill(qb, kb, vb, *rest),
+         lambda: paged_prefill_ref(qb, kb, vb, *rest), BF16_POOL_TOL),
+        ("paged_prefill_int8",
+         lambda: paged_prefill(q, kq, vq, *rest, k_scale=ks, v_scale=vs),
+         lambda: paged_prefill_ref(q, kq, vq, *rest, k_scale=ks,
+                                   v_scale=vs), INT8_TOL)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [4, 16])
+@pytest.mark.parametrize("d", [16, 64, 128, 40])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("chunk", [1, 5, 63, 64, 65, 130])
+def test_cuda_prefill_mma_matches_plain(chunk, rep, d, bs):
+    """The tensor-core prefill (bf16 pools 2e-2, int8 pools in bf16 5e-2
+    of the output scale) across the 64-vector query tile and the 64-slot
+    K/V tile, GQA up to rep 8, an unaligned width (40: plain-load staging
+    for int8 rows), and blocks of 4 and 16 slots; pad rows give exactly
+    0; one launch per call."""
+    require_cuda()
+    hkv = 2
+    pages = -(-(chunk + 40) // bs)
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    q, k, v, pos, tables, positions = map(dev, pool_case(
+        chunk + rep + d + bs, b=3, h=hkv * rep, hkv=hkv, d=d,
+        nb=3 * pages + 6, bs=bs, pages=pages, chunk=chunk))
+    for name, kern, plain, tol in _prefill_flavours(q, k, v, pos, tables,
+                                                     positions):
+        _lib.reset_launch_counts()
+        got = kern()
+        assert _lib.launch_counts[name] == 1
+        want = plain()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        _close(got.float(), want.float(), tol)
+        assert float(got[-1, -2:].abs().max()) == 0.0   # pad rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv", [32, 8])
+def test_cuda_prefill_mma_main_width(hkv):
+    """OPT-6.7B's prefill chunk: B 1, C 512, H 32, D 128, block 16, and
+    the same at 8 kv heads (GQA, rep 4)."""
+    require_cuda()
+    h, d, bs, pages = 32, 128, 16, 40
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    q, k, v, pos, tables, positions = map(dev, pool_case(
+        hkv, b=1, h=h, hkv=hkv, d=d, nb=pages + 8, bs=bs, pages=pages,
+        chunk=512))
+    for name, kern, plain, tol in _prefill_flavours(q, k, v, pos, tables,
+                                                     positions):
+        _lib.reset_launch_counts()
+        got = kern()
+        assert _lib.launch_counts[name] == 1
+        _close(got.float(), plain().float(), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_mma_refuses_wide_heads():
+    """bf16 compute takes head widths up to 256; wider ones raise."""
+    require_cuda()
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    q, k, v, pos, tables, positions = map(dev, pool_case(0, d=272,
+                                                          chunk=5))
+    with pytest.raises(ValueError):
+        paged_prefill(q, k.to(torch.bfloat16), v.to(torch.bfloat16), pos,
+                      tables, positions)
 
 
 @pytest.mark.cuda
