@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
   2. build: compiles ``src/repro_torch/csrc/*.cu`` for sm_90a;
   3. kernels: each of the eight CUDA kernels against its plain PyTorch
      version at the main-path shapes (OPT-6.7B; MiniCPM3-4B for the MLA
-     decode kernel and for bcq_matmul at the MiniCPM3 widths), with its
+     decode kernel and for bcq_matmul at the MiniCPM3 widths; the GEMMs
+     at rows 1 and 8 and at the serve's prefill buckets 32, 128 and 512,
+     each case logged with the body its wrapper routed it to), with its
      time, the plain version's time, one PyTorch library call's time and
      the card's least possible time for the same work (bytes or
      operations); ternary_matmul also to 0 error on exact inputs, the
@@ -28,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      reference).  Each run's first prefill logits are held against the
      plain path, and every kernel must have launched during the runs;
      each run prints its prefill kernel's time (phase-3 time x
-     launches) beside its TTFT.
+     launches) beside its TTFT, and the GEMM bodies its decode steps and
+     prefill chunks launched: no decode step may run the tensor-core
+     tile, and every prefill chunk must run its linears on it (all but
+     the head's one row per request).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -48,6 +53,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 # reference's GEMM gate, 1e-3 of the output scale
 F32_LOGIT_TOL = 1e-3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+# the kernels with several bodies, chosen by their wrappers' route_for
+ROUTED = ("bcq_matmul", "lut_gemm")
 
 
 def fail(msg: str) -> None:
@@ -110,7 +117,9 @@ def check_gemms(torch, timer, gen, results):
     from repro_torch.kernels.lut_gemm import dense_ref, lut_gemm, lut_ref
 
     tol = 1e-3          # relative to max |plain|: the reference's gate
-    rows_list = (1, 8, 512)
+    # decode rows (1, 8) and the serve's prefill buckets (32, 128, 512),
+    # which the wrappers route to the tensor-core tile
+    rows_list = (1, 8, 32, 128, 512)
     shapes = ((4096, 4096), (16384, 4096), (4096, 16384))
     out = {"bcq_matmul": [], "lut_gemm": []}
     for m, n in shapes:
@@ -135,8 +144,7 @@ def check_gemms(torch, timer, gen, results):
                      lambda: bcq_matmul(x, w, out_dtype=torch.float32)),
                     ("lut_gemm",
                      lambda: lut_gemm(x, w, out_dtype=torch.float32))):
-                got = fn()
-                torch.cuda.synchronize()
+                got, route = routed(torch, name, fn)
                 if got.shape != plain.shape or not torch.isfinite(got).all():
                     fail(f"{name} [{rows}x{n}]x[{m}x{n}]^T: bad output")
                 err = float((got - plain).abs().max())
@@ -147,11 +155,13 @@ def check_gemms(torch, timer, gen, results):
                     rel = max(rel, float((got - lr).abs().max()) / scale)
                 ok = rel <= tol
                 t = timer(fn)
-                rec = dict(m=m, n=n, rows=rows, bits=q, max_abs_err=err,
-                           rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
-                           library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+                rec = dict(m=m, n=n, rows=rows, bits=q, route=route,
+                           max_abs_err=err, rel_err=rel, tol=tol, ms=t,
+                           plain_ms=t_plain, library_ms=t_lib,
+                           bound_ms=b_ms, bound_by=b_by)
                 out[name].append(rec)
-                log(f"{name:10s} rows={rows:4d} M={m:5d} N={n:5d}: "
+                log(f"{name:10s} rows={rows:4d} M={m:5d} N={n:5d} "
+                    f"[{route}]: "
                     f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
                     f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
                     f"torch.matmul {t_lib:.4f} ms  bound {b_ms:.4f} ms "
@@ -165,22 +175,38 @@ def check_gemms(torch, timer, gen, results):
     x = torch.randn((5, 136), generator=gen, device="cuda")
     for mu in (2, 4):
         for half in (True, False):
-            got = lut_gemm(x, w, mu=mu, half_lut=half,
-                           out_dtype=torch.float32)
+            got, route = routed(torch, "lut_gemm", lambda: lut_gemm(
+                x, w, mu=mu, half_lut=half, out_dtype=torch.float32))
             want = dense_ref(x, w, torch.float32)
             torch.cuda.synchronize()
             rel = float((got - want).abs().max()) / float(want.abs().max())
-            log(f"lut_gemm ragged mu={mu} half={half}: rel {rel:.2e}")
+            log(f"lut_gemm ragged mu={mu} half={half} [{route}]: "
+                f"rel {rel:.2e}")
             if rel > tol:
                 fail(f"lut_gemm mu={mu} half={half} disagrees")
-    got = bcq_matmul(x, w, out_dtype=torch.float32)
+    got, route = routed(torch, "bcq_matmul",
+                        lambda: bcq_matmul(x, w, out_dtype=torch.float32))
     want = bcq_matmul_ref(x, w, torch.float32)
     torch.cuda.synchronize()
     rel = float((got - want).abs().max()) / float(want.abs().max())
-    log(f"bcq_matmul ragged f32: rel {rel:.2e}")
+    log(f"bcq_matmul ragged f32 [{route}]: rel {rel:.2e}")
     if rel > tol:
         fail("bcq_matmul ragged f32 disagrees")
     results.update(out)
+
+
+def routed(torch, name, fn):
+    """Run ``fn`` (one call of kernel ``name``'s wrapper) and return its
+    output and the body it launched, read from the route counter."""
+    from repro_torch.kernels import _lib
+    before = dict(_lib.route_counts)
+    got = fn()
+    torch.cuda.synchronize()
+    ran = [k.split("/", 1)[1] for k, n in _lib.route_counts.items()
+           if k.startswith(name + "/") and n != before.get(k, 0)]
+    if len(ran) != 1:
+        fail(f"{name}: expected one body to launch, saw {ran}")
+    return got, ran[0]
 
 
 def pool_case(torch, gen, seed, *, b, h, d, nb, bs, pages, dtype,
@@ -645,8 +671,7 @@ def check_bcq_minicpm3(torch, timer, gen, results):
                         device="cuda").to(torch.bfloat16)
         fn = lambda: bcq_matmul(x, w, out_dtype=torch.float32)
         plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
-        got = fn()
-        torch.cuda.synchronize()
+        got, route = routed(torch, "bcq_matmul", fn)
         if got.shape != plain.shape or not torch.isfinite(got).all():
             fail(f"bcq_matmul [{rows}x{n}]x[{m}x{n}]^T: bad output")
         err = float((got - plain).abs().max())
@@ -658,9 +683,11 @@ def check_bcq_minicpm3(torch, timer, gen, results):
         t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
         results["bcq_matmul"].append(dict(
             m=m, n=n, rows=rows, bits=w.bits, model="minicpm3_4b",
-            max_abs_err=err, rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
-            library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
-        log(f"bcq_matmul rows={rows:4d} M={m:5d} N={n:5d} (minicpm3): "
+            route=route, max_abs_err=err, rel_err=rel, tol=tol, ms=t,
+            plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+            bound_by=b_by))
+        log(f"bcq_matmul rows={rows:4d} M={m:5d} N={n:5d} (minicpm3) "
+            f"[{route}]: "
             f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {rel <= tol})  "
             f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  torch.matmul "
             f"{t_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
@@ -796,10 +823,18 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         fail(f"serve[{tag}]: kernel path disagrees with plain path")
     eng = PagedServeEngine(m, paged_kernel="fused", **eng_kw)
     step_ms, step_launches = [], []
+    # the GEMM bodies each decode step and each prefill chunk launched
+    step_routes, chunk_routes = [], []
     inner = eng.model.decode_step
+    inner_prefill = eng.model.prefill_chunk
+
+    def route_diff(before):
+        return {k: n - before.get(k, 0) for k, n in _lib.route_counts.items()
+                if n != before.get(k, 0)}
 
     def timed_decode(*a, **kw):
         before = dict(_lib.launch_counts)
+        routes = dict(_lib.route_counts)
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = inner(*a, **kw)
@@ -807,8 +842,16 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         step_ms.append((time.perf_counter() - t) * 1e3)
         step_launches.append({k: _lib.launch_counts[k] - before[k]
                               for k in before})
+        step_routes.append(route_diff(routes))
+        return r
+
+    def counted_prefill(*a, **kw):
+        routes = dict(_lib.route_counts)
+        r = inner_prefill(*a, **kw)
+        chunk_routes.append(route_diff(routes))
         return r
     eng.model.decode_step = timed_decode
+    eng.model.prefill_chunk = counted_prefill
     reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -828,6 +871,8 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     for k in required:
         if counts[k] <= 0:
             fail(f"serve[{tag}]: {k} never launched on the main path")
+    routes = route_totals(tag, gemm, step_routes, chunk_routes,
+                          dict(_lib.route_counts))
     s = eng.metrics.summary()
     toks_out = s["counters"]["tokens_out"]
     steps = sorted(step_ms)
@@ -856,7 +901,7 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         prefill_path=eng.prefill_path, first_prefill_rel_err=rel,
         step_kernel_ms=kern_ms, weight_bytes=manifest.quant_bytes,
         kv_bytes_per_token=kv_tok, kv_cache_bits=cfg.kv_cache_bits,
-        prefill_kernel_ms=pre_ms,
+        prefill_kernel_ms=pre_ms, routes=routes,
         arch=cfg.name, layers=cfg.n_layers)
     log(f"serve[{tag}]: {len(done)} requests, {toks_out} tokens in "
         f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
@@ -866,11 +911,43 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         f"weights {manifest.quant_bytes / 1e9:.3f} GB; KV "
         f"{kv_tok} B per token"
         f"{'' if cfg.attention == 'mla' else f' ({cfg.kv_cache_bits}-bit)'}; "
-        f"launches {counts}; per decode step {per_step}{pre_line}; card "
-        f"{power_line}")
+        f"launches {counts}; per decode step {per_step}{pre_line}; GEMM "
+        f"bodies: decode steps {routes['decode']}, prefill chunks "
+        f"{routes['prefill']} ({routes['prefill_mma_share']:.1%} of the "
+        f"chunks' {gemm} launches on the tensor cores); card {power_line}")
     del eng
     torch.cuda.empty_cache()
     return out
+
+
+def route_totals(tag, gemm, step_routes, chunk_routes, total):
+    """The GEMM bodies of one serve run, split into decode steps and
+    prefill chunks.  Gates: no decode step runs the tensor-core tile
+    (decode rows are at most 8), and in every prefill chunk all of
+    ``gemm``'s launches but the head's (one row per request) run it."""
+    def add(rows):
+        out = {}
+        for r in rows:
+            for k, n in r.items():
+                out[k] = out.get(k, 0) + n
+        return out
+    decode, prefill = add(step_routes), add(chunk_routes)
+    if sum(decode.values()) + sum(prefill.values()) != sum(total.values()):
+        fail(f"serve[{tag}]: GEMM launches outside the decode steps and "
+             "prefill chunks")
+    if any(k.endswith("/mma") for k in decode):
+        fail(f"serve[{tag}]: a decode step ran the tensor-core tile")
+    mma = f"{gemm}/mma"
+    # ternary_matmul has one body and no route counter
+    for i, r in enumerate(chunk_routes if gemm in ROUTED else ()):
+        other = sum(n for k, n in r.items() if k != mma)
+        if r.get(mma, 0) <= 0 or other > 1:
+            fail(f"serve[{tag}]: prefill chunk {i} GEMM bodies {r}: its "
+                 "linears must run the tensor-core tile")
+    n_gemm = sum(n for k, n in prefill.items() if k.startswith(gemm + "/"))
+    return dict(decode=decode, prefill=prefill,
+                prefill_chunks=len(chunk_routes),
+                prefill_mma_share=prefill.get(mma, 0) / max(1, n_gemm))
 
 
 def serve(torch, args, power_line, results):
@@ -969,6 +1046,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=32,
                     help="OPT-6.7B serve depth (full width is always kept)")
+
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1062,6 +1140,15 @@ def main():
             plain_ms=sel["plain_ms"], bound_ms=sel["bound_ms"],
             bound_by=sel["bound_by"], library_ms=sel["library_ms"],
             case={k: sel[k] for k in rep[name]}))
+        if name in ROUTED:
+            # the prefill case beside the decode case: the serve's 512-row
+            # chunk on the widest weight, on the tensor-core tile
+            pre = [r for r in results[name] if r.get("rows") == 512
+                   and r.get("m") == 16384 and "model" not in r][0]
+            kernels[-1]["case"]["route"] = sel["route"]
+            kernels[-1]["prefill"] = {k: pre[k] for k in (
+                "rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
         if name == "ternary_matmul":
             kernels[-1]["exact_inputs_max_abs_err"] = max(
                 r["max_abs_err"] for r in results[name]

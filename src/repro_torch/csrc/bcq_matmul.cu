@@ -6,24 +6,32 @@
 // What bounds it on an H100: at decode (B <= 8) it is bound by bytes —
 // the packed planes (q/8 B per weight) plus the f32 alpha and z rows
 // (4 (q+1) / group_size B per weight) are read once and every weight
-// feeds at most 8 products.  At prefill (B = 128..512) it is bound by
-// operations: 2 B M N of them.
+// feeds at most 8 products.  At prefill (B = 32..512) it is bound by
+// operations: 2 B M N of them, q times that on the bit planes.
 //
-// What the design does about it: the weight is never written back
-// dense.  At decode (B <= 8) a weight-streaming GEMV runs (see
-// bcq_gemv_kernel below): many warps, each streaming whole plane rows.
-// Otherwise each block owns a 64-row slice of M and a tile of B rows, and
-// walks the whole reduction axis itself (CUDA blocks run in no order,
-// so nothing is carried between blocks the way the Pallas grid revisits
-// its output block).  Per 64-column step it stages the x tile in shared
-// memory, unpacks the LSB-first plane bytes to +-1, applies alpha per
-// group and z, stages that f32 weight tile in shared memory (row stride
-// 65 floats, so the 32 lanes reading one column hit 32 banks) and
-// accumulates in f32 registers with FMAs.  Ragged M / N / B edges are
-// masked in-kernel instead of padded by a copy per call.  Tensor cores
-// (wgmma on a bf16 dequantized tile) and TMA staging are left to a
-// later change: this version is the simple, right one.
-#include "common.cuh"
+// Three bodies; the wrapper (kernels/bcq_matmul/ops.py, route_for)
+// picks one by a documented rule and passes it as `route`:
+//   route 1 "gemv"  B <= 8: a weight-streaming GEMV (bcq_gemv_kernel
+//                   below): many warps, each streaming whole plane rows;
+//   route 2 "mma"   B > 8, bf16 activations, group size a multiple of
+//                   16: the tensor-core BCQ tile of bcq_mma.cu, one bf16
+//                   mma.sync product per bit plane and alpha group
+//                   against the +-1 plane decoded in registers;
+//   route 0 "fma"   B > 8 otherwise (f32 activations, group size 8 mod
+//                   16): bcq_matmul_kernel below.  Each block owns a
+//                   64-row slice of M and a tile of B rows, and walks the
+//                   whole reduction axis itself (CUDA blocks run in no
+//                   order, so nothing is carried between blocks the way
+//                   the Pallas grid revisits its output block).  Per
+//                   64-column step it stages the x tile in shared memory,
+//                   unpacks the LSB-first plane bytes to +-1, applies
+//                   alpha per group and z, stages that f32 weight tile in
+//                   shared memory (row stride 65 floats, so the 32 lanes
+//                   reading one column hit 32 banks) and accumulates in
+//                   f32 registers with FMAs.
+// The weight is never written back dense, and ragged M / N / B edges
+// are masked in-kernel instead of padded by a copy per call.
+#include "bcq_mma.cuh"
 
 namespace {
 
@@ -121,31 +129,6 @@ constexpr int GR = 4;                 // weight rows per warp
 constexpr int GW = 8;                 // warps per block
 constexpr int GB = 8;                 // max batch rows
 constexpr int GBYTES = 16;            // plane bytes per lane per step
-
-template <typename T>
-__device__ __forceinline__ void load_x8(const T* __restrict__ x, size_t off,
-                                        int col, int N, bool vec,
-                                        float (&v)[8]) {
-  if (vec && col + 8 <= N) {
-    if constexpr (sizeof(T) == 2) {
-      const uint4 u = *reinterpret_cast<const uint4*>(x + off);
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[2 * i] = __uint_as_float(w[i] << 16);
-        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-      }
-    } else {
-      const float4 a = *reinterpret_cast<const float4*>(x + off);
-      const float4 b = *reinterpret_cast<const float4*>(x + off + 4);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = (col + e < N) ? to_f32(x[off + e]) : 0.f;
-  }
-}
 
 __device__ __forceinline__ uint4 load_bytes16(const uint8_t* __restrict__ row,
                                               int c0, int NB, bool vec) {
@@ -273,40 +256,70 @@ void launch_gemv(const T* x, const uint8_t* packed, const float* alpha,
 }
 
 template <typename T>
-void launch_t(const void* x, const void* packed, const void* alpha,
-              const void* z, void* y, int B, int M, int N, int NB, int G,
-              int q, int gs, cudaStream_t s) {
+void launch_gemv_t(const void* x, const void* packed, const void* alpha,
+                   const void* z, void* y, int B, int M, int N, int NB, int G,
+                   int q, int gs, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
   const float* ap = static_cast<const float*>(alpha);
   const float* zp = static_cast<const float*>(z);
   float* yp = static_cast<float*>(y);
-  if (B <= GB) {
-    switch (q) {
+  switch (q) {
 #define GEMV_CASE(QQ) \
   case QQ: launch_gemv<T, QQ>(xp, pp, ap, zp, yp, B, M, N, NB, G, gs, s); break;
-      GEMV_CASE(1) GEMV_CASE(2) GEMV_CASE(3) GEMV_CASE(4)
-      GEMV_CASE(5) GEMV_CASE(6) GEMV_CASE(7) GEMV_CASE(8)
+    GEMV_CASE(1) GEMV_CASE(2) GEMV_CASE(3) GEMV_CASE(4)
+    GEMV_CASE(5) GEMV_CASE(6) GEMV_CASE(7) GEMV_CASE(8)
 #undef GEMV_CASE
-    }
-  } else {
-    dim3 grid(ceil_div(M, BM), ceil_div(B, 32));
-    bcq_matmul_kernel<T, 32, 16><<<grid, NT, 0, s>>>(xp, pp, ap, zp, yp, B,
-                                                     M, N, NB, G, q, gs);
   }
+}
+
+template <typename T>
+void launch_fma_t(const void* x, const void* packed, const void* alpha,
+                  const void* z, void* y, int B, int M, int N, int NB, int G,
+                  int q, int gs, cudaStream_t s) {
+  dim3 grid(ceil_div(M, BM), ceil_div(B, 32));
+  bcq_matmul_kernel<T, 32, 16><<<grid, NT, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(alpha), static_cast<const float*>(z),
+      static_cast<float*>(y), B, M, N, NB, G, q, gs);
 }
 
 }  // namespace
 
+// route: 0 fma, 1 gemv, 2 mma (see the note at the top); part: scratch
+// f32 [splits, B, M] for route 2 when splits > 1
 extern "C" int launch_bcq_matmul(const void* x, const void* packed,
                                  const void* alpha, const void* z, void* y,
-                                 int B, int M, int N, int NB, int G, int q,
-                                 int gs, int x_is_bf16, void* stream) {
+                                 void* part, int B, int M, int N, int NB,
+                                 int G, int q, int gs, int x_is_bf16,
+                                 int route, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q < 1 || q > 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (x_is_bf16)
-    launch_t<__nv_bfloat16>(x, packed, alpha, z, y, B, M, N, NB, G, q, gs, s);
-  else
-    launch_t<float>(x, packed, alpha, z, y, B, M, N, NB, G, q, gs, s);
-  return static_cast<int>(cudaGetLastError());
+  if (q < 1 || q > 8 || gs % 8 || G * gs != NB * 8 || N > NB * 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (route) {
+    case 0:
+      if (x_is_bf16)
+        launch_fma_t<__nv_bfloat16>(x, packed, alpha, z, y, B, M, N, NB, G, q,
+                                    gs, s);
+      else
+        launch_fma_t<float>(x, packed, alpha, z, y, B, M, N, NB, G, q, gs, s);
+      return static_cast<int>(cudaGetLastError());
+    case 1:
+      if (B > GB) return static_cast<int>(cudaErrorInvalidValue);
+      if (x_is_bf16)
+        launch_gemv_t<__nv_bfloat16>(x, packed, alpha, z, y, B, M, N, NB, G,
+                                     q, gs, s);
+      else
+        launch_gemv_t<float>(x, packed, alpha, z, y, B, M, N, NB, G, q, gs,
+                             s);
+      return static_cast<int>(cudaGetLastError());
+    case 2:
+      if (!x_is_bf16 || B <= GB)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_bcq_mma(
+          x, packed, alpha, z, static_cast<float*>(y),
+          static_cast<float*>(part), B, M, N, NB, G, q, gs, splits, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

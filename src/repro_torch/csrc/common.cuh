@@ -43,3 +43,53 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
 }
 
 static inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// eight activations x[off .. off + 8) as f32 (columns col .. col + 8 of a
+// row of N); 16-byte loads when ``vec`` (aligned rows) and the eight lie
+// inside the row, else element loads with columns >= N read as 0
+template <typename T>
+__device__ __forceinline__ void load_x8(const T* __restrict__ x, size_t off,
+                                        int col, int N, bool vec,
+                                        float (&v)[8]) {
+  if (vec && col + 8 <= N) {
+    if constexpr (sizeof(T) == 2) {
+      const uint4 u = *reinterpret_cast<const uint4*>(x + off);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(x + off);
+      const float4 b = *reinterpret_cast<const float4*>(x + off + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = (col + e < N) ? to_f32(x[off + e]) : 0.f;
+  }
+}
+
+namespace {
+
+// y = sum over the splits of the partial sums part[S][n], in split order,
+// so a split reduction axis gives the same result however blocks ran
+__global__ void sum_splits_kernel(const float* __restrict__ part,
+                                  float* __restrict__ y, int S, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += part[(size_t)k * n + i];
+  y[i] = s;
+}
+
+inline cudaError_t launch_sum_splits(const float* part, float* y, int S,
+                                     size_t n, cudaStream_t s) {
+  sum_splits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      part, y, S, n);
+  return cudaGetLastError();
+}
+
+}  // namespace

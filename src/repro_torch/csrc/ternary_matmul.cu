@@ -176,16 +176,6 @@ __global__ void __launch_bounds__(NT) ternary_matmul_kernel(
   }
 }
 
-// y = sum over the splits of the partial sums, in split order
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ y, int S, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < S; ++k) s += part[(size_t)k * n + i];
-  y[i] = s;
-}
-
 template <typename T>
 cudaError_t launch_t(const void* x, const void* packed, const void* alpha,
                      void* y, void* part, int B, int M, int N, int NB, int G,
@@ -199,10 +189,8 @@ cudaError_t launch_t(const void* x, const void* packed, const void* alpha,
       static_cast<const float*>(alpha), out, B, M, N, NB, G, gs, per);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  const size_t n = (size_t)B * M;
-  sum_splits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(y), splits, n);
-  return cudaGetLastError();
+  return launch_sum_splits(static_cast<const float*>(part),
+                           static_cast<float*>(y), splits, (size_t)B * M, s);
 }
 
 }  // namespace

@@ -11,11 +11,15 @@ The library lands in ``build/repro_torch/`` at the root of the checkout
 and flags, so a rebuilt source never loads a stale library.
 
 ``launch_counts`` holds one integer per kernel; a wrapper adds one at
-the point where it launches its kernel and nowhere else.
+the point where it launches its kernel and nowhere else.  A kernel with
+several bodies (``bcq_matmul``, ``lut_gemm``) also adds one to
+``route_counts["<kernel>/<route>"]`` for the body it launched, so a run
+can show which body ran.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +36,7 @@ KERNELS = ("bcq_matmul", "lut_gemm", "paged_decode", "paged_prefill",
            "ternary_matmul", "paged_decode_int8", "paged_prefill_int8",
            "paged_decode_mla")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
+route_counts: Dict[str, int] = {}
 
 _LIB: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -40,12 +45,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, packed, alpha, z, y, B, M, N, NB, G, q, group_size, x_is_bf16, stream
-    "launch_bcq_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P],
-    # ... + mu, half_lut, chunk
-    "launch_lut_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _P],
+    # x, packed, alpha, z, y, part, B, M, N, NB, G, q, group_size,
+    # x_is_bf16, route, splits, stream
+    "launch_bcq_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P],
+    # x, packed, alpha, z, y, part, B, M, N, NB, G, q, group_size,
+    # x_is_bf16, mu, half_lut, chunk, route, splits, stream
+    "launch_lut_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, pos, tables, positions, out, B, C, Hkv, rep, D, BS, pages,
     # kv_is_bf16, stream
     "launch_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -75,10 +82,14 @@ _SIGNATURES = {
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    route_counts.clear()
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, route: Optional[str] = None) -> None:
     launch_counts[kernel] += 1
+    if route is not None:
+        key = f"{kernel}/{route}"
+        route_counts[key] = route_counts.get(key, 0) + 1
 
 
 def build_dir() -> Path:
@@ -169,6 +180,24 @@ def check(rc: int, kernel: str) -> None:
     """Raise on the ``cudaGetLastError()`` code a launcher returned."""
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+def split_count(units: int, tiles: int, sms: int, per_sm: int) -> int:
+    """How many blocks share one output tile's ``units`` steps of the
+    reduction axis (chunks or alpha groups): enough for about ``per_sm``
+    blocks per SM over ``tiles`` output tiles, never more than there are
+    units, and every split a whole number of units (the split launches
+    take ``ceil(units / splits)`` units each)."""
+    want = max(1, min(units, -(-per_sm * sms // tiles)))
+    per = -(-units // want)
+    return -(-units // per)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -1,5 +1,7 @@
-"""Dequant-then-FMA packed-weight GEMM (CUDA) and its plain version."""
-from .ops import bcq_matmul
-from .ref import bcq_matmul_ref
+"""Packed-weight GEMM (CUDA: GEMV, tensor-core tile, CUDA-core tile) and
+its plain versions."""
+from .ops import bcq_matmul, route_for
+from .ref import bcq_matmul_ref, bcq_planes_ref, plane_group_sums
 
-__all__ = ["bcq_matmul", "bcq_matmul_ref"]
+__all__ = ["bcq_matmul", "route_for", "bcq_matmul_ref", "bcq_planes_ref",
+           "plane_group_sums"]

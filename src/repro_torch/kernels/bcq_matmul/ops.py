@@ -2,9 +2,23 @@
 
 On a CPU tensor it runs the plain version (``ref.bcq_matmul_ref``),
 because CUDA has no interpret mode; on a CUDA tensor it launches the
-kernel or raises — it never falls back.  Launch geometry is fixed in
-the kernel (64 weight rows per block, 8 or 32 batch rows), and ragged
-edges are masked in-kernel, so no operand is padded per call.
+kernel or raises — it never falls back.  Ragged edges are masked
+in-kernel, so no operand is padded per call.
+
+The kernel has three bodies, and :func:`route_for` picks one by a fixed
+rule of the call's shape and type (never by trying one and switching
+when it fails):
+
+  * ``gemv`` — at most 8 rows (decode): the weight-streaming GEMV;
+  * ``mma``  — more than 8 rows of bf16 activations, a group size that is
+    a multiple of 16 (at most 256) and an input width that is a multiple
+    of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, one bf16 product
+    per bit plane and alpha group (prefill);
+  * ``fma``  — any other call above 8 rows (f32 activations, such as
+    MiniCPM3's f32 view, or group size 8 mod 16): the CUDA-core tile.
+
+The launch counter keeps the kernel's name; ``_lib.route_counts``
+counts each body under ``"bcq_matmul/<route>"``.
 """
 from __future__ import annotations
 
@@ -15,6 +29,43 @@ from repro_torch.kernels import _lib
 from . import ref as _ref
 
 _X_DTYPES = (torch.bfloat16, torch.float32)
+
+ROUTES = ("fma", "gemv", "mma")   # index = the launcher's route code
+DECODE_ROWS = 8                   # most rows the GEMV takes
+MMA_ROWS, MMA_BATCH = 128, 64     # the mma tile's block (csrc/bcq_mma.cuh)
+MMA_MAX_GROUP = 256
+
+
+def mma_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
+    """The tensor-core tile's rule, shared with lut_gemm: more than 8
+    rows of bf16 activations, 16 | group size <= 256, 8 | in_features
+    (16-byte activation rows)."""
+    return (rows > DECODE_ROWS and dtype == torch.bfloat16
+            and group_size % 16 == 0 and group_size <= MMA_MAX_GROUP
+            and in_features % 8 == 0)
+
+
+def route_for(rows: int, dtype, group_size: int, in_features: int) -> str:
+    """The body a call of ``rows`` activation rows of ``dtype`` runs."""
+    if rows <= DECODE_ROWS:
+        return "gemv"
+    if mma_takes(rows, dtype, group_size, in_features):
+        return "mma"
+    return "fma"
+
+
+def mma_splits(rows: int, m: int, n_groups: int, sms: int) -> int:
+    """How many blocks share one (row, batch) tile's alpha groups on the
+    mma route: none while the tiles fill every SM, else enough for about
+    two blocks per SM, never more than there are groups."""
+    tiles = -(-m // MMA_ROWS) * -(-rows // MMA_BATCH)
+    return 1 if tiles >= sms else _lib.split_count(n_groups, tiles, sms, 2)
+
+
+def aligned_rows(x2: torch.Tensor) -> torch.Tensor:
+    """x2 itself, or a copy when its base is not 16-byte aligned (the
+    mma tile stages activation rows with 16-byte copies)."""
+    return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
 
 
 def check_operands(x2: torch.Tensor, w: PlaneBundle, name: str) -> None:
@@ -62,11 +113,22 @@ def bcq_matmul(x: torch.Tensor, w: PlaneBundle, *,
     b = x2.shape[0]
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
+        route = route_for(b, x2.dtype, w.group_size, w.in_features)
+        splits, part = 1, None
+        if route == "mma":
+            x2 = aligned_rows(x2)
+            splits = mma_splits(b, m, w.n_groups,
+                                _lib.sm_count(x.device.index or 0))
+            if splits > 1:
+                part = torch.empty((splits, b, m), dtype=torch.float32,
+                                   device=x.device)
         rc = _lib.lib().launch_bcq_matmul(
             x2.data_ptr(), w.packed.data_ptr(), w.alpha.data_ptr(),
             w.z.data_ptr() if w.z is not None else None, y.data_ptr(),
+            part.data_ptr() if part is not None else None,
             b, m, w.in_features, nb, w.n_groups, q, w.group_size,
-            int(x2.dtype == torch.bfloat16), _lib.stream_ptr(x.device))
+            int(x2.dtype == torch.bfloat16), ROUTES.index(route), splits,
+            _lib.stream_ptr(x.device))
         _lib.check(rc, "bcq_matmul")
-        _lib.count_launch("bcq_matmul")
+        _lib.count_launch("bcq_matmul", route)
     return y.reshape(*lead, m).to(out_dtype)

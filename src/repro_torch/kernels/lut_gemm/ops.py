@@ -5,6 +5,23 @@ table-build + keyed-read algorithm); on a CUDA tensor it launches the
 kernel or raises.  ``read_mode`` is accepted for parity with the
 reference wrapper: it names TPU lowerings of the keyed read and does
 not change the math (a keyed shared-memory read is the RAC on the card).
+
+The kernel has three bodies, and :func:`route_for` picks one by a fixed
+rule (never by trying one and switching when it fails):
+
+  * ``lut``      — at most 8 rows with mu 4 and the half table (the
+    serve path's decode): the shared-memory LUT body, 512-column table
+    builds, the reduction axis split over blocks where the row tiles
+    alone would leave SMs idle;
+  * ``mma``      — more than 8 rows of bf16 activations under
+    ``bcq_matmul``'s tensor-core rule (``mma_takes``): the keyed read
+    re-associated into one bf16 product per bit plane and alpha group
+    (``csrc/bcq_mma.cu``), the same tile as bcq_matmul's prefill;
+  * ``lut_tile`` — everything else (f32 activations above 8 rows, mu 2,
+    the full table): the 128-column LUT tile.
+
+The launch counter keeps the kernel's name; ``_lib.route_counts``
+counts each body under ``"lut_gemm/<route>"``.
 """
 from __future__ import annotations
 
@@ -14,7 +31,9 @@ import torch
 
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
-from repro_torch.kernels.bcq_matmul.ops import check_operands
+from repro_torch.kernels.bcq_matmul.ops import (DECODE_ROWS, aligned_rows,
+                                               check_operands, mma_splits,
+                                               mma_takes)
 from repro_torch.kernels.lut_common import READ_MODES
 from . import ref as _ref
 
@@ -26,6 +45,28 @@ def chunk_for(group_size: int, limit: int = 128) -> int:
         if group_size % c == 0 and c % 8 == 0:
             return c
     raise ValueError(f"group_size {group_size} has no byte-aligned chunk")
+
+
+ROUTES = ("lut_tile", "lut", "mma")   # index = the launcher's route code
+DECODE_CHUNK, DECODE_ROWS_PER_BLOCK = 512, 64   # csrc/lut_gemm.cu: DKC, DM
+
+
+def route_for(rows: int, dtype, group_size: int, in_features: int,
+              mu: int = 4, half_lut: bool = True) -> str:
+    """The body a call of ``rows`` activation rows of ``dtype`` runs."""
+    if rows <= DECODE_ROWS:
+        return "lut" if mu == 4 and half_lut else "lut_tile"
+    if mma_takes(rows, dtype, group_size, in_features):
+        return "mma"
+    return "lut_tile"
+
+
+def decode_splits(m: int, nb: int, sms: int) -> int:
+    """How many blocks share one row tile's 512-column chunks on the
+    ``lut`` route: enough for about four blocks per SM, never more than
+    there are chunks."""
+    return _lib.split_count(-(-nb * 8 // DECODE_CHUNK),
+                            -(-m // DECODE_ROWS_PER_BLOCK), sms, 4)
 
 
 def lut_gemm(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
@@ -54,12 +95,26 @@ def lut_gemm(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
     b = x2.shape[0]
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
+        route = route_for(b, x2.dtype, w.group_size, w.in_features, mu,
+                          half_lut)
+        sms = _lib.sm_count(x.device.index or 0)
+        splits, part = 1, None
+        if route == "mma":
+            x2 = aligned_rows(x2)
+            splits = mma_splits(b, m, w.n_groups, sms)
+        elif route == "lut":
+            splits = decode_splits(m, nb, sms)
+        if splits > 1:
+            part = torch.empty((splits, b, m), dtype=torch.float32,
+                               device=x.device)
         rc = _lib.lib().launch_lut_gemm(
             x2.data_ptr(), w.packed.data_ptr(), w.alpha.data_ptr(),
             w.z.data_ptr() if w.z is not None else None, y.data_ptr(),
+            part.data_ptr() if part is not None else None,
             b, m, w.in_features, nb, w.n_groups, q, w.group_size,
             int(x2.dtype == torch.bfloat16), mu, int(half_lut),
-            chunk_for(w.group_size), _lib.stream_ptr(x.device))
+            chunk_for(w.group_size), ROUTES.index(route), splits,
+            _lib.stream_ptr(x.device))
         _lib.check(rc, "lut_gemm")
-        _lib.count_launch("lut_gemm")
+        _lib.count_launch("lut_gemm", route)
     return y.reshape(*lead, m).to(out_dtype)

@@ -14,7 +14,6 @@ the result does not depend on scheduling.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -29,19 +28,11 @@ ROWS, BATCH = 32, 8  # weight rows and batch rows per block (TM, TB)
 _X_DTYPES = (torch.bfloat16, torch.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def splits_for(b: int, m: int, nb: int, sms: int) -> int:
     """How many blocks share one (row, batch) tile's chunks: enough for
     about four blocks per SM, never more than there are chunks."""
-    nchunks = -(-nb * 8 // CHUNK)
-    tiles = -(-m // ROWS) * -(-b // BATCH)
-    want = max(1, min(nchunks, -(-4 * sms // tiles)))
-    per = -(-nchunks // want)
-    return -(-nchunks // per)
+    return _lib.split_count(-(-nb * 8 // CHUNK),
+                            -(-m // ROWS) * -(-b // BATCH), sms, 4)
 
 
 def _check_operands(x2: torch.Tensor, w: PlaneBundle) -> None:
@@ -98,7 +89,7 @@ def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
     b = x2.shape[0]
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
-        splits = splits_for(b, m, nb, _sm_count(x.device.index or 0))
+        splits = splits_for(b, m, nb, _lib.sm_count(x.device.index or 0))
         part = torch.empty((splits, b, m), dtype=torch.float32,
                            device=x.device) if splits > 1 else y
         rc = _lib.lib().launch_ternary_matmul(

@@ -1,0 +1,169 @@
+"""Port parity: the arithmetic of the tensor-core BCQ tile.
+
+``csrc/bcq_mma.cu`` (the ``mma`` route of ``bcq_matmul`` and
+``lut_gemm``) re-associates the reference's one-hot LUT read:
+``(x_g . S^T) . onehot(key)^T = x_g . (S^T . onehot(key)^T)``, and
+``S^T . onehot(key)`` is the key's +-1 bit column, so the table read
+becomes one product per bit plane and alpha group.  Its plain version,
+``bcq_planes_ref`` (sums per plane and group in f32, scaled by alpha,
+then z times the group's sum of x), is held here
+
+  (a) against the reference kernels ``lut_gemm`` (mu 2 and 4, half and
+      full table) and ``bcq_matmul``, run in Pallas interpret mode, within
+      1e-3 of the output scale (the reference's GEMM gate), on x rounded
+      to bf16 values first (the tile's operand type);
+  (b) exactly, on integer activations and power-of-two scales: the
+      reference's ``lut_common.build_lut`` + ``read_lut(mode="onehot")``
+      equals the plane products bit for bit, and so does the whole
+      reference kernel;
+  (c) the wrappers' route rules at their edges (rows 8 / 9, f32 / bf16,
+      group size 8 / 16 / 128).
+
+The CUDA tile itself is held against the plain versions on the card by
+``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bcq as jbcq
+from repro.core.plane import PlaneBundle as JPlaneBundle
+from repro.kernels import lut_common as jlc
+from repro.kernels.bcq_matmul import ops as j_mxu
+from repro.kernels.lut_gemm import ops as j_lut
+from repro_torch.kernels.bcq_matmul import (bcq_planes_ref,
+                                            plane_group_sums)
+from repro_torch.kernels.bcq_matmul import route_for as bcq_route
+from repro_torch.kernels.bcq_matmul.ops import mma_splits
+from repro_torch.kernels.lut_gemm import route_for as lut_route
+from repro_torch.kernels.lut_gemm.ops import decode_splits
+
+from torch_port_cases import torch_bundle
+
+GEMM_TOL = 1e-3
+
+# (out, in, rows, group size): ragged M and rows, a padded input width
+# (200 at g 64), group sizes 16 / 64 / 128
+SHAPES = [(33, 256, 9, 64), (96, 384, 1, 128), (64, 200, 40, 64),
+          (20, 192, 3, 16)]
+
+
+def _bf16_values(a):
+    """f32 array holding the bf16-rounded values of ``a``."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _case(m, n, b, g, bits=3, seed=0):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    x = _bf16_values(rng.normal(size=(b, n)).astype(np.float32))
+    wj = jbcq.from_uniform(jnp.asarray(w), bits=bits, group_size=g)
+    return x, wj, torch_bundle(wj)
+
+
+def _close(got, want, tol):
+    scale = float(np.abs(want).max()) + 1e-6
+    np.testing.assert_allclose(got / scale, want / scale, atol=tol)
+
+
+@pytest.mark.parametrize("m,n,b,g", SHAPES)
+@pytest.mark.parametrize("mu,half", [(4, True), (4, False), (2, True),
+                                     (2, False)])
+def test_planes_ref_matches_reference_lut_gemm(m, n, b, g, mu, half):
+    x, wj, wt = _case(m, n, b, g, seed=m + n + mu)
+    want = np.asarray(j_lut.lut_gemm(jnp.asarray(x), wj, mu=mu,
+                                     half_lut=half, interpret=True))
+    got = bcq_planes_ref(torch.from_numpy(x), wt, torch.float32).numpy()
+    assert got.shape == want.shape == (b, m)
+    _close(got, want, GEMM_TOL)
+
+
+@pytest.mark.parametrize("m,n,b,g", SHAPES)
+@pytest.mark.parametrize("bits", [1, 3])
+def test_planes_ref_matches_reference_bcq_matmul(m, n, b, g, bits):
+    x, wj, wt = _case(m, n, b, g, bits=bits, seed=2 * m + n)
+    want = np.asarray(j_mxu.bcq_matmul(jnp.asarray(x), wj, interpret=True))
+    got = bcq_planes_ref(torch.from_numpy(x), wt, torch.float32).numpy()
+    assert got.shape == want.shape == (b, m)
+    _close(got, want, GEMM_TOL)
+
+
+def _exact_case(m, n, b, g, q, seed):
+    """Random planes, power-of-two alphas, quarter-integer offsets and
+    integer activations: every partial sum is an exact f32."""
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 256, (q, m, n // 8)).astype(np.uint8)
+    alpha = (2.0 ** rng.integers(-3, 2, (q, m, n // g))).astype(np.float32)
+    z = (0.25 * rng.integers(-4, 5, (m, n // g))).astype(np.float32)
+    x = rng.integers(-8, 9, (b, n)).astype(np.float32)
+    wj = JPlaneBundle(packed=jnp.asarray(packed), alpha=jnp.asarray(alpha),
+                      z=jnp.asarray(z), group_size=g, in_features=n,
+                      out_features=m)
+    return x, wj, torch_bundle(wj)
+
+
+@pytest.mark.parametrize("mu,half", [(4, True), (4, False), (2, True),
+                                     (2, False)])
+@pytest.mark.parametrize("q", [1, 3])
+def test_onehot_read_is_the_plane_product(mu, half, q):
+    """The re-association, pinned: per plane and alpha group, the
+    reference's one-hot table read summed over the group equals
+    sum_k x[b,k] (2 bit[m,k] - 1) exactly."""
+    m, n, b, g = 24, 128, 5, 32
+    x, wj, wt = _exact_case(m, n, b, g, q, seed=10 * mu + q)
+    sums = plane_group_sums(torch.from_numpy(x), wt).numpy()   # [b,q,m,G]
+    table = jlc.build_lut(jnp.asarray(x), mu, half)
+    for i in range(q):
+        keys = jlc.extract_keys(jnp.asarray(wj.packed[i]), mu)
+        vals = np.asarray(jlc.read_lut(table, keys, mu, half, "onehot"))
+        per_group = vals.reshape(b, m, n // g, g // mu).sum(-1)
+        np.testing.assert_array_equal(per_group, sums[:, i])
+
+
+@pytest.mark.parametrize("mu,half", [(4, True), (2, False)])
+def test_planes_ref_equals_reference_kernel_on_exact_inputs(mu, half):
+    x, wj, wt = _exact_case(40, 256, 9, 64, 3, seed=mu)
+    want = np.asarray(j_lut.lut_gemm(jnp.asarray(x), wj, mu=mu,
+                                     half_lut=half, interpret=True))
+    got = bcq_planes_ref(torch.from_numpy(x), wt, torch.float32).numpy()
+    np.testing.assert_array_equal(got, want)
+    want = np.asarray(j_mxu.bcq_matmul(jnp.asarray(x), wj, interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("rows,dtype,gs,n,want", [
+    (8, BF16, 128, 4096, "gemv"), (9, BF16, 128, 4096, "mma"),
+    (1, F32, 128, 4096, "gemv"), (9, F32, 128, 4096, "fma"),
+    (512, BF16, 16, 4096, "mma"), (512, BF16, 8, 136, "fma"),
+    (512, BF16, 128, 4100, "fma"), (512, BF16, 512, 4096, "fma"),
+])
+def test_bcq_matmul_route_edges(rows, dtype, gs, n, want):
+    assert bcq_route(rows, dtype, gs, n) == want
+
+
+@pytest.mark.parametrize("rows,dtype,gs,mu,half,want", [
+    (8, BF16, 128, 4, True, "lut"), (9, BF16, 128, 4, True, "mma"),
+    (8, F32, 8, 4, True, "lut"), (9, F32, 128, 4, True, "lut_tile"),
+    (1, BF16, 128, 2, True, "lut_tile"), (8, BF16, 128, 4, False,
+                                          "lut_tile"),
+    (9, BF16, 16, 2, False, "mma"), (32, BF16, 8, 4, True, "lut_tile"),
+])
+def test_lut_gemm_route_edges(rows, dtype, gs, mu, half, want):
+    assert lut_route(rows, dtype, gs, 4096, mu, half) == want
+
+
+def test_split_counts():
+    """The reduction-axis splits: none while the row tiles fill the card
+    (132 SMs), a whole number of groups or chunks per split otherwise."""
+    assert mma_splits(512, 16384, 32, 132) == 1
+    assert mma_splits(512, 4096, 32, 132) == 1
+    s = mma_splits(32, 4096, 32, 132)
+    assert 1 < s <= 32 and -(-32 // -(-32 // s)) == s
+    assert mma_splits(9, 64, 1, 132) == 1
+    assert decode_splits(65536, 512, 132) == 1
+    s = decode_splits(4096, 2048, 132)
+    assert 1 < s <= 32 and -(-32 // -(-32 // s)) == s

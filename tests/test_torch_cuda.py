@@ -82,6 +82,124 @@ def test_cuda_gemms_match_plain(m, n, b):
         assert _lib.launch_counts["lut_gemm"] == 5
 
 
+def _routes_run(fn):
+    """The routes ``fn`` launched, as {"<kernel>/<route>": count}."""
+    _lib.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_lib.route_counts)
+
+
+# lut_gemm's table variants: the serve path's (mu 4, half) and two that
+# take the lut_tile body at decode rows
+LUT_VARIANTS = ((4, True), (4, False), (2, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+@pytest.mark.parametrize("gs", [16, 64, 128])
+@pytest.mark.parametrize("rows", [1, 8, 9, 32, 128, 512])
+def test_cuda_gemm_routes_match_plain(rows, gs, q):
+    """Every body of bcq_matmul and lut_gemm against the plain version,
+    1e-3 of the output scale: decode rows (gemv / lut), prefill rows in
+    bf16 (the tensor-core tile) and f32 (the CUDA-core tiles); ragged M
+    (33, 288), ragged batch rows (9), an input width that is not a whole
+    number of groups (376 at gs 128: padded planes).  The route counters
+    show which body ran."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul import route_for as bcq_route
+    from repro_torch.kernels.lut_gemm import route_for as lut_route
+    rng = np.random.default_rng(rows * 100 + gs + q)
+    m = 288 if q % 2 else 33
+    n = 376 if gs == 128 and q > 2 else 384
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    wt = bcq.from_uniform(w.to("cuda"), bits=q, group_size=gs)
+    x = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = x.to("cuda", dtype)
+        want = bcq_matmul_ref(xt, wt, torch.float32)
+        got, routes = _routes_run(
+            lambda: bcq_matmul(xt, wt, out_dtype=torch.float32))
+        _close(got, want, GEMM_TOL)
+        route = bcq_route(rows, dtype, gs, n)
+        assert routes == {f"bcq_matmul/{route}": 1}
+        assert route == ("gemv" if rows <= 8 else
+                         "mma" if dtype == torch.bfloat16 else "fma")
+        for mu, half in LUT_VARIANTS:
+            got, routes = _routes_run(lambda: lut_gemm(
+                xt, wt, mu=mu, half_lut=half, out_dtype=torch.float32))
+            _close(got, want, GEMM_TOL)
+            route = lut_route(rows, dtype, gs, n, mu, half)
+            assert routes == {f"lut_gemm/{route}": 1}
+            if rows > 8 and dtype == torch.bfloat16:
+                assert route == "mma"
+            elif rows <= 8 and (mu, half) == (4, True):
+                assert route == "lut"
+            else:
+                assert route == "lut_tile"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 32, 512])
+def test_cuda_gemm_routes_exact(rows):
+    """Integer activations, power-of-two alphas and offsets: every partial
+    sum is exact in f32, so every body equals the plain version bit for
+    bit."""
+    require_cuda()
+    from repro_torch.core.plane import PlaneBundle
+    rng = np.random.default_rng(rows)
+    m, n, gs, q = 160, 512, 128, 3
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    wt = PlaneBundle(
+        packed=dev(rng.integers(0, 256, (q, m, n // 8)).astype(np.uint8)),
+        alpha=dev((2.0 ** rng.integers(-3, 2, (q, m, n // gs))
+                   ).astype(np.float32)),
+        z=dev((0.25 * rng.integers(-4, 5, (m, n // gs))).astype(np.float32)),
+        group_size=gs, in_features=n, out_features=m)
+    x = dev(rng.integers(-8, 9, (rows, n)).astype(np.float32))
+    want = bcq_matmul_ref(x, wt, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = x.to(dtype)
+        assert torch.equal(bcq_matmul(xt, wt, out_dtype=torch.float32), want)
+        for mu, half in LUT_VARIANTS:
+            assert torch.equal(lut_gemm(xt, wt, mu=mu, half_lut=half,
+                                        out_dtype=torch.float32), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 32, 128])
+def test_cuda_gemm_split_path(rows):
+    """A narrow, long weight (64 x 16384): the row tiles alone fill few
+    SMs, so the reduction axis is split over blocks (the lut body's 512-
+    column chunks at decode rows, the mma tile's alpha groups at prefill
+    rows) and a fixed-order pass adds the partials."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul.ops import mma_splits
+    from repro_torch.kernels.lut_gemm.ops import decode_splits
+    rng = np.random.default_rng(rows + 7)
+    m, n = 64, 16384
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    wt = bcq.from_uniform(w.to("cuda"), bits=3, group_size=128)
+    sms = _lib.sm_count(0)
+    splits = (decode_splits(m, n // 8, sms) if rows <= 8
+              else mma_splits(rows, m, n // 128, sms))
+    assert splits > 1
+    xt = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    want = bcq_matmul_ref(xt, wt, torch.float32)
+    got, routes = _routes_run(lambda: lut_gemm(xt, wt,
+                                               out_dtype=torch.float32))
+    _close(got, want, GEMM_TOL)
+    assert routes == {"lut_gemm/" + ("lut" if rows <= 8 else "mma"): 1}
+    if rows > 8:
+        got, routes = _routes_run(lambda: bcq_matmul(
+            xt, wt, out_dtype=torch.float32))
+        _close(got, want, GEMM_TOL)
+        assert routes == {"bcq_matmul/mma": 1}
+    again = lut_gemm(xt, wt, out_dtype=torch.float32)
+    assert torch.equal(again, lut_gemm(xt, wt, out_dtype=torch.float32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
 def test_cuda_paged_match_plain(h, hkv):
