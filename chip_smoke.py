@@ -15,10 +15,12 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      each case logged with the body its wrapper routed it to), with its
      time, the plain version's time, one PyTorch library call's time and
      the card's least possible time for the same work (bytes or
-     operations); ternary_matmul also to 0 error on exact inputs, the
-     int8 paged kernels also to 1e-4 in f32 with power-of-two scales;
-     the chunked-prefill kernels (tensor cores in bf16) also with 8 kv
-     heads (GQA) at C 512 and on a ragged B 3, C 200 chunk;
+     operations); ternary_matmul also to 0 error on exact inputs, on
+     both its bodies, the int8 paged kernels also to 1e-4 in f32 with
+     power-of-two scales; the chunked-prefill kernels (tensor cores in
+     bf16) also with 8 kv heads (GQA) at C 512 and on a ragged B 3,
+     C 200 chunk; the split-table decode kernels (float and int8) also
+     with 8 kv heads (GQA) and with every row near max_seq_len 512;
   4. serve (random weights from ``--seed``, paged engine, fused paged
      attention), four runs: full-width OPT-6.7B BCQ-quantized on the card
      at 3 bits, g = 128, with ``--backend auto`` (bcq_matmul) and
@@ -33,7 +35,9 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      launches) beside its TTFT, and the GEMM bodies its decode steps and
      prefill chunks launched: no decode step may run the tensor-core
      tile, and every prefill chunk must run its linears on it (all but
-     the head's one row per request).
+     the head's one row per request).  The MiniCPM3 run also reports,
+     by depth, the plain bf16 path against the plain f32 path (how much
+     of its bf16 logit error is bf16 rounding alone).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -54,7 +58,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 F32_LOGIT_TOL = 1e-3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 # the kernels with several bodies, chosen by their wrappers' route_for
-ROUTED = ("bcq_matmul", "lut_gemm")
+ROUTED = ("bcq_matmul", "lut_gemm", "ternary_matmul")
 
 
 def fail(msg: str) -> None:
@@ -210,24 +214,26 @@ def routed(torch, name, fn):
 
 
 def pool_case(torch, gen, seed, *, b, h, d, nb, bs, pages, dtype,
-              prefill_c=0, hkv=None):
+              prefill_c=0, hkv=None, long=False):
     """Scrambled paged problem: random live lengths, -1 table pads, a
     recycled block with stale positions, an idle row (decode) or pad
-    query rows (prefill); ``hkv`` kv heads (default ``h``)."""
+    query rows (prefill); ``hkv`` kv heads (default ``h``); ``long``:
+    every decode row live to within a block of the table's end."""
     import numpy as np
     rng = np.random.default_rng(seed)
     hkv = hkv or h
     k = torch.randn((nb, bs, hkv, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((nb, bs, hkv, d), generator=gen, device="cuda").to(dtype)
     pos, tables, positions = paged_tables(torch, rng, b=b, nb=nb, bs=bs,
-                                          pages=pages, prefill_c=prefill_c)
+                                          pages=pages, prefill_c=prefill_c,
+                                          long=long)
     q_shape = (b, prefill_c, h, d) if prefill_c else (b, h, d)
     q = torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
     return q, k, v, pos, tables, positions
 
 
 def paged_tables(torch, rng, *, b, nb, bs, pages, prefill_c=0,
-                 idle_row=True):
+                 idle_row=True, long=False):
     """(pos pool, tables, positions) on the card for a scrambled paged
     problem drawn from numpy ``rng`` (see ``pool_case``)."""
     import numpy as np
@@ -246,6 +252,9 @@ def paged_tables(torch, rng, *, b, nb, bs, pages, prefill_c=0,
                                 else 0)
             live = ctx + real
             positions[row, :real] = ctx + np.arange(real)
+        elif long:
+            live = cap - int(rng.integers(0, bs))
+            positions[row] = live - 1
         else:
             if row == 0 and idle_row:
                 continue                    # idle decode row
@@ -280,6 +289,17 @@ def _visited(tables, positions, bs):
     return n
 
 
+def paged_cases(decode, prefill, h):
+    """(kernel, B, C, kv heads, long tables) of the paged phase-3 checks:
+    decode at the serve batch (MHA, GQA rep 4, every row near
+    max_seq_len), prefill at C 128, C 512 (MHA and GQA) and a ragged
+    B 3, C 200."""
+    return [(decode, 8, 0, h, False), (decode, 8, 0, 8, False),
+            (decode, 8, 0, h, True), (prefill, 2, 128, h, False),
+            (prefill, 1, 512, h, False), (prefill, 1, 512, 8, False),
+            (prefill, 3, 200, h, False)]
+
+
 def check_paged(torch, timer, gen, results, args_seed):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (gather_view,
@@ -287,21 +307,22 @@ def check_paged(torch, timer, gen, results, args_seed):
                                                      paged_decode_ref,
                                                      paged_prefill,
                                                      paged_prefill_ref)
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.paged_attention.ops import decode_splits
     h, d, bs, pages, nb = 32, 128, 16, 32, 257
     out = {"paged_decode": [], "paged_prefill": []}
-    # (kernel, B, C, kv heads): decode at the serve batch; prefill at
+    # (kernel, B, C, kv heads, long tables): decode at the serve batch,
+    # then GQA (rep 4) and every row near max_seq_len 512; prefill at
     # C 128 and at OPT's C 512 chunk, then GQA (rep 4) at C 512 and a
     # ragged B 3, C 200 whose last row ends in pads
-    cases = [("paged_decode", 8, 0, h), ("paged_prefill", 2, 128, h),
-             ("paged_prefill", 1, 512, h), ("paged_prefill", 1, 512, 8),
-             ("paged_prefill", 3, 200, h)]
-    for name, b, c, hkv in cases:
+    for name, b, c, hkv, long in paged_cases("paged_decode",
+                                             "paged_prefill", h):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             # the MHA cases keep their earlier seeds
-            seed = args_seed + b + c + (hkv if hkv != h else 0)
+            seed = args_seed + b + c + (hkv if hkv != h else 0) + 1000 * long
             q, k, v, pos, tables, positions = pool_case(
-                torch, gen, seed, b=b, h=h, d=d, nb=nb, bs=bs, pages=pages,
-                dtype=dtype, prefill_c=c, hkv=hkv)
+                torch, gen, seed, b=b, h=h, d=d, nb=nb + long, bs=bs,
+                pages=pages, dtype=dtype, prefill_c=c, hkv=hkv, long=long)
             if c:
                 kern = lambda: paged_prefill(q, k, v, pos, tables,
                                              positions,
@@ -323,7 +344,7 @@ def check_paged(torch, timer, gen, results, args_seed):
             err = float((got - want).abs().max())
             ok = err <= tol
             tag = (f"{name:13s} B={b} C={max(c, 1):3d} Hkv={hkv:2d} "
-                   f"{str(dtype)[6:]:8s}")
+                   f"{str(dtype)[6:]:8s}{' long' if long else ''}")
             if dtype == torch.float32:
                 log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}")
                 if not ok:
@@ -354,13 +375,17 @@ def check_paged(torch, timer, gen, results, args_seed):
                 qs, kv, vv, attn_mask=mask, enable_gqa=hkv != h))
             t_k, t_p = timer(kern), timer(plain)
             rec = dict(b=b, c=max(c, 1), h=h, hkv=hkv, d=d, block_size=bs,
-                       max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
-                       library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
-                       visited_pages=visited)
+                       long=long, max_abs_err=err, tol=tol, ms=t_k,
+                       plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
+                       bound_by=b_by, visited_pages=visited)
+            if not c:
+                rec["splits"] = decode_splits(b, hkv, h // hkv, pages, bs,
+                                              _lib.sm_count(0))
             out[name].append(rec)
             log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}  kernel {t_k:.4f} "
                 f"ms  plain {t_p:.4f} ms  sdpa {t_lib:.4f} ms  bound "
-                f"{b_ms:.4f} ms ({b_by}, {visited} live pages)")
+                f"{b_ms:.4f} ms ({b_by}, {visited} live pages"
+                + (f", {rec['splits']} splits)" if not c else ")"))
             if not ok:
                 fail(f"{name} (bf16 pool) disagrees with its plain version")
     results.update(out)
@@ -379,14 +404,15 @@ def check_ternary(torch, timer, gen, results):
         del w_dense
         dense_bf16 = dequantize(w, torch.bfloat16)
         wbytes = w.nbytes()
-        for rows in (1, 8, 512):
+        # decode rows (1, 8: the LUT body) and the serve's prefill
+        # buckets (32, 128, 512: the tensor-core tile)
+        for rows in (1, 8, 32, 128, 512):
             x = (torch.randn((rows, n), generator=gen, device="cuda")
                  ).to(torch.bfloat16)
             plain = dense_ref(x, w, torch.float32)
             scale = float(plain.abs().max()) + 1e-12
             fn = lambda: ternary_matmul(x, w, out_dtype=torch.float32)
-            got = fn()
-            torch.cuda.synchronize()
+            got, route = routed(torch, "ternary_matmul", fn)
             if got.shape != plain.shape or not torch.isfinite(got).all():
                 fail(f"ternary_matmul [{rows}x{n}]x[{m}x{n}]^T: bad output")
             err = float((got - plain).abs().max())
@@ -397,11 +423,13 @@ def check_ternary(torch, timer, gen, results):
             t = timer(fn)
             t_plain = timer(lambda: dense_ref(x, w, torch.float32))
             t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
-            out.append(dict(m=m, n=n, rows=rows, max_abs_err=err,
-                            rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
-                            library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+            out.append(dict(m=m, n=n, rows=rows, route=route,
+                            max_abs_err=err, rel_err=rel, tol=tol, ms=t,
+                            plain_ms=t_plain, library_ms=t_lib,
+                            bound_ms=b_ms, bound_by=b_by,
                             weight_bytes=wbytes))
-            log(f"ternary_matmul rows={rows:4d} M={m:5d} N={n:5d}: "
+            log(f"ternary_matmul rows={rows:4d} M={m:5d} N={n:5d} "
+                f"[{route}]: "
                 f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
                 f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
                 f"torch.matmul {t_lib:.4f} ms  bound {b_ms:.4f} ms "
@@ -411,9 +439,14 @@ def check_ternary(torch, timer, gen, results):
         del w, dense_bf16
         # exact inputs: 0.5 * {-1, 0, +1} weights (alpha 0.5), integer
         # activations; every partial sum is exact, so the error must be 0
+        # on both bodies (8 rows: the LUT body; 512: the tensor cores)
         exact_err(torch, gen, m, n, 8, 128, out)
-    # ragged M, N and B (a partial LUT chunk, the split-sum launch)
+        exact_err(torch, gen, m, n, 512, 128, out)
+    # ragged M, N and B (a partial LUT chunk, the split-sum launch; group
+    # size 8 keeps 19 rows on the LUT body) and a ragged mma case (split
+    # alpha groups, padded planes)
     exact_err(torch, gen, 1000, 1032, 19, 8, out)
+    exact_err(torch, gen, 1000, 1016, 77, 64, out)
     results["ternary_matmul"] = out
 
 
@@ -425,15 +458,16 @@ def exact_err(torch, gen, m, n, rows, g, out):
     wq = quantize_ternary(we * 0.5, group_size=g)
     xe = torch.randint(-8, 9, (rows, n), generator=gen,
                        device="cuda").to(torch.bfloat16)
-    got = ternary_matmul(xe, wq, out_dtype=torch.float32)
+    got, route = routed(torch, "ternary_matmul", lambda: ternary_matmul(
+        xe, wq, out_dtype=torch.float32))
     err = max(float((got - ternary_ref(xe, wq, out_dtype=torch.float32)
                      ).abs().max()),
               float((got - dense_ref(xe, wq, torch.float32)).abs().max()))
     torch.cuda.synchronize()
-    out.append(dict(m=m, n=n, rows=rows, exact_inputs=True,
+    out.append(dict(m=m, n=n, rows=rows, route=route, exact_inputs=True,
                     max_abs_err=err, tol=0.0))
-    log(f"ternary_matmul exact inputs rows={rows} M={m} N={n} g={g}: "
-        f"err {err:.3e} == 0: {err == 0.0}")
+    log(f"ternary_matmul exact inputs rows={rows} M={m} N={n} g={g} "
+        f"[{route}]: err {err:.3e} == 0: {err == 0.0}")
     if err != 0.0:
         fail("ternary_matmul is not exact on exact inputs")
 
@@ -446,19 +480,18 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
                                                      paged_prefill,
                                                      paged_prefill_ref)
     from repro_torch.models.attention import _quantize_kv
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.paged_attention.ops import decode_splits
     h, d, bs, pages, nb = 32, 128, 16, 32, 257
     out = {"paged_decode_int8": [], "paged_prefill_int8": []}
-    # as in check_paged: GQA (rep 4) and a ragged B 3, C 200 added
-    cases = [("paged_decode_int8", 8, 0, h),
-             ("paged_prefill_int8", 2, 128, h),
-             ("paged_prefill_int8", 1, 512, h),
-             ("paged_prefill_int8", 1, 512, 8),
-             ("paged_prefill_int8", 3, 200, h)]
-    for name, b, c, hkv in cases:
-        seed = args_seed + b + c + (hkv if hkv != h else 0)
+    # the cases of check_paged
+    for name, b, c, hkv, long in paged_cases("paged_decode_int8",
+                                             "paged_prefill_int8", h):
+        seed = args_seed + b + c + (hkv if hkv != h else 0) + 1000 * long
         q, k, v, pos, tables, positions = pool_case(
-            torch, gen, seed, b=b, h=h, d=d, nb=nb, bs=bs, pages=pages,
-            dtype=torch.float32, prefill_c=c, hkv=hkv)
+            torch, gen, seed, b=b, h=h, d=d, nb=nb + long, bs=bs,
+            pages=pages, dtype=torch.float32, prefill_c=c, hkv=hkv,
+            long=long)
 
         def run(kq, vq, ks, vs, cdt):
             if c:
@@ -482,7 +515,8 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
             err = float((got - want).abs().max())
             return kern, plain, err, err / (float(want.abs().max()) + 1e-12)
 
-        tag = f"{name:18s} B={b} C={max(c, 1):3d} Hkv={hkv:2d}"
+        tag = (f"{name:18s} B={b} C={max(c, 1):3d} Hkv={hkv:2d}"
+               f"{' long' if long else ''}")
         # f32 compute with power-of-two scales: the arithmetic is exact up
         # to f32 rounding, so kernel and plain agree within 1e-4
         shape = tuple(k.shape)
@@ -529,16 +563,21 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
         t_lib = timer(lambda: F.scaled_dot_product_attention(
             qs, kv, vv, attn_mask=mask, enable_gqa=hkv != h))
         t_k, t_p = timer(kern), timer(plain)
-        out[name].append(dict(
-            b=b, c=max(c, 1), h=h, hkv=hkv, d=d, block_size=bs,
+        rec = dict(
+            b=b, c=max(c, 1), h=h, hkv=hkv, d=d, block_size=bs, long=long,
             max_abs_err=err,
             rel_err=rel, tol=5e-2, ms=t_k, plain_ms=t_p, library_ms=t_lib,
             bound_ms=b_ms, bound_by=b_by, visited_pages=visited,
-            bytes=nbytes))
+            bytes=nbytes)
+        if not c:
+            rec["splits"] = decode_splits(b, hkv, h // hkv, pages, bs,
+                                          _lib.sm_count(0))
+        out[name].append(rec)
         log(f"{tag} bf16: err {err:.3e} (rel {rel:.2e} <= 5e-2: {ok})  "
             f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {t_lib:.4f} ms"
             f"  bound {b_ms:.4f} ms ({b_by}, {visited} live pages, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"{nbytes / 1e6:.1f} MB"
+            + (f", {rec['splits']} splits)" if not c else ")"))
         if not ok:
             fail(f"{name} (bf16 compute) disagrees with its plain version")
         del kv, vv
@@ -708,7 +747,8 @@ def step_kernel_ms(results, gemm, attn, cfg):
     unembedding), for comparison with the measured step time."""
     t = {(r["m"], r["n"]): r["ms"] for r in results[gemm]
          if r["rows"] == 8 and "ms" in r}
-    attn_ms = [r["ms"] for r in results[attn] if r["b"] == 8 and "ms" in r][0]
+    attn_ms = [r["ms"] for r in results[attn] if r["b"] == 8 and "ms" in r
+               and r.get("hkv", r["h"]) == r["h"] and not r.get("long")][0]
     if cfg.attention == "mla":
         layer, unembed = mla_gemm_shapes(cfg)
         return cfg.n_layers * (sum(t[sh] for sh in layer) + attn_ms) \
@@ -762,19 +802,30 @@ def logit_error_by_depth(torch, kern, plain, toks, depths):
     """First-prefill logit error (relative to the logit scale) of the
     kernel path against the plain path after the first k layers, in the
     served bf16 model and in its f32 view: how the error grows with
-    depth, and what is left without bf16 rounding."""
+    depth, and what is left without bf16 rounding.  A third column holds
+    the plain bf16 path against the plain f32 path, with whether their
+    argmax agrees: the error bf16 rounding alone makes, no kernel on
+    either side."""
     out = {}
     for k in depths:
-        row = {}
+        row, logits = {}, {}
         for name, view in (("bf16", lambda x: x), ("f32", f32_view)):
             got = first_logits(torch, view(depth_view(kern, k)), toks)
             want = first_logits(torch, view(depth_view(plain, k)), toks)
             row[name] = float((got - want).abs().max()) / float(
                 want.abs().max())
-            del got, want
+            logits[name] = want
+            del got
+        bf, f32 = logits["bf16"].float(), logits["f32"].float()
+        row["plain_bf16_vs_f32"] = float((bf - f32).abs().max()) / float(
+            f32.abs().max())
+        row["plain_argmax_equal"] = int(bf.argmax()) == int(f32.argmax())
+        del logits, bf, f32
         out[k] = row
         log(f"first-prefill logit error after {k:2d} layers: bf16 "
-            f"{row['bf16']:.3e}, f32 {row['f32']:.3e}")
+            f"{row['bf16']:.3e}, f32 {row['f32']:.3e}; plain bf16 vs "
+            f"plain f32 {row['plain_bf16_vs_f32']:.3e} (argmax equal: "
+            f"{row['plain_argmax_equal']})")
     torch.cuda.empty_cache()
     return out
 
@@ -922,9 +973,10 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
 
 def route_totals(tag, gemm, step_routes, chunk_routes, total):
     """The GEMM bodies of one serve run, split into decode steps and
-    prefill chunks.  Gates: no decode step runs the tensor-core tile
-    (decode rows are at most 8), and in every prefill chunk all of
-    ``gemm``'s launches but the head's (one row per request) run it."""
+    prefill chunks.  Gates: every decode step launches counted bodies and
+    none runs the tensor-core tile (decode rows are at most 8), and in
+    every prefill chunk all of ``gemm``'s launches but the head's (one
+    row per request) run it."""
     def add(rows):
         out = {}
         for r in rows:
@@ -937,9 +989,11 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total):
              "prefill chunks")
     if any(k.endswith("/mma") for k in decode):
         fail(f"serve[{tag}]: a decode step ran the tensor-core tile")
+    if not all(step_routes) or not chunk_routes:
+        fail(f"serve[{tag}]: a decode step or the run's prefill launched "
+             "no counted GEMM body")
     mma = f"{gemm}/mma"
-    # ternary_matmul has one body and no route counter
-    for i, r in enumerate(chunk_routes if gemm in ROUTED else ()):
+    for i, r in enumerate(chunk_routes):
         other = sum(n for k, n in r.items() if k != mma)
         if r.get(mma, 0) <= 0 or other > 1:
             fail(f"serve[{tag}]: prefill chunk {i} GEMM bodies {r}: its "
@@ -1099,11 +1153,12 @@ def main():
         fail(f"kernels never launched on the main path: {missing}")
 
     paged_cu = "src/repro_torch/csrc/paged_attention.cu"
+    decode_cu = "src/repro_torch/csrc/paged_decode.cu"
     src = {"bcq_matmul": "src/repro_torch/csrc/bcq_matmul.cu",
            "lut_gemm": "src/repro_torch/csrc/lut_gemm.cu",
-           "paged_decode": paged_cu, "paged_prefill": paged_cu,
+           "paged_decode": decode_cu, "paged_prefill": paged_cu,
            "ternary_matmul": "src/repro_torch/csrc/ternary_matmul.cu",
-           "paged_decode_int8": paged_cu, "paged_prefill_int8": paged_cu,
+           "paged_decode_int8": decode_cu, "paged_prefill_int8": paged_cu,
            "paged_decode_mla": "src/repro_torch/csrc/paged_attention_mla.cu"}
     replaces = {
         "bcq_matmul": "src/repro/kernels/bcq_matmul/bcq_matmul.py:81",
@@ -1124,9 +1179,10 @@ def main():
     # GEMM on the widest weight, B = 8 decode, the C = 512 prefill chunk
     rep = {"bcq_matmul": dict(rows=8, m=16384, n=4096),
            "lut_gemm": dict(rows=8, m=16384, n=4096),
-           "paged_decode": dict(b=8), "paged_prefill": dict(c=512, hkv=32),
+           "paged_decode": dict(b=8, hkv=32, long=False),
+           "paged_prefill": dict(c=512, hkv=32),
            "ternary_matmul": dict(rows=8, m=16384, n=4096),
-           "paged_decode_int8": dict(b=8),
+           "paged_decode_int8": dict(b=8, hkv=32, long=False),
            "paged_prefill_int8": dict(c=512, hkv=32),
            "paged_decode_mla": dict(b=8)}
     kernels = []
@@ -1144,7 +1200,8 @@ def main():
             # the prefill case beside the decode case: the serve's 512-row
             # chunk on the widest weight, on the tensor-core tile
             pre = [r for r in results[name] if r.get("rows") == 512
-                   and r.get("m") == 16384 and "model" not in r][0]
+                   and r.get("m") == 16384 and "model" not in r
+                   and "ms" in r][0]
             kernels[-1]["case"]["route"] = sel["route"]
             kernels[-1]["prefill"] = {k: pre[k] for k in (
                 "rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
@@ -1153,6 +1210,17 @@ def main():
             kernels[-1]["exact_inputs_max_abs_err"] = max(
                 r["max_abs_err"] for r in results[name]
                 if r.get("exact_inputs"))
+        if name in ("paged_decode", "paged_decode_int8"):
+            # the split-table kernel: its split count at the main case,
+            # and its GQA (rep 4) and long-table cases
+            kernels[-1]["case"]["splits"] = sel["splits"]
+            for key, want in (("gqa", dict(hkv=8)), ("long",
+                                                     dict(long=True))):
+                r = [r for r in results[name] if "ms" in r and all(
+                    r.get(k) == v for k, v in want.items())][0]
+                kernels[-1][key] = {k: r[k] for k in (
+                    "hkv", "long", "splits", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms")}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

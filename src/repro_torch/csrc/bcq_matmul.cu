@@ -318,7 +318,8 @@ extern "C" int launch_bcq_matmul(const void* x, const void* packed,
         return static_cast<int>(cudaErrorInvalidValue);
       return static_cast<int>(launch_bcq_mma(
           x, packed, alpha, z, static_cast<float*>(y),
-          static_cast<float*>(part), B, M, N, NB, G, q, gs, splits, s));
+          static_cast<float*>(part), B, M, N, NB, G, q, gs, splits, false,
+          s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -57,6 +57,23 @@
 //  - a split of the alpha groups over gridDim.z is taken where the
 //    (row, batch) tiles alone would leave SMs idle (rows 32 or 128); the
 //    partials are added by a fixed-order second pass.
+//
+// Ternary weights (the "mma" route of ternary_matmul; replaces
+// src/repro/kernels/ternary_matmul/ternary_matmul.py::_ternary_matmul_kernel
+// at prefill widths) take the same tile with the TERN flag.  The
+// reference computes y = sum_g (alpha_g / 2) (x . (+-1 b1) + x . (+-1 b2))
+// over the derived planes b1 = sign | ~mask and b2 = sign & mask
+// (lut_common.ternary_plane_bytes), so a ternary bundle is a 2-plane
+// problem with alpha / 2 on both planes and no offset.  Both raw planes
+// (sign, mask) arrive in one stage; each thread derives b1 and b2 from
+// the two 16-bit words in registers, decodes both to +-1 pairs and adds
+// them (bf16 {-2, 0, +2}, exact), so the two plane products become one:
+// x . ((+-1 b1) + (+-1 b2)) = x . (+-1 b1) + x . (+-1 b2), the
+// reference's V1 + V2 summed before its alpha / 2 scale.  The one alpha
+// row is folded times 0.5; z is null, so the x-sum pass is compiled out.
+// The stored planes are read as they are: nothing is re-encoded.  On
+// exact inputs (integer x, power-of-two alpha) every product and partial
+// sum is an exact f32, so the route equals the plain versions bit for bit.
 #include "bcq_mma.cuh"
 
 namespace {
@@ -67,44 +84,6 @@ constexpr int WM = MT / (NT / 32);  // weight rows per warp
 // a block's dynamic shared memory: the card's 232,448 bytes less room
 // for the kernel's static buffer
 constexpr int MAX_SMEM = 232448 - 1024;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// copies of 16, 8 and 4 bytes; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile(
@@ -138,6 +117,14 @@ __device__ __forceinline__ unsigned decode_pm1_at(unsigned w, unsigned mask,
 
 constexpr unsigned ONES = 0x3F803F80u;  // two bf16 +1
 
+// two bf16 pairs added (exact for the +-1 sums of the ternary planes)
+__device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
+  const __nv_bfloat162 r =
+      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
 // alpha and z are staged SG groups at a time (a row's values for
 // consecutive groups are contiguous, so 8 lanes fill one 32-byte
 // sector), into two buffers by block parity, rows SGP floats apart (odd:
@@ -167,6 +154,7 @@ struct Args {
   const float* z;
   float* out;     // y, or the split partials [splits, B, M]
   int B, M, N, NB, G, q, gs;
+  int arows;      // alpha rows: q, or 1 for ternary (both planes share it)
   int per;        // alpha groups per split
   int pw;         // bytes per plane copy: 16, 8, 4, or 1 (plain loads)
 };
@@ -214,7 +202,7 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
   }
   // the first group of a block of SG stages its block's alpha and z
   if ((grp - gbeg) % SG) return;
-  const int nrow = a.q + (a.z != nullptr);
+  const int nrow = a.arows + (a.z != nullptr);
   float* sc = scb + (((grp - gbeg) / SG) & 1) * (a.q + 1) * MT * SGP;
   for (int i = tid; i < nrow * MT * SG; i += NT) {
     const int gg = i % SG, pr = i / SG;
@@ -222,8 +210,9 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
     const bool ok = m < a.M && grp + gg < gend;
     const size_t mm = ok ? m : 0;
     const int gr = ok ? grp + gg : 0;
-    const float* src = p < a.q ? a.alpha + ((size_t)p * a.M + mm) * a.G + gr
-                               : a.z + mm * a.G + gr;
+    const float* src = p < a.arows
+                           ? a.alpha + ((size_t)p * a.M + mm) * a.G + gr
+                           : a.z + mm * a.G + gr;
     cp_async4(sc + pr * SGP + gg, src, ok ? 4 : 0);
   }
 }
@@ -235,8 +224,10 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
 // With XS it also runs the x fragments of 16-row pair xpair as an A
 // operand against an all-ones B, which leaves each of those batch rows'
 // sum of x over the group in xs (row 16 xpair + g in xs[0], + 8 in
-// xs[2]).
-template <int GS, int NB8, int NP, bool XS>
+// xs[2]).  With TERN (NP 1) the pass reads the sign plane at prow and the
+// mask plane MT rows below it, and its operand is the sum of the two
+// derived planes' +-1 pairs.
+template <int GS, int NB8, int NP, bool XS, bool TERN>
 __device__ __forceinline__ void plane_pass(
     const unsigned char* prow, int pb, int ksteps, unsigned xaddr,
     int xstride, int xpair, unsigned mlo, unsigned klo, unsigned mhi,
@@ -245,18 +236,40 @@ __device__ __forceinline__ void plane_pass(
 #pragma unroll
   for (int kk = 0; kk < (GS ? GS / 16 : ksteps); ++kk) {
     unsigned af[NP][4];
+    if constexpr (TERN) {
+      static_assert(NP == 1, "a ternary pass is one combined operand");
+      // sign and mask words of weight rows g and g + 8, then the derived
+      // planes b1 = s | ~m and b2 = s & m
+      const unsigned char* mrow = prow + MT * pb;
+      const unsigned s0 = *reinterpret_cast<const uint16_t*>(prow + 2 * kk);
+      const unsigned s1 =
+          *reinterpret_cast<const uint16_t*>(prow + 8 * pb + 2 * kk);
+      const unsigned k0 = *reinterpret_cast<const uint16_t*>(mrow + 2 * kk);
+      const unsigned k1 =
+          *reinterpret_cast<const uint16_t*>(mrow + 8 * pb + 2 * kk);
+      const unsigned b1[2] = {s0 | ~k0, s1 | ~k1};
+      const unsigned b2[2] = {s0 & k0, s1 & k1};
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      // bytes 2 kk (columns 0-7 of the step) and 2 kk + 1 (8-15) of
-      // weight rows g and g + 8
-      const unsigned char* row = prow + i * MT * pb;
-      const unsigned w0 = *reinterpret_cast<const uint16_t*>(row + 2 * kk);
-      const unsigned w1 =
-          *reinterpret_cast<const uint16_t*>(row + 8 * pb + 2 * kk);
-      af[i][0] = decode_pm1_at(w0, mlo, klo);  // row g, cols 2t, 2t + 1
-      af[i][1] = decode_pm1_at(w1, mlo, klo);  // row g + 8
-      af[i][2] = decode_pm1_at(w0, mhi, khi);  // row g, cols 2t + 8, + 9
-      af[i][3] = decode_pm1_at(w1, mhi, khi);  // row g + 8
+      for (int e = 0; e < 4; ++e) {
+        // e: row g / g + 8 (e & 1), low / high byte of the step (e >> 1)
+        const unsigned mk = e >> 1 ? mhi : mlo, ml = e >> 1 ? khi : klo;
+        af[0][e] = add_bf16x2(decode_pm1_at(b1[e & 1], mk, ml),
+                              decode_pm1_at(b2[e & 1], mk, ml));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        // bytes 2 kk (columns 0-7 of the step) and 2 kk + 1 (8-15) of
+        // weight rows g and g + 8
+        const unsigned char* row = prow + i * MT * pb;
+        const unsigned w0 = *reinterpret_cast<const uint16_t*>(row + 2 * kk);
+        const unsigned w1 =
+            *reinterpret_cast<const uint16_t*>(row + 8 * pb + 2 * kk);
+        af[i][0] = decode_pm1_at(w0, mlo, klo);  // row g, cols 2t, 2t + 1
+        af[i][1] = decode_pm1_at(w1, mlo, klo);  // row g + 8
+        af[i][2] = decode_pm1_at(w0, mhi, khi);  // row g, cols 2t + 8, + 9
+        af[i][3] = decode_pm1_at(w1, mhi, khi);  // row g + 8
+      }
     }
 #pragma unroll
     for (int j = 0; j < NB8 / 2; ++j) {
@@ -283,8 +296,9 @@ __device__ __forceinline__ void plane_pass(
 }
 
 // zero NP partial fragments, run one pass over planes p .. p + NP - 1
-// and fold them into acc with their alphas
-template <int GS, int NB8, int NP, bool XS>
+// and fold them into acc with their alphas (TERN: the one combined pass,
+// folded with alpha / 2)
+template <int GS, int NB8, int NP, bool XS, bool TERN>
 __device__ __forceinline__ void planes_step(
     const unsigned char* ps, const float* sc, int p, int wm, int g, int pb,
     int ksteps, unsigned xaddr, int xstride, int xpair, unsigned mlo,
@@ -297,13 +311,15 @@ __device__ __forceinline__ void planes_step(
     for (int j = 0; j < NB8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-  plane_pass<GS, NB8, NP, XS>(ps + (p * MT + wm + g) * pb, pb, ksteps, xaddr,
-                              xstride, xpair, mlo, klo, mhi, khi, part, xs);
+  plane_pass<GS, NB8, NP, XS, TERN>(ps + (p * MT + wm + g) * pb, pb, ksteps,
+                                    xaddr, xstride, xpair, mlo, klo, mhi,
+                                    khi, part, xs);
   // fold: c0, c1 are weight row g, c2, c3 row g + 8
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    const float s0 = sc[((p + i) * MT + wm + g) * SGP];
-    const float s1 = sc[((p + i) * MT + wm + g + 8) * SGP];
+    const float s0 = sc[((p + i) * MT + wm + g) * SGP] * (TERN ? 0.5f : 1.f);
+    const float s1 =
+        sc[((p + i) * MT + wm + g + 8) * SGP] * (TERN ? 0.5f : 1.f);
 #pragma unroll
     for (int nt = 0; nt < NB8; ++nt)
 #pragma unroll
@@ -312,7 +328,7 @@ __device__ __forceinline__ void planes_step(
   }
 }
 
-template <int S, int GS, int PW, int NB8>
+template <int S, int GS, int PW, int NB8, bool TERN>
 __global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
   constexpr int BT = NB8 * 8;       // batch rows per block
   extern __shared__ __align__(16) unsigned char smem[];
@@ -386,33 +402,43 @@ __global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
     const float* sc =
         scb + ((it / SG) & 1) * (a.q + 1) * MT * SGP + it % SG;
     float xs[4] = {0.f, 0.f, 0.f, 0.f};
-    // planes two at a time (the x fragments loaded once for both), the
-    // sums of x in the first pass
-    int p = 0;
-    if (a.q >= 2) {
-      if (sums)
-        planes_step<GS, NB8, 2, true>(ps, sc, 0, wm, g, pb, ksteps, xaddr,
-                                      L.xs, warp, mlo, klo, mhi, khi, acc,
-                                      xs);
-      else
-        planes_step<GS, NB8, 2, false>(ps, sc, 0, wm, g, pb, ksteps, xaddr,
-                                       L.xs, warp, mlo, klo, mhi, khi, acc,
-                                       xs);
-      p = 2;
-    } else if (sums) {
-      planes_step<GS, NB8, 1, true>(ps, sc, 0, wm, g, pb, ksteps, xaddr,
-                                    L.xs, warp, mlo, klo, mhi, khi, acc, xs);
-      p = 1;
+    if constexpr (TERN) {
+      // sign and mask planes in one combined pass, alpha / 2
+      planes_step<GS, NB8, 1, false, true>(ps, sc, 0, wm, g, pb, ksteps,
+                                           xaddr, L.xs, warp, mlo, klo, mhi,
+                                           khi, acc, xs);
+    } else {
+      // planes two at a time (the x fragments loaded once for both), the
+      // sums of x in the first pass
+      int p = 0;
+      if (a.q >= 2) {
+        if (sums)
+          planes_step<GS, NB8, 2, true, false>(ps, sc, 0, wm, g, pb, ksteps,
+                                               xaddr, L.xs, warp, mlo, klo,
+                                               mhi, khi, acc, xs);
+        else
+          planes_step<GS, NB8, 2, false, false>(ps, sc, 0, wm, g, pb, ksteps,
+                                                xaddr, L.xs, warp, mlo, klo,
+                                                mhi, khi, acc, xs);
+        p = 2;
+      } else if (sums) {
+        planes_step<GS, NB8, 1, true, false>(ps, sc, 0, wm, g, pb, ksteps,
+                                             xaddr, L.xs, warp, mlo, klo, mhi,
+                                             khi, acc, xs);
+        p = 1;
+      }
+      for (; p + 1 < a.q; p += 2)
+        planes_step<GS, NB8, 2, false, false>(ps, sc, p, wm, g, pb, ksteps,
+                                              xaddr, L.xs, warp, mlo, klo,
+                                              mhi, khi, acc, xs);
+      if (p < a.q)
+        planes_step<GS, NB8, 1, false, false>(ps, sc, p, wm, g, pb, ksteps,
+                                              xaddr, L.xs, warp, mlo, klo,
+                                              mhi, khi, acc, xs);
     }
-    for (; p + 1 < a.q; p += 2)
-      planes_step<GS, NB8, 2, false>(ps, sc, p, wm, g, pb, ksteps, xaddr,
-                                     L.xs, warp, mlo, klo, mhi, khi, acc, xs);
-    if (p < a.q)
-      planes_step<GS, NB8, 1, false>(ps, sc, p, wm, g, pb, ksteps, xaddr,
-                                     L.xs, warp, mlo, klo, mhi, khi, acc, xs);
     if (has_z) {
-      zp0 = sc[(a.q * MT + wm + g) * SGP];
-      zp1 = sc[(a.q * MT + wm + g + 8) * SGP];
+      zp0 = sc[(a.arows * MT + wm + g) * SGP];
+      zp1 = sc[(a.arows * MT + wm + g + 8) * SGP];
       if (sums && t == 0) {
         xsum_s[it & 1][16 * warp + g] = xs[0];
         xsum_s[it & 1][16 * warp + 8 + g] = xs[2];
@@ -436,10 +462,10 @@ __global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
     }
 }
 
-template <int S, int GS, int PW, int NB8>
+template <int S, int GS, int PW, int NB8, bool TERN>
 cudaError_t launch_s(const Args& a, int smem, int splits, float* y,
                      cudaStream_t s) {
-  auto kernel = bcq_mma_kernel<S, GS, PW, NB8>;
+  auto kernel = bcq_mma_kernel<S, GS, PW, NB8, TERN>;
   // the shared-memory opt-in (to the card's maximum), once per device
   static unsigned ready = 0;
   int dev = 0;
@@ -465,14 +491,16 @@ cudaError_t launch_s(const Args& a, int smem, int splits, float* y,
 // (three stages always fit: at most 180 KB at q 8); other shapes run the
 // same body with runtime shapes, in three stages or, where those do not
 // fit, two
-template <int NB8>
+template <int NB8, bool TERN>
 cudaError_t launch_nb8(const Args& a, int splits, float* y, cudaStream_t s) {
   const Layout L(a.gs, a.q, NB8 * 8);
   const int s3 = 3 * L.stage + L.sc_bytes, s2 = 2 * L.stage + L.sc_bytes;
   if (a.gs == 128 && a.pw == 16)
-    return launch_s<3, 128, 16, NB8>(a, s3, splits, y, s);
-  if (s3 <= MAX_SMEM) return launch_s<3, 0, 0, NB8>(a, s3, splits, y, s);
-  if (s2 <= MAX_SMEM) return launch_s<2, 0, 0, NB8>(a, s2, splits, y, s);
+    return launch_s<3, 128, 16, NB8, TERN>(a, s3, splits, y, s);
+  if (s3 <= MAX_SMEM)
+    return launch_s<3, 0, 0, NB8, TERN>(a, s3, splits, y, s);
+  if (s2 <= MAX_SMEM)
+    return launch_s<2, 0, 0, NB8, TERN>(a, s2, splits, y, s);
   return cudaErrorInvalidValue;
 }
 
@@ -485,8 +513,10 @@ bool aligned(const void* p, int n) {
 cudaError_t launch_bcq_mma(const void* x, const void* packed,
                            const void* alpha, const void* z, float* y,
                            float* part, int B, int M, int N, int NB, int G,
-                           int q, int gs, int splits, cudaStream_t s) {
+                           int q, int gs, int splits, bool ternary,
+                           cudaStream_t s) {
   if (gs < 16 || gs % 16 || gs > BCQ_MMA_MAX_GS || q < 1 || q > 8 ||
+      (ternary && (q != 2 || z != nullptr)) ||
       N % 8 || N > NB * 8 || G * gs != NB * 8 || !aligned(x, 16) ||
       splits < 1 || splits > G || ceil_div(B, BCQ_MMA_BATCH) > 65535 ||
       splits > 65535)
@@ -507,8 +537,11 @@ cudaError_t launch_bcq_mma(const void* x, const void* packed,
          static_cast<const float*>(alpha),
          static_cast<const float*>(z),
          splits > 1 ? part : y,
-         B, M, N, NB, G, q, gs, per, pw};
+         B, M, N, NB, G, q, gs, ternary ? 1 : q, per, pw};
   // 32 batch rows per block when B fits in 32, else 64
-  if (B <= 32) return launch_nb8<4>(a, splits, y, s);
-  return launch_nb8<8>(a, splits, y, s);
+  if (ternary)
+    return B <= 32 ? launch_nb8<4, true>(a, splits, y, s)
+                   : launch_nb8<8, true>(a, splits, y, s);
+  return B <= 32 ? launch_nb8<4, false>(a, splits, y, s)
+                 : launch_nb8<8, false>(a, splits, y, s);
 }

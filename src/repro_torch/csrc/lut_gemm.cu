@@ -513,7 +513,7 @@ extern "C" int launch_lut_gemm(const void* x, const void* packed,
     case 2:
       if (!x_is_bf16 || B <= 8) return static_cast<int>(cudaErrorInvalidValue);
       e = launch_bcq_mma(x, packed, alpha, z, yf, pf, B, M, N, NB, G, q, gs,
-                         splits, s);
+                         splits, false, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

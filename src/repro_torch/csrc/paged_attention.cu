@@ -1,30 +1,24 @@
-// Paged attention straight from the KV block pool: decode and chunked
-// prefill, over float pools and over int8 pools with per-slot scales.
+// Chunked prefill straight from the KV block pool, over float pools and
+// over int8 pools with per-slot scales.  (Decode is paged_decode.cu.)
 //
 // Replaces:
-//   paged_decode       -> src/repro/kernels/paged_attention/paged_attention.py
-//                         ::_paged_attn_kernel (launcher paged_attention_tiled)
-//   paged_prefill      -> the same file ::_paged_prefill_kernel, float
-//                         flavour (launcher paged_prefill_tiled, k_scale=None)
-//   paged_decode_int8  -> ::_paged_attn_int8_kernel (launcher
-//                         paged_attention_int8_tiled)
+//   paged_prefill      -> src/repro/kernels/paged_attention/paged_attention.py
+//                         ::_paged_prefill_kernel, float flavour (launcher
+//                         paged_prefill_tiled, k_scale=None)
 //   paged_prefill_int8 -> ::_paged_prefill_kernel, int8 flavour (launcher
 //                         paged_prefill_tiled with k_scale/v_scale)
-// The two chunked-prefill entry points dispatch by dtype: bf16 compute
-// (bf16 pools; int8 pools computed in bf16, the main path) runs the
-// tensor-core kernel of paged_prefill.cu; f32 compute (f32 pools; int8
-// pools computed in f32, kept for exact checks) runs the CUDA-core
-// attend_tile body below, as do both decode kernels.
+// The two entry points dispatch by dtype: bf16 compute (bf16 pools; int8
+// pools computed in bf16, the main path) runs the tensor-core kernel of
+// paged_prefill.cu; f32 compute (f32 pools; int8 pools computed in f32,
+// kept for exact checks) runs the CUDA-core attend_tile body below.
 //
-// What bounds them on an H100: decode reads every live KV block once per
-// (row, kv head) for O(rep) flops per element, so it is bound by bytes
-// (an int8 pool halves them: 1 byte per element plus two f32 scales per
-// slot and head).  The f32 chunked prefill re-reads each block once per
-// query tile and does 4 * C * L * D flops per (row, head) on CUDA cores.
+// What bounds it on an H100: the f32 chunked prefill re-reads each block
+// once per query tile and does 4 * C * L * D flops per (row, head) on
+// CUDA cores.
 //
 // What the CUDA-core body does about it: a block owns one (batch row,
-// kv head) and — for prefill — one tile of the chunk's queries, and walks the
-// row's block table itself.  The online-softmax state (running max,
+// kv head, tile of the chunk's queries) and walks the row's block table
+// itself.  The online-softmax state (running max,
 // running sum, f32 accumulator) lives in shared memory for the block's
 // whole walk: the Pallas grid carries it across its innermost page axis
 // in VMEM scratch, but CUDA blocks cannot carry anything between each
@@ -40,8 +34,7 @@
 // that start past the tile's last query position hold no live slot, so
 // they are skipped outright: the result is identical, and the work
 // follows the data.  Masked probabilities are forced to 0, and a query
-// with no live slot — an idle decode row or a prefill pad row at
-// position -1 — outputs exactly 0.
+// with no live slot (a pad row at position -1) outputs exactly 0.
 // Rounding order (the reference's): q arrives scaled and rounded to the
 // compute type (the pool's type for float pools, bf16 for int8 pools).
 // For int8 pools each raw score is multiplied by k_scale[slot, head]
@@ -172,19 +165,6 @@ __device__ void attend_tile(const Q* __restrict__ q,
 }
 
 template <typename Q, typename KV, bool SCALED>
-__global__ void paged_decode_kernel(const Q* q, const KV* kpool,
-                                    const KV* vpool, const float* kscale,
-                                    const float* vscale, const int* pos_pool,
-                                    const int* tables, const int* positions,
-                                    float* out, int Hkv, int rep, int D,
-                                    int BS, int pages) {
-  extern __shared__ float smem[];
-  attend_tile<Q, KV, SCALED>(q, kpool, vpool, kscale, vscale, pos_pool,
-                             tables, positions, out, blockIdx.y, blockIdx.x,
-                             0, 1, 1, Hkv, rep, D, BS, pages, smem);
-}
-
-template <typename Q, typename KV, bool SCALED>
 __global__ void paged_prefill_kernel(const Q* q, const KV* kpool,
                                      const KV* vpool, const float* kscale,
                                      const float* vscale,
@@ -223,23 +203,6 @@ struct Args {
 };
 
 template <typename Q, typename KV, bool SCALED>
-cudaError_t decode_t(const Args& a, int B, int Hkv, int rep, int D, int BS,
-                     int pages, cudaStream_t s) {
-  const size_t bytes = smem_bytes(rep, 1, D, BS, SCALED);
-  cudaError_t e = allow_smem(paged_decode_kernel<Q, KV, SCALED>, bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid(Hkv, B);
-  paged_decode_kernel<Q, KV, SCALED><<<grid, 128, bytes, s>>>(
-      static_cast<const Q*>(a.q), static_cast<const KV*>(a.k),
-      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),
-      static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.positions), static_cast<float*>(a.out), Hkv,
-      rep, D, BS, pages);
-  return cudaGetLastError();
-}
-
-template <typename Q, typename KV, bool SCALED>
 cudaError_t prefill_t(const Args& a, int B, int C, int Hkv, int rep, int D,
                       int BS, int pages, cudaStream_t s) {
   const int qt = max(1, 16 / rep);
@@ -258,23 +221,6 @@ cudaError_t prefill_t(const Args& a, int B, int C, int Hkv, int rep, int D,
 }
 
 }  // namespace
-
-extern "C" int launch_paged_decode(const void* q, const void* k,
-                                   const void* v, const void* pos,
-                                   const void* tables, const void* positions,
-                                   void* out, int B, int C, int Hkv, int rep,
-                                   int D, int BS, int pages, int kv_is_bf16,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, nullptr, nullptr, pos, tables, positions, out};
-  cudaError_t e =
-      kv_is_bf16
-          ? decode_t<__nv_bfloat16, __nv_bfloat16, false>(a, B, Hkv, rep, D,
-                                                          BS, pages, s)
-          : decode_t<float, float, false>(a, B, Hkv, rep, D, BS, pages, s);
-  return static_cast<int>(e);
-}
 
 // Float pools.  bf16 pools compute on the tensor cores (paged_prefill.cu):
 // q arrives unscaled in bf16 or f32 (q_is_bf16), the kernel scales it
@@ -304,27 +250,6 @@ extern "C" int launch_paged_prefill(const void* q, const void* k,
   const Args a{q, k, v, nullptr, nullptr, pos, tables, positions, out};
   return static_cast<int>(
       prefill_t<float, float, false>(a, B, C, Hkv, rep, D, BS, pages, s));
-}
-
-// int8 pools: q in bf16 (the reference's compute type) or f32, k/v int8,
-// k_scale / v_scale f32 [NB, BS, Hkv]
-extern "C" int launch_paged_decode_int8(const void* q, const void* k,
-                                        const void* v, const void* ks,
-                                        const void* vs, const void* pos,
-                                        const void* tables,
-                                        const void* positions, void* out,
-                                        int B, int C, int Hkv, int rep, int D,
-                                        int BS, int pages, int q_is_bf16,
-                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, ks, vs, pos, tables, positions, out};
-  cudaError_t e =
-      q_is_bf16 ? decode_t<__nv_bfloat16, int8_t, true>(a, B, Hkv, rep, D,
-                                                        BS, pages, s)
-                : decode_t<float, int8_t, true>(a, B, Hkv, rep, D, BS, pages,
-                                                s);
-  return static_cast<int>(e);
 }
 
 // int8 pools.  bf16 compute (compute_bf16) runs on the tensor cores as

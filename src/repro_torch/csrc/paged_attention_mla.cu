@@ -63,27 +63,6 @@ namespace {
 constexpr int HEADS_PER_BLOCK = 8;   // warps per block
 constexpr int SLOTS = 16;            // slots scored at once (two lanes each)
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one group (the page just issued) is in flight
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 // the next allocated page after j that can hold a live slot, or -1
 __device__ __forceinline__ int next_page(const int* __restrict__ table,
                                          int j, int last) {
@@ -222,7 +201,7 @@ __global__ void __launch_bounds__(HEADS_PER_BLOCK * 32)
                          pos_pool, table[jn], BS, lora, dr);
     }
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();  // page j is in buffer `buf` for every thread
 
     if (active) {

@@ -1,6 +1,13 @@
 // ternary_matmul: FIGLUT's LUT GEMM for ternary weights,
 // y[B, M] = x . dequant(W)^T with W = alpha * sign * mask.
 //
+// Two routes, picked by the wrapper (kernels/ternary_matmul/ops.py
+// route_for) and passed here as route: "lut" (0), the half-LUT body
+// below, for decode rows (at most 8), f32 activations and group sizes
+// that are 8 mod 16; "mma" (1), more than 8 rows of bf16 activations,
+// the tensor-core tile of bcq_mma.cu with the derived planes decoded in
+// registers (see there).
+//
 // Replaces: src/repro/kernels/ternary_matmul/ternary_matmul.py
 // ::_ternary_matmul_kernel (launcher ternary_matmul_tiled) with
 // lut_common.ternary_plane_bytes, build_lut(half=True), extract_keys and
@@ -38,7 +45,7 @@
 // On exact inputs (integer activations, power-of-two alphas) every
 // partial sum is an exact f32, so the result equals the plain version
 // bit for bit whatever the order of the sums.
-#include "common.cuh"
+#include "bcq_mma.cuh"
 
 namespace {
 
@@ -198,11 +205,17 @@ cudaError_t launch_t(const void* x, const void* packed, const void* alpha,
 extern "C" int launch_ternary_matmul(const void* x, const void* packed,
                                      const void* alpha, void* y, void* part,
                                      int B, int M, int N, int NB, int G,
-                                     int gs, int x_is_bf16, int splits,
-                                     void* stream) {
+                                     int gs, int x_is_bf16, int route,
+                                     int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gs % 8 || G * gs != NB * 8 || N > NB * 8 || splits < 1 ||
-      splits > ceil_div(NB * 8, KC))
+  if (route == 1) {
+    if (!x_is_bf16 || B <= 8) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_bcq_mma(
+        x, packed, alpha, nullptr, static_cast<float*>(y),
+        static_cast<float*>(part), B, M, N, NB, G, 2, gs, splits, true, s));
+  }
+  if (route != 0 || gs % 8 || G * gs != NB * 8 || N > NB * 8 ||
+      splits < 1 || splits > ceil_div(NB * 8, KC))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e =
       x_is_bf16 ? launch_t<__nv_bfloat16>(x, packed, alpha, y, part, B, M, N,

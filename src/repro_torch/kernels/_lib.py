@@ -12,9 +12,9 @@ and flags, so a rebuilt source never loads a stale library.
 
 ``launch_counts`` holds one integer per kernel; a wrapper adds one at
 the point where it launches its kernel and nowhere else.  A kernel with
-several bodies (``bcq_matmul``, ``lut_gemm``) also adds one to
-``route_counts["<kernel>/<route>"]`` for the body it launched, so a run
-can show which body ran.
+several bodies (``bcq_matmul``, ``lut_gemm``, ``ternary_matmul``) also
+adds one to ``route_counts["<kernel>/<route>"]`` for the body it
+launched, so a run can show which body ran.
 """
 from __future__ import annotations
 
@@ -53,21 +53,25 @@ _SIGNATURES = {
     # x_is_bf16, mu, half_lut, chunk, route, splits, stream
     "launch_lut_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, pos, tables, positions, out, part_o, part_ml, sem, B, C,
+    # Hkv, rep, D, BS, pages, kv_is_bf16, scale, q_is_bf16, out_is_bf16,
+    # splits, stream
+    "launch_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # q, k, v, pos, tables, positions, out, B, C, Hkv, rep, D, BS, pages,
-    # kv_is_bf16, stream
-    "launch_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _P],
-    # ... kv_is_bf16, scale, q_is_bf16, out_is_bf16, stream
+    # kv_is_bf16, scale, q_is_bf16, out_is_bf16, stream
     "launch_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _F, _I, _I, _P],
     # x, packed, alpha, y, part, B, M, N, NB, G, group_size, x_is_bf16,
-    # splits, stream
+    # route, splits, stream
     "launch_ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
-    # q, k, v, k_scale, v_scale, pos, tables, positions, out, B, C, Hkv,
-    # rep, D, BS, pages, q_is_bf16, stream
-    "launch_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _P],
+    # q, k, v, k_scale, v_scale, pos, tables, positions, out, part_o,
+    # part_ml, sem, B, C, Hkv, rep, D, BS, pages, compute_bf16, scale,
+    # q_is_bf16, out_is_bf16, splits, stream
+    "launch_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                 _I, _I, _P],
     # ... pages, compute_bf16, scale, q_is_bf16, out_is_bf16, stream
     "launch_paged_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
@@ -182,13 +186,16 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
 
 
-def split_count(units: int, tiles: int, sms: int, per_sm: int) -> int:
+def split_count(units: int, tiles: int, sms: int, per_sm: int,
+                most: Optional[int] = None) -> int:
     """How many blocks share one output tile's ``units`` steps of the
-    reduction axis (chunks or alpha groups): enough for about ``per_sm``
-    blocks per SM over ``tiles`` output tiles, never more than there are
-    units, and every split a whole number of units (the split launches
-    take ``ceil(units / splits)`` units each)."""
-    want = max(1, min(units, -(-per_sm * sms // tiles)))
+    reduction axis (chunks, alpha groups or table tiles): enough for
+    about ``per_sm`` blocks per SM over ``tiles`` output tiles, never
+    more than there are units (nor ``most``), and every split a whole
+    number of units (the split launches take ``ceil(units / splits)``
+    units each)."""
+    cap = units if most is None else min(units, most)
+    want = max(1, min(cap, -(-per_sm * sms // tiles)))
     per = -(-units // want)
     return -(-units // per)
 

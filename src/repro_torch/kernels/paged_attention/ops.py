@@ -14,6 +14,17 @@ tensors the wrappers run the plain versions in ``ref``; on CUDA tensors
 they launch the kernel or raise.  MLA decode keeps q_eff and q_rope in
 f32, as the reference's ``paged_attention_mla`` does (no rounding to the
 pool's type).
+
+Decode (float and int8, ``csrc/paged_decode.cu``) scales and rounds q
+and writes the output in its dtype itself, as the tensor-core prefill
+does, and splits each row's block table over ``decode_splits`` blocks, a
+fixed rule of the batch, the kv heads, the table's width (the live pages
+as the host knows them without reading the device) and the SM count.
+The wrapper allocates the partials; the last block of each (row, head
+group) to finish merges them in split order, counted by a per-device
+buffer of int32 counters that every call leaves at 0 (so decode calls
+on one device run in stream order, as the port's do).
+(``ref.paged_decode_split_ref`` is the plain version of that walk.)
 """
 from __future__ import annotations
 
@@ -28,6 +39,37 @@ _KV_DTYPES = (torch.bfloat16, torch.float32)
 _Q_DTYPES = (torch.bfloat16, torch.float32)
 # the widest head the tensor-core prefill takes (csrc/paged_prefill.cuh)
 MMA_MAX_HEAD_DIM = 256
+# the decode kernel (csrc/paged_decode.cu): logical slots per staged tile,
+# query heads per block, and the head widths it takes (D % 16 == 0, <= 256)
+DECODE_TILE, DECODE_HEADS, DECODE_MAX_HEAD_DIM = 16, 8, 256
+DECODE_MIN_TILES = 4
+
+
+_COUNTERS = {}
+
+
+def _split_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device`` for the decode
+    kernel's split merge (each launch leaves its counters at 0)."""
+    key = device.index or 0
+    t = _COUNTERS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = t
+    return t
+
+
+def decode_splits(b: int, hkv: int, rep: int, pages: int, bs: int,
+                  sms: int) -> int:
+    """How many blocks share one (row, kv head, head group)'s walk over
+    its table: enough for about four blocks per SM, but at least
+    ``DECODE_MIN_TILES`` 16-slot tiles a split (a block's fixed costs,
+    its first round trip and its merge, stay small beside its walk);
+    every split a whole number of tiles."""
+    tiles = -(-pages * bs // DECODE_TILE)
+    blocks = b * hkv * -(-rep // DECODE_HEADS)
+    return _lib.split_count(tiles, blocks, sms, 4,
+                            most=-(-tiles // DECODE_MIN_TILES))
 
 
 def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions,
@@ -69,10 +111,13 @@ def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions,
 
 
 def _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
-            positions, out, b, c, hkv, rep, d, bs, pages, flag, extra=()):
+            positions, out, b, c, hkv, rep, d, bs, pages, flag, extra=(),
+            parts=()):
     """``flag``: kv_is_bf16 (float pools) or the bf16-compute flag (int8
     pools); ``extra``: the prefill launchers' (scale, q_is_bf16,
-    out_is_bf16)."""
+    out_is_bf16) or the decode launchers' (scale, q_is_bf16,
+    out_is_bf16, splits); ``parts``: the decode launchers' split
+    partials and counters (tensors or None)."""
     i32 = torch.int32
     pos_pool = pos_pool.to(i32).contiguous()
     tables = tables.to(i32).contiguous()
@@ -82,7 +127,9 @@ def _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
         ptrs += (scales[0].data_ptr(), scales[1].data_ptr())
     rc = getattr(_lib.lib(), f"launch_{kernel}")(
         *ptrs, pos_pool.data_ptr(), tables.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), b, c, hkv, rep, d, bs, pages, flag, *extra,
+        out.data_ptr(), *(t.data_ptr() if t is not None else None
+                          for t in parts),
+        b, c, hkv, rep, d, bs, pages, flag, *extra,
         _lib.stream_ptr(qg.device))
     _lib.check(rc, kernel)
     _lib.count_launch(kernel)
@@ -143,14 +190,35 @@ def _decode(q, k_pool, v_pool, scales, pos_pool, tables, positions, scale,
     b, h, d = q.shape
     nb, bs, hkv, _ = k_pool.shape
     rep = h // hkv
+    if d % 16 or d > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"{kernel}: takes head_dim % 16 == 0 and <= "
+                         f"{DECODE_MAX_HEAD_DIM}, got {d}")
     scale = scale if scale is not None else d ** -0.5
-    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(cdt).contiguous()
-    out = torch.empty((b, hkv, rep, d), dtype=torch.float32, device=q.device)
+    # the kernel scales and rounds q and writes the output in its dtype
+    qk = (q if q.dtype in _Q_DTYPES else q.float()).contiguous()
+    if qk.data_ptr() % 16:
+        qk = qk.clone()
+    out_dtype = out_dtype or q.dtype
+    direct = out_dtype in _Q_DTYPES
+    out = torch.empty((b, h, d), device=q.device,
+                      dtype=out_dtype if direct else torch.float32)
     if b:
-        _launch(kernel, qg, k_pool, v_pool, scales, pos_pool, tables,
-                positions, out, b, 1, hkv, rep, d, bs, tables.shape[1],
-                int(cdt == torch.bfloat16))
-    return out.reshape(b, h, d).to(out_dtype or q.dtype)
+        pages = tables.shape[1]
+        splits = decode_splits(b, hkv, rep, pages, bs,
+                               _lib.sm_count(q.device.index or 0))
+        parts = (None, None, None)
+        if splits > 1:
+            parts = tuple(torch.empty((splits, b, hkv, rep, n),
+                                      dtype=torch.float32, device=q.device)
+                          for n in (d, 2))
+            parts += (_split_counters(
+                q.device, b * hkv * -(-rep // DECODE_HEADS)),)
+        _launch(kernel, qk, k_pool, v_pool, scales, pos_pool, tables,
+                positions, out, b, 1, hkv, rep, d, bs, pages,
+                int(cdt == torch.bfloat16),
+                (float(scale), int(qk.dtype == torch.bfloat16),
+                 int(out.dtype == torch.bfloat16), splits), parts)
+    return out if direct else out.to(out_dtype)
 
 
 def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,

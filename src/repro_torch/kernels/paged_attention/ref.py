@@ -13,6 +13,11 @@ per-slot ``k_scale`` before the softmax, and the normalized
 probabilities are multiplied by ``v_scale`` and rounded to the compute
 type before the PV product.  ``compute_dtype`` may be set to f32 to
 check the arithmetic without bf16 rounding.
+
+``paged_decode_split_ref`` is the plain version of the decode kernel's
+walk (``csrc/paged_decode.cu``): the table cut into splits of whole
+16-slot tiles, partial (max, sum, accumulator) per split, and a merge in
+split order in which a split with no live slot counts as empty.
 """
 from __future__ import annotations
 
@@ -145,3 +150,79 @@ def paged_prefill_ref(q, k_pool, v_pool, pos_pool, tables, positions, *,
         p = p * vsv[:, None, :, None, :]
     out = torch.einsum("bchrl,blhd->bchrd", p.to(cdt).float(), vv.float())
     return out.reshape(b, c, h, d).to(out_dtype or q.dtype)
+
+
+def decode_split_partials(q, k_pool, v_pool, pos_pool, tables, positions,
+                          splits, *, scale=None, k_scale=None, v_scale=None,
+                          compute_dtype=None, tile=16):
+    """The decode kernel's split walk: the table's logical slots cut into
+    ``splits`` ranges of whole ``tile``-slot tiles; per range its max m
+    over the live scores, l = sum exp(s - m) and acc = sum round(p [*
+    v_scale]) v with p = exp(s - m), rounded to the compute type as the
+    kernel rounds it.  Returns (m, l) [S, B, Hkv, rep] and acc [S, B, Hkv,
+    rep, D], f32; a range with no live slot gives m = NEG_INF, l = 0,
+    acc = 0."""
+    b, h, d = q.shape
+    hkv = k_pool.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    int8 = k_scale is not None
+    cdt = compute_dtype or (torch.bfloat16 if int8 else k_pool.dtype)
+    kv = gather_view(k_pool, tables).float()                # [B, L, Hkv, D]
+    vv = gather_view(v_pool, tables).float()
+    live, vpos = _live(pos_pool, tables)
+    ok = (live & (vpos <= positions[:, None]))[:, None, None, :]
+    qg = (q.reshape(b, hkv, rep, d).float() * scale).to(cdt)
+    s = torch.einsum("bhrd,blhd->bhrl", qg.float(), kv)
+    if int8:
+        s = s * gather_view(k_scale, tables).transpose(1, 2)[:, :, None, :]
+        vsv = gather_view(v_scale, tables).transpose(1, 2)[:, :, None, :]
+    n = tables.shape[1] * k_pool.shape[1]
+    tiles = -(-n // tile)
+    per = -(-tiles // splits)
+    if -(-tiles // per) != splits:
+        raise ValueError(f"{splits} splits of {tiles} tiles leave one empty "
+                         "by construction")
+    ms, ls, accs = [], [], []
+    for sp in range(splits):
+        lo, hi = sp * per * tile, min((sp + 1) * per * tile, n)
+        okr = ok[..., lo:hi]
+        sr = torch.where(okr, s[..., lo:hi], torch.full_like(s[..., lo:hi],
+                                                             NEG_INF))
+        m = sr.amax(-1)
+        p = torch.where(okr, torch.exp(sr - m[..., None]),
+                        torch.zeros_like(sr))
+        ls.append(p.sum(-1))
+        if int8:
+            p = p * vsv[..., lo:hi]
+        accs.append(torch.einsum("bhrl,blhd->bhrd", p.to(cdt).float(),
+                                 vv[:, lo:hi]))
+        ms.append(m)
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def merge_split_partials(m, l, acc):
+    """Out = sum_s acc_s e_s / sum_s l_s e_s, e_s = exp(m_s - max m),
+    summed in split order; a row with no live slot gives 0."""
+    mx = m.amax(0)
+    out = torch.zeros_like(acc[0])
+    tot = torch.zeros_like(l[0])
+    for sp in range(m.shape[0]):
+        f = torch.exp(m[sp] - mx)
+        tot = tot + l[sp] * f
+        out = out + acc[sp] * f[..., None]
+    return out / torch.clamp(tot, min=1e-30)[..., None]
+
+
+def paged_decode_split_ref(q, k_pool, v_pool, pos_pool, tables, positions,
+                           splits, *, scale=None, k_scale=None, v_scale=None,
+                           out_dtype=None, compute_dtype=None):
+    """Decode (float pools, or int8 pools with ``k_scale``/``v_scale``) by
+    the kernel's split-and-merge walk.  Returns [B, H, D]."""
+    b, h, d = q.shape
+    parts = decode_split_partials(q, k_pool, v_pool, pos_pool, tables,
+                                  positions, splits, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  compute_dtype=compute_dtype)
+    out = merge_split_partials(*parts)
+    return out.reshape(b, h, d).to(out_dtype or q.dtype)

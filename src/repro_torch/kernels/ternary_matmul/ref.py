@@ -8,7 +8,14 @@
                       b1 = s | ~m and b2 = s & m, both planes read from
                       the same table, y = sum_groups (alpha/2)(V1 + V2).
                       It walks the batch in row blocks so its
-                      [rows, M, N/mu] reads stay bounded at full width.
+                      [rows, M, N/mu] reads stay bounded at full width;
+  * ``ternary_planes_ref`` — the arithmetic of the tensor-core route
+                      (``mma``, ``csrc/bcq_mma.cu`` with its ternary
+                      flag): the table read re-associated into x against
+                      the derived +-1 planes, which the tile adds into
+                      one operand, summed per alpha group in f32, then
+                      scaled by alpha / 2.  Memory grows as B x M x
+                      n_groups: a test-size function.
 
 On exact inputs (integer activations, power-of-two alphas) every partial
 sum is an exact f32, so the two agree with the kernel bit for bit.
@@ -17,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.plane import PlaneBundle, dequantize, pad_operands
+from repro_torch.core.plane import (PlaneBundle, dequantize, pad_operands,
+                                    unpack_planes)
 from repro_torch.kernels import lut_common
 
 
@@ -55,4 +63,24 @@ def ternary_ref(x: torch.Tensor, w: PlaneBundle, mu: int = 4,
         vals_ag = vals.reshape(*vals.shape[:-1], n_ag, per_ag).sum(-1)
         out.append(torch.einsum("bma,ma->bm", vals_ag, half_alpha))
     y = torch.cat(out) if out else torch.zeros((0, m), device=x.device)
+    return y.reshape(*lead, m).to(out_dtype or x.dtype)
+
+
+def ternary_planes_ref(x: torch.Tensor, w: PlaneBundle,
+                       out_dtype=None) -> torch.Tensor:
+    """y[b, m] = sum_g (alpha[m, g] / 2) s[b, m, g], with s the group sum
+    of x times ((+-1 b1) + (+-1 b2)), b1 = sign | ~mask, b2 = sign & mask:
+    the reference's V1 + V2 per group, as the ``mma`` route sums it."""
+    if w.kind != "ternary":
+        raise ValueError(f"ternary_planes_ref needs a ternary bundle, got "
+                         f"{w.kind!r}")
+    lead = x.shape[:-1]
+    x2 = pad_operands(x.reshape(-1, x.shape[-1]).float(), w)
+    b = x2.shape[0]
+    g, gs, m = w.n_groups, w.group_size, w.out_features
+    b1, b2 = lut_common.ternary_plane_bytes(w.packed[0], w.packed[1])
+    pm1 = unpack_planes(torch.stack([b1, b2]), torch.float32)
+    both = (pm1[0] + pm1[1]).reshape(m, g, gs)          # {-2, 0, +2}
+    s = torch.einsum("bgk,mgk->bmg", x2.reshape(b, g, gs), both)
+    y = torch.einsum("bmg,mg->bm", s, w.alpha[0].float() * 0.5)
     return y.reshape(*lead, m).to(out_dtype or x.dtype)

@@ -19,7 +19,10 @@ probabilities to bf16 tile by tile, the plain version the normalized
 ones).  MLA
 decode within 1e-4 of the output scale (the reference's
 ``paged_attention_mla_maxerr`` gate): both sides compute in f32 from
-the same pools, only the summation order differs.
+the same pools, only the summation order differs.  The split-table
+decode kernel (float and int8 pools): 1e-4 of the output scale in f32,
+and the bf16 and int8 gates above in bf16 (it rounds p against each
+warp's running max of its split, the plain version the normalized p).
 """
 import numpy as np
 import pytest
@@ -38,6 +41,7 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_prefill,
                                                  paged_prefill_ref)
 from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_matmul,
+                                                ternary_planes_ref,
                                                 ternary_ref)
 from repro_torch.quant.formats import quantize_ternary
 
@@ -417,3 +421,207 @@ def test_cuda_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError):
         paged_attention_mla(qe, qr, ckv[..., :-1], kr, pos, tables,
                             positions, scale=0.1)
+
+
+# ---------------------------------------------------------------------------
+# ternary_matmul's tensor-core route
+# ---------------------------------------------------------------------------
+
+
+def _ternary_pair(rng, m, n, gs):
+    """(exact weight bundle, random weight bundle) on the card: 0.5 *
+    {-1, 0, +1} (alpha 0.5, every product exact) and a normal weight."""
+    w_exact = (0.5 * rng.integers(-1, 2, (m, n))).astype(np.float32)
+    w_rand = rng.normal(size=(m, n)).astype(np.float32)
+    return tuple(quantize_ternary(torch.from_numpy(w).to("cuda"),
+                                  group_size=gs) for w in (w_exact, w_rand))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs", [16, 64, 128])
+@pytest.mark.parametrize("rows", [9, 32, 128, 512])
+def test_cuda_ternary_mma_matches_plain(rows, gs):
+    """bf16 activations above 8 rows take the tensor-core route: bit for
+    bit on exact inputs (integer x, alpha 0.5) against both plain
+    versions and the route's own arithmetic, 1e-3 of the output scale on
+    random inputs; ragged M (33, 288), ragged N (376 at gs 128: padded
+    planes) and ragged B (9).  f32 activations at the same rows stay on
+    the half-LUT body.  The route counters show which body ran."""
+    require_cuda()
+    from repro_torch.kernels.ternary_matmul import route_for
+    rng = np.random.default_rng(rows * 10 + gs)
+    m = 33 if gs == 64 else 288
+    n = 376 if gs == 128 else 384
+    we, wr = _ternary_pair(rng, m, n, gs)
+    xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+        np.float32)).to("cuda")
+    xr = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).to("cuda")
+    assert route_for(rows, torch.bfloat16, gs, n) == "mma"
+    xb = xe.to(torch.bfloat16)
+    got, routes = _routes_run(
+        lambda: ternary_matmul(xb, we, out_dtype=torch.float32))
+    assert routes == {"ternary_matmul/mma": 1}
+    assert torch.equal(got, ternary_ref(xb, we, out_dtype=torch.float32))
+    assert torch.equal(got, dense_ref(xb, we, torch.float32))
+    assert torch.equal(got, ternary_planes_ref(xb, we, torch.float32))
+    xb = xr.to(torch.bfloat16)
+    got, routes = _routes_run(
+        lambda: ternary_matmul(xb, wr, out_dtype=torch.float32))
+    assert routes == {"ternary_matmul/mma": 1}
+    _close(got, dense_ref(xb, wr, torch.float32), GEMM_TOL)
+    got, routes = _routes_run(
+        lambda: ternary_matmul(xr, wr, out_dtype=torch.float32))
+    assert routes == {"ternary_matmul/lut": 1}
+    _close(got, dense_ref(xr, wr, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,rows", [(64, 16384, 32), (64, 16384, 128),
+                                      (2112, 1024, 512)])
+def test_cuda_ternary_mma_split_path(m, n, rows):
+    """A narrow, long weight (64 x 16384) splits its alpha groups over
+    blocks and adds the partials in a fixed order; 2112 rows at 512
+    batch rows fill every SM without a split.  Exact inputs agree bit
+    for bit either way, and a second call repeats the first exactly."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul.ops import mma_splits
+    rng = np.random.default_rng(m + rows)
+    we, wr = _ternary_pair(rng, m, n, 128)
+    splits = mma_splits(rows, m, n // 128, _lib.sm_count(0))
+    assert (splits > 1) == (m == 64)
+    xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    got, routes = _routes_run(
+        lambda: ternary_matmul(xe, we, out_dtype=torch.float32))
+    assert routes == {"ternary_matmul/mma": 1}
+    assert torch.equal(got, dense_ref(xe, we, torch.float32))
+    xr = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    got = ternary_matmul(xr, wr, out_dtype=torch.float32)
+    _close(got, dense_ref(xr, wr, torch.float32), GEMM_TOL)
+    assert torch.equal(got, ternary_matmul(xr, wr, out_dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# the split-table decode kernel (float and int8 pools)
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(seed, *, b, hkv, rep, d, bs, pages):
+    """``pool_case`` with a hole: row 1's second table entry set to -1
+    (its slots are dead, the rest of the row still counts), besides the
+    -1 pads, the recycled block with stale positions and the idle row 0."""
+    q, k, v, pos, tables, positions = pool_case(
+        seed, b=b, h=hkv * rep, hkv=hkv, d=d, nb=b * pages + 6, bs=bs,
+        pages=pages)
+    if b > 1 and (tables[1] >= 0).sum() >= 3:
+        tables[1, 1] = -1
+    return q, k, v, pos, tables, positions
+
+
+def _decode_flavours(q, k, v, pos, tables, positions):
+    """(name, kernel call, plain call, tol, poisonable) for each pool
+    flavour and compute type of the decode kernel on one case."""
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    qd, kd, vd = dev(q), dev(k), dev(v)
+    rest = tuple(map(dev, (pos, tables, positions)))
+    kb, vb, qb = kd.to(torch.bfloat16), vd.to(torch.bfloat16), \
+        qd.to(torch.bfloat16)
+    out = [("paged_decode", lambda kk, vv: paged_attention(qd, kk, vv, *rest),
+            lambda kk, vv: paged_decode_ref(qd, kk, vv, *rest), PAGED_TOL,
+            (kd, vd)),
+           ("paged_decode", lambda kk, vv: paged_attention(qb, kk, vv, *rest),
+            lambda kk, vv: paged_decode_ref(qb, kk, vv, *rest),
+            BF16_POOL_TOL, (kb, vb))]
+    for pow2, cdt, tol in ((True, torch.float32, PAGED_TOL),
+                           (False, torch.bfloat16, INT8_TOL)):
+        kq, vq, ks, vs = map(dev, int8_pools(k, v, seed=3, pow2=pow2))
+        out.append((
+            "paged_decode_int8",
+            lambda kk, vv, ks=ks, vs=vs, cdt=cdt: paged_attention_int8(
+                qd, kk, vv, ks, vs, *rest, compute_dtype=cdt),
+            lambda kk, vv, ks=ks, vs=vs, cdt=cdt: paged_decode_int8_ref(
+                qd, kk, vv, ks, vs, *rest, compute_dtype=cdt), tol,
+            (kq, vq)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [4, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_cuda_decode_matches_plain(rep, d, bs):
+    """The split-table decode on float pools (f32 1e-4, bf16 2e-2) and
+    int8 pools (f32 compute with power-of-two scales 1e-4, bf16 compute
+    5e-2), GQA up to rep 8, blocks of 4 and 16 slots, 200-slot tables
+    (13 tiles, split over several blocks), a -1 hole, -1 pads, a stale
+    recycled block; the idle row gives exactly 0, one launch per call,
+    and a second call repeats the first exactly.  Every dead slot's K and
+    V (stale, past a row's position, in no table) poisoned with NaN (or
+    int8 extremes) leaves the output unchanged."""
+    require_cuda()
+    from repro_torch.kernels.paged_attention.ops import decode_splits
+    b, hkv, pages = 3, 2, -(-200 // bs)
+    case = _decode_case(rep * 100 + d + bs, b=b, hkv=hkv, rep=rep, d=d,
+                        bs=bs, pages=pages)
+    assert decode_splits(b, hkv, rep, pages, bs, _lib.sm_count(0)) > 1
+    dead = ~torch.from_numpy(live_slots(case[3], case[4],
+                                        case[5])).to("cuda")
+    for name, kern, plain, tol, (kk, vv) in _decode_flavours(*case):
+        _lib.reset_launch_counts()
+        got = kern(kk, vv)
+        assert _lib.launch_counts[name] == 1
+        _close(got.float(), plain(kk, vv).float(), tol)
+        assert float(got[0].abs().max()) == 0.0
+        assert torch.equal(got, kern(kk, vv))
+        k2, v2 = kk.clone(), vv.clone()
+        poison = float("nan") if kk.dtype != torch.int8 else 127
+        k2[dead], v2[dead] = poison, -poison if poison == 127 else poison
+        assert torch.equal(kern(k2, v2), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hkv,pages,long", [(8, 32, 32, False),
+                                              (8, 8, 32, False),
+                                              (8, 32, 32, True),
+                                              (33, 32, 8, False)])
+def test_cuda_decode_main_width(b, hkv, pages, long):
+    """OPT-6.7B's decode: H 32, D 128, block 16, B 8, MHA and 8 kv heads
+    (GQA, rep 4); every row near max_seq_len 512 (long tables); and B 33,
+    whose 1,056 (row, head) blocks fill the card without a split (the
+    direct-write path)."""
+    require_cuda()
+    from repro_torch.kernels.paged_attention.ops import decode_splits
+    h, d, bs = 32, 128, 16
+    nb = b * pages + 8
+    q, k, v, pos, tables, positions = pool_case(
+        b + hkv, b=b, h=h, hkv=hkv, d=d, nb=nb, bs=bs, pages=pages)
+    if long:                    # every row holds all its pages, ends near 512
+        rng = np.random.default_rng(b + hkv)
+        tables = rng.permutation(np.arange(1, nb))[:b * pages].reshape(
+            b, pages).astype(np.int32)
+        pos = np.full((nb, bs), -1, np.int32)
+        for j in range(pages):
+            pos[tables[:, j]] = j * bs + np.arange(bs)
+        positions = (pages * bs - 1 - np.arange(b) % 5).astype(np.int32)
+    splits = decode_splits(b, hkv, h // hkv, pages, bs, _lib.sm_count(0))
+    assert (splits == 1) == (b == 33)
+    for name, kern, plain, tol, (kk, vv) in _decode_flavours(
+            q, k, v, pos, tables, positions):
+        _lib.reset_launch_counts()
+        got = kern(kk, vv)
+        assert _lib.launch_counts[name] == 1
+        _close(got.float(), plain(kk, vv).float(), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_unsupported_heads():
+    """The decode kernel takes head widths that are multiples of 16 up to
+    256; others raise."""
+    require_cuda()
+    for d in (24, 264):
+        q, k, v, pos, tables, positions = (
+            torch.from_numpy(a).to("cuda") for a in pool_case(0, d=d))
+        with pytest.raises(ValueError):
+            paged_attention(q, k, v, pos, tables, positions)

@@ -10,7 +10,12 @@ int8 pools: the plain versions follow the reference oracles' ordering
 1e-4; the reference kernels fold v_scale into the unnormalized
 probabilities before the bf16 rounding, a different rounding point, so
 against them the bound is the reference's int8 gate, 5e-2.  Chunked
-prefill on bf16 pools: 2e-2 of the output scale (see its test).  (The ternary
+prefill on bf16 pools: 2e-2 of the output scale (see its test).  The
+decode kernel's split-and-merge walk (``paged_decode_split_ref``): 1e-4
+against the reference kernel on f32 pools; on int8 pools 1e-4 against
+the unsplit plain version in f32 compute with power-of-two scales (the
+reference kernel computes in bf16 only), and the reference's int8 gate,
+5e-2, against the reference kernel in bf16.  (The ternary
 module has its own file, ``test_torch_ternary.py``.)
 The CUDA kernels themselves are held against these plain versions on
 the card by ``tests/test_torch_cuda.py``.
@@ -30,7 +35,8 @@ from repro.kernels.paged_attention import ref as j_paged_ref
 from repro_torch.kernels import _lib
 from repro_torch.kernels.bcq_matmul import bcq_matmul
 from repro_torch.kernels.lut_gemm import dense_ref, lut_gemm
-from repro_torch.kernels.paged_attention import (paged_attention,
+from repro_torch.kernels.paged_attention import (paged_decode_split_ref,
+                                                 paged_attention,
                                                  paged_attention_int8,
                                                  paged_prefill)
 
@@ -228,3 +234,95 @@ def test_wrappers_count_no_launch_on_cpu():
     bcq_matmul(torch.from_numpy(x), wt)
     lut_gemm(torch.from_numpy(x), wt)
     assert all(n == 0 for n in _lib.launch_counts.values())
+
+
+# the decode kernel's split walk: 16-slot tiles, so a 48-page table of
+# 4-slot blocks has 12 tiles and takes 1-4 splits of whole tiles
+SPLIT_PAGES, SPLIT_BS = 48, 4
+
+
+def _split_case(seed, h, hkv):
+    """A 192-slot table in which a live row ends before the last quarter
+    (so the 4-way split has an empty split on a live row), besides the
+    idle row 0, -1 pads and a stale recycled block."""
+    case = pool_case(seed, h=h, hkv=hkv, bs=SPLIT_BS, pages=SPLIT_PAGES,
+                     nb=3 * SPLIT_PAGES + 6)
+    assert (case[5][1:] < 144).any() and case[5][1:].max() >= 16
+    return case
+
+
+_JAX_DECODE = {}
+
+
+def _jax_decode(seed, h, hkv, int8):
+    """The reference kernel (interpret mode) on ``_split_case``, once per
+    case: (inputs, its output)."""
+    key = (seed, h, hkv, int8)
+    if key not in _JAX_DECODE:
+        q, k, v, pos, tables, positions = _split_case(seed, h, hkv)
+        rest = tuple(map(jnp.asarray, (pos, tables, positions)))
+        if int8:
+            kq, vq, ks, vs = int8_pools(k, v, seed=seed, pow2=True)
+            args = (q, kq, vq, ks, vs, pos, tables, positions)
+            out = j_int8(*map(jnp.asarray, args[:5]), *rest,
+                         interpret=True)
+        else:
+            args = (q, k, v, pos, tables, positions)
+            out = j_decode(*map(jnp.asarray, args[:3]), *rest,
+                           interpret=True)
+        _JAX_DECODE[key] = (args, np.asarray(out))
+    return _JAX_DECODE[key]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+def test_paged_decode_split_matches_reference(h, hkv, splits):
+    """Partials per range of 16-slot tiles merged in split order equal the
+    reference kernel within 1e-4 (f32 pools), empty splits included; the
+    idle row gives 0."""
+    (q, k, v, pos, tables, positions), want = _jax_decode(1, h, hkv, False)
+    got = paged_decode_split_ref(*map(torch.from_numpy, (q, k, v, pos,
+                                                          tables,
+                                                          positions)),
+                                 splits).numpy()
+    np.testing.assert_allclose(got, want, atol=PAGED_TOL)
+    assert np.abs(got[0]).max() == 0.0
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("h,hkv", [(8, 4), (4, 4)])
+def test_paged_decode_int8_split_matches_reference(h, hkv, splits):
+    """int8 pools with power-of-two scales: in f32 compute the split walk
+    equals the unsplit plain version within 1e-4 (the scale products are
+    exact, only the f32 sums move); in bf16 compute it is within the
+    reference's int8 gate of the reference kernel."""
+    args, want = _jax_decode(2, h, hkv, True)
+    q, kq, vq, ks, vs, pos, tables, positions = map(torch.from_numpy, args)
+    kw = dict(k_scale=ks, v_scale=vs)
+    f32 = paged_decode_split_ref(q, kq, vq, pos, tables, positions, splits,
+                                 compute_dtype=torch.float32, **kw)
+    plain = paged_attention_int8(q, kq, vq, ks, vs, pos, tables, positions,
+                                 compute_dtype=torch.float32)
+    _close(f32.numpy(), plain.numpy(), PAGED_TOL)
+    bf = paged_decode_split_ref(q, kq, vq, pos, tables, positions, splits,
+                                **kw).numpy()
+    _close(bf, want, INT8_TOL)
+    assert np.abs(bf[0]).max() == 0.0
+
+
+def test_decode_split_count_covers_the_table():
+    """Every split is a whole number of 16-slot tiles, every tile of the
+    table is in one, no split lies past the table, and a batch that fills
+    the card takes no split."""
+    from repro_torch.kernels.paged_attention.ops import decode_splits
+    for b, hkv, rep, pages, bs, sms in (
+            (8, 32, 1, 32, 16, 132), (8, 8, 4, 32, 16, 132),
+            (1, 32, 1, 32, 16, 132), (3, 2, 8, 50, 4, 132),
+            (3, 4, 2, 6, 4, 132), (2, 1, 1, 3, 5, 8), (1, 1, 1, 1, 16, 132),
+            (64, 32, 1, 32, 16, 132)):
+        s = decode_splits(b, hkv, rep, pages, bs, sms)
+        tiles = -(-pages * bs // 16)
+        per = -(-tiles // s)
+        assert 1 <= s <= tiles and (s - 1) * per < tiles <= s * per
+    assert decode_splits(64, 32, 1, 32, 16, 132) == 1
+    assert decode_splits(8, 32, 1, 32, 16, 132) > 1

@@ -12,6 +12,10 @@ Tolerances, each with its reason:
     interpret mode) and ``ternary_ref``: exact on exact inputs (integer
     activations, power-of-two alphas: every partial sum is an exact f32),
     1e-4 of the output scale otherwise (summation order);
+  * ``ternary_planes_ref`` (the arithmetic of the tensor-core route:
+    x against the sum of the two derived +-1 planes per alpha group,
+    then alpha / 2) against the reference kernel: exact on exact inputs,
+    1e-3 of the output scale (the reference's GEMM gate) on random ones;
   * dequantize and manifest bytes: exactly equal;
   * the greedy token stream of the port's ``PagedServeEngine``: identical
     to the reference engine's (tolerance 0 on token ids).
@@ -36,7 +40,9 @@ from repro_torch.core import lut_gemm as tlg
 from repro_torch.core import plane as tplane
 from repro_torch.kernels import _lib
 from repro_torch.kernels.lut_common import ternary_plane_bytes
-from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_matmul,
+from repro_torch.kernels.ternary_matmul import (dense_ref, route_for,
+                                                ternary_matmul,
+                                                ternary_planes_ref,
                                                 ternary_ref)
 from repro_torch.kernels.ternary_matmul.ops import splits_for
 from repro_torch.models import from_jax_params
@@ -174,6 +180,56 @@ def test_ternary_matmul_rejects_bcq_and_bcq_kernels_reject_ternary():
     for backend in ("dense", "bcq_xla"):
         z = tlg.bcq_apply(x, wt, backend=backend, out_dtype=torch.float32)
         assert float((z - y).abs().max()) <= 2e-2 * float(y.abs().max())
+
+
+# the tensor-core route's shapes: ragged M, N (376 at gs 128: padded
+# planes) and B, each group size the route takes
+MMA_SHAPES = [(33, 376, 9, 128), (64, 256, 32, 16), (40, 192, 17, 64)]
+GEMM_TOL = 1e-3
+
+
+@pytest.mark.parametrize("m,n,b,g", MMA_SHAPES)
+def test_ternary_planes_ref_exact_against_reference(m, n, b, g):
+    """The mma route's re-associated arithmetic equals the reference
+    kernel bit for bit on exact inputs."""
+    rng = np.random.default_rng(m + b)
+    wj, wt = _pair(_ternary_w(m, n, m + n), g)
+    x = rng.integers(-8, 9, (b, n)).astype(np.float32)
+    want = np.asarray(j_ternary(jnp.asarray(x), wj, interpret=True))
+    got = ternary_planes_ref(torch.from_numpy(x), wt).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("m,n,b,g", MMA_SHAPES)
+def test_ternary_planes_ref_matches_reference(m, n, b, g):
+    """On random weights and bf16-valued activations (what the route
+    reads) within 1e-3 of the output scale of the reference kernel."""
+    rng = np.random.default_rng(m * b)
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    x = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32)).to(
+        torch.bfloat16).float().numpy()
+    wj, wt = _pair(w, g)
+    want = np.asarray(j_ternary(jnp.asarray(x), wj, interpret=True))
+    got = ternary_planes_ref(torch.from_numpy(x), wt).numpy()
+    scale = np.abs(want).max() + 1e-6
+    np.testing.assert_allclose(got / scale, want / scale, atol=GEMM_TOL)
+
+
+@pytest.mark.parametrize("rows,dtype,gs,n,want", [
+    (1, torch.bfloat16, 128, 4096, "lut"), (8, torch.bfloat16, 128, 4096,
+                                            "lut"),
+    (9, torch.bfloat16, 128, 4096, "mma"), (512, torch.bfloat16, 16, 136,
+                                            "mma"),
+    (512, torch.bfloat16, 256, 4096, "mma"),
+    (512, torch.float32, 128, 4096, "lut"),
+    (512, torch.bfloat16, 8, 4096, "lut"), (512, torch.bfloat16, 24, 4096,
+                                            "lut"),
+    (512, torch.bfloat16, 512, 4096, "lut"),
+    (512, torch.bfloat16, 128, 4092, "lut")])
+def test_ternary_route_edges(rows, dtype, gs, n, want):
+    """The mma route takes more than 8 bf16 rows with 16 | gs <= 256 and
+    8 | in_features (bcq_matmul's rule); every other call the LUT body."""
+    assert route_for(rows, dtype, gs, n) == want
 
 
 def test_split_count_covers_every_chunk():
