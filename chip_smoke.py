@@ -21,6 +21,11 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      bf16) also with 8 kv heads (GQA) at C 512 and on a ragged B 3,
      C 200 chunk; the split-table decode kernels (float and int8) also
      with 8 kv heads (GQA) and with every row near max_seq_len 512;
+     bcq_matmul's bf16 decode rows on its tensor-core decode tile (each
+     case logged with its split count) and, on f32 rows 8 of every OPT
+     and MiniCPM3 weight, on its CUDA-core GEMV (route ``gemv_fma``);
+     the split-table MLA decode kernel logged with its split count and
+     held to repeat itself exactly;
   4. serve (random weights from ``--seed``, paged engine, fused paged
      attention), four runs: full-width OPT-6.7B BCQ-quantized on the card
      at 3 bits, g = 128, with ``--backend auto`` (bcq_matmul) and
@@ -34,8 +39,10 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      each run prints its prefill kernel's time (phase-3 time x
      launches) beside its TTFT, and the GEMM bodies its decode steps and
      prefill chunks launched: no decode step may run the tensor-core
-     tile, and every prefill chunk must run its linears on it (all but
-     the head's one row per request).  The MiniCPM3 run also reports,
+     tile, every bcq_matmul decode step must run the tensor-core decode
+     tile (``gemv``) and nothing else, and every prefill chunk must run
+     its linears on the tensor-core tile (all but the head's one row per
+     request).  The MiniCPM3 run also reports,
      by depth, the plain bf16 path against the plain f32 path (how much
      of its bf16 logit error is bf16 rounding alone).
 
@@ -117,7 +124,9 @@ class Timer:
 def check_gemms(torch, timer, gen, results):
     from repro_torch.core import bcq
     from repro_torch.core.plane import dequantize
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
     from repro_torch.kernels.lut_gemm import dense_ref, lut_gemm, lut_ref
 
     tol = 1e-3          # relative to max |plain|: the reference's gate
@@ -163,15 +172,22 @@ def check_gemms(torch, timer, gen, results):
                            max_abs_err=err, rel_err=rel, tol=tol, ms=t,
                            plain_ms=t_plain, library_ms=t_lib,
                            bound_ms=b_ms, bound_by=b_by)
+                split = ""
+                if route == "gemv":
+                    rec["splits"] = gemv_splits(m, w.n_groups * 128,
+                                                _lib.sm_count(0))
+                    split = f", {rec['splits']} splits"
                 out[name].append(rec)
                 log(f"{name:10s} rows={rows:4d} M={m:5d} N={n:5d} "
-                    f"[{route}]: "
+                    f"[{route}{split}]: "
                     f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
                     f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
                     f"torch.matmul {t_lib:.4f} ms  bound {b_ms:.4f} ms "
                     f"({b_by})")
                 if not ok:
                     fail(f"{name} disagrees with its plain version")
+        gemv_fma_case(torch, timer, gen, w, dense_bf16, results,
+                      model="opt_6_7b")
         del w, dense_bf16
     # lut_gemm also at mu = 2 and with the full table, small and ragged
     w = bcq.from_uniform(torch.randn((33, 136), generator=gen,
@@ -197,6 +213,38 @@ def check_gemms(torch, timer, gen, results):
     if rel > tol:
         fail("bcq_matmul ragged f32 disagrees")
     results.update(out)
+
+
+def gemv_fma_case(torch, timer, gen, w, dense_bf16, results, model):
+    """bcq_matmul on f32 activations at 8 rows (MiniCPM3's f32 view): the
+    CUDA-core GEMV, under its own route name, 1e-3 of the output scale,
+    timed beside the tensor-core decode tile's bf16 case."""
+    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    tol, rows = 1e-3, 8
+    m, n = w.out_features, w.in_features
+    x = torch.randn((rows, n), generator=gen, device="cuda")
+    fn = lambda: bcq_matmul(x, w, out_dtype=torch.float32)
+    plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
+    got, route = routed(torch, "bcq_matmul", fn)
+    if route != "gemv_fma":
+        fail(f"bcq_matmul f32 rows 8 ran {route}, not gemv_fma")
+    err = float((got - plain).abs().max())
+    rel = err / (float(plain.abs().max()) + 1e-12)
+    b_ms, b_by = bound(rows * n * 4 + w.nbytes() + rows * m * 4,
+                       2.0 * rows * m * n)
+    t = timer(fn)
+    t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
+    t_lib = timer(lambda: torch.matmul(x.to(torch.bfloat16), dense_bf16.T))
+    results.setdefault("bcq_matmul_gemv_fma", []).append(dict(
+        m=m, n=n, rows=rows, dtype="float32", model=model, route=route,
+        max_abs_err=err, rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
+        library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
+    log(f"bcq_matmul rows={rows:4d} M={m:5d} N={n:5d} f32 [{route}]: "
+        f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {rel <= tol})  "
+        f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  torch.matmul (bf16) "
+        f"{t_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    if rel > tol:
+        fail("bcq_matmul f32 decode rows disagree with the plain version")
 
 
 def routed(torch, name, fn):
@@ -592,9 +640,11 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
     both compute in f32 from the same pools)."""
     import numpy as np
     import torch.nn.functional as F
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.paged_attention import (gather_view,
                                                      paged_attention_mla,
                                                      paged_decode_mla_ref)
+    from repro_torch.kernels.paged_attention.ops import mla_splits
     h, lora, dr, bs, pages, nb = 40, 256, 32, 16, 32, 257
     kd = lora + dr
     scale = (64 + 32) ** -0.5           # (qk_nope + qk_rope)^-0.5
@@ -632,13 +682,16 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
             + tables.numel() * 4 + positions.numel() * 4
         flops = slots * h * (2.0 * kd + 2.0 * lora)
         b_ms, b_by = bound(nbytes, flops)
-        tag = f"paged_decode_mla B={b} H={h}"
+        splits = mla_splits(b, h, pages, _lib.sm_count(0))
+        tag = f"paged_decode_mla B={b} H={h} ({splits} splits)"
+        if not torch.equal(got, kern()):
+            fail("paged_decode_mla: a repeated call differs")
         if b != 8:
             log(f"{tag}: err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok}) "
                 f"({visited} live pages)")
             out.append(dict(b=b, h=h, lora=lora, dr=dr, block_size=bs,
-                            max_abs_err=err, rel_err=rel, tol=tol,
-                            visited_pages=visited))
+                            splits=splits, max_abs_err=err, rel_err=rel,
+                            tol=tol, visited_pages=visited))
             if not ok:
                 fail("paged_decode_mla disagrees with its plain version")
             continue
@@ -660,7 +713,8 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
             qs, kk, vv, attn_mask=mask, scale=scale))
         t_k, t_p = timer(kern), timer(plain)
         out.append(dict(b=b, h=h, lora=lora, dr=dr, block_size=bs,
-                        max_abs_err=err, rel_err=rel, tol=tol, ms=t_k,
+                        splits=splits, max_abs_err=err, rel_err=rel,
+                        tol=tol, ms=t_k,
                         plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
                         bound_by=b_by, visited_pages=visited, bytes=nbytes))
         log(f"{tag}: err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
@@ -688,19 +742,23 @@ def mla_gemm_shapes(cfg):
 
 def check_bcq_minicpm3(torch, timer, gen, results):
     """bcq_matmul on every MiniCPM3-4B GEMM shape (new widths: out 288 and
-    73,472, in 768 and 6400) at rows 8 (a decode step: the GEMV) and 512
-    (the largest prefill bucket: the tiled kernel), 1e-3 of the output
-    scale as in ``check_gemms``."""
+    73,472, in 768 and 6400) at rows 1 and 8 (a decode step: the
+    tensor-core decode tile) and 512 (the largest prefill bucket: the
+    tensor-core tile), and on f32 activations at rows 8 (the f32 view:
+    the CUDA-core GEMV), 1e-3 of the output scale as in
+    ``check_gemms``."""
     from repro_torch.configs import get_config
     from repro_torch.core import bcq
     from repro_torch.core.plane import dequantize
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
 
     tol = 1e-3
     layer, unembed = mla_gemm_shapes(get_config("minicpm3_4b"))
     for (m, n), rows in [(sh, r) for sh in sorted(set(layer)) + [unembed]
-                         for r in (8, 512)]:
-        if rows == 8:
+                         for r in (1, 8, 512)]:
+        if rows == 1:
             w_dense = torch.randn((m, n), generator=gen,
                                   device="cuda") * 0.02
             w = bcq.quantize(w_dense, bits=3, group_size=128)
@@ -720,19 +778,28 @@ def check_bcq_minicpm3(torch, timer, gen, results):
         t = timer(fn)
         t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
         t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
-        results["bcq_matmul"].append(dict(
+        rec = dict(
             m=m, n=n, rows=rows, bits=w.bits, model="minicpm3_4b",
             route=route, max_abs_err=err, rel_err=rel, tol=tol, ms=t,
             plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-            bound_by=b_by))
+            bound_by=b_by)
+        split = ""
+        if route == "gemv":
+            rec["splits"] = gemv_splits(m, w.n_groups * 128,
+                                        _lib.sm_count(0))
+            split = f", {rec['splits']} splits"
+        results["bcq_matmul"].append(rec)
         log(f"bcq_matmul rows={rows:4d} M={m:5d} N={n:5d} (minicpm3) "
-            f"[{route}]: "
+            f"[{route}{split}]: "
             f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {rel <= tol})  "
             f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  torch.matmul "
             f"{t_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
         if rel > tol:
             fail("bcq_matmul disagrees with its plain version at a "
                  "MiniCPM3 shape")
+        if rows == 8:
+            gemv_fma_case(torch, timer, gen, w, dense_bf16, results,
+                          model="minicpm3_4b")
 
 
 # ---------------------------------------------------------------------------
@@ -974,9 +1041,11 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
 def route_totals(tag, gemm, step_routes, chunk_routes, total):
     """The GEMM bodies of one serve run, split into decode steps and
     prefill chunks.  Gates: every decode step launches counted bodies and
-    none runs the tensor-core tile (decode rows are at most 8), and in
-    every prefill chunk all of ``gemm``'s launches but the head's (one
-    row per request) run it."""
+    none runs the tensor-core tile (decode rows are at most 8); with
+    bcq_matmul every decode step runs the tensor-core decode tile
+    (``gemv``) and nothing else; and in every prefill chunk all of
+    ``gemm``'s launches but the head's (one row per request) run the
+    tensor-core tile."""
     def add(rows):
         out = {}
         for r in rows:
@@ -989,6 +1058,14 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total):
              "prefill chunks")
     if any(k.endswith("/mma") for k in decode):
         fail(f"serve[{tag}]: a decode step ran the tensor-core tile")
+    if gemm == "bcq_matmul":
+        # bf16 decode steps run the tensor-core decode tile, never the
+        # CUDA-core GEMV (which is for f32 activations)
+        for i, r in enumerate(step_routes):
+            bodies = {k for k in r if k.startswith("bcq_matmul/")}
+            if bodies != {"bcq_matmul/gemv"}:
+                fail(f"serve[{tag}]: decode step {i} GEMM bodies {r}: its "
+                     "linears must run the tensor-core decode tile")
     if not all(step_routes) or not chunk_routes:
         fail(f"serve[{tag}]: a decode step or the run's prefill launched "
              "no counted GEMM body")
@@ -1206,6 +1283,17 @@ def main():
             kernels[-1]["prefill"] = {k: pre[k] for k in (
                 "rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
+        if name == "bcq_matmul":
+            # the decode tile's split count, and the CUDA-core GEMV on f32
+            # rows of the same weight
+            kernels[-1]["case"]["splits"] = sel["splits"]
+            f32 = [r for r in results["bcq_matmul_gemv_fma"]
+                   if r["m"] == sel["m"] and r["n"] == sel["n"]][0]
+            kernels[-1]["f32_decode"] = {k: f32[k] for k in (
+                "rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+        if name == "paged_decode_mla":
+            kernels[-1]["case"]["splits"] = sel["splits"]
         if name == "ternary_matmul":
             kernels[-1]["exact_inputs_max_abs_err"] = max(
                 r["max_abs_err"] for r in results[name]

@@ -85,38 +85,6 @@ constexpr int WM = MT / (NT / 32);  // weight rows per warp
 // for the kernel's static buffer
 constexpr int MAX_SMEM = 232448 - 1024;
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a * b, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bits s and s + 1 of w -> two bf16 (+1 = 0x3F80 for a set bit, -1 =
-// 0xBF80 for a clear one), bit s in the low half, for s <= 14, with
-// mask = 3 << s and mul = 0x40008000 >> s fixed per thread: the multiply
-// puts bit s on bit 15 and bit s + 1 on bit 31 (the cross terms land on
-// bits 16 and 30, outside the mask), and the xor flips -1 to +1 where a
-// bit is set.  Three instructions a register, no shift of w.
-__device__ __forceinline__ unsigned decode_pm1_at(unsigned w, unsigned mask,
-                                                  unsigned mul) {
-  return 0xBF80BF80u ^ (((w & mask) * mul) & 0x80008000u);
-}
-
-constexpr unsigned ONES = 0x3F803F80u;  // two bf16 +1
-
 // two bf16 pairs added (exact for the +-1 sums of the ternary planes)
 __device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
   const __nv_bfloat162 r =
@@ -124,13 +92,6 @@ __device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
               *reinterpret_cast<const __nv_bfloat162*>(&b));
   return *reinterpret_cast<const unsigned*>(&r);
 }
-
-// alpha and z are staged SG groups at a time (a row's values for
-// consecutive groups are contiguous, so 8 lanes fill one 32-byte
-// sector), into two buffers by block parity, rows SGP floats apart (odd:
-// the 8 rows a warp reads at once fall in 8 banks)
-constexpr int SG = 8;
-constexpr int SGP = SG + 1;
 
 struct Layout {
   int xs;       // bytes per staged x row: gs bf16 and 16 of padding

@@ -85,6 +85,42 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// mbarriers (shared memory) that TMA bulk copies complete on
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival, announcing ``bytes`` more to land in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT%=;\n}" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+
+// a TMA bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on mbarrier b
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(b))
+      : "memory");
+}
+
 // eight activations x[off .. off + 8) as f32 (columns col .. col + 8 of a
 // row of N); 16-byte loads when ``vec`` (aligned rows) and the eight lie
 // inside the row, else element loads with columns >= N read as 0

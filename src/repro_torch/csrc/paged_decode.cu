@@ -88,42 +88,6 @@ constexpr int MAX_SMEM = 232448 - 1024;
 
 static_assert(SPW * 8 == 32, "8 lanes per slot, one slot per lane group");
 
-// mbarriers (shared memory) that TMA bulk copies complete on
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival, announcing ``bytes`` more to land in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(b)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT%=;\n}" ::"r"(smem_u32(b)),
-      "r"(parity)
-      : "memory");
-}
-
-// a TMA bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte
-// aligned) from global to shared memory, completing on mbarrier b
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(b))
-      : "memory");
-}
-
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // N (a multiple of 4) consecutive elements from shared memory as f32;

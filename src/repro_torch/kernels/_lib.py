@@ -45,10 +45,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, packed, alpha, z, y, part, B, M, N, NB, G, q, group_size,
+    # x, packed, alpha, z, y, part, sem, B, M, N, NB, G, q, group_size,
     # x_is_bf16, route, splits, stream
-    "launch_bcq_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _P],
+    "launch_bcq_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _P],
     # x, packed, alpha, z, y, part, B, M, N, NB, G, q, group_size,
     # x_is_bf16, mu, half_lut, chunk, route, splits, stream
     "launch_lut_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -76,10 +76,11 @@ _SIGNATURES = {
     "launch_paged_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                                   _P],
-    # q_eff, q_rope, ckv, krope, pos, tables, positions, out, B, H, lora,
-    # dr, BS, pages, scale, kv_is_bf16, stream
-    "launch_paged_decode_mla": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _F, _I, _P],
+    # q_eff, q_rope, ckv, krope, pos, tables, positions, out, part_o,
+    # part_ml, sem, B, H, lora, dr, BS, pages, scale, kv_is_bf16,
+    # heads_per_block, splits, stream
+    "launch_paged_decode_mla": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
 }
 
 
@@ -198,6 +199,24 @@ def split_count(units: int, tiles: int, sms: int, per_sm: int,
     want = max(1, min(cap, -(-per_sm * sms // tiles)))
     per = -(-units // want)
     return -(-units // per)
+
+
+_COUNTERS: Dict[tuple, object] = {}
+
+
+def split_counters(kernel: str, device, n: int):
+    """At least ``n`` zeroed int32 counters on ``device`` for ``kernel``'s
+    in-kernel split merge: the last block of each output tile to finish
+    counts the others in and sets its counter back to 0, so every launch
+    leaves them at 0 (calls of one kernel on one device run in stream
+    order, as the port's do)."""
+    import torch
+    key = (kernel, device.index or 0)
+    t = _COUNTERS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = t
+    return t
 
 
 @functools.lru_cache(maxsize=None)

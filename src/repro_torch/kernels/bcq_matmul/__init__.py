@@ -1,7 +1,8 @@
-"""Packed-weight GEMM (CUDA: GEMV, tensor-core tile, CUDA-core tile) and
-its plain versions."""
+"""Packed-weight GEMM (CUDA: tensor-core decode tile, CUDA-core GEMV,
+tensor-core tile, CUDA-core tile) and its plain versions."""
 from .ops import bcq_matmul, route_for
-from .ref import bcq_matmul_ref, bcq_planes_ref, plane_group_sums
+from .ref import (bcq_matmul_ref, bcq_planes_ref, gemv_split_ref,
+                  plane_group_sums)
 
 __all__ = ["bcq_matmul", "route_for", "bcq_matmul_ref", "bcq_planes_ref",
-           "plane_group_sums"]
+           "gemv_split_ref", "plane_group_sums"]

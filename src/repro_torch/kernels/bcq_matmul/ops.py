@@ -5,20 +5,30 @@ because CUDA has no interpret mode; on a CUDA tensor it launches the
 kernel or raises — it never falls back.  Ragged edges are masked
 in-kernel, so no operand is padded per call.
 
-The kernel has three bodies, and :func:`route_for` picks one by a fixed
+The kernel has four bodies, and :func:`route_for` picks one by a fixed
 rule of the call's shape and type (never by trying one and switching
 when it fails):
 
-  * ``gemv`` — at most 8 rows (decode): the weight-streaming GEMV;
-  * ``mma``  — more than 8 rows of bf16 activations, a group size that is
-    a multiple of 16 (at most 256) and an input width that is a multiple
-    of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, one bf16 product
-    per bit plane and alpha group (prefill);
-  * ``fma``  — any other call above 8 rows (f32 activations, such as
-    MiniCPM3's f32 view, or group size 8 mod 16): the CUDA-core tile.
+  * ``gemv``     — at most 8 rows (decode) of bf16 activations, a group
+    size of 32, 64, 128 or 256 and an input width that is a multiple of
+    8: the tensor-core decode tile (the batch on the N side of one bf16
+    product per bit plane and alpha group, 64 weight rows a block; the
+    reduction axis split over blocks where the row tiles alone would
+    leave SMs idle, :func:`gemv_splits`, and the partials added in split
+    order by the last block of each row tile);
+  * ``gemv_fma`` — any other call of at most 8 rows (f32 activations,
+    such as MiniCPM3's f32 view): the weight-streaming GEMV on the CUDA
+    cores, which keeps x in f32;
+  * ``mma``      — more than 8 rows of bf16 activations, a group size
+    that is a multiple of 16 (at most 256) and an input width that is a
+    multiple of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, one bf16
+    product per bit plane and alpha group (prefill);
+  * ``fma``      — any other call above 8 rows (f32 activations, or
+    group size 8 mod 16): the CUDA-core tile.
 
 The launch counter keeps the kernel's name; ``_lib.route_counts``
-counts each body under ``"bcq_matmul/<route>"``.
+counts each body under ``"bcq_matmul/<route>"``.  ``ref.gemv_split_ref``
+is the plain version of the decode tile's split walk.
 """
 from __future__ import annotations
 
@@ -27,13 +37,19 @@ import torch
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
 from . import ref as _ref
+from .ref import GEMV_STEP
 
 _X_DTYPES = (torch.bfloat16, torch.float32)
 
-ROUTES = ("fma", "gemv", "mma")   # index = the launcher's route code
-DECODE_ROWS = 8                   # most rows the GEMV takes
+# index = the launcher's route code
+ROUTES = ("fma", "gemv", "mma", "gemv_fma")
+DECODE_ROWS = 8                   # most rows the decode bodies take
 MMA_ROWS, MMA_BATCH = 128, 64     # the mma tile's block (csrc/bcq_mma.cuh)
 MMA_MAX_GROUP = 256
+# the decode tile (csrc/bcq_matmul.cu): weight rows per block, and the
+# group sizes it takes (whole groups in each 256-column step)
+GEMV_ROWS = 64
+GEMV_GROUPS = (32, 64, 128, 256)
 
 
 def mma_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
@@ -45,10 +61,18 @@ def mma_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
             and in_features % 8 == 0)
 
 
+def gemv_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
+    """The decode tile's rule: at most 8 rows of bf16 activations, group
+    size 32, 64, 128 or 256, 8 | in_features (16-byte activation rows)."""
+    return (rows <= DECODE_ROWS and dtype == torch.bfloat16
+            and group_size in GEMV_GROUPS and in_features % 8 == 0)
+
+
 def route_for(rows: int, dtype, group_size: int, in_features: int) -> str:
     """The body a call of ``rows`` activation rows of ``dtype`` runs."""
     if rows <= DECODE_ROWS:
-        return "gemv"
+        return ("gemv" if gemv_takes(rows, dtype, group_size, in_features)
+                else "gemv_fma")
     if mma_takes(rows, dtype, group_size, in_features):
         return "mma"
     return "fma"
@@ -60,6 +84,19 @@ def mma_splits(rows: int, m: int, n_groups: int, sms: int) -> int:
     two blocks per SM, never more than there are groups."""
     tiles = -(-m // MMA_ROWS) * -(-rows // MMA_BATCH)
     return 1 if tiles >= sms else _lib.split_count(n_groups, tiles, sms, 2)
+
+
+def gemv_splits(m: int, padded_in: int, sms: int) -> int:
+    """How many blocks share one 64-row tile's 256-column steps on the
+    decode tile (``padded_in``: the planes' width, n_groups x
+    group_size): none while the row tiles give every SM a block (a split
+    there measured slower: its partials and merge cost more than the
+    blocks it adds), else enough for about three blocks per SM, never
+    more than there are steps."""
+    tiles = -(-m // GEMV_ROWS)
+    if tiles >= sms:
+        return 1
+    return _lib.split_count(-(-padded_in // GEMV_STEP), tiles, sms, 3)
 
 
 def aligned_rows(x2: torch.Tensor) -> torch.Tensor:
@@ -114,18 +151,23 @@ def bcq_matmul(x: torch.Tensor, w: PlaneBundle, *,
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
         route = route_for(b, x2.dtype, w.group_size, w.in_features)
-        splits, part = 1, None
-        if route == "mma":
+        splits, part, sem = 1, None, None
+        if route in ("mma", "gemv"):
             x2 = aligned_rows(x2)
-            splits = mma_splits(b, m, w.n_groups,
-                                _lib.sm_count(x.device.index or 0))
+            sms = _lib.sm_count(x.device.index or 0)
+            splits = (mma_splits(b, m, w.n_groups, sms) if route == "mma"
+                      else gemv_splits(m, nb * 8, sms))
             if splits > 1:
                 part = torch.empty((splits, b, m), dtype=torch.float32,
                                    device=x.device)
+                if route == "gemv":
+                    sem = _lib.split_counters("bcq_matmul", x.device,
+                                              -(-m // GEMV_ROWS))
         rc = _lib.lib().launch_bcq_matmul(
             x2.data_ptr(), w.packed.data_ptr(), w.alpha.data_ptr(),
             w.z.data_ptr() if w.z is not None else None, y.data_ptr(),
             part.data_ptr() if part is not None else None,
+            sem.data_ptr() if sem is not None else None,
             b, m, w.in_features, nb, w.n_groups, q, w.group_size,
             int(x2.dtype == torch.bfloat16), ROUTES.index(route), splits,
             _lib.stream_ptr(x.device))

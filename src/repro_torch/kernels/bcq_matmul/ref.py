@@ -7,7 +7,11 @@
     bcq_matmul and lut_gemm): per bit plane and alpha group the sum of
     x times the +-1 plane in f32, scaled by alpha, then z times the
     group's sum of x.  Memory grows as B x M x n_groups: a test-size
-    function.
+    function;
+  * ``gemv_split_ref`` — the decode tile's split walk (the ``gemv`` route
+    of ``csrc/bcq_matmul.cu``): the same per-group terms, the padded
+    reduction axis cut into ranges of whole 256-column steps, each
+    range's sum a partial, the partials added in split order.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import torch
 
 from repro_torch.core.plane import (PlaneBundle, dequantize, pad_operands,
                                     unpack_planes)
+
+GEMV_STEP = 256   # reduction columns per stage of the decode tile
 
 
 def bcq_matmul_ref(x: torch.Tensor, w: PlaneBundle,
@@ -36,15 +42,45 @@ def plane_group_sums(x: torch.Tensor, w: PlaneBundle) -> torch.Tensor:
     return torch.einsum("bgk,imgk->bimg", xg, pm1.reshape(q, m, g, gs))
 
 
-def bcq_planes_ref(x: torch.Tensor, w: PlaneBundle,
-                   out_dtype=None) -> torch.Tensor:
-    """y = sum_i sum_g alpha[i, m, g] s[b, i, m, g] + sum_g z[m, g]
-    xsum[b, g]: the tile's order (planes, then the offset term)."""
-    lead = x.shape[:-1]
+def _group_terms(x: torch.Tensor, w: PlaneBundle) -> torch.Tensor:
+    """t[b, m, g] = sum_i alpha[i, m, g] s[b, i, m, g] + z[m, g] xsum[b,
+    g]: each alpha group's share of y, in f32."""
     s = plane_group_sums(x, w)                            # [B, q, M, G]
-    y = torch.einsum("bimg,img->bm", s, w.alpha.float())
+    t = torch.einsum("bimg,img->bmg", s, w.alpha.float())
     if w.z is not None:
         x2 = pad_operands(x.reshape(-1, x.shape[-1]).float(), w)
         xsum = x2.reshape(x2.shape[0], w.n_groups, w.group_size).sum(-1)
-        y = y + xsum @ w.z.float().T
+        t = t + xsum[:, None, :] * w.z.float()[None]
+    return t
+
+
+def bcq_planes_ref(x: torch.Tensor, w: PlaneBundle,
+                   out_dtype=None) -> torch.Tensor:
+    """y = sum_g (sum_i alpha[i, m, g] s[b, i, m, g] + z[m, g] xsum[b,
+    g]): the tiles' order (planes, then the offset term, per group)."""
+    y = _group_terms(x, w).sum(-1)
+    return y.reshape(*x.shape[:-1], w.out_features).to(out_dtype or x.dtype)
+
+
+def gemv_split_ref(x: torch.Tensor, w: PlaneBundle, splits: int,
+                   out_dtype=None) -> torch.Tensor:
+    """y by the decode tile's walk: the planes' width in 256-column steps
+    (whole alpha groups each, group size 32-256), ``splits`` ranges of
+    whole steps, each range's group terms summed into a partial, the
+    partials added in split order."""
+    gs = w.group_size
+    if GEMV_STEP % gs:
+        raise ValueError(f"group size {gs} does not divide the "
+                         f"{GEMV_STEP}-column step")
+    lead = x.shape[:-1]
+    t = _group_terms(x, w)                                # [B, M, G]
+    gps = GEMV_STEP // gs
+    steps = -(-w.n_groups // gps)
+    per = -(-steps // splits)
+    if -(-steps // per) != splits:
+        raise ValueError(f"{splits} splits of {steps} steps leave one empty "
+                         "by construction")
+    y = torch.zeros(t.shape[:2], dtype=torch.float32)
+    for sp in range(splits):
+        y = y + t[..., sp * per * gps:(sp + 1) * per * gps].sum(-1)
     return y.reshape(*lead, w.out_features).to(out_dtype or x.dtype)

@@ -13,7 +13,10 @@ do.  On CPU
 tensors the wrappers run the plain versions in ``ref``; on CUDA tensors
 they launch the kernel or raise.  MLA decode keeps q_eff and q_rope in
 f32, as the reference's ``paged_attention_mla`` does (no rounding to the
-pool's type).
+pool's type), and splits each row's table over ``mla_splits`` blocks of
+whole pages (all of a row's heads, up to 40, in each), merged in the
+kernel the same way as decode's
+(``ref.paged_decode_mla_split_ref`` is the plain version of that walk).
 
 Decode (float and int8, ``csrc/paged_decode.cu``) scales and rounds q
 and writes the output in its dtype itself, as the tensor-core prefill
@@ -45,20 +48,6 @@ DECODE_TILE, DECODE_HEADS, DECODE_MAX_HEAD_DIM = 16, 8, 256
 DECODE_MIN_TILES = 4
 
 
-_COUNTERS = {}
-
-
-def _split_counters(device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters on ``device`` for the decode
-    kernel's split merge (each launch leaves its counters at 0)."""
-    key = device.index or 0
-    t = _COUNTERS.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[key] = t
-    return t
-
-
 def decode_splits(b: int, hkv: int, rep: int, pages: int, bs: int,
                   sms: int) -> int:
     """How many blocks share one (row, kv head, head group)'s walk over
@@ -70,6 +59,27 @@ def decode_splits(b: int, hkv: int, rep: int, pages: int, bs: int,
     blocks = b * hkv * -(-rep // DECODE_HEADS)
     return _lib.split_count(tiles, blocks, sms, 4,
                             most=-(-tiles // DECODE_MIN_TILES))
+
+
+# the MLA decode kernel (csrc/paged_attention_mla.cu): query heads per
+# warp, the widest head tile (20 warps) and the widest latent it takes
+MLA_HEADS_PER_WARP, MLA_MAX_TILE, MLA_MAX_LORA = 2, 40, 512
+
+
+def mla_heads_per_block(h: int) -> int:
+    """The MLA kernel's head tile: all of a row's heads in one block (an
+    even number, the heads of its warps), up to 40."""
+    return min(MLA_MAX_TILE, -(-h // MLA_HEADS_PER_WARP) * MLA_HEADS_PER_WARP)
+
+
+def mla_splits(b: int, h: int, pages: int, sms: int) -> int:
+    """How many blocks share one (row, head tile)'s walk over its table
+    on the MLA decode kernel: enough for about one block (of up to 20
+    warps) per SM, never more than the table has pages; every split a
+    whole number of pages (the table's width: the host does not read how
+    many are live)."""
+    tiles = b * -(-h // mla_heads_per_block(h))
+    return _lib.split_count(pages, tiles, sms, 1)
 
 
 def _check_pool(name, q, k_pool, v_pool, pos_pool, tables, positions,
@@ -211,8 +221,8 @@ def _decode(q, k_pool, v_pool, scales, pos_pool, tables, positions, scale,
             parts = tuple(torch.empty((splits, b, hkv, rep, n),
                                       dtype=torch.float32, device=q.device)
                           for n in (d, 2))
-            parts += (_split_counters(
-                q.device, b * hkv * -(-rep // DECODE_HEADS)),)
+            parts += (_lib.split_counters(
+                kernel, q.device, b * hkv * -(-rep // DECODE_HEADS)),)
         _launch(kernel, qk, k_pool, v_pool, scales, pos_pool, tables,
                 positions, out, b, 1, hkv, rep, d, bs, pages,
                 int(cdt == torch.bfloat16),
@@ -330,15 +340,32 @@ def paged_attention_mla(q_eff: torch.Tensor, q_rope: torch.Tensor,
               positions):
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+    if lora > MLA_MAX_LORA:
+        raise ValueError(f"{name}: takes kv_lora_rank <= {MLA_MAX_LORA}, "
+                         f"got {lora}")
     out = torch.empty((b, h, lora), dtype=torch.float32,
                       device=q_eff.device)
     if b and h:
+        pages = tables.shape[1]
+        hb = mla_heads_per_block(h)
+        splits = mla_splits(b, h, pages, _lib.sm_count(q_eff.device.index
+                                                       or 0))
+        part_o = part_ml = sem = None
+        if splits > 1:
+            part_o = torch.empty((splits, b, h, lora), dtype=torch.float32,
+                                 device=q_eff.device)
+            part_ml = torch.empty((splits, b, h, 2), dtype=torch.float32,
+                                  device=q_eff.device)
+            sem = _lib.split_counters("paged_decode_mla", q_eff.device,
+                                      b * -(-h // hb))
         rc = _lib.lib().launch_paged_decode_mla(
             q_eff.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
             krope_pool.data_ptr(), pos_pool.data_ptr(), tables.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), b, h, lora, dr, bs,
-            tables.shape[1], float(scale),
-            int(ckv_pool.dtype == torch.bfloat16),
+            positions.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() if t is not None else None
+              for t in (part_o, part_ml, sem)),
+            b, h, lora, dr, bs, pages, float(scale),
+            int(ckv_pool.dtype == torch.bfloat16), hb, splits,
             _lib.stream_ptr(q_eff.device))
         _lib.check(rc, "paged_decode_mla")
         _lib.count_launch("paged_decode_mla")

@@ -18,6 +18,8 @@ check the arithmetic without bf16 rounding.
 walk (``csrc/paged_decode.cu``): the table cut into splits of whole
 16-slot tiles, partial (max, sum, accumulator) per split, and a merge in
 split order in which a split with no live slot counts as empty.
+``paged_decode_mla_split_ref`` is the same for the MLA decode kernel
+(``csrc/paged_attention_mla.cu``), whose splits are whole pages.
 """
 from __future__ import annotations
 
@@ -115,6 +117,48 @@ def paged_decode_mla_ref(q_eff, q_rope, ckv_pool, krope_pool, pos_pool,
     p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
     p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     return torch.einsum("bhk,bkl->bhl", p, ckv)
+
+
+def mla_split_partials(q_eff, q_rope, ckv_pool, krope_pool, pos_pool,
+                       tables, positions, splits, *, scale):
+    """The MLA decode kernel's split walk: the table's pages cut into
+    ``splits`` ranges of whole pages; per range its max m over the live
+    scores, l = sum exp(s - m) and acc = sum exp(s - m) ckv, all f32.
+    Returns (m, l) [S, B, H] and acc [S, B, H, lora]; a range with no
+    live slot gives m = NEG_INF, l = 0, acc = 0."""
+    ckv = gather_view(ckv_pool, tables).float()               # [B, L, lora]
+    kr = gather_view(krope_pool, tables).float()
+    live, vpos = _live(pos_pool, tables)
+    ok = (live & (vpos <= positions[:, None]))[:, None, :]    # [B, 1, L]
+    s = (torch.einsum("bhl,bkl->bhk", q_eff.float(), ckv)
+         + torch.einsum("bhr,bkr->bhk", q_rope.float(), kr)) * scale
+    pages, bs = tables.shape[1], pos_pool.shape[1]
+    per = -(-pages // splits)
+    if -(-pages // per) != splits:
+        raise ValueError(f"{splits} splits of {pages} pages leave one empty "
+                         "by construction")
+    ms, ls, accs = [], [], []
+    for sp in range(splits):
+        lo, hi = sp * per * bs, min((sp + 1) * per * bs, pages * bs)
+        okr = ok[..., lo:hi]
+        sr = torch.where(okr, s[..., lo:hi], torch.full_like(s[..., lo:hi],
+                                                             NEG_INF))
+        m = sr.amax(-1)
+        p = torch.where(okr, torch.exp(sr - m[..., None]),
+                        torch.zeros_like(sr))
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhk,bkl->bhl", p, ckv[:, lo:hi]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def paged_decode_mla_split_ref(q_eff, q_rope, ckv_pool, krope_pool, pos_pool,
+                               tables, positions, splits, *, scale):
+    """Absorbed MLA decode by the kernel's split-and-merge walk.  Returns
+    the latent context, f32 [B, H, lora]."""
+    return merge_split_partials(*mla_split_partials(
+        q_eff, q_rope, ckv_pool, krope_pool, pos_pool, tables, positions,
+        splits, scale=scale))
 
 
 def paged_prefill_ref(q, k_pool, v_pool, pos_pool, tables, positions, *,

@@ -17,7 +17,12 @@ then z times the group's sum of x), is held here
       equals the plane products bit for bit, and so does the whole
       reference kernel;
   (c) the wrappers' route rules at their edges (rows 8 / 9, f32 / bf16,
-      group size 8 / 16 / 128).
+      group size 8 / 16 / 128; the decode tile's group sizes 32-256) and
+      their split rules;
+  (d) the decode tile's split walk (``gemv_split_ref``: 256-column steps,
+      whole steps per split, partials added in split order) against the
+      plain version and the reference kernel within 1e-5, and exactly on
+      exact inputs.
 
 The CUDA tile itself is held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
@@ -32,10 +37,10 @@ from repro.core.plane import PlaneBundle as JPlaneBundle
 from repro.kernels import lut_common as jlc
 from repro.kernels.bcq_matmul import ops as j_mxu
 from repro.kernels.lut_gemm import ops as j_lut
-from repro_torch.kernels.bcq_matmul import (bcq_planes_ref,
-                                            plane_group_sums)
+from repro_torch.kernels.bcq_matmul import (bcq_matmul_ref, bcq_planes_ref,
+                                            gemv_split_ref, plane_group_sums)
 from repro_torch.kernels.bcq_matmul import route_for as bcq_route
-from repro_torch.kernels.bcq_matmul.ops import mma_splits
+from repro_torch.kernels.bcq_matmul.ops import gemv_splits, mma_splits
 from repro_torch.kernels.lut_gemm import route_for as lut_route
 from repro_torch.kernels.lut_gemm.ops import decode_splits
 
@@ -137,9 +142,15 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("rows,dtype,gs,n,want", [
     (8, BF16, 128, 4096, "gemv"), (9, BF16, 128, 4096, "mma"),
-    (1, F32, 128, 4096, "gemv"), (9, F32, 128, 4096, "fma"),
+    (1, F32, 128, 4096, "gemv_fma"), (9, F32, 128, 4096, "fma"),
     (512, BF16, 16, 4096, "mma"), (512, BF16, 8, 136, "fma"),
     (512, BF16, 128, 4100, "fma"), (512, BF16, 512, 4096, "fma"),
+    # the decode tile's edges: group sizes 32..256 that divide its
+    # 256-column step, 16-byte activation rows, bf16 only
+    (1, BF16, 32, 4096, "gemv"), (8, BF16, 256, 2560, "gemv"),
+    (8, BF16, 64, 768, "gemv"), (8, BF16, 16, 4096, "gemv_fma"),
+    (8, BF16, 96, 4224, "gemv_fma"), (8, BF16, 512, 4096, "gemv_fma"),
+    (8, BF16, 128, 4100, "gemv_fma"), (8, F32, 128, 4096, "gemv_fma"),
 ])
 def test_bcq_matmul_route_edges(rows, dtype, gs, n, want):
     assert bcq_route(rows, dtype, gs, n) == want
@@ -158,7 +169,8 @@ def test_lut_gemm_route_edges(rows, dtype, gs, mu, half, want):
 
 def test_split_counts():
     """The reduction-axis splits: none while the row tiles fill the card
-    (132 SMs), a whole number of groups or chunks per split otherwise."""
+    (132 SMs), a whole number of groups, chunks or steps per split
+    otherwise."""
     assert mma_splits(512, 16384, 32, 132) == 1
     assert mma_splits(512, 4096, 32, 132) == 1
     s = mma_splits(32, 4096, 32, 132)
@@ -167,3 +179,80 @@ def test_split_counts():
     assert decode_splits(65536, 512, 132) == 1
     s = decode_splits(4096, 2048, 132)
     assert 1 < s <= 32 and -(-32 // -(-32 // s)) == s
+    # the decode tile: 64-row tiles, 256-column steps
+    assert gemv_splits(73472, 2560, 132) == 1
+    s = gemv_splits(288, 2560, 132)
+    assert 1 < s <= 10 and -(-10 // -(-10 // s)) == s
+
+
+# every OPT-6.7B and MiniCPM3-4B decode GEMM [out x in] (g 128)
+DECODE_SHAPES = [(4096, 4096), (16384, 4096), (4096, 16384), (768, 2560),
+                 (3840, 768), (288, 2560), (2560, 2560), (6400, 2560),
+                 (2560, 6400), (73472, 2560)]
+
+
+@pytest.mark.parametrize("m,n", DECODE_SHAPES)
+def test_gemv_split_counts(m, n):
+    """The decode tile's split rule at the served shapes: whole 256-column
+    steps per split, every step in one split, none past the axis; no
+    split where the row tiles give every SM a block, and where they do
+    not, a split per step or at least 1.5 blocks per SM (the rule asks
+    for about three; whole steps per split round it down)."""
+    sms = 132
+    s = gemv_splits(m, n, sms)
+    steps = -(-n // 256)
+    tiles = -(-m // 64)
+    per = -(-steps // s)
+    assert 1 <= s <= steps and (s - 1) * per < steps <= s * per
+    if tiles >= sms:
+        assert s == 1
+    else:
+        assert s == steps or tiles * s >= 1.5 * sms
+
+
+def _gemv_case(m, n, b, g, q, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    x = _bf16_values(rng.normal(size=(b, n)).astype(np.float32))
+    wj = jbcq.from_uniform(jnp.asarray(w), bits=q, group_size=g)
+    return x, wj, torch_bundle(wj)
+
+
+# (out, in, rows, group size, planes): ragged M and N (600 at g 64 pads to
+# 640, three steps, the last half full; 520 at g 128 pads to 640), rows
+# 1-8, q 1-4, group sizes 32 / 64 / 128 / 256
+GEMV_CASES = [(33, 600, 1, 64, 1), (70, 768, 8, 128, 3), (96, 1000, 5, 32, 2),
+              (20, 520, 3, 128, 4), (48, 1024, 8, 256, 3),
+              (17, 200, 2, 32, 4)]
+
+
+@pytest.mark.parametrize("m,n,b,g,q", GEMV_CASES)
+def test_gemv_split_ref_matches_reference(m, n, b, g, q):
+    """The decode tile's split walk at every split count its steps allow
+    equals bcq_matmul_ref and the reference kernel (interpret mode)
+    within 1e-5 of the output scale."""
+    x, wj, wt = _gemv_case(m, n, b, g, q, seed=m + n + q)
+    want = np.asarray(j_mxu.bcq_matmul(jnp.asarray(x), wj, interpret=True))
+    xt = torch.from_numpy(x)
+    plain = bcq_matmul_ref(xt, wt, torch.float32).numpy()
+    steps = -(-wt.n_groups * g // 256)
+    counts = [s for s in range(1, steps + 1)
+              if -(-steps // -(-steps // s)) == s]
+    assert len(counts) >= (2 if steps > 1 else 1)
+    for s in counts:
+        got = gemv_split_ref(xt, wt, s, torch.float32).numpy()
+        assert got.shape == want.shape == (b, m)
+        _close(got, want, 1e-5)
+        _close(got, plain, 1e-5)
+
+
+def test_gemv_split_ref_exact_and_refuses_empty_splits():
+    """On exact inputs every split walk equals the plain version bit for
+    bit; a split count that would leave a split empty is refused."""
+    x, wj, wt = _exact_case(40, 1024, 8, 64, 3, seed=4)
+    want = bcq_matmul_ref(torch.from_numpy(x), wt, torch.float32)
+    for s in (1, 2, 4):
+        got = gemv_split_ref(torch.from_numpy(x), wt, s, torch.float32)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        gemv_split_ref(torch.from_numpy(x), wt, 3, torch.float32)

@@ -23,6 +23,9 @@ the same pools, only the summation order differs.  The split-table
 decode kernel (float and int8 pools): 1e-4 of the output scale in f32,
 and the bf16 and int8 gates above in bf16 (it rounds p against each
 warp's running max of its split, the plain version the normalized p).
+The split-table MLA kernel keeps 1e-4 at every split count, and both
+split merges (MLA, bcq_matmul's decode tile) give bit-identical outputs
+on a repeated call.
 """
 import numpy as np
 import pytest
@@ -127,8 +130,9 @@ def test_cuda_gemm_routes_match_plain(rows, gs, q):
         _close(got, want, GEMM_TOL)
         route = bcq_route(rows, dtype, gs, n)
         assert routes == {f"bcq_matmul/{route}": 1}
-        assert route == ("gemv" if rows <= 8 else
-                         "mma" if dtype == torch.bfloat16 else "fma")
+        bf16 = dtype == torch.bfloat16
+        assert route == (("gemv" if bf16 and gs != 16 else "gemv_fma")
+                         if rows <= 8 else "mma" if bf16 else "fma")
         for mu, half in LUT_VARIANTS:
             got, routes = _routes_run(lambda: lut_gemm(
                 xt, wt, mu=mu, half_lut=half, out_dtype=torch.float32))
@@ -175,10 +179,11 @@ def test_cuda_gemm_routes_exact(rows):
 def test_cuda_gemm_split_path(rows):
     """A narrow, long weight (64 x 16384): the row tiles alone fill few
     SMs, so the reduction axis is split over blocks (the lut body's 512-
-    column chunks at decode rows, the mma tile's alpha groups at prefill
-    rows) and a fixed-order pass adds the partials."""
+    column chunks and the decode tile's 256-column steps at decode rows,
+    the mma tile's alpha groups at prefill rows) and the partials are
+    added in a fixed order: a second call repeats the first exactly."""
     require_cuda()
-    from repro_torch.kernels.bcq_matmul.ops import mma_splits
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits, mma_splits
     from repro_torch.kernels.lut_gemm.ops import decode_splits
     rng = np.random.default_rng(rows + 7)
     m, n = 64, 16384
@@ -195,13 +200,106 @@ def test_cuda_gemm_split_path(rows):
                                                out_dtype=torch.float32))
     _close(got, want, GEMM_TOL)
     assert routes == {"lut_gemm/" + ("lut" if rows <= 8 else "mma"): 1}
-    if rows > 8:
-        got, routes = _routes_run(lambda: bcq_matmul(
-            xt, wt, out_dtype=torch.float32))
-        _close(got, want, GEMM_TOL)
-        assert routes == {"bcq_matmul/mma": 1}
+    got, routes = _routes_run(lambda: bcq_matmul(
+        xt, wt, out_dtype=torch.float32))
+    _close(got, want, GEMM_TOL)
+    assert routes == {"bcq_matmul/" + ("gemv" if rows <= 8 else "mma"): 1}
+    if rows <= 8:
+        assert gemv_splits(m, n, sms) > 1
+    assert torch.equal(got, bcq_matmul(xt, wt, out_dtype=torch.float32))
     again = lut_gemm(xt, wt, out_dtype=torch.float32)
     assert torch.equal(again, lut_gemm(xt, wt, out_dtype=torch.float32))
+
+
+# every OPT-6.7B and MiniCPM3-4B decode GEMM [out x in]
+DECODE_SHAPES = [(4096, 4096), (16384, 4096), (4096, 16384), (768, 2560),
+                 (3840, 768), (288, 2560), (2560, 2560), (6400, 2560),
+                 (2560, 6400), (73472, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("m,n", DECODE_SHAPES)
+def test_cuda_gemv_tile_decode_shapes(m, n, rows):
+    """The tensor-core decode tile at every served decode shape (BCQ-3,
+    g 128, bf16 activations, as the serve runs quantize them): 1e-3 of
+    the output scale against the plain version, split or not by the
+    rule, and a second call repeats the first exactly (fixed-order
+    merge)."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
+    gen = torch.Generator(device="cuda").manual_seed(m + n + rows)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((rows, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    want = bcq_matmul_ref(x, w, torch.float32)
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/gemv": 1}
+    _close(got, want, GEMM_TOL)
+    assert torch.equal(got, bcq_matmul(x, w, out_dtype=torch.float32))
+    splits = gemv_splits(m, n, _lib.sm_count(0))
+    assert (splits == 1) == (m >= 64 * _lib.sm_count(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+@pytest.mark.parametrize("gs", [32, 256])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_cuda_gemv_tile_groups(rows, gs, q):
+    """The decode tile at the group sizes the served models do not use
+    (32: eight groups a step, 256: one), ragged M (70) and N (520 at g 32
+    and 600 at g 256: padded planes, a half-empty last step), ragged
+    rows, 1-4 planes, with and without z: 1e-3 of the output scale on
+    random inputs, bit for bit on exact ones (integer x, power-of-two
+    alphas), split and unsplit."""
+    require_cuda()
+    from repro_torch.core.plane import PlaneBundle
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
+    rng = np.random.default_rng(rows * 100 + gs + q)
+    m, n = 70, (520 if gs == 32 else 600)
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    wt = bcq.from_uniform(w.to("cuda"), bits=q, group_size=gs)
+    xt = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    got, routes = _routes_run(lambda: bcq_matmul(xt, wt,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/gemv": 1}
+    _close(got, bcq_matmul_ref(xt, wt, torch.float32), GEMM_TOL)
+    assert gemv_splits(m, wt.n_groups * gs, _lib.sm_count(0)) > 1
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    g = -(-n // gs)
+    for z in (True, False):
+        we = PlaneBundle(
+            packed=dev(rng.integers(0, 256, (q, m, g * gs // 8)).astype(
+                np.uint8)),
+            alpha=dev((2.0 ** rng.integers(-3, 2, (q, m, g))).astype(
+                np.float32)),
+            z=dev((0.25 * rng.integers(-4, 5, (m, g))).astype(np.float32))
+            if z else None,
+            group_size=gs, in_features=n, out_features=m)
+        xe = dev(rng.integers(-8, 9, (rows, n)).astype(np.float32)).to(
+            torch.bfloat16)
+        assert torch.equal(bcq_matmul(xe, we, out_dtype=torch.float32),
+                           bcq_matmul_ref(xe, we, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(288, 2560), (2560, 6400), (4096, 4096)])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_cuda_gemv_f32_rows_keep_the_cuda_core_body(m, n, rows):
+    """f32 activations at decode rows (MiniCPM3's f32 view) stay on the
+    CUDA-core GEMV, under its own route name, 1e-3 of the output scale."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + rows)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((rows, n), generator=gen, device="cuda")
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/gemv_fma": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
 
 
 @pytest.mark.cuda
@@ -397,6 +495,45 @@ def test_cuda_paged_mla_matches_plain(h, lora, dr, bs, dtype):
     again = paged_attention_mla(qe, qr, c2, r2, pos, tables, positions,
                                 scale=sc)
     _close(again, got, 1e-6)
+
+
+def _mla_serve_case(h, dtype, b=8, pages=32, seed=0):
+    """MiniCPM3's latent widths (lora 256, rope 32, block 16) on a 32-page
+    table per row (max_seq_len 512), with the ``mla_pool_case`` layout:
+    an idle row 0, -1 pads, a stale recycled block."""
+    case = mla_pool_case(seed, b=b, h=h, lora=256, dr=32, bs=16,
+                         nb=b * pages + 2, pages=pages)
+    qe, qr, ckv, kr, pos, tables, positions = (torch.from_numpy(a).to("cuda")
+                                               for a in case)
+    return qe, qr, ckv.to(dtype), kr.to(dtype), pos, tables, positions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 5, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [40, 16, 72])
+def test_cuda_mla_split_counts(h, dtype, splits, monkeypatch):
+    """The split-table MLA kernel at B 8 on 32-page tables with the split
+    count forced from 1 (no merge) to a split per page (more splits than
+    most rows have live pages): 40 heads (MiniCPM3, one block of 20
+    warps), 16, and 72 (two head tiles); bf16 and f32 pools; 1e-4 of the
+    output scale against the plain version, the idle row exactly 0, and
+    a second call repeats the first exactly."""
+    require_cuda()
+    from repro_torch.kernels.paged_attention import ops as pops
+    monkeypatch.setattr(pops, "mla_splits", lambda *a: splits)
+    qe, qr, ckv, kr, pos, tables, positions = _mla_serve_case(h, dtype)
+    sc = 96 ** -0.5
+    _lib.reset_launch_counts()
+    got = paged_attention_mla(qe, qr, ckv, kr, pos, tables, positions,
+                              scale=sc)
+    assert _lib.launch_counts["paged_decode_mla"] == 1
+    want = paged_decode_mla_ref(qe, qr, ckv, kr, pos, tables, positions,
+                                scale=sc)
+    _close(got, want, PAGED_TOL)
+    assert float(got[0].abs().max()) == 0.0
+    assert torch.equal(got, paged_attention_mla(qe, qr, ckv, kr, pos, tables,
+                                                positions, scale=sc))
 
 
 @pytest.mark.cuda

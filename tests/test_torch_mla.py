@@ -29,7 +29,9 @@ from repro.serve import PagedServeEngine as JEngine, Request as JRequest
 from repro.serve import set_block_tables as j_set_tables
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
-from repro_torch.kernels.paged_attention import paged_attention_mla
+from repro_torch.kernels.paged_attention import (paged_attention_mla,
+                                                 paged_decode_mla_ref,
+                                                 paged_decode_mla_split_ref)
 from repro_torch.models import attention as tattn
 from repro_torch.models import from_jax_params, set_block_tables
 from repro_torch.models.layers import apply_rope as t_rope
@@ -110,6 +112,75 @@ def test_paged_decode_mla_zero_live_and_stale_slots():
     c2[dead], r2[dead] = 7.7, -7.7
     again = paged_attention_mla(*args(c2, r2), scale=sc)
     np.testing.assert_allclose(again.numpy(), base.numpy(), atol=1e-6)
+
+
+# the MLA decode kernel's split walk: whole pages per split, so the
+# 6-page tables of ``mla_pool_case`` take 1-6 splits (6 splits put one
+# page in each, more splits than a short row has live pages)
+_JAX_MLA = {}
+
+
+def _jax_mla(seed, kw):
+    """The case, its scale and the reference kernel's output (interpret
+    mode), once per case."""
+    key = (seed, tuple(sorted(kw.items())))
+    if key not in _JAX_MLA:
+        case = mla_pool_case(seed, **kw)
+        sc = (case[0].shape[-1] + case[1].shape[-1]) ** -0.5
+        kern = j_mla_kernel(*map(jnp.asarray, case), scale=sc,
+                            interpret=True)
+        _JAX_MLA[key] = (case, sc, np.asarray(kern))
+    return _JAX_MLA[key]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])
+@pytest.mark.parametrize("seed,kw", [(0, {}), (2, dict(h=6)),
+                                     (3, dict(lora=20, dr=6, bs=5))])
+def test_paged_decode_mla_split_matches_reference(seed, kw, splits):
+    """Partials per range of whole pages merged in split order equal the
+    unsplit plain version and the reference kernel (interpret mode)
+    within 1e-5: idle row 0 (zeros), -1 pads, a stale recycled block,
+    splits past a short row's live pages (empty, merged as such)."""
+    case, sc, want = _jax_mla(seed, kw)
+    args = list(map(torch.from_numpy, case))
+    got = paged_decode_mla_split_ref(*args, splits, scale=sc).numpy()
+    plain = paged_decode_mla_ref(*args, scale=sc).numpy()
+    np.testing.assert_allclose(got, plain, atol=MLA_ATOL)
+    np.testing.assert_allclose(got, want, atol=MLA_ATOL)
+    assert np.abs(got[0]).max() == 0.0
+
+
+def test_paged_decode_mla_split_empty_splits():
+    """With a split per page, some splits of a live row hold no live slot
+    (pages past its position, -1 pads): their partials are (NEG_INF, 0,
+    0), and the merge still gives the plain result."""
+    from repro_torch.kernels.paged_attention.ref import (NEG_INF,
+                                                         mla_split_partials)
+    case, sc, want = _jax_mla(0, {})
+    args = list(map(torch.from_numpy, case))
+    m, l, acc = mla_split_partials(*args, 6, scale=sc)
+    empty = l == 0
+    assert empty[:, 1:].any() and empty[:, 0].all()
+    assert (m[empty] == NEG_INF).all() and (acc[empty] == 0).all()
+
+
+@pytest.mark.parametrize("b,h,pages,sms", [
+    (8, 40, 32, 132), (1, 40, 32, 132), (3, 40, 6, 132), (3, 8, 6, 132),
+    (64, 40, 32, 132), (200, 40, 32, 132), (8, 72, 32, 132),
+    (2, 13, 3, 8), (1, 40, 1, 132)])
+def test_mla_split_count_covers_the_table(b, h, pages, sms):
+    """Every split is a whole number of pages, every page of the table is
+    in one and no split lies past it; the serve batch (B 8, 40 heads,
+    32-page tables) takes 16 splits of two pages (one block per SM), and
+    a batch that fills the card takes none."""
+    from repro_torch.kernels.paged_attention.ops import mla_splits
+    s = mla_splits(b, h, pages, sms)
+    per = -(-pages // s)
+    assert 1 <= s <= pages and (s - 1) * per < pages <= s * per
+    if (b, h, pages) == (8, 40, 32):
+        assert s == 16
+    if b >= 200:
+        assert s == 1
 
 
 def test_apply_rope_matches_reference():
