@@ -16,16 +16,21 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      time, the plain version's time, one PyTorch library call's time and
      the card's least possible time for the same work (bytes or
      operations); ternary_matmul also to 0 error on exact inputs, on
-     both its bodies, the int8 paged kernels also to 1e-4 in f32 with
+     its three bodies, the int8 paged kernels also to 1e-4 in f32 with
      power-of-two scales; the chunked-prefill kernels (tensor cores in
      bf16) also with 8 kv heads (GQA) at C 512 and on a ragged B 3,
      C 200 chunk; the split-table decode kernels (float and int8) also
      with 8 kv heads (GQA) and with every row near max_seq_len 512;
-     bcq_matmul's bf16 decode rows on its tensor-core decode tile (each
-     case logged with its split count) and, on f32 rows 8 of every OPT
-     and MiniCPM3 weight, on its CUDA-core GEMV (route ``gemv_fma``);
-     the split-table MLA decode kernel logged with its split count and
-     held to repeat itself exactly;
+     the decode rows of bcq_matmul (bf16, and f32 rows 8 of every OPT and
+     MiniCPM3 weight, timed beside ``torch.matmul`` in f32 and on
+     bf16-cast x) and of ternary_matmul (bf16) on the tensor-core decode
+     tile (route ``gemv``, each case logged with its split count); the
+     bodies the tiles leave calls to, each held and timed once: ternary
+     ``lut`` (rows 8 at group size 8), bcq_matmul ``gemv_fma`` (f32
+     rows 8 at group size 16) and ``fma`` (f32 rows 512), lut_gemm
+     ``lut_tile`` (mu 2, full table, f32 rows 512); the split-table MLA
+     decode kernel logged with its split count and held to repeat itself
+     exactly;
   4. serve (random weights from ``--seed``, paged engine, fused paged
      attention), four runs: full-width OPT-6.7B BCQ-quantized on the card
      at 3 bits, g = 128, with ``--backend auto`` (bcq_matmul) and
@@ -39,8 +44,9 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      each run prints its prefill kernel's time (phase-3 time x
      launches) beside its TTFT, and the GEMM bodies its decode steps and
      prefill chunks launched: no decode step may run the tensor-core
-     tile, every bcq_matmul decode step must run the tensor-core decode
-     tile (``gemv``) and nothing else, and every prefill chunk must run
+     tile, every bcq_matmul and ternary_matmul decode step must run the
+     tensor-core decode tile (``gemv``) and nothing else, and every
+     prefill chunk must run
      its linears on the tensor-core tile (all but the head's one row per
      request).  The MiniCPM3 run also reports,
      by depth, the plain bf16 path against the plain f32 path (how much
@@ -186,8 +192,8 @@ def check_gemms(torch, timer, gen, results):
                     f"({b_by})")
                 if not ok:
                     fail(f"{name} disagrees with its plain version")
-        gemv_fma_case(torch, timer, gen, w, dense_bf16, results,
-                      model="opt_6_7b")
+        f32_decode_case(torch, timer, gen, w, dense_bf16, results,
+                        model="opt_6_7b")
         del w, dense_bf16
     # lut_gemm also at mu = 2 and with the full table, small and ragged
     w = bcq.from_uniform(torch.randn((33, 136), generator=gen,
@@ -215,36 +221,101 @@ def check_gemms(torch, timer, gen, results):
     results.update(out)
 
 
-def gemv_fma_case(torch, timer, gen, w, dense_bf16, results, model):
+def f32_decode_case(torch, timer, gen, w, dense_bf16, results, model):
     """bcq_matmul on f32 activations at 8 rows (MiniCPM3's f32 view): the
-    CUDA-core GEMV, under its own route name, 1e-3 of the output scale,
-    timed beside the tensor-core decode tile's bf16 case."""
+    tensor-core decode tile (route ``gemv``, x split into three bf16
+    parts in the kernel), 1e-3 of the output scale (the split leaves only
+    the f32 summation order: ~1e-6 is expected), timed beside two
+    library calls: ``torch.matmul`` of bf16-cast x with the dense bf16
+    weight, and of the f32 x with the dense f32 weight (TF32 off), which
+    computes the same function."""
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
     tol, rows = 1e-3, 8
     m, n = w.out_features, w.in_features
     x = torch.randn((rows, n), generator=gen, device="cuda")
     fn = lambda: bcq_matmul(x, w, out_dtype=torch.float32)
     plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
     got, route = routed(torch, "bcq_matmul", fn)
-    if route != "gemv_fma":
-        fail(f"bcq_matmul f32 rows 8 ran {route}, not gemv_fma")
+    if route != "gemv":
+        fail(f"bcq_matmul f32 rows 8 ran {route}, not gemv")
+    if got.shape != plain.shape or not torch.isfinite(got).all():
+        fail(f"bcq_matmul f32 [{rows}x{n}]x[{m}x{n}]^T: bad output")
     err = float((got - plain).abs().max())
     rel = err / (float(plain.abs().max()) + 1e-12)
+    splits = gemv_splits(m, w.n_groups * w.group_size, _lib.sm_count(0))
     b_ms, b_by = bound(rows * n * 4 + w.nbytes() + rows * m * 4,
                        2.0 * rows * m * n)
     t = timer(fn)
     t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
     t_lib = timer(lambda: torch.matmul(x.to(torch.bfloat16), dense_bf16.T))
-    results.setdefault("bcq_matmul_gemv_fma", []).append(dict(
+    dense_f32 = dequantize(w, torch.float32)
+    t_f32 = timer(lambda: torch.matmul(x, dense_f32.T))
+    del dense_f32
+    results.setdefault("bcq_matmul_f32", []).append(dict(
         m=m, n=n, rows=rows, dtype="float32", model=model, route=route,
-        max_abs_err=err, rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
-        library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
-    log(f"bcq_matmul rows={rows:4d} M={m:5d} N={n:5d} f32 [{route}]: "
-        f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {rel <= tol})  "
-        f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  torch.matmul (bf16) "
+        splits=splits, max_abs_err=err, rel_err=rel, tol=tol, ms=t,
+        plain_ms=t_plain, library_ms=t_f32, library_bf16_ms=t_lib,
+        bound_ms=b_ms, bound_by=b_by))
+    log(f"bcq_matmul rows={rows:4d} M={m:5d} N={n:5d} f32 [{route}, "
+        f"{splits} splits]: err {err:.3e} (rel {rel:.2e} <= {tol:g}: "
+        f"{rel <= tol})  kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
+        f"torch.matmul f32 {t_f32:.4f} ms  torch.matmul (bf16) "
         f"{t_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
     if rel > tol:
         fail("bcq_matmul f32 decode rows disagree with the plain version")
+
+
+def cuda_core_cases(torch, timer, gen, results):
+    """The CUDA-core bodies the tensor-core tiles leave calls to, each
+    held to 1e-3 of the output scale and timed at [16384 x 4096]:
+    bcq_matmul's ``gemv_fma`` (f32 rows 8 at group size 16, which the
+    decode tile does not take), bcq_matmul's ``fma`` (f32 rows 512) and
+    lut_gemm's ``lut_tile`` (mu 2, full table, f32 rows 512)."""
+    from repro_torch.core import bcq
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.lut_gemm import lut_gemm
+    tol, m, n = 1e-3, 16384, 4096
+    for key, gs, rows, name, want, fn in (
+            ("bcq_matmul_gemv_fma", 16, 8, "bcq_matmul", "gemv_fma",
+             lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)),
+            ("bcq_matmul_fma", 128, 512, "bcq_matmul", "fma",
+             lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)),
+            ("lut_gemm_lut_tile", 128, 512, "lut_gemm", "lut_tile",
+             lambda x, w: lut_gemm(x, w, mu=2, half_lut=False,
+                                   out_dtype=torch.float32))):
+        w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                         * 0.02, bits=3, group_size=gs)
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
+        got, route = routed(torch, name, lambda: fn(x, w))
+        if route != want:
+            fail(f"{name} {key}: ran {route}, not {want}")
+        err = float((got - plain).abs().max())
+        rel = err / (float(plain.abs().max()) + 1e-12)
+        b_ms, b_by = bound(rows * n * 4 + w.nbytes() + rows * m * 4,
+                           2.0 * rows * m * n)
+        t = timer(lambda: fn(x, w))
+        t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
+        dense_f32 = dequantize(w, torch.float32)
+        t_lib = timer(lambda: torch.matmul(x, dense_f32.T))
+        del dense_f32
+        results[key] = [dict(m=m, n=n, rows=rows, group_size=gs,
+                             dtype="float32", route=route, max_abs_err=err,
+                             rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
+                             library_ms=t_lib, bound_ms=b_ms,
+                             bound_by=b_by)]
+        log(f"{name} rows={rows:4d} M={m:5d} N={n:5d} f32 g={gs} "
+            f"[{route}]: err {err:.3e} (rel {rel:.2e} <= {tol:g}: "
+            f"{rel <= tol})  kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
+            f"torch.matmul f32 {t_lib:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})")
+        if rel > tol:
+            fail(f"{name} {route} disagrees with its plain version")
+        del w
 
 
 def routed(torch, name, fn):
@@ -441,6 +512,8 @@ def check_paged(torch, timer, gen, results, args_seed):
 
 def check_ternary(torch, timer, gen, results):
     from repro_torch.core.plane import dequantize
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
     from repro_torch.kernels.ternary_matmul import dense_ref, ternary_matmul
     from repro_torch.quant.formats import quantize_ternary
 
@@ -452,8 +525,8 @@ def check_ternary(torch, timer, gen, results):
         del w_dense
         dense_bf16 = dequantize(w, torch.bfloat16)
         wbytes = w.nbytes()
-        # decode rows (1, 8: the LUT body) and the serve's prefill
-        # buckets (32, 128, 512: the tensor-core tile)
+        # decode rows (1, 8: the tensor-core decode tile) and the serve's
+        # prefill buckets (32, 128, 512: the tensor-core tile)
         for rows in (1, 8, 32, 128, 512):
             x = (torch.randn((rows, n), generator=gen, device="cuda")
                  ).to(torch.bfloat16)
@@ -461,6 +534,10 @@ def check_ternary(torch, timer, gen, results):
             scale = float(plain.abs().max()) + 1e-12
             fn = lambda: ternary_matmul(x, w, out_dtype=torch.float32)
             got, route = routed(torch, "ternary_matmul", fn)
+            want = "gemv" if rows <= 8 else "mma"
+            if route != want:
+                fail(f"ternary_matmul rows {rows} [{m}x{n}] ran {route}, "
+                     f"not {want}")
             if got.shape != plain.shape or not torch.isfinite(got).all():
                 fail(f"ternary_matmul [{rows}x{n}]x[{m}x{n}]^T: bad output")
             err = float((got - plain).abs().max())
@@ -471,13 +548,18 @@ def check_ternary(torch, timer, gen, results):
             t = timer(fn)
             t_plain = timer(lambda: dense_ref(x, w, torch.float32))
             t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
-            out.append(dict(m=m, n=n, rows=rows, route=route,
-                            max_abs_err=err, rel_err=rel, tol=tol, ms=t,
-                            plain_ms=t_plain, library_ms=t_lib,
-                            bound_ms=b_ms, bound_by=b_by,
-                            weight_bytes=wbytes))
+            rec = dict(m=m, n=n, rows=rows, route=route, max_abs_err=err,
+                       rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
+                       library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                       weight_bytes=wbytes)
+            split = ""
+            if route == "gemv":
+                rec["splits"] = gemv_splits(m, w.n_groups * 128,
+                                            _lib.sm_count(0))
+                split = f", {rec['splits']} splits"
+            out.append(rec)
             log(f"ternary_matmul rows={rows:4d} M={m:5d} N={n:5d} "
-                f"[{route}]: "
+                f"[{route}{split}]: "
                 f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
                 f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
                 f"torch.matmul {t_lib:.4f} ms  bound {b_ms:.4f} ms "
@@ -487,18 +569,60 @@ def check_ternary(torch, timer, gen, results):
         del w, dense_bf16
         # exact inputs: 0.5 * {-1, 0, +1} weights (alpha 0.5), integer
         # activations; every partial sum is exact, so the error must be 0
-        # on both bodies (8 rows: the LUT body; 512: the tensor cores)
-        exact_err(torch, gen, m, n, 8, 128, out)
-        exact_err(torch, gen, m, n, 512, 128, out)
+        # on both tensor-core bodies (8 rows: the decode tile; 512: the
+        # prefill tile)
+        exact_err(torch, gen, m, n, 8, 128, out, "gemv")
+        exact_err(torch, gen, m, n, 512, 128, out, "mma")
     # ragged M, N and B (a partial LUT chunk, the split-sum launch; group
-    # size 8 keeps 19 rows on the LUT body) and a ragged mma case (split
-    # alpha groups, padded planes)
-    exact_err(torch, gen, 1000, 1032, 19, 8, out)
-    exact_err(torch, gen, 1000, 1016, 77, 64, out)
+    # size 8 keeps 19 rows on the LUT body), decode rows the tile does not
+    # take (group size 8), a ragged decode-tile case (split steps, padded
+    # planes) and a ragged mma case (split alpha groups, padded planes)
+    exact_err(torch, gen, 1000, 1032, 19, 8, out, "lut")
+    exact_err(torch, gen, 4096, 4096, 8, 8, out, "lut")
+    exact_err(torch, gen, 1000, 1016, 5, 64, out, "gemv")
+    exact_err(torch, gen, 1000, 1016, 77, 64, out, "mma")
     results["ternary_matmul"] = out
+    ternary_lut_case(torch, timer, gen, results)
 
 
-def exact_err(torch, gen, m, n, rows, g, out):
+def ternary_lut_case(torch, timer, gen, results):
+    """The half-LUT body at a decode call it still takes (rows 8 at group
+    size 8, which the decode tile does not take), [16384 x 4096], held to
+    1e-3 of the output scale and timed."""
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels.ternary_matmul import dense_ref, ternary_matmul
+    from repro_torch.quant.formats import quantize_ternary
+    tol, m, n, rows = 1e-3, 16384, 4096, 8
+    w = quantize_ternary(torch.randn((m, n), generator=gen, device="cuda")
+                         * 0.02, group_size=8)
+    x = torch.randn((rows, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fn = lambda: ternary_matmul(x, w, out_dtype=torch.float32)
+    plain = dense_ref(x, w, torch.float32)
+    got, route = routed(torch, "ternary_matmul", fn)
+    if route != "lut":
+        fail(f"ternary_matmul rows 8 g 8 ran {route}, not lut")
+    err = float((got - plain).abs().max())
+    rel = err / (float(plain.abs().max()) + 1e-12)
+    b_ms, b_by = bound(rows * n * 2 + w.nbytes() + rows * m * 4,
+                       2.0 * rows * m * n)
+    t = timer(fn)
+    t_plain = timer(lambda: dense_ref(x, w, torch.float32))
+    dense_bf16 = dequantize(w, torch.bfloat16)
+    t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
+    results["ternary_matmul_lut"] = [dict(
+        m=m, n=n, rows=rows, group_size=8, route=route, max_abs_err=err,
+        rel_err=rel, tol=tol, ms=t, plain_ms=t_plain, library_ms=t_lib,
+        bound_ms=b_ms, bound_by=b_by)]
+    log(f"ternary_matmul rows={rows:4d} M={m:5d} N={n:5d} g=8 [{route}]: "
+        f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {rel <= tol})  kernel "
+        f"{t:.4f} ms  plain {t_plain:.4f} ms  torch.matmul {t_lib:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    if rel > tol:
+        fail("ternary_matmul lut disagrees with its plain version")
+
+
+def exact_err(torch, gen, m, n, rows, g, out, want):
     from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_matmul,
                                                     ternary_ref)
     from repro_torch.quant.formats import quantize_ternary
@@ -508,12 +632,15 @@ def exact_err(torch, gen, m, n, rows, g, out):
                        device="cuda").to(torch.bfloat16)
     got, route = routed(torch, "ternary_matmul", lambda: ternary_matmul(
         xe, wq, out_dtype=torch.float32))
+    if route != want:
+        fail(f"ternary_matmul exact rows {rows} g {g} ran {route}, not "
+             f"{want}")
     err = max(float((got - ternary_ref(xe, wq, out_dtype=torch.float32)
                      ).abs().max()),
               float((got - dense_ref(xe, wq, torch.float32)).abs().max()))
     torch.cuda.synchronize()
-    out.append(dict(m=m, n=n, rows=rows, route=route, exact_inputs=True,
-                    max_abs_err=err, tol=0.0))
+    out.append(dict(m=m, n=n, rows=rows, group_size=g, route=route,
+                    exact_inputs=True, max_abs_err=err, tol=0.0))
     log(f"ternary_matmul exact inputs rows={rows} M={m} N={n} g={g} "
         f"[{route}]: err {err:.3e} == 0: {err == 0.0}")
     if err != 0.0:
@@ -745,8 +872,8 @@ def check_bcq_minicpm3(torch, timer, gen, results):
     73,472, in 768 and 6400) at rows 1 and 8 (a decode step: the
     tensor-core decode tile) and 512 (the largest prefill bucket: the
     tensor-core tile), and on f32 activations at rows 8 (the f32 view:
-    the CUDA-core GEMV), 1e-3 of the output scale as in
-    ``check_gemms``."""
+    the decode tile, x split into three bf16 parts), 1e-3 of the output
+    scale as in ``check_gemms``."""
     from repro_torch.configs import get_config
     from repro_torch.core import bcq
     from repro_torch.core.plane import dequantize
@@ -798,8 +925,8 @@ def check_bcq_minicpm3(torch, timer, gen, results):
             fail("bcq_matmul disagrees with its plain version at a "
                  "MiniCPM3 shape")
         if rows == 8:
-            gemv_fma_case(torch, timer, gen, w, dense_bf16, results,
-                          model="minicpm3_4b")
+            f32_decode_case(torch, timer, gen, w, dense_bf16, results,
+                            model="minicpm3_4b")
 
 
 # ---------------------------------------------------------------------------
@@ -1042,10 +1169,10 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total):
     """The GEMM bodies of one serve run, split into decode steps and
     prefill chunks.  Gates: every decode step launches counted bodies and
     none runs the tensor-core tile (decode rows are at most 8); with
-    bcq_matmul every decode step runs the tensor-core decode tile
-    (``gemv``) and nothing else; and in every prefill chunk all of
-    ``gemm``'s launches but the head's (one row per request) run the
-    tensor-core tile."""
+    bcq_matmul and with ternary_matmul every decode step runs the
+    tensor-core decode tile (``gemv``) and nothing else; and in every
+    prefill chunk all of ``gemm``'s launches but the head's (one row per
+    request) run the tensor-core tile."""
     def add(rows):
         out = {}
         for r in rows:
@@ -1058,12 +1185,13 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total):
              "prefill chunks")
     if any(k.endswith("/mma") for k in decode):
         fail(f"serve[{tag}]: a decode step ran the tensor-core tile")
-    if gemm == "bcq_matmul":
-        # bf16 decode steps run the tensor-core decode tile, never the
-        # CUDA-core GEMV (which is for f32 activations)
+    if gemm in ("bcq_matmul", "ternary_matmul"):
+        # decode steps run the tensor-core decode tile, never the
+        # CUDA-core GEMV or the half-LUT body (the shapes they keep are
+        # not served)
         for i, r in enumerate(step_routes):
-            bodies = {k for k in r if k.startswith("bcq_matmul/")}
-            if bodies != {"bcq_matmul/gemv"}:
+            bodies = {k for k in r if k.startswith(gemm + "/")}
+            if bodies != {f"{gemm}/gemv"}:
                 fail(f"serve[{tag}]: decode step {i} GEMM bodies {r}: its "
                      "linears must run the tensor-core decode tile")
     if not all(step_routes) or not chunk_routes:
@@ -1217,6 +1345,7 @@ def main():
     check_gemms(torch, timer, gen, results)
     check_paged(torch, timer, gen, results, args.seed)
     check_ternary(torch, timer, gen, results)
+    cuda_core_cases(torch, timer, gen, results)
     check_paged_int8(torch, timer, gen, results, args.seed)
     check_paged_mla(torch, timer, gen, results, args.seed)
     check_bcq_minicpm3(torch, timer, gen, results)
@@ -1283,21 +1412,32 @@ def main():
             kernels[-1]["prefill"] = {k: pre[k] for k in (
                 "rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
+        keys = ("rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
         if name == "bcq_matmul":
-            # the decode tile's split count, and the CUDA-core GEMV on f32
-            # rows of the same weight
+            # the decode tile's split count, f32 rows of the same weight on
+            # the decode tile, and the CUDA-core bodies at the calls they
+            # keep (f32 rows 8 at group size 16; f32 rows 512)
             kernels[-1]["case"]["splits"] = sel["splits"]
-            f32 = [r for r in results["bcq_matmul_gemv_fma"]
+            f32 = [r for r in results["bcq_matmul_f32"]
                    if r["m"] == sel["m"] and r["n"] == sel["n"]][0]
-            kernels[-1]["f32_decode"] = {k: f32[k] for k in (
-                "rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}
+            kernels[-1]["f32_decode"] = {k: f32[k] for k in keys + (
+                "splits", "library_bf16_ms")}
+            for key in ("gemv_fma", "fma"):
+                r = results[f"bcq_matmul_{key}"][0]
+                kernels[-1][key] = {k: r[k] for k in keys + ("group_size",)}
+        if name == "lut_gemm":
+            r = results["lut_gemm_lut_tile"][0]
+            kernels[-1]["lut_tile"] = {k: r[k] for k in keys}
         if name == "paged_decode_mla":
             kernels[-1]["case"]["splits"] = sel["splits"]
         if name == "ternary_matmul":
+            kernels[-1]["case"]["splits"] = sel["splits"]
             kernels[-1]["exact_inputs_max_abs_err"] = max(
                 r["max_abs_err"] for r in results[name]
                 if r.get("exact_inputs"))
+            r = results["ternary_matmul_lut"][0]
+            kernels[-1]["lut"] = {k: r[k] for k in keys + ("group_size",)}
         if name in ("paged_decode", "paged_decode_int8"):
             # the split-table kernel: its split count at the main case,
             # and its GQA (rep 4) and long-table cases

@@ -10,7 +10,7 @@ constexpr int BCQ_MMA_BATCH = 64;    // batch rows per block
 constexpr int BCQ_MMA_MAX_GS = 256;  // widest alpha group it stages
 
 // Device helpers of the tensor-core BCQ tiles (the prefill tile of
-// bcq_mma.cu and bcq_matmul's decode tile).
+// bcq_mma.cu and the decode tile of bcq_decode.cu).
 
 // four 8x8 b16 matrices from shared memory (lanes 8j .. 8j + 7 give the
 // row addresses of matrix j)

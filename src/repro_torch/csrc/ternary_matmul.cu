@@ -1,19 +1,24 @@
 // ternary_matmul: FIGLUT's LUT GEMM for ternary weights,
 // y[B, M] = x . dequant(W)^T with W = alpha * sign * mask.
 //
-// Two routes, picked by the wrapper (kernels/ternary_matmul/ops.py
-// route_for) and passed here as route: "lut" (0), the half-LUT body
-// below, for decode rows (at most 8), f32 activations and group sizes
-// that are 8 mod 16; "mma" (1), more than 8 rows of bf16 activations,
-// the tensor-core tile of bcq_mma.cu with the derived planes decoded in
-// registers (see there).
+// Three routes, picked by the wrapper (kernels/ternary_matmul/ops.py
+// route_for) and passed here as route: "gemv" (2), at most 8 rows of
+// bf16 or f32 activations with group size 32, 64, 128 or 256 and
+// in_features a multiple of 8, the tensor-core decode tile of
+// bcq_decode.cu with its ternary flag (one {-1, 0, +1} operand decoded
+// from the sign and mask words, see there); "mma" (1), more than 8 rows
+// of bf16 activations, the tensor-core tile of bcq_mma.cu with the
+// derived planes decoded in registers (see there); "lut" (0), the
+// half-LUT body below, for every other call (f32 rows above 8, group
+// sizes that are 8 mod 16 or 8, 16, 24 at decode rows, in_features not
+// a multiple of 8).
 //
 // Replaces: src/repro/kernels/ternary_matmul/ternary_matmul.py
 // ::_ternary_matmul_kernel (launcher ternary_matmul_tiled) with
 // lut_common.ternary_plane_bytes, build_lut(half=True), extract_keys and
 // read_lut.
 //
-// What bounds it on an H100: at decode it must stream the sign and mask
+// What bounds the LUT body on an H100: at decode it must stream the sign and mask
 // planes (N/4 bytes per weight row) and one alpha row, so bytes bound it
 // on paper.  In practice the keyed reads are the wall: every weight byte
 // costs 2 planes x 2 keys table reads per batch row, one 4-byte
@@ -45,7 +50,7 @@
 // On exact inputs (integer activations, power-of-two alphas) every
 // partial sum is an exact f32, so the result equals the plain version
 // bit for bit whatever the order of the sums.
-#include "bcq_mma.cuh"
+#include "bcq_decode.cuh"
 
 namespace {
 
@@ -202,12 +207,19 @@ cudaError_t launch_t(const void* x, const void* packed, const void* alpha,
 
 }  // namespace
 
+// part: scratch f32 [splits, B, M] when splits > 1; sem: int32 counters,
+// one per 64-row tile, all zero, for route 2 when splits > 1 (the last
+// block of each tile sets its counter back to 0)
 extern "C" int launch_ternary_matmul(const void* x, const void* packed,
                                      const void* alpha, void* y, void* part,
-                                     int B, int M, int N, int NB, int G,
-                                     int gs, int x_is_bf16, int route,
+                                     void* sem, int B, int M, int N, int NB,
+                                     int G, int gs, int x_is_bf16, int route,
                                      int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2)
+    return static_cast<int>(launch_bcq_decode(
+        x, packed, alpha, nullptr, y, part, sem, B, M, N, NB, G, 2, gs,
+        x_is_bf16 != 0, true, splits, s));
   if (route == 1) {
     if (!x_is_bf16 || B <= 8) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_bcq_mma(

@@ -62,10 +62,10 @@ _SIGNATURES = {
     # kv_is_bf16, scale, q_is_bf16, out_is_bf16, stream
     "launch_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _F, _I, _I, _P],
-    # x, packed, alpha, y, part, B, M, N, NB, G, group_size, x_is_bf16,
-    # route, splits, stream
-    "launch_ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _P],
+    # x, packed, alpha, y, part, sem, B, M, N, NB, G, group_size,
+    # x_is_bf16, route, splits, stream
+    "launch_ternary_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, pos, tables, positions, out, part_o,
     # part_ml, sem, B, C, Hkv, rep, D, BS, pages, compute_bf16, scale,
     # q_is_bf16, out_is_bf16, splits, stream

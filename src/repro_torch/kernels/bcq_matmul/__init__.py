@@ -2,7 +2,7 @@
 tensor-core tile, CUDA-core tile) and its plain versions."""
 from .ops import bcq_matmul, route_for
 from .ref import (bcq_matmul_ref, bcq_planes_ref, gemv_split_ref,
-                  plane_group_sums)
+                  plane_group_sums, split_bf16x3)
 
 __all__ = ["bcq_matmul", "route_for", "bcq_matmul_ref", "bcq_planes_ref",
-           "gemv_split_ref", "plane_group_sums"]
+           "gemv_split_ref", "plane_group_sums", "split_bf16x3"]

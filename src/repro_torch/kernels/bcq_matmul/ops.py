@@ -9,16 +9,18 @@ The kernel has four bodies, and :func:`route_for` picks one by a fixed
 rule of the call's shape and type (never by trying one and switching
 when it fails):
 
-  * ``gemv``     — at most 8 rows (decode) of bf16 activations, a group
-    size of 32, 64, 128 or 256 and an input width that is a multiple of
-    8: the tensor-core decode tile (the batch on the N side of one bf16
-    product per bit plane and alpha group, 64 weight rows a block; the
+  * ``gemv``     — at most 8 rows (decode) of bf16 or f32 activations,
+    a group size of 32, 64, 128 or 256 and an input width that is a
+    multiple of 8: the tensor-core decode tile of ``csrc/bcq_decode.cu``
+    (the batch on the N side of one bf16 product per bit plane and alpha
+    group, 64 weight rows a block; f32 activations split in the kernel
+    into three bf16 parts, each product run once per part; the
     reduction axis split over blocks where the row tiles alone would
     leave SMs idle, :func:`gemv_splits`, and the partials added in split
     order by the last block of each row tile);
-  * ``gemv_fma`` — any other call of at most 8 rows (f32 activations,
-    such as MiniCPM3's f32 view): the weight-streaming GEMV on the CUDA
-    cores, which keeps x in f32;
+  * ``gemv_fma`` — any other call of at most 8 rows (group sizes 16, 96,
+    8 mod 16, or an input width that is not a multiple of 8): the
+    weight-streaming GEMV on the CUDA cores, which keeps x in f32;
   * ``mma``      — more than 8 rows of bf16 activations, a group size
     that is a multiple of 16 (at most 256) and an input width that is a
     multiple of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, one bf16
@@ -46,7 +48,7 @@ ROUTES = ("fma", "gemv", "mma", "gemv_fma")
 DECODE_ROWS = 8                   # most rows the decode bodies take
 MMA_ROWS, MMA_BATCH = 128, 64     # the mma tile's block (csrc/bcq_mma.cuh)
 MMA_MAX_GROUP = 256
-# the decode tile (csrc/bcq_matmul.cu): weight rows per block, and the
+# the decode tile (csrc/bcq_decode.cu): weight rows per block, and the
 # group sizes it takes (whole groups in each 256-column step)
 GEMV_ROWS = 64
 GEMV_GROUPS = (32, 64, 128, 256)
@@ -62,9 +64,10 @@ def mma_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
 
 
 def gemv_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
-    """The decode tile's rule: at most 8 rows of bf16 activations, group
-    size 32, 64, 128 or 256, 8 | in_features (16-byte activation rows)."""
-    return (rows <= DECODE_ROWS and dtype == torch.bfloat16
+    """The decode tile's rule, shared with ternary_matmul: at most 8 rows
+    of bf16 or f32 activations, group size 32, 64, 128 or 256,
+    8 | in_features (16-byte activation rows)."""
+    return (rows <= DECODE_ROWS and dtype in _X_DTYPES
             and group_size in GEMV_GROUPS and in_features % 8 == 0)
 
 
@@ -101,7 +104,7 @@ def gemv_splits(m: int, padded_in: int, sms: int) -> int:
 
 def aligned_rows(x2: torch.Tensor) -> torch.Tensor:
     """x2 itself, or a copy when its base is not 16-byte aligned (the
-    mma tile stages activation rows with 16-byte copies)."""
+    tensor-core tiles stage activation rows with 16-byte copies)."""
     return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
 
 

@@ -9,9 +9,13 @@
     group's sum of x.  Memory grows as B x M x n_groups: a test-size
     function;
   * ``gemv_split_ref`` — the decode tile's split walk (the ``gemv`` route
-    of ``csrc/bcq_matmul.cu``): the same per-group terms, the padded
+    of ``csrc/bcq_decode.cu``): the same per-group terms, the padded
     reduction axis cut into ranges of whole 256-column steps, each
-    range's sum a partial, the partials added in split order.
+    range's sum a partial, the partials added in split order.  f32
+    activations go through ``split_bf16x3`` first, as the tile splits
+    them: the group terms are the sums of each part's terms;
+  * ``split_bf16x3`` — an f32 tensor's three bf16 parts (h, m, l), each
+    rounded from the residual of the ones before it.
 """
 from __future__ import annotations
 
@@ -62,18 +66,37 @@ def bcq_planes_ref(x: torch.Tensor, w: PlaneBundle,
     return y.reshape(*x.shape[:-1], w.out_features).to(out_dtype or x.dtype)
 
 
+def split_bf16x3(x: torch.Tensor):
+    """(h, m, l) as f32 tensors: h = bf16(x), m = bf16(x - h), l = bf16(x -
+    h - m).  Each residual is exact in f32, and for normal values h + m + l
+    equals x (x's 24 significant bits, 8 in each part)."""
+    r = x.float()
+    parts = []
+    for _ in range(3):
+        p = r.to(torch.bfloat16).float()
+        parts.append(p)
+        r = r - p
+    return tuple(parts)
+
+
 def gemv_split_ref(x: torch.Tensor, w: PlaneBundle, splits: int,
                    out_dtype=None) -> torch.Tensor:
     """y by the decode tile's walk: the planes' width in 256-column steps
     (whole alpha groups each, group size 32-256), ``splits`` ranges of
     whole steps, each range's group terms summed into a partial, the
-    partials added in split order."""
+    partials added in split order.  f32 activations are split into
+    their three bf16 parts and each group's terms summed over the
+    parts."""
     gs = w.group_size
     if GEMV_STEP % gs:
         raise ValueError(f"group size {gs} does not divide the "
                          f"{GEMV_STEP}-column step")
     lead = x.shape[:-1]
-    t = _group_terms(x, w)                                # [B, M, G]
+    if x.dtype == torch.float32:
+        h, m, l = split_bf16x3(x)
+        t = _group_terms(h, w) + _group_terms(m, w) + _group_terms(l, w)
+    else:
+        t = _group_terms(x, w)                            # [B, M, G]
     gps = GEMV_STEP // gs
     steps = -(-w.n_groups // gps)
     per = -(-steps // splits)

@@ -6,26 +6,37 @@ row, no offset).  On a CPU tensor it runs the plain version
 launches the kernel or raises.  ``read_mode`` is accepted for parity
 with the reference wrapper and does not change the math.
 
-The kernel has two bodies, and :func:`route_for` picks one by a fixed
-rule of the call's shape and type (the rule of ``bcq_matmul.mma_takes``;
-never by trying one and switching when it fails):
+The kernel has three bodies, and :func:`route_for` picks one by a fixed
+rule of the call's shape and type (never by trying one and switching
+when it fails):
 
+  * ``gemv`` — at most 8 rows of bf16 or f32 activations, a group size
+    of 32, 64, 128 or 256 and an input width that is a multiple of 8
+    (the rule of ``bcq_matmul.gemv_takes``): the tensor-core decode tile
+    of ``csrc/bcq_decode.cu`` with its ternary flag, one {-1, 0, +1}
+    operand (mask times the +-1 sign) per k16 step scaled by alpha
+    (decode);
   * ``mma`` — more than 8 rows of bf16 activations, a group size that is
     a multiple of 16 (at most 256) and an input width that is a multiple
-    of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, which derives the
-    b1 / b2 planes from the sign and mask words in registers (prefill);
-  * ``lut`` — every other call (decode rows, f32 activations, group size
-    8 mod 16): the half-LUT body of ``csrc/ternary_matmul.cu``, which
-    walks the reduction axis in chunks of ``CHUNK`` columns, one LUT
-    build each.
+    of 8 (``bcq_matmul.mma_takes``): the tensor-core tile of
+    ``csrc/bcq_mma.cu``, which derives the b1 / b2 planes from the sign
+    and mask words in registers (prefill);
+  * ``lut`` — every other call (f32 activations above 8 rows, group sizes
+    8, 16, 24 and the like at decode rows, an input width that is not a
+    multiple of 8): the half-LUT body of ``csrc/ternary_matmul.cu``,
+    which walks the reduction axis in chunks of ``CHUNK`` columns, one
+    LUT build each.
 
 Where the (row, batch) tiles alone would leave the card under-filled,
-the reduction axis (LUT chunks, or alpha groups on ``mma``, as
-``bcq_matmul.mma_splits`` counts them) is split over ``splits`` blocks
-whose partial sums (scratch allocated here) a second pass adds in a
-fixed order, so the result does not depend on scheduling.  The launch
-counter keeps the kernel's name; ``_lib.route_counts`` counts each body
-under ``"ternary_matmul/<route>"``.
+the reduction axis (LUT chunks, alpha groups on ``mma`` as
+``bcq_matmul.mma_splits`` counts them, 256-column steps on ``gemv`` as
+``bcq_matmul.gemv_splits`` counts them) is split over ``splits`` blocks
+whose partial sums (scratch allocated here) are added in a fixed order
+(a second pass, or on ``gemv`` the last block of each row tile, counted
+in ``_lib.split_counters``), so the result does not depend on
+scheduling.  The launch counter keeps the kernel's name;
+``_lib.route_counts`` counts each body under
+``"ternary_matmul/<route>"``.
 """
 from __future__ import annotations
 
@@ -35,21 +46,25 @@ import torch
 
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
-from repro_torch.kernels.bcq_matmul.ops import (aligned_rows, mma_splits,
-                                                mma_takes)
+from repro_torch.kernels.bcq_matmul.ops import (GEMV_ROWS, aligned_rows,
+                                                gemv_splits, gemv_takes,
+                                                mma_splits, mma_takes)
 from repro_torch.kernels.lut_common import READ_MODES
 from . import ref as _ref
 
 CHUNK = 512          # columns per LUT build (csrc/ternary_matmul.cu: KC)
 ROWS, BATCH = 32, 8  # weight rows and batch rows per block (TM, TB)
 _X_DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("lut", "mma")   # index = the launcher's route code
+ROUTES = ("lut", "mma", "gemv")   # index = the launcher's route code
 
 
 def route_for(rows: int, dtype, group_size: int, in_features: int) -> str:
     """The body a call of ``rows`` activation rows of ``dtype`` runs."""
-    return "mma" if mma_takes(rows, dtype, group_size, in_features) \
-        else "lut"
+    if gemv_takes(rows, dtype, group_size, in_features):
+        return "gemv"
+    if mma_takes(rows, dtype, group_size, in_features):
+        return "mma"
+    return "lut"
 
 
 def splits_for(b: int, m: int, nb: int, sms: int) -> int:
@@ -115,7 +130,14 @@ def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
     if b:
         route = route_for(b, x2.dtype, w.group_size, w.in_features)
         sms = _lib.sm_count(x.device.index or 0)
-        if route == "mma":
+        sem = None
+        if route == "gemv":
+            x2 = aligned_rows(x2)
+            splits = gemv_splits(m, nb * 8, sms)
+            if splits > 1:
+                sem = _lib.split_counters("ternary_matmul", x.device,
+                                          -(-m // GEMV_ROWS))
+        elif route == "mma":
             x2 = aligned_rows(x2)
             splits = mma_splits(b, m, w.n_groups, sms)
         else:
@@ -124,9 +146,11 @@ def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
                            device=x.device) if splits > 1 else y
         rc = _lib.lib().launch_ternary_matmul(
             x2.data_ptr(), w.packed.data_ptr(), w.alpha.data_ptr(),
-            y.data_ptr(), part.data_ptr(), b, m, w.in_features, nb,
-            w.n_groups, w.group_size, int(x2.dtype == torch.bfloat16),
-            ROUTES.index(route), splits, _lib.stream_ptr(x.device))
+            y.data_ptr(), part.data_ptr(),
+            sem.data_ptr() if sem is not None else None, b, m,
+            w.in_features, nb, w.n_groups, w.group_size,
+            int(x2.dtype == torch.bfloat16), ROUTES.index(route), splits,
+            _lib.stream_ptr(x.device))
         _lib.check(rc, "ternary_matmul")
         _lib.count_launch("ternary_matmul", route)
     return y.reshape(*lead, m).to(out_dtype)

@@ -15,7 +15,13 @@
                       the derived +-1 planes, which the tile adds into
                       one operand, summed per alpha group in f32, then
                       scaled by alpha / 2.  Memory grows as B x M x
-                      n_groups: a test-size function.
+                      n_groups: a test-size function;
+  * ``ternary_masked_ref`` — the arithmetic of the decode tile (``gemv``,
+                      ``csrc/bcq_decode.cu`` with its ternary flag): the
+                      derived planes' pair re-written as one {-1, 0, +1}
+                      operand, mask * (+-1 sign), summed per alpha group
+                      in f32, then scaled by alpha itself.  A test-size
+                      function, as above.
 
 On exact inputs (integer activations, power-of-two alphas) every partial
 sum is an exact f32, so the two agree with the kernel bit for bit.
@@ -83,4 +89,24 @@ def ternary_planes_ref(x: torch.Tensor, w: PlaneBundle,
     both = (pm1[0] + pm1[1]).reshape(m, g, gs)          # {-2, 0, +2}
     s = torch.einsum("bgk,mgk->bmg", x2.reshape(b, g, gs), both)
     y = torch.einsum("bmg,mg->bm", s, w.alpha[0].float() * 0.5)
+    return y.reshape(*lead, m).to(out_dtype or x.dtype)
+
+
+def ternary_masked_ref(x: torch.Tensor, w: PlaneBundle,
+                       out_dtype=None) -> torch.Tensor:
+    """y[b, m] = sum_g alpha[m, g] s[b, m, g], with s the group sum of x
+    times mask * (+-1 sign): per weight (+-1 b1) + (+-1 b2) is 0 where
+    the mask is clear and 2 (+-1 sign) where it is set, so the
+    reference's (alpha / 2)(V1 + V2) is alpha times this one product."""
+    if w.kind != "ternary":
+        raise ValueError(f"ternary_masked_ref needs a ternary bundle, got "
+                         f"{w.kind!r}")
+    lead = x.shape[:-1]
+    x2 = pad_operands(x.reshape(-1, x.shape[-1]).float(), w)
+    b = x2.shape[0]
+    g, gs, m = w.n_groups, w.group_size, w.out_features
+    pm1 = unpack_planes(w.packed, torch.float32)        # sign, mask: +-1
+    op = (pm1[0] * (pm1[1] + 1) * 0.5).reshape(m, g, gs)  # {-1, 0, +1}
+    s = torch.einsum("bgk,mgk->bmg", x2.reshape(b, g, gs), op)
+    y = torch.einsum("bmg,mg->bm", s, w.alpha[0].float())
     return y.reshape(*lead, m).to(out_dtype or x.dtype)

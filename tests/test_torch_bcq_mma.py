@@ -22,7 +22,13 @@ then z times the group's sum of x), is held here
   (d) the decode tile's split walk (``gemv_split_ref``: 256-column steps,
       whole steps per split, partials added in split order) against the
       plain version and the reference kernel within 1e-5, and exactly on
-      exact inputs.
+      exact inputs;
+  (e) the decode tile's f32 path: ``split_bf16x3`` rebuilds normal f32
+      values within 2^-23 of |x| (in fact exactly), and the split walk on
+      f32 activations (each group's terms summed over the three bf16
+      parts) matches the reference's ``bcq_matmul_ref`` in f32 within
+      1e-6 of the output scale (only the f32 summation order differs),
+      q 1-4, with and without z.
 
 The CUDA tile itself is held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
@@ -36,9 +42,11 @@ from repro.core import bcq as jbcq
 from repro.core.plane import PlaneBundle as JPlaneBundle
 from repro.kernels import lut_common as jlc
 from repro.kernels.bcq_matmul import ops as j_mxu
+from repro.kernels.bcq_matmul.ref import bcq_matmul_ref as j_bcq_ref
 from repro.kernels.lut_gemm import ops as j_lut
 from repro_torch.kernels.bcq_matmul import (bcq_matmul_ref, bcq_planes_ref,
-                                            gemv_split_ref, plane_group_sums)
+                                            gemv_split_ref, plane_group_sums,
+                                            split_bf16x3)
 from repro_torch.kernels.bcq_matmul import route_for as bcq_route
 from repro_torch.kernels.bcq_matmul.ops import gemv_splits, mma_splits
 from repro_torch.kernels.lut_gemm import route_for as lut_route
@@ -142,7 +150,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("rows,dtype,gs,n,want", [
     (8, BF16, 128, 4096, "gemv"), (9, BF16, 128, 4096, "mma"),
-    (1, F32, 128, 4096, "gemv_fma"), (9, F32, 128, 4096, "fma"),
+    (1, F32, 128, 4096, "gemv"), (9, F32, 128, 4096, "fma"),
     (512, BF16, 16, 4096, "mma"), (512, BF16, 8, 136, "fma"),
     (512, BF16, 128, 4100, "fma"), (512, BF16, 512, 4096, "fma"),
     # the decode tile's edges: group sizes 32..256 that divide its
@@ -150,7 +158,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     (1, BF16, 32, 4096, "gemv"), (8, BF16, 256, 2560, "gemv"),
     (8, BF16, 64, 768, "gemv"), (8, BF16, 16, 4096, "gemv_fma"),
     (8, BF16, 96, 4224, "gemv_fma"), (8, BF16, 512, 4096, "gemv_fma"),
-    (8, BF16, 128, 4100, "gemv_fma"), (8, F32, 128, 4096, "gemv_fma"),
+    (8, BF16, 128, 4100, "gemv_fma"), (8, F32, 128, 4096, "gemv"),
+    # f32 decode rows take the decode tile under the same rule
+    (8, F32, 16, 4096, "gemv_fma"), (1, F32, 96, 4224, "gemv_fma"),
+    (8, F32, 128, 4100, "gemv_fma"), (8, F32, 256, 2560, "gemv"),
 ])
 def test_bcq_matmul_route_edges(rows, dtype, gs, n, want):
     assert bcq_route(rows, dtype, gs, n) == want
@@ -256,3 +267,53 @@ def test_gemv_split_ref_exact_and_refuses_empty_splits():
         assert torch.equal(got, want)
     with pytest.raises(ValueError):
         gemv_split_ref(torch.from_numpy(x), wt, 3, torch.float32)
+
+
+def test_split_bf16x3_rebuilds_normal_values():
+    """Each part is a bf16 value, and h + m + l is x within 2^-23 of |x|
+    for normal f32 values over 60 decades (8 significant bits a part)."""
+    rng = np.random.default_rng(23)
+    x = (rng.normal(size=8192) * 10.0 ** rng.integers(-30, 31, 8192)
+         ).astype(np.float32)
+    parts = split_bf16x3(torch.from_numpy(x))
+    for p in parts:
+        assert p.dtype == torch.float32
+        assert torch.equal(p, p.to(torch.bfloat16).float())
+    h, m, lo = (p.numpy().astype(np.float64) for p in parts)
+    resid = np.abs(x.astype(np.float64) - (h + m + lo))
+    assert np.all(resid <= 2.0 ** -23 * np.abs(x))
+    assert np.all(np.abs(m) <= 2.0 ** -8 * np.abs(x))
+
+
+# (out, in, rows, group size, planes): ragged M, N (600 at g 64 and 520
+# at g 256: padded planes) and rows, q 1-4, group sizes 32-256
+F32_GEMV_CASES = [(33, 600, 1, 64, 1), (70, 768, 8, 128, 2),
+                  (96, 1000, 5, 32, 3), (20, 520, 3, 256, 4)]
+
+
+@pytest.mark.parametrize("with_z", [True, False])
+@pytest.mark.parametrize("m,n,b,g,q", F32_GEMV_CASES)
+def test_gemv_split_ref_f32_matches_reference(m, n, b, g, q, with_z):
+    """The decode tile's f32 arithmetic (x split into three bf16 parts,
+    every product run once per part) at every split count its steps
+    allow: within 1e-6 of the output scale of the reference's
+    bcq_matmul_ref in f32, on f32 activations that are not bf16
+    values."""
+    rng = np.random.default_rng(m + n + q)
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    x = rng.normal(size=(b, n)).astype(np.float32)
+    wj = jbcq.from_uniform(jnp.asarray(w), bits=q, group_size=g)
+    if not with_z:
+        wj = JPlaneBundle(packed=wj.packed, alpha=wj.alpha, z=None,
+                          group_size=g, in_features=n, out_features=m)
+    wt = torch_bundle(wj)
+    assert (wt.z is not None) == with_z
+    xt = torch.from_numpy(x)
+    assert not torch.equal(xt, split_bf16x3(xt)[0])
+    want = np.asarray(j_bcq_ref(jnp.asarray(x), wj, jnp.float32))
+    steps = -(-wt.n_groups * g // 256)
+    for s in [s for s in range(1, steps + 1)
+              if -(-steps // -(-steps // s)) == s]:
+        got = gemv_split_ref(xt, wt, s, torch.float32).numpy()
+        assert got.shape == want.shape == (b, m)
+        _close(got, want, 1e-6)

@@ -24,8 +24,10 @@ decode kernel (float and int8 pools): 1e-4 of the output scale in f32,
 and the bf16 and int8 gates above in bf16 (it rounds p against each
 warp's running max of its split, the plain version the normalized p).
 The split-table MLA kernel keeps 1e-4 at every split count, and both
-split merges (MLA, bcq_matmul's decode tile) give bit-identical outputs
-on a repeated call.
+split merges (MLA, the decode tile) give bit-identical outputs on a
+repeated call.  The decode tile on f32 activations (x split into three
+bf16 parts) is also held to 1e-5 at the served shapes: the split is
+exact for normal values, so only the f32 summation order differs.
 """
 import numpy as np
 import pytest
@@ -43,7 +45,8 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_decode_ref,
                                                  paged_prefill,
                                                  paged_prefill_ref)
-from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_matmul,
+from repro_torch.kernels.ternary_matmul import (dense_ref, ternary_masked_ref,
+                                                ternary_matmul,
                                                 ternary_planes_ref,
                                                 ternary_ref)
 from repro_torch.quant.formats import quantize_ternary
@@ -131,7 +134,7 @@ def test_cuda_gemm_routes_match_plain(rows, gs, q):
         route = bcq_route(rows, dtype, gs, n)
         assert routes == {f"bcq_matmul/{route}": 1}
         bf16 = dtype == torch.bfloat16
-        assert route == (("gemv" if bf16 and gs != 16 else "gemv_fma")
+        assert route == (("gemv" if gs != 16 else "gemv_fma")
                          if rows <= 8 else "mma" if bf16 else "fma")
         for mu, half in LUT_VARIANTS:
             got, routes = _routes_run(lambda: lut_gemm(
@@ -251,9 +254,9 @@ def test_cuda_gemv_tile_groups(rows, gs, q):
     """The decode tile at the group sizes the served models do not use
     (32: eight groups a step, 256: one), ragged M (70) and N (520 at g 32
     and 600 at g 256: padded planes, a half-empty last step), ragged
-    rows, 1-4 planes, with and without z: 1e-3 of the output scale on
-    random inputs, bit for bit on exact ones (integer x, power-of-two
-    alphas), split and unsplit."""
+    rows, 1-4 planes, with and without z, bf16 and f32 activations: 1e-3
+    of the output scale on random inputs, bit for bit on exact ones
+    (integer x, power-of-two alphas), split and unsplit."""
     require_cuda()
     from repro_torch.core.plane import PlaneBundle
     from repro_torch.kernels.bcq_matmul.ops import gemv_splits
@@ -261,12 +264,13 @@ def test_cuda_gemv_tile_groups(rows, gs, q):
     m, n = 70, (520 if gs == 32 else 600)
     w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
     wt = bcq.from_uniform(w.to("cuda"), bits=q, group_size=gs)
-    xt = torch.from_numpy(rng.normal(size=(rows, n)).astype(
-        np.float32)).to("cuda", torch.bfloat16)
-    got, routes = _routes_run(lambda: bcq_matmul(xt, wt,
-                                                 out_dtype=torch.float32))
-    assert routes == {"bcq_matmul/gemv": 1}
-    _close(got, bcq_matmul_ref(xt, wt, torch.float32), GEMM_TOL)
+    x = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+    for dtype in (torch.bfloat16, torch.float32):
+        xt = x.to("cuda", dtype)
+        got, routes = _routes_run(lambda: bcq_matmul(
+            xt, wt, out_dtype=torch.float32))
+        assert routes == {"bcq_matmul/gemv": 1}
+        _close(got, bcq_matmul_ref(xt, wt, torch.float32), GEMM_TOL)
     assert gemv_splits(m, wt.n_groups * gs, _lib.sm_count(0)) > 1
     dev = lambda a: torch.from_numpy(a).to("cuda")
     g = -(-n // gs)
@@ -279,27 +283,50 @@ def test_cuda_gemv_tile_groups(rows, gs, q):
             z=dev((0.25 * rng.integers(-4, 5, (m, g))).astype(np.float32))
             if z else None,
             group_size=gs, in_features=n, out_features=m)
-        xe = dev(rng.integers(-8, 9, (rows, n)).astype(np.float32)).to(
-            torch.bfloat16)
-        assert torch.equal(bcq_matmul(xe, we, out_dtype=torch.float32),
-                           bcq_matmul_ref(xe, we, torch.float32))
+        xe = dev(rng.integers(-8, 9, (rows, n)).astype(np.float32))
+        for dtype in (torch.bfloat16, torch.float32):
+            assert torch.equal(
+                bcq_matmul(xe.to(dtype), we, out_dtype=torch.float32),
+                bcq_matmul_ref(xe, we, torch.float32))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n", [(288, 2560), (2560, 6400), (4096, 4096)])
 @pytest.mark.parametrize("rows", [1, 8])
 def test_cuda_gemv_f32_rows_keep_the_cuda_core_body(m, n, rows):
-    """f32 activations at decode rows (MiniCPM3's f32 view) stay on the
-    CUDA-core GEMV, under its own route name, 1e-3 of the output scale."""
+    """f32 activations at decode rows where the decode tile does not
+    take the group size (16) stay on the CUDA-core GEMV, under its own
+    route name, 1e-3 of the output scale."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(m + rows)
     w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
-                     * 0.02, bits=3, group_size=128)
+                     * 0.02, bits=3, group_size=16)
     x = torch.randn((rows, n), generator=gen, device="cuda")
     got, routes = _routes_run(lambda: bcq_matmul(x, w,
                                                  out_dtype=torch.float32))
     assert routes == {"bcq_matmul/gemv_fma": 1}
     _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("m,n", DECODE_SHAPES)
+def test_cuda_gemv_f32_rows_on_the_decode_tile(m, n, rows):
+    """f32 activations at every served decode shape (MiniCPM3's f32 view)
+    take the decode tile (x split into three bf16 parts in the kernel):
+    1e-3 of the output scale (the f32 split leaves only summation order:
+    1e-5 is held too), and a second call repeats the first exactly."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + n + rows)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((rows, n), generator=gen, device="cuda")
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/gemv": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+    _close(got, bcq_matmul_ref(x, w, torch.float32), 1e-5)
+    assert torch.equal(got, bcq_matmul(x, w, out_dtype=torch.float32))
 
 
 @pytest.mark.cuda
@@ -762,3 +789,84 @@ def test_cuda_decode_refuses_unsupported_heads():
             torch.from_numpy(a).to("cuda") for a in pool_case(0, d=d))
         with pytest.raises(ValueError):
             paged_attention(q, k, v, pos, tables, positions)
+
+
+# ---------------------------------------------------------------------------
+# ternary_matmul's decode rows on the tensor-core decode tile
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("m,n", [(4096, 4096), (16384, 4096),
+                                 (4096, 16384)])
+def test_cuda_ternary_gemv_opt_shapes(m, n, rows):
+    """OPT-6.7B's decode GEMMs with ternary weights (g 128), bf16 and f32
+    activations, on the decode tile: 1e-3 of the output scale, a second
+    call repeats the first exactly (split or not)."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + n + rows)
+    w = quantize_ternary(torch.randn((m, n), generator=gen, device="cuda")
+                         * 0.02, group_size=128)
+    x = torch.randn((rows, n), generator=gen, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        xt = x.to(dtype)
+        got, routes = _routes_run(lambda: ternary_matmul(
+            xt, w, out_dtype=torch.float32))
+        assert routes == {"ternary_matmul/gemv": 1}
+        _close(got, dense_ref(xt, w, torch.float32), GEMM_TOL)
+        assert torch.equal(got, ternary_matmul(xt, w,
+                                               out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("m,n,gs", [(4096, 4096, 128), (70, 600, 32),
+                                    (33, 520, 64), (130, 1024, 256)])
+def test_cuda_ternary_gemv_exact(m, n, gs, rows):
+    """Exact inputs (integer x, alpha 0.5) on the decode tile equal every
+    plain version bit for bit, bf16 and f32 activations: [4096 x 4096]
+    splits its steps (64 row tiles are fewer than the SMs), the others
+    are ragged (M 70 / 33 / 130, N 600 / 520: padded planes, a part-full
+    last step); random inputs within 1e-3 of the output scale."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
+    rng = np.random.default_rng(m + n + gs + rows)
+    we, wr = _ternary_pair(rng, m, n, gs)
+    if (m, n) == (4096, 4096):
+        assert gemv_splits(m, n, _lib.sm_count(0)) > 1
+    xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+        np.float32)).to("cuda")
+    xr = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).to("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        xt = xe.to(dtype)
+        got, routes = _routes_run(
+            lambda: ternary_matmul(xt, we, out_dtype=torch.float32))
+        assert routes == {"ternary_matmul/gemv": 1}
+        assert torch.equal(got, ternary_ref(xt, we, out_dtype=torch.float32))
+        assert torch.equal(got, dense_ref(xt, we, torch.float32))
+        assert torch.equal(got, ternary_masked_ref(xt, we, torch.float32))
+        xt = xr.to(dtype)
+        got = ternary_matmul(xt, wr, out_dtype=torch.float32)
+        _close(got, dense_ref(xt, wr, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,gs", [(4096, 4096, 8), (300, 1032, 24),
+                                    (300, 1032, 16), (300, 4092, 128)])
+def test_cuda_ternary_lut_keeps_other_decode_rows(m, n, gs):
+    """Decode rows the tile does not take (group sizes 8, 16, 24; an input
+    width that is not a multiple of 8) stay on the half-LUT body: bit for
+    bit on exact inputs, bf16 and f32."""
+    require_cuda()
+    rng = np.random.default_rng(m + gs)
+    we, _ = _ternary_pair(rng, m, n, gs)
+    xe = torch.from_numpy(rng.integers(-8, 9, (8, n)).astype(
+        np.float32)).to("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        xt = xe.to(dtype)
+        got, routes = _routes_run(
+            lambda: ternary_matmul(xt, we, out_dtype=torch.float32))
+        assert routes == {"ternary_matmul/lut": 1}
+        assert torch.equal(got, ternary_ref(xt, we, out_dtype=torch.float32))

@@ -16,6 +16,10 @@ Tolerances, each with its reason:
     x against the sum of the two derived +-1 planes per alpha group,
     then alpha / 2) against the reference kernel: exact on exact inputs,
     1e-3 of the output scale (the reference's GEMM gate) on random ones;
+  * ``ternary_masked_ref`` (the arithmetic of the decode tile: x against
+    mask * (+-1 sign) per alpha group, then alpha) against the
+    reference's ``ternary_ref``: exact on exact inputs, 1e-3 of the
+    output scale on random ones;
   * dequantize and manifest bytes: exactly equal;
   * the greedy token stream of the port's ``PagedServeEngine``: identical
     to the reference engine's (tolerance 0 on token ids).
@@ -41,6 +45,7 @@ from repro_torch.core import plane as tplane
 from repro_torch.kernels import _lib
 from repro_torch.kernels.lut_common import ternary_plane_bytes
 from repro_torch.kernels.ternary_matmul import (dense_ref, route_for,
+                                                ternary_masked_ref,
                                                 ternary_matmul,
                                                 ternary_planes_ref,
                                                 ternary_ref)
@@ -215,9 +220,43 @@ def test_ternary_planes_ref_matches_reference(m, n, b, g):
     np.testing.assert_allclose(got / scale, want / scale, atol=GEMM_TOL)
 
 
+# the decode tile's shapes: ragged M, N (376 at gs 128, 600 at gs 32,
+# 520 at gs 64: padded planes) and B (1-8), each group size it takes
+GEMV_SHAPES = [(33, 376, 1, 128), (70, 600, 8, 32), (17, 520, 5, 64),
+               (48, 1024, 3, 256)]
+
+
+@pytest.mark.parametrize("m,n,b,g", GEMV_SHAPES)
+def test_ternary_masked_ref_exact_against_reference(m, n, b, g):
+    """The decode tile's one-operand arithmetic, alpha x . (mask (+-1
+    sign)), equals the reference's ternary_ref (the derived planes'
+    alpha / 2 (V1 + V2)) bit for bit on exact inputs."""
+    rng = np.random.default_rng(m + b + g)
+    wj, wt = _pair(_ternary_w(m, n, m + n), g)
+    x = rng.integers(-8, 9, (b, n)).astype(np.float32)
+    want = np.asarray(j_ternary_ref(jnp.asarray(x), wj))
+    got = ternary_masked_ref(torch.from_numpy(x), wt).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("m,n,b,g", GEMV_SHAPES)
+def test_ternary_masked_ref_matches_reference(m, n, b, g):
+    """On random weights and f32 activations within 1e-3 of the output
+    scale of the reference's ternary_ref."""
+    rng = np.random.default_rng(m * b + g)
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    x = rng.normal(size=(b, n)).astype(np.float32)
+    wj, wt = _pair(w, g)
+    want = np.asarray(j_ternary_ref(jnp.asarray(x), wj))
+    got = ternary_masked_ref(torch.from_numpy(x), wt).numpy()
+    assert got.shape == want.shape == (b, m)
+    scale = np.abs(want).max() + 1e-6
+    np.testing.assert_allclose(got / scale, want / scale, atol=GEMM_TOL)
+
+
 @pytest.mark.parametrize("rows,dtype,gs,n,want", [
-    (1, torch.bfloat16, 128, 4096, "lut"), (8, torch.bfloat16, 128, 4096,
-                                            "lut"),
+    (1, torch.bfloat16, 128, 4096, "gemv"), (8, torch.bfloat16, 128, 4096,
+                                             "gemv"),
     (9, torch.bfloat16, 128, 4096, "mma"), (512, torch.bfloat16, 16, 136,
                                             "mma"),
     (512, torch.bfloat16, 256, 4096, "mma"),
@@ -225,10 +264,21 @@ def test_ternary_planes_ref_matches_reference(m, n, b, g):
     (512, torch.bfloat16, 8, 4096, "lut"), (512, torch.bfloat16, 24, 4096,
                                             "lut"),
     (512, torch.bfloat16, 512, 4096, "lut"),
-    (512, torch.bfloat16, 128, 4092, "lut")])
+    (512, torch.bfloat16, 128, 4092, "lut"),
+    # the decode tile: bf16 and f32 rows <= 8, gs 32-256, 8 | in_features
+    (8, torch.float32, 128, 4096, "gemv"), (1, torch.float32, 32, 2560,
+                                            "gemv"),
+    (8, torch.bfloat16, 256, 768, "gemv"),
+    (8, torch.bfloat16, 8, 4096, "lut"), (8, torch.bfloat16, 24, 4096,
+                                          "lut"),
+    (8, torch.bfloat16, 16, 4096, "lut"), (8, torch.float32, 512, 4096,
+                                           "lut"),
+    (8, torch.bfloat16, 128, 4092, "lut")])
 def test_ternary_route_edges(rows, dtype, gs, n, want):
-    """The mma route takes more than 8 bf16 rows with 16 | gs <= 256 and
-    8 | in_features (bcq_matmul's rule); every other call the LUT body."""
+    """The decode tile takes at most 8 bf16 or f32 rows with gs 32, 64,
+    128 or 256 and 8 | in_features (bcq_matmul's gemv rule); the mma
+    route more than 8 bf16 rows with 16 | gs <= 256 and 8 | in_features
+    (bcq_matmul's mma rule); every other call the LUT body."""
     assert route_for(rows, dtype, gs, n) == want
 
 
