@@ -32,7 +32,7 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      decode kernel logged with its split count and held to repeat itself
      exactly;
   4. serve (random weights from ``--seed``, paged engine, fused paged
-     attention), four runs: full-width OPT-6.7B BCQ-quantized on the card
+     attention), six runs: full-width OPT-6.7B BCQ-quantized on the card
      at 3 bits, g = 128, with ``--backend auto`` (bcq_matmul) and
      ``--backend lut_pallas`` (lut_gemm); OPT-6.7B ternary-quantized
      (g = 128) with an int8 KV cache and ``--backend auto``
@@ -50,7 +50,24 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      its linears on the tensor-core tile (all but the head's one row per
      request).  The MiniCPM3 run also reports,
      by depth, the plain bf16 path against the plain f32 path (how much
-     of its bf16 logit error is bf16 rounding alone).
+     of its bf16 logit error is bf16 rounding alone).  Two more runs
+     serve full-width, full-depth OPT-6.7B under mixed-precision BCQ
+     (``QuantSpec(bits=2.4)``, the paper's 2.4-bit point, and
+     ``bits=1.8``, which mixes ternary and BCQ leaves), each printing its
+     plan (leaf -> width), manifest and achieved average: the plan must
+     hold more than one width (1.8: ternary and BCQ leaves), and every
+     decode step must run all 192 linears on the decode tile
+     (``bcq_matmul/gemv``, and ``ternary_matmul/gemv`` at 1.8) and every
+     prefill chunk all 192 on the tensor-core tile;
+  5. checkpoint round trip: the 2.4-bit plan on OPT-6.7B at full width
+     and 4 layers, saved by ``save_quantized`` and read back by
+     ``load_quantized_model`` into a fresh model: every leaf
+     bit-identical and the first prompt's greedy tokens identical; the
+     write and read times and the bytes on disk are printed.
+
+Phase 3 also holds bcq_matmul at q 2 and q 4 (the widths the mixed
+plans use beside q 3) at OPT's three shapes on the decode tile (rows 1
+and 8) and the tensor-core tile (rows 512).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Full results also go to
@@ -58,6 +75,7 @@ last line is ``{"ok": true, "device": {...}}``.  Full results also go to
 """
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -316,6 +334,65 @@ def cuda_core_cases(torch, timer, gen, results):
         if rel > tol:
             fail(f"{name} {route} disagrees with its plain version")
         del w
+
+
+def check_bcq_widths(torch, timer, gen, results):
+    """bcq_matmul at q 2 and q 4 (the widths a mixed-precision plan puts
+    beside q 3) at OPT's three shapes: the decode tile (rows 1 and 8,
+    route ``gemv``) and the tensor-core tile (rows 512, route ``mma``),
+    each held to 1e-3 of the output scale, timed beside ``torch.matmul``
+    on the dense bf16 weight and the bound of its bytes at that q."""
+    from repro_torch.core import bcq
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
+    tol, out = 1e-3, []
+    for q in (2, 4):
+        for m, n in ((4096, 4096), (16384, 4096), (4096, 16384)):
+            w = bcq.quantize(torch.randn((m, n), generator=gen,
+                                         device="cuda") * 0.02,
+                             bits=q, group_size=128)
+            dense_bf16 = dequantize(w, torch.bfloat16)
+            for rows in (1, 8, 512):
+                x = torch.randn((rows, n), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                fn = lambda: bcq_matmul(x, w, out_dtype=torch.float32)
+                plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
+                got, route = routed(torch, "bcq_matmul", fn)
+                want = "gemv" if rows <= 8 else "mma"
+                if route != want:
+                    fail(f"bcq_matmul q {q} rows {rows} ran {route}, not "
+                         f"{want}")
+                if got.shape != plain.shape or not torch.isfinite(got).all():
+                    fail(f"bcq_matmul q {q} [{rows}x{n}]x[{m}x{n}]^T: bad "
+                         "output")
+                err = float((got - plain).abs().max())
+                rel = err / (float(plain.abs().max()) + 1e-12)
+                b_ms, b_by = bound(rows * n * 2 + w.nbytes() + rows * m * 4,
+                                   2.0 * rows * m * n)
+                t = timer(fn)
+                t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
+                t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
+                rec = dict(m=m, n=n, rows=rows, bits=q, route=route,
+                           max_abs_err=err, rel_err=rel, tol=tol, ms=t,
+                           plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                           bound_by=b_by, weight_bytes=w.nbytes())
+                split = ""
+                if route == "gemv":
+                    rec["splits"] = gemv_splits(m, w.n_groups * 128,
+                                                _lib.sm_count(0))
+                    split = f", {rec['splits']} splits"
+                out.append(rec)
+                log(f"bcq_matmul q={q} rows={rows:4d} M={m:5d} N={n:5d} "
+                    f"[{route}{split}]: err {err:.3e} (rel {rel:.2e} <= "
+                    f"{tol:g}: {rel <= tol})  kernel {t:.4f} ms  plain "
+                    f"{t_plain:.4f} ms  torch.matmul {t_lib:.4f} ms  bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+                if rel > tol:
+                    fail(f"bcq_matmul q {q} disagrees with its plain version")
+            del w, dense_bf16
+    results["bcq_matmul_widths"] = out
 
 
 def routed(torch, name, fn):
@@ -1026,13 +1103,17 @@ def logit_error_by_depth(torch, kern, plain, toks, depths):
 
 def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
               attn, prefill, required, totals, power_line, manifest,
-              by_depth=None):
+              by_depth=None, mixed=None):
     """One serve run of the 8-request mix on model view ``m``: the first
     prefill's logits against the plain path's ``want``, then the engine
     with the launch counters set to 0 just before and read just after;
     every kernel in ``required`` must have launched.  With ``by_depth``
     (MiniCPM3) the gate is the full-depth f32 view's error (see
-    ``serve_model``) and the bf16 error is reported beside it."""
+    ``serve_model``) and the bf16 error is reported beside it.  With
+    ``mixed`` (a mixed-precision plan, ``mixed_plan``) ``gemm`` is the
+    plan's kernels, every decode step and prefill chunk must run all of
+    its linears on them, and the step's kernel time sums the plan's
+    widths."""
     from repro_torch.kernels import _lib
     from repro_torch.models.attention import kv_entry_bytes
     from repro_torch.serve import PagedServeEngine, Request
@@ -1117,12 +1198,14 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         if counts[k] <= 0:
             fail(f"serve[{tag}]: {k} never launched on the main path")
     routes = route_totals(tag, gemm, step_routes, chunk_routes,
-                          dict(_lib.route_counts))
+                          dict(_lib.route_counts),
+                          linears=mixed["linears"] if mixed else None)
     s = eng.metrics.summary()
     toks_out = s["counters"]["tokens_out"]
     steps = sorted(step_ms)
     p50 = steps[len(steps) // 2] if steps else float("nan")
-    kern_ms = step_kernel_ms(results, gemm, attn, cfg)
+    kern_ms = (mixed["kern_ms"] if mixed
+               else step_kernel_ms(results, gemm, attn, cfg))
     per_step = step_launches[len(step_launches) // 2] \
         if step_launches else {}
     kv_tok = kv_entry_bytes(cfg) * cfg.n_layers
@@ -1159,20 +1242,28 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         f"launches {counts}; per decode step {per_step}{pre_line}; GEMM "
         f"bodies: decode steps {routes['decode']}, prefill chunks "
         f"{routes['prefill']} ({routes['prefill_mma_share']:.1%} of the "
-        f"chunks' {gemm} launches on the tensor cores); card {power_line}")
+        f"chunks' {gemm if isinstance(gemm, str) else ' + '.join(gemm)} "
+        f"launches on the tensor cores); card {power_line}")
     del eng
     torch.cuda.empty_cache()
     return out
 
 
-def route_totals(tag, gemm, step_routes, chunk_routes, total):
+def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None):
     """The GEMM bodies of one serve run, split into decode steps and
-    prefill chunks.  Gates: every decode step launches counted bodies and
-    none runs the tensor-core tile (decode rows are at most 8); with
-    bcq_matmul and with ternary_matmul every decode step runs the
-    tensor-core decode tile (``gemv``) and nothing else; and in every
-    prefill chunk all of ``gemm``'s launches but the head's (one row per
-    request) run the tensor-core tile."""
+    prefill chunks.  ``gemm`` is the run's GEMM kernel, or a tuple of them
+    (a mixed-precision plan's bcq_matmul and ternary_matmul).  Gates:
+    every decode step launches counted bodies and none runs the
+    tensor-core tile (decode rows are at most 8); with bcq_matmul and with
+    ternary_matmul every decode step runs the tensor-core decode tile
+    (``gemv``) of each of the run's kernels and nothing else; and in every
+    prefill chunk all of the GEMM launches but the head's (one row per
+    request) run the tensor-core tile.  With ``linears`` (the model's
+    quantized linears) each decode step's ``gemv`` launches and each
+    chunk's ``mma`` launches must number exactly that: every linear ran
+    on a kernel, none on a plain path."""
+    gemms = (gemm,) if isinstance(gemm, str) else tuple(gemm)
+
     def add(rows):
         out = {}
         for r in rows:
@@ -1185,28 +1276,34 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total):
              "prefill chunks")
     if any(k.endswith("/mma") for k in decode):
         fail(f"serve[{tag}]: a decode step ran the tensor-core tile")
-    if gemm in ("bcq_matmul", "ternary_matmul"):
+    if set(gemms) <= {"bcq_matmul", "ternary_matmul"}:
         # decode steps run the tensor-core decode tile, never the
         # CUDA-core GEMV or the half-LUT body (the shapes they keep are
         # not served)
+        want = {f"{g}/gemv" for g in gemms}
         for i, r in enumerate(step_routes):
-            bodies = {k for k in r if k.startswith(gemm + "/")}
-            if bodies != {f"{gemm}/gemv"}:
+            bodies = {k for k in r if k.split("/")[0] in gemms}
+            if bodies != want:
                 fail(f"serve[{tag}]: decode step {i} GEMM bodies {r}: its "
                      "linears must run the tensor-core decode tile")
+            if linears and sum(r[k] for k in bodies) != linears:
+                fail(f"serve[{tag}]: decode step {i} ran {r}, not "
+                     f"{linears} linears on the decode tile")
     if not all(step_routes) or not chunk_routes:
         fail(f"serve[{tag}]: a decode step or the run's prefill launched "
              "no counted GEMM body")
-    mma = f"{gemm}/mma"
+    mma = {f"{g}/mma" for g in gemms}
     for i, r in enumerate(chunk_routes):
-        other = sum(n for k, n in r.items() if k != mma)
-        if r.get(mma, 0) <= 0 or other > 1:
+        n_mma = sum(n for k, n in r.items() if k in mma)
+        other = sum(n for k, n in r.items() if k not in mma)
+        if n_mma <= 0 or other > 1 or (linears and n_mma != linears):
             fail(f"serve[{tag}]: prefill chunk {i} GEMM bodies {r}: its "
                  "linears must run the tensor-core tile")
-    n_gemm = sum(n for k, n in prefill.items() if k.startswith(gemm + "/"))
+    n_gemm = sum(n for k, n in prefill.items() if k.split("/")[0] in gemms)
     return dict(decode=decode, prefill=prefill,
                 prefill_chunks=len(chunk_routes),
-                prefill_mma_share=prefill.get(mma, 0) / max(1, n_gemm))
+                prefill_mma_share=sum(prefill.get(k, 0) for k in mma)
+                / max(1, n_gemm))
 
 
 def serve(torch, args, power_line, results):
@@ -1221,8 +1318,8 @@ def serve(torch, args, power_line, results):
     serve_out = {}
     totals = {k: 0 for k in _lib.KERNELS}
     bcq3 = QuantSpec(format="bcq", bits=3, group_size=128)
-    opt = get_config("opt_6_7b")
-    opt = opt.replace(n_layers=args.layers)
+    full_opt = get_config("opt_6_7b")
+    opt = full_opt.replace(n_layers=args.layers)
     mla = get_config("minicpm3_4b")                    # full width and depth
     runs = (
         # (config, weight spec, KV bits, [(run name, backend, gemm
@@ -1236,11 +1333,162 @@ def serve(torch, args, power_line, results):
         # MLA prefill stays on the gathered path, as in the reference
         (mla, bcq3, 16, [("minicpm3_auto", "auto", "bcq_matmul")],
          "paged_decode_mla", None),
+        # mixed precision at full width and depth (GEMM kernels from the
+        # plan): the paper's 2.4-bit point, and a 1.8-bit budget that
+        # mixes ternary and BCQ leaves
+        (full_opt, QuantSpec(format="bcq", bits=2.4, group_size=128), 16,
+         [("opt_mixed_2p4", "auto", None)], "paged_decode",
+         "paged_prefill"),
+        (full_opt, QuantSpec(format="bcq", bits=1.8, group_size=128), 16,
+         [("opt_mixed_1p8", "auto", None)], "paged_decode",
+         "paged_prefill"),
     )
     for cfg, spec, kv_bits, backends, attn, prefill in runs:
         serve_model(torch, args, cfg, spec, kv_bits, backends, attn,
                     prefill, eng_kw, results, totals, power_line, serve_out)
+    serve_out["checkpoint_round_trip"] = checkpoint_round_trip(
+        torch, args, eng_kw)
     return serve_out, totals
+
+
+def mix_prompts(seed, vocab):
+    """The 8-request mix: prompts of 48-400 tokens drawn from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(48, 401)) for _ in range(8)]
+    return [rng.integers(0, vocab, (n,)) for n in lens]
+
+
+def mixed_plan(results, cfg, spec, manifest, attn):
+    """A mixed-precision run's plan (leaf -> width, 1.585 for ternary) from
+    its manifest, printed with the manifest summary and the achieved
+    average; fails unless a sub-2 budget mixes ternary and BCQ leaves and
+    any other plan holds more than one width.  Returns the plan, its GEMM
+    kernels, its linears per step and its decode step's kernel time (the
+    phase-3 rows-8 time of each leaf's shape and width, times its layers,
+    plus the decode attention at B 8)."""
+    plan, n_w, lins, kern_ms = {}, {}, 0, 0.0
+    attn_ms = [r["ms"] for r in results[attn] if r["b"] == 8 and "ms" in r
+               and r.get("hkv", r["h"]) == r["h"] and not r.get("long")][0]
+    for leaf in manifest.layers:
+        key = leaf["path"]
+        b = (leaf["effective_bits"] if leaf["format"] == "ternary"
+             else leaf["plane_bits"])
+        plan[key] = b
+        shape = leaf["shape"]
+        n_w[key] = math.prod(shape)
+        layers = shape[0] if len(shape) == 3 else 1
+        lins += layers
+        m, n = shape[-2], shape[-1]
+        if b < 2:
+            rows = [r for r in results["ternary_matmul"] if "ms" in r]
+        elif b == 3:
+            rows = [r for r in results["bcq_matmul"] if "model" not in r]
+        else:
+            rows = [r for r in results["bcq_matmul_widths"]
+                    if r["bits"] == b]
+        kern_ms += layers * [r["ms"] for r in rows if r["rows"] == 8
+                             and (r["m"], r["n"]) == (m, n)][0]
+    kern_ms += cfg.n_layers * attn_ms
+    avg = sum(plan[k] * n_w[k] for k in plan) / sum(n_w.values())
+    log("plan " + ", ".join(f"{k}: {b:g}" for k, b in plan.items()))
+    log(f"{spec.describe()}: achieved average {avg:.4f} bits (budget "
+        f"{spec.bits:g}); {manifest.summary()}")
+    ternary = [k for k, b in plan.items() if b < 2]
+    if spec.bits < 2 and (not ternary or len(ternary) == len(plan)):
+        fail(f"{spec.describe()}: the plan does not mix ternary and BCQ "
+             f"leaves: {plan}")
+    if len(set(plan.values())) < 2:
+        fail(f"{spec.describe()}: the plan holds one width: {plan}")
+    gemms = tuple(g for g, used in (
+        ("bcq_matmul", len(ternary) < len(plan)),
+        ("ternary_matmul", bool(ternary))) if used)
+    return dict(plan=plan, avg_bits=avg, gemms=gemms, linears=lins,
+                kern_ms=kern_ms)
+
+
+def checkpoint_round_trip(torch, args, eng_kw):
+    """The 2.4-bit plan on OPT-6.7B at full width and 4 layers: saved with
+    ``save_quantized`` into the git-ignored ``build/``, read back into a
+    fresh model by ``load_quantized_model``, then deleted.  Every bundle
+    and every other leaf must come back bit-identical, and greedy tokens
+    for the mix's first prompt must equal the saved model's."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.plane import PlaneBundle
+    from repro_torch.models import Model, to_params
+    from repro_torch.quant import QuantSpec, quantize_model, save_quantized
+    from repro_torch.quant.checkpoint import load_quantized_model
+    from repro_torch.serve import PagedServeEngine, Request
+
+    cfg = get_config("opt_6_7b").replace(n_layers=4)
+    spec = QuantSpec(format="bcq", bits=2.4, group_size=128)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = Model(cfg, device="cuda").init_params(gen)
+    manifest = quantize_model(model, spec)
+    model = model.with_config(quant=spec)
+    d = ROOT / "build" / "ckpt_round_trip"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = Path(save_quantized(str(d), model, spec, manifest,
+                                   arch=cfg.name,
+                                   extra_meta={"d_model": cfg.d_model,
+                                               "n_layers": cfg.n_layers,
+                                               "vocab_size": cfg.vocab_size}))
+        t_write = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        loaded, spec2, man2, _ = load_quantized_model(str(d), cfg,
+                                                      device="cuda")
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if spec2 != spec or man2.to_dict() != manifest.to_dict():
+        fail("checkpoint round trip: spec or manifest changed")
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{path}/{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, tree
+    a, b = dict(leaves(to_params(model))), dict(leaves(to_params(loaded)))
+    n_bundles = sum(isinstance(lin.weight, PlaneBundle)
+                    for blk in loaded.stack.layers
+                    for mod in (blk.mixer, blk.mlp)
+                    for lin in mod.children())
+    same = a.keys() == b.keys() and all(
+        (torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype)
+        if isinstance(a[k], torch.Tensor) else a[k] == b[k] for k in a)
+    if not same or n_bundles != 6 * cfg.n_layers:
+        fail("checkpoint round trip: a leaf differs after loading")
+    prompt = mix_prompts(args.seed, cfg.vocab_size)[0]
+    outs = []
+    for m in (model, loaded):
+        eng = PagedServeEngine(m, paged_kernel="fused", **eng_kw)
+        done = eng.run([Request(uid=0, prompt=prompt, max_new_tokens=32)],
+                       max_ticks=400)
+        outs.append(list(done[0].out_tokens))
+        del eng
+    if outs[0] != outs[1] or len(outs[0]) != 32:
+        fail(f"checkpoint round trip: greedy tokens differ: {outs}")
+    log(f"checkpoint round trip ({spec.describe()}, {cfg.n_layers} layers "
+        f"at full width): {len(a)} leaves, {n_bundles} bundles "
+        f"bit-identical; {disk / 1e9:.3f} GB on disk, write {t_write:.2f} s,"
+        f" read {t_read:.2f} s; greedy tokens of the first prompt identical "
+        f"({len(outs[0])} tokens)")
+    del model, loaded
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, leaves=len(a), bundles=n_bundles,
+                disk_bytes=disk, write_s=t_write, read_s=t_read,
+                tokens=outs[0], plan={l["path"]: l["plane_bits"]
+                                      for l in manifest.layers})
 
 
 def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
@@ -1248,17 +1496,14 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
     """Build ``cfg`` with random weights from ``--seed``, quantize it on
     the card, take the plain path's first-prefill logits, then serve
     the 8-request mix once per backend."""
-    import numpy as np
     from repro_torch.models import Model
     from repro_torch.quant import quantize_model
 
     log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth={cfg.n_layers} "
-        f"layers; {spec.format} weights, {kv_bits}-bit KV")
+        f"layers; {spec.describe()} weights, {kv_bits}-bit KV")
     # the same mix shape for every model: 8 prompts of 48-400 tokens
-    rng = np.random.default_rng(args.seed)
-    lens = [int(rng.integers(48, 401)) for _ in range(8)]
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    prompts = mix_prompts(args.seed, cfg.vocab_size)
     toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
     # the same random weights from --seed for every format
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1271,11 +1516,15 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
     torch.cuda.synchronize()
     log(f"init {t_init:.1f} s; {spec.format} on the card "
         f"{time.perf_counter() - t0:.1f} s: {manifest.summary()}")
+    mixed = (mixed_plan(results, cfg, spec, manifest, attn)
+             if spec.is_mixed else None)
     plain = model.with_config(quant=spec.replace(backend="dense"),
                               paged_kernel="gather", kv_cache_bits=kv_bits)
     want = first_logits(torch, plain, toks)
     required = tuple(k for k in (attn, prefill) if k)
     for tag, backend, gemm in backends:
+        gemm = mixed["gemms"] if mixed else gemm
+        gemms = (gemm,) if isinstance(gemm, str) else gemm
         m = model.with_config(quant=spec.replace(backend=backend),
                               paged_kernel="fused", kv_cache_bits=kv_bits)
         by_depth = None
@@ -1293,9 +1542,13 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
             by_depth = logit_error_by_depth(torch, m, plain, toks, depths)
         serve_out[tag] = serve_one(torch, tag, m, want, toks, prompts,
                                    eng_kw, results, gemm, attn, prefill,
-                                   (gemm,) + required, totals, power_line,
-                                   manifest, by_depth)
+                                   gemms + required, totals, power_line,
+                                   manifest, by_depth, mixed)
         serve_out[tag]["logit_error_by_depth"] = by_depth
+        if mixed:
+            serve_out[tag].update(plan=mixed["plan"],
+                                  avg_bits=mixed["avg_bits"],
+                                  spec=spec.to_dict())
     del model, plain, want
     torch.cuda.empty_cache()
 
@@ -1349,6 +1602,7 @@ def main():
     check_paged_int8(torch, timer, gen, results, args.seed)
     check_paged_mla(torch, timer, gen, results, args.seed)
     check_bcq_minicpm3(torch, timer, gen, results)
+    check_bcq_widths(torch, timer, gen, results)
     del timer
     torch.cuda.empty_cache()
 
@@ -1426,6 +1680,11 @@ def main():
             for key in ("gemv_fma", "fma"):
                 r = results[f"bcq_matmul_{key}"][0]
                 kernels[-1][key] = {k: r[k] for k in keys + ("group_size",)}
+            # the mixed plans' other widths on the widest weight
+            kernels[-1]["widths"] = [
+                {k: r[k] for k in keys + ("bits",)}
+                for r in results["bcq_matmul_widths"]
+                if r["rows"] in (8, 512) and r["m"] == 16384]
         if name == "lut_gemm":
             r = results["lut_gemm_lut_tile"][0]
             kernels[-1]["lut_tile"] = {k: r[k] for k in keys}

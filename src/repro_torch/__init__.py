@@ -2,10 +2,12 @@
 
 A second package beside ``repro`` (the JAX reference).  It keeps the
 reference's module layout so every module sits opposite its
-counterpart: ``core`` (plane layout, BCQ, linear execution), ``quant``
-(spec, BCQ/RTN/ternary formats, backends, ``quantize_model``), ``kernels`` (hand-written
-CUDA kernels for Hopper, each beside its plain PyTorch version),
-``configs``, ``models``, ``serve`` and ``launch``.
+counterpart: ``core`` (plane layout, BCQ, host LUT math, mixed-precision
+allocation, linear execution), ``quant`` (spec, BCQ/RTN/ternary
+formats, backends, bit plans, ``quantize_model``, quantized
+checkpoints), ``kernels`` (hand-written CUDA kernels for Hopper, each
+beside its plain PyTorch version), ``configs``, ``models``, ``serve``,
+``train`` (the numpy checkpoint layout) and ``launch``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper takes its plain version, because CUDA

@@ -15,6 +15,22 @@ Weights are random, drawn from ``--seed``; quantization (BCQ, RTN or
 ternary with ``--method ternary``) runs on the device, one linear at a
 time.  The int8 KV cache is a config field (``kv_cache_bits=8``) reached
 through the engine API, as in the reference: there is no flag for it.
+
+The quantization spec comes from the flags, or whole from ``--spec
+spec.json`` (flags override its fields), as in the reference:
+
+  * ``--bits 2.4`` (fractional) plans mixed precision per reference leaf
+    (``quant.api.plan_bits``); the printed manifest reports the achieved
+    average.  Budgets below 2 mix ternary and BCQ leaves (``--bits
+    1.8``); ``--bits 1.58`` leaves no room above ternary, so every leaf
+    is ternary.  ``--bits 0`` serves the dense model.
+  * ``--save-quantized DIR`` writes the quantized weights, spec and
+    manifest as a checkpoint; ``--load-quantized DIR`` serves one (no
+    quantization; checkpoints of either package load).  Weight-shape
+    flags are refused with ``--load-quantized``, and the checkpoint's
+    arch and model dimensions must match ``--arch``/``--reduced``;
+    ``--backend`` still applies.
+  * ``--manifest-json PATH`` writes the per-leaf manifest.
 """
 import argparse
 import json
@@ -27,11 +43,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="opt_6_7b | minicpm3_4b")
     ap.add_argument("--reduced", type=int, default=1)
     ap.add_argument("--bits", type=float, default=None,
-                    help="weight bits (integer; 0 -> serve dense; "
-                         "default 4; ternary: 1.58)")
+                    help="weight bits; fractional (e.g. 2.4) -> mixed "
+                         "precision; sub-2 budgets (e.g. 1.58) mix "
+                         "ternary/2/3-bit layers; 0 -> serve dense FP "
+                         "(default: 4)")
     ap.add_argument("--method", "--format", dest="format", default=None,
                     choices=["bcq", "rtn", "uniform", "ternary"])
     ap.add_argument("--group-size", type=int, default=None)
+    ap.add_argument("--iters", type=int, default=None,
+                    help="BCQ alternating-refinement rounds (default 5)")
+    ap.add_argument("--spec", default="",
+                    help="QuantSpec JSON file; explicit flags override")
+    ap.add_argument("--save-quantized", default="",
+                    help="write the quantized weights + spec/manifest to "
+                         "this checkpoint dir after quantizing")
+    ap.add_argument("--load-quantized", default="",
+                    help="serve pre-quantized weights from this checkpoint "
+                         "dir (no quantization; spec from the checkpoint)")
+    ap.add_argument("--manifest-json", default="",
+                    help="write the quantization manifest to this path")
     ap.add_argument("--backend", default=None,
                     help="auto | dense | bcq_xla | bcq_xla_planes | "
                          "mxu_pallas (bcq_matmul kernel) | lut_pallas "
@@ -54,22 +84,70 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_spec(args):
-    from repro_torch.quant import QuantSpec
+    """The QuantSpec from ``--spec`` and the flags (flags win); None for a
+    dense serve (``--bits 0``)."""
+    from repro_torch.quant import QuantSpec, canonical_format
     if args.bits is not None and args.bits == 0:
         return None
-    kw = {}
-    if args.bits is not None:
-        kw["bits"] = args.bits
-    if args.format is not None:
-        kw["format"] = args.format
-    if args.group_size is not None:
-        kw["group_size"] = args.group_size
-    if args.backend is not None:
-        kw["backend"] = args.backend
     try:
-        return QuantSpec(**kw)
+        base = QuantSpec.load(args.spec) if args.spec else QuantSpec()
+        kw = {}
+        if args.bits is not None:
+            kw["bits"] = args.bits
+        elif args.format is not None and \
+                canonical_format(args.format) != base.format:
+            # a new format without --bits takes that format's default
+            kw["bits"] = None
+        if args.format is not None:
+            kw["format"] = args.format
+        if args.group_size is not None:
+            kw["group_size"] = args.group_size
+        if args.iters is not None:
+            kw["iters"] = args.iters
+        if args.backend is not None:
+            kw["backend"] = args.backend
+        spec = base.replace(**kw) if kw else base
     except ValueError as e:
         raise SystemExit(f"invalid quant flags: {e}")
+    return None if spec.bits == 0 else spec
+
+
+def load_checkpoint(args, cfg, device):
+    """(model, spec, manifest) from ``--load-quantized``, refusing the
+    flags that describe stored weights and a checkpoint of another arch
+    or size."""
+    from repro_torch.quant.checkpoint import load_quantized
+    from repro_torch.models import from_jax_params
+    fixed = {"--bits": args.bits, "--method": args.format,
+             "--group-size": args.group_size, "--iters": args.iters,
+             "--spec": args.spec or None,
+             "--save-quantized": args.save_quantized or None}
+    bad = [k for k, v in fixed.items() if v is not None]
+    if bad:
+        raise SystemExit(f"{', '.join(bad)} cannot be combined with "
+                         "--load-quantized: the checkpoint's weights are "
+                         "already quantized (re-quantize without "
+                         "--load-quantized instead)")
+    params, spec, manifest, extra = load_quantized(args.load_quantized)
+    if extra.get("arch") and extra["arch"] != cfg.name:
+        raise SystemExit(f"checkpoint arch {extra['arch']!r} does not "
+                         f"match --arch {cfg.name!r}")
+    # reduced and full configs share a name: compare dimensions too
+    dims = {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+            "vocab_size": cfg.vocab_size}
+    bad = {k: (extra[k], v) for k, v in dims.items()
+           if k in extra and extra[k] != v}
+    if bad:
+        raise SystemExit(
+            "checkpoint model dims do not match --arch/--reduced: "
+            + ", ".join(f"{k}: ckpt {a} vs cfg {b}"
+                        for k, (a, b) in bad.items()))
+    if args.backend is not None:
+        spec = spec.replace(backend=args.backend)
+    model = from_jax_params(params, cfg.replace(quant=spec), device=device)
+    print(f"[launch.serve] loaded quantized checkpoint "
+          f"{args.load_quantized} ({spec.describe()})")
+    return model, spec, manifest
 
 
 def main(argv=None):
@@ -80,7 +158,8 @@ def main(argv=None):
     from repro_torch import default_device
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.models import Model
-    from repro_torch.quant import fallback_chain, quantize_model
+    from repro_torch.quant import (fallback_chain, quantize_model,
+                                   save_quantized)
     from repro_torch.serve import PagedServeEngine, Request
 
     try:
@@ -94,18 +173,43 @@ def main(argv=None):
             raise SystemExit(f"--backend: {e.args[0]}")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = cfg.replace(max_seq_len=max(cfg.max_seq_len, args.max_seq_len))
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Model(cfg, device=device).init_params(gen)
-    spec = build_spec(args)
-    if spec is None:
-        print("[launch.serve] serving dense FP (no quantization)")
+    manifest = None
+    if args.load_quantized:
+        model, spec, manifest = load_checkpoint(args, cfg, device)
     else:
-        t0 = time.time()
-        manifest = quantize_model(model, spec)
-        print(f"[launch.serve] {spec.describe()} in {time.time()-t0:.1f}s "
-              f"on {device}")
-        print(f"[launch.serve] {manifest.summary()}")
-        model = model.with_config(quant=spec)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model = Model(cfg, device=device).init_params(gen)
+        spec = build_spec(args)
+        if spec is None:
+            if args.save_quantized:
+                raise SystemExit("--save-quantized requires quantization "
+                                 "(remove --bits 0)")
+            print("[launch.serve] serving dense FP (no quantization)")
+        else:
+            t0 = time.time()
+            try:
+                manifest = quantize_model(model, spec)
+            except ValueError as e:
+                raise SystemExit(f"invalid quant spec: {e}")
+            print(f"[launch.serve] {spec.describe()} in "
+                  f"{time.time()-t0:.1f}s on {device}")
+            print(f"[launch.serve] {manifest.summary()}")
+            model = model.with_config(quant=spec)
+            if args.save_quantized:
+                path = save_quantized(
+                    args.save_quantized, model, spec, manifest,
+                    arch=cfg.name,
+                    extra_meta={"d_model": cfg.d_model,
+                                "n_layers": cfg.n_layers,
+                                "vocab_size": cfg.vocab_size})
+                print(f"[launch.serve] quantized checkpoint -> {path}")
+    if args.manifest_json:
+        if manifest is not None:
+            manifest.save(args.manifest_json)
+            print(f"[launch.serve] manifest -> {args.manifest_json}")
+        else:
+            print("[launch.serve] warning: --manifest-json ignored (no "
+                  "manifest: dense serve, or checkpoint saved without one)")
     print(f"[launch.serve] {cfg.name}: {model.n_params():,} stored "
           f"elements, backend preference {model.cfg.backend_preference}")
     eng = PagedServeEngine(model, num_blocks=args.num_blocks,

@@ -4,7 +4,10 @@ Counterpart of ``repro.models.model`` for the paths serving uses:
 ``forward`` (full-sequence logits), ``prefill_chunk`` and
 ``decode_step`` over a paged cache.  The parameters live on the modules
 (created on an explicit device); :func:`from_jax_params` carries a
-reference parameter tree, handed over as numpy arrays, into a model.
+reference parameter tree (numpy arrays or torch tensors, quantized
+leaves as dicts) into a model, and :func:`to_params` is its inverse:
+the model's parameters as the reference's tree, in the stack layout of
+``cfg.scan_layers`` (what quantized checkpoints store).
 """
 from __future__ import annotations
 
@@ -124,7 +127,8 @@ class Model(nn.Module):
         b = tokens.shape[0]
         pos_arr = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         if pos_arr.ndim == 0:
-            pos_arr = pos_arr.expand(b)
+            # a real [B] tensor: the decode kernels take contiguous rows
+            pos_arr = pos_arr.expand(b).contiguous()
         positions = pos_arr[:, None]
         x, cache = self._run(tokens, positions, cache, pos_arr)
         return self._head(x)[:, 0], cache
@@ -154,6 +158,8 @@ def _tensors_of(mod):
 
 
 def _to_tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(
@@ -177,25 +183,29 @@ def _leaf(a, device):
     return _to_tensor(a, device)
 
 
+def _arr(a):
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def _index(tree, r: int):
     """Slice the stacked-layers axis of every leaf (bundles included)."""
     if isinstance(tree, dict) and "packed" in tree:
         out = dict(tree)
         for k in ("packed", "alpha", "z"):
             if out.get(k) is not None:
-                out[k] = np.asarray(out[k])[r]
+                out[k] = _arr(out[k])[r]
         return out
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
-    return np.asarray(tree)[r]
+    return _arr(tree)[r]
 
 
 def _reps(tree) -> int:
     if isinstance(tree, dict) and "packed" in tree:
-        return np.asarray(tree["packed"]).shape[0]
+        return _arr(tree["packed"]).shape[0]
     if isinstance(tree, dict):
         return _reps(next(iter(tree.values())))
-    return np.asarray(tree).shape[0]
+    return _arr(tree).shape[0]
 
 
 def layer_trees(stack: dict, n_layers: int) -> list:
@@ -241,7 +251,7 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
     out_features, kind}``.  Both stack layouts are accepted; scan-stacked
     leaves are unstacked per layer.  Leaf dtypes are kept."""
     tok = params_np["embed"]["tok"]
-    dtype = _to_tensor(np.asarray(tok)[:1], "cpu").dtype
+    dtype = _to_tensor(_arr(tok)[:1], "cpu").dtype
     model = Model(cfg, device=device, dtype=dtype)
     dev = model.device
     emb = params_np["embed"]
@@ -270,4 +280,93 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
     return model
 
 
-__all__ = ["Model", "from_jax_params", "layer_trees", "set_block_tables"]
+# ---------------------------------------------------------------------------
+# port model -> reference parameter tree
+# ---------------------------------------------------------------------------
+
+
+def _export(w):
+    """A weight as a tree leaf: the tensor, or a bundle as a dict."""
+    if isinstance(w, PlaneBundle):
+        return {"packed": w.packed, "alpha": w.alpha, "z": w.z,
+                "group_size": w.group_size, "in_features": w.in_features,
+                "out_features": w.out_features, "kind": w.kind}
+    return w
+
+
+def _norm_tree(norm: Norm) -> dict:
+    out = {"scale": norm.scale}
+    if norm.bias is not None:
+        out["bias"] = norm.bias
+    return out
+
+
+def _linears_tree(mod, names) -> dict:
+    out = {}
+    for name in names:
+        lin = getattr(mod, name, None)
+        if lin is None:
+            continue
+        out[name] = _export(lin.weight)
+        if lin.bias is not None:
+            out[f"{name}_b"] = lin.bias
+    return out
+
+
+def _block_tree(block, cfg) -> dict:
+    if cfg.attention == "mla":
+        mixer = _linears_tree(block.mixer, ("q_a", "q_b", "kv_a", "kv_b",
+                                            "o"))
+        mixer["q_a_norm"] = block.mixer.q_a_norm
+        mixer["kv_a_norm"] = block.mixer.kv_a_norm
+    else:
+        mixer = _linears_tree(block.mixer, ("q", "k", "v", "o"))
+    return {"ln1": _norm_tree(block.ln1), "ln2": _norm_tree(block.ln2),
+            "mixer": mixer,
+            "mlp": _linears_tree(block.mlp, ("gate", "up", "down"))}
+
+
+def _stack_trees(trees: list):
+    """Stack per-layer trees on a new leading axis (bundles per field)."""
+    first = trees[0]
+    if isinstance(first, dict) and "packed" in first:
+        out = dict(first)
+        for k in ("packed", "alpha", "z"):
+            if first.get(k) is not None:
+                out[k] = torch.stack([t[k] for t in trees])
+        return out
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def to_params(model: Model) -> dict:
+    """The model's parameters as the reference's tree (torch leaves on
+    the model's device, bundles as dicts): ``{"layers": [...]}`` or,
+    under ``scan_layers``, ``{"prefix": [...], "scan": [...]}`` stacked
+    as ``from_jax_params`` unstacks it."""
+    from repro_torch.models.transformer import scan_grouping
+    cfg = model.cfg
+    emb = {"tok": model.embed.tok}
+    if model.embed.pos is not None:
+        emb["pos"] = model.embed.pos
+    if model.embed.unembed is not None:
+        emb["unembed"] = _export(model.embed.unembed.weight)
+    blocks = [_block_tree(b, cfg) for b in model.stack.layers]
+    if not cfg.scan_layers:
+        stack = {"layers": blocks}
+    else:
+        pre, period, reps = scan_grouping(cfg)
+        stack = {}
+        if pre:
+            stack["prefix"] = blocks[:pre]
+        if period:
+            stack["scan"] = [_stack_trees([blocks[pre + j + r * period]
+                                           for r in range(reps)])
+                             for j in range(period)]
+    return {"embed": emb, "final_norm": _norm_tree(model.final_norm),
+            "stack": stack}
+
+
+__all__ = ["Model", "from_jax_params", "layer_trees", "set_block_tables",
+           "to_params"]

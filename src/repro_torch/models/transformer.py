@@ -1,6 +1,13 @@
 """Decoder blocks and the layer stack (counterpart of
 ``repro.models.transformer``): the stack is a Python loop over an
-``nn.ModuleList`` — PyTorch runs eagerly, so there is no scan."""
+``nn.ModuleList`` — PyTorch runs eagerly, so there is no scan.
+
+The reference's parameter tree still stacks layers under
+``scan_layers`` (``stack/prefix/i`` and ``stack/scan/j`` with a leading
+layers axis); :func:`scan_grouping` and :func:`stack_path` name where a
+layer's parameters sit in that tree, which quantization manifests,
+mixed-precision plans and checkpoints key by.
+"""
 from __future__ import annotations
 
 from torch import nn
@@ -53,3 +60,40 @@ class Stack(nn.Module):
             if new is not None:
                 new.append(c)
         return x, ({**caches, "layers": new} if new is not None else None)
+
+
+def layer_plan(cfg):
+    """(mixer kind, MLP kind) per decoder layer: the port builds
+    attention blocks with dense MLPs only (MoE and SSM layers are
+    refused where the model is built)."""
+    return [("attn", "dense")] * cfg.n_layers
+
+
+def scan_grouping(cfg):
+    """(prefix, period, repeats): layers[prefix:] tile with ``period``
+    (``repro/models/transformer.py::scan_grouping``)."""
+    plan = layer_plan(cfg)
+    pre = getattr(cfg, "first_dense_layers", 0)
+    body = plan[pre:]
+    if not body:
+        return pre, 0, 0
+    for period in range(1, len(body) + 1):
+        if len(body) % period:
+            continue
+        if all(body[i] == body[i % period] for i in range(len(body))):
+            return pre, period, len(body) // period
+    raise AssertionError("unreachable: period=len(body) always tiles")
+
+
+def stack_path(cfg, layer: int):
+    """(path of layer ``layer``'s block in the reference tree, index on
+    its stacked axis or None): ``("stack", "layers", i)`` unrolled,
+    ``("stack", "prefix", i)`` or ``("stack", "scan", j)`` with index r
+    under ``scan_layers`` (group j stacks layers prefix + j + r*period)."""
+    if not cfg.scan_layers:
+        return ("stack", "layers", layer), None
+    pre, period, _ = scan_grouping(cfg)
+    if layer < pre:
+        return ("stack", "prefix", layer), None
+    j, r = (layer - pre) % period, (layer - pre) // period
+    return ("stack", "scan", j), r

@@ -1,23 +1,38 @@
 """The public quantization entry point: ``quantize_model(model, spec)``.
 
-Counterpart of ``repro.quant.api`` + the leaf walk of ``repro.quant.ptq``:
-every :class:`~repro_torch.models.layers.Linear` whose name is in
-``QUANT_KEYS`` (and not in ``_SKIP_KEYS``) — the MLA projections
-``q_a``/``q_b``/``kv_a``/``kv_b`` and an untied ``unembed`` included,
-as in the reference — has its dense weight replaced,
-in place and one layer at a time, by a :class:`PlaneBundle`.  Embeddings
-and norms stay FP.  Paths are the reference's ``/``-joined tree paths
-(``stack/layers/0/mixer/q``), so manifests of the two packages compare
-entry for entry.
+Counterpart of ``repro.quant.api`` and of the leaf walk and bit-map
+application of ``repro.quant.ptq`` (both live here):
+
+  1. :func:`collect_linears` names every quantizable linear by its leaf
+     in the reference's parameter tree, in the reference's (sorted
+     pytree) order.  Under ``scan_layers`` one leaf stacks a projection
+     over layers (``stack/scan/0/mixer/q``, [L, out, in]) and is a
+     :class:`~repro_torch.core.mixed_precision.LayerStack` of the
+     per-layer weights; unrolled, each layer is its own leaf
+     (``stack/layers/3/mixer/q``).  Leaves are the ``Linear``\\ s named in
+     ``QUANT_KEYS`` (the MLA projections and an untied ``unembed``
+     included); embeddings and norms stay FP.
+  2. :func:`plan_bits` gives each leaf a width: the spec's integer
+     width, a format's fixed planes, or for a fractional ``bits`` a
+     sensitivity-driven mixed-precision plan (paper Fig. 17), with
+     ``spec.overrides`` applied last.
+  3. :func:`quantize_model` replaces each layer's dense weight, in place
+     and one layer at a time on the device it lies on, by a
+     :class:`PlaneBundle` at its leaf's width (below 2 bits: ternary).
+     It returns a :class:`QuantManifest` with one entry per reference
+     leaf (stacked shape, summed bytes), so the manifests of the two
+     packages compare entry for entry in either stack layout.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
-from typing import Iterator, Mapping, Tuple
+from typing import Iterator, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.core import mixed_precision as mp
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.quant import formats as formats_mod
 from repro_torch.quant.spec import QuantSpec
@@ -34,7 +49,7 @@ _SKIP_KEYS = {"router", "conv_w", "conv_b", "tok", "pos"}
 
 @dataclasses.dataclass
 class QuantManifest:
-    """What actually got quantized, layer by layer."""
+    """What actually got quantized, leaf by leaf."""
 
     spec: dict
     layers: list
@@ -51,6 +66,10 @@ class QuantManifest:
     def to_json(self, indent: int = 2) -> str:
         return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
 
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json() + "\n")
+
     @classmethod
     def from_dict(cls, d: Mapping) -> "QuantManifest":
         fields = {f.name for f in dataclasses.fields(cls)}
@@ -66,6 +85,11 @@ class QuantManifest:
                 f"{self.dense_bytes/2**20:.1f} MiB bf16 ({comp:.1f}x)")
 
 
+# ---------------------------------------------------------------------------
+# leaves
+# ---------------------------------------------------------------------------
+
+
 def _is_quant_leaf(name: str, weight) -> bool:
     if name in _SKIP_KEYS or name not in QUANT_KEYS:
         return False
@@ -73,46 +97,140 @@ def _is_quant_leaf(name: str, weight) -> bool:
 
 
 def walk_linears(model) -> Iterator[Tuple[str, object]]:
-    """(path, Linear) for every linear module, in module order."""
+    """(module path, Linear) for every linear module, in module order."""
     from repro_torch.models.layers import Linear
     for name, mod in model.named_modules():
         if isinstance(mod, Linear):
             yield name.replace(".", "/"), mod
 
 
+def linear_leaves(model) -> dict:
+    """{reference leaf key: (Linears in stack order, stacked)} for every
+    quantizable linear, in the reference's pytree order (sorted keys,
+    list indices by number)."""
+    from repro_torch.models.transformer import stack_path
+    cfg = model.cfg
+    groups = {}
+    for path, lin in walk_linears(model):
+        if not _is_quant_leaf(path.rsplit("/", 1)[-1], lin.weight):
+            continue
+        parts = path.split("/")
+        stacked, r = False, 0
+        if parts[:2] == ["stack", "layers"]:
+            head, r = stack_path(cfg, int(parts[2]))
+            stacked = r is not None
+            parts = list(head) + parts[3:]
+        key = tuple(int(p) if str(p).isdigit() else p for p in parts)
+        groups.setdefault(key, (stacked, []))[1].append((r or 0, lin))
+    return {"/".join(map(str, k)): ([l for _, l in sorted(
+        v[1], key=lambda e: e[0])], v[0]) for k, v in sorted(groups.items())}
+
+
 def collect_linears(model) -> dict:
-    """{path: dense weight} for every quantizable linear."""
-    return {p: m.weight for p, m in walk_linears(model)
-            if _is_quant_leaf(p.rsplit("/", 1)[-1], m.weight)}
+    """{reference leaf key: dense weight [out, in], or a LayerStack for a
+    stacked leaf}, in the reference's leaf order."""
+    return {k: (mp.LayerStack([l.weight for l in lins]) if stacked
+                else lins[0].weight)
+            for k, (lins, stacked) in linear_leaves(model).items()}
+
+
+# ---------------------------------------------------------------------------
+# bit planning
+# ---------------------------------------------------------------------------
+
+
+def plan_bits(linears: Mapping[str, object], spec: QuantSpec,
+              x_cal: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """Per-leaf width for a spec: uniform, or mixed for fractional bits.
+
+    Stacked leaves are probed on the reference's row subsample; sizes
+    stay parameter-weighted over the whole leaf."""
+    fmt = formats_mod.get_format(spec.format)
+    unknown = [k for k in spec.overrides_map if k not in linears]
+    if unknown:
+        raise ValueError(
+            f"spec.overrides name layers that are not quantizable linears: "
+            f"{unknown}; known layers: {sorted(linears)}")
+    if fmt.fixed_plane_bits is not None:
+        if spec.overrides:
+            raise ValueError(
+                f"format {spec.format!r} stores a fixed "
+                f"{fmt.fixed_plane_bits} planes per layer; per-layer bit "
+                "overrides are not supported")
+        return {k: fmt.fixed_plane_bits for k in linears}
+    if spec.bits < 1:
+        raise ValueError(
+            f"spec.bits={spec.bits:g}: need >= 1 bit to quantize "
+            "(an unquantized model shouldn't call quantize_model)")
+
+    if spec.is_fractional:
+        # probe each candidate with the format it will be applied in
+        # (below 2 bits: ternary)
+        def _probe_quantize(w2, *, bits, group_size, iters):
+            f = formats_mod.format_for_bits(spec.format, bits)
+            return f.quantize(w2, bits=f.plane_bits(max(bits, 1)),
+                              group_size=group_size, iters=iters)
+        sens = functools.partial(mp.layer_sensitivity, iters=2, max_rows=192,
+                                 quantizer=_probe_quantize)
+        plan = mp.allocate_bits(linears, target_avg_bits=spec.bits,
+                                candidates=spec.candidate_bits,
+                                group_size=spec.group_size, x_cal=x_cal,
+                                sensitivity_fn=sens)
+    else:
+        plan = {k: spec.int_bits for k in linears}
+
+    for key, b in spec.overrides_map.items():
+        if key in plan:
+            plan[key] = float(b) if float(b) < 2 else int(b)
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# quantize_model
+# ---------------------------------------------------------------------------
 
 
 @torch.no_grad()
-def quantize_model(model, spec: QuantSpec) -> QuantManifest:
+def quantize_model(model, spec: QuantSpec, *,
+                   x_cal: Optional[Mapping[str, torch.Tensor]] = None,
+                   ) -> QuantManifest:
     """Quantize every eligible linear of ``model`` per ``spec``, in place,
-    on the device the weights lie on.  Returns the manifest."""
-    fmt = formats_mod.get_format(spec.format)
-    if spec.bits < 1:
-        raise ValueError(
-            f"spec.bits={spec.bits}: need >= 1 bit to quantize "
-            "(an unquantized model shouldn't call quantize_model)")
-    bits = fmt.plane_bits(spec.bits)
+    on the device the weights lie on.  ``x_cal`` optionally gives
+    per-leaf calibration activations to the mixed-precision probe.
+    Returns the manifest."""
+    leaves = linear_leaves(model)
+    plan = plan_bits(collect_linears(model), spec, x_cal=x_cal)
+    for key, (lins, _) in leaves.items():
+        b = plan[key]
+        fmt = formats_mod.format_for_bits(spec.format, b)
+        for lin in lins:
+            lin.weight = fmt.quantize(lin.weight.float(),
+                                      bits=fmt.plane_bits(b),
+                                      group_size=spec.group_size,
+                                      iters=spec.iters)
+    return build_manifest(leaves, spec)
+
+
+def build_manifest(leaves: Mapping[str, tuple], spec: QuantSpec
+                   ) -> QuantManifest:
+    """The manifest of quantized leaves (``linear_leaves`` of a quantized
+    model), sorted by key as the reference sorts it."""
     layers, n_weights, dense_bytes, quant_bytes, plane_acc = [], 0, 0, 0, 0.0
-    entries = []
-    for path, mod in list(walk_linears(model)):
-        if not _is_quant_leaf(path.rsplit("/", 1)[-1], mod.weight):
+    for key in sorted(leaves):
+        lins, stacked = leaves[key]
+        wq = lins[0].weight
+        if not isinstance(wq, PlaneBundle):
             continue
-        w = mod.weight
-        shape = list(w.shape)
-        wq = fmt.quantize(w.float(), bits=bits, group_size=spec.group_size,
-                          iters=spec.iters)
-        mod.weight = wq                   # drops the dense weight
-        entries.append((path, shape, wq))
-    for path, shape, wq in sorted(entries, key=lambda e: e[0]):
-        n = shape[0] * shape[1]
-        qb = int(wq.nbytes())
+        shape = [wq.out_features, wq.in_features]
+        if stacked:
+            shape = [len(lins)] + shape
+        n = 1
+        for s in shape:
+            n *= s
         planes = int(wq.bits)
+        qb = sum(int(l.weight.nbytes()) for l in lins)
         layers.append({
-            "path": path,
+            "path": key,
             "format": "ternary" if wq.kind == "ternary" else spec.format,
             "plane_bits": planes,
             "effective_bits": float(wq.effective_bits),
@@ -133,4 +251,5 @@ def quantize_model(model, spec: QuantSpec) -> QuantManifest:
 
 
 __all__ = ["QUANT_KEYS", "QuantManifest", "QuantSpec", "PlaneBundle",
-           "collect_linears", "quantize_model", "walk_linears"]
+           "build_manifest", "collect_linears", "linear_leaves",
+           "plan_bits", "quantize_model", "walk_linears"]

@@ -3,24 +3,32 @@
 Counterpart of ``repro.quant.formats`` for ``bcq`` (alternating
 non-uniform BCQ), ``rtn`` (uniform round-to-nearest mapped exactly into
 BCQ(+offset) planes) and ``ternary`` ({-a, 0, +a} as a sign + mask
-bundle with one alpha row and no offset).
+bundle with one alpha row and no offset).  :func:`format_for_bits` is
+how a mixed-precision plan mixes formats: a width below 2 selects
+ternary, any other keeps the requested format.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import bcq as bcq_mod
-from repro_torch.core.plane import PlaneBundle, pack_planes
+from repro_torch.core.plane import TERNARY_BITS, PlaneBundle, pack_planes
 
 
 @dataclasses.dataclass(frozen=True)
 class FormatInfo:
+    """One registered format.  ``fixed_plane_bits`` pins the stored plane
+    count whatever the request (ternary: 2); ``effective_bits`` is the
+    information rate manifests report (ternary: log2(3)); ``None``
+    means the request decides both."""
+
     name: str
     quantize: Callable[..., PlaneBundle]
     fixed_plane_bits: Optional[int] = None
+    effective_bits: Optional[float] = None
     description: str = ""
 
     def plane_bits(self, requested_bits: float) -> int:
@@ -44,6 +52,18 @@ def get_format(name: str) -> FormatInfo:
         raise KeyError(f"unknown quant format {name!r}; "
                        f"registered: {sorted(_REGISTRY)}")
     return _REGISTRY[key]
+
+
+def available_formats() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def format_for_bits(name: str, bits: float) -> FormatInfo:
+    """The format a planned width lands on: below 2 bits (the
+    :data:`TERNARY_BITS` sentinel) ternary, else ``name``."""
+    if bits < 2:
+        return get_format("ternary")
+    return get_format(name)
 
 
 def _quantize_bcq(w2d, *, bits: int, group_size: int,
@@ -100,5 +120,6 @@ register_format(FormatInfo(
     description="uniform round-to-nearest, exact BCQ(+offset) mapping"))
 register_format(FormatInfo(
     name="ternary", quantize=quantize_ternary, fixed_plane_bits=2,
+    effective_bits=TERNARY_BITS,
     description="octav-clipped {-a,0,+a} as a sign + mask plane bundle "
                 "(1 alpha row, no offset; ternary_matmul kernel)"))

@@ -870,3 +870,97 @@ def test_cuda_ternary_lut_keeps_other_decode_rows(m, n, gs):
             lambda: ternary_matmul(xt, we, out_dtype=torch.float32))
         assert routes == {"ternary_matmul/lut": 1}
         assert torch.equal(got, ternary_ref(xt, we, out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 512])
+@pytest.mark.parametrize("m,n", [(4096, 4096), (16384, 4096), (4096, 16384)])
+@pytest.mark.parametrize("q", [2, 4])
+def test_cuda_gemm_widths_opt_shapes(q, m, n, rows):
+    """bcq_matmul and lut_gemm at q 2 and q 4 (the widths a mixed-precision
+    plan puts beside q 3) at OPT's shapes, BCQ g 128 on bf16 activations
+    as the serve quantizes them: the decode tile (``gemv``) / LUT body at
+    rows 1 and 8, the tensor-core tile (``mma``) at rows 512, each 1e-3
+    of the output scale."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(q * 7 + m + rows)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=q, group_size=128)
+    assert w.bits == q
+    x = torch.randn((rows, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    want = bcq_matmul_ref(x, w, torch.float32)
+    for name, fn, route in (
+            ("bcq_matmul", bcq_matmul, "gemv" if rows <= 8 else "mma"),
+            ("lut_gemm", lut_gemm, "lut" if rows <= 8 else "mma")):
+        got, routes = _routes_run(lambda: fn(x, w, out_dtype=torch.float32))
+        assert routes == {f"{name}/{route}": 1}
+        _close(got, want, GEMM_TOL)
+
+
+def _mixed_reduced_model(dtype, bits):
+    """A reduced OPT (scan-stacked leaves, g 32) on the card, quantized at
+    a mixed plan holding q 2, 3 and 4 and ternary leaves (overrides pin
+    q 4 and ternary where the probe would not put them)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec, quantize_model
+    cfg = get_reduced("opt_6_7b").replace(scan_layers=True, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    model = Model(cfg, device="cuda", dtype=dt).init_params(gen)
+    spec = QuantSpec(bits=bits, group_size=32, iters=2,
+                     overrides={"stack/scan/0/mixer/k": 1.585,
+                                "stack/scan/0/mixer/q": 4})
+    man = quantize_model(model, spec)
+    widths = {(l["format"], l["plane_bits"]) for l in man.layers}
+    assert ("ternary", 2) in widths and ("bcq", 4) in widths
+    assert len(widths) >= 3, widths
+    kern = model.with_config(quant=spec, paged_kernel="fused")
+    plain = model.with_config(quant=spec.replace(backend="dense"),
+                              paged_kernel="gather")
+    return kern, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", GEMM_TOL),
+                                       ("bfloat16", BF16_POOL_TOL)])
+@pytest.mark.parametrize("bits", [2.4, 1.8])
+def test_cuda_mixed_model_kernel_path_matches_plain(bits, dtype, tol):
+    """A reduced mixed-precision model on the card: kernel-path logits of a
+    prefill chunk (rows > 8) and of two decode steps (rows 3) against the
+    plain path (dequantize and matmul, gathered attention) within 1e-3 of
+    the logit scale in f32 and 2e-2 in bf16 (the residual stream is
+    rounded to bf16 after every linear).  The decode steps run bcq_matmul
+    and ternary_matmul on the decode tile; bf16 prefill runs both on the
+    tensor-core tile."""
+    require_cuda()
+    from repro_torch.models import set_block_tables
+    kern, plain = _mixed_reduced_model(dtype, bits)
+    rng = np.random.default_rng(int(bits * 10))
+    toks = torch.from_numpy(rng.integers(0, 256, (3, 12)).astype(
+        np.int32)).to("cuda")
+    table = np.array([[3, 7, 1, 9], [2, 11, 5, 8], [4, 6, 10, 12]],
+                     np.int32)
+    outs, routes = [], []
+    for m in (kern, plain):
+        c = set_block_tables(m.init_paged_cache(3, 16, 8, 4), table)
+        _lib.reset_launch_counts()
+        lp, c = m.prefill_chunk(toks, c, 0, 11)
+        pre = dict(_lib.route_counts)
+        _lib.reset_launch_counts()
+        ld1, c = m.decode_step(toks[:, :1], c, 12)
+        ld2, c = m.decode_step(toks[:, 1:2], c, 13)
+        torch.cuda.synchronize()
+        outs.append((lp, ld1, ld2))
+        routes.append((pre, dict(_lib.route_counts)))
+    for got, want in zip(outs[0], outs[1]):
+        assert torch.isfinite(got).all()
+        _close(got, want, tol)
+    pre, dec = routes[0]
+    assert routes[1] == ({}, {})                    # the plain path
+    assert set(dec) == {"bcq_matmul/gemv", "ternary_matmul/gemv"}
+    assert sum(dec.values()) == 2 * 12              # 2 steps x 12 linears
+    assert sum(pre.values()) == 12
+    if dtype == "bfloat16":
+        assert set(pre) == {"bcq_matmul/mma", "ternary_matmul/mma"}

@@ -73,11 +73,15 @@ def test_bcq_quantize_matches(m, n, bits, g):
 
 def test_spec_rejects_unported_formats():
     """ternary is ported; a fractional width on another format is mixed
-    precision, which is not."""
+    precision, planned over candidates (2, 3, 4) at 2.4 bits; a format
+    the port does not carry is refused."""
     t = QuantSpec(format="ternary")
     assert t.bits == 1.585 and t.int_bits == 2
-    with pytest.raises(ValueError, match="ROADMAP"):
-        QuantSpec(bits=2.4)
+    m = QuantSpec(bits=2.4)
+    assert m.is_fractional and m.is_mixed
+    assert m.candidate_bits == (2, 3, 4)
+    with pytest.raises(ValueError, match="unknown quant format"):
+        QuantSpec(format="fp4")
     s = QuantSpec(format="uniform", bits=3.0)
     assert s.format == "rtn" and s.bits == 3 and isinstance(s.bits, int)
 
@@ -104,6 +108,25 @@ def test_manifest_bytes_equal(fmt):
     assert isinstance(tm.embed.tok, torch.Tensor)
     assert not any("tok" in l["path"] or "pos" in l["path"]
                    for l in tman.layers)
+
+
+@pytest.mark.parametrize("arch", ["opt_6_7b", "minicpm3_4b"])
+def test_scan_layers_manifest_matches_reference(arch):
+    """Under ``scan_layers=True`` the reference keys each projection by its
+    stacked leaf (``stack/scan/0/mixer/q``, [L, out, in]); the port's
+    manifest has the same entries, entry for entry."""
+    cfg = get_reduced(arch).replace(remat=False, dtype="float32",
+                                    scan_layers=True)
+    jm = JModel(cfg)
+    params = f32_params(jm.init(jax.random.PRNGKey(0)))
+    jspec = jquant.QuantSpec(bits=3, group_size=32, iters=2)
+    _, jman = jquant.quantize_model(params, jspec, jm.axes())
+    tcfg = t_reduced(arch).replace(dtype="float32", scan_layers=True)
+    tm = from_jax_params(to_numpy_tree(params), tcfg, device="cpu")
+    tman = quantize_model(tm, QuantSpec(bits=3, group_size=32, iters=2))
+    assert any("/scan/0/" in l["path"] for l in jman.layers)
+    assert tman.layers == jman.layers
+    assert tman.to_dict() == jman.to_dict()
 
 
 def test_chains_match_reference():
