@@ -21,6 +21,11 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      bf16) also with 8 kv heads (GQA) at C 512 and on a ragged B 3,
      C 200 chunk; the split-table decode kernels (float and int8) also
      with 8 kv heads (GQA) and with every row near max_seq_len 512;
+     the float paged decode and chunked-prefill kernels also at the rotary
+     GQA decoders' serve shapes (Phi-4-mini: 24 heads over 8, GQA rep 3;
+     Qwen1.5-32B: 40 heads, MHA), and bcq_matmul at their GEMM shapes
+     (rows 1, 8 and 512; Qwen's untied head at rows 1 and 8; Phi-4-mini's
+     tied head, a dense matmul, timed);
      the decode rows of bcq_matmul (bf16, and f32 rows 8 of every OPT and
      MiniCPM3 weight, timed beside ``torch.matmul`` in f32 and on
      bf16-cast x) and of ternary_matmul (bf16) on the tensor-core decode
@@ -31,8 +36,9 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      ``lut_tile`` (mu 2, full table, f32 rows 512); the split-table MLA
      decode kernel logged with its split count and held to repeat itself
      exactly;
-  4. serve (random weights from ``--seed``, paged engine, fused paged
-     attention), six runs: full-width OPT-6.7B BCQ-quantized on the card
+  4. serve (random weights from ``--seed``; the paged engine with fused
+     paged attention unless said otherwise): full-width OPT-6.7B
+     BCQ-quantized on the card
      at 3 bits, g = 128, with ``--backend auto`` (bcq_matmul) and
      ``--backend lut_pallas`` (lut_gemm); OPT-6.7B ternary-quantized
      (g = 128) with an int8 KV cache and ``--backend auto``
@@ -58,12 +64,27 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      hold more than one width (1.8: ternary and BCQ leaves), and every
      decode step must run all 192 linears on the decode tile
      (``bcq_matmul/gemv``, and ``ternary_matmul/gemv`` at 1.8) and every
-     prefill chunk all 192 on the tensor-core tile;
+     prefill chunk all 192 on the tensor-core tile.  Then the rotary GQA
+     decoders, BCQ-3 g 128 through bcq_matmul: full-width, full-depth
+     Phi-4-mini-3.8B through the paged engine (the OPT ``auto`` run's
+     route gates, every decode step's 224 linears on the decode tile and
+     every chunk's 224 on the tensor-core tile; the logits gated, as
+     MiniCPM3's, on the f32 view, the bf16 error printed by depth) and,
+     on the same weights, through the slots engine (``ServeEngine``, 8
+     slots of 512: the same route and logit gates, no paged kernel
+     launched; the share of greedy tokens equal to the paged run's is
+     printed, not gated); and Qwen1.5-32B at full width and 8 of its 64
+     layers through the paged engine, with the same gates (its untied
+     head on the decode tile);
   5. checkpoint round trip: the 2.4-bit plan on OPT-6.7B at full width
      and 4 layers, saved by ``save_quantized`` and read back by
      ``load_quantized_model`` into a fresh model: every leaf
      bit-identical and the first prompt's greedy tokens identical; the
      write and read times and the bytes on disk are printed.
+
+Every GQA serve run gates the count of linears on the tiles: each decode
+step runs all of them on the decode tile, each prefill chunk all but an
+untied head's on the tensor-core tile.
 
 Phase 3 also holds bcq_matmul at q 2 and q 4 (the widths the mixed
 plans use beside q 3) at OPT's three shapes on the decode tile (rows 1
@@ -84,9 +105,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
-# the MiniCPM3 run's gate on its f32 view (``serve_model``): the
-# reference's GEMM gate, 1e-3 of the output scale
+# the MiniCPM3 and rotary GQA runs' gate on their f32 view
+# (``serve_model``): the reference's GEMM gate, 1e-3 of the output scale
 F32_LOGIT_TOL = 1e-3
+# Qwen1.5-32B's serve depth (of 64): at full depth its dense bf16 weights,
+# built before quantization, take ~67 GB
+QWEN_SERVE_LAYERS = 8
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 # the kernels with several bodies, chosen by their wrappers' route_for
 ROUTED = ("bcq_matmul", "lut_gemm", "ternary_matmul")
@@ -496,6 +520,16 @@ def paged_cases(decode, prefill, h):
             (prefill, 3, 200, h, False)]
 
 
+def dense_attn_cases():
+    """(kernel, B, C, query heads, kv heads) of the float paged kernels at
+    the rotary GQA decoders' serve shapes: Phi-4-mini (24 heads over 8,
+    GQA rep 3) and Qwen1.5-32B (40 heads, MHA as the reference has it),
+    decode at B 8 and the C 512 prefill chunk."""
+    return [("paged_decode", 8, 0, 24, 8), ("paged_prefill", 1, 512, 24, 8),
+            ("paged_decode", 8, 0, 40, 40),
+            ("paged_prefill", 1, 512, 40, 40)]
+
+
 def check_paged(torch, timer, gen, results, args_seed):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (gather_view,
@@ -505,17 +539,22 @@ def check_paged(torch, timer, gen, results, args_seed):
                                                      paged_prefill_ref)
     from repro_torch.kernels import _lib
     from repro_torch.kernels.paged_attention.ops import decode_splits
-    h, d, bs, pages, nb = 32, 128, 16, 32, 257
+    h0, d, bs, pages, nb = 32, 128, 16, 32, 257
     out = {"paged_decode": [], "paged_prefill": []}
-    # (kernel, B, C, kv heads, long tables): decode at the serve batch,
-    # then GQA (rep 4) and every row near max_seq_len 512; prefill at
-    # C 128 and at OPT's C 512 chunk, then GQA (rep 4) at C 512 and a
-    # ragged B 3, C 200 whose last row ends in pads
-    for name, b, c, hkv, long in paged_cases("paged_decode",
-                                             "paged_prefill", h):
+    # (kernel, B, C, heads, kv heads, long tables): decode at the serve
+    # batch, then GQA (rep 4) and every row near max_seq_len 512; prefill
+    # at C 128 and at OPT's C 512 chunk, then GQA (rep 4) at C 512 and a
+    # ragged B 3, C 200 whose last row ends in pads; then the rotary GQA
+    # decoders' serve shapes (dense_attn_cases)
+    cases = [(name, b, c, h0, hkv, long) for name, b, c, hkv, long
+             in paged_cases("paged_decode", "paged_prefill", h0)] + \
+        [(name, b, c, h, hkv, False)
+         for name, b, c, h, hkv in dense_attn_cases()]
+    for name, b, c, h, hkv, long in cases:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            # the MHA cases keep their earlier seeds
-            seed = args_seed + b + c + (hkv if hkv != h else 0) + 1000 * long
+            # OPT's cases keep their earlier seeds
+            seed = args_seed + b + c + (hkv if hkv != h else 0) \
+                + 1000 * long + (h if h != h0 else 0)
             q, k, v, pos, tables, positions = pool_case(
                 torch, gen, seed, b=b, h=h, d=d, nb=nb + long, bs=bs,
                 pages=pages, dtype=dtype, prefill_c=c, hkv=hkv, long=long)
@@ -539,7 +578,7 @@ def check_paged(torch, timer, gen, results, args_seed):
                 fail(f"{name}: bad output")
             err = float((got - want).abs().max())
             ok = err <= tol
-            tag = (f"{name:13s} B={b} C={max(c, 1):3d} Hkv={hkv:2d} "
+            tag = (f"{name:13s} B={b} C={max(c, 1):3d} H={h} Hkv={hkv:2d} "
                    f"{str(dtype)[6:]:8s}{' long' if long else ''}")
             if dtype == torch.float32:
                 log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}")
@@ -944,14 +983,18 @@ def mla_gemm_shapes(cfg):
     return layer, (cfg.padded_vocab, d)
 
 
-def check_bcq_minicpm3(torch, timer, gen, results):
-    """bcq_matmul on every MiniCPM3-4B GEMM shape (new widths: out 288 and
-    73,472, in 768 and 6400) at rows 1 and 8 (a decode step: the
-    tensor-core decode tile) and 512 (the largest prefill bucket: the
-    tensor-core tile), and on f32 activations at rows 8 (the f32 view:
-    the decode tile, x split into three bf16 parts), 1e-3 of the output
-    scale as in ``check_gemms``."""
-    from repro_torch.configs import get_config
+def check_bcq_model_shapes(torch, timer, gen, results, arch, cases,
+                           f32_rows8=False, repeats=1):
+    """bcq_matmul, BCQ-3 g 128 on bf16 activations, at a model's GEMM
+    shapes: ``cases`` is [((out, in), rows)], each shape's rows in order
+    from rows 1 (where its weight is drawn).  Rows <= 8 run the
+    tensor-core decode tile (logged with its split count), rows 512 (the
+    largest prefill bucket) the tensor-core tile; 1e-3 of the output
+    scale as in ``check_gemms``, timed beside the plain version,
+    ``torch.matmul`` and the bound.  With ``f32_rows8`` each shape's rows
+    8 also run on f32 activations (``f32_decode_case``).  With
+    ``repeats`` > 1 the decode tile is timed that many times and the
+    median kept, every time recorded (``ms_runs``)."""
     from repro_torch.core import bcq
     from repro_torch.core.plane import dequantize
     from repro_torch.kernels import _lib
@@ -959,9 +1002,7 @@ def check_bcq_minicpm3(torch, timer, gen, results):
     from repro_torch.kernels.bcq_matmul.ops import gemv_splits
 
     tol = 1e-3
-    layer, unembed = mla_gemm_shapes(get_config("minicpm3_4b"))
-    for (m, n), rows in [(sh, r) for sh in sorted(set(layer)) + [unembed]
-                         for r in (1, 8, 512)]:
+    for (m, n), rows in cases:
         if rows == 1:
             w_dense = torch.randn((m, n), generator=gen,
                                   device="cuda") * 0.02
@@ -979,53 +1020,143 @@ def check_bcq_minicpm3(torch, timer, gen, results):
         rel = err / (float(plain.abs().max()) + 1e-12)
         b_ms, b_by = bound(rows * n * 2 + w.nbytes() + rows * m * 4,
                            2.0 * rows * m * n)
-        t = timer(fn)
+        runs = sorted(timer(fn) for _ in range(
+            repeats if route == "gemv" else 1))
+        t = runs[len(runs) // 2]
         t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
         t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
         rec = dict(
-            m=m, n=n, rows=rows, bits=w.bits, model="minicpm3_4b",
-            route=route, max_abs_err=err, rel_err=rel, tol=tol, ms=t,
-            plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-            bound_by=b_by)
+            m=m, n=n, rows=rows, bits=w.bits, model=arch, route=route,
+            max_abs_err=err, rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
+            library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
         split = ""
         if route == "gemv":
             rec["splits"] = gemv_splits(m, w.n_groups * 128,
                                         _lib.sm_count(0))
             split = f", {rec['splits']} splits"
+            if len(runs) > 1:
+                rec["ms_runs"] = runs
+                split += (f"; median of {len(runs)}: "
+                          + " ".join(f"{r:.4f}" for r in runs))
         results["bcq_matmul"].append(rec)
-        log(f"bcq_matmul rows={rows:4d} M={m:5d} N={n:5d} (minicpm3) "
-            f"[{route}{split}]: "
-            f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {rel <= tol})  "
-            f"kernel {t:.4f} ms  plain {t_plain:.4f} ms  torch.matmul "
-            f"{t_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        log(f"bcq_matmul rows={rows:4d} M={m:6d} N={n:5d} ({arch}) "
+            f"[{route}{split}]: err {err:.3e} (rel {rel:.2e} <= {tol:g}: "
+            f"{rel <= tol})  kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
+            f"torch.matmul {t_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
         if rel > tol:
-            fail("bcq_matmul disagrees with its plain version at a "
-                 "MiniCPM3 shape")
-        if rows == 8:
+            fail(f"bcq_matmul disagrees with its plain version at a {arch} "
+                 "shape")
+        if rows == 8 and f32_rows8:
             f32_decode_case(torch, timer, gen, w, dense_bf16, results,
-                            model="minicpm3_4b")
+                            model=arch)
+
+
+def check_bcq_minicpm3(torch, timer, gen, results):
+    """bcq_matmul on every MiniCPM3-4B GEMM shape (new widths: out 288 and
+    73,472, in 768 and 6400) at rows 1, 8 and 512, and on f32 activations
+    at rows 8 (the f32 view: the decode tile, x split into three bf16
+    parts)."""
+    from repro_torch.configs import get_config
+    layer, unembed = mla_gemm_shapes(get_config("minicpm3_4b"))
+    check_bcq_model_shapes(
+        torch, timer, gen, results, "minicpm3_4b",
+        [(sh, r) for sh in sorted(set(layer)) + [unembed]
+         for r in (1, 8, 512)], f32_rows8=True)
+
+
+def gqa_gemm_shapes(cfg):
+    """[out x in] of the GEMMs one GQA decode step runs per layer (q, k, v,
+    o, then the MLP's: up and down for GELU, gate, up and down for
+    SwiGLU), and the untied ``unembed``'s (a quantized linear), or None
+    for a tied head (a dense matmul on the token table)."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    d, f = cfg.d_model, cfg.d_ff
+    layer = [(h * hd, d), (hkv * hd, d), (hkv * hd, d), (d, h * hd)]
+    layer += ([(f, d)] if cfg.mlp_act == "swiglu" else []) + [(f, d), (d, f)]
+    head = None if cfg.tie_embeddings else (cfg.padded_vocab, d)
+    return layer, head
+
+
+def step_linears(cfg):
+    """(quantized linears a decode step runs, those a prefill chunk runs
+    on the tensor-core tile): every layer's GEMMs, plus the untied head in
+    a decode step (a prefill chunk runs the head on one row per request,
+    on the decode tile)."""
+    layer, head = gqa_gemm_shapes(cfg)
+    n = cfg.n_layers * len(layer)
+    return n + (head is not None), n
+
+
+def check_bcq_dense_archs(torch, timer, gen, results):
+    """bcq_matmul at the rotary GQA decoders' GEMM shapes
+    (``check_bcq_model_shapes``): rows 1, 8 and 512 at every layer shape
+    of Phi-4-mini-3.8B ([3072 x 3072], [1024 x 3072], [8192 x 3072],
+    [3072 x 8192]) and Qwen1.5-32B ([5120 x 5120], [27392 x 5120],
+    [5120 x 27392]), and Qwen's untied head [152064 x 5120] at rows 1 and
+    8 (a decode step; a prefill chunk runs it on one row).  Phi-4-mini's
+    tied head is a dense matmul on the bf16 token table
+    (``linear_apply``, as the reference leaves it to XLA): timed at rows
+    8 beside its bound, no kernel of the port.  Each decode-tile case is
+    timed five times and its median kept."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantized_linear import linear_apply
+
+    results["dense_head"] = []
+    for arch in ("phi4_mini_3_8b", "qwen1_5_32b"):
+        cfg = get_config(arch)
+        layer, head = gqa_gemm_shapes(cfg)
+        cases = [(sh, r) for sh in sorted(set(layer)) for r in (1, 8, 512)]
+        if head is not None:
+            cases += [(head, r) for r in (1, 8)]
+        check_bcq_model_shapes(torch, timer, gen, results, arch, cases,
+                               repeats=5)
+        if head is None:
+            tok = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            x = torch.randn((8, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            t = timer(lambda: linear_apply(tok, x, out_dtype=torch.float32))
+            b_ms, b_by = bound(tok.numel() * 2 + x.numel() * 2
+                               + 8 * tok.shape[0] * 4,
+                               2.0 * 8 * tok.numel())
+            results["dense_head"].append(dict(
+                model=arch, m=tok.shape[0], n=tok.shape[1], rows=8, ms=t,
+                bound_ms=b_ms, bound_by=b_by))
+            log(f"tied head ({arch}) rows=8 [{tok.shape[0]}x{tok.shape[1]}] "
+                f"bf16, linear_apply (dense, f32 out): {t:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            del tok
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve full-width OPT-6.7B and MiniCPM3-4B
+# phase 4: serve OPT-6.7B, MiniCPM3-4B, Phi-4-mini-3.8B and Qwen1.5-32B
 # ---------------------------------------------------------------------------
+
+
+def attn_record(results, name, cfg, **want):
+    """The phase-3 record of attention kernel ``name`` at ``cfg``'s heads
+    (MLA: its query heads) among those matching ``want``."""
+    h = cfg.n_heads
+    hkv = h if cfg.attention == "mla" else cfg.n_kv_heads
+    return [r for r in results[name] if "ms" in r and r["h"] == h
+            and r.get("hkv", h) == hkv and not r.get("long")
+            and all(r.get(k) == v for k, v in want.items())][0]
 
 
 def step_kernel_ms(results, gemm, attn, cfg):
     """Device time of one decode step's kernels at batch 8: the phase-3
-    per-call times times the step's launches (OPT: 6 GEMMs + 1 attention
-    per layer; MLA: 7 GEMMs + 1 attention per layer and the untied
-    unembedding), for comparison with the measured step time."""
+    per-call times times the step's launches (GQA: 6 or 7 GEMMs + 1
+    attention per layer; MLA: 7 GEMMs + 1 attention per layer; the
+    untied unembedding once), for comparison with the measured step
+    time.  A tied head is no kernel of the port (``dense_head``)."""
     t = {(r["m"], r["n"]): r["ms"] for r in results[gemm]
          if r["rows"] == 8 and "ms" in r}
-    attn_ms = [r["ms"] for r in results[attn] if r["b"] == 8 and "ms" in r
-               and r.get("hkv", r["h"]) == r["h"] and not r.get("long")][0]
-    if cfg.attention == "mla":
-        layer, unembed = mla_gemm_shapes(cfg)
-        return cfg.n_layers * (sum(t[sh] for sh in layer) + attn_ms) \
-            + t[unembed]
-    gemms = 4 * t[(4096, 4096)] + t[(16384, 4096)] + t[(4096, 16384)]
-    return cfg.n_layers * (gemms + attn_ms)
+    attn_ms = attn_record(results, attn, cfg, b=8)["ms"]
+    layer, head = (mla_gemm_shapes(cfg) if cfg.attention == "mla"
+                   else gqa_gemm_shapes(cfg))
+    return cfg.n_layers * (sum(t[sh] for sh in layer) + attn_ms) \
+        + (t[head] if head else 0.0)
 
 
 def first_logits(torch, m, toks):
@@ -1101,6 +1232,43 @@ def logit_error_by_depth(torch, kern, plain, toks, depths):
     return out
 
 
+def instrument(torch, model, prefill):
+    """Wrap ``model``'s ``decode_step`` (timed between two synchronizes)
+    and its ``prefill`` method (by name) on that object.  Returns the
+    lists they fill, one entry per call: step times (ms), each step's
+    kernel launches, and the GEMM bodies each step and each prefill
+    launched (route counter differences)."""
+    from repro_torch.kernels import _lib
+    step_ms, step_launches, step_routes, chunk_routes = [], [], [], []
+    inner_decode, inner_prefill = model.decode_step, getattr(model, prefill)
+
+    def route_diff(before):
+        return {k: n - before.get(k, 0) for k, n in _lib.route_counts.items()
+                if n != before.get(k, 0)}
+
+    def timed_decode(*a, **kw):
+        before = dict(_lib.launch_counts)
+        routes = dict(_lib.route_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = inner_decode(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_launches.append({k: _lib.launch_counts[k] - before[k]
+                              for k in before})
+        step_routes.append(route_diff(routes))
+        return r
+
+    def counted_prefill(*a, **kw):
+        routes = dict(_lib.route_counts)
+        r = inner_prefill(*a, **kw)
+        chunk_routes.append(route_diff(routes))
+        return r
+    model.decode_step = timed_decode
+    setattr(model, prefill, counted_prefill)
+    return step_ms, step_launches, step_routes, chunk_routes
+
+
 def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
               attn, prefill, required, totals, power_line, manifest,
               by_depth=None, mixed=None):
@@ -1108,8 +1276,9 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     prefill's logits against the plain path's ``want``, then the engine
     with the launch counters set to 0 just before and read just after;
     every kernel in ``required`` must have launched.  With ``by_depth``
-    (MiniCPM3) the gate is the full-depth f32 view's error (see
-    ``serve_model``) and the bf16 error is reported beside it.  With
+    (MiniCPM3 and the rotary GQA decoders) the gate is the full-depth f32
+    view's error (see ``serve_model``) and the bf16 error is reported
+    beside it.  With
     ``mixed`` (a mixed-precision plan, ``mixed_plan``) ``gemm`` is the
     plan's kernels, every decode step and prefill chunk must run all of
     its linears on them, and the step's kernel time sums the plan's
@@ -1122,8 +1291,9 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     # each GEMM and attention kernel agrees with its plain version to
     # ~1e-5 of its output scale (phase 3; int8 attention to its bf16
     # rounding), but the residual stream is re-rounded to bf16 twice per
-    # layer, and over 32 (OPT) or 62 (MiniCPM3) layers single-ulp flips
-    # compound: the stated tolerance is 5e-2 of the largest |logit|.
+    # layer, and over 32 (OPT) layers single-ulp flips compound: the
+    # stated tolerance is 5e-2 of the largest |logit| (``by_depth``
+    # replaces it where deeper or wider stacks outgrow it).
     tol = 5e-2
     got = first_logits(torch, m, toks)
     if not torch.isfinite(got).all() or got.shape != want.shape:
@@ -1147,37 +1317,10 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
                  "(f32 view)")
     elif rel > tol:
         fail(f"serve[{tag}]: kernel path disagrees with plain path")
-    eng = PagedServeEngine(m, paged_kernel="fused", **eng_kw)
-    step_ms, step_launches = [], []
-    # the GEMM bodies each decode step and each prefill chunk launched
-    step_routes, chunk_routes = [], []
-    inner = eng.model.decode_step
-    inner_prefill = eng.model.prefill_chunk
-
-    def route_diff(before):
-        return {k: n - before.get(k, 0) for k, n in _lib.route_counts.items()
-                if n != before.get(k, 0)}
-
-    def timed_decode(*a, **kw):
-        before = dict(_lib.launch_counts)
-        routes = dict(_lib.route_counts)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = inner(*a, **kw)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        step_launches.append({k: _lib.launch_counts[k] - before[k]
-                              for k in before})
-        step_routes.append(route_diff(routes))
-        return r
-
-    def counted_prefill(*a, **kw):
-        routes = dict(_lib.route_counts)
-        r = inner_prefill(*a, **kw)
-        chunk_routes.append(route_diff(routes))
-        return r
-    eng.model.decode_step = timed_decode
-    eng.model.prefill_chunk = counted_prefill
+    # the engine runs a view of m, so the wrappers do not outlive the run
+    eng = PagedServeEngine(m.with_config(), paged_kernel="fused", **eng_kw)
+    step_ms, step_launches, step_routes, chunk_routes = instrument(
+        torch, eng.model, "prefill_chunk")
     reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -1197,9 +1340,12 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     for k in required:
         if counts[k] <= 0:
             fail(f"serve[{tag}]: {k} never launched on the main path")
+    step_lin, chunk_lin = (
+        (mixed["linears"],) * 2 if mixed else
+        step_linears(cfg) if cfg.attention == "gqa" else (None, None))
     routes = route_totals(tag, gemm, step_routes, chunk_routes,
-                          dict(_lib.route_counts),
-                          linears=mixed["linears"] if mixed else None)
+                          dict(_lib.route_counts), linears=step_lin,
+                          chunk_linears=chunk_lin)
     s = eng.metrics.summary()
     toks_out = s["counters"]["tokens_out"]
     steps = sorted(step_ms)
@@ -1214,8 +1360,7 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     # estimate from above)
     pre_ms, pre_line = None, ""
     if prefill:
-        t1 = [r["ms"] for r in results[prefill] if r.get("c") == 512
-              and r.get("hkv") == r.get("h") and "ms" in r][0]
+        t1 = attn_record(results, prefill, cfg, c=512)["ms"]
         pre_ms = t1 * counts[prefill]
         pre_line = (f"; prefill kernel {prefill} {counts[prefill]} launches "
                     f"x {t1:.4f} ms = {pre_ms:.2f} ms beside TTFT p50 "
@@ -1230,12 +1375,22 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         step_kernel_ms=kern_ms, weight_bytes=manifest.quant_bytes,
         kv_bytes_per_token=kv_tok, kv_cache_bits=cfg.kv_cache_bits,
         prefill_kernel_ms=pre_ms, routes=routes,
-        arch=cfg.name, layers=cfg.n_layers)
+        arch=cfg.name, layers=cfg.n_layers,
+        tokens={r.uid: list(r.out_tokens) for r in done})
+    head = [r for r in results.get("dense_head", [])
+            if (r["m"], r["n"]) == (cfg.padded_vocab, cfg.d_model)]
+    if head and cfg.tie_embeddings:
+        out["tied_head_ms"] = head[0]["ms"]
+        kern_ms_line = (f"{kern_ms:.2f} ms of device time by the phase-3 "
+                        f"times, + the tied head's dense matmul "
+                        f"{head[0]['ms']:.4f} ms")
+    else:
+        kern_ms_line = f"{kern_ms:.2f} ms of device time by the phase-3 times"
     log(f"serve[{tag}]: {len(done)} requests, {toks_out} tokens in "
         f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
         f"{s['ttft_s']['p50'] * 1e3:.1f} ms; decode step p50 "
         f"{p50:.2f} ms over {len(steps)} steps (its kernels: "
-        f"{kern_ms:.2f} ms of device time by the phase-3 times); "
+        f"{kern_ms_line}); "
         f"weights {manifest.quant_bytes / 1e9:.3f} GB; KV "
         f"{kv_tok} B per token"
         f"{'' if cfg.attention == 'mla' else f' ({cfg.kv_cache_bits}-bit)'}; "
@@ -1249,7 +1404,124 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     return out
 
 
-def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None):
+def serve_slots(torch, tag, m, plain, want, toks, prompts, results, gemm,
+                totals, power_line, manifest, paged_tokens):
+    """The 8-request mix through the slots engine (``ServeEngine``, 8 slots
+    of 512, buckets 32/128/512) on model view ``m``: the contiguous
+    path's first-prefill logits (``Model.prefill``: the GEMM kernels,
+    plain attention over the contiguous cache, as the reference leaves
+    it to XLA) in the f32 views of ``m`` and of the plain path ``plain``
+    within ``F32_LOGIT_TOL`` of the logit scale (``serve_one``'s gate
+    for the rotary GQA decoders), the bf16 error against ``want``
+    reported beside it; then the engine with the launch
+    counters set to 0 just before and read just after.  Every decode
+    step must run all of the model's linears on the decode tile and
+    every prompt's prefill all of them on the tensor-core tile
+    (``route_totals``), and no paged attention kernel may launch.  The
+    share of greedy tokens equal to the paged run's (``paged_tokens``)
+    is printed, not gated: at bf16 and full depth, random weights turn
+    single roundings into different argmaxes (the MiniCPM3 finding)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models.attention import kv_entry_bytes
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = m.cfg
+    slots, cache_len = 8, 512
+
+    def contiguous_logits(view):
+        got, _ = view.prefill(toks, view.init_cache(1, cache_len), 0)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all() or got.shape != want.shape:
+            fail(f"serve[{tag}]: first-prefill logits not finite")
+        return got
+    got = contiguous_logits(m)
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    got32 = contiguous_logits(f32_view(m))
+    want32 = first_logits(torch, f32_view(plain), toks)
+    rel32 = float((got32 - want32).abs().max()) / float(want32.abs().max())
+    log(f"serve[{tag}] first prefill logits (contiguous cache) vs plain "
+        f"path (dense dequant + gathered attention): gate: the f32 view's "
+        f"{rel32:.3e} <= {F32_LOGIT_TOL:g}: {rel32 <= F32_LOGIT_TOL}; bf16 "
+        f"rel err {rel:.3e} (reported, not gated); argmax equal: "
+        f"{int(got.argmax())} vs {int(want.argmax())}")
+    if not rel32 <= F32_LOGIT_TOL:
+        fail(f"serve[{tag}]: kernel path disagrees with plain path "
+             "(f32 view)")
+    del got, got32, want32
+    torch.cuda.empty_cache()
+    view = m.with_config()          # the timing wrappers live on this view
+    eng = ServeEngine(view, slots=slots, cache_len=cache_len,
+                      prefill_buckets=(32, 128, 512))
+    step_ms, _, step_routes, chunk_routes = instrument(torch, view,
+                                                       "prefill")
+    first = {}
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=32,
+                    on_token=lambda tok, req: first.setdefault(
+                        req.uid, time.perf_counter()))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs, max_ticks=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_lib.launch_counts)
+    for k in totals:
+        totals[k] += counts[k]
+    bad = [r.uid for r in done if r.error or len(r.out_tokens) != 32]
+    if len(done) != len(reqs) or bad:
+        fail(f"serve[{tag}]: requests incomplete: {bad}")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+        fail(f"serve[{tag}]: token outside the vocabulary")
+    if counts[gemm] <= 0:
+        fail(f"serve[{tag}]: {gemm} never launched on the main path")
+    paged = {k: n for k, n in counts.items() if k.startswith("paged_")
+             and n}
+    if paged:
+        fail(f"serve[{tag}]: the slots engine launched paged kernels "
+             f"{paged}")
+    step_lin, chunk_lin = step_linears(cfg)
+    routes = route_totals(tag, gemm, step_routes, chunk_routes,
+                          dict(_lib.route_counts), linears=step_lin,
+                          chunk_linears=chunk_lin)
+    tokens = {r.uid: list(r.out_tokens) for r in done}
+    same = sum(a == b for uid, toks_ in tokens.items()
+               for a, b in zip(toks_, paged_tokens[uid]))
+    share = same / sum(len(t) for t in tokens.values())
+    ttft = sorted(first[r.uid] - t0 for r in done)
+    steps = sorted(step_ms)
+    p50 = steps[len(steps) // 2]
+    toks_out = sum(len(t) for t in tokens.values())
+    kern_ms = step_kernel_ms(results, gemm, "paged_decode", cfg)
+    out = dict(
+        engine="slots", slots=slots, cache_len=cache_len,
+        requests=len(done), prompt_lens=[len(p) for p in prompts],
+        tokens_out=toks_out, wall_s=wall, tokens_per_s=toks_out / wall,
+        ttft_p50_ms=ttft[len(ttft) // 2] * 1e3, decode_step_ms_p50=p50,
+        decode_steps=len(steps), launches=counts,
+        first_prefill_rel_err=rel, first_prefill_f32_rel_err=rel32,
+        weight_bytes=manifest.quant_bytes,
+        kv_bytes_per_token=kv_entry_bytes(cfg) * cfg.n_layers,
+        routes=routes, arch=cfg.name, layers=cfg.n_layers, tokens=tokens,
+        tokens_equal_to_paged=share,
+        gemm_kernel_ms_per_step=kern_ms - cfg.n_layers * attn_record(
+            results, "paged_decode", cfg, b=8)["ms"])
+    log(f"serve[{tag}]: {len(done)} requests, {toks_out} tokens in "
+        f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms; decode step p50 {p50:.2f} ms over "
+        f"{len(steps)} steps (its GEMM kernels: "
+        f"{out['gemm_kernel_ms_per_step']:.2f} ms by the phase-3 times; "
+        f"attention is plain PyTorch over the contiguous cache); launches "
+        f"{counts}; GEMM bodies: decode steps {routes['decode']}, prefills "
+        f"{routes['prefill']}; greedy tokens equal to the paged run's: "
+        f"{share:.1%} (not gated); card {power_line}")
+    del eng, view
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None,
+                 chunk_linears=None):
     """The GEMM bodies of one serve run, split into decode steps and
     prefill chunks.  ``gemm`` is the run's GEMM kernel, or a tuple of them
     (a mixed-precision plan's bcq_matmul and ternary_matmul).  Gates:
@@ -1260,8 +1532,10 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None):
     prefill chunk all of the GEMM launches but the head's (one row per
     request) run the tensor-core tile.  With ``linears`` (the model's
     quantized linears) each decode step's ``gemv`` launches and each
-    chunk's ``mma`` launches must number exactly that: every linear ran
-    on a kernel, none on a plain path."""
+    chunk's ``mma`` launches must number exactly that (``chunk_linears``,
+    where it differs: an untied head runs a chunk's one row on the decode
+    tile): every linear ran on a kernel, none on a plain path."""
+    chunk_linears = chunk_linears or linears
     gemms = (gemm,) if isinstance(gemm, str) else tuple(gemm)
 
     def add(rows):
@@ -1296,7 +1570,8 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None):
     for i, r in enumerate(chunk_routes):
         n_mma = sum(n for k, n in r.items() if k in mma)
         other = sum(n for k, n in r.items() if k not in mma)
-        if n_mma <= 0 or other > 1 or (linears and n_mma != linears):
+        if n_mma <= 0 or other > 1 or (chunk_linears
+                                        and n_mma != chunk_linears):
             fail(f"serve[{tag}]: prefill chunk {i} GEMM bodies {r}: its "
                  "linears must run the tensor-core tile")
     n_gemm = sum(n for k, n in prefill.items() if k.split("/")[0] in gemms)
@@ -1321,27 +1596,44 @@ def serve(torch, args, power_line, results):
     full_opt = get_config("opt_6_7b")
     opt = full_opt.replace(n_layers=args.layers)
     mla = get_config("minicpm3_4b")                    # full width and depth
+    phi4 = get_config("phi4_mini_3_8b")                # full width and depth
+    full_qwen = get_config("qwen1_5_32b")
+    qwen = full_qwen.replace(n_layers=QWEN_SERVE_LAYERS)
+    # Qwen at full depth is ~67 GB of bf16 weights before quantization
+    # (the model is built dense, then quantized one linear at a time), so
+    # depth is the one cut, and it is printed
+    log(f"qwen1.5-32b: full width, depth cut to {qwen.n_layers} of its "
+        f"{full_qwen.n_layers} layers")
     runs = (
         # (config, weight spec, KV bits, [(run name, backend, gemm
-        #  kernel)], decode attention kernel, prefill attention kernel)
-        (opt, bcq3, 16, [("auto", "auto", "bcq_matmul"),
-                         ("lut_pallas", "lut_pallas", "lut_gemm")],
+        #  kernel, engine)], decode attention kernel, prefill attention
+        #  kernel)
+        (opt, bcq3, 16, [("auto", "auto", "bcq_matmul", "paged"),
+                         ("lut_pallas", "lut_pallas", "lut_gemm", "paged")],
          "paged_decode", "paged_prefill"),
         (opt, QuantSpec(format="ternary", group_size=128), 8,
-         [("ternary_int8kv", "auto", "ternary_matmul")],
+         [("ternary_int8kv", "auto", "ternary_matmul", "paged")],
          "paged_decode_int8", "paged_prefill_int8"),
         # MLA prefill stays on the gathered path, as in the reference
-        (mla, bcq3, 16, [("minicpm3_auto", "auto", "bcq_matmul")],
+        (mla, bcq3, 16, [("minicpm3_auto", "auto", "bcq_matmul", "paged")],
          "paged_decode_mla", None),
         # mixed precision at full width and depth (GEMM kernels from the
         # plan): the paper's 2.4-bit point, and a 1.8-bit budget that
         # mixes ternary and BCQ leaves
         (full_opt, QuantSpec(format="bcq", bits=2.4, group_size=128), 16,
-         [("opt_mixed_2p4", "auto", None)], "paged_decode",
+         [("opt_mixed_2p4", "auto", None, "paged")], "paged_decode",
          "paged_prefill"),
         (full_opt, QuantSpec(format="bcq", bits=1.8, group_size=128), 16,
-         [("opt_mixed_1p8", "auto", None)], "paged_decode",
+         [("opt_mixed_1p8", "auto", None, "paged")], "paged_decode",
          "paged_prefill"),
+        # the rotary GQA decoders: Phi-4-mini at full width and depth
+        # through both engines on the same weights (GQA rep 3), then
+        # Qwen1.5-32B at full width and QWEN_SERVE_LAYERS of its 64 layers
+        (phi4, bcq3, 16, [("phi4_paged", "auto", "bcq_matmul", "paged"),
+                          ("phi4_slots", "auto", "bcq_matmul", "slots")],
+         "paged_decode", "paged_prefill"),
+        (qwen, bcq3, 16, [("qwen_paged", "auto", "bcq_matmul", "paged")],
+         "paged_decode", "paged_prefill"),
     )
     for cfg, spec, kv_bits, backends, attn, prefill in runs:
         serve_model(torch, args, cfg, spec, kv_bits, backends, attn,
@@ -1368,8 +1660,7 @@ def mixed_plan(results, cfg, spec, manifest, attn):
     phase-3 rows-8 time of each leaf's shape and width, times its layers,
     plus the decode attention at B 8)."""
     plan, n_w, lins, kern_ms = {}, {}, 0, 0.0
-    attn_ms = [r["ms"] for r in results[attn] if r["b"] == 8 and "ms" in r
-               and r.get("hkv", r["h"]) == r["h"] and not r.get("long")][0]
+    attn_ms = attn_record(results, attn, cfg, b=8)["ms"]
     for leaf in manifest.layers:
         key = leaf["path"]
         b = (leaf["effective_bits"] if leaf["format"] == "ternary"
@@ -1522,29 +1813,41 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
                               paged_kernel="gather", kv_cache_bits=kv_bits)
     want = first_logits(torch, plain, toks)
     required = tuple(k for k in (attn, prefill) if k)
-    for tag, backend, gemm in backends:
+    paged_tokens = None
+    for tag, backend, gemm, engine in backends:
         gemm = mixed["gemms"] if mixed else gemm
         gemms = (gemm,) if isinstance(gemm, str) else gemm
         m = model.with_config(quant=spec.replace(backend=backend),
                               paged_kernel="fused", kv_cache_bits=kv_bits)
+        if engine == "slots":
+            # the same weights through the slots engine
+            serve_out[tag] = serve_slots(torch, tag, m, plain, want, toks,
+                                         prompts, results, gemm, totals,
+                                         power_line, manifest, paged_tokens)
+            continue
         by_depth = None
-        if cfg.attention == "mla":
+        if cfg.attention == "mla" or cfg.pos == "rope":
             # Over MiniCPM3's 62 bf16 layers the kernel and plain paths
             # part by more than the 5e-2 the OPT runs hold (5.35e-2 on the
             # H100), growing with depth from 1.6e-2 at 8 layers, while the
             # same weights with f32 activations agree within 1.6e-5: the
             # GEMMs differ only in f32 summation order, which flips single
-            # bf16 roundings that the random-weight stack amplifies.  So
-            # this run gates the f32 view, which holds every kernel on the
-            # path to 1e-3 without that noise, and reports the bf16 error.
+            # bf16 roundings that the random-weight stack amplifies.  The
+            # rotary GQA decoders grow the same way (Phi-4-mini: 4.4e-2 at
+            # 32 layers, where the plain bf16 path alone is 5.1e-2 from
+            # the plain f32 path).  So these runs gate the f32 view, which
+            # holds every kernel on the path to 1e-3 without that noise,
+            # and report the bf16 error by depth.
+            ends = (8, 16, 31) if cfg.attention == "mla" else (2, 4, 8, 16)
             depths = sorted({min(d, cfg.n_layers)
-                             for d in (8, 16, 31, cfg.n_layers)})
+                             for d in ends + (cfg.n_layers,)})
             by_depth = logit_error_by_depth(torch, m, plain, toks, depths)
         serve_out[tag] = serve_one(torch, tag, m, want, toks, prompts,
                                    eng_kw, results, gemm, attn, prefill,
                                    gemms + required, totals, power_line,
                                    manifest, by_depth, mixed)
         serve_out[tag]["logit_error_by_depth"] = by_depth
+        paged_tokens = serve_out[tag]["tokens"]
         if mixed:
             serve_out[tag].update(plan=mixed["plan"],
                                   avg_bits=mixed["avg_bits"],
@@ -1603,6 +1906,7 @@ def main():
     check_paged_mla(torch, timer, gen, results, args.seed)
     check_bcq_minicpm3(torch, timer, gen, results)
     check_bcq_widths(torch, timer, gen, results)
+    check_bcq_dense_archs(torch, timer, gen, results)
     del timer
     torch.cuda.empty_cache()
 
@@ -1697,6 +2001,12 @@ def main():
                 if r.get("exact_inputs"))
             r = results["ternary_matmul_lut"][0]
             kernels[-1]["lut"] = {k: r[k] for k in keys + ("group_size",)}
+        if name in ("paged_decode", "paged_prefill"):
+            # Phi-4-mini's serve shape: 24 query heads over 8 kv heads
+            r = [r for r in results[name] if "ms" in r and r["h"] == 24][0]
+            kernels[-1]["gqa_rep3"] = {k: r.get(k) for k in (
+                "b", "c", "h", "hkv", "splits", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name in ("paged_decode", "paged_decode_int8"):
             # the split-table kernel: its split count at the main case,
             # and its GQA (rep 4) and long-table cases

@@ -1,10 +1,12 @@
 """Model configuration (counterpart of ``repro.configs.base``).
 
 Carries the fields the ported decoders use: ``kv_cache_bits`` (16, or 8
-for an int8 KV cache), the MLA widths and ``rope_theta`` among them.
-Architectures the port does not build yet (MoE, SSM, enc-dec, sliding
-window, GQA with rotary positions) are refused where the model is
-built, naming their ROADMAP.md item.
+for an int8 KV cache), the MLA widths, ``qkv_bias`` and ``rope_theta``
+among them.  The port builds OPT (MHA, learned positions), the rotary
+GQA decoders (Phi-4-mini, Qwen1.5, StableLM) and MiniCPM3 (MLA).
+Architectures it does not build yet (MoE, SSM, enc-dec, sliding
+window) are refused where the model is built, naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -64,7 +66,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_IDS = ["opt_6_7b", "minicpm3_4b"]
+ARCH_IDS = ["opt_6_7b", "minicpm3_4b", "phi4_mini_3_8b", "qwen1_5_32b",
+            "stablelm_1_6b"]
 
 
 def _module(arch: str):

@@ -6,7 +6,11 @@ with alpha/z per (out row, input group).  ``quantize`` is the greedy
 init plus alternating least squares / nearest-codebook refinement;
 ``from_uniform`` maps round-to-nearest uniform quantization exactly into
 BCQ(+offset) planes.  Both run on whatever device the weight lies on, so
-a full-width model quantizes on the card layer by layer.
+a full-width model quantizes on the card layer by layer.  Every output
+row is fitted on its own, so ``quantize`` takes a weight of more than
+``QUANTIZE_CHUNK`` elements in blocks of rows: its codebook search holds
+2^q f32 distances per weight (a [152064 x 5120] head at q 3 would need
+~50 GB at once).
 """
 from __future__ import annotations
 
@@ -18,6 +22,9 @@ from repro_torch.core.plane import (PlaneBundle, dequantize, pack_planes,
 
 __all__ = ["PlaneBundle", "quantize", "from_uniform", "dequantize",
            "pack_planes", "unpack_planes"]
+
+
+QUANTIZE_CHUNK = 1 << 27      # weights fitted at once by ``quantize``
 
 
 def _grouped(w: torch.Tensor, g: int) -> torch.Tensor:
@@ -102,10 +109,21 @@ def quantize(w_dense: torch.Tensor, bits: int, group_size: int = 128,
              iters: int = 5, with_offset: bool = True) -> PlaneBundle:
     """BCQ-quantize a dense [out, in] weight: greedy init, then ``iters``
     rounds of (alpha, z) least squares <-> nearest-codebook planes."""
+    if w_dense.ndim != 2:
+        raise ValueError(f"expected 2-D weight, got "
+                         f"{tuple(w_dense.shape)}")
+    out, n = w_dense.shape
+    rows = max(1, QUANTIZE_CHUNK // n)
+    if out > rows:
+        parts = [quantize(w_dense[i:i + rows], bits, group_size, iters,
+                          with_offset) for i in range(0, out, rows)]
+        return PlaneBundle(
+            packed=torch.cat([p.packed for p in parts], dim=1),
+            alpha=torch.cat([p.alpha for p in parts], dim=1),
+            z=torch.cat([p.z for p in parts], dim=0),
+            group_size=parts[0].group_size, in_features=n,
+            out_features=out)
     w = w_dense.float()
-    if w.ndim != 2:
-        raise ValueError(f"expected 2-D weight, got {tuple(w.shape)}")
-    out, n = w.shape
     g = int(group_size)
     bits = int(bits)
     wg = _grouped(w, g)

@@ -4,9 +4,18 @@
         --reduced 0 --bits 3 --engine paged --paged-kernel fused
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3_4b \\
         --reduced 0 --bits 3 --paged-kernel fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4_mini_3_8b \\
+        --reduced 1 --device cpu --engine slots --slots 4 --cache-len 256
 
-``--arch`` is ``opt_6_7b`` or ``minicpm3_4b`` (MLA: absorbed paged
-decode through its kernel; prefill on the gathered path).
+``--arch`` is ``opt_6_7b``, ``minicpm3_4b`` (MLA: absorbed paged decode
+through its kernel; prefill on the gathered path), or one of the rotary
+GQA decoders ``phi4_mini_3_8b``, ``qwen1_5_32b`` and ``stablelm_1_6b``.
+``--engine`` is ``paged`` (the block pool), ``slots`` (``ServeEngine``
+over a contiguous cache of ``--slots`` rows of ``--cache-len``) or
+``auto`` (paged where ``supports_paging``, else slots), as in the
+reference; the paged engine's flags (``--num-blocks``,
+``--block-size``, ``--max-batch``, ``--paged-kernel``) are ignored under
+``slots``.
 
 Runs on the card by default; ``--device cpu`` runs every kernel's plain
 version on the CPU (small shapes only).  Without a GPU and without
@@ -40,7 +49,8 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="opt_6_7b",
-                    help="opt_6_7b | minicpm3_4b")
+                    help="opt_6_7b | minicpm3_4b | phi4_mini_3_8b | "
+                         "qwen1_5_32b | stablelm_1_6b")
     ap.add_argument("--reduced", type=int, default=1)
     ap.add_argument("--bits", type=float, default=None,
                     help="weight bits; fractional (e.g. 2.4) -> mixed "
@@ -67,13 +77,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "mxu_pallas (bcq_matmul kernel) | lut_pallas "
                          "(lut_gemm kernel) | ternary_pallas "
                          "(ternary_matmul kernel, ternary weights only)")
-    ap.add_argument("--engine", default="paged", choices=["paged"])
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "paged", "slots"],
+                    help="auto picks paged where the model supports it "
+                         "(attention-only, no SWA/enc-dec), else slots")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="[slots engine] fixed cache rows")
+    ap.add_argument("--cache-len", type=int, default=256,
+                    help="[slots engine] per-row KV reservation (also the "
+                         "paged engine's default --max-seq-len)")
     ap.add_argument("--paged-kernel", default="auto",
-                    choices=["auto", "fused", "gather"])
-    ap.add_argument("--num-blocks", type=int, default=64)
-    ap.add_argument("--block-size", type=int, default=16)
-    ap.add_argument("--max-batch", type=int, default=8)
-    ap.add_argument("--max-seq-len", type=int, default=256)
+                    choices=["auto", "fused", "gather"],
+                    help="[paged engine] paged attention path")
+    ap.add_argument("--num-blocks", type=int, default=64,
+                    help="[paged engine] shared KV pool size")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="[paged engine] tokens per block")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="[paged engine] concurrent sequences")
+    ap.add_argument("--max-seq-len", type=int, default=0,
+                    help="[paged engine] per-sequence context cap "
+                         "(default: --cache-len)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda",
@@ -160,7 +184,8 @@ def main(argv=None):
     from repro_torch.models import Model
     from repro_torch.quant import (fallback_chain, quantize_model,
                                    save_quantized)
-    from repro_torch.serve import PagedServeEngine, Request
+    from repro_torch.serve import (PagedServeEngine, Request, ServeEngine,
+                                   supports_paging)
 
     try:
         device = default_device(args.device)
@@ -172,7 +197,8 @@ def main(argv=None):
         except KeyError as e:
             raise SystemExit(f"--backend: {e.args[0]}")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    cfg = cfg.replace(max_seq_len=max(cfg.max_seq_len, args.max_seq_len))
+    max_seq_len = args.max_seq_len or args.cache_len
+    cfg = cfg.replace(max_seq_len=max(cfg.max_seq_len, max_seq_len))
     manifest = None
     if args.load_quantized:
         model, spec, manifest = load_checkpoint(args, cfg, device)
@@ -212,14 +238,22 @@ def main(argv=None):
                   "manifest: dense serve, or checkpoint saved without one)")
     print(f"[launch.serve] {cfg.name}: {model.n_params():,} stored "
           f"elements, backend preference {model.cfg.backend_preference}")
-    eng = PagedServeEngine(model, num_blocks=args.num_blocks,
-                           block_size=args.block_size,
-                           max_batch=args.max_batch,
-                           max_seq_len=args.max_seq_len,
-                           prefill_buckets=(16, 32, 64),
-                           paged_kernel=args.paged_kernel)
-    print(f"[launch.serve] paged-kernel={args.paged_kernel} -> decode path: "
-          f"{eng.decode_path}  prefill path: {eng.prefill_path}")
+    engine = args.engine
+    if engine == "auto":
+        engine = "paged" if supports_paging(cfg) else "slots"
+        print(f"[launch.serve] engine=auto -> {engine}")
+    if engine == "paged":
+        eng = PagedServeEngine(model, num_blocks=args.num_blocks,
+                               block_size=args.block_size,
+                               max_batch=args.max_batch,
+                               max_seq_len=max_seq_len,
+                               prefill_buckets=(16, 32, 64),
+                               paged_kernel=args.paged_kernel)
+        print(f"[launch.serve] paged-kernel={args.paged_kernel} -> decode "
+              f"path: {eng.decode_path}  prefill path: {eng.prefill_path}")
+    else:
+        eng = ServeEngine(model, slots=args.slots, cache_len=args.cache_len,
+                          prefill_buckets=(16, 32, 64), rng_seed=args.seed)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(4, 24)),))
                for _ in range(args.requests)]
@@ -231,13 +265,17 @@ def main(argv=None):
     toks = sum(len(r.out_tokens) for r in done)
     print(f"[launch.serve] {len(done)} requests, {toks} tokens, "
           f"{toks/dt:.1f} tok/s on {device}")
-    s = eng.metrics.summary()
-    print(f"[launch.serve] ttft p50={s['ttft_s']['p50']*1e3:.1f}ms  "
-          f"per-token p50={s['per_token_s']['p50']*1e3:.1f}ms  "
-          f"preempted={s['counters']['preempted']}")
-    if args.metrics_json:
-        eng.metrics.to_json(args.metrics_json)
-        print(f"[launch.serve] metrics -> {args.metrics_json}")
+    if engine == "paged":
+        s = eng.metrics.summary()
+        print(f"[launch.serve] ttft p50={s['ttft_s']['p50']*1e3:.1f}ms  "
+              f"per-token p50={s['per_token_s']['p50']*1e3:.1f}ms  "
+              f"preempted={s['counters']['preempted']}")
+        if args.metrics_json:
+            eng.metrics.to_json(args.metrics_json)
+            print(f"[launch.serve] metrics -> {args.metrics_json}")
+    elif args.metrics_json:
+        print("[launch.serve] warning: --metrics-json ignored (the slots "
+              "engine keeps no serving metrics, as in the reference)")
     return done
 
 

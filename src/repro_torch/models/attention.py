@@ -1,6 +1,9 @@
-"""GQA/MHA and MLA attention over a paged KV pool.
+"""GQA/MHA and MLA attention over a paged KV pool or a contiguous cache.
 
 Counterpart of the GQA and MLA parts of ``repro.models.attention``.
+GQA rotates q and k with rotary positions (``cfg.pos == "rope"``) after
+the projections and before the cache insert, as the reference does; pad
+rows at negative positions are rotated too and masked later.
 
 Paged layout: every layer's cache is a shared pool ``k, v: [NB, BS, Hkv,
 D]`` plus ``pos: [NB, BS]`` (the absolute position stored in each slot,
@@ -12,31 +15,41 @@ read ever counts its slots.  A slot is live iff its table entry is
 allocated AND its stored position equals its logical index (which makes
 recycled blocks safe) AND it is causally visible.
 
-The port writes the pool **in place** (``index_put_`` into views of the
-pool tensors) where the reference returns an updated copy: at full
+Contiguous layout (the slots engine's): ``k, v: [B, L, Hkv, D]`` and
+``pos: [B, L]`` per row, a ring in which position p lives at slot
+``p % L`` (``L`` capped at the sliding window, as in the reference);
+pads at negative positions write their negative position, so they never
+count.  MLA rows hold ``ckv [B, L, kv_lora]`` and ``krope [B, L,
+qk_rope]``.  The contiguous path's attention is plain PyTorch
+(``decode_attend``, ``blockwise_attention``, ``_mla_absorbed_ctx``),
+as the reference leaves it to XLA.
+
+The port writes both caches **in place** (``index_put_`` into views of
+the cache tensors) where the reference returns an updated copy: at full
 width one layer's pool is tens of megabytes per step.
 
-With ``kv_cache_bits=8`` the pool holds int8 ``k``/``v`` plus f32
-``k_scale``/``v_scale`` [NB, BS, Hkv]: each new (token, head) vector is
+With ``kv_cache_bits=8`` the cache holds int8 ``k``/``v`` plus f32
+``k_scale``/``v_scale`` [.., Hkv]: each new (token, head) vector is
 quantized symmetrically at insertion (``_quantize_kv``), and attention
 folds the scales in (k_scale on the scores before the softmax, v_scale on
-the probabilities after it).
+the probabilities after it).  A whole-prompt prefill into a contiguous
+int8 cache attends over the fresh K/V, not the cache (the reference's
+branch).
 
-MLA (``attention="mla"``) pools hold the compressed latent instead:
-``ckv [NB, BS, kv_lora]`` and the shared rotary key ``krope [NB, BS,
-qk_rope]`` in ``cfg.dtype`` (``kv_cache_bits`` does not apply, as in the
-reference).  Decode uses the absorbed formulation (scores in latent
-space, ``paged_attention_mla``); prefill decompresses the gathered
-latent through ``kv_b`` and stays on the gathered path.
+MLA (``attention="mla"``) caches hold the compressed latent instead:
+``ckv`` and the shared rotary key ``krope`` in ``cfg.dtype``
+(``kv_cache_bits`` does not apply, as in the reference).  Decode uses
+the absorbed formulation (scores in latent space, ``paged_attention_mla``
+on a pool); prefill decompresses the latent through ``kv_b``.
 
-Decode and chunked prefill route to the fused CUDA kernels
+Paged decode and chunked prefill route to the fused CUDA kernels
 (``kernels/paged_attention``) or to the gathered plain path
 (``paged_view`` + ``decode_attend`` / ``blockwise_attention``, int8
 pools dequantized for prefill), by the reference's rule: ``fused``
 forces the kernels (on the CPU their wrappers run the plain versions),
 ``auto`` takes them where they are native (an H100), ``gather`` never
-does.  Sliding windows and GQA with rotary positions raise
-``NotImplementedError`` (ROADMAP.md queue 1 items 7 and 8).
+does.  Sliding windows raise ``NotImplementedError`` (ROADMAP.md queue
+1 item 7).
 """
 from __future__ import annotations
 
@@ -63,9 +76,6 @@ def check_supported(cfg) -> None:
     if cfg.kv_cache_bits not in (8, 16):
         raise ValueError(f"kv_cache_bits must be 8 or 16, got "
                          f"{cfg.kv_cache_bits}")
-    if cfg.attention == "gqa" and cfg.pos == "rope":
-        raise NotImplementedError("GQA with rotary positions is not ported "
-                                  "yet (ROADMAP.md queue 1 item 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -127,39 +137,51 @@ def decode_attend(q, cache, positions, *, scale=None):
 # ---------------------------------------------------------------------------
 
 
-def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
-                           max_blocks_per_seq: int, device) -> dict:
-    """One layer's pool + block table (``paged_cache_desc`` + init);
-    int8 pools add the f32 per-(slot, head) scale pools; MLA pools hold
-    the latent ``ckv`` and the shared rotary key ``krope``."""
-    check_supported(cfg)
-    pos = torch.full((num_blocks, block_size), -1, dtype=torch.int32,
-                     device=device)
-    tables = torch.full((batch, max_blocks_per_seq), -1, dtype=torch.int32,
-                        device=device)
+def _cache_leaves(cfg, rows: int, slots: int, device) -> dict:
+    """One layer's KV leaves [rows, slots, ...], every ``pos`` -1 (empty):
+    a contiguous cache's (batch, length) or a pool's (blocks, block
+    size), as the reference derives its pool descriptors from the
+    contiguous ones.  int8 caches add the f32 per-(slot, head) scales;
+    MLA caches hold the latent ``ckv`` and the shared rotary key
+    ``krope``."""
+    pos = torch.full((rows, slots), -1, dtype=torch.int32, device=device)
     if cfg.attention == "mla":
         dt = getattr(torch, cfg.dtype)
         return {
-            "ckv": torch.zeros((num_blocks, block_size, cfg.kv_lora_rank),
-                               dtype=dt, device=device),
-            "krope": torch.zeros((num_blocks, block_size,
-                                  cfg.qk_rope_head_dim), dtype=dt,
-                                 device=device),
-            "pos": pos, "block_tables": tables}
+            "ckv": torch.zeros((rows, slots, cfg.kv_lora_rank), dtype=dt,
+                               device=device),
+            "krope": torch.zeros((rows, slots, cfg.qk_rope_head_dim),
+                                 dtype=dt, device=device),
+            "pos": pos}
     hkv = cfg.n_kv_heads * cfg.kv_replication
     int8 = cfg.kv_cache_bits == 8
     dt = torch.int8 if int8 else getattr(torch, cfg.dtype)
-    shape = (num_blocks, block_size, hkv, cfg.head_dim_)
-    cache = {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": pos, "block_tables": tables,
-    }
+    shape = (rows, slots, hkv, cfg.head_dim_)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device), "pos": pos}
     if int8:
         for key in ("k_scale", "v_scale"):
             cache[key] = torch.zeros(shape[:3], dtype=torch.float32,
                                      device=device)
     return cache
+
+
+def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
+                           max_blocks_per_seq: int, device) -> dict:
+    """One layer's pool + block table (``paged_cache_desc`` + init)."""
+    check_supported(cfg)
+    cache = _cache_leaves(cfg, num_blocks, block_size, device)
+    cache["block_tables"] = torch.full((batch, max_blocks_per_seq), -1,
+                                       dtype=torch.int32, device=device)
+    return cache
+
+
+def init_layer_cache(cfg, batch: int, length: int, device) -> dict:
+    """One layer's contiguous cache (``cache_desc_gqa`` / ``cache_desc_mla``
+    + init): ``length`` slots per row, capped at the sliding window."""
+    if cfg.sliding_window:
+        length = min(length, cfg.sliding_window)
+    return _cache_leaves(cfg, batch, length, device)
 
 
 def _quantize_kv(t: torch.Tensor):
@@ -236,13 +258,37 @@ def _paged_insert(cache: dict, updates: dict, at: torch.Tensor) -> dict:
     return cache
 
 
+def _ring_insert(cache: dict, updates: dict, at) -> dict:
+    """Write S new entries into a contiguous cache, in place: position p
+    of row b lives at slot ``p % L`` (floor modulo, so pads at negative
+    positions land at the ring's end with their negative position, dead).
+    When S > L only the trailing L entries survive."""
+    b, length = cache["pos"].shape
+    s = next(iter(updates.values())).shape[1]
+    at = torch.as_tensor(at, dtype=torch.int32, device=cache["pos"].device)
+    if s > length:
+        updates = {k: v[:, -length:] for k, v in updates.items()}
+        at = at + (s - length)
+        s = length
+    if at.ndim == 0:
+        at = at.expand(b)
+    positions = at[:, None] + torch.arange(s, dtype=torch.int32,
+                                           device=at.device)[None]
+    slots = torch.remainder(positions, length).long()
+    bidx = torch.arange(b, device=at.device)[:, None]
+    for key, val in updates.items():
+        cache[key][bidx, slots] = val.to(cache[key].dtype)
+    cache["pos"][bidx, slots] = positions
+    return cache
+
+
 def cache_insert(cache: dict, updates: dict, at) -> dict:
     """Write S new entries starting at absolute position ``at`` (scalar
-    or per-row [B])."""
-    if not is_paged(cache):
-        raise NotImplementedError("the contiguous cache is not ported yet "
-                                  "(ROADMAP.md queue 1 item 8: slots engine)")
-    return _paged_insert(cache, updates, at)
+    or per-row [B]): through the block table into a paged pool, or into
+    a contiguous cache's ring."""
+    if is_paged(cache):
+        return _paged_insert(cache, updates, at)
+    return _ring_insert(cache, updates, at)
 
 
 def fused_selected(mode: str) -> bool:
@@ -319,7 +365,8 @@ def paged_prefill_attend(q, cache, positions, *, scale=None, mode="auto"):
 
 
 class Attention(nn.Module):
-    """GQA/MHA self-attention: q/k/v/o linears + paged KV."""
+    """GQA/MHA self-attention: q/k/v/o linears (optional q/k/v biases),
+    rotary or learned positions, a paged or contiguous KV cache."""
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -349,25 +396,39 @@ class Attention(nn.Module):
         if cfg.kv_replication > 1:
             k = torch.repeat_interleave(k, cfg.kv_replication, dim=2)
             v = torch.repeat_interleave(v, cfg.kv_replication, dim=2)
+        if cfg.pos == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         if cache is None:
             out = blockwise_attention(q, k, v, positions, positions,
                                       causal=causal)
         else:
-            # the pool's dtype decides, not this module's config: a
+            # the cache's dtype decides, not this module's config: a
             # ``with_config(kv_cache_bits=8)`` view shares the modules
-            if cache["k"].dtype == torch.int8:
+            int8 = cache["k"].dtype == torch.int8
+            if int8:
                 kq, ks = _quantize_kv(k)
                 vq, vs = _quantize_kv(v)
                 updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
             else:
                 updates = {"k": k, "v": v}
             cache = cache_insert(cache, updates, cache_at)
-            if s == 1:
-                out = paged_decode_attend(q, cache, positions,
-                                          mode=paged_kernel)
+            if is_paged(cache):
+                attend = (paged_decode_attend if s == 1
+                          else paged_prefill_attend)
+                out = attend(q, cache, positions, mode=paged_kernel)
+            elif s == 1:
+                out = decode_attend(q, cache, positions)
+            elif int8:
+                # whole-prompt prefill into an empty int8 cache: attend
+                # over the fresh K/V (the reference's branch), so the
+                # quantization error reaches only later decode reads
+                out = blockwise_attention(q, k, v, positions, positions,
+                                          causal=True)
             else:
-                out = paged_prefill_attend(q, cache, positions,
-                                           mode=paged_kernel)
+                out = blockwise_attention(q, cache["k"], cache["v"],
+                                          positions, cache["pos"],
+                                          causal=True)
         out = self.o(out.reshape(b, s, h * hd), backend)
         return (out, cache) if cache is not None else out
 
@@ -500,12 +561,18 @@ class MLAttention(nn.Module):
         if s == 1 and cache is not None:
             # absorbed decode: scores and context in latent space
             q_eff = torch.einsum("bshn,hnl->bshl", q_nope.float(), w_uk)
-            ctx = mla_paged_decode_attend(q_eff, q_rope, cache, positions,
-                                          scale=scale, mode=paged_kernel)
+            if is_paged(cache):
+                ctx = mla_paged_decode_attend(q_eff, q_rope, cache,
+                                              positions, scale=scale,
+                                              mode=paged_kernel)
+            else:
+                ctx = _mla_absorbed_ctx(q_eff, q_rope, cache["ckv"],
+                                        cache["krope"], cache["pos"],
+                                        positions, scale)
             out = torch.einsum("bshl,hvl->bshv", ctx, w_uv)
         else:
             if cache is not None:
-                kv = paged_view(cache)
+                kv = paged_view(cache) if is_paged(cache) else cache
                 ckv_all, krope_all, kpos = kv["ckv"], kv["krope"], kv["pos"]
             else:
                 ckv_all, krope_all, kpos = ckv, krope, positions

@@ -1,9 +1,11 @@
 """Top-level decoder: embeddings -> stack -> final norm -> LM head.
 
 Counterpart of ``repro.models.model`` for the paths serving uses:
-``forward`` (full-sequence logits), ``prefill_chunk`` and
-``decode_step`` over a paged cache.  The parameters live on the modules
-(created on an explicit device); :func:`from_jax_params` carries a
+``forward`` (full-sequence logits), ``prefill_chunk`` over a paged
+cache, ``prefill`` (a whole prompt, left-pads at negative positions)
+over a contiguous cache, and ``decode_step`` over either.  The
+parameters live on the modules (created on an explicit device);
+:func:`from_jax_params` carries a
 reference parameter tree (numpy arrays or torch tensors, quantized
 leaves as dicts) into a model, and :func:`to_params` is its inverse:
 the model's parameters as the reference's tree, in the stack layout of
@@ -72,6 +74,13 @@ class Model(nn.Module):
                                         self.device)
             for _ in range(self.cfg.n_layers)]}
 
+    def init_cache(self, batch: int, length: int) -> dict:
+        """Contiguous per-row caches of ``length`` slots (the slots
+        engine's), every position empty (-1)."""
+        return {"layers": [
+            attn.init_layer_cache(self.cfg, batch, length, self.device)
+            for _ in range(self.cfg.n_layers)]}
+
     # ------------------------------------------------------------------
     def _positions(self, tokens: torch.Tensor, start_pos) -> torch.Tensor:
         b, s = tokens.shape
@@ -101,6 +110,19 @@ class Model(nn.Module):
         positions = self._positions(tokens, 0)
         x, _ = self._run(tokens, positions, None, None)
         return self._head(x)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: dict, start_pos=0):
+        """The whole prompt through the stack, filling a contiguous cache.
+        ``start_pos`` (scalar or [B]) is the first token's position; a
+        negative start marks left-pads, whose negative positions are
+        masked from attention and dead in the cache, so a padded prompt
+        scores as the unpadded one.  Returns (last-token logits [B, V]
+        f32, cache)."""
+        tokens = tokens.to(self.device)
+        positions = self._positions(tokens, start_pos)
+        x, cache = self._run(tokens, positions, cache, positions[:, 0])
+        return self._head(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, cache: dict, start_pos,

@@ -1,12 +1,21 @@
-"""Paged continuous-batching engine (synchronous tick).
+"""Continuous-batching engines (synchronous tick).
 
-Counterpart of ``repro.serve.engine.PagedServeEngine.step``/``run``: KV
-lives in a shared block pool, the scheduler admits FCFS by free-block
-budget, prefill runs in bucket-sized chunks written straight into the
-pool, one decode batch and at most one prefill chunk run every tick, and
-the pool preempts by recompute when it runs dry.  Sampling is greedy on
-the host (``np.argmax``, ties to the lowest index, as the reference's
-``_sample_host``).
+``PagedServeEngine`` is the counterpart of
+``repro.serve.engine.PagedServeEngine.step``/``run``: KV lives in a
+shared block pool, the scheduler admits FCFS by free-block budget,
+prefill runs in bucket-sized chunks written straight into the pool, one
+decode batch and at most one prefill chunk run every tick, and the pool
+preempts by recompute when it runs dry.
+
+``ServeEngine`` is the counterpart of the reference's fixed-slot engine
+over a contiguous cache (one ``cache_len`` row per request): each prompt
+is left-padded into its bucket and prefilled on a 1-row cache that is
+spliced into the grid, and one decode step advances every slot.  It is
+the fallback for configs the paged engine refuses (``supports_paging``)
+and the paged engine's equivalence oracle.
+
+Sampling is greedy on the host (``np.argmax``, ties to the lowest
+index, as the reference's ``_sample_host``).
 
 Not ported yet (ROADMAP.md queue 1 item 9): temperature sampling (the
 reference derives its keys from ``jax.random``), the double-buffered
@@ -17,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Callable, Optional
 
 import numpy as np
@@ -25,6 +35,7 @@ import torch
 from repro_torch.models.attention import (kv_entry_bytes, paged_kernel_mode,
                                           paged_prefill_mode)
 from repro_torch.models.model import set_block_tables
+from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.paging import BlockPool
 from repro_torch.serve.scheduler import Scheduler
@@ -60,6 +71,21 @@ def _sample_host(req: Request, logits_row: np.ndarray) -> int:
         raise NotImplementedError("temperature sampling is not ported yet "
                                   "(ROADMAP.md queue 1 item 9)")
     return int(np.argmax(logits_row))
+
+
+def _refuse_temperature(req: Request) -> None:
+    if req.temperature > 0:
+        raise NotImplementedError(
+            "temperature sampling is not ported yet (ROADMAP.md queue 1 "
+            "item 9); submit greedy requests (temperature=0)")
+
+
+def supports_paging(cfg) -> bool:
+    """Whether a config can serve through the paged engine: an
+    attention-only decoder, no sliding window (a ring cache is already a
+    fixed-size reservation), no encoder-decoder cross-KV."""
+    return (cfg.family != "encdec" and not cfg.sliding_window
+            and all(mixer == "attn" for mixer, _ in layer_plan(cfg)))
 
 
 class PagedServeEngine:
@@ -102,10 +128,7 @@ class PagedServeEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.temperature > 0:
-            raise NotImplementedError(
-                "temperature sampling is not ported yet (ROADMAP.md queue 1 "
-                "item 9); submit greedy requests (temperature=0)")
+        _refuse_temperature(req)
         self.metrics.on_submit(req.uid)
         self.sched.submit(req)
 
@@ -240,3 +263,126 @@ class PagedServeEngine:
         if self.sched.has_work():
             self._drain_tick_budget()
         return self.finished
+
+
+# ---------------------------------------------------------------------------
+# contiguous fixed-slot engine (fallback and oracle)
+# ---------------------------------------------------------------------------
+
+
+class ServeEngine:
+    """Continuous batching over a fixed slot grid (one full ``cache_len``
+    row per request; see the module docstring).  Left-pads get negative
+    positions, so the attention pos-mask makes a padded prompt score
+    exactly as the unpadded one."""
+
+    def __init__(self, model, *, slots: int = 8, cache_len: int = 512,
+                 prefill_buckets=(32, 128, 512), rng_seed: int = 0):
+        self.model = model
+        self.slots = slots
+        self.cache_len = cache_len
+        self.buckets = sorted(prefill_buckets)
+        self.cache = model.init_cache(slots, cache_len)
+        self.slot_req: list = [None] * slots
+        self.slot_pos = np.zeros(slots, np.int32)
+        self.rng_seed = rng_seed     # kept for temperature sampling (item 9)
+        self.ticks = 0
+
+    # ------------------------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        top = self.buckets[-1]          # longer prompts: round up to the
+        return -(-n // top) * top       # top bucket
+
+    def _free_slots(self):
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def add_request(self, req: Request) -> bool:
+        """Prefill into a free slot; False if every slot is taken."""
+        _refuse_temperature(req)
+        free = self._free_slots()
+        if not free:
+            return False
+        plen = len(req.prompt)
+        if plen == 0:
+            req.error = "empty_prompt"
+            req.done = True
+            return True
+        if plen >= self.cache_len - 1:       # cannot hold prompt + 1 decode
+            req.error = "too_long"
+            req.done = True
+            return True
+        slot = free[0]
+        bucket = self._bucket(plen)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, -plen:] = req.prompt          # left-pad into the bucket
+        # prefill a 1-row cache, then splice it into the grid; the pads sit
+        # at negative positions (real tokens at 0..plen-1)
+        small = self.model.init_cache(1, self.cache_len)
+        logits, small = self.model.prefill(
+            torch.from_numpy(toks).to(self.model.device), small,
+            plen - bucket)
+        _splice_cache(self.cache, small, slot)
+        _emit(req, _sample_host(req, logits.float().cpu().numpy()[0]))
+        if req.error == "callback" \
+                or len(req.out_tokens) >= req.max_new_tokens:
+            req.done = True                   # done (or its consumer broke):
+            return True                       # the slot stays free
+        self.slot_req[slot] = req
+        self.slot_pos[slot] = plen
+        return True
+
+    def tick(self) -> list:
+        """One decode step for every slot; returns the requests that
+        retired this tick."""
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return []
+        tokens = np.zeros((self.slots, 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self.slot_req[i].out_tokens[-1]
+        dev = self.model.device
+        logits, self.cache = self.model.decode_step(
+            torch.from_numpy(tokens).to(dev), self.cache,
+            torch.from_numpy(self.slot_pos.copy()).to(dev))
+        logits = logits.float().cpu().numpy()
+        retired = []
+        for i in active:
+            req = self.slot_req[i]
+            _emit(req, _sample_host(req, logits[i]))
+            self.slot_pos[i] += 1
+            if req.error == "callback" \
+                    or len(req.out_tokens) >= req.max_new_tokens \
+                    or self.slot_pos[i] >= self.cache_len - 1:
+                req.done = True
+                retired.append(req)
+                self.slot_req[i] = None
+        self.ticks += 1
+        return retired
+
+    def run(self, requests: list, max_ticks: int = 1000) -> list:
+        """Admit while slots are free, tick until every request is done."""
+        pending = deque(requests)
+        done = []
+        while (pending or any(r is not None for r in self.slot_req)) \
+                and self.ticks < max_ticks:
+            while pending and self._free_slots():
+                req = pending[0]
+                if not self.add_request(req):
+                    break
+                pending.popleft()
+                if req.done:
+                    done.append(req)
+            done.extend(self.tick())
+        return done
+
+
+def _splice_cache(big: dict, small: dict, slot: int) -> None:
+    """Copy a 1-row cache into row ``slot`` of the engine's cache, in
+    place: every leaf of every layer along dim 0 (the port's cache is a
+    per-layer list, with no stacked layers axis)."""
+    for b_layer, s_layer in zip(big["layers"], small["layers"]):
+        for key, val in s_layer.items():
+            b_layer[key][slot:slot + 1].copy_(val)

@@ -214,10 +214,13 @@ def test_cuda_gemm_split_path(rows):
     assert torch.equal(again, lut_gemm(xt, wt, out_dtype=torch.float32))
 
 
-# every OPT-6.7B and MiniCPM3-4B decode GEMM [out x in]
+# every OPT-6.7B, MiniCPM3-4B, Phi-4-mini-3.8B and Qwen1.5-32B decode GEMM
+# [out x in] (Qwen's with its untied head)
 DECODE_SHAPES = [(4096, 4096), (16384, 4096), (4096, 16384), (768, 2560),
                  (3840, 768), (288, 2560), (2560, 2560), (6400, 2560),
-                 (2560, 6400), (73472, 2560)]
+                 (2560, 6400), (73472, 2560), (3072, 3072), (1024, 3072),
+                 (8192, 3072), (3072, 8192), (5120, 5120), (27392, 5120),
+                 (5120, 27392), (152064, 5120)]
 
 
 @pytest.mark.cuda
@@ -433,14 +436,15 @@ def _prefill_flavours(q, k, v, pos, tables, positions):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs", [4, 16])
 @pytest.mark.parametrize("d", [16, 64, 128, 40])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 6, 8])
 @pytest.mark.parametrize("chunk", [1, 5, 63, 64, 65, 130])
 def test_cuda_prefill_mma_matches_plain(chunk, rep, d, bs):
     """The tensor-core prefill (bf16 pools 2e-2, int8 pools in bf16 5e-2
     of the output scale) across the 64-vector query tile and the 64-slot
-    K/V tile, GQA up to rep 8, an unaligned width (40: plain-load staging
-    for int8 rows), and blocks of 4 and 16 slots; pad rows give exactly
-    0; one launch per call."""
+    K/V tile, GQA up to rep 8 (rep 3 and 6, Phi-4-mini's group and twice
+    it, end a 64-row query tile inside a token), an unaligned width (40:
+    plain-load staging for int8 rows), and blocks of 4 and 16 slots; pad
+    rows give exactly 0; one launch per call."""
     require_cuda()
     hkv = 2
     pages = -(-(chunk + 40) // bs)
@@ -714,16 +718,18 @@ def _decode_flavours(q, k, v, pos, tables, positions):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs", [4, 16])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 6, 8])
 def test_cuda_decode_matches_plain(rep, d, bs):
     """The split-table decode on float pools (f32 1e-4, bf16 2e-2) and
     int8 pools (f32 compute with power-of-two scales 1e-4, bf16 compute
-    5e-2), GQA up to rep 8, blocks of 4 and 16 slots, 200-slot tables
-    (13 tiles, split over several blocks), a -1 hole, -1 pads, a stale
-    recycled block; the idle row gives exactly 0, one launch per call,
-    and a second call repeats the first exactly.  Every dead slot's K and
-    V (stale, past a row's position, in no table) poisoned with NaN (or
-    int8 extremes) leaves the output unchanged."""
+    5e-2), GQA up to rep 8 (rep 3 and 6 fill part of a head block of 4
+    or 8: the spare head slots read no q and write nothing), blocks of 4
+    and 16 slots, 200-slot tables (13 tiles, split over several blocks),
+    a -1 hole, -1 pads, a stale recycled block; the idle row gives
+    exactly 0, one launch per call, and a second call repeats the first
+    exactly.  Every dead slot's K and V (stale, past a row's position, in
+    no table) poisoned with NaN (or int8 extremes) leaves the output
+    unchanged."""
     require_cuda()
     from repro_torch.kernels.paged_attention.ops import decode_splits
     b, hkv, pages = 3, 2, -(-200 // bs)
@@ -964,3 +970,46 @@ def test_cuda_mixed_model_kernel_path_matches_plain(bits, dtype, tol):
     assert sum(pre.values()) == 12
     if dtype == "bfloat16":
         assert set(pre) == {"bcq_matmul/mma", "ternary_matmul/mma"}
+
+
+@pytest.mark.cuda
+def test_cuda_phi4_engines_agree():
+    """Phi-4-mini at full width and 2 of its 32 layers, BCQ-3 (g 128) in
+    f32 on the card: the paged engine (fused paged decode and chunked
+    prefill at GQA rep 3, the GEMM kernels) and the slots engine (plain
+    attention over the contiguous cache, the same GEMM kernels) give
+    identical greedy tokens; both run their decode linears on the decode
+    tile."""
+    require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec, quantize_model
+    from repro_torch.serve import PagedServeEngine, Request, ServeEngine
+    cfg = get_config("phi4_mini_3_8b").replace(n_layers=2, dtype="float32",
+                                               max_seq_len=256)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = Model(cfg, device="cuda", dtype=torch.float32).init_params(gen)
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    quantize_model(model, spec)
+    model = model.with_config(quant=spec, paged_kernel="fused")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (9, 40, 23)]
+    outs, counts = [], []
+    for eng in (PagedServeEngine(model, num_blocks=32, block_size=16,
+                                 max_batch=3, max_seq_len=256,
+                                 prefill_buckets=(16, 32, 64)),
+                ServeEngine(model, slots=3, cache_len=256,
+                            prefill_buckets=(16, 32, 64))):
+        _lib.reset_launch_counts()
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=8)
+                        for i, p in enumerate(prompts)], max_ticks=200)
+        torch.cuda.synchronize()
+        outs.append({r.uid: list(r.out_tokens) for r in done})
+        counts.append(dict(_lib.launch_counts))
+        assert _lib.route_counts.get("bcq_matmul/gemv", 0) > 0
+    paged, slots = counts
+    assert paged["paged_decode"] > 0 and paged["paged_prefill"] > 0
+    assert slots["paged_decode"] == slots["paged_prefill"] == 0
+    assert slots["bcq_matmul"] > 0
+    assert outs[0] == outs[1]
+    assert all(len(v) == 8 for v in outs[0].values())

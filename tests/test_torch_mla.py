@@ -39,7 +39,7 @@ from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import PagedServeEngine, Request
 
 from torch_port_cases import (f32_params, live_slots, mla_pool_case,
-                              to_numpy_tree)
+                              port_pair, to_numpy_tree)
 
 TOL = 1e-4
 MLA_ATOL = 1e-5
@@ -49,21 +49,13 @@ ARCH = "minicpm3_4b"
 
 def _pair(quantized: bool, scan: bool = False, paged_kernel="auto",
           backend=None):
-    over = dict(dtype="float32", paged_kernel=paged_kernel, scan_layers=scan)
-    jcfg = j_reduced(ARCH).replace(remat=False, **over)
-    jm = JModel(jcfg)
-    params = f32_params(jm.init(jax.random.PRNGKey(0)))
-    tcfg = t_reduced(ARCH).replace(**over)
+    quant = None
     if quantized:
-        kw = dict(bits=3, group_size=G, iters=2)
+        quant = dict(bits=3, group_size=G, iters=2)
         if backend:
-            kw["backend"] = backend
-        jspec = jquant.QuantSpec(**kw)
-        params, _ = jquant.quantize_model(params, jspec, jm.axes())
-        jm = JModel(jcfg.replace(quant=jspec))
-        tcfg = tcfg.replace(quant=QuantSpec(**kw))
-    tm = from_jax_params(to_numpy_tree(params), tcfg, device="cpu")
-    return jm, params, tm
+            quant["backend"] = backend
+    return port_pair(ARCH, quant=quant, paged_kernel=paged_kernel,
+                     scan_layers=scan)
 
 
 def _rel(got, want):

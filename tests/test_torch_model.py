@@ -13,21 +13,16 @@ bf16 before normalizing, while the port's CPU wrappers run the plain
 versions, which round after it (the reference oracles' order); the
 one-ulp bf16 differences compound over the layers (measured 2.2e-3).
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro import quant as jquant
-from repro.configs import get_reduced as j_reduced
-from repro.models import Model as JModel
 from repro.serve import set_block_tables as j_set_tables
 from repro_torch.configs import get_reduced as t_reduced
-from repro_torch.models import from_jax_params, set_block_tables
-from repro_torch.quant import QuantSpec
+from repro_torch.models import set_block_tables
 
-from torch_port_cases import f32_params, to_numpy_tree
+from torch_port_cases import port_pair
 
 TOL = 1e-4
 KV8_FUSED_TOL = 1e-2
@@ -36,19 +31,10 @@ G = 32          # group size for the reduced widths (d_model 64, d_ff 128)
 
 def _pair(quantized: bool, scan: bool = False, paged_kernel="auto",
           kv_cache_bits=16):
-    over = dict(dtype="float32", paged_kernel=paged_kernel,
-                scan_layers=scan, kv_cache_bits=kv_cache_bits)
-    jcfg = j_reduced("opt_6_7b").replace(remat=False, **over)
-    jm = JModel(jcfg)
-    params = f32_params(jm.init(jax.random.PRNGKey(0)))
-    tcfg = t_reduced("opt_6_7b").replace(**over)
-    if quantized:
-        jspec = jquant.QuantSpec(bits=3, group_size=G, iters=2)
-        params, _ = jquant.quantize_model(params, jspec, jm.axes())
-        jm = JModel(jcfg.replace(quant=jspec))
-        tcfg = tcfg.replace(quant=QuantSpec(bits=3, group_size=G, iters=2))
-    tm = from_jax_params(to_numpy_tree(params), tcfg, device="cpu")
-    return jm, params, tm
+    return port_pair("opt_6_7b",
+                     quant=dict(bits=3, group_size=G, iters=2)
+                     if quantized else None, paged_kernel=paged_kernel,
+                     scan_layers=scan, kv_cache_bits=kv_cache_bits)
 
 
 def _rel(got, want):
@@ -163,11 +149,17 @@ def test_scan_stacked_tree_forward_matches(quantized):
 
 
 def test_unported_variants_raise():
+    """Sliding windows are still refused; GQA with rotary positions is
+    ported (it was refused here before) and builds and runs."""
     from repro_torch.models import Model
     cfg = t_reduced("opt_6_7b")
-    for over in (dict(sliding_window=8), dict(pos="rope")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg.replace(**over), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(cfg.replace(sliding_window=8), device="cpu")
+    rope = Model(cfg.replace(pos="rope"), device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    logits = rope.forward(torch.zeros((1, 4), dtype=torch.int32))
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_kv_cache_bits_view_writes_int8_pools():

@@ -8,43 +8,25 @@ short case with ``paged_kernel="fused"`` interpreted.  Host logic
 (``BlockPool``, ``Scheduler``) is checked for its invariants, and the
 launcher must refuse to run without a GPU unless given ``--device cpu``.
 """
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro import quant as jquant
-from repro.configs import get_reduced as j_reduced
-from repro.models import Model as JModel
 from repro.serve import PagedServeEngine as JEngine, Request as JRequest
-from repro_torch.configs import get_reduced as t_reduced
-from repro_torch.models import from_jax_params
-from repro_torch.quant import QuantSpec
 from repro_torch.serve import (BlockPool, PagedServeEngine, Request,
                                Scheduler)
 
-from torch_port_cases import f32_params, to_numpy_tree
+from torch_port_cases import port_pair, prompts_of
 
 
 def _models(paged_kernel):
-    over = dict(dtype="float32", paged_kernel=paged_kernel)
-    jcfg = j_reduced("opt_6_7b").replace(remat=False, **over)
-    jm = JModel(jcfg)
-    params = f32_params(jm.init(jax.random.PRNGKey(0)))
-    jspec = jquant.QuantSpec(bits=3, group_size=32, iters=2,
-                             backend="bcq_xla")
-    params, _ = jquant.quantize_model(params, jspec, jm.axes())
-    jm = JModel(jcfg.replace(quant=jspec))
-    tcfg = t_reduced("opt_6_7b").replace(
-        **over, quant=QuantSpec(bits=3, group_size=32, iters=2,
+    return port_pair("opt_6_7b", paged_kernel=paged_kernel,
+                     quant=dict(bits=3, group_size=32, iters=2,
                                 backend="bcq_xla"))
-    return jm, params, from_jax_params(to_numpy_tree(params), tcfg,
-                                       device="cpu")
 
 
 def _prompts(lens, seed=0, vocab=256):
-    rng = np.random.default_rng(seed)
-    return [rng.integers(0, vocab, (int(n),)).astype(np.int32) for n in lens]
+    return prompts_of(lens, seed, vocab)
 
 
 def _run_both(paged_kernel, lens, max_new, **kw):

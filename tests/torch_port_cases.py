@@ -56,6 +56,59 @@ def f32_params(params):
         params)
 
 
+def _perturb(params, seed):
+    """Random (numpy, from ``seed``) linear biases (``*_b``), norm biases
+    and norm scales, which the reference initializes to 0 and 1, so that
+    parity tests exercise them."""
+    import jax
+    rng = np.random.default_rng(seed)
+
+    def fix(path, x):
+        name = str(getattr(path[-1], "key", ""))
+        if name.endswith("_b") or name == "bias":
+            return x + rng.normal(size=x.shape).astype(np.float32) * 0.1
+        if name == "scale":
+            return x + rng.normal(size=x.shape).astype(np.float32) * 0.1
+        return x
+    return jax.tree_util.tree_map_with_path(fix, params)
+
+
+def port_pair(arch, *, quant=None, perturb=None, **over):
+    """(reference Model, its f32 parameters, port Model on the CPU) for the
+    reduced config of ``arch``, with ``over`` applied to both configs
+    (f32 by default).  ``quant`` (QuantSpec fields) quantizes the
+    reference tree and carries the bundles across; ``perturb`` (a seed)
+    draws the biases and norm parameters (``_perturb``) first."""
+    import jax
+    from repro import quant as jquant
+    from repro.configs import get_reduced as j_reduced
+    from repro.models import Model as JModel
+    from repro_torch.configs import get_reduced as t_reduced
+    from repro_torch.models import from_jax_params
+    from repro_torch.quant import QuantSpec
+    over = {"dtype": "float32", **over}
+    jcfg = j_reduced(arch).replace(remat=False, **over)
+    jm = JModel(jcfg)
+    params = f32_params(jm.init(jax.random.PRNGKey(0)))
+    if perturb is not None:
+        params = _perturb(params, perturb)
+    tcfg = t_reduced(arch).replace(**over)
+    if quant:
+        jspec = jquant.QuantSpec(**quant)
+        params, _ = jquant.quantize_model(params, jspec, jm.axes())
+        jm = JModel(jcfg.replace(quant=jspec))
+        tcfg = tcfg.replace(quant=QuantSpec(**quant))
+    return jm, params, from_jax_params(to_numpy_tree(params), tcfg,
+                                       device="cpu")
+
+
+def prompts_of(lens, seed=0, vocab=256):
+    """int32 prompts of the given lengths, from numpy ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, (int(n),)).astype(np.int32)
+            for n in lens]
+
+
 def pool_case(seed, *, b=3, h=8, hkv=4, d=16, nb=24, bs=4, pages=6,
               chunk=0):
     """Scrambled paged problem as numpy arrays: ragged live lengths, -1
