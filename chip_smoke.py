@@ -25,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      GQA decoders' serve shapes (Phi-4-mini: 24 heads over 8, GQA rep 3;
      Qwen1.5-32B: 40 heads, MHA), and bcq_matmul at their GEMM shapes
      (rows 1, 8 and 512; Qwen's untied head at rows 1 and 8; Phi-4-mini's
-     tied head, a dense matmul, timed);
+     tied head, a dense matmul, timed) and at Mixtral-8x7B's attention
+     GEMMs (rows 1, 8 and 512) and head (rows 1 and 8);
      the decode rows of bcq_matmul (bf16, and f32 rows 8 of every OPT and
      MiniCPM3 weight, timed beside ``torch.matmul`` in f32 and on
      bf16-cast x) and of ternary_matmul (bf16) on the tensor-core decode
@@ -73,9 +74,23 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      on the same weights, through the slots engine (``ServeEngine``, 8
      slots of 512: the same route and logit gates, no paged kernel
      launched; the share of greedy tokens equal to the paged run's is
-     printed, not gated); and Qwen1.5-32B at full width and 8 of its 64
-     layers through the paged engine, with the same gates (its untied
-     head on the decode tile);
+     printed, not gated), then both engines again on its f32 view (the
+     share of equal greedy tokens printed, not gated); and Qwen1.5-32B at
+     full width and 8 of its 64 layers through the paged engine, with
+     the same gates (its untied head on the decode tile); last,
+     Mixtral-8x7B at full width and 8 of its 32 layers (sliding window
+     4096, 8 experts top-2), BCQ-3 g 128, through the slots engine (8
+     slots of 4608, a ring of 4096): the 8-request mix plus one
+     4200-token prompt with 64 new tokens, whose prefill is masked by
+     the window and whose decode writes past the ring's wrap; its f32
+     view (expert banks dequantized to f32 too) gated within 1e-3
+     against the plain path at the first prefill and at a decode step
+     after the wrap, the bf16 error printed; every decode step's 33 BCQ
+     linears on the decode tile and every prefill's 32 on the
+     tensor-core tile (gated); the expert path (no kernel of the port:
+     the reference dequantizes the banks) timed per layer at batch-8
+     decode and a 512-row prefill; the assignments dropped beyond expert
+     capacity in each prefill printed;
   5. checkpoint round trip: the 2.4-bit plan on OPT-6.7B at full width
      and 4 layers, saved by ``save_quantized`` and read back by
      ``load_quantized_model`` into a fresh model: every leaf
@@ -111,6 +126,17 @@ F32_LOGIT_TOL = 1e-3
 # Qwen1.5-32B's serve depth (of 64): at full depth its dense bf16 weights,
 # built before quantization, take ~67 GB
 QWEN_SERVE_LAYERS = 8
+# Mixtral-8x7B's serve depth (of 32): ~2.9 GB of bf16 weights a layer
+# before quantization (the experts 2.82 GB), ~93 GB at full depth
+MIXTRAL_SERVE_LAYERS = 8
+# its slots engine reserves 4608 positions a row, so the ring holds the
+# window (4096); one prompt of 4200 tokens is masked by the window in
+# its prefill and writes past the ring's wrap in decode
+MIXTRAL_CACHE_LEN = 4608
+LONG_PROMPT, LONG_NEW = 4200, 64
+# the engines' prefill buckets (a longer prompt rounds up to a multiple
+# of the top one)
+BUCKETS = (32, 128, 512)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 # the kernels with several bodies, chosen by their wrappers' route_for
 ROUTED = ("bcq_matmul", "lut_gemm", "ternary_matmul")
@@ -1072,7 +1098,11 @@ def gqa_gemm_shapes(cfg):
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     d, f = cfg.d_model, cfg.d_ff
     layer = [(h * hd, d), (hkv * hd, d), (hkv * hd, d), (d, h * hd)]
-    layer += ([(f, d)] if cfg.mlp_act == "swiglu" else []) + [(f, d), (d, f)]
+    if not cfg.n_experts:
+        # a MoE layer's expert banks run no kernel (``moe_apply``
+        # dequantizes them, as the reference does)
+        layer += ([(f, d)] if cfg.mlp_act == "swiglu" else []) \
+            + [(f, d), (d, f)]
     head = None if cfg.tie_embeddings else (cfg.padded_vocab, d)
     return layer, head
 
@@ -1085,6 +1115,22 @@ def step_linears(cfg):
     layer, head = gqa_gemm_shapes(cfg)
     n = cfg.n_layers * len(layer)
     return n + (head is not None), n
+
+
+def check_bcq_mixtral(torch, timer, gen, results):
+    """bcq_matmul at Mixtral-8x7B's attention GEMMs (q, o [4096 x 4096];
+    k, v [1024 x 4096]) at rows 1, 8 and 512, and its untied head [32000
+    x 4096] at rows 1 and 8 (``check_bcq_model_shapes``, each
+    decode-tile case timed five times, median kept).  Its expert banks
+    run no kernel: their time is taken in the serve run
+    (``expert_path_times``)."""
+    from repro_torch.configs import get_config
+    layer, head = gqa_gemm_shapes(get_config("mixtral_8x7b"))
+    cases = [(sh, r) for sh in sorted(set(layer)) for r in (1, 8, 512)]
+    cases += [(head, r) for r in (1, 8)]
+    check_bcq_model_shapes(torch, timer, gen, results, "mixtral_8x7b",
+                           cases, repeats=5)
+    torch.cuda.empty_cache()
 
 
 def check_bcq_dense_archs(torch, timer, gen, results):
@@ -1149,9 +1195,12 @@ def step_kernel_ms(results, gemm, attn, cfg):
     per-call times times the step's launches (GQA: 6 or 7 GEMMs + 1
     attention per layer; MLA: 7 GEMMs + 1 attention per layer; the
     untied unembedding once), for comparison with the measured step
-    time.  A tied head is no kernel of the port (``dense_head``)."""
+    time.  A tied head is no kernel of the port (``dense_head``).  The
+    cases timed for another model (``model`` set to another arch) are
+    left out: Mixtral's q and o share OPT's [4096 x 4096]."""
+    arch = cfg.name.replace("-", "_").replace(".", "_")
     t = {(r["m"], r["n"]): r["ms"] for r in results[gemm]
-         if r["rows"] == 8 and "ms" in r}
+         if r["rows"] == 8 and "ms" in r and r.get("model", arch) == arch}
     attn_ms = attn_record(results, attn, cfg, b=8)["ms"]
     layer, head = (mla_gemm_shapes(cfg) if cfg.attention == "mla"
                    else gqa_gemm_shapes(cfg))
@@ -1190,13 +1239,33 @@ def depth_view(m, k):
 def f32_view(m):
     """A view of model ``m`` whose activations and KV pool are f32 (the
     embedding table copied to f32): the GEMMs then round nothing to bf16,
-    so kernel and plain paths differ only in f32 summation order."""
+    so kernel and plain paths differ only in f32 summation order.  MoE
+    layers (copies of them) dequantize their expert banks to f32 as
+    well (``MoE.bank_dtype``; the served path rounds the expert inputs
+    to bf16, as the reference does, and there an f32 difference reroutes
+    tokens)."""
     import copy
+    import torch
+    from torch import nn
+    from repro_torch.models.moe import MoE
     v = m.with_config(dtype="float32")
     v._modules = dict(m._modules)
     embed = copy.copy(m.embed)
     embed.tok = m.embed.tok.float()
     v.embed = embed
+    if any(isinstance(b.mlp, MoE) for b in m.stack.layers):
+        stack = copy.copy(m.stack)
+        stack._modules = dict(m.stack._modules)
+        blocks = []
+        for b in m.stack.layers:
+            b = copy.copy(b)
+            b._modules = dict(b._modules)
+            if isinstance(b.mlp, MoE):
+                b.mlp = copy.copy(b.mlp)
+                b.mlp.bank_dtype = torch.float32
+            blocks.append(b)
+        stack.layers = nn.ModuleList(blocks)
+        v.stack = stack
     return v
 
 
@@ -1581,6 +1650,299 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None,
                 / max(1, n_gemm))
 
 
+def expert_path_times(torch, model, gen):
+    """Layer 0's MoE of ``model`` (BCQ-3 banks) timed on the card:
+    routing, the dequantize of every routed expert to bf16 and its three
+    f32-accumulated products, and the combine, at a batch-8 decode (x [8,
+    1, d]) and a 512-row prefill (x [1, 512, d]), bf16.  No kernel of the
+    port runs there (the reference has none); the routing's host read of
+    the routed experts falls inside the time."""
+    from repro_torch.models.moe import route
+    moe = model.stack.layers[0].mlp
+    timer = Timer(torch, iters=5, warmup=1)
+    out = {}
+    for name, shape in (("decode_b8", (8, 1)), ("prefill_512", (1, 512))):
+        x = torch.randn((*shape, model.cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        t = timer(lambda: moe(x))
+        experts = route(moe.router, x, model.cfg.experts_per_token)[1]
+        routed = int(torch.unique(experts).numel())
+        out[name] = dict(ms=t, rows=shape[0] * shape[1],
+                         experts_routed=routed)
+        log(f"mixtral expert path ({name}, one layer, BCQ-3 banks "
+            f"dequantized to bf16, no kernel): {t:.3f} ms, {routed} of "
+            f"{model.cfg.n_experts} experts routed")
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_drops(model, start_pos):
+    """(real-token assignments, pad assignments) dropped beyond capacity
+    over ``model``'s MoE layers in its last call, whose first
+    ``-start_pos`` rows were left-pads."""
+    pads = max(0, -int(start_pos))
+    real = pad = 0
+    for blk in model.stack.layers:
+        keep = blk.mlp.last_keep
+        real += int((~keep[:, pads:]).sum())
+        pad += int((~keep[:, :pads]).sum())
+    return real, pad
+
+
+def long_prompt_gate(torch, kern, plain, prompt, steps=4):
+    """The long prompt left-padded into its bucket (the top bucket
+    rounded up: 4608 for 4200 tokens, 408 pads) and prefilled into a
+    1-row contiguous cache of ``MIXTRAL_CACHE_LEN`` (a ring of 4096: only
+    the trailing 4096 entries stay), then ``steps`` decode steps at
+    positions 4200 on, each written past the ring's wrap, feeding the
+    prompt's first tokens; in the f32 views of the kernel and the plain
+    path.  Gate: the last step's logits within ``F32_LOGIT_TOL`` of the
+    logit scale.  Reported beside it, not gated: the plain path against a
+    plain full-sequence forward of the same tokens (window mask, no
+    pads), from which the served path departs where the reference's
+    does: the prefill's queries read only the ring's trailing entries,
+    and the pads take expert capacity."""
+    import numpy as np
+    plen = len(prompt)
+    bucket = next((b for b in BUCKETS if plen <= b),
+                  -(-plen // BUCKETS[-1]) * BUCKETS[-1])
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, -plen:] = prompt
+    feed = prompt[:steps]
+    logits, drops = {}, None
+    for name, m in (("kernel", kern), ("plain", plain)):
+        v = f32_view(m)
+        cache = v.init_cache(1, MIXTRAL_CACHE_LEN)
+        _, cache = v.prefill(torch.as_tensor(toks, device="cuda"), cache,
+                             plen - bucket)
+        if drops is None:
+            drops = moe_drops(v, plen - bucket)
+        for t in range(steps):
+            out, cache = v.decode_step(
+                torch.as_tensor([[int(feed[t])]], device="cuda"), cache,
+                plen + t)
+        torch.cuda.synchronize()
+        logits[name] = out
+        del cache, v
+        torch.cuda.empty_cache()
+    got, want = logits["kernel"], logits["plain"]
+    if not torch.isfinite(got).all():
+        fail("mixtral long prompt: decode logits not finite")
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    full = f32_view(plain).forward(torch.as_tensor(
+        np.concatenate([prompt, feed])[None], device="cuda"))[:, -1]
+    rel_full = float((want - full).abs().max()) / float(full.abs().max())
+    del full
+    torch.cuda.empty_cache()
+    log(f"mixtral long prompt ({plen} tokens in a bucket of {bucket}, ring "
+        f"{min(MIXTRAL_CACHE_LEN, kern.cfg.sliding_window)}): decode step "
+        f"{steps} past the wrap, f32 view, kernel vs plain path: rel err "
+        f"{rel:.3e} <= {F32_LOGIT_TOL:g}: {rel <= F32_LOGIT_TOL}; argmax "
+        f"{int(got.argmax())} vs {int(want.argmax())}; its prefill dropped "
+        f"{drops[0]} real-token and {drops[1]} pad assignments; the plain "
+        f"path against a plain full-sequence forward with the window "
+        f"(not gated): {rel_full:.3e}")
+    if not rel <= F32_LOGIT_TOL:
+        fail("mixtral long prompt: kernel path disagrees with plain path "
+             "after the wrap (f32 view)")
+    return dict(prompt_len=plen, bucket=bucket, decode_steps=steps,
+                f32_rel_err=rel, plain_vs_full_forward_rel=rel_full,
+                dropped_real=drops[0], dropped_pads=drops[1])
+
+
+def serve_mixtral(torch, args, power_line, results, totals):
+    """Mixtral-8x7B at full width (d 4096, 32 heads over 8 kv heads, 8
+    experts top-2, moe_d_ff 14336, vocab 32000, window 4096, rope theta
+    1e6), ``MIXTRAL_SERVE_LAYERS`` of 32 layers, BCQ-3 g 128 random
+    weights from ``--seed``, through the slots engine (``ServeEngine``,
+    8 slots of ``MIXTRAL_CACHE_LEN``, buckets 32/128/512): the 8-request
+    mix plus one request of ``LONG_PROMPT`` tokens and ``LONG_NEW`` new
+    ones, submitted first.  Gates: the f32 view's first prefill (the
+    mix's first 128 tokens, contiguous cache) against the plain path
+    within ``F32_LOGIT_TOL`` (the bf16 error printed), the long prompt
+    after the wrap (``long_prompt_gate``), every decode step's 33 BCQ
+    linears (8 x q/k/v/o + the head) on ``gemv`` and every prefill's 32
+    on ``mma`` (the head's one row on ``gemv``), no paged kernel."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec, quantize_model
+    from repro_torch.serve import Request, ServeEngine
+
+    full = get_config("mixtral_8x7b")
+    cfg = full.replace(n_layers=MIXTRAL_SERVE_LAYERS)
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} experts={cfg.n_experts} top-"
+        f"{cfg.experts_per_token} moe_d_ff={cfg.moe_d_ff} vocab="
+        f"{cfg.vocab_size} window={cfg.sliding_window}; full width, depth "
+        f"cut to {cfg.n_layers} of its {full.n_layers} layers; "
+        f"{spec.describe()} weights")
+    prompts = mix_prompts(args.seed, cfg.vocab_size)
+    long_prompt = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab_size, (LONG_PROMPT,))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init_params(gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    manifest = quantize_model(model, spec)
+    torch.cuda.synchronize()
+    log(f"init {t_init:.1f} s; bcq on the card (experts one at a time) "
+        f"{time.perf_counter() - t0:.1f} s: {manifest.summary()}")
+    kern = model.with_config(quant=spec)
+    plain = model.with_config(quant=spec.replace(backend="dense"))
+    expert = expert_path_times(torch, kern, gen)
+
+    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
+
+    def first(view):
+        got, _ = view.prefill(toks, view.init_cache(1, MIXTRAL_CACHE_LEN), 0)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail("serve[mixtral]: first-prefill logits not finite")
+        return got
+    rel = {}
+    for name, view in (("bf16", lambda m: m), ("f32", f32_view)):
+        got, want = first(view(kern)), first(view(plain))
+        rel[name] = float((got - want).abs().max()) / float(want.abs().max())
+        argmax = (int(got.argmax()), int(want.argmax()))
+        del got, want
+    log(f"serve[mixtral] first prefill logits (contiguous cache) vs plain "
+        f"path (dense dequant): gate: the f32 view's {rel['f32']:.3e} <= "
+        f"{F32_LOGIT_TOL:g}: {rel['f32'] <= F32_LOGIT_TOL}; bf16 rel err "
+        f"{rel['bf16']:.3e} (reported, not gated); f32 argmax equal: "
+        f"{argmax[0] == argmax[1]}")
+    if not rel["f32"] <= F32_LOGIT_TOL:
+        fail("serve[mixtral]: kernel path disagrees with plain path (f32 "
+             "view)")
+    wrap = long_prompt_gate(torch, kern, plain, long_prompt)
+
+    view = kern.with_config()       # the timing wrappers live on this view
+    eng = ServeEngine(view, slots=8, cache_len=MIXTRAL_CACHE_LEN,
+                      prefill_buckets=BUCKETS)
+    step_ms, _, step_routes, chunk_routes = instrument(torch, view,
+                                                       "prefill")
+    counted, drops = view.prefill, []
+
+    def prefill_drops(tokens, cache, start_pos=0):
+        r = counted(tokens, cache, start_pos)
+        drops.append(moe_drops(view, start_pos))
+        return r
+    view.prefill = prefill_drops
+    first_tok = {}
+    on_token = lambda tok, req: first_tok.setdefault(req.uid,
+                                                     time.perf_counter())
+    reqs = [Request(uid=8, prompt=long_prompt, max_new_tokens=LONG_NEW,
+                    on_token=on_token)]
+    reqs += [Request(uid=i, prompt=p, max_new_tokens=32, on_token=on_token)
+             for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs, max_ticks=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_lib.launch_counts)
+    for k in totals:
+        totals[k] += counts[k]
+    want_new = {r.uid: r.max_new_tokens for r in reqs}
+    bad = [r.uid for r in done
+           if r.error or len(r.out_tokens) != want_new[r.uid]]
+    if len(done) != len(reqs) or bad:
+        fail(f"serve[mixtral]: requests incomplete: {bad}")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+        fail("serve[mixtral]: token outside the vocabulary")
+    if counts["bcq_matmul"] <= 0:
+        fail("serve[mixtral]: bcq_matmul never launched on the main path")
+    paged = {k: n for k, n in counts.items() if k.startswith("paged_")
+             and n}
+    if paged:
+        fail(f"serve[mixtral]: the slots engine launched paged kernels "
+             f"{paged}")
+    step_lin, chunk_lin = step_linears(cfg)
+    routes = route_totals("mixtral", "bcq_matmul", step_routes, chunk_routes,
+                          dict(_lib.route_counts), linears=step_lin,
+                          chunk_linears=chunk_lin)
+    layer, head = gqa_gemm_shapes(cfg)
+    t8 = {(r["m"], r["n"]): r["ms"] for r in results["bcq_matmul"]
+          if r.get("model") == "mixtral_8x7b" and r["rows"] == 8}
+    kern_ms = cfg.n_layers * sum(t8[sh] for sh in layer) + t8[head]
+    expert_ms = cfg.n_layers * expert["decode_b8"]["ms"]
+    ttft = sorted(first_tok[r.uid] - t0 for r in done)
+    steps = sorted(step_ms)
+    p50 = steps[len(steps) // 2]
+    toks_out = sum(len(r.out_tokens) for r in done)
+    out = dict(
+        engine="slots", slots=8, cache_len=MIXTRAL_CACHE_LEN,
+        ring=min(MIXTRAL_CACHE_LEN, cfg.sliding_window),
+        requests=len(done), prompt_lens=[len(r.prompt) for r in reqs],
+        tokens_out=toks_out, wall_s=wall, tokens_per_s=toks_out / wall,
+        ttft_p50_ms=ttft[len(ttft) // 2] * 1e3, decode_step_ms_p50=p50,
+        decode_steps=len(steps), launches=counts,
+        first_prefill_rel_err=rel["bf16"],
+        first_prefill_f32_rel_err=rel["f32"], long_prompt=wrap,
+        step_kernel_ms=kern_ms, expert_path=expert,
+        expert_path_ms_per_step=expert_ms,
+        weight_bytes=manifest.quant_bytes,
+        dropped_first_prefill={"real": drops[0][0], "pads": drops[0][1]},
+        dropped_all_prefills=[list(d) for d in drops], routes=routes,
+        arch=cfg.name, layers=cfg.n_layers,
+        tokens={r.uid: list(r.out_tokens) for r in done})
+    log(f"serve[mixtral]: {len(done)} requests ({LONG_PROMPT}-token prompt "
+        f"first), {toks_out} tokens in {wall:.2f} s = "
+        f"{toks_out / wall:.1f} tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} "
+        f"ms; decode step p50 {p50:.2f} ms over {len(steps)} steps (its "
+        f"BCQ kernels: {kern_ms:.2f} ms by the phase-3 times; its expert "
+        f"path, no kernel: {expert_ms:.2f} ms = {cfg.n_layers} x "
+        f"{expert['decode_b8']['ms']:.3f} ms); weights "
+        f"{manifest.quant_bytes / 1e9:.3f} GB; first prefill dropped "
+        f"{drops[0][0]} real-token and {drops[0][1]} pad assignments; "
+        f"launches {counts}; GEMM bodies: decode steps {routes['decode']}, "
+        f"prefills {routes['prefill']}; card {power_line}")
+    del eng, view, kern, plain, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def engines_f32(torch, m, prompts, eng_kw):
+    """The 8-request mix (32 new tokens each) through the paged engine
+    (fused paged kernels) and the slots engine (8 slots of 512) on the f32
+    view of ``m``: the share of greedy tokens equal, and where each
+    request's streams part, printed and recorded, not gated.  Equal
+    streams in f32 put the bf16 runs' disagreement on rounding."""
+    from repro_torch.serve import PagedServeEngine, Request, ServeEngine
+    v = f32_view(m)
+    toks = {}
+    for name, eng in (
+            ("paged", PagedServeEngine(v, paged_kernel="fused", **eng_kw)),
+            ("slots", ServeEngine(v, slots=8, cache_len=512,
+                                  prefill_buckets=(32, 128, 512)))):
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=32)
+                        for i, p in enumerate(prompts)], max_ticks=4000)
+        if len(done) != len(prompts) or any(r.error for r in done):
+            fail(f"engines_f32[{name}]: requests incomplete")
+        toks[name] = {r.uid: list(r.out_tokens) for r in done}
+        del eng
+    parts = {}
+    for uid, a in toks["paged"].items():
+        b = toks["slots"][uid]
+        parts[uid] = next((i for i, (x, y) in enumerate(zip(a, b))
+                           if x != y), None)
+    same = sum(x == y for uid, a in toks["paged"].items()
+               for x, y in zip(a, toks["slots"][uid]))
+    share = same / sum(len(a) for a in toks["paged"].values())
+    log(f"{m.cfg.name} f32 view, paged vs slots engine: greedy tokens equal "
+        f"{share:.1%}; streams identical {sum(p is None for p in parts.values())}"
+        f" of {len(parts)}; first differing token per request {parts}")
+    del v
+    torch.cuda.empty_cache()
+    return dict(tokens_equal=share, parts_at=parts, tokens=toks)
+
+
 def serve(torch, args, power_line, results):
     """Phase 4: the serve runs, each through the paged engine with fused
     paged attention.  Returns (per-run results, launch totals)."""
@@ -1638,6 +2000,9 @@ def serve(torch, args, power_line, results):
     for cfg, spec, kv_bits, backends, attn, prefill in runs:
         serve_model(torch, args, cfg, spec, kv_bits, backends, attn,
                     prefill, eng_kw, results, totals, power_line, serve_out)
+    # sliding-window attention and MoE layers through the slots engine
+    serve_out["mixtral"] = serve_mixtral(torch, args, power_line, results,
+                                         totals)
     serve_out["checkpoint_round_trip"] = checkpoint_round_trip(
         torch, args, eng_kw)
     return serve_out, totals
@@ -1820,10 +2185,13 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
         m = model.with_config(quant=spec.replace(backend=backend),
                               paged_kernel="fused", kv_cache_bits=kv_bits)
         if engine == "slots":
-            # the same weights through the slots engine
+            # the same weights through the slots engine, then both engines
+            # on the f32 view (is their bf16 disagreement rounding?)
             serve_out[tag] = serve_slots(torch, tag, m, plain, want, toks,
                                          prompts, results, gemm, totals,
                                          power_line, manifest, paged_tokens)
+            serve_out[tag]["engines_f32"] = engines_f32(torch, m, prompts,
+                                                        eng_kw)
             continue
         by_depth = None
         if cfg.attention == "mla" or cfg.pos == "rope":
@@ -1907,6 +2275,7 @@ def main():
     check_bcq_minicpm3(torch, timer, gen, results)
     check_bcq_widths(torch, timer, gen, results)
     check_bcq_dense_archs(torch, timer, gen, results)
+    check_bcq_mixtral(torch, timer, gen, results)
     del timer
     torch.cuda.empty_cache()
 
@@ -1984,6 +2353,11 @@ def main():
             for key in ("gemv_fma", "fma"):
                 r = results[f"bcq_matmul_{key}"][0]
                 kernels[-1][key] = {k: r[k] for k in keys + ("group_size",)}
+            # Mixtral-8x7B's attention and head GEMMs (its serve path)
+            kernels[-1]["mixtral"] = [
+                {k: r[k] for k in keys + ("splits",) if k in r}
+                for r in results["bcq_matmul"]
+                if r.get("model") == "mixtral_8x7b" and r["rows"] != 1]
             # the mixed plans' other widths on the widest weight
             kernels[-1]["widths"] = [
                 {k: r[k] for k in keys + ("bits",)}

@@ -1,11 +1,13 @@
 """Model configuration (counterpart of ``repro.configs.base``).
 
 Carries the fields the ported decoders use: ``kv_cache_bits`` (16, or 8
-for an int8 KV cache), the MLA widths, ``qkv_bias`` and ``rope_theta``
-among them.  The port builds OPT (MHA, learned positions), the rotary
-GQA decoders (Phi-4-mini, Qwen1.5, StableLM) and MiniCPM3 (MLA).
-Architectures it does not build yet (MoE, SSM, enc-dec, sliding
-window) are refused where the model is built, naming their ROADMAP.md
+for an int8 KV cache), the MLA widths, ``qkv_bias``, ``rope_theta``,
+``sliding_window`` and the MoE fields among them.  The port builds OPT
+(MHA, learned positions), the rotary GQA decoders (Phi-4-mini, Qwen1.5,
+StableLM), MiniCPM3 (MLA) and Mixtral (sliding-window GQA with MoE
+layers).  It has no SSM fields: every decoder layer it builds is an
+attention layer (``layer_plan``).  Architectures it does not build yet
+are refused where they are looked up or built, naming their ROADMAP.md
 item.
 """
 from __future__ import annotations
@@ -39,6 +41,14 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0                 # expert hidden width (d_ff if 0)
+    moe_layer_period: int = 1         # MoE every k-th layer
+    first_dense_layers: int = 0       # leading dense layers
+    capacity_factor: float = 1.25
     mlp_act: str = "swiglu"
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
@@ -62,12 +72,20 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return -(-self.vocab_size // 256) * 256
 
+    def mlp_kind(self, i: int) -> str:
+        """'dense' or 'moe' for decoder layer i."""
+        period = self.moe_layer_period
+        if self.n_experts and i >= self.first_dense_layers \
+                and i % period == (period - 1 if period > 1 else 0):
+            return "moe"
+        return "dense"
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
 ARCH_IDS = ["opt_6_7b", "minicpm3_4b", "phi4_mini_3_8b", "qwen1_5_32b",
-            "stablelm_1_6b"]
+            "stablelm_1_6b", "mixtral_8x7b"]
 
 
 def _module(arch: str):

@@ -30,7 +30,7 @@ from repro_torch.core.plane import dequantize
 
 class LayerStack:
     """A stacked leaf [L, out, in] held as its L per-layer [out, in]
-    weights, in stack order."""
+    weights (or [L, E, out, in] as L expert banks), in stack order."""
 
     def __init__(self, layers: Sequence[torch.Tensor]):
         self.layers = list(layers)
@@ -42,13 +42,14 @@ class LayerStack:
     def rows(self, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Rows ``idx`` (ascending) of the flattened [L * out, in] view in
         f32, all rows when ``idx`` is None."""
+        flat = [w.reshape(-1, w.shape[-1]) for w in self.layers]
         if idx is None:
-            return torch.cat([w.float() for w in self.layers])
-        out = self.layers[0].shape[0]
+            return torch.cat([w.float() for w in flat])
+        out = flat[0].shape[0]
         layer = idx // out
         parts = []
         for i in torch.unique_consecutive(layer).tolist():
-            w = self.layers[i]
+            w = flat[i]
             sel = (idx[layer == i] % out).to(w.device)
             parts.append(w[sel].float())
         return torch.cat(parts)

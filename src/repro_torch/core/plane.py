@@ -8,6 +8,12 @@ packed sign planes, per-(row, group) scale rows and layout metadata:
   * ``alpha``   f32 [q, out, n_groups], one scale row per plane;
   * ``z``       f32 [out, n_groups] offset row (or ``None``).
 
+An expert bank stacks E such bundles on a leading axis (``packed`` [E,
+q, out, in_pad // 8], ``alpha`` [E, q, out, n_groups], ``z`` [E, out,
+n_groups]), as the reference quantizes MoE weights per expert;
+:meth:`PlaneBundle.index` takes one expert's bundle back out.  The
+GEMM kernels take 2-D bundles only.
+
 Two kinds exist, as in the reference: ``kind="bcq"`` (one ±1 plane and
 one alpha row per bit) and ``kind="ternary"`` (plane 0 is the sign bit,
 1 = +; plane 1 the nonzero mask, 1 = keep; a single alpha row and no
@@ -88,6 +94,12 @@ class PlaneBundle:
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         return dequantize(self, dtype=dtype)
 
+    def index(self, i: int) -> "PlaneBundle":
+        """Entry ``i`` of the leading (expert or layer) axis."""
+        return dataclasses.replace(
+            self, packed=self.packed[i], alpha=self.alpha[i],
+            z=None if self.z is None else self.z[i])
+
 
 def _shifts(device) -> torch.Tensor:
     return torch.arange(8, dtype=torch.uint8, device=device)
@@ -111,10 +123,14 @@ def unpack_planes(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 def dequantize(w: PlaneBundle, dtype=torch.float32) -> torch.Tensor:
     """Dense W[out, in] from a bundle, in f32: sum_i alpha_i * b_i + z
-    for BCQ, alpha * sign * mask for ternary.
+    for BCQ, alpha * sign * mask for ternary.  A bundle with leading axes
+    gives [*lead, out, in], one entry at a time.
 
     The plane sum runs in plane order and the offset is added last, the
     order of the reference's ``(pm1 * alpha).sum(0) + z``."""
+    if w.packed.ndim > 3:
+        return torch.stack([dequantize(w.index(i), dtype)
+                            for i in range(w.packed.shape[0])])
     q, out, nb = w.packed.shape
     g = w.group_size
     pm1 = unpack_planes(w.packed, torch.float32)          # [q, out, in_pad]

@@ -6,10 +6,14 @@
         --reduced 0 --bits 3 --paged-kernel fused
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4_mini_3_8b \\
         --reduced 1 --device cpu --engine slots --slots 4 --cache-len 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \\
+        --reduced 1 --device cpu --engine auto
 
 ``--arch`` is ``opt_6_7b``, ``minicpm3_4b`` (MLA: absorbed paged decode
-through its kernel; prefill on the gathered path), or one of the rotary
-GQA decoders ``phi4_mini_3_8b``, ``qwen1_5_32b`` and ``stablelm_1_6b``.
+through its kernel; prefill on the gathered path), one of the rotary
+GQA decoders ``phi4_mini_3_8b``, ``qwen1_5_32b`` and ``stablelm_1_6b``,
+or ``mixtral_8x7b`` (sliding window and MoE layers: the slots engine;
+its expert banks are quantized per expert and dequantized per call).
 ``--engine`` is ``paged`` (the block pool), ``slots`` (``ServeEngine``
 over a contiguous cache of ``--slots`` rows of ``--cache-len``) or
 ``auto`` (paged where ``supports_paging``, else slots), as in the
@@ -50,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="opt_6_7b",
                     help="opt_6_7b | minicpm3_4b | phi4_mini_3_8b | "
-                         "qwen1_5_32b | stablelm_1_6b")
+                         "qwen1_5_32b | stablelm_1_6b | mixtral_8x7b")
     ap.add_argument("--reduced", type=int, default=1)
     ap.add_argument("--bits", type=float, default=None,
                     help="weight bits; fractional (e.g. 2.4) -> mixed "

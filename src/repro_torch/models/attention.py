@@ -48,8 +48,16 @@ Paged decode and chunked prefill route to the fused CUDA kernels
 pools dequantized for prefill), by the reference's rule: ``fused``
 forces the kernels (on the CPU their wrappers run the plain versions),
 ``auto`` takes them where they are native (an H100), ``gather`` never
-does.  Sliding windows raise ``NotImplementedError`` (ROADMAP.md queue
-1 item 7).
+does.
+
+A sliding window (``cfg.sliding_window`` W > 0) masks every key at or
+more than W positions behind its query, in full-sequence attention, in
+the contiguous prefill and in decode.  A paged pool refuses a window,
+as the reference's does: the ring is already a fixed reservation.  A
+prompt longer than the ring is written whole and only its trailing L
+entries stay, and the prefill attends over the cache after that write
+(the reference's path), so its queries before the last see only those
+entries, not their full window.
 """
 from __future__ import annotations
 
@@ -70,9 +78,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"attention={cfg.attention!r} is not ported yet (ROADMAP.md "
             "queue 1 item 7)")
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "yet (ROADMAP.md queue 1 item 7)")
     if cfg.kv_cache_bits not in (8, 16):
         raise ValueError(f"kv_cache_bits must be 8 or 16, got "
                          f"{cfg.kv_cache_bits}")
@@ -83,12 +88,14 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, scale=None):
+def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, window=0,
+                        scale=None):
     """Masked softmax attention, f32 accumulation (the plain version of the
     reference's online-softmax ``blockwise_attention``: one block).
 
     q, k: [B, Sq|Sk, H|Hkv, D]; v: [B, Sk, Hkv, Dv]; qpos [B, Sq]; kpos
-    [B, Sk] (-1 = empty).  Returns [B, Sq, H, Dv] in q.dtype."""
+    [B, Sk] (-1 = empty); ``window`` > 0 keeps keys with qpos - kpos <
+    window.  Returns [B, Sq, H, Dv] in q.dtype."""
     b, sq, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     rep = h // hkv
@@ -99,6 +106,8 @@ def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, scale=None):
     ok = kpos[:, None, :] >= 0
     if causal:
         ok = ok & (kpos[:, None, :] <= qpos[:, :, None])
+    if window:
+        ok = ok & (qpos[:, :, None] - kpos[:, None, :] < window)
     s = s + torch.where(ok, 0.0, NEG_INF)[:, :, None, None, :]
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -108,9 +117,10 @@ def blockwise_attention(q, k, v, qpos, kpos, *, causal=True, scale=None):
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
-def decode_attend(q, cache, positions, *, scale=None):
+def decode_attend(q, cache, positions, *, window=0, scale=None):
     """Single-token attention against a contiguous view.
-    q: [B, 1, H, D]; positions: [B, 1].  int8 views compute in bf16 with
+    q: [B, 1, H, D]; positions: [B, 1]; ``window`` as in
+    :func:`blockwise_attention`.  int8 views compute in bf16 with
     k_scale folded into the scores and v_scale into the probabilities."""
     k, v, kpos = cache["k"], cache["v"], cache["pos"]
     b, _, h, d = q.shape
@@ -124,6 +134,8 @@ def decode_attend(q, cache, positions, *, scale=None):
     if int8:
         sc = sc * cache["k_scale"].transpose(1, 2)[:, :, None, :]
     ok = (kpos >= 0) & (kpos <= positions[:, :1])
+    if window:
+        ok = ok & (positions[:, :1] - kpos < window)
     sc = torch.where(ok[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
     if int8:
@@ -168,8 +180,13 @@ def _cache_leaves(cfg, rows: int, slots: int, device) -> dict:
 
 def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
                            max_blocks_per_seq: int, device) -> dict:
-    """One layer's pool + block table (``paged_cache_desc`` + init)."""
+    """One layer's pool + block table (``paged_cache_desc`` + init).  A
+    sliding window is refused, as in the reference: its ring cache is
+    already a fixed-size reservation."""
     check_supported(cfg)
+    if cfg.sliding_window:
+        raise ValueError("paged KV cache requires sliding_window == 0 "
+                         "(ring caches are already fixed-size)")
     cache = _cache_leaves(cfg, num_blocks, block_size, device)
     cache["block_tables"] = torch.full((batch, max_blocks_per_seq), -1,
                                        dtype=torch.int32, device=device)
@@ -399,9 +416,10 @@ class Attention(nn.Module):
         if cfg.pos == "rope":
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
+        window = cfg.sliding_window
         if cache is None:
             out = blockwise_attention(q, k, v, positions, positions,
-                                      causal=causal)
+                                      causal=causal, window=window)
         else:
             # the cache's dtype decides, not this module's config: a
             # ``with_config(kv_cache_bits=8)`` view shares the modules
@@ -418,17 +436,17 @@ class Attention(nn.Module):
                           else paged_prefill_attend)
                 out = attend(q, cache, positions, mode=paged_kernel)
             elif s == 1:
-                out = decode_attend(q, cache, positions)
+                out = decode_attend(q, cache, positions, window=window)
             elif int8:
                 # whole-prompt prefill into an empty int8 cache: attend
                 # over the fresh K/V (the reference's branch), so the
                 # quantization error reaches only later decode reads
                 out = blockwise_attention(q, k, v, positions, positions,
-                                          causal=True)
+                                          causal=True, window=window)
             else:
                 out = blockwise_attention(q, cache["k"], cache["v"],
                                           positions, cache["pos"],
-                                          causal=True)
+                                          causal=True, window=window)
         out = self.o(out.reshape(b, s, h * hd), backend)
         return (out, cache) if cache is not None else out
 

@@ -9,7 +9,11 @@ parameters live on the modules (created on an explicit device);
 reference parameter tree (numpy arrays or torch tensors, quantized
 leaves as dicts) into a model, and :func:`to_params` is its inverse:
 the model's parameters as the reference's tree, in the stack layout of
-``cfg.scan_layers`` (what quantized checkpoints store).
+``cfg.scan_layers`` (what quantized checkpoints store).  MoE layers
+carry ``mlp/router`` and the expert banks ``mlp/{gate,up,down}`` (dense
+[E, out, in], or bundles with packed [E, q, out, in/8]; one more
+leading axis under ``scan_layers``), plus ``shared_*`` linears where
+the config has shared experts.
 """
 from __future__ import annotations
 
@@ -250,6 +254,11 @@ def layer_trees(stack: dict, n_layers: int) -> list:
     return out
 
 
+# an MLP's linears, or a MoE layer's expert banks and shared experts
+_MLP_LINEARS = ("gate", "up", "down", "shared_gate", "shared_up",
+                "shared_down")
+
+
 def _set_linear(lin: Linear, tree: dict, name: str, device) -> None:
     lin.weight = _leaf(tree[name], device)
     bias_key = f"{name}_b"
@@ -295,9 +304,11 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
         else:
             for name in ("q", "k", "v", "o"):
                 _set_linear(getattr(block.mixer, name), mixer, name, dev)
-        for name in ("gate", "up", "down"):
+        for name in _MLP_LINEARS:
             if name in tree["mlp"]:
                 _set_linear(getattr(block.mlp, name), tree["mlp"], name, dev)
+        if "router" in tree["mlp"]:
+            block.mlp.router = _leaf(tree["mlp"]["router"], dev)
     _set_norm(model.final_norm, params_np["final_norm"], dev)
     return model
 
@@ -330,7 +341,7 @@ def _linears_tree(mod, names) -> dict:
         if lin is None:
             continue
         out[name] = _export(lin.weight)
-        if lin.bias is not None:
+        if getattr(lin, "bias", None) is not None:
             out[f"{name}_b"] = lin.bias
     return out
 
@@ -343,9 +354,11 @@ def _block_tree(block, cfg) -> dict:
         mixer["kv_a_norm"] = block.mixer.kv_a_norm
     else:
         mixer = _linears_tree(block.mixer, ("q", "k", "v", "o"))
+    mlp = _linears_tree(block.mlp, _MLP_LINEARS)
+    if hasattr(block.mlp, "router"):
+        mlp["router"] = block.mlp.router
     return {"ln1": _norm_tree(block.ln1), "ln2": _norm_tree(block.ln2),
-            "mixer": mixer,
-            "mlp": _linears_tree(block.mlp, ("gate", "up", "down"))}
+            "mixer": mixer, "mlp": mlp}
 
 
 def _stack_trees(trees: list):

@@ -14,19 +14,21 @@ from torch import nn
 
 from repro_torch.models.attention import Attention, MLAttention
 from repro_torch.models.layers import MLP, Norm
+from repro_torch.models.moe import MoE
 
 
 class Block(nn.Module):
-    """norm -> attention (GQA or MLA) -> residual -> norm -> MLP ->
-    residual."""
+    """norm -> attention (GQA or MLA) -> residual -> norm -> MLP or MoE
+    (``cfg.mlp_kind(layer)``) -> residual."""
 
-    def __init__(self, cfg, *, dtype, device):
+    def __init__(self, cfg, layer: int, *, dtype, device):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
         mixer = MLAttention if cfg.attention == "mla" else Attention
         self.mixer = mixer(cfg, dtype=dtype, device=device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device)
-        self.mlp = MLP(cfg, dtype=dtype, device=device)
+        mlp = MoE if cfg.mlp_kind(layer) == "moe" else MLP
+        self.mlp = mlp(cfg, dtype=dtype, device=device)
 
     def forward(self, x, positions, *, cache=None, cache_at=None,
                 backend=None, paged_kernel="auto"):
@@ -47,8 +49,8 @@ class Stack(nn.Module):
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(cfg, dtype=dtype, device=device)
-            for _ in range(cfg.n_layers))
+            Block(cfg, i, dtype=dtype, device=device)
+            for i in range(cfg.n_layers))
 
     def forward(self, x, positions, *, caches=None, cache_at=None,
                 backend=None, paged_kernel="auto"):
@@ -63,17 +65,18 @@ class Stack(nn.Module):
 
 
 def layer_plan(cfg):
-    """(mixer kind, MLP kind) per decoder layer: the port builds
-    attention blocks with dense MLPs only (MoE and SSM layers are
-    refused where the model is built)."""
-    return [("attn", "dense")] * cfg.n_layers
+    """(mixer kind, MLP kind) per decoder layer, as the reference's
+    ``layer_kind`` / ``cfg.mlp_kind``: every mixer is attention (the
+    reference's SSM layers, "mamba", are not ported: ROADMAP.md queue 1
+    item 8)."""
+    return [("attn", cfg.mlp_kind(i)) for i in range(cfg.n_layers)]
 
 
 def scan_grouping(cfg):
     """(prefix, period, repeats): layers[prefix:] tile with ``period``
     (``repro/models/transformer.py::scan_grouping``)."""
     plan = layer_plan(cfg)
-    pre = getattr(cfg, "first_dense_layers", 0)
+    pre = cfg.first_dense_layers
     body = plan[pre:]
     if not body:
         return pre, 0, 0

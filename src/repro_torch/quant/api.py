@@ -11,7 +11,8 @@ application of ``repro.quant.ptq`` (both live here):
      per-layer weights; unrolled, each layer is its own leaf
      (``stack/layers/3/mixer/q``).  Leaves are the ``Linear``\\ s named in
      ``QUANT_KEYS`` (the MLA projections and an untied ``unembed``
-     included); embeddings and norms stay FP.
+     included) and a MoE layer's expert banks ([E, out, in], one more
+     leading axis stacked); embeddings, norms and the router stay FP.
   2. :func:`plan_bits` gives each leaf a width: the spec's integer
      width, a format's fixed planes, or for a fractional ``bits`` a
      sensitivity-driven mixed-precision plan (paper Fig. 17), with
@@ -19,9 +20,12 @@ application of ``repro.quant.ptq`` (both live here):
   3. :func:`quantize_model` replaces each layer's dense weight, in place
      and one layer at a time on the device it lies on, by a
      :class:`PlaneBundle` at its leaf's width (below 2 bits: ternary).
-     It returns a :class:`QuantManifest` with one entry per reference
-     leaf (stacked shape, summed bytes), so the manifests of the two
-     packages compare entry for entry in either stack layout.
+     An expert bank is quantized one expert at a time, E leading
+     (packed [E, q, out, in/8]), as the reference's ``_lead_batch``
+     keeps its experts axis.  It returns a :class:`QuantManifest` with
+     one entry per reference leaf (stacked shape, summed bytes), so the
+     manifests of the two packages compare entry for entry in either
+     stack layout.
 """
 from __future__ import annotations
 
@@ -90,17 +94,22 @@ class QuantManifest:
 # ---------------------------------------------------------------------------
 
 
-def _is_quant_leaf(name: str, weight) -> bool:
+def _is_quant_leaf(name: str, weight, bank: bool = False) -> bool:
+    """A dense weight named in ``QUANT_KEYS``: [out, in], or [E, out, in]
+    for an expert bank."""
     if name in _SKIP_KEYS or name not in QUANT_KEYS:
         return False
-    return isinstance(weight, torch.Tensor) and weight.ndim == 2
+    return isinstance(weight, torch.Tensor) and \
+        weight.ndim == (3 if bank else 2)
 
 
 def walk_linears(model) -> Iterator[Tuple[str, object]]:
-    """(module path, Linear) for every linear module, in module order."""
+    """(module path, module) for every ``Linear`` and expert bank, in
+    module order."""
     from repro_torch.models.layers import Linear
+    from repro_torch.models.moe import ExpertBank
     for name, mod in model.named_modules():
-        if isinstance(mod, Linear):
+        if isinstance(mod, (Linear, ExpertBank)):
             yield name.replace(".", "/"), mod
 
 
@@ -108,11 +117,13 @@ def linear_leaves(model) -> dict:
     """{reference leaf key: (Linears in stack order, stacked)} for every
     quantizable linear, in the reference's pytree order (sorted keys,
     list indices by number)."""
+    from repro_torch.models.moe import ExpertBank
     from repro_torch.models.transformer import stack_path
     cfg = model.cfg
     groups = {}
     for path, lin in walk_linears(model):
-        if not _is_quant_leaf(path.rsplit("/", 1)[-1], lin.weight):
+        if not _is_quant_leaf(path.rsplit("/", 1)[-1], lin.weight,
+                              isinstance(lin, ExpertBank)):
             continue
         parts = path.split("/")
         stacked, r = False, 0
@@ -127,8 +138,9 @@ def linear_leaves(model) -> dict:
 
 
 def collect_linears(model) -> dict:
-    """{reference leaf key: dense weight [out, in], or a LayerStack for a
-    stacked leaf}, in the reference's leaf order."""
+    """{reference leaf key: dense weight [out, in] (an expert bank [E,
+    out, in]), or a LayerStack for a stacked leaf}, in the reference's
+    leaf order."""
     return {k: (mp.LayerStack([l.weight for l in lins]) if stacked
                 else lins[0].weight)
             for k, (lins, stacked) in linear_leaves(model).items()}
@@ -203,12 +215,25 @@ def quantize_model(model, spec: QuantSpec, *,
     for key, (lins, _) in leaves.items():
         b = plan[key]
         fmt = formats_mod.format_for_bits(spec.format, b)
+        quant = functools.partial(fmt.quantize, bits=fmt.plane_bits(b),
+                                  group_size=spec.group_size,
+                                  iters=spec.iters)
         for lin in lins:
-            lin.weight = fmt.quantize(lin.weight.float(),
-                                      bits=fmt.plane_bits(b),
-                                      group_size=spec.group_size,
-                                      iters=spec.iters)
+            w = lin.weight
+            lin.weight = (quant(w.float()) if w.ndim == 2
+                          else _stack_bundles([quant(we.float())
+                                               for we in w]))
     return build_manifest(leaves, spec)
+
+
+def _stack_bundles(bundles: list) -> PlaneBundle:
+    """Per-expert bundles stacked on a leading axis (packed [E, q, out,
+    in/8])."""
+    first = bundles[0]
+    return dataclasses.replace(
+        first, packed=torch.stack([b.packed for b in bundles]),
+        alpha=torch.stack([b.alpha for b in bundles]),
+        z=None if first.z is None else torch.stack([b.z for b in bundles]))
 
 
 def build_manifest(leaves: Mapping[str, tuple], spec: QuantSpec
@@ -221,7 +246,7 @@ def build_manifest(leaves: Mapping[str, tuple], spec: QuantSpec
         wq = lins[0].weight
         if not isinstance(wq, PlaneBundle):
             continue
-        shape = [wq.out_features, wq.in_features]
+        shape = [*wq.packed.shape[:-3], wq.out_features, wq.in_features]
         if stacked:
             shape = [len(lins)] + shape
         n = 1

@@ -111,6 +111,11 @@ def execute_linear(x: torch.Tensor, w, *, backend: Optional[str] = None,
                    out_dtype=None) -> torch.Tensor:
     """y = x @ W^T for a dense tensor or a PlaneBundle."""
     out_dtype = out_dtype or x.dtype
+    if isinstance(w, PlaneBundle) and w.packed.ndim != 3:
+        # an expert bank ([E, q, out, in/8]) is no linear: ``moe_apply``
+        # dequantizes it one expert at a time, as the reference does
+        raise ValueError(f"execute_linear takes 2-D weights; got a bundle "
+                         f"with packed {tuple(w.packed.shape)}")
     if not isinstance(w, PlaneBundle):
         # operands in x's dtype, products and sums in f32 (the reference's
         # preferred_element_type=f32), rounded once to out_dtype

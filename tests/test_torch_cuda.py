@@ -220,7 +220,7 @@ DECODE_SHAPES = [(4096, 4096), (16384, 4096), (4096, 16384), (768, 2560),
                  (3840, 768), (288, 2560), (2560, 2560), (6400, 2560),
                  (2560, 6400), (73472, 2560), (3072, 3072), (1024, 3072),
                  (8192, 3072), (3072, 8192), (5120, 5120), (27392, 5120),
-                 (5120, 27392), (152064, 5120)]
+                 (5120, 27392), (152064, 5120), (1024, 4096), (32000, 4096)]
 
 
 @pytest.mark.cuda
@@ -1013,3 +1013,84 @@ def test_cuda_phi4_engines_agree():
     assert slots["bcq_matmul"] > 0
     assert outs[0] == outs[1]
     assert all(len(v) == 8 for v in outs[0].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(4096, 4096), (1024, 4096)])
+def test_cuda_mma_mixtral_prefill_shapes(m, n):
+    """Mixtral-8x7B's attention GEMMs at the 512-row prefill bucket (BCQ-3,
+    g 128, bf16 activations) on the tensor-core tile: 1e-3 of the output
+    scale against the plain version."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + n)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((512, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/mma": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_mixtral_slots_serve_matches_plain():
+    """Reduced-width Mixtral (2 layers, window 32, 4 experts top-2), BCQ-3
+    g 32 in f32 (expert banks dequantized to f32) on the card through the
+    slots engine (ring of 32 under cache_len 80): a prompt past the
+    window and decode past the wrap.
+    The kernel path's prefill and decode logits within 1e-3 of the logit
+    scale of the plain path (dequantize and matmul), its decode steps'
+    linears (2 x q/k/v/o + the head) on the decode tile, and the two
+    paths' greedy streams identical."""
+    require_cuda()
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec, quantize_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_reduced("mixtral_8x7b").replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    model = Model(cfg, device="cuda", dtype=torch.float32).init_params(gen)
+    spec = QuantSpec(format="bcq", bits=3, group_size=32)
+    quantize_model(model, spec)
+    for blk in model.stack.layers:
+        # f32 expert banks: with bf16 ones (the served rounding) an f32
+        # summation-order difference can reroute tokens
+        blk.mlp.bank_dtype = torch.float32
+    kern = model.with_config(quant=spec)
+    plain = model.with_config(quant=spec.replace(backend="dense"))
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(0, 256, 40)
+    toks = np.zeros((1, 48), np.int64)
+    toks[0, -40:] = prompt
+    outs, routes = [], []
+    for m in (kern, plain):
+        logits = []
+        _lib.reset_launch_counts()
+        lg, c = m.prefill(torch.as_tensor(toks, device="cuda"),
+                          m.init_cache(1, 80), -8)
+        logits.append(lg)
+        step = {}
+        for t in range(40, 44):
+            _lib.reset_launch_counts()
+            lg, c = m.decode_step(torch.as_tensor([[int(prompt[t - 40])]],
+                                                  device="cuda"), c, t)
+            torch.cuda.synchronize()
+            logits.append(lg)
+            step = dict(_lib.route_counts)
+        outs.append(logits)
+        routes.append(step)
+    for got, want in zip(*outs):
+        assert torch.isfinite(got).all()
+        _close(got, want, GEMM_TOL)
+    assert routes[0] == {"bcq_matmul/gemv": 2 * 4 + 1}
+    assert routes[1] == {}
+    streams = []
+    for m in (kern, plain):
+        done = ServeEngine(m, slots=2, cache_len=80,
+                           prefill_buckets=(16, 32)).run(
+            [Request(uid=i, prompt=p, max_new_tokens=24)
+             for i, p in enumerate([prompt, prompt[:9]])], max_ticks=200)
+        streams.append({r.uid: list(r.out_tokens) for r in done})
+    assert streams[0] == streams[1]
+    assert all(len(v) == 24 for v in streams[0].values())

@@ -149,17 +149,19 @@ def test_scan_stacked_tree_forward_matches(quantized):
 
 
 def test_unported_variants_raise():
-    """Sliding windows are still refused; GQA with rotary positions is
-    ported (it was refused here before) and builds and runs."""
+    """Attention-free (SSM) stacks are still refused; GQA with rotary
+    positions and sliding windows are ported (both were refused here
+    before) and build and run."""
     from repro_torch.models import Model
     cfg = t_reduced("opt_6_7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.replace(sliding_window=8), device="cpu")
-    rope = Model(cfg.replace(pos="rope"), device="cpu").init_params(
-        torch.Generator().manual_seed(0))
-    logits = rope.forward(torch.zeros((1, 4), dtype=torch.int32))
-    assert logits.shape == (1, 4, cfg.vocab_size)
-    assert bool(torch.isfinite(logits).all())
+        Model(cfg.replace(attention="none"), device="cpu")
+    for over in (dict(pos="rope"), dict(pos="rope", sliding_window=2)):
+        m = Model(cfg.replace(**over), device="cpu").init_params(
+            torch.Generator().manual_seed(0))
+        logits = m.forward(torch.zeros((1, 4), dtype=torch.int32))
+        assert logits.shape == (1, 4, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
 
 
 def test_kv_cache_bits_view_writes_int8_pools():
