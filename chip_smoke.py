@@ -26,7 +26,12 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      Qwen1.5-32B: 40 heads, MHA), and bcq_matmul at their GEMM shapes
      (rows 1, 8 and 512; Qwen's untied head at rows 1 and 8; Phi-4-mini's
      tied head, a dense matmul, timed) and at Mixtral-8x7B's attention
-     GEMMs (rows 1, 8 and 512) and head (rows 1 and 8);
+     GEMMs (rows 1, 8 and 512) and head (rows 1 and 8), DeepSeek-V2's
+     GEMMs (MLA, the dense layer's MLP, the shared experts: rows 1, 8
+     and 512; its head rows 1 and 8) and Mamba2-2.7B's (in_proj, a
+     ragged out-tile, and out_proj: rows 1, 8 and 512; its tied head, a
+     dense matmul, timed); the MLA decode kernel also at DeepSeek-V2's
+     widths (128 heads in four head tiles, lora 512, rope 64);
      the decode rows of bcq_matmul (bf16, and f32 rows 8 of every OPT and
      MiniCPM3 weight, timed beside ``torch.matmul`` in f32 and on
      bf16-cast x) and of ternary_matmul (bf16) on the tensor-core decode
@@ -90,16 +95,28 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      tensor-core tile (gated); the expert path (no kernel of the port:
      the reference dequantizes the banks) timed per layer at batch-8
      decode and a 512-row prefill; the assignments dropped beyond expert
-     capacity in each prefill printed;
+     capacity in each prefill printed; DeepSeek-V2 at full width and 4
+     of its 60 layers (layer 0 dense, layers 1-3 MoE: 160 experts top-6
+     and 2 shared experts), BCQ-3 g 128, through the paged engine with
+     the fused MLA decode kernel (its prefill gathered, as MiniCPM3's),
+     gated as MiniCPM3 (f32 view within 1e-3), its expert path timed and
+     its drops beyond expert capacity printed per chunk; last,
+     Mamba2-2.7B at full width and depth (64 SSD layers, chunk 128),
+     BCQ-3 g 128, through the slots engine (8 slots of 512): its f32
+     view's first prefill gated within 1e-3, every decode step's 128
+     linears on the decode tile and every prefill's 128 on the
+     tensor-core tile;
   5. checkpoint round trip: the 2.4-bit plan on OPT-6.7B at full width
      and 4 layers, saved by ``save_quantized`` and read back by
      ``load_quantized_model`` into a fresh model: every leaf
      bit-identical and the first prompt's greedy tokens identical; the
      write and read times and the bytes on disk are printed.
 
-Every GQA serve run gates the count of linears on the tiles: each decode
+Every serve run gates the count of linears on the tiles: each decode
 step runs all of them on the decode tile, each prefill chunk all but an
-untied head's on the tensor-core tile.
+untied head's on the tensor-core tile; every logit row of every decode
+step and prefill is finite; a paged run's decode step launches its
+decode attention kernel once per layer.
 
 Phase 3 also holds bcq_matmul at q 2 and q 4 (the widths the mixed
 plans use beside q 3) at OPT's three shapes on the decode tile (rows 1
@@ -134,6 +151,9 @@ MIXTRAL_SERVE_LAYERS = 8
 # its prefill and writes past the ring's wrap in decode
 MIXTRAL_CACHE_LEN = 4608
 LONG_PROMPT, LONG_NEW = 4200, 64
+# DeepSeek-V2's serve depth (of 60): layer 0 dense, layers 1-3 MoE; its
+# 160 experts are ~7.5 GB of bf16 a layer before quantization
+DEEPSEEK_SERVE_LAYERS = 4
 # the engines' prefill buckets (a longer prompt rounds up to a multiple
 # of the top one)
 BUCKETS = (32, 128, 512)
@@ -903,10 +923,11 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
 
 def check_paged_mla(torch, timer, gen, results, args_seed):
     """Absorbed MLA decode at the MiniCPM3-4B widths (H 40, lora 256,
-    rope 32, bf16 latent pools, block 16) against its plain version at
-    B 8 (the serve batch), B 1 and a ragged B 3 case, within 1e-4 of the
-    output scale (the reference's ``paged_attention_mla_maxerr`` gate:
-    both compute in f32 from the same pools)."""
+    rope 32) and at DeepSeek-V2's (H 128: head tiles of 40, 40, 40 and 8;
+    lora 512; rope 64), bf16 latent pools, block 16, against its plain
+    version at B 8 (the serve batch), B 1 and a ragged B 3 case, within
+    1e-4 of the output scale (the reference's ``paged_attention_mla_maxerr``
+    gate: both compute in f32 from the same pools)."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels import _lib
@@ -914,15 +935,19 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
                                                      paged_attention_mla,
                                                      paged_decode_mla_ref)
     from repro_torch.kernels.paged_attention.ops import mla_splits
-    h, lora, dr, bs, pages, nb = 40, 256, 32, 16, 32, 257
-    kd = lora + dr
-    scale = (64 + 32) ** -0.5           # (qk_nope + qk_rope)^-0.5
+    bs, pages, nb = 16, 32, 257
     tol = 1e-4
     out = []
-    # (B, seed, idle row 0): the serve batch with an idle row; one live
-    # row; a ragged case (idle row, stale recycled block, -1 pads)
-    for b, seed, idle in ((8, args_seed + 8, True), (1, args_seed + 1, False),
-                          (3, args_seed + 3, True)):
+    # (model, heads, lora, rope, qk_nope) x (B, seed, idle row 0): the
+    # serve batch with an idle row; one live row; a ragged case (idle
+    # row, stale recycled block, -1 pads)
+    for (model, h, lora, dr, dn), (b, seed, idle) in (
+            (w, c) for w in (("minicpm3_4b", 40, 256, 32, 64),
+                             ("deepseek_v2_236b", 128, 512, 64, 128))
+            for c in ((8, args_seed + 8, True), (1, args_seed + 1, False),
+                      (3, args_seed + 3, True))):
+        kd = lora + dr
+        scale = (dn + dr) ** -0.5           # (qk_nope + qk_rope)^-0.5
         rng = np.random.default_rng(seed)
         ckv = torch.randn((nb, bs, lora), generator=gen,
                           device="cuda").to(torch.bfloat16)
@@ -952,7 +977,7 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
         flops = slots * h * (2.0 * kd + 2.0 * lora)
         b_ms, b_by = bound(nbytes, flops)
         splits = mla_splits(b, h, pages, _lib.sm_count(0))
-        tag = f"paged_decode_mla B={b} H={h} ({splits} splits)"
+        tag = f"paged_decode_mla B={b} H={h} lora={lora} ({splits} splits)"
         if not torch.equal(got, kern()):
             fail("paged_decode_mla: a repeated call differs")
         if b != 8:
@@ -960,7 +985,7 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
                 f"({visited} live pages)")
             out.append(dict(b=b, h=h, lora=lora, dr=dr, block_size=bs,
                             splits=splits, max_abs_err=err, rel_err=rel,
-                            tol=tol, visited_pages=visited))
+                            tol=tol, visited_pages=visited, model=model))
             if not ok:
                 fail("paged_decode_mla disagrees with its plain version")
             continue
@@ -985,7 +1010,8 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
                         splits=splits, max_abs_err=err, rel_err=rel,
                         tol=tol, ms=t_k,
                         plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
-                        bound_by=b_by, visited_pages=visited, bytes=nbytes))
+                        bound_by=b_by, visited_pages=visited, bytes=nbytes,
+                        model=model))
         log(f"{tag}: err {err:.3e} (rel {rel:.2e} <= {tol:g}: {ok})  "
             f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {t_lib:.4f} ms  "
             f"bound {b_ms:.4f} ms ({b_by}, {visited} live pages, "
@@ -996,17 +1022,49 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
     results["paged_decode_mla"] = out
 
 
-def mla_gemm_shapes(cfg):
-    """[out x in] of the GEMMs one MLA decode step runs per layer (kv_b is
-    absorbed, not run as a GEMM), and the untied unembedding."""
-    h, d = cfg.n_heads, cfg.d_model
-    layer = [(cfg.q_lora_rank, d),
-             (h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim),
-              cfg.q_lora_rank),
-             (cfg.kv_lora_rank + cfg.qk_rope_head_dim, d),
-             (d, h * cfg.v_head_dim),
-             (cfg.d_ff, d), (cfg.d_ff, d), (d, cfg.d_ff)]
-    return layer, (cfg.padded_vocab, d)
+def layer_gemm_shapes(cfg, i):
+    """[out x in] of the quantized GEMMs one decode step runs in layer
+    ``i``: the mixer's (GQA q, k, v, o; MLA q_a, q_b, kv_a, o, its kv_b
+    absorbed and run as no GEMM; Mamba in_proj, out_proj), then a dense
+    MLP's (GELU up, down; SwiGLU gate, up, down) or a MoE layer's shared
+    experts' (its routed expert banks run no kernel: ``moe_apply``
+    dequantizes them, as the reference does).  A Mamba layer has no
+    MLP."""
+    d, h = cfg.d_model, cfg.n_heads
+    if cfg.layer_kind(i) == "mamba":
+        d_inner = cfg.ssm_expand * d
+        heads = d_inner // cfg.ssm_head_dim
+        return [(2 * d_inner + 2 * cfg.ssm_state + heads, d), (d, d_inner)]
+    if cfg.attention == "mla":
+        out = [(cfg.q_lora_rank, d),
+               (h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim),
+                cfg.q_lora_rank),
+               (cfg.kv_lora_rank + cfg.qk_rope_head_dim, d),
+               (d, h * cfg.v_head_dim)]
+    else:
+        hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+        out = [(h * hd, d), (hkv * hd, d), (hkv * hd, d), (d, h * hd)]
+    if cfg.mlp_kind(i) == "moe":
+        f = (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
+        return out + ([(f, d), (f, d), (d, f)] if f else [])
+    if cfg.d_ff:
+        f = cfg.d_ff
+        out += ([(f, d)] if cfg.mlp_act == "swiglu" else []) \
+            + [(f, d), (d, f)]
+    return out
+
+
+def gemm_shapes(cfg):
+    """(every distinct layer GEMM shape of ``cfg``, in order of first use;
+    the untied head's, or None for a tied head: a dense matmul on the
+    token table)."""
+    shapes = []
+    for i in range(cfg.n_layers):
+        for sh in layer_gemm_shapes(cfg, i):
+            if sh not in shapes:
+                shapes.append(sh)
+    head = None if cfg.tie_embeddings else (cfg.padded_vocab, cfg.d_model)
+    return shapes, head
 
 
 def check_bcq_model_shapes(torch, timer, gen, results, arch, cases,
@@ -1083,28 +1141,11 @@ def check_bcq_minicpm3(torch, timer, gen, results):
     at rows 8 (the f32 view: the decode tile, x split into three bf16
     parts)."""
     from repro_torch.configs import get_config
-    layer, unembed = mla_gemm_shapes(get_config("minicpm3_4b"))
+    layer, unembed = gemm_shapes(get_config("minicpm3_4b"))
     check_bcq_model_shapes(
         torch, timer, gen, results, "minicpm3_4b",
         [(sh, r) for sh in sorted(set(layer)) + [unembed]
          for r in (1, 8, 512)], f32_rows8=True)
-
-
-def gqa_gemm_shapes(cfg):
-    """[out x in] of the GEMMs one GQA decode step runs per layer (q, k, v,
-    o, then the MLP's: up and down for GELU, gate, up and down for
-    SwiGLU), and the untied ``unembed``'s (a quantized linear), or None
-    for a tied head (a dense matmul on the token table)."""
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    d, f = cfg.d_model, cfg.d_ff
-    layer = [(h * hd, d), (hkv * hd, d), (hkv * hd, d), (d, h * hd)]
-    if not cfg.n_experts:
-        # a MoE layer's expert banks run no kernel (``moe_apply``
-        # dequantizes them, as the reference does)
-        layer += ([(f, d)] if cfg.mlp_act == "swiglu" else []) \
-            + [(f, d), (d, f)]
-    head = None if cfg.tie_embeddings else (cfg.padded_vocab, d)
-    return layer, head
 
 
 def step_linears(cfg):
@@ -1112,9 +1153,8 @@ def step_linears(cfg):
     on the tensor-core tile): every layer's GEMMs, plus the untied head in
     a decode step (a prefill chunk runs the head on one row per request,
     on the decode tile)."""
-    layer, head = gqa_gemm_shapes(cfg)
-    n = cfg.n_layers * len(layer)
-    return n + (head is not None), n
+    n = sum(len(layer_gemm_shapes(cfg, i)) for i in range(cfg.n_layers))
+    return n + (gemm_shapes(cfg)[1] is not None), n
 
 
 def check_bcq_mixtral(torch, timer, gen, results):
@@ -1125,7 +1165,7 @@ def check_bcq_mixtral(torch, timer, gen, results):
     run no kernel: their time is taken in the serve run
     (``expert_path_times``)."""
     from repro_torch.configs import get_config
-    layer, head = gqa_gemm_shapes(get_config("mixtral_8x7b"))
+    layer, head = gemm_shapes(get_config("mixtral_8x7b"))
     cases = [(sh, r) for sh in sorted(set(layer)) for r in (1, 8, 512)]
     cases += [(head, r) for r in (1, 8)]
     check_bcq_model_shapes(torch, timer, gen, results, "mixtral_8x7b",
@@ -1134,23 +1174,31 @@ def check_bcq_mixtral(torch, timer, gen, results):
 
 
 def check_bcq_dense_archs(torch, timer, gen, results):
-    """bcq_matmul at the rotary GQA decoders' GEMM shapes
-    (``check_bcq_model_shapes``): rows 1, 8 and 512 at every layer shape
-    of Phi-4-mini-3.8B ([3072 x 3072], [1024 x 3072], [8192 x 3072],
-    [3072 x 8192]) and Qwen1.5-32B ([5120 x 5120], [27392 x 5120],
-    [5120 x 27392]), and Qwen's untied head [152064 x 5120] at rows 1 and
-    8 (a decode step; a prefill chunk runs it on one row).  Phi-4-mini's
-    tied head is a dense matmul on the bf16 token table
-    (``linear_apply``, as the reference leaves it to XLA): timed at rows
-    8 beside its bound, no kernel of the port.  Each decode-tile case is
-    timed five times and its median kept."""
+    """bcq_matmul at the GEMM shapes of the models served without a
+    phase-3 check of their own (``check_bcq_model_shapes``): rows 1, 8
+    and 512 at every layer shape of Phi-4-mini-3.8B ([3072 x 3072], [1024
+    x 3072], [8192 x 3072], [3072 x 8192]), Qwen1.5-32B ([5120 x 5120],
+    [27392 x 5120], [5120 x 27392]), DeepSeek-V2 (q_a [1536 x 5120], q_b
+    [24576 x 1536], kv_a [576 x 5120], o [5120 x 16384], the dense
+    layer's MLP [12288 x 5120] and [5120 x 12288], the shared experts'
+    [3072 x 5120] and [5120 x 3072]; its kv_b is absorbed) and
+    Mamba2-2.7B (in_proj [10576 x 2560], a ragged out-tile, and out_proj
+    [2560 x 5120]), and the untied heads (Qwen's [152064 x 5120],
+    DeepSeek's [102400 x 5120]) at rows 1 and 8 (a decode step; a
+    prefill chunk runs the head on one row).  A tied head (Phi-4-mini's,
+    Mamba2's) is a dense matmul on the bf16 token table (``linear_apply``,
+    as the reference leaves it to XLA): timed at rows 8 beside its bound,
+    no kernel of the port.  Routed expert banks run no kernel
+    (``expert_path_times``).  Each decode-tile case is timed five times
+    and its median kept."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantized_linear import linear_apply
 
     results["dense_head"] = []
-    for arch in ("phi4_mini_3_8b", "qwen1_5_32b"):
+    for arch in ("phi4_mini_3_8b", "qwen1_5_32b", "deepseek_v2_236b",
+                 "mamba2_2_7b"):
         cfg = get_config(arch)
-        layer, head = gqa_gemm_shapes(cfg)
+        layer, head = gemm_shapes(cfg)
         cases = [(sh, r) for sh in sorted(set(layer)) for r in (1, 8, 512)]
         if head is not None:
             cases += [(head, r) for r in (1, 8)]
@@ -1176,7 +1224,8 @@ def check_bcq_dense_archs(torch, timer, gen, results):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve OPT-6.7B, MiniCPM3-4B, Phi-4-mini-3.8B and Qwen1.5-32B
+# phase 4: serve OPT-6.7B, MiniCPM3-4B, Phi-4-mini-3.8B, Qwen1.5-32B,
+# Mixtral-8x7B, DeepSeek-V2 and Mamba2-2.7B
 # ---------------------------------------------------------------------------
 
 
@@ -1192,20 +1241,21 @@ def attn_record(results, name, cfg, **want):
 
 def step_kernel_ms(results, gemm, attn, cfg):
     """Device time of one decode step's kernels at batch 8: the phase-3
-    per-call times times the step's launches (GQA: 6 or 7 GEMMs + 1
-    attention per layer; MLA: 7 GEMMs + 1 attention per layer; the
+    per-call times times the step's launches (each layer's GEMMs,
+    ``layer_gemm_shapes``, + 1 decode attention per attention layer; the
     untied unembedding once), for comparison with the measured step
-    time.  A tied head is no kernel of the port (``dense_head``).  The
-    cases timed for another model (``model`` set to another arch) are
-    left out: Mixtral's q and o share OPT's [4096 x 4096]."""
+    time.  A tied head is no kernel of the port (``dense_head``), nor is
+    a MoE layer's routed expert path (``expert_path_times``).  The cases
+    timed for another model (``model`` set to another arch) are left
+    out: Mixtral's q and o share OPT's [4096 x 4096]."""
     arch = cfg.name.replace("-", "_").replace(".", "_")
     t = {(r["m"], r["n"]): r["ms"] for r in results[gemm]
          if r["rows"] == 8 and "ms" in r and r.get("model", arch) == arch}
-    attn_ms = attn_record(results, attn, cfg, b=8)["ms"]
-    layer, head = (mla_gemm_shapes(cfg) if cfg.attention == "mla"
-                   else gqa_gemm_shapes(cfg))
-    return cfg.n_layers * (sum(t[sh] for sh in layer) + attn_ms) \
-        + (t[head] if head else 0.0)
+    attn_ms = attn_record(results, attn, cfg, b=8)["ms"] if attn else 0.0
+    head = gemm_shapes(cfg)[1]
+    return sum(sum(t[sh] for sh in layer_gemm_shapes(cfg, i))
+               + (attn_ms if cfg.layer_kind(i) == "attn" else 0.0)
+               for i in range(cfg.n_layers)) + (t[head] if head else 0.0)
 
 
 def first_logits(torch, m, toks):
@@ -1303,12 +1353,20 @@ def logit_error_by_depth(torch, kern, plain, toks, depths):
 
 def instrument(torch, model, prefill):
     """Wrap ``model``'s ``decode_step`` (timed between two synchronizes)
-    and its ``prefill`` method (by name) on that object.  Returns the
-    lists they fill, one entry per call: step times (ms), each step's
-    kernel launches, and the GEMM bodies each step and each prefill
-    launched (route counter differences)."""
+    and its ``prefill`` method (by name: ``prefill_chunk`` or
+    ``prefill``) on that object.  Returns the lists they fill, one entry
+    per call: step times (ms), each step's kernel launches, and the GEMM
+    bodies each step and each prefill launched (route counter
+    differences); and a dict of two more lists: ``finite``, whether every
+    logit row of each call was finite, and ``drops``, per prefill of a
+    model with MoE layers, its (real-token, pad) assignments dropped
+    beyond expert capacity (``moe_drops``: a chunk's pads follow its
+    ``last_idx``, a whole prompt's left-pads precede ``-start_pos``)."""
     from repro_torch.kernels import _lib
+    from repro_torch.models.moe import MoE
     step_ms, step_launches, step_routes, chunk_routes = [], [], [], []
+    extra = {"finite": [], "drops": []}
+    has_moe = any(isinstance(b.mlp, MoE) for b in model.stack.layers)
     inner_decode, inner_prefill = model.decode_step, getattr(model, prefill)
 
     def route_diff(before):
@@ -1323,19 +1381,25 @@ def instrument(torch, model, prefill):
         r = inner_decode(*a, **kw)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
+        extra["finite"].append(bool(torch.isfinite(r[0]).all()))
         step_launches.append({k: _lib.launch_counts[k] - before[k]
                               for k in before})
         step_routes.append(route_diff(routes))
         return r
 
-    def counted_prefill(*a, **kw):
+    def counted_prefill(tokens, cache, start_pos, *last_idx):
         routes = dict(_lib.route_counts)
-        r = inner_prefill(*a, **kw)
+        r = inner_prefill(tokens, cache, start_pos, *last_idx)
         chunk_routes.append(route_diff(routes))
+        extra["finite"].append(bool(torch.isfinite(r[0]).all()))
+        if has_moe:
+            real = (slice(0, int(last_idx[0]) + 1) if last_idx
+                    else slice(max(0, -int(start_pos)), None))
+            extra["drops"].append(moe_drops(model, real))
         return r
     model.decode_step = timed_decode
     setattr(model, prefill, counted_prefill)
-    return step_ms, step_launches, step_routes, chunk_routes
+    return step_ms, step_launches, step_routes, chunk_routes, extra
 
 
 def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
@@ -1388,7 +1452,7 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         fail(f"serve[{tag}]: kernel path disagrees with plain path")
     # the engine runs a view of m, so the wrappers do not outlive the run
     eng = PagedServeEngine(m.with_config(), paged_kernel="fused", **eng_kw)
-    step_ms, step_launches, step_routes, chunk_routes = instrument(
+    step_ms, step_launches, step_routes, chunk_routes, extra = instrument(
         torch, eng.model, "prefill_chunk")
     reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
             for i, p in enumerate(prompts)]
@@ -1409,9 +1473,14 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     for k in required:
         if counts[k] <= 0:
             fail(f"serve[{tag}]: {k} never launched on the main path")
-    step_lin, chunk_lin = (
-        (mixed["linears"],) * 2 if mixed else
-        step_linears(cfg) if cfg.attention == "gqa" else (None, None))
+    finite_gate(tag, extra)
+    # the decode attention kernel once per layer in every decode step
+    if any(n[attn] != cfg.n_layers for n in step_launches):
+        fail(f"serve[{tag}]: a decode step did not launch {attn} once per "
+             f"layer ({cfg.n_layers}): "
+             f"{sorted({n[attn] for n in step_launches})}")
+    step_lin, chunk_lin = (mixed["linears"],) * 2 if mixed \
+        else step_linears(cfg)
     routes = route_totals(tag, gemm, step_routes, chunk_routes,
                           dict(_lib.route_counts), linears=step_lin,
                           chunk_linears=chunk_lin)
@@ -1444,8 +1513,13 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         step_kernel_ms=kern_ms, weight_bytes=manifest.quant_bytes,
         kv_bytes_per_token=kv_tok, kv_cache_bits=cfg.kv_cache_bits,
         prefill_kernel_ms=pre_ms, routes=routes,
-        arch=cfg.name, layers=cfg.n_layers,
+        arch=cfg.name, layers=cfg.n_layers, finite_logit_calls=len(
+            extra["finite"]),
         tokens={r.uid: list(r.out_tokens) for r in done})
+    if extra["drops"]:
+        out["dropped_per_chunk"] = [list(d) for d in extra["drops"]]
+        log(f"serve[{tag}]: assignments dropped beyond expert capacity "
+            f"per prefill chunk (real, pads): {extra['drops']}")
     head = [r for r in results.get("dense_head", [])
             if (r["m"], r["n"]) == (cfg.padded_vocab, cfg.d_model)]
     if head and cfg.tie_embeddings:
@@ -1473,16 +1547,74 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     return out
 
 
-def serve_slots(torch, tag, m, plain, want, toks, prompts, results, gemm,
-                totals, power_line, manifest, paged_tokens):
+def build_quantized(torch, cfg, spec, seed):
+    """``cfg`` on the card with random weights from ``seed``, quantized to
+    ``spec`` there (a MoE layer's banks one expert at a time).  Returns
+    (the model, its manifest, its parameter count before quantization,
+    the generator for later draws)."""
+    from repro_torch.models import Model
+    from repro_torch.quant import quantize_model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init_params(gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = model.n_params()
+    t0 = time.perf_counter()
+    manifest = quantize_model(model, spec)
+    torch.cuda.synchronize()
+    log(f"init {t_init:.1f} s ({n_params / 1e9:.3f} G parameters); "
+        f"{spec.format} on the card {time.perf_counter() - t0:.1f} s: "
+        f"{manifest.summary()}")
+    return model, manifest, n_params, gen
+
+
+def contiguous_prefill_gate(torch, tag, kern, plain, toks, cache_len,
+                            reference=None):
+    """First-prefill logits of ``toks`` on the kernel path ``kern`` through
+    the contiguous cache (``Model.prefill``: the GEMM kernels; attention
+    or the SSD scan plain PyTorch over the cache, as the reference leaves
+    them to XLA) against the plain path ``plain``: its own contiguous
+    prefill, or ``reference(view)`` where given, in bf16 and in both f32
+    views.  Gate: the f32 views within ``F32_LOGIT_TOL`` of the logit
+    scale; the bf16 error is printed beside it, not gated.  Fails on a
+    non-finite logit on either path.  Returns {"bf16": rel, "f32": rel}."""
+    def contiguous(view):
+        got, _ = view.prefill(toks, view.init_cache(1, cache_len), 0)
+        torch.cuda.synchronize()
+        return got
+    rel, argmax = {}, {}
+    for name, view in (("bf16", lambda v: v), ("f32", f32_view)):
+        got = contiguous(view(kern))
+        want = (reference or contiguous)(view(plain))
+        if (got.shape != want.shape or not torch.isfinite(got).all()
+                or not torch.isfinite(want).all()):
+            fail(f"serve[{tag}]: first-prefill logits not finite")
+        rel[name] = float((got - want).abs().max()) / float(want.abs().max())
+        argmax[name] = int(got.argmax()) == int(want.argmax())
+        del got, want
+    log(f"serve[{tag}] first prefill logits (contiguous cache) vs plain "
+        f"path (dense dequant{', gathered paged attention' if reference else ''}"
+        f"): gate: the f32 view's {rel['f32']:.3e} <= {F32_LOGIT_TOL:g}: "
+        f"{rel['f32'] <= F32_LOGIT_TOL}; bf16 rel err {rel['bf16']:.3e} "
+        f"(reported, not gated); argmax equal: bf16 {argmax['bf16']}, f32 "
+        f"{argmax['f32']}")
+    if not rel["f32"] <= F32_LOGIT_TOL:
+        fail(f"serve[{tag}]: kernel path disagrees with plain path (f32 "
+             "view)")
+    torch.cuda.empty_cache()
+    return rel
+
+
+def serve_slots(torch, tag, m, plain, toks, prompts, results, gemm, totals,
+                power_line, manifest, paged_tokens):
     """The 8-request mix through the slots engine (``ServeEngine``, 8 slots
     of 512, buckets 32/128/512) on model view ``m``: the contiguous
-    path's first-prefill logits (``Model.prefill``: the GEMM kernels,
-    plain attention over the contiguous cache, as the reference leaves
-    it to XLA) in the f32 views of ``m`` and of the plain path ``plain``
-    within ``F32_LOGIT_TOL`` of the logit scale (``serve_one``'s gate
-    for the rotary GQA decoders), the bf16 error against ``want``
-    reported beside it; then the engine with the launch
+    path's first-prefill logits in the f32 views of ``m`` and of the
+    plain paged path ``plain`` within ``F32_LOGIT_TOL`` of the logit
+    scale (``contiguous_prefill_gate``; ``serve_one``'s gate for the
+    rotary GQA decoders), the bf16 error reported beside it; then the
+    engine with the launch
     counters set to 0 just before and read just after.  Every decode
     step must run all of the model's linears on the decode tile and
     every prompt's prefill all of them on the tensor-core tile
@@ -1490,44 +1622,68 @@ def serve_slots(torch, tag, m, plain, want, toks, prompts, results, gemm,
     share of greedy tokens equal to the paged run's (``paged_tokens``)
     is printed, not gated: at bf16 and full depth, random weights turn
     single roundings into different argmaxes (the MiniCPM3 finding)."""
-    from repro_torch.kernels import _lib
     from repro_torch.models.attention import kv_entry_bytes
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Request
 
     cfg = m.cfg
-    slots, cache_len = 8, 512
-
-    def contiguous_logits(view):
-        got, _ = view.prefill(toks, view.init_cache(1, cache_len), 0)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all() or got.shape != want.shape:
-            fail(f"serve[{tag}]: first-prefill logits not finite")
-        return got
-    got = contiguous_logits(m)
-    rel = float((got - want).abs().max()) / float(want.abs().max())
-    got32 = contiguous_logits(f32_view(m))
-    want32 = first_logits(torch, f32_view(plain), toks)
-    rel32 = float((got32 - want32).abs().max()) / float(want32.abs().max())
-    log(f"serve[{tag}] first prefill logits (contiguous cache) vs plain "
-        f"path (dense dequant + gathered attention): gate: the f32 view's "
-        f"{rel32:.3e} <= {F32_LOGIT_TOL:g}: {rel32 <= F32_LOGIT_TOL}; bf16 "
-        f"rel err {rel:.3e} (reported, not gated); argmax equal: "
-        f"{int(got.argmax())} vs {int(want.argmax())}")
-    if not rel32 <= F32_LOGIT_TOL:
-        fail(f"serve[{tag}]: kernel path disagrees with plain path "
-             "(f32 view)")
-    del got, got32, want32
+    cache_len = 512
+    rel = contiguous_prefill_gate(
+        torch, tag, m, plain, toks, cache_len,
+        reference=lambda view: first_logits(torch, view, toks))
+    out, _ = run_slots(torch, tag, m, [
+        Request(uid=i, prompt=p, max_new_tokens=32)
+        for i, p in enumerate(prompts)], cache_len, totals, gemm)
+    tokens = out["tokens"]
+    same = sum(a == b for uid, toks_ in tokens.items()
+               for a, b in zip(toks_, paged_tokens[uid]))
+    share = same / sum(len(t) for t in tokens.values())
+    kern_ms = step_kernel_ms(results, gemm, "paged_decode", cfg)
+    out.update(
+        first_prefill_rel_err=rel["bf16"],
+        first_prefill_f32_rel_err=rel["f32"],
+        weight_bytes=manifest.quant_bytes,
+        kv_bytes_per_token=kv_entry_bytes(cfg) * cfg.n_layers,
+        tokens_equal_to_paged=share,
+        gemm_kernel_ms_per_step=kern_ms - cfg.n_layers * attn_record(
+            results, "paged_decode", cfg, b=8)["ms"])
+    log(f"serve[{tag}]: {out['requests']} requests, {out['tokens_out']} "
+        f"tokens in {out['wall_s']:.2f} s = {out['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} ms; decode step p50 "
+        f"{out['decode_step_ms_p50']:.2f} ms over {out['decode_steps']} "
+        f"steps (its GEMM kernels: "
+        f"{out['gemm_kernel_ms_per_step']:.2f} ms by the phase-3 times; "
+        f"attention is plain PyTorch over the contiguous cache); launches "
+        f"{out['launches']}; GEMM bodies: decode steps "
+        f"{out['routes']['decode']}, prefills {out['routes']['prefill']}; "
+        f"greedy tokens equal to the paged run's: {share:.1%} (not gated); "
+        f"card {power_line}")
     torch.cuda.empty_cache()
-    view = m.with_config()          # the timing wrappers live on this view
-    eng = ServeEngine(view, slots=slots, cache_len=cache_len,
-                      prefill_buckets=(32, 128, 512))
-    step_ms, _, step_routes, chunk_routes = instrument(torch, view,
-                                                       "prefill")
+    return out
+
+
+def run_slots(torch, tag, m, reqs, cache_len, totals, gemm="bcq_matmul"):
+    """``reqs`` through the slots engine (``ServeEngine``, 8 slots of
+    ``cache_len``, buckets 32/128/512) on a view of model ``m`` (the
+    timing wrappers live on the view), the launch counters set to 0 just
+    before and read just after (and added to ``totals``).  Gates: every
+    request done with its ``max_new_tokens`` tokens, all inside the
+    vocabulary; ``gemm`` launched; every logit row finite; no paged
+    kernel; every decode step's linears on the decode tile and every
+    prefill's on the tensor-core tile (``route_totals``).  Returns (the
+    run's numbers, ``instrument``'s dict of finiteness and MoE drops)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import ServeEngine
+
+    cfg = m.cfg
+    view = m.with_config()
+    eng = ServeEngine(view, slots=8, cache_len=cache_len,
+                      prefill_buckets=BUCKETS)
+    step_ms, _, step_routes, chunk_routes, extra = instrument(
+        torch, view, "prefill")
     first = {}
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=32,
-                    on_token=lambda tok, req: first.setdefault(
-                        req.uid, time.perf_counter()))
-            for i, p in enumerate(prompts)]
+    for r in reqs:
+        r.on_token = lambda tok, req: first.setdefault(req.uid,
+                                                       time.perf_counter())
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1537,13 +1693,15 @@ def serve_slots(torch, tag, m, plain, want, toks, prompts, results, gemm,
     counts = dict(_lib.launch_counts)
     for k in totals:
         totals[k] += counts[k]
-    bad = [r.uid for r in done if r.error or len(r.out_tokens) != 32]
+    bad = [r.uid for r in done
+           if r.error or len(r.out_tokens) != r.max_new_tokens]
     if len(done) != len(reqs) or bad:
         fail(f"serve[{tag}]: requests incomplete: {bad}")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
         fail(f"serve[{tag}]: token outside the vocabulary")
     if counts[gemm] <= 0:
         fail(f"serve[{tag}]: {gemm} never launched on the main path")
+    finite_gate(tag, extra)
     paged = {k: n for k, n in counts.items() if k.startswith("paged_")
              and n}
     if paged:
@@ -1553,40 +1711,31 @@ def serve_slots(torch, tag, m, plain, want, toks, prompts, results, gemm,
     routes = route_totals(tag, gemm, step_routes, chunk_routes,
                           dict(_lib.route_counts), linears=step_lin,
                           chunk_linears=chunk_lin)
-    tokens = {r.uid: list(r.out_tokens) for r in done}
-    same = sum(a == b for uid, toks_ in tokens.items()
-               for a, b in zip(toks_, paged_tokens[uid]))
-    share = same / sum(len(t) for t in tokens.values())
     ttft = sorted(first[r.uid] - t0 for r in done)
     steps = sorted(step_ms)
-    p50 = steps[len(steps) // 2]
-    toks_out = sum(len(t) for t in tokens.values())
-    kern_ms = step_kernel_ms(results, gemm, "paged_decode", cfg)
+    toks_out = sum(len(r.out_tokens) for r in done)
     out = dict(
-        engine="slots", slots=slots, cache_len=cache_len,
-        requests=len(done), prompt_lens=[len(p) for p in prompts],
-        tokens_out=toks_out, wall_s=wall, tokens_per_s=toks_out / wall,
-        ttft_p50_ms=ttft[len(ttft) // 2] * 1e3, decode_step_ms_p50=p50,
-        decode_steps=len(steps), launches=counts,
-        first_prefill_rel_err=rel, first_prefill_f32_rel_err=rel32,
-        weight_bytes=manifest.quant_bytes,
-        kv_bytes_per_token=kv_entry_bytes(cfg) * cfg.n_layers,
-        routes=routes, arch=cfg.name, layers=cfg.n_layers, tokens=tokens,
-        tokens_equal_to_paged=share,
-        gemm_kernel_ms_per_step=kern_ms - cfg.n_layers * attn_record(
-            results, "paged_decode", cfg, b=8)["ms"])
-    log(f"serve[{tag}]: {len(done)} requests, {toks_out} tokens in "
-        f"{wall:.2f} s = {toks_out / wall:.1f} tok/s; TTFT p50 "
-        f"{out['ttft_p50_ms']:.1f} ms; decode step p50 {p50:.2f} ms over "
-        f"{len(steps)} steps (its GEMM kernels: "
-        f"{out['gemm_kernel_ms_per_step']:.2f} ms by the phase-3 times; "
-        f"attention is plain PyTorch over the contiguous cache); launches "
-        f"{counts}; GEMM bodies: decode steps {routes['decode']}, prefills "
-        f"{routes['prefill']}; greedy tokens equal to the paged run's: "
-        f"{share:.1%} (not gated); card {power_line}")
+        engine="slots", slots=8, cache_len=cache_len, requests=len(done),
+        prompt_lens=[len(r.prompt) for r in reqs], tokens_out=toks_out,
+        wall_s=wall, tokens_per_s=toks_out / wall,
+        ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+        decode_step_ms_p50=steps[len(steps) // 2], decode_steps=len(steps),
+        launches=counts, routes=routes, arch=cfg.name, layers=cfg.n_layers,
+        finite_logit_calls=len(extra["finite"]),
+        tokens={r.uid: list(r.out_tokens) for r in done})
     del eng, view
-    torch.cuda.empty_cache()
-    return out
+    return out, extra
+
+
+def finite_gate(tag, extra):
+    """Fail unless every logit row of every decode step and prefill of
+    the run was finite (``instrument``)."""
+    if not extra["finite"] or not all(extra["finite"]):
+        bad = [i for i, ok in enumerate(extra["finite"]) if not ok]
+        fail(f"serve[{tag}]: non-finite logits in calls {bad} of "
+             f"{len(extra['finite'])}")
+    log(f"serve[{tag}]: every logit row finite in all "
+        f"{len(extra['finite'])} decode steps and prefills")
 
 
 def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None,
@@ -1651,14 +1800,15 @@ def route_totals(tag, gemm, step_routes, chunk_routes, total, linears=None,
 
 
 def expert_path_times(torch, model, gen):
-    """Layer 0's MoE of ``model`` (BCQ-3 banks) timed on the card:
+    """The first MoE layer of ``model`` (BCQ-3 banks) timed on the card:
     routing, the dequantize of every routed expert to bf16 and its three
-    f32-accumulated products, and the combine, at a batch-8 decode (x [8,
-    1, d]) and a 512-row prefill (x [1, 512, d]), bf16.  No kernel of the
-    port runs there (the reference has none); the routing's host read of
-    the routed experts falls inside the time."""
-    from repro_torch.models.moe import route
-    moe = model.stack.layers[0].mlp
+    f32-accumulated products, the combine, and the shared experts where
+    the config has them (on the BCQ tiles), at a batch-8 decode (x [8, 1,
+    d]) and a 512-row prefill (x [1, 512, d]), bf16.  No kernel of the
+    port runs in the routed path (the reference has none); the routing's
+    host read of the routed experts falls inside the time."""
+    from repro_torch.models.moe import MoE, route
+    moe = next(b.mlp for b in model.stack.layers if isinstance(b.mlp, MoE))
     timer = Timer(torch, iters=5, warmup=1)
     out = {}
     for name, shape in (("decode_b8", (8, 1)), ("prefill_512", (1, 512))):
@@ -1669,25 +1819,29 @@ def expert_path_times(torch, model, gen):
         routed = int(torch.unique(experts).numel())
         out[name] = dict(ms=t, rows=shape[0] * shape[1],
                          experts_routed=routed)
-        log(f"mixtral expert path ({name}, one layer, BCQ-3 banks "
-            f"dequantized to bf16, no kernel): {t:.3f} ms, {routed} of "
-            f"{model.cfg.n_experts} experts routed")
+        log(f"{model.cfg.name} expert path ({name}, one layer, BCQ-3 "
+            f"banks dequantized to bf16, no kernel): {t:.3f} ms, {routed} "
+            f"of {model.cfg.n_experts} experts routed")
     del timer
     torch.cuda.empty_cache()
     return out
 
 
-def moe_drops(model, start_pos):
+def moe_drops(model, real):
     """(real-token assignments, pad assignments) dropped beyond capacity
-    over ``model``'s MoE layers in its last call, whose first
-    ``-start_pos`` rows were left-pads."""
-    pads = max(0, -int(start_pos))
-    real = pad = 0
+    over ``model``'s MoE layers in its last call; ``real`` (a slice of
+    the sequence axis) holds its real tokens, the other rows are pads."""
+    from repro_torch.models.moe import MoE
+    n_real = n_pad = 0
     for blk in model.stack.layers:
-        keep = blk.mlp.last_keep
-        real += int((~keep[:, pads:]).sum())
-        pad += int((~keep[:, :pads]).sum())
-    return real, pad
+        if not isinstance(blk.mlp, MoE):
+            continue
+        dropped = ~blk.mlp.last_keep                      # [B, S, k]
+        is_real = dropped.new_zeros(dropped.shape[1])
+        is_real[real] = True
+        n_real += int(dropped[:, is_real].sum())
+        n_pad += int(dropped[:, ~is_real].sum())
+    return n_real, n_pad
 
 
 def long_prompt_gate(torch, kern, plain, prompt, steps=4):
@@ -1717,7 +1871,7 @@ def long_prompt_gate(torch, kern, plain, prompt, steps=4):
         _, cache = v.prefill(torch.as_tensor(toks, device="cuda"), cache,
                              plen - bucket)
         if drops is None:
-            drops = moe_drops(v, plen - bucket)
+            drops = moe_drops(v, slice(bucket - plen, None))
         for t in range(steps):
             out, cache = v.decode_step(
                 torch.as_tensor([[int(feed[t])]], device="cuda"), cache,
@@ -1766,10 +1920,8 @@ def serve_mixtral(torch, args, power_line, results, totals):
     on ``mma`` (the head's one row on ``gemv``), no paged kernel."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _lib
-    from repro_torch.models import Model
-    from repro_torch.quant import QuantSpec, quantize_model
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.quant import QuantSpec
+    from repro_torch.serve import Request
 
     full = get_config("mixtral_8x7b")
     cfg = full.replace(n_layers=MIXTRAL_SERVE_LAYERS)
@@ -1783,127 +1935,109 @@ def serve_mixtral(torch, args, power_line, results, totals):
     prompts = mix_prompts(args.seed, cfg.vocab_size)
     long_prompt = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab_size, (LONG_PROMPT,))
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda").init_params(gen)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    manifest = quantize_model(model, spec)
-    torch.cuda.synchronize()
-    log(f"init {t_init:.1f} s; bcq on the card (experts one at a time) "
-        f"{time.perf_counter() - t0:.1f} s: {manifest.summary()}")
+    model, manifest, _, gen = build_quantized(torch, cfg, spec, args.seed)
     kern = model.with_config(quant=spec)
     plain = model.with_config(quant=spec.replace(backend="dense"))
     expert = expert_path_times(torch, kern, gen)
-
     toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
-
-    def first(view):
-        got, _ = view.prefill(toks, view.init_cache(1, MIXTRAL_CACHE_LEN), 0)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail("serve[mixtral]: first-prefill logits not finite")
-        return got
-    rel = {}
-    for name, view in (("bf16", lambda m: m), ("f32", f32_view)):
-        got, want = first(view(kern)), first(view(plain))
-        rel[name] = float((got - want).abs().max()) / float(want.abs().max())
-        argmax = (int(got.argmax()), int(want.argmax()))
-        del got, want
-    log(f"serve[mixtral] first prefill logits (contiguous cache) vs plain "
-        f"path (dense dequant): gate: the f32 view's {rel['f32']:.3e} <= "
-        f"{F32_LOGIT_TOL:g}: {rel['f32'] <= F32_LOGIT_TOL}; bf16 rel err "
-        f"{rel['bf16']:.3e} (reported, not gated); f32 argmax equal: "
-        f"{argmax[0] == argmax[1]}")
-    if not rel["f32"] <= F32_LOGIT_TOL:
-        fail("serve[mixtral]: kernel path disagrees with plain path (f32 "
-             "view)")
+    rel = contiguous_prefill_gate(torch, "mixtral", kern, plain, toks,
+                                  MIXTRAL_CACHE_LEN)
     wrap = long_prompt_gate(torch, kern, plain, long_prompt)
 
-    view = kern.with_config()       # the timing wrappers live on this view
-    eng = ServeEngine(view, slots=8, cache_len=MIXTRAL_CACHE_LEN,
-                      prefill_buckets=BUCKETS)
-    step_ms, _, step_routes, chunk_routes = instrument(torch, view,
-                                                       "prefill")
-    counted, drops = view.prefill, []
-
-    def prefill_drops(tokens, cache, start_pos=0):
-        r = counted(tokens, cache, start_pos)
-        drops.append(moe_drops(view, start_pos))
-        return r
-    view.prefill = prefill_drops
-    first_tok = {}
-    on_token = lambda tok, req: first_tok.setdefault(req.uid,
-                                                     time.perf_counter())
-    reqs = [Request(uid=8, prompt=long_prompt, max_new_tokens=LONG_NEW,
-                    on_token=on_token)]
-    reqs += [Request(uid=i, prompt=p, max_new_tokens=32, on_token=on_token)
+    reqs = [Request(uid=8, prompt=long_prompt, max_new_tokens=LONG_NEW)]
+    reqs += [Request(uid=i, prompt=p, max_new_tokens=32)
              for i, p in enumerate(prompts)]
-    torch.cuda.synchronize()
-    _lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = eng.run(reqs, max_ticks=4000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(_lib.launch_counts)
-    for k in totals:
-        totals[k] += counts[k]
-    want_new = {r.uid: r.max_new_tokens for r in reqs}
-    bad = [r.uid for r in done
-           if r.error or len(r.out_tokens) != want_new[r.uid]]
-    if len(done) != len(reqs) or bad:
-        fail(f"serve[mixtral]: requests incomplete: {bad}")
-    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
-        fail("serve[mixtral]: token outside the vocabulary")
-    if counts["bcq_matmul"] <= 0:
-        fail("serve[mixtral]: bcq_matmul never launched on the main path")
-    paged = {k: n for k, n in counts.items() if k.startswith("paged_")
-             and n}
-    if paged:
-        fail(f"serve[mixtral]: the slots engine launched paged kernels "
-             f"{paged}")
-    step_lin, chunk_lin = step_linears(cfg)
-    routes = route_totals("mixtral", "bcq_matmul", step_routes, chunk_routes,
-                          dict(_lib.route_counts), linears=step_lin,
-                          chunk_linears=chunk_lin)
-    layer, head = gqa_gemm_shapes(cfg)
+    out, extra = run_slots(torch, "mixtral", kern, reqs, MIXTRAL_CACHE_LEN,
+                           totals)
+    drops = extra["drops"]
+    layer, head = layer_gemm_shapes(cfg, 0), gemm_shapes(cfg)[1]
     t8 = {(r["m"], r["n"]): r["ms"] for r in results["bcq_matmul"]
           if r.get("model") == "mixtral_8x7b" and r["rows"] == 8}
     kern_ms = cfg.n_layers * sum(t8[sh] for sh in layer) + t8[head]
     expert_ms = cfg.n_layers * expert["decode_b8"]["ms"]
-    ttft = sorted(first_tok[r.uid] - t0 for r in done)
-    steps = sorted(step_ms)
-    p50 = steps[len(steps) // 2]
-    toks_out = sum(len(r.out_tokens) for r in done)
-    out = dict(
-        engine="slots", slots=8, cache_len=MIXTRAL_CACHE_LEN,
+    out.update(
         ring=min(MIXTRAL_CACHE_LEN, cfg.sliding_window),
-        requests=len(done), prompt_lens=[len(r.prompt) for r in reqs],
-        tokens_out=toks_out, wall_s=wall, tokens_per_s=toks_out / wall,
-        ttft_p50_ms=ttft[len(ttft) // 2] * 1e3, decode_step_ms_p50=p50,
-        decode_steps=len(steps), launches=counts,
         first_prefill_rel_err=rel["bf16"],
         first_prefill_f32_rel_err=rel["f32"], long_prompt=wrap,
         step_kernel_ms=kern_ms, expert_path=expert,
         expert_path_ms_per_step=expert_ms,
         weight_bytes=manifest.quant_bytes,
         dropped_first_prefill={"real": drops[0][0], "pads": drops[0][1]},
-        dropped_all_prefills=[list(d) for d in drops], routes=routes,
-        arch=cfg.name, layers=cfg.n_layers,
-        tokens={r.uid: list(r.out_tokens) for r in done})
-    log(f"serve[mixtral]: {len(done)} requests ({LONG_PROMPT}-token prompt "
-        f"first), {toks_out} tokens in {wall:.2f} s = "
-        f"{toks_out / wall:.1f} tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} "
-        f"ms; decode step p50 {p50:.2f} ms over {len(steps)} steps (its "
-        f"BCQ kernels: {kern_ms:.2f} ms by the phase-3 times; its expert "
-        f"path, no kernel: {expert_ms:.2f} ms = {cfg.n_layers} x "
-        f"{expert['decode_b8']['ms']:.3f} ms); weights "
+        dropped_all_prefills=[list(d) for d in drops])
+    log(f"serve[mixtral]: {out['requests']} requests ({LONG_PROMPT}-token "
+        f"prompt first), {out['tokens_out']} tokens in {out['wall_s']:.2f} "
+        f"s = {out['tokens_per_s']:.1f} tok/s; TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms; decode step p50 "
+        f"{out['decode_step_ms_p50']:.2f} ms over {out['decode_steps']} "
+        f"steps (its BCQ kernels: {kern_ms:.2f} ms by the phase-3 times; "
+        f"its expert path, no kernel: {expert_ms:.2f} ms = {cfg.n_layers} "
+        f"x {expert['decode_b8']['ms']:.3f} ms); weights "
         f"{manifest.quant_bytes / 1e9:.3f} GB; first prefill dropped "
         f"{drops[0][0]} real-token and {drops[0][1]} pad assignments; "
-        f"launches {counts}; GEMM bodies: decode steps {routes['decode']}, "
-        f"prefills {routes['prefill']}; card {power_line}")
-    del eng, view, kern, plain, model
+        f"launches {out['launches']}; GEMM bodies: decode steps "
+        f"{out['routes']['decode']}, prefills {out['routes']['prefill']}; "
+        f"card {power_line}")
+    del kern, plain, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mamba(torch, args, power_line, results, totals):
+    """Mamba2-2.7B at full width and depth (64 layers, d 2560, d_inner
+    5120, 80 heads of 64, state 128, conv 4, chunk 128, tied vocab
+    50280), BCQ-3 g 128 random weights from ``--seed``, through the slots
+    engine (``ServeEngine``, 8 slots of 512, buckets 32/128/512): the
+    8-request mix, 32 new tokens each, every prompt left-padded into its
+    bucket (the pads enter the SSM state, as in the reference).  Gates:
+    the f32 view's first prefill (the mix's first 128 tokens, contiguous
+    cache) against the plain path within ``F32_LOGIT_TOL`` (the bf16
+    error printed); every logit row finite; every decode step's 128 BCQ
+    linears (64 x in_proj, out_proj) on ``gemv`` and every prefill's 128
+    on ``mma`` (the tied head is a dense matmul); no paged kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantSpec
+    from repro_torch.serve import Request
+
+    cfg = get_config("mamba2_2_7b")
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    cache_len = 512
+    log(f"serve: {cfg.name} d={cfg.d_model} d_inner="
+        f"{cfg.ssm_expand * cfg.d_model} state={cfg.ssm_state} "
+        f"chunk={cfg.ssm_chunk} vocab={cfg.vocab_size}; full width and "
+        f"depth ({cfg.n_layers} layers); {spec.describe()} weights")
+    prompts = mix_prompts(args.seed, cfg.vocab_size)
+    model, manifest, n_params, _ = build_quantized(torch, cfg, spec,
+                                                   args.seed)
+    kern = model.with_config(quant=spec)
+    plain = model.with_config(quant=spec.replace(backend="dense"))
+    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
+    rel = contiguous_prefill_gate(torch, "mamba2", kern, plain, toks,
+                                  cache_len)
+    out, _ = run_slots(torch, "mamba2", kern, [
+        Request(uid=i, prompt=p, max_new_tokens=32)
+        for i, p in enumerate(prompts)], cache_len, totals)
+    kern_ms = step_kernel_ms(results, "bcq_matmul", None, cfg)
+    head = [r for r in results["dense_head"]
+            if r["model"] == "mamba2_2_7b"][0]
+    pads = [next(b for b in BUCKETS if len(p) <= b) - len(p)
+            for p in prompts]
+    out.update(
+        left_pads=pads, first_prefill_rel_err=rel["bf16"],
+        first_prefill_f32_rel_err=rel["f32"], step_kernel_ms=kern_ms,
+        tied_head_ms=head["ms"], weight_bytes=manifest.quant_bytes,
+        params=n_params)
+    log(f"serve[mamba2]: {out['requests']} requests, {out['tokens_out']} "
+        f"tokens in {out['wall_s']:.2f} s = {out['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} ms; decode step p50 "
+        f"{out['decode_step_ms_p50']:.2f} ms over {out['decode_steps']} "
+        f"steps (its BCQ kernels: {kern_ms:.2f} ms by the phase-3 times, + "
+        f"the tied head's dense matmul {head['ms']:.4f} ms; the SSD scan, "
+        f"conv and state update are plain PyTorch); weights "
+        f"{manifest.quant_bytes / 1e9:.3f} GB; left-pads per prompt "
+        f"{pads}; launches {out['launches']}; GEMM bodies: decode steps "
+        f"{out['routes']['decode']}, prefills {out['routes']['prefill']}; "
+        f"card {power_line}")
+    del kern, plain, model
     torch.cuda.empty_cache()
     return out
 
@@ -1961,11 +2095,14 @@ def serve(torch, args, power_line, results):
     phi4 = get_config("phi4_mini_3_8b")                # full width and depth
     full_qwen = get_config("qwen1_5_32b")
     qwen = full_qwen.replace(n_layers=QWEN_SERVE_LAYERS)
+    full_ds = get_config("deepseek_v2_236b")
+    deepseek = full_ds.replace(n_layers=DEEPSEEK_SERVE_LAYERS)
     # Qwen at full depth is ~67 GB of bf16 weights before quantization
     # (the model is built dense, then quantized one linear at a time), so
     # depth is the one cut, and it is printed
     log(f"qwen1.5-32b: full width, depth cut to {qwen.n_layers} of its "
-        f"{full_qwen.n_layers} layers")
+        f"{full_qwen.n_layers} layers; deepseek-v2-236b: full width, depth "
+        f"cut to {deepseek.n_layers} of its {full_ds.n_layers} layers")
     runs = (
         # (config, weight spec, KV bits, [(run name, backend, gemm
         #  kernel, engine)], decode attention kernel, prefill attention
@@ -1996,6 +2133,11 @@ def serve(torch, args, power_line, results):
          "paged_decode", "paged_prefill"),
         (qwen, bcq3, 16, [("qwen_paged", "auto", "bcq_matmul", "paged")],
          "paged_decode", "paged_prefill"),
+        # MLA + MoE (160 experts top-6, 2 shared) after one dense layer, at
+        # full width and DEEPSEEK_SERVE_LAYERS of its 60 layers; its
+        # prefill is gathered, as MiniCPM3's
+        (deepseek, bcq3, 16, [("deepseek_paged", "auto", "bcq_matmul",
+                               "paged")], "paged_decode_mla", None),
     )
     for cfg, spec, kv_bits, backends, attn, prefill in runs:
         serve_model(torch, args, cfg, spec, kv_bits, backends, attn,
@@ -2003,6 +2145,9 @@ def serve(torch, args, power_line, results):
     # sliding-window attention and MoE layers through the slots engine
     serve_out["mixtral"] = serve_mixtral(torch, args, power_line, results,
                                          totals)
+    # the SSD mixer through the slots engine, at full width and depth
+    serve_out["mamba2"] = serve_mamba(torch, args, power_line, results,
+                                      totals)
     serve_out["checkpoint_round_trip"] = checkpoint_round_trip(
         torch, args, eng_kw)
     return serve_out, totals
@@ -2152,9 +2297,6 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
     """Build ``cfg`` with random weights from ``--seed``, quantize it on
     the card, take the plain path's first-prefill logits, then serve
     the 8-request mix once per backend."""
-    from repro_torch.models import Model
-    from repro_torch.quant import quantize_model
-
     log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth={cfg.n_layers} "
         f"layers; {spec.describe()} weights, {kv_bits}-bit KV")
@@ -2162,16 +2304,7 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
     prompts = mix_prompts(args.seed, cfg.vocab_size)
     toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
     # the same random weights from --seed for every format
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda").init_params(gen)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    manifest = quantize_model(model, spec)
-    torch.cuda.synchronize()
-    log(f"init {t_init:.1f} s; {spec.format} on the card "
-        f"{time.perf_counter() - t0:.1f} s: {manifest.summary()}")
+    model, manifest, _, gen = build_quantized(torch, cfg, spec, args.seed)
     mixed = (mixed_plan(results, cfg, spec, manifest, attn)
              if spec.is_mixed else None)
     plain = model.with_config(quant=spec.replace(backend="dense"),
@@ -2187,9 +2320,9 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
         if engine == "slots":
             # the same weights through the slots engine, then both engines
             # on the f32 view (is their bf16 disagreement rounding?)
-            serve_out[tag] = serve_slots(torch, tag, m, plain, want, toks,
-                                         prompts, results, gemm, totals,
-                                         power_line, manifest, paged_tokens)
+            serve_out[tag] = serve_slots(torch, tag, m, plain, toks, prompts,
+                                         results, gemm, totals, power_line,
+                                         manifest, paged_tokens)
             serve_out[tag]["engines_f32"] = engines_f32(torch, m, prompts,
                                                         eng_kw)
             continue
@@ -2215,6 +2348,8 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
                                    gemms + required, totals, power_line,
                                    manifest, by_depth, mixed)
         serve_out[tag]["logit_error_by_depth"] = by_depth
+        if cfg.n_experts:
+            serve_out[tag]["expert_path"] = expert_path_times(torch, m, gen)
         paged_tokens = serve_out[tag]["tokens"]
         if mixed:
             serve_out[tag].update(plan=mixed["plan"],
@@ -2353,11 +2488,16 @@ def main():
             for key in ("gemv_fma", "fma"):
                 r = results[f"bcq_matmul_{key}"][0]
                 kernels[-1][key] = {k: r[k] for k in keys + ("group_size",)}
-            # Mixtral-8x7B's attention and head GEMMs (its serve path)
-            kernels[-1]["mixtral"] = [
-                {k: r[k] for k in keys + ("splits",) if k in r}
-                for r in results["bcq_matmul"]
-                if r.get("model") == "mixtral_8x7b" and r["rows"] != 1]
+            # the GEMMs of Mixtral-8x7B's (attention, head), DeepSeek-V2's
+            # (MLA, dense MLP, shared experts, head) and Mamba2's (in_proj,
+            # out_proj) serve paths
+            for key, arch in (("mixtral", "mixtral_8x7b"),
+                              ("deepseek", "deepseek_v2_236b"),
+                              ("mamba2", "mamba2_2_7b")):
+                kernels[-1][key] = [
+                    {k: r[k] for k in keys + ("splits",) if k in r}
+                    for r in results["bcq_matmul"]
+                    if r.get("model") == arch and r["rows"] != 1]
             # the mixed plans' other widths on the widest weight
             kernels[-1]["widths"] = [
                 {k: r[k] for k in keys + ("bits",)}
@@ -2368,6 +2508,11 @@ def main():
             kernels[-1]["lut_tile"] = {k: r[k] for k in keys}
         if name == "paged_decode_mla":
             kernels[-1]["case"]["splits"] = sel["splits"]
+            # DeepSeek-V2's widths: 128 heads (4 head tiles), lora 512
+            r = [r for r in results[name] if "ms" in r and r["h"] == 128][0]
+            kernels[-1]["deepseek"] = {k: r[k] for k in (
+                "b", "h", "lora", "dr", "splits", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name == "ternary_matmul":
             kernels[-1]["case"]["splits"] = sel["splits"]
             kernels[-1]["exact_inputs_max_abs_err"] = max(

@@ -2,12 +2,14 @@
 
 Carries the fields the ported decoders use: ``kv_cache_bits`` (16, or 8
 for an int8 KV cache), the MLA widths, ``qkv_bias``, ``rope_theta``,
-``sliding_window`` and the MoE fields among them.  The port builds OPT
-(MHA, learned positions), the rotary GQA decoders (Phi-4-mini, Qwen1.5,
-StableLM), MiniCPM3 (MLA) and Mixtral (sliding-window GQA with MoE
-layers).  It has no SSM fields: every decoder layer it builds is an
-attention layer (``layer_plan``).  Architectures it does not build yet
-are refused where they are looked up or built, naming their ROADMAP.md
+``sliding_window``, the MoE fields and the SSM fields among them.  The
+port builds OPT (MHA, learned positions), the rotary GQA decoders
+(Phi-4-mini, Qwen1.5, StableLM), MiniCPM3 (MLA), Mixtral
+(sliding-window GQA with MoE layers), DeepSeek-V2 (MLA with MoE layers
+after a dense prefix) and Mamba2 (attention-free SSD layers).  Each
+layer's mixer is ``layer_kind(i)`` ("attn" or "mamba") and its MLP
+``mlp_kind(i)``, as in the reference.  Architectures it does not build
+yet are refused where they are looked up, naming their ROADMAP.md
 item.
 """
 from __future__ import annotations
@@ -49,6 +51,14 @@ class ModelConfig:
     moe_layer_period: int = 1         # MoE every k-th layer
     first_dense_layers: int = 0       # leading dense layers
     capacity_factor: float = 1.25
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
+    attn_layer_period: int = 0        # hybrid: 1 attn layer every k
+    attn_layer_offset: int = 4
     mlp_act: str = "swiglu"
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
@@ -72,6 +82,23 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return -(-self.vocab_size // 256) * 256
 
+    @property
+    def is_hybrid(self) -> bool:
+        return self.attn_layer_period > 0
+
+    @property
+    def is_ssm_only(self) -> bool:
+        return self.attention == "none" and self.ssm_state > 0
+
+    def layer_kind(self, i: int) -> str:
+        """'attn' or 'mamba' for decoder layer i."""
+        if self.is_ssm_only:
+            return "mamba"
+        if self.is_hybrid:
+            return ("attn" if i % self.attn_layer_period
+                    == self.attn_layer_offset else "mamba")
+        return "attn"
+
     def mlp_kind(self, i: int) -> str:
         """'dense' or 'moe' for decoder layer i."""
         period = self.moe_layer_period
@@ -85,7 +112,8 @@ class ModelConfig:
 
 
 ARCH_IDS = ["opt_6_7b", "minicpm3_4b", "phi4_mini_3_8b", "qwen1_5_32b",
-            "stablelm_1_6b", "mixtral_8x7b"]
+            "stablelm_1_6b", "mixtral_8x7b", "deepseek_v2_236b",
+            "mamba2_2_7b"]
 
 
 def _module(arch: str):

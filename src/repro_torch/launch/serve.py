@@ -8,12 +8,19 @@
         --reduced 1 --device cpu --engine slots --slots 4 --cache-len 256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \\
         --reduced 1 --device cpu --engine auto
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek_v2_236b --reduced 1 --device cpu --group-size 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b \\
+        --reduced 1 --device cpu --group-size 32
 
 ``--arch`` is ``opt_6_7b``, ``minicpm3_4b`` (MLA: absorbed paged decode
 through its kernel; prefill on the gathered path), one of the rotary
 GQA decoders ``phi4_mini_3_8b``, ``qwen1_5_32b`` and ``stablelm_1_6b``,
-or ``mixtral_8x7b`` (sliding window and MoE layers: the slots engine;
-its expert banks are quantized per expert and dequantized per call).
+``mixtral_8x7b`` (sliding window and MoE layers: the slots engine;
+its expert banks are quantized per expert and dequantized per call),
+``deepseek_v2_236b`` (MLA and MoE layers with shared experts after a
+dense layer: the paged engine) or ``mamba2_2_7b`` (SSD layers, no
+attention: the slots engine; its tied head is a dense bf16 matmul).
 ``--engine`` is ``paged`` (the block pool), ``slots`` (``ServeEngine``
 over a contiguous cache of ``--slots`` rows of ``--cache-len``) or
 ``auto`` (paged where ``supports_paging``, else slots), as in the
@@ -54,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="opt_6_7b",
                     help="opt_6_7b | minicpm3_4b | phi4_mini_3_8b | "
-                         "qwen1_5_32b | stablelm_1_6b | mixtral_8x7b")
+                         "qwen1_5_32b | stablelm_1_6b | mixtral_8x7b | "
+                         "deepseek_v2_236b | mamba2_2_7b")
     ap.add_argument("--reduced", type=int, default=1)
     ap.add_argument("--bits", type=float, default=None,
                     help="weight bits; fractional (e.g. 2.4) -> mixed "
@@ -84,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "paged", "slots"],
                     help="auto picks paged where the model supports it "
-                         "(attention-only, no SWA/enc-dec), else slots")
+                         "(attention-only, no SWA/enc-dec), else slots "
+                         "(Mixtral, Mamba2)")
     ap.add_argument("--slots", type=int, default=4,
                     help="[slots engine] fixed cache rows")
     ap.add_argument("--cache-len", type=int, default=256,

@@ -3,7 +3,10 @@
 Counterpart of ``repro.models.model`` for the paths serving uses:
 ``forward`` (full-sequence logits), ``prefill_chunk`` over a paged
 cache, ``prefill`` (a whole prompt, left-pads at negative positions)
-over a contiguous cache, and ``decode_step`` over either.  The
+over a contiguous cache, and ``decode_step`` over either.  A Mamba
+layer's contiguous cache is its decode state (the ``conv`` window and
+the f32 ``state``, ``models/ssm.py``); a paged cache refuses a stack
+that has one.  The
 parameters live on the modules (created on an explicit device);
 :func:`from_jax_params` carries a
 reference parameter tree (numpy arrays or torch tensors, quantized
@@ -13,7 +16,9 @@ the model's parameters as the reference's tree, in the stack layout of
 carry ``mlp/router`` and the expert banks ``mlp/{gate,up,down}`` (dense
 [E, out, in], or bundles with packed [E, q, out, in/8]; one more
 leading axis under ``scan_layers``), plus ``shared_*`` linears where
-the config has shared experts.
+the config has shared experts.  Mamba layers carry ``mixer/{in_proj,
+conv_w, conv_b, A_log, D, dt_bias, out_norm, out_proj}`` and, with no
+MLP, no ``ln2`` or ``mlp``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from repro_torch import default_device
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import Embed, Linear, Norm
-from repro_torch.models.transformer import Stack
+from repro_torch.models.ssm import init_ssm_cache
+from repro_torch.models.transformer import Stack, layer_plan
 
 
 class Model(nn.Module):
@@ -37,7 +43,8 @@ class Model(nn.Module):
 
     def __init__(self, cfg, *, device=None, dtype=torch.bfloat16):
         super().__init__()
-        attn.check_supported(cfg)
+        if any(kind == "attn" for kind, _ in layer_plan(cfg)):
+            attn.check_supported(cfg)
         self.cfg = cfg
         self.device = default_device(device)
         self.embed = Embed(cfg, dtype=dtype, device=self.device)
@@ -72,6 +79,12 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,
                          max_blocks_per_seq: int) -> dict:
+        """Per-layer block pools + tables; attention-only decoders only
+        (an SSM state is O(1) per sequence: nothing to page)."""
+        if any(kind != "attn" for kind, _ in layer_plan(self.cfg)):
+            raise ValueError("paged cache supports attention-only decoders "
+                             f"({self.cfg.name} has Mamba layers: serve it "
+                             "on the slots engine)")
         return {"layers": [
             attn.init_paged_layer_cache(self.cfg, batch, num_blocks,
                                         block_size, max_blocks_per_seq,
@@ -80,10 +93,12 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, length: int) -> dict:
         """Contiguous per-row caches of ``length`` slots (the slots
-        engine's), every position empty (-1)."""
+        engine's), every position empty (-1); a Mamba layer's is its
+        zero decode state (``init_ssm_cache``)."""
         return {"layers": [
-            attn.init_layer_cache(self.cfg, batch, length, self.device)
-            for _ in range(self.cfg.n_layers)]}
+            init_ssm_cache(self.cfg, batch, self.device) if kind == "mamba"
+            else attn.init_layer_cache(self.cfg, batch, length, self.device)
+            for kind, _ in layer_plan(self.cfg)]}
 
     # ------------------------------------------------------------------
     def _positions(self, tokens: torch.Tensor, start_pos) -> torch.Tensor:
@@ -257,6 +272,8 @@ def layer_trees(stack: dict, n_layers: int) -> list:
 # an MLP's linears, or a MoE layer's expert banks and shared experts
 _MLP_LINEARS = ("gate", "up", "down", "shared_gate", "shared_up",
                 "shared_down")
+# a Mamba mixer's FP leaves beside its two linears
+_SSM_LEAVES = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "out_norm")
 
 
 def _set_linear(lin: Linear, tree: dict, name: str, device) -> None:
@@ -291,12 +308,17 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
         model.embed.pos = _leaf(emb["pos"], dev)
     if "unembed" in emb:
         model.embed.unembed.weight = _leaf(emb["unembed"], dev)
-    for block, tree in zip(model.stack.layers,
-                           layer_trees(params_np["stack"], cfg.n_layers)):
+    for (kind, _), block, tree in zip(
+            layer_plan(cfg), model.stack.layers,
+            layer_trees(params_np["stack"], cfg.n_layers)):
         _set_norm(block.ln1, tree["ln1"], dev)
-        _set_norm(block.ln2, tree["ln2"], dev)
         mixer = tree["mixer"]
-        if cfg.attention == "mla":
+        if kind == "mamba":
+            for name in ("in_proj", "out_proj"):
+                getattr(block.mixer, name).weight = _leaf(mixer[name], dev)
+            for name in _SSM_LEAVES:
+                setattr(block.mixer, name, _leaf(mixer[name], dev))
+        elif cfg.attention == "mla":
             for name in ("q_a", "q_b", "kv_a", "kv_b", "o"):
                 getattr(block.mixer, name).weight = _leaf(mixer[name], dev)
             for name in ("q_a_norm", "kv_a_norm"):
@@ -304,6 +326,9 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
         else:
             for name in ("q", "k", "v", "o"):
                 _set_linear(getattr(block.mixer, name), mixer, name, dev)
+        if block.mlp is None:
+            continue
+        _set_norm(block.ln2, tree["ln2"], dev)
         for name in _MLP_LINEARS:
             if name in tree["mlp"]:
                 _set_linear(getattr(block.mlp, name), tree["mlp"], name, dev)
@@ -346,19 +371,25 @@ def _linears_tree(mod, names) -> dict:
     return out
 
 
-def _block_tree(block, cfg) -> dict:
-    if cfg.attention == "mla":
+def _block_tree(block, cfg, kind) -> dict:
+    if kind == "mamba":
+        mixer = _linears_tree(block.mixer, ("in_proj", "out_proj"))
+        mixer.update({name: getattr(block.mixer, name)
+                      for name in _SSM_LEAVES})
+    elif cfg.attention == "mla":
         mixer = _linears_tree(block.mixer, ("q_a", "q_b", "kv_a", "kv_b",
                                             "o"))
         mixer["q_a_norm"] = block.mixer.q_a_norm
         mixer["kv_a_norm"] = block.mixer.kv_a_norm
     else:
         mixer = _linears_tree(block.mixer, ("q", "k", "v", "o"))
+    out = {"ln1": _norm_tree(block.ln1), "mixer": mixer}
+    if block.mlp is None:
+        return out
     mlp = _linears_tree(block.mlp, _MLP_LINEARS)
     if hasattr(block.mlp, "router"):
         mlp["router"] = block.mlp.router
-    return {"ln1": _norm_tree(block.ln1), "ln2": _norm_tree(block.ln2),
-            "mixer": mixer, "mlp": mlp}
+    return {**out, "ln2": _norm_tree(block.ln2), "mlp": mlp}
 
 
 def _stack_trees(trees: list):
@@ -387,7 +418,8 @@ def to_params(model: Model) -> dict:
         emb["pos"] = model.embed.pos
     if model.embed.unembed is not None:
         emb["unembed"] = _export(model.embed.unembed.weight)
-    blocks = [_block_tree(b, cfg) for b in model.stack.layers]
+    blocks = [_block_tree(b, cfg, kind)
+              for (kind, _), b in zip(layer_plan(cfg), model.stack.layers)]
     if not cfg.scan_layers:
         stack = {"layers": blocks}
     else:

@@ -15,20 +15,28 @@ from torch import nn
 from repro_torch.models.attention import Attention, MLAttention
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import SSM
 
 
 class Block(nn.Module):
-    """norm -> attention (GQA or MLA) -> residual -> norm -> MLP or MoE
-    (``cfg.mlp_kind(layer)``) -> residual."""
+    """norm -> mixer (GQA or MLA attention, or the Mamba2 SSM, by
+    ``cfg.layer_kind(layer)``) -> residual [-> norm -> MLP or MoE
+    (``cfg.mlp_kind(layer)``) -> residual].  A layer has no ``ln2`` and
+    no MLP where ``d_ff`` is 0 and it is not a MoE layer (Mamba2: the
+    mixer is the layer), as ``block_desc``."""
 
     def __init__(self, cfg, layer: int, *, dtype, device):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
-        mixer = MLAttention if cfg.attention == "mla" else Attention
+        kind, mlp_kind = cfg.layer_kind(layer), cfg.mlp_kind(layer)
+        mixer = (SSM if kind == "mamba" else
+                 MLAttention if cfg.attention == "mla" else Attention)
         self.mixer = mixer(cfg, dtype=dtype, device=device)
-        self.ln2 = Norm(cfg.d_model, cfg.norm, device)
-        mlp = MoE if cfg.mlp_kind(layer) == "moe" else MLP
-        self.mlp = mlp(cfg, dtype=dtype, device=device)
+        self.ln2 = self.mlp = None
+        if cfg.d_ff or mlp_kind == "moe":
+            self.ln2 = Norm(cfg.d_model, cfg.norm, device)
+            mlp = MoE if mlp_kind == "moe" else MLP
+            self.mlp = mlp(cfg, dtype=dtype, device=device)
 
     def forward(self, x, positions, *, cache=None, cache_at=None,
                 backend=None, paged_kernel="auto"):
@@ -40,8 +48,9 @@ class Block(nn.Module):
         else:
             h = self.mixer(h, positions, backend=backend)
         x = x + h.to(x.dtype)
-        h = self.mlp(self.ln2(x), backend)
-        x = x + h.to(x.dtype)
+        if self.mlp is not None:
+            h = self.mlp(self.ln2(x), backend)
+            x = x + h.to(x.dtype)
         return x, cache
 
 
@@ -65,11 +74,10 @@ class Stack(nn.Module):
 
 
 def layer_plan(cfg):
-    """(mixer kind, MLP kind) per decoder layer, as the reference's
-    ``layer_kind`` / ``cfg.mlp_kind``: every mixer is attention (the
-    reference's SSM layers, "mamba", are not ported: ROADMAP.md queue 1
-    item 8)."""
-    return [("attn", cfg.mlp_kind(i)) for i in range(cfg.n_layers)]
+    """(mixer kind, MLP kind) per decoder layer: ``cfg.layer_kind`` ("attn"
+    or "mamba") and ``cfg.mlp_kind`` ("dense" or "moe")."""
+    return [(cfg.layer_kind(i), cfg.mlp_kind(i))
+            for i in range(cfg.n_layers)]
 
 
 def scan_grouping(cfg):

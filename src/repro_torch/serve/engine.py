@@ -274,7 +274,9 @@ class ServeEngine:
     """Continuous batching over a fixed slot grid (one full ``cache_len``
     row per request; see the module docstring).  Left-pads get negative
     positions, so the attention pos-mask makes a padded prompt score
-    exactly as the unpadded one."""
+    exactly as the unpadded one in attention layers.  SSM layers have no
+    position mask: the pads' embeddings enter their conv window and
+    state, as in the reference."""
 
     def __init__(self, model, *, slots: int = 8, cache_len: int = 512,
                  prefill_buckets=(32, 128, 512), rng_seed: int = 0):
@@ -382,7 +384,8 @@ class ServeEngine:
 def _splice_cache(big: dict, small: dict, slot: int) -> None:
     """Copy a 1-row cache into row ``slot`` of the engine's cache, in
     place: every leaf of every layer along dim 0 (the port's cache is a
-    per-layer list, with no stacked layers axis)."""
+    per-layer list of flat dicts, with no stacked layers axis; a Mamba
+    layer's leaves are its conv window and its state)."""
     for b_layer, s_layer in zip(big["layers"], small["layers"]):
         for key, val in s_layer.items():
             b_layer[key][slot:slot + 1].copy_(val)

@@ -215,12 +215,15 @@ def test_cuda_gemm_split_path(rows):
 
 
 # every OPT-6.7B, MiniCPM3-4B, Phi-4-mini-3.8B and Qwen1.5-32B decode GEMM
-# [out x in] (Qwen's with its untied head)
+# [out x in] (Qwen's with its untied head), Mixtral's attention and head,
+# and DeepSeek-V2's kv_a and head and Mamba2's in_proj (a ragged out-tile:
+# 10576 = 165 x 64 + 16)
 DECODE_SHAPES = [(4096, 4096), (16384, 4096), (4096, 16384), (768, 2560),
                  (3840, 768), (288, 2560), (2560, 2560), (6400, 2560),
                  (2560, 6400), (73472, 2560), (3072, 3072), (1024, 3072),
                  (8192, 3072), (3072, 8192), (5120, 5120), (27392, 5120),
-                 (5120, 27392), (152064, 5120), (1024, 4096), (32000, 4096)]
+                 (5120, 27392), (152064, 5120), (1024, 4096), (32000, 4096),
+                 (576, 5120), (102400, 5120), (10576, 2560)]
 
 
 @pytest.mark.cuda
@@ -498,11 +501,14 @@ def test_cuda_prefill_mma_refuses_wide_heads():
 @pytest.mark.parametrize("h,lora,dr,bs,dtype", [
     (8, 12, 8, 4, torch.float32), (6, 12, 8, 4, torch.float32),
     (40, 256, 32, 16, torch.bfloat16), (40, 256, 32, 16, torch.float32),
-    (13, 20, 6, 5, torch.bfloat16)])
+    (13, 20, 6, 5, torch.bfloat16), (128, 512, 64, 16, torch.bfloat16),
+    (128, 512, 64, 16, torch.float32)])
 def test_cuda_paged_mla_matches_plain(h, lora, dr, bs, dtype):
     """Ragged head counts (6, 13, 40: no power of two), unaligned widths
-    (the element-copy staging), the MiniCPM3 widths; row 0 is idle and
-    must give zeros; a stale recycled block must not change the result."""
+    (the element-copy staging), the MiniCPM3 widths, DeepSeek-V2's (128
+    heads: head tiles of 40, 40, 40 and 8; lora 512: 16 context values a
+    lane and head); row 0 is idle and must give zeros; a stale recycled
+    block must not change the result."""
     require_cuda()
     dev = lambda a: torch.from_numpy(a).to("cuda")
     qe, qr, ckv, kr, pos, tables, positions = map(dev, mla_pool_case(
@@ -528,11 +534,12 @@ def test_cuda_paged_mla_matches_plain(h, lora, dr, bs, dtype):
     _close(again, got, 1e-6)
 
 
-def _mla_serve_case(h, dtype, b=8, pages=32, seed=0):
-    """MiniCPM3's latent widths (lora 256, rope 32, block 16) on a 32-page
-    table per row (max_seq_len 512), with the ``mla_pool_case`` layout:
-    an idle row 0, -1 pads, a stale recycled block."""
-    case = mla_pool_case(seed, b=b, h=h, lora=256, dr=32, bs=16,
+def _mla_serve_case(h, dtype, b=8, pages=32, seed=0, lora=256, dr=32):
+    """MiniCPM3's latent widths (lora 256, rope 32, block 16; or the
+    given ones) on a 32-page table per row (max_seq_len 512), with the
+    ``mla_pool_case`` layout: an idle row 0, -1 pads, a stale recycled
+    block."""
+    case = mla_pool_case(seed, b=b, h=h, lora=lora, dr=dr, bs=16,
                          nb=b * pages + 2, pages=pages)
     qe, qr, ckv, kr, pos, tables, positions = (torch.from_numpy(a).to("cuda")
                                                for a in case)
@@ -555,6 +562,35 @@ def test_cuda_mla_split_counts(h, dtype, splits, monkeypatch):
     monkeypatch.setattr(pops, "mla_splits", lambda *a: splits)
     qe, qr, ckv, kr, pos, tables, positions = _mla_serve_case(h, dtype)
     sc = 96 ** -0.5
+    _lib.reset_launch_counts()
+    got = paged_attention_mla(qe, qr, ckv, kr, pos, tables, positions,
+                              scale=sc)
+    assert _lib.launch_counts["paged_decode_mla"] == 1
+    want = paged_decode_mla_ref(qe, qr, ckv, kr, pos, tables, positions,
+                                scale=sc)
+    _close(got, want, PAGED_TOL)
+    assert float(got[0].abs().max()) == 0.0
+    assert torch.equal(got, paged_attention_mla(qe, qr, ckv, kr, pos, tables,
+                                                positions, scale=sc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_mla_deepseek_widths(dtype, splits, monkeypatch):
+    """The MLA decode kernel at DeepSeek-V2's serve shape: B 8, 128 heads
+    (four head tiles, the last of 8 heads), lora 512, rope 64, block 16,
+    32-page tables, at the rule's split count and at 1 and 5 forced: 1e-4
+    of the output scale against the plain version, the idle row exactly
+    0, a second call repeating the first exactly."""
+    require_cuda()
+    from repro_torch.kernels.paged_attention import ops as pops
+    assert pops.mla_heads_per_block(128) == 40
+    if splits is not None:
+        monkeypatch.setattr(pops, "mla_splits", lambda *a: splits)
+    qe, qr, ckv, kr, pos, tables, positions = _mla_serve_case(
+        128, dtype, lora=512, dr=64)
+    sc = 192 ** -0.5
     _lib.reset_launch_counts()
     got = paged_attention_mla(qe, qr, ckv, kr, pos, tables, positions,
                               scale=sc)
@@ -1021,6 +1057,26 @@ def test_cuda_mma_mixtral_prefill_shapes(m, n):
     """Mixtral-8x7B's attention GEMMs at the 512-row prefill bucket (BCQ-3,
     g 128, bf16 activations) on the tensor-core tile: 1e-3 of the output
     scale against the plain version."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + n)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((512, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/mma": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(10576, 2560), (576, 5120),
+                                 (102400, 5120)])
+def test_cuda_mma_deepseek_mamba_prefill_shapes(m, n):
+    """Mamba2's in_proj (a ragged out-tile), DeepSeek-V2's kv_a and its
+    head at the 512-row prefill bucket (BCQ-3, g 128, bf16 activations)
+    on the tensor-core tile: 1e-3 of the output scale against the plain
+    version."""
     require_cuda()
     gen = torch.Generator(device="cuda").manual_seed(m + n)
     w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")

@@ -149,9 +149,11 @@ def test_scan_stacked_tree_forward_matches(quantized):
 
 
 def test_unported_variants_raise():
-    """Attention-free (SSM) stacks are still refused; GQA with rotary
-    positions and sliding windows are ported (both were refused here
-    before) and build and run."""
+    """A stack whose layers are attention layers of kind "none" (no SSM
+    state: no mixer to build) is refused; GQA with rotary positions and
+    sliding windows are ported (both were refused here before) and build
+    and run.  Attention-free SSM stacks are built in
+    ``test_torch_ssm.py``."""
     from repro_torch.models import Model
     cfg = t_reduced("opt_6_7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

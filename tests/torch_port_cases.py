@@ -56,18 +56,23 @@ def f32_params(params):
         params)
 
 
+# a Mamba mixer's FP leaves that the reference initializes to 0 or 1
+_SSM_LEAVES = ("A_log", "D", "dt_bias", "out_norm")
+
+
 def _perturb(params, seed):
-    """Random (numpy, from ``seed``) linear biases (``*_b``), norm biases
-    and norm scales, which the reference initializes to 0 and 1, so that
-    parity tests exercise them."""
+    """Random (numpy, from ``seed``) linear biases (``*_b``, a Mamba
+    mixer's ``conv_b`` among them), norm biases and norm scales, and a
+    Mamba mixer's ``A_log``, ``D``, ``dt_bias`` and ``out_norm``, which
+    the reference initializes to 0 and 1, so that parity tests exercise
+    them."""
     import jax
     rng = np.random.default_rng(seed)
 
     def fix(path, x):
         name = str(getattr(path[-1], "key", ""))
-        if name.endswith("_b") or name == "bias":
-            return x + rng.normal(size=x.shape).astype(np.float32) * 0.1
-        if name == "scale":
+        if name.endswith("_b") or name in ("bias", "scale") \
+                or name in _SSM_LEAVES:
             return x + rng.normal(size=x.shape).astype(np.float32) * 0.1
         return x
     return jax.tree_util.tree_map_with_path(fix, params)
