@@ -30,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      GEMMs (MLA, the dense layer's MLP, the shared experts: rows 1, 8
      and 512; its head rows 1 and 8) and Mamba2-2.7B's (in_proj, a
      ragged out-tile, and out_proj: rows 1, 8 and 512; its tied head, a
-     dense matmul, timed); the MLA decode kernel also at DeepSeek-V2's
+     dense matmul, timed), and at Jamba-1.5-Large's, Pixtral-12B's and
+     Whisper-medium's GEMMs (rows 1, 8 and 512; their untied heads rows 1
+     and 8; Pixtral's paged attention shape, 32 heads over 8, is the GQA
+     rep-4 case above); the MLA decode kernel also at DeepSeek-V2's
      widths (128 heads in four head tiles, lora 512, rope 64);
      the decode rows of bcq_matmul (bf16, and f32 rows 8 of every OPT and
      MiniCPM3 weight, timed beside ``torch.matmul`` in f32 and on
@@ -105,7 +108,30 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      BCQ-3 g 128, through the slots engine (8 slots of 512): its f32
      view's first prefill gated within 1e-3, every decode step's 128
      linears on the decode tile and every prefill's 128 on the
-     tensor-core tile;
+     tensor-core tile; Jamba-1.5-Large at full width and 5 of its 72
+     layers (Mamba 0-3, MoE at 1 and 3 with 16 experts top-2, attention
+     at 4), BCQ-3 g 128, through the slots engine (8 slots of 512, 8 new
+     tokens a request): f32 view gated within 1e-3, 22 linears a step on
+     the decode tile and 21 a prefill on the tensor-core tile, its
+     expert path timed and its drops printed (``serve_jamba``);
+     Pixtral-12B at full width and depth (40 layers, 32 heads over 8),
+     BCQ-3 g 128: text through the paged engine, gated as Phi-4-mini
+     (``pixtral_paged``: 281 linears a step on the decode tile, 280 a
+     chunk on the tensor-core tile, paged decode once a layer a step and
+     paged prefill once a layer a chunk), then on the same weights its
+     stub frontend (``pixtral_vlm``): 8 rows of 1024 random patch
+     embeddings and 76 tokens through ``Model.prefill`` into a contiguous
+     cache of 2048 (280 linears on the tensor-core tile at 8,800 rows)
+     and 16 greedy decode steps, the f32 view's prefill gated within
+     1e-3; last, Whisper-medium at full width and depth (24 encoder + 24
+     decoder layers), BCQ-3 g 128, through the model API (neither engine
+     serves an encoder-decoder, as in the reference): 8 rows of 1500
+     random frames and a 4-token prompt through ``Model.prefill``, then
+     32 greedy decode steps (``serve_whisper``): the f32 view gated
+     within 1e-3 at the prefill and at the last step, 384 linears on the
+     tensor-core tile in the prefill (the encoder's and the cross k/v at
+     12,000 rows), 193 a step on the decode tile (the cross K/V read from
+     the cache), encoder, prefill and decode-step times printed;
   5. checkpoint round trip: the 2.4-bit plan on OPT-6.7B at full width
      and 4 layers, saved by ``save_quantized`` and read back by
      ``load_quantized_model`` into a fresh model: every leaf
@@ -116,7 +142,8 @@ Every serve run gates the count of linears on the tiles: each decode
 step runs all of them on the decode tile, each prefill chunk all but an
 untied head's on the tensor-core tile; every logit row of every decode
 step and prefill is finite; a paged run's decode step launches its
-decode attention kernel once per layer.
+decode attention kernel once per layer, and each of its prefill chunks
+its prefill kernel (where it has one) once per layer.
 
 Phase 3 also holds bcq_matmul at q 2 and q 4 (the widths the mixed
 plans use beside q 3) at OPT's three shapes on the decode tile (rows 1
@@ -154,6 +181,19 @@ LONG_PROMPT, LONG_NEW = 4200, 64
 # DeepSeek-V2's serve depth (of 60): layer 0 dense, layers 1-3 MoE; its
 # 160 experts are ~7.5 GB of bf16 a layer before quantization
 DEEPSEEK_SERVE_LAYERS = 4
+# Jamba-1.5-Large's serve depth (of 72): layers 0-3 are Mamba layers (1
+# and 3 MoE: 16 experts [24576 x 8192], ~19 GB of bf16 a layer before
+# quantization), layer 4 the first attention layer; its plain expert
+# path takes most of a decode step, so its requests get fewer new tokens
+JAMBA_SERVE_LAYERS = 5
+JAMBA_NEW_TOKENS = 8
+# Pixtral-12B's VLM prefill: 8 rows of its 1024 patches and 76 text
+# tokens (1100 positions a row) into a contiguous cache of 2048, then
+# greedy decode steps
+PIXTRAL_TEXT, PIXTRAL_CACHE_LEN, PIXTRAL_VLM_STEPS = 76, 2048, 16
+# Whisper-medium: 8 rows of 1500 frames and a 4-token decoder prompt,
+# then greedy decode steps
+WHISPER_PROMPT, WHISPER_STEPS = 4, 32
 # the engines' prefill buckets (a longer prompt rounds up to a multiple
 # of the top one)
 BUCKETS = (32, 128, 512)
@@ -1025,17 +1065,19 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
 def layer_gemm_shapes(cfg, i):
     """[out x in] of the quantized GEMMs one decode step runs in layer
     ``i``: the mixer's (GQA q, k, v, o; MLA q_a, q_b, kv_a, o, its kv_b
-    absorbed and run as no GEMM; Mamba in_proj, out_proj), then a dense
+    absorbed and run as no GEMM; Mamba in_proj, out_proj), an
+    encoder-decoder's cross-attention q and o (its k and v ran at
+    prefill: the decode step reads them from the cache), then a dense
     MLP's (GELU up, down; SwiGLU gate, up, down) or a MoE layer's shared
     experts' (its routed expert banks run no kernel: ``moe_apply``
-    dequantizes them, as the reference does).  A Mamba layer has no
-    MLP."""
+    dequantizes them, as the reference does).  A layer with ``d_ff`` 0
+    (Mamba2's) has no MLP."""
     d, h = cfg.d_model, cfg.n_heads
     if cfg.layer_kind(i) == "mamba":
         d_inner = cfg.ssm_expand * d
         heads = d_inner // cfg.ssm_head_dim
-        return [(2 * d_inner + 2 * cfg.ssm_state + heads, d), (d, d_inner)]
-    if cfg.attention == "mla":
+        out = [(2 * d_inner + 2 * cfg.ssm_state + heads, d), (d, d_inner)]
+    elif cfg.attention == "mla":
         out = [(cfg.q_lora_rank, d),
                (h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim),
                 cfg.q_lora_rank),
@@ -1044,6 +1086,8 @@ def layer_gemm_shapes(cfg, i):
     else:
         hkv, hd = cfg.n_kv_heads, cfg.head_dim_
         out = [(h * hd, d), (hkv * hd, d), (hkv * hd, d), (d, h * hd)]
+        if cfg.n_encoder_layers:
+            out += [(h * hd, d), (d, h * hd)]
     if cfg.mlp_kind(i) == "moe":
         f = (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
         return out + ([(f, d), (f, d), (d, f)] if f else [])
@@ -1072,8 +1116,9 @@ def check_bcq_model_shapes(torch, timer, gen, results, arch, cases,
     """bcq_matmul, BCQ-3 g 128 on bf16 activations, at a model's GEMM
     shapes: ``cases`` is [((out, in), rows)], each shape's rows in order
     from rows 1 (where its weight is drawn).  Rows <= 8 run the
-    tensor-core decode tile (logged with its split count), rows 512 (the
-    largest prefill bucket) the tensor-core tile; 1e-3 of the output
+    tensor-core decode tile, more rows (512, the largest prefill bucket,
+    or a model-API prefill's) the tensor-core tile, each logged with its
+    split count; 1e-3 of the output
     scale as in ``check_gemms``, timed beside the plain version,
     ``torch.matmul`` and the bound.  With ``f32_rows8`` each shape's rows
     8 also run on f32 activations (``f32_decode_case``).  With
@@ -1083,7 +1128,7 @@ def check_bcq_model_shapes(torch, timer, gen, results, arch, cases,
     from repro_torch.core.plane import dequantize
     from repro_torch.kernels import _lib
     from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
-    from repro_torch.kernels.bcq_matmul.ops import gemv_splits
+    from repro_torch.kernels.bcq_matmul.ops import gemv_splits, mma_splits
 
     tol = 1e-3
     for (m, n), rows in cases:
@@ -1114,9 +1159,11 @@ def check_bcq_model_shapes(torch, timer, gen, results, arch, cases,
             max_abs_err=err, rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
             library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
         split = ""
-        if route == "gemv":
-            rec["splits"] = gemv_splits(m, w.n_groups * 128,
-                                        _lib.sm_count(0))
+        if route in ("gemv", "mma"):
+            rec["splits"] = (
+                gemv_splits(m, w.n_groups * 128, _lib.sm_count(0))
+                if route == "gemv" else
+                mma_splits(rows, m, w.n_groups, _lib.sm_count(0)))
             split = f", {rec['splits']} splits"
             if len(runs) > 1:
                 rec["ms_runs"] = runs
@@ -1173,6 +1220,19 @@ def check_bcq_mixtral(torch, timer, gen, results):
     torch.cuda.empty_cache()
 
 
+def served_prefill_rows(cfg):
+    """The activation rows of each layer GEMM in a model-API prefill of
+    phase 4 (8 rows a batch), beyond the engines' buckets: Whisper's
+    decoder prompt (8 x ``WHISPER_PROMPT``) and its encoder and cross
+    k/v (8 x 1500 frames); Pixtral's VLM prefill (8 x (1024 patches +
+    ``PIXTRAL_TEXT`` tokens)); none for a text-only model."""
+    if cfg.is_encdec:
+        return (8 * WHISPER_PROMPT, 8 * cfg.encoder_seq)
+    if cfg.num_patches:
+        return (8 * (cfg.num_patches + PIXTRAL_TEXT),)
+    return ()
+
+
 def check_bcq_dense_archs(torch, timer, gen, results):
     """bcq_matmul at the GEMM shapes of the models served without a
     phase-3 check of their own (``check_bcq_model_shapes``): rows 1, 8
@@ -1183,23 +1243,33 @@ def check_bcq_dense_archs(torch, timer, gen, results):
     layer's MLP [12288 x 5120] and [5120 x 12288], the shared experts'
     [3072 x 5120] and [5120 x 3072]; its kv_b is absorbed) and
     Mamba2-2.7B (in_proj [10576 x 2560], a ragged out-tile, and out_proj
-    [2560 x 5120]), and the untied heads (Qwen's [152064 x 5120],
-    DeepSeek's [102400 x 5120]) at rows 1 and 8 (a decode step; a
-    prefill chunk runs the head on one row).  A tied head (Phi-4-mini's,
-    Mamba2's) is a dense matmul on the bf16 token table (``linear_apply``,
-    as the reference leaves it to XLA): timed at rows 8 beside its bound,
-    no kernel of the port.  Routed expert banks run no kernel
+    [2560 x 5120]), Jamba-1.5-Large (in_proj [33024 x 8192], out_proj
+    [8192 x 16384], q/o [8192 x 8192], k/v [1024 x 8192], the dense MLP
+    [24576 x 8192] and [8192 x 24576]), Pixtral-12B (q [4096 x 5120],
+    k/v [1024 x 5120], o [5120 x 4096], the MLP [14336 x 5120] and [5120
+    x 14336]) and Whisper-medium ([1024 x 1024], [4096 x 1024], [1024 x
+    4096], its encoder's too), and the untied heads (Qwen's [152064 x
+    5120], DeepSeek's [102400 x 5120], Jamba's [65536 x 8192], Pixtral's
+    [131072 x 5120], Whisper's [51968 x 1024]) at rows 1 and 8 (a decode
+    step; a prefill chunk runs the head on one row).  A tied head
+    (Phi-4-mini's, Mamba2's) is a dense matmul on the bf16 token table
+    (``linear_apply``, as the reference leaves it to XLA): timed at rows
+    8 beside its bound, no kernel of the port.  Routed expert banks run no kernel
     (``expert_path_times``).  Each decode-tile case is timed five times
-    and its median kept."""
+    and its median kept.  Every layer shape of Whisper and Pixtral also
+    runs at the row counts their model-API prefills give the tensor-core
+    tile (``served_prefill_rows``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantized_linear import linear_apply
 
     results["dense_head"] = []
     for arch in ("phi4_mini_3_8b", "qwen1_5_32b", "deepseek_v2_236b",
-                 "mamba2_2_7b"):
+                 "mamba2_2_7b", "jamba_1_5_large_398b", "pixtral_12b",
+                 "whisper_medium"):
         cfg = get_config(arch)
         layer, head = gemm_shapes(cfg)
-        cases = [(sh, r) for sh in sorted(set(layer)) for r in (1, 8, 512)]
+        rows = (1, 8, 512) + served_prefill_rows(cfg)
+        cases = [(sh, r) for sh in sorted(set(layer)) for r in rows]
         if head is not None:
             cases += [(head, r) for r in (1, 8)]
         check_bcq_model_shapes(torch, timer, gen, results, arch, cases,
@@ -1225,7 +1295,8 @@ def check_bcq_dense_archs(torch, timer, gen, results):
 
 # ---------------------------------------------------------------------------
 # phase 4: serve OPT-6.7B, MiniCPM3-4B, Phi-4-mini-3.8B, Qwen1.5-32B,
-# Mixtral-8x7B, DeepSeek-V2 and Mamba2-2.7B
+# Mixtral-8x7B, DeepSeek-V2, Mamba2-2.7B, Jamba-1.5-Large, Pixtral-12B
+# and Whisper-medium
 # ---------------------------------------------------------------------------
 
 
@@ -1288,7 +1359,9 @@ def depth_view(m, k):
 
 def f32_view(m):
     """A view of model ``m`` whose activations and KV pool are f32 (the
-    embedding table copied to f32): the GEMMs then round nothing to bf16,
+    embedding table, a learned position table, an encoder's positions
+    copied to f32, and an encoder-decoder's cross K/V cache in f32): the
+    GEMMs then round nothing to bf16,
     so kernel and plain paths differ only in f32 summation order.  MoE
     layers (copies of them) dequantize their expert banks to f32 as
     well (``MoE.bank_dtype``; the served path rounds the expert inputs
@@ -1302,7 +1375,22 @@ def f32_view(m):
     v._modules = dict(m._modules)
     embed = copy.copy(m.embed)
     embed.tok = m.embed.tok.float()
+    if m.embed.pos is not None:
+        embed.pos = m.embed.pos.float()
     v.embed = embed
+    if m.encoder is not None:
+        # the encoder's positions and the cross K/V cache in f32 too
+        enc = copy.copy(m.encoder)
+        if enc.pos is not None:
+            enc.pos = m.encoder.pos.float()
+        v.encoder = enc
+
+        def init_cache(batch, length):
+            c = type(m).init_cache(v, batch, length)
+            return {**c, "layers": [
+                {**l, **{k: l[k].float() for k in ("cross_k", "cross_v")}}
+                for l in c["layers"]]}
+        v.init_cache = init_cache
     if any(isinstance(b.mlp, MoE) for b in m.stack.layers):
         stack = copy.copy(m.stack)
         stack._modules = dict(m.stack._modules)
@@ -1387,9 +1475,9 @@ def instrument(torch, model, prefill):
         step_routes.append(route_diff(routes))
         return r
 
-    def counted_prefill(tokens, cache, start_pos, *last_idx):
+    def counted_prefill(tokens, cache, start_pos, *last_idx, **inputs):
         routes = dict(_lib.route_counts)
-        r = inner_prefill(tokens, cache, start_pos, *last_idx)
+        r = inner_prefill(tokens, cache, start_pos, *last_idx, **inputs)
         chunk_routes.append(route_diff(routes))
         extra["finite"].append(bool(torch.isfinite(r[0]).all()))
         if has_moe:
@@ -1474,11 +1562,15 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
         if counts[k] <= 0:
             fail(f"serve[{tag}]: {k} never launched on the main path")
     finite_gate(tag, extra)
-    # the decode attention kernel once per layer in every decode step
+    # the decode attention kernel once per layer in every decode step, the
+    # prefill kernel once per layer in every chunk
     if any(n[attn] != cfg.n_layers for n in step_launches):
         fail(f"serve[{tag}]: a decode step did not launch {attn} once per "
              f"layer ({cfg.n_layers}): "
              f"{sorted({n[attn] for n in step_launches})}")
+    if prefill and counts[prefill] != cfg.n_layers * len(chunk_routes):
+        fail(f"serve[{tag}]: {counts[prefill]} launches of {prefill} in "
+             f"{len(chunk_routes)} prefill chunks of {cfg.n_layers} layers")
     step_lin, chunk_lin = (mixed["linears"],) * 2 if mixed \
         else step_linears(cfg)
     routes = route_totals(tag, gemm, step_routes, chunk_routes,
@@ -1570,23 +1662,29 @@ def build_quantized(torch, cfg, spec, seed):
 
 
 def contiguous_prefill_gate(torch, tag, kern, plain, toks, cache_len,
-                            reference=None):
-    """First-prefill logits of ``toks`` on the kernel path ``kern`` through
-    the contiguous cache (``Model.prefill``: the GEMM kernels; attention
-    or the SSD scan plain PyTorch over the cache, as the reference leaves
-    them to XLA) against the plain path ``plain``: its own contiguous
-    prefill, or ``reference(view)`` where given, in bf16 and in both f32
+                            reference=None, inputs=None):
+    """First-prefill logits of ``toks`` [B, S] on the kernel path ``kern``
+    through the contiguous cache (``Model.prefill``: the GEMM kernels;
+    attention or the SSD scan plain PyTorch over the cache, as the
+    reference leaves them to XLA) against the plain path ``plain``: its
+    own contiguous prefill, or ``reference(view)`` where given, in bf16
+    and in both f32 views.  ``inputs`` are ``Model.prefill``'s keyword
+    tensors (``patch_embeds``, ``frames``), cast to f32 for the f32
     views.  Gate: the f32 views within ``F32_LOGIT_TOL`` of the logit
     scale; the bf16 error is printed beside it, not gated.  Fails on a
     non-finite logit on either path.  Returns {"bf16": rel, "f32": rel}."""
-    def contiguous(view):
-        got, _ = view.prefill(toks, view.init_cache(1, cache_len), 0)
+    def contiguous(view, kw):
+        got, _ = view.prefill(toks, view.init_cache(toks.shape[0],
+                                                    cache_len), 0, **kw)
         torch.cuda.synchronize()
         return got
     rel, argmax = {}, {}
     for name, view in (("bf16", lambda v: v), ("f32", f32_view)):
-        got = contiguous(view(kern))
-        want = (reference or contiguous)(view(plain))
+        kw = {k: (t.float() if name == "f32" else t)
+              for k, t in (inputs or {}).items()}
+        got = contiguous(view(kern), kw)
+        want = (reference(view(plain)) if reference
+                else contiguous(view(plain), kw))
         if (got.shape != want.shape or not torch.isfinite(got).all()
                 or not torch.isfinite(want).all()):
             fail(f"serve[{tag}]: first-prefill logits not finite")
@@ -2042,6 +2140,282 @@ def serve_mamba(torch, args, power_line, results, totals):
     return out
 
 
+def serve_jamba(torch, args, power_line, results, totals):
+    """Jamba-1.5-Large at full width (d 8192, 64 heads over 8 kv heads of
+    128, Mamba layers of d_inner 16384 with 128 SSM heads of 128 and
+    state 64, 16 experts top-2 of moe_d_ff 24576, dense d_ff 24576,
+    untied vocab 65536), ``JAMBA_SERVE_LAYERS`` of its 72 layers (Mamba
+    0-3, MoE at 1 and 3, attention at 4), BCQ-3 g 128 random weights from
+    ``--seed``, through the slots engine (8 slots of 512, buckets
+    32/128/512): the 8-request mix with ``JAMBA_NEW_TOKENS`` new tokens
+    each, every prompt left-padded into its bucket (the pads enter the
+    Mamba state and take expert capacity, as in the reference).  Gates:
+    the f32 view's first prefill (the mix's first 128 tokens, contiguous
+    cache; expert banks dequantized to f32) against the plain path within
+    ``F32_LOGIT_TOL`` (the bf16 error printed); every logit row finite;
+    every decode step's 22 BCQ linears (4 x in_proj, out_proj, 3 dense
+    MLPs, the attention layer's q/k/v/o, the head) on ``gemv`` and every
+    prefill's 21 on ``mma``; no paged kernel.  The expert path is timed
+    per layer and the drops beyond expert capacity printed per prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantSpec
+    from repro_torch.serve import Request
+
+    full = get_config("jamba_1_5_large_398b")
+    cfg = full.replace(n_layers=JAMBA_SERVE_LAYERS)
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    cache_len = 512
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    moe_at = [i for i in range(cfg.n_layers) if cfg.mlp_kind(i) == "moe"]
+    log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} d_inner={cfg.ssm_expand * cfg.d_model} state="
+        f"{cfg.ssm_state} experts={cfg.n_experts} top-"
+        f"{cfg.experts_per_token} moe_d_ff={cfg.moe_d_ff} vocab="
+        f"{cfg.vocab_size}; full width, depth cut to {cfg.n_layers} of its "
+        f"{full.n_layers} layers ({kinds}, MoE at {moe_at}); "
+        f"{JAMBA_NEW_TOKENS} new tokens a request; {spec.describe()} weights")
+    prompts = mix_prompts(args.seed, cfg.vocab_size)
+    model, manifest, n_params, gen = build_quantized(torch, cfg, spec,
+                                                     args.seed)
+    kern = model.with_config(quant=spec)
+    plain = model.with_config(quant=spec.replace(backend="dense"))
+    expert = expert_path_times(torch, kern, gen)
+    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
+    rel = contiguous_prefill_gate(torch, "jamba", kern, plain, toks,
+                                  cache_len)
+    out, extra = run_slots(torch, "jamba", kern, [
+        Request(uid=i, prompt=p, max_new_tokens=JAMBA_NEW_TOKENS)
+        for i, p in enumerate(prompts)], cache_len, totals)
+    drops = extra["drops"]
+    kern_ms = step_kernel_ms(results, "bcq_matmul", None, cfg)
+    n_moe = len(moe_at)
+    expert_ms = n_moe * expert["decode_b8"]["ms"]
+    out.update(
+        first_prefill_rel_err=rel["bf16"],
+        first_prefill_f32_rel_err=rel["f32"], step_kernel_ms=kern_ms,
+        expert_path=expert, expert_path_ms_per_step=expert_ms,
+        weight_bytes=manifest.quant_bytes, params=n_params,
+        dropped_all_prefills=[list(d) for d in drops])
+    log(f"serve[jamba]: {out['requests']} requests, {out['tokens_out']} "
+        f"tokens in {out['wall_s']:.2f} s = {out['tokens_per_s']:.1f} "
+        f"tok/s; TTFT p50 {out['ttft_p50_ms']:.1f} ms; decode step p50 "
+        f"{out['decode_step_ms_p50']:.2f} ms over {out['decode_steps']} "
+        f"steps (its BCQ kernels: {kern_ms:.2f} ms by the phase-3 times; "
+        f"its expert path, no kernel: {expert_ms:.2f} ms = {n_moe} x "
+        f"{expert['decode_b8']['ms']:.3f} ms; the SSD scan and attention "
+        f"are plain PyTorch); weights {manifest.quant_bytes / 1e9:.3f} GB "
+        f"({n_params / 1e9:.2f} G parameters before quantization); "
+        f"assignments dropped beyond expert capacity per prefill (real, "
+        f"pads): {drops}; launches {out['launches']}; GEMM bodies: decode "
+        f"steps {out['routes']['decode']}, prefills "
+        f"{out['routes']['prefill']}; card {power_line}")
+    del kern, plain, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_api_run(torch, tag, m, toks, cache_len, steps, totals, linears,
+                  prefill_linears, start, **inputs):
+    """``toks`` [B, S] (with ``inputs``: ``patch_embeds`` or ``frames``)
+    through ``Model.prefill`` into a contiguous cache of ``cache_len`` on
+    a view of ``m``, then ``steps`` greedy decode steps fed their own
+    argmax at positions ``start`` on (the positions the prefill filled),
+    the launch counters set to 0 just before and read just after
+    (and added to ``totals``).  Gates: every token inside the
+    vocabulary, every logit row finite, no paged kernel (the cache is
+    contiguous: its attention is plain PyTorch), ``linears`` on ``gemv``
+    in every decode step and ``prefill_linears`` on ``mma`` in the
+    prefill, the head's B rows on ``gemv`` (``route_totals``).  Returns
+    (prefill ms, sorted decode-step ms, the tokens as [steps][B] lists,
+    launch counts, routes)."""
+    from repro_torch.kernels import _lib
+    view = m.with_config()
+    step_ms, _, step_routes, chunk_routes, extra = instrument(
+        torch, view, "prefill")
+    cache = view.init_cache(toks.shape[0], cache_len)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = view.prefill(toks, cache, 0, **inputs)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tokens = []
+    for t in range(steps):
+        tok = logits.argmax(-1)
+        tokens.append(tok.tolist())
+        logits, cache = view.decode_step(tok[:, None], cache, start + t)
+    torch.cuda.synchronize()
+    counts = dict(_lib.launch_counts)
+    for k in totals:
+        totals[k] += counts[k]
+    del cache, view
+    if any(not 0 <= t < m.cfg.vocab_size for row in tokens for t in row):
+        fail(f"serve[{tag}]: token outside the vocabulary")
+    finite_gate(tag, extra)
+    paged = {k: n for k, n in counts.items() if k.startswith("paged_")
+             and n}
+    if paged:
+        fail(f"serve[{tag}]: paged kernels on a contiguous cache {paged}")
+    routes = route_totals(tag, "bcq_matmul", step_routes, chunk_routes,
+                          dict(_lib.route_counts), linears=linears,
+                          chunk_linears=prefill_linears)
+    return prefill_ms, sorted(step_ms), tokens, counts, routes
+
+
+def pixtral_vlm(torch, args, model, spec, manifest, totals, power_line):
+    """Pixtral-12B's stub frontend on the served weights: 8 rows of
+    ``num_patches`` random patch embeddings (N(0, 0.02), bf16, from
+    ``--seed``) and ``PIXTRAL_TEXT`` text tokens each, no pads, through
+    ``Model.prefill`` into a contiguous cache of ``PIXTRAL_CACHE_LEN``,
+    then ``PIXTRAL_VLM_STEPS`` greedy decode steps, the launch counters
+    set to 0 just before and read just after.  Gates: the f32 view's
+    prefill logits (the first two rows) against the plain path within
+    ``F32_LOGIT_TOL``; every logit row finite; the prefill's 280 linears
+    on ``mma`` (8 x 1100 rows a call) and the head's 8 rows on ``gemv``,
+    every decode step's 281 on ``gemv`` (``model_api_run``)."""
+    cfg = model.cfg
+    b, p = 8, cfg.num_patches
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    patches = (torch.randn((b, p, cfg.d_model), generator=gen,
+                           device="cuda") * 0.02).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (b, PIXTRAL_TEXT),
+                         generator=gen, device="cuda")
+    kern = model.with_config(quant=spec)
+    plain = model.with_config(quant=spec.replace(backend="dense"))
+    log(f"pixtral vlm: {b} rows of {p} patches + {PIXTRAL_TEXT} tokens "
+        f"({p + PIXTRAL_TEXT} positions a row), contiguous cache of "
+        f"{PIXTRAL_CACHE_LEN}, {PIXTRAL_VLM_STEPS} decode steps")
+    rel = contiguous_prefill_gate(torch, "pixtral_vlm", kern, plain,
+                                  toks[:2], PIXTRAL_CACHE_LEN,
+                                  inputs={"patch_embeds": patches[:2]})
+    del plain
+    step_lin, chunk_lin = step_linears(cfg)
+    prefill_ms, steps, tokens, counts, routes = model_api_run(
+        torch, "pixtral_vlm", kern, toks, PIXTRAL_CACHE_LEN,
+        PIXTRAL_VLM_STEPS, totals, step_lin, chunk_lin, p + PIXTRAL_TEXT,
+        patch_embeds=patches)
+    p50 = steps[len(steps) // 2]
+    log(f"serve[pixtral_vlm]: prefill of {b} x {p + PIXTRAL_TEXT} positions "
+        f"{prefill_ms:.1f} ms ({chunk_lin} linears on mma at "
+        f"{b * (p + PIXTRAL_TEXT)} rows a call, the head's {b} rows on "
+        f"gemv); decode step p50 {p50:.2f} ms over {len(steps)} steps "
+        f"({step_lin} linears on gemv); "
+        f"{b * len(steps) / sum(steps) * 1e3:.1f} tok/s in decode; f32-view prefill gate {rel['f32']:.3e}, bf16 "
+        f"{rel['bf16']:.3e}; launches {counts}; GEMM bodies: decode steps "
+        f"{routes['decode']}, prefill {routes['prefill']}; card "
+        f"{power_line}")
+    del kern
+    torch.cuda.empty_cache()
+    return {"pixtral_vlm": dict(
+        rows=b, patches=p, text=PIXTRAL_TEXT, cache_len=PIXTRAL_CACHE_LEN,
+        prefill_ms=prefill_ms, decode_step_ms_p50=p50,
+        decode_steps=len(steps), launches=counts, routes=routes,
+        first_prefill_rel_err=rel["bf16"],
+        first_prefill_f32_rel_err=rel["f32"],
+        weight_bytes=manifest.quant_bytes, tokens=tokens)}
+
+
+def serve_whisper(torch, args, power_line, results, totals):
+    """Whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers, d 1024, 16 heads of 64, GELU d_ff 4096, LayerNorm, learned
+    positions, untied vocab 51865), BCQ-3 g 128 random weights from
+    ``--seed``, through the model API (neither engine serves an
+    encoder-decoder, as in the reference): 8 rows of 1500 random frames
+    (N(0, 1), bf16) and a ``WHISPER_PROMPT``-token decoder prompt through
+    ``Model.prefill`` into a contiguous cache, then ``WHISPER_STEPS``
+    greedy decode steps, the launch counters set to 0 just before and
+    read just after.  Gates: the f32 view within ``F32_LOGIT_TOL`` of the
+    logit scale against the plain path at the prefill and at the last
+    step (the served tokens fed to both); every logit row finite; the
+    prefill's 384 linears (the encoder's 144 and the cross k/v at 12,000
+    rows, the decoder's at 32) on ``mma`` and the head's 8 rows on
+    ``gemv``; every decode step's 193 (24 x (4 self + 2 cross + 2 MLP) +
+    the head) on ``gemv``, the cross K/V read from the cache
+    (``model_api_run``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantSpec
+
+    cfg = get_config("whisper_medium")
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    b, cache_len = 8, 64
+    log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads} d_ff="
+        f"{cfg.d_ff} vocab={cfg.vocab_size}; full width and depth "
+        f"({cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"{cfg.encoder_seq} frames; a learned position table of "
+        f"{cfg.max_seq_len} as the reference's config has it); "
+        f"{spec.describe()} weights")
+    model, manifest, n_params, gen = build_quantized(torch, cfg, spec,
+                                                     args.seed)
+    kern = model.with_config(quant=spec)
+    plain = model.with_config(quant=spec.replace(backend="dense"))
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (b, WHISPER_PROMPT),
+                         generator=gen, device="cuda")
+    rel = contiguous_prefill_gate(torch, "whisper", kern, plain, toks,
+                                  cache_len, inputs={"frames": frames})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kern.encode(frames)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    mlp = 3 if cfg.mlp_act == "swiglu" else 2
+    chunk_lin = cfg.n_encoder_layers * (4 + mlp) + cfg.n_layers * (8 + mlp)
+    step_lin, _ = step_linears(cfg)
+    prefill_ms, steps, tokens, counts, routes = model_api_run(
+        torch, "whisper", kern, toks, cache_len, WHISPER_STEPS, totals,
+        step_lin, chunk_lin, WHISPER_PROMPT, frames=frames)
+    tokens = torch.as_tensor(tokens, device="cuda")
+
+    def f32_run(m):
+        v = f32_view(m)
+        first, c = v.prefill(toks, v.init_cache(b, cache_len), 0,
+                             frames=frames.float())
+        for t, tok in enumerate(tokens):
+            last, c = v.decode_step(tok[:, None], c, WHISPER_PROMPT + t)
+        torch.cuda.synchronize()
+        return first, last
+    got, want = f32_run(kern), f32_run(plain)
+    rel_first, rel_last = (float((g - w).abs().max()) / float(w.abs().max())
+                           for g, w in zip(got, want))
+    if not all(torch.isfinite(t).all() for t in (*got, *want)):
+        fail("serve[whisper]: f32-view logits not finite")
+    log(f"serve[whisper] f32 view, kernel vs plain path with the served "
+        f"tokens: prefill {rel_first:.3e}, step {WHISPER_STEPS} "
+        f"{rel_last:.3e} (<= {F32_LOGIT_TOL:g}: "
+        f"{max(rel_first, rel_last) <= F32_LOGIT_TOL})")
+    if not max(rel_first, rel_last) <= F32_LOGIT_TOL:
+        fail("serve[whisper]: kernel path disagrees with plain path (f32 "
+             "view)")
+    del got, want
+    p50 = steps[len(steps) // 2]
+    kern_ms = step_kernel_ms(results, "bcq_matmul", None, cfg)
+    log(f"serve[whisper]: encoder {encode_ms:.1f} ms ({b} x "
+        f"{cfg.encoder_seq} frames); prefill {prefill_ms:.1f} ms (encoder "
+        f"+ {WHISPER_PROMPT}-token decoder prompt, cross K/V written); "
+        f"decode step p50 {p50:.2f} ms over {len(steps)} steps (its BCQ "
+        f"kernels: {kern_ms:.2f} ms by the phase-3 times; attention plain "
+        f"PyTorch), {b * len(steps) / sum(steps) * 1e3:.1f} tok/s in "
+        f"decode; weights {manifest.quant_bytes / 1e9:.3f} GB "
+        f"({n_params / 1e9:.3f} G parameters before quantization, the "
+        f"position table's {cfg.max_seq_len * cfg.d_model / 1e9:.3f} G "
+        f"among them); launches {counts}; GEMM bodies: decode steps "
+        f"{routes['decode']}, prefill {routes['prefill']}; card "
+        f"{power_line}")
+    del kern, plain, model
+    torch.cuda.empty_cache()
+    return dict(
+        rows=b, prompt=WHISPER_PROMPT, encode_ms=encode_ms,
+        prefill_ms=prefill_ms, decode_step_ms_p50=p50,
+        decode_steps=len(steps), tokens_per_s=b * len(steps) / sum(steps)
+        * 1e3, step_kernel_ms=kern_ms, launches=counts, routes=routes,
+        first_prefill_rel_err=rel["bf16"],
+        first_prefill_f32_rel_err=rel["f32"],
+        f32_rel_err_prefill=rel_first, f32_rel_err_last_step=rel_last,
+        weight_bytes=manifest.quant_bytes, params=n_params,
+        tokens=tokens.tolist())
+
+
 def engines_f32(torch, m, prompts, eng_kw):
     """The 8-request mix (32 new tokens each) through the paged engine
     (fused paged kernels) and the slots engine (8 slots of 512) on the f32
@@ -2148,6 +2522,22 @@ def serve(torch, args, power_line, results):
     # the SSD mixer through the slots engine, at full width and depth
     serve_out["mamba2"] = serve_mamba(torch, args, power_line, results,
                                       totals)
+    # the hybrid: Mamba, MoE and attention layers through the slots engine
+    serve_out["jamba"] = serve_jamba(torch, args, power_line, results,
+                                     totals)
+    # Pixtral-12B at full width and depth: text through the paged engine
+    # (GQA rep 4), then its patch frontend through Model.prefill on the
+    # same weights
+    pixtral = get_config("pixtral_12b")
+    serve_model(torch, args, pixtral, bcq3, 16,
+                [("pixtral_paged", "auto", "bcq_matmul", "paged")],
+                "paged_decode", "paged_prefill", eng_kw, results, totals,
+                power_line, serve_out,
+                after=lambda model, manifest: pixtral_vlm(
+                    torch, args, model, bcq3, manifest, totals, power_line))
+    # the encoder-decoder through the model API, at full width and depth
+    serve_out["whisper"] = serve_whisper(torch, args, power_line, results,
+                                         totals)
     serve_out["checkpoint_round_trip"] = checkpoint_round_trip(
         torch, args, eng_kw)
     return serve_out, totals
@@ -2293,10 +2683,12 @@ def checkpoint_round_trip(torch, args, eng_kw):
 
 
 def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
-                eng_kw, results, totals, power_line, serve_out):
+                eng_kw, results, totals, power_line, serve_out, after=None):
     """Build ``cfg`` with random weights from ``--seed``, quantize it on
     the card, take the plain path's first-prefill logits, then serve
-    the 8-request mix once per backend."""
+    the 8-request mix once per backend; ``after(model, manifest)``, where
+    given, runs last on the same weights and its result is merged into
+    ``serve_out``."""
     log(f"serve: {cfg.name} d={cfg.d_model} heads={cfg.n_heads} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth={cfg.n_layers} "
         f"layers; {spec.describe()} weights, {kv_bits}-bit KV")
@@ -2355,7 +2747,11 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
             serve_out[tag].update(plan=mixed["plan"],
                                   avg_bits=mixed["avg_bits"],
                                   spec=spec.to_dict())
-    del model, plain, want
+    del plain, want
+    torch.cuda.empty_cache()
+    if after is not None:
+        serve_out.update(after(model, manifest))
+    del model
     torch.cuda.empty_cache()
 
 
@@ -2489,11 +2885,14 @@ def main():
                 r = results[f"bcq_matmul_{key}"][0]
                 kernels[-1][key] = {k: r[k] for k in keys + ("group_size",)}
             # the GEMMs of Mixtral-8x7B's (attention, head), DeepSeek-V2's
-            # (MLA, dense MLP, shared experts, head) and Mamba2's (in_proj,
-            # out_proj) serve paths
+            # (MLA, dense MLP, shared experts, head), Mamba2's (in_proj,
+            # out_proj), Jamba's, Pixtral's and Whisper's serve paths
             for key, arch in (("mixtral", "mixtral_8x7b"),
                               ("deepseek", "deepseek_v2_236b"),
-                              ("mamba2", "mamba2_2_7b")):
+                              ("mamba2", "mamba2_2_7b"),
+                              ("jamba", "jamba_1_5_large_398b"),
+                              ("pixtral", "pixtral_12b"),
+                              ("whisper", "whisper_medium")):
                 kernels[-1][key] = [
                     {k: r[k] for k in keys + ("splits",) if k in r}
                     for r in results["bcq_matmul"]
@@ -2521,11 +2920,14 @@ def main():
             r = results["ternary_matmul_lut"][0]
             kernels[-1]["lut"] = {k: r[k] for k in keys + ("group_size",)}
         if name in ("paged_decode", "paged_prefill"):
-            # Phi-4-mini's serve shape: 24 query heads over 8 kv heads
-            r = [r for r in results[name] if "ms" in r and r["h"] == 24][0]
-            kernels[-1]["gqa_rep3"] = {k: r.get(k) for k in (
-                "b", "c", "h", "hkv", "splits", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            # Phi-4-mini's serve shape: 24 query heads over 8 kv heads;
+            # Pixtral-12B's: 32 over 8 (rep 4)
+            for key, h, hkv in (("gqa_rep3", 24, 8), ("gqa_rep4", 32, 8)):
+                r = [r for r in results[name] if "ms" in r and r["h"] == h
+                     and r["hkv"] == hkv and not r["long"]][0]
+                kernels[-1][key] = {k: r.get(k) for k in (
+                    "b", "c", "h", "hkv", "splits", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name in ("paged_decode", "paged_decode_int8"):
             # the split-table kernel: its split count at the main case,
             # and its GQA (rep 4) and long-table cases

@@ -6,11 +6,13 @@ for an int8 KV cache), the MLA widths, ``qkv_bias``, ``rope_theta``,
 port builds OPT (MHA, learned positions), the rotary GQA decoders
 (Phi-4-mini, Qwen1.5, StableLM), MiniCPM3 (MLA), Mixtral
 (sliding-window GQA with MoE layers), DeepSeek-V2 (MLA with MoE layers
-after a dense prefix) and Mamba2 (attention-free SSD layers).  Each
-layer's mixer is ``layer_kind(i)`` ("attn" or "mamba") and its MLP
-``mlp_kind(i)``, as in the reference.  Architectures it does not build
-yet are refused where they are looked up, naming their ROADMAP.md
-item.
+after a dense prefix), Mamba2 (attention-free SSD layers), Jamba (the
+hybrid Mamba / attention interleave with MoE layers), Pixtral (rotary
+GQA behind a stub patch frontend, ``num_patches``) and Whisper (an
+encoder-decoder: ``n_encoder_layers`` over ``encoder_seq`` stub frames,
+``is_encdec``).  Each layer's mixer is ``layer_kind(i)`` ("attn" or
+"mamba") and its MLP ``mlp_kind(i)``, as in the reference.  An unknown
+architecture is refused where it is looked up.
 """
 from __future__ import annotations
 
@@ -59,6 +61,11 @@ class ModelConfig:
     ssm_chunk: int = 128
     attn_layer_period: int = 0        # hybrid: 1 attn layer every k
     attn_layer_offset: int = 4
+    # enc-dec (whisper)
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0              # stub frontend's frame count
+    # vlm stub
+    num_patches: int = 0              # precomputed patch embeds prepended
     mlp_act: str = "swiglu"
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
@@ -90,6 +97,10 @@ class ModelConfig:
     def is_ssm_only(self) -> bool:
         return self.attention == "none" and self.ssm_state > 0
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
+
     def layer_kind(self, i: int) -> str:
         """'attn' or 'mamba' for decoder layer i."""
         if self.is_ssm_only:
@@ -113,14 +124,14 @@ class ModelConfig:
 
 ARCH_IDS = ["opt_6_7b", "minicpm3_4b", "phi4_mini_3_8b", "qwen1_5_32b",
             "stablelm_1_6b", "mixtral_8x7b", "deepseek_v2_236b",
-            "mamba2_2_7b"]
+            "mamba2_2_7b", "jamba_1_5_large_398b", "pixtral_12b",
+            "whisper_medium"]
 
 
 def _module(arch: str):
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
-        raise KeyError(f"arch {arch!r} is not ported yet; ported: "
-                       f"{ARCH_IDS} (ROADMAP.md queue 1 item 8)")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -12,6 +12,10 @@
         --arch deepseek_v2_236b --reduced 1 --device cpu --group-size 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b \\
         --reduced 1 --device cpu --group-size 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba_1_5_large_398b --reduced 1 --device cpu --group-size 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral_12b \\
+        --reduced 1 --device cpu --group-size 16
 
 ``--arch`` is ``opt_6_7b``, ``minicpm3_4b`` (MLA: absorbed paged decode
 through its kernel; prefill on the gathered path), one of the rotary
@@ -19,8 +23,15 @@ GQA decoders ``phi4_mini_3_8b``, ``qwen1_5_32b`` and ``stablelm_1_6b``,
 ``mixtral_8x7b`` (sliding window and MoE layers: the slots engine;
 its expert banks are quantized per expert and dequantized per call),
 ``deepseek_v2_236b`` (MLA and MoE layers with shared experts after a
-dense layer: the paged engine) or ``mamba2_2_7b`` (SSD layers, no
-attention: the slots engine; its tied head is a dense bf16 matmul).
+dense layer: the paged engine), ``mamba2_2_7b`` (SSD layers, no
+attention: the slots engine; its tied head is a dense bf16 matmul),
+``jamba_1_5_large_398b`` (Mamba, attention and MoE layers: the slots
+engine) or ``pixtral_12b`` (text-only requests: the paged engine; the
+patch frontend is reached through ``Model.prefill(...,
+patch_embeds=)``).  ``whisper_medium`` is refused: a request carries no
+``frames`` for its encoder, on neither engine (as in the reference,
+whose engines fail on it); it runs through ``Model.prefill(...,
+frames=)`` and ``Model.decode_step``.
 ``--engine`` is ``paged`` (the block pool), ``slots`` (``ServeEngine``
 over a contiguous cache of ``--slots`` rows of ``--cache-len``) or
 ``auto`` (paged where ``supports_paging``, else slots), as in the
@@ -62,7 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="opt_6_7b",
                     help="opt_6_7b | minicpm3_4b | phi4_mini_3_8b | "
                          "qwen1_5_32b | stablelm_1_6b | mixtral_8x7b | "
-                         "deepseek_v2_236b | mamba2_2_7b")
+                         "deepseek_v2_236b | mamba2_2_7b | "
+                         "jamba_1_5_large_398b | pixtral_12b | "
+                         "whisper_medium (refused: no engine carries "
+                         "frames)")
     ap.add_argument("--reduced", type=int, default=1)
     ap.add_argument("--bits", type=float, default=None,
                     help="weight bits; fractional (e.g. 2.4) -> mixed "
@@ -93,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["auto", "paged", "slots"],
                     help="auto picks paged where the model supports it "
                          "(attention-only, no SWA/enc-dec), else slots "
-                         "(Mixtral, Mamba2)")
+                         "(Mixtral, Mamba2, Jamba)")
     ap.add_argument("--slots", type=int, default=4,
                     help="[slots engine] fixed cache rows")
     ap.add_argument("--cache-len", type=int, default=256,
@@ -198,7 +212,7 @@ def main(argv=None):
     from repro_torch.quant import (fallback_chain, quantize_model,
                                    save_quantized)
     from repro_torch.serve import (PagedServeEngine, Request, ServeEngine,
-                                   supports_paging)
+                                   check_servable, supports_paging)
 
     try:
         device = default_device(args.device)
@@ -210,6 +224,10 @@ def main(argv=None):
         except KeyError as e:
             raise SystemExit(f"--backend: {e.args[0]}")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    try:
+        check_servable(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"[launch.serve] {e}")
     max_seq_len = args.max_seq_len or args.cache_len
     cfg = cfg.replace(max_seq_len=max(cfg.max_seq_len, max_seq_len))
     manifest = None

@@ -50,6 +50,13 @@ forces the kernels (on the CPU their wrappers run the plain versions),
 ``auto`` takes them where they are native (an H100), ``gather`` never
 does.
 
+An encoder-decoder's decoder layers cross-attend (``CrossAttention``)
+to the encoder output: queries at position 0, keys at ``arange(Senc)``,
+no mask and no rotary positions; their K/V are projected at prefill and
+read from the contiguous cache at decode (``models/model.py``).  The
+encoder's self-attention runs with ``causal=False``.  Both are plain
+PyTorch, as the reference leaves them to XLA.
+
 A sliding window (``cfg.sliding_window`` W > 0) masks every key at or
 more than W positions behind its query, in full-sequence attention, in
 the contiguous prefill and in decode.  A paged pool refuses a window,
@@ -449,6 +456,50 @@ class Attention(nn.Module):
                                           causal=True, window=window)
         out = self.o(out.reshape(b, s, h * hd), backend)
         return (out, cache) if cache is not None else out
+
+
+class CrossAttention(nn.Module):
+    """Decoder cross-attention of an encoder-decoder (the reference's
+    ``cross_attn_desc`` / ``cross_kv`` / ``cross_attend``): q/k/v/o
+    linears as self-attention's (q/k/v biases where ``qkv_bias``),
+    queries at position 0 against keys at ``arange(Senc)``, no causal
+    mask and no rotary positions.  ``kv`` projects the encoder output
+    (at prefill; the caller keeps the result in the cache), ``forward``
+    attends to given K/V (fresh at prefill, the cache's at decode).  The
+    attention is plain PyTorch, as the reference leaves it to XLA."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        hd = cfg.head_dim_
+        d = cfg.d_model
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        self.q = Linear(h * hd, d, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device)
+        self.k = Linear(hkv * hd, d, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device)
+        self.v = Linear(hkv * hd, d, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device)
+        self.o = Linear(d, h * hd, bias=False, dtype=dtype, device=device)
+
+    def kv(self, enc_out: torch.Tensor, backend=None):
+        """(k, v) [B, Senc, Hkv, hd] of the encoder output."""
+        cfg = self.cfg
+        b, s, _ = enc_out.shape
+        shape = (b, s, cfg.n_kv_heads, cfg.head_dim_)
+        return (self.k(enc_out, backend).reshape(shape),
+                self.v(enc_out, backend).reshape(shape))
+
+    def forward(self, x, k, v, backend=None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, hd = cfg.n_heads, cfg.head_dim_
+        q = self.q(x, backend).reshape(b, s, h, hd)
+        qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+        kpos = torch.arange(k.shape[1], dtype=torch.int32,
+                            device=x.device)[None].expand(b, -1)
+        out = blockwise_attention(q, k, v, qpos, kpos, causal=False)
+        return self.o(out.reshape(b, s, h * hd), backend)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,20 @@ leading axis under ``scan_layers``), plus ``shared_*`` linears where
 the config has shared experts.  Mamba layers carry ``mixer/{in_proj,
 conv_w, conv_b, A_log, D, dt_bias, out_norm, out_proj}`` and, with no
 MLP, no ``ln2`` or ``mlp``.
+
+The stub frontends, as in the reference: a VLM's ``patch_embeds`` [B,
+P, d] are prepended to the text embeddings, positions continuing
+through them (so with left-pads at negative positions the first
+patches, not the pads, take the negative positions and are masked:
+the reference's behaviour, reproduced); an encoder-decoder's
+``frames`` [B, Senc, d] are the encoder's input (``encode``: learned
+positions, the stack unmasked, a final norm), and each decoder layer
+cross-attends to the encoder output.  Its K/V are computed at prefill
+and kept in the contiguous cache (``cross_k`` / ``cross_v``, bf16
+[B, encoder_seq, Hkv, hd]); a decode step reads them from there.  The
+paged cache refuses an encoder-decoder.  The parameter trees carry the
+``encoder`` subtree (``stack``, ``final_norm``, ``pos``) and each
+decoder block's ``ln_cross`` / ``cross``.
 """
 from __future__ import annotations
 
@@ -31,15 +45,43 @@ from torch import nn
 from repro_torch import default_device
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import Embed, Linear, Norm
+from repro_torch.models.layers import Embed, Linear, Norm, _normal_
 from repro_torch.models.ssm import init_ssm_cache
 from repro_torch.models.transformer import Stack, layer_plan
 
 
+def encoder_config(cfg):
+    """The encoder's config: ``n_encoder_layers`` attention layers with
+    dense MLPs (the reference's ``enc_cfg``)."""
+    return cfg.replace(n_layers=cfg.n_encoder_layers, n_experts=0,
+                       attn_layer_period=0)
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: learned positions ``pos``
+    [encoder_seq, d] (where ``cfg.pos == "learned"``), a stack of
+    unmasked self-attention layers and a final norm."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.cfg = encoder_config(cfg)
+        self.pos = (torch.empty((cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                                device=device)
+                    if cfg.pos == "learned" else None)
+        self.stack = Stack(self.cfg, dtype=dtype, device=device)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, device)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        if self.pos is not None:
+            _normal_(self.pos, generator)
+
+
 class Model(nn.Module):
-    """Decoder-only LM.  ``dtype`` is the linears' and embeddings' storage
-    type (bf16 by default, as in the reference); activations follow the
-    embedding dtype and the KV pool uses ``cfg.dtype``."""
+    """Decoder LM, with an encoder where ``cfg.is_encdec``.  ``dtype`` is
+    the linears' and embeddings' storage type (bf16 by default, as in the
+    reference); activations follow the embedding dtype and the KV pool
+    uses ``cfg.dtype``; the cross K/V cache is bf16, as the
+    reference's."""
 
     def __init__(self, cfg, *, device=None, dtype=torch.bfloat16):
         super().__init__()
@@ -48,8 +90,11 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = default_device(device)
         self.embed = Embed(cfg, dtype=dtype, device=self.device)
-        self.stack = Stack(cfg, dtype=dtype, device=self.device)
+        self.stack = Stack(cfg, dtype=dtype, device=self.device,
+                           cross=cfg.is_encdec)
         self.final_norm = Norm(cfg.d_model, cfg.norm, self.device)
+        self.encoder = (Encoder(cfg, dtype=dtype, device=self.device)
+                        if cfg.is_encdec else None)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -80,41 +125,82 @@ class Model(nn.Module):
     def init_paged_cache(self, batch: int, num_blocks: int, block_size: int,
                          max_blocks_per_seq: int) -> dict:
         """Per-layer block pools + tables; attention-only decoders only
-        (an SSM state is O(1) per sequence: nothing to page)."""
-        if any(kind != "attn" for kind, _ in layer_plan(self.cfg)):
+        (an SSM state is O(1) per sequence: nothing to page; an
+        encoder-decoder's cross K/V is a fixed per-row reservation)."""
+        cfg = self.cfg
+        if cfg.is_encdec or any(kind != "attn"
+                                for kind, _ in layer_plan(cfg)):
+            what = ("is an encoder-decoder" if cfg.is_encdec
+                    else "has Mamba layers")
             raise ValueError("paged cache supports attention-only decoders "
-                             f"({self.cfg.name} has Mamba layers: serve it "
-                             "on the slots engine)")
+                             f"({cfg.name} {what}: serve it on a "
+                             "contiguous cache)")
         return {"layers": [
-            attn.init_paged_layer_cache(self.cfg, batch, num_blocks,
+            attn.init_paged_layer_cache(cfg, batch, num_blocks,
                                         block_size, max_blocks_per_seq,
                                         self.device)
-            for _ in range(self.cfg.n_layers)]}
+            for _ in range(cfg.n_layers)]}
 
     def init_cache(self, batch: int, length: int) -> dict:
         """Contiguous per-row caches of ``length`` slots (the slots
         engine's), every position empty (-1); a Mamba layer's is its
-        zero decode state (``init_ssm_cache``)."""
-        return {"layers": [
-            init_ssm_cache(self.cfg, batch, self.device) if kind == "mamba"
-            else attn.init_layer_cache(self.cfg, batch, length, self.device)
-            for kind, _ in layer_plan(self.cfg)]}
+        zero decode state (``init_ssm_cache``).  An encoder-decoder's
+        layers also hold zero ``cross_k`` / ``cross_v`` [B, encoder_seq,
+        Hkv, hd] in bf16."""
+        cfg = self.cfg
+        layers = []
+        for kind, _ in layer_plan(cfg):
+            c = (init_ssm_cache(cfg, batch, self.device) if kind == "mamba"
+                 else attn.init_layer_cache(cfg, batch, length, self.device))
+            if cfg.is_encdec:
+                shape = (batch, cfg.encoder_seq, cfg.n_kv_heads,
+                         cfg.head_dim_)
+                for key in ("cross_k", "cross_v"):
+                    c[key] = torch.zeros(shape, dtype=torch.bfloat16,
+                                         device=self.device)
+            layers.append(c)
+        return {"layers": layers}
 
     # ------------------------------------------------------------------
-    def _positions(self, tokens: torch.Tensor, start_pos) -> torch.Tensor:
-        b, s = tokens.shape
+    def _positions(self, b: int, s: int, start_pos) -> torch.Tensor:
         start = torch.as_tensor(start_pos, dtype=torch.int32,
-                                device=tokens.device)
+                                device=self.device)
         if start.ndim == 0:
             start = start.expand(b)
         return start[:, None] + torch.arange(s, dtype=torch.int32,
-                                             device=tokens.device)[None]
+                                             device=self.device)[None]
 
-    def _run(self, tokens, positions, cache, cache_at):
+    def _embed(self, tokens, start_pos, patch_embeds=None):
+        """(embeddings, positions [B, S]): the text's, or with
+        ``patch_embeds`` [B, P, d] the patches then the text, numbered on
+        from ``start_pos`` through both (learned positions clamped at
+        0)."""
         cfg = self.cfg
-        x = self.embed(tokens, positions if cfg.pos == "learned" else None)
+        b, s = tokens.shape
+        if patch_embeds is None:
+            positions = self._positions(b, s, start_pos)
+            return self.embed(tokens, positions if cfg.pos == "learned"
+                              else None), positions
+        x_txt = self.embed(tokens, None)
+        x = torch.cat([patch_embeds.to(self.device, x_txt.dtype), x_txt],
+                      dim=1)
+        positions = self._positions(b, x.shape[1], start_pos)
+        if cfg.pos == "learned":
+            x = x + self.embed.pos[torch.clamp(positions, min=0).long()]
+        return x, positions
+
+    def _encode_for(self, frames):
+        if not self.cfg.is_encdec:
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: pass "
+                             "frames= (the encoder's input)")
+        return self.encode(frames)
+
+    def _run(self, x, positions, cache, cache_at, enc_out=None):
+        cfg = self.cfg
         return self.stack(x, positions, caches=cache, cache_at=cache_at,
-                          backend=cfg.backend_preference,
+                          enc_out=enc_out, backend=cfg.backend_preference,
                           paged_kernel=cfg.paged_kernel)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,36 +209,58 @@ class Model(nn.Module):
         return logits[..., : self.cfg.vocab_size]
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits [B, S, V] (no cache)."""
-        tokens = tokens.to(self.device)
-        positions = self._positions(tokens, 0)
-        x, _ = self._run(tokens, positions, None, None)
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over precomputed frame embeddings [B, S, d]: its
+        learned positions added, the stack with no causal mask, the final
+        norm."""
+        enc = self.encoder
+        x = frames.to(self.device)
+        b, s, _ = x.shape
+        if enc.pos is not None:
+            x = x + enc.pos[None, :s].to(x.dtype)
+        positions = self._positions(b, s, 0)
+        x, _ = enc.stack(x, positions, causal=False,
+                         backend=self.cfg.backend_preference)
+        return enc.final_norm(x)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, *, frames=None,
+                patch_embeds=None) -> torch.Tensor:
+        """Full-sequence logits [B, S, V] (no cache); S counts the
+        patches where ``patch_embeds`` are given."""
+        enc_out = self._encode_for(frames)
+        x, positions = self._embed(tokens.to(self.device), 0, patch_embeds)
+        x, _ = self._run(x, positions, None, None, enc_out)
         return self._head(x)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: dict, start_pos=0):
+    def prefill(self, tokens: torch.Tensor, cache: dict, start_pos=0, *,
+                frames=None, patch_embeds=None):
         """The whole prompt through the stack, filling a contiguous cache.
         ``start_pos`` (scalar or [B]) is the first token's position; a
         negative start marks left-pads, whose negative positions are
         masked from attention and dead in the cache, so a padded prompt
-        scores as the unpadded one.  Returns (last-token logits [B, V]
-        f32, cache)."""
-        tokens = tokens.to(self.device)
-        positions = self._positions(tokens, start_pos)
-        x, cache = self._run(tokens, positions, cache, positions[:, 0])
+        scores as the unpadded one.  ``patch_embeds`` are prepended to
+        the tokens; an encoder-decoder takes ``frames``, encodes them and
+        writes the cross K/V into the cache.  Returns (last-token logits
+        [B, V] f32, cache)."""
+        enc_out = self._encode_for(frames)
+        x, positions = self._embed(tokens.to(self.device), start_pos,
+                                   patch_embeds)
+        x, cache = self._run(x, positions, cache, positions[:, 0], enc_out)
         return self._head(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, cache: dict, start_pos,
-                      last_idx):
-        """One chunk of a chunked prefill: tokens [B, C] at absolute
-        positions ``start_pos + [0, C)``, written into the paged cache.
-        ``last_idx`` [B] (or scalar) picks each row's last real token.
-        Returns (logits [B, V] f32, cache)."""
-        tokens = tokens.to(self.device)
-        positions = self._positions(tokens, start_pos)
-        x, cache = self._run(tokens, positions, cache, positions[:, 0])
+                      last_idx, *, patch_embeds=None):
+        """One chunk of a chunked prefill: tokens [B, C] (after
+        ``patch_embeds``, where given) at absolute positions ``start_pos
+        + [0, C)``, written into the paged cache.  ``last_idx`` [B] (or
+        scalar) picks each row's last real token.  Returns (logits [B, V]
+        f32, cache)."""
+        x, positions = self._embed(tokens.to(self.device), start_pos,
+                                   patch_embeds)
+        x, cache = self._run(x, positions, cache, positions[:, 0])
         b = x.shape[0]
         idx = torch.as_tensor(last_idx, dtype=torch.long, device=x.device)
         if idx.ndim == 0:
@@ -163,7 +271,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict, pos):
         """One decode step: tokens [B, 1]; pos scalar or [B] absolute
-        position of the new token.  Returns (logits [B, V] f32, cache)."""
+        position of the new token (an encoder-decoder reads its cross K/V
+        from the cache).  Returns (logits [B, V] f32, cache)."""
         tokens = tokens.to(self.device)
         b = tokens.shape[0]
         pos_arr = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
@@ -171,7 +280,9 @@ class Model(nn.Module):
             # a real [B] tensor: the decode kernels take contiguous rows
             pos_arr = pos_arr.expand(b).contiguous()
         positions = pos_arr[:, None]
-        x, cache = self._run(tokens, positions, cache, pos_arr)
+        x = self.embed(tokens, positions if self.cfg.pos == "learned"
+                       else None)
+        x, cache = self._run(x, positions, cache, pos_arr)
         return self._head(x)[:, 0], cache
 
 
@@ -289,15 +400,54 @@ def _set_norm(norm: Norm, tree: dict, device) -> None:
         norm.bias = _leaf(tree["bias"], device)
 
 
+def _set_block(block, kind: str, tree: dict, cfg, dev) -> None:
+    _set_norm(block.ln1, tree["ln1"], dev)
+    mixer = tree["mixer"]
+    if kind == "mamba":
+        for name in ("in_proj", "out_proj"):
+            getattr(block.mixer, name).weight = _leaf(mixer[name], dev)
+        for name in _SSM_LEAVES:
+            setattr(block.mixer, name, _leaf(mixer[name], dev))
+    elif cfg.attention == "mla":
+        for name in ("q_a", "q_b", "kv_a", "kv_b", "o"):
+            getattr(block.mixer, name).weight = _leaf(mixer[name], dev)
+        for name in ("q_a_norm", "kv_a_norm"):
+            setattr(block.mixer, name, _leaf(mixer[name], dev))
+    else:
+        for name in ("q", "k", "v", "o"):
+            _set_linear(getattr(block.mixer, name), mixer, name, dev)
+    if block.cross is not None:
+        _set_norm(block.ln_cross, tree["ln_cross"], dev)
+        for name in ("q", "k", "v", "o"):
+            _set_linear(getattr(block.cross, name), tree["cross"], name, dev)
+    if block.mlp is None:
+        return
+    _set_norm(block.ln2, tree["ln2"], dev)
+    for name in _MLP_LINEARS:
+        if name in tree["mlp"]:
+            _set_linear(getattr(block.mlp, name), tree["mlp"], name, dev)
+    if "router" in tree["mlp"]:
+        block.mlp.router = _leaf(tree["mlp"]["router"], dev)
+
+
+def _set_stack(stack, tree: dict, cfg, dev) -> None:
+    for (kind, _), block, layer in zip(
+            layer_plan(cfg), stack.layers,
+            layer_trees(tree, cfg.n_layers)):
+        _set_block(block, kind, layer, cfg, dev)
+
+
 def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
     """Build a :class:`Model` holding the reference's parameters.
 
     ``params_np`` is the reference tree with numpy leaves (GQA: ``q``,
     ``k``, ``v``, ``o`` and their biases; MLA: ``q_a``, ``q_a_norm``,
-    ``q_b``, ``kv_a``, ``kv_a_norm``, ``kv_b``, ``o``); quantized
-    leaves are dicts ``{packed, alpha, z, group_size, in_features,
-    out_features, kind}``.  Both stack layouts are accepted; scan-stacked
-    leaves are unstacked per layer.  Leaf dtypes are kept."""
+    ``q_b``, ``kv_a``, ``kv_a_norm``, ``kv_b``, ``o``; an
+    encoder-decoder's ``encoder`` subtree and its decoder blocks'
+    ``ln_cross`` / ``cross``); quantized leaves are dicts ``{packed,
+    alpha, z, group_size, in_features, out_features, kind}``.  Both
+    stack layouts are accepted; scan-stacked leaves are unstacked per
+    layer.  Leaf dtypes are kept."""
     tok = params_np["embed"]["tok"]
     dtype = _to_tensor(_arr(tok)[:1], "cpu").dtype
     model = Model(cfg, device=device, dtype=dtype)
@@ -308,33 +458,14 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
         model.embed.pos = _leaf(emb["pos"], dev)
     if "unembed" in emb:
         model.embed.unembed.weight = _leaf(emb["unembed"], dev)
-    for (kind, _), block, tree in zip(
-            layer_plan(cfg), model.stack.layers,
-            layer_trees(params_np["stack"], cfg.n_layers)):
-        _set_norm(block.ln1, tree["ln1"], dev)
-        mixer = tree["mixer"]
-        if kind == "mamba":
-            for name in ("in_proj", "out_proj"):
-                getattr(block.mixer, name).weight = _leaf(mixer[name], dev)
-            for name in _SSM_LEAVES:
-                setattr(block.mixer, name, _leaf(mixer[name], dev))
-        elif cfg.attention == "mla":
-            for name in ("q_a", "q_b", "kv_a", "kv_b", "o"):
-                getattr(block.mixer, name).weight = _leaf(mixer[name], dev)
-            for name in ("q_a_norm", "kv_a_norm"):
-                setattr(block.mixer, name, _leaf(mixer[name], dev))
-        else:
-            for name in ("q", "k", "v", "o"):
-                _set_linear(getattr(block.mixer, name), mixer, name, dev)
-        if block.mlp is None:
-            continue
-        _set_norm(block.ln2, tree["ln2"], dev)
-        for name in _MLP_LINEARS:
-            if name in tree["mlp"]:
-                _set_linear(getattr(block.mlp, name), tree["mlp"], name, dev)
-        if "router" in tree["mlp"]:
-            block.mlp.router = _leaf(tree["mlp"]["router"], dev)
+    _set_stack(model.stack, params_np["stack"], cfg, dev)
     _set_norm(model.final_norm, params_np["final_norm"], dev)
+    if model.encoder is not None:
+        enc, tree = model.encoder, params_np["encoder"]
+        _set_stack(enc.stack, tree["stack"], enc.cfg, dev)
+        _set_norm(enc.final_norm, tree["final_norm"], dev)
+        if "pos" in tree:
+            enc.pos = _leaf(tree["pos"], dev)
     return model
 
 
@@ -384,6 +515,9 @@ def _block_tree(block, cfg, kind) -> dict:
     else:
         mixer = _linears_tree(block.mixer, ("q", "k", "v", "o"))
     out = {"ln1": _norm_tree(block.ln1), "mixer": mixer}
+    if block.cross is not None:
+        out["ln_cross"] = _norm_tree(block.ln_cross)
+        out["cross"] = _linears_tree(block.cross, ("q", "k", "v", "o"))
     if block.mlp is None:
         return out
     mlp = _linears_tree(block.mlp, _MLP_LINEARS)
@@ -406,34 +540,45 @@ def _stack_trees(trees: list):
     return torch.stack(trees)
 
 
+def _stack_tree(stack, cfg) -> dict:
+    from repro_torch.models.transformer import scan_grouping
+    blocks = [_block_tree(b, cfg, kind)
+              for (kind, _), b in zip(layer_plan(cfg), stack.layers)]
+    if not cfg.scan_layers:
+        return {"layers": blocks}
+    pre, period, reps = scan_grouping(cfg)
+    out = {}
+    if pre:
+        out["prefix"] = blocks[:pre]
+    if period:
+        out["scan"] = [_stack_trees([blocks[pre + j + r * period]
+                                     for r in range(reps)])
+                       for j in range(period)]
+    return out
+
+
 def to_params(model: Model) -> dict:
     """The model's parameters as the reference's tree (torch leaves on
-    the model's device, bundles as dicts): ``{"layers": [...]}`` or,
-    under ``scan_layers``, ``{"prefix": [...], "scan": [...]}`` stacked
-    as ``from_jax_params`` unstacks it."""
-    from repro_torch.models.transformer import scan_grouping
+    the model's device, bundles as dicts): each stack (the decoder's and
+    an encoder's) as ``{"layers": [...]}`` or, under ``scan_layers``,
+    ``{"prefix": [...], "scan": [...]}`` stacked as ``from_jax_params``
+    unstacks it."""
     cfg = model.cfg
     emb = {"tok": model.embed.tok}
     if model.embed.pos is not None:
         emb["pos"] = model.embed.pos
     if model.embed.unembed is not None:
         emb["unembed"] = _export(model.embed.unembed.weight)
-    blocks = [_block_tree(b, cfg, kind)
-              for (kind, _), b in zip(layer_plan(cfg), model.stack.layers)]
-    if not cfg.scan_layers:
-        stack = {"layers": blocks}
-    else:
-        pre, period, reps = scan_grouping(cfg)
-        stack = {}
-        if pre:
-            stack["prefix"] = blocks[:pre]
-        if period:
-            stack["scan"] = [_stack_trees([blocks[pre + j + r * period]
-                                           for r in range(reps)])
-                             for j in range(period)]
-    return {"embed": emb, "final_norm": _norm_tree(model.final_norm),
-            "stack": stack}
+    out = {"embed": emb, "final_norm": _norm_tree(model.final_norm),
+           "stack": _stack_tree(model.stack, cfg)}
+    enc = model.encoder
+    if enc is not None:
+        out["encoder"] = {"stack": _stack_tree(enc.stack, enc.cfg),
+                          "final_norm": _norm_tree(enc.final_norm)}
+        if enc.pos is not None:
+            out["encoder"]["pos"] = enc.pos
+    return out
 
 
-__all__ = ["Model", "from_jax_params", "layer_trees", "set_block_tables",
-           "to_params"]
+__all__ = ["Encoder", "Model", "encoder_config", "from_jax_params",
+           "layer_trees", "set_block_tables", "to_params"]

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models.attention import Attention, MLAttention
+from repro_torch.models.attention import (Attention, CrossAttention,
+                                          MLAttention)
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
@@ -20,18 +21,25 @@ from repro_torch.models.ssm import SSM
 
 class Block(nn.Module):
     """norm -> mixer (GQA or MLA attention, or the Mamba2 SSM, by
-    ``cfg.layer_kind(layer)``) -> residual [-> norm -> MLP or MoE
-    (``cfg.mlp_kind(layer)``) -> residual].  A layer has no ``ln2`` and
-    no MLP where ``d_ff`` is 0 and it is not a MoE layer (Mamba2: the
-    mixer is the layer), as ``block_desc``."""
+    ``cfg.layer_kind(layer)``) -> residual [-> norm -> cross-attention
+    -> residual] [-> norm -> MLP or MoE (``cfg.mlp_kind(layer)``) ->
+    residual], as ``block_desc`` / ``block_apply``.  A decoder layer of
+    an encoder-decoder (``cross``) has ``ln_cross`` and ``cross``; a
+    layer has no ``ln2`` and no MLP where ``d_ff`` is 0 and it is not a
+    MoE layer (Mamba2: the mixer is the layer)."""
 
-    def __init__(self, cfg, layer: int, *, dtype, device):
+    def __init__(self, cfg, layer: int, *, dtype, device,
+                 cross: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
         kind, mlp_kind = cfg.layer_kind(layer), cfg.mlp_kind(layer)
         mixer = (SSM if kind == "mamba" else
                  MLAttention if cfg.attention == "mla" else Attention)
         self.mixer = mixer(cfg, dtype=dtype, device=device)
+        self.ln_cross = self.cross = None
+        if cross:
+            self.ln_cross = Norm(cfg.d_model, cfg.norm, device)
+            self.cross = CrossAttention(cfg, dtype=dtype, device=device)
         self.ln2 = self.mlp = None
         if cfg.d_ff or mlp_kind == "moe":
             self.ln2 = Norm(cfg.d_model, cfg.norm, device)
@@ -39,15 +47,36 @@ class Block(nn.Module):
             self.mlp = mlp(cfg, dtype=dtype, device=device)
 
     def forward(self, x, positions, *, cache=None, cache_at=None,
-                backend=None, paged_kernel="auto"):
+                causal=True, enc_out=None, backend=None,
+                paged_kernel="auto"):
         h = self.ln1(x)
         if cache is not None:
             h, cache = self.mixer(h, positions, cache=cache,
                                   cache_at=cache_at, backend=backend,
                                   paged_kernel=paged_kernel)
+        elif isinstance(self.mixer, Attention):
+            h = self.mixer(h, positions, causal=causal, backend=backend)
         else:
             h = self.mixer(h, positions, backend=backend)
         x = x + h.to(x.dtype)
+        if self.cross is not None:
+            h = self.ln_cross(x)
+            if enc_out is not None:
+                # prefill: attend to the fresh K/V, keep them in the cache
+                # (cast to its dtype) for the decode steps
+                ck, cv = self.cross.kv(enc_out, backend)
+                if cache is not None:
+                    cache = {**cache,
+                             "cross_k": ck.to(cache["cross_k"].dtype),
+                             "cross_v": cv.to(cache["cross_v"].dtype)}
+            elif cache is not None:
+                ck, cv = cache["cross_k"], cache["cross_v"]
+            else:
+                raise ValueError("an encoder-decoder's decoder layer needs "
+                                 "enc_out (frames) or a cache holding its "
+                                 "cross K/V")
+            h = self.cross(h, ck, cv, backend)
+            x = x + h.to(x.dtype)
         if self.mlp is not None:
             h = self.mlp(self.ln2(x), backend)
             x = x + h.to(x.dtype)
@@ -55,19 +84,25 @@ class Block(nn.Module):
 
 
 class Stack(nn.Module):
-    def __init__(self, cfg, *, dtype, device):
+    """The layers of ``cfg`` in order; ``cross`` gives each one
+    cross-attention (an encoder-decoder's decoder).  ``causal`` False
+    runs the self-attention unmasked (the encoder)."""
+
+    def __init__(self, cfg, *, dtype, device, cross: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(cfg, i, dtype=dtype, device=device)
+            Block(cfg, i, dtype=dtype, device=device, cross=cross)
             for i in range(cfg.n_layers))
 
     def forward(self, x, positions, *, caches=None, cache_at=None,
-                backend=None, paged_kernel="auto"):
+                causal=True, enc_out=None, backend=None,
+                paged_kernel="auto"):
         new = [] if caches is not None else None
         for i, block in enumerate(self.layers):
             c = caches["layers"][i] if caches is not None else None
             x, c = block(x, positions, cache=c, cache_at=cache_at,
-                         backend=backend, paged_kernel=paged_kernel)
+                         causal=causal, enc_out=enc_out, backend=backend,
+                         paged_kernel=paged_kernel)
             if new is not None:
                 new.append(c)
         return x, ({**caches, "layers": new} if new is not None else None)

@@ -9,10 +9,13 @@ application of ``repro.quant.ptq`` (both live here):
      over layers (``stack/scan/0/mixer/q``, [L, out, in]) and is a
      :class:`~repro_torch.core.mixed_precision.LayerStack` of the
      per-layer weights; unrolled, each layer is its own leaf
-     (``stack/layers/3/mixer/q``).  Leaves are the ``Linear``\\ s named in
-     ``QUANT_KEYS`` (the MLA projections and an untied ``unembed``
-     included) and a MoE layer's expert banks ([E, out, in], one more
-     leading axis stacked); embeddings, norms and the router stay FP.
+     (``stack/layers/3/mixer/q``); an encoder-decoder's encoder stack
+     is keyed the same way under ``encoder/``, its decoder's
+     cross-attention under ``cross/``.  Leaves are the ``Linear``\\ s
+     named in ``QUANT_KEYS`` (the MLA projections and an untied
+     ``unembed`` included) and a MoE layer's expert banks ([E, out,
+     in], one more leading axis stacked); embeddings, positions, norms
+     and the router stay FP.
   2. :func:`plan_bits` gives each leaf a width: the spec's integer
      width, a format's fixed planes, or for a fractional ``bits`` a
      sensitivity-driven mixed-precision plan (paper Fig. 17), with
@@ -119,7 +122,11 @@ def linear_leaves(model) -> dict:
     list indices by number)."""
     from repro_torch.models.moe import ExpertBank
     from repro_torch.models.transformer import stack_path
-    cfg = model.cfg
+    # (module path prefix, config) of each layer stack: the decoder's and
+    # an encoder-decoder's encoder (``encoder/stack/...``)
+    stacks = [((), model.cfg)]
+    if getattr(model, "encoder", None) is not None:
+        stacks.append((("encoder",), model.encoder.cfg))
     groups = {}
     for path, lin in walk_linears(model):
         if not _is_quant_leaf(path.rsplit("/", 1)[-1], lin.weight,
@@ -127,10 +134,14 @@ def linear_leaves(model) -> dict:
             continue
         parts = path.split("/")
         stacked, r = False, 0
-        if parts[:2] == ["stack", "layers"]:
-            head, r = stack_path(cfg, int(parts[2]))
-            stacked = r is not None
-            parts = list(head) + parts[3:]
+        for pre, cfg in stacks:
+            n = len(pre)
+            if tuple(parts[:n]) == pre and \
+                    parts[n:n + 2] == ["stack", "layers"]:
+                head, r = stack_path(cfg, int(parts[n + 2]))
+                stacked = r is not None
+                parts = [*pre, *head, *parts[n + 3:]]
+                break
         key = tuple(int(p) if str(p).isdigit() else p for p in parts)
         groups.setdefault(key, (stacked, []))[1].append((r or 0, lin))
     return {"/".join(map(str, k)): ([l for _, l in sorted(

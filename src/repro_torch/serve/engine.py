@@ -12,7 +12,11 @@ over a contiguous cache (one ``cache_len`` row per request): each prompt
 is left-padded into its bucket and prefilled on a 1-row cache that is
 spliced into the grid, and one decode step advances every slot.  It is
 the fallback for configs the paged engine refuses (``supports_paging``)
-and the paged engine's equivalence oracle.
+and the paged engine's equivalence oracle.  It refuses an
+encoder-decoder at construction: its requests carry no ``frames``
+(the reference's engine fails on the first prefill with a
+``KeyError``); such a model is driven through ``Model.prefill`` and
+``Model.decode_step``.
 
 Sampling is greedy on the host (``np.argmax``, ties to the lowest
 index, as the reference's ``_sample_host``).
@@ -84,8 +88,23 @@ def supports_paging(cfg) -> bool:
     """Whether a config can serve through the paged engine: an
     attention-only decoder, no sliding window (a ring cache is already a
     fixed-size reservation), no encoder-decoder cross-KV."""
-    return (cfg.family != "encdec" and not cfg.sliding_window
+    return (not cfg.is_encdec and not cfg.sliding_window
             and all(mixer == "attn" for mixer, _ in layer_plan(cfg)))
+
+
+def check_servable(cfg) -> None:
+    """Refuse a config that neither engine serves: an encoder-decoder,
+    whose encoder needs frames that a request does not carry (the
+    reference's ``ServeEngine`` passes only ``{"tokens": ...}`` to
+    ``Model.prefill`` and fails with ``KeyError: 'frames'``)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: neither engine serves it, "
+            "because a request carries only tokens and the encoder needs "
+            "frames (the reference's ServeEngine passes only {'tokens': "
+            "...} to Model.prefill and fails with KeyError: 'frames'); "
+            "drive the model API instead: Model.prefill(tokens, cache, "
+            "frames=...), then Model.decode_step")
 
 
 class PagedServeEngine:
@@ -280,6 +299,7 @@ class ServeEngine:
 
     def __init__(self, model, *, slots: int = 8, cache_len: int = 512,
                  prefill_buckets=(32, 128, 512), rng_seed: int = 0):
+        check_servable(model.cfg)
         self.model = model
         self.slots = slots
         self.cache_len = cache_len

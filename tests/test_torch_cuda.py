@@ -214,16 +214,28 @@ def test_cuda_gemm_split_path(rows):
     assert torch.equal(again, lut_gemm(xt, wt, out_dtype=torch.float32))
 
 
+# Jamba-1.5-Large's GEMMs at full width (in_proj, out_proj, q/o, k/v,
+# the dense MLP, the untied head), Pixtral-12B's (q, k/v, o, the MLP, the
+# untied head) and Whisper-medium's (q/k/v/o, the MLP, the untied head:
+# vocab 51865 padded to 51968)
+LAST_CONFIG_SHAPES = [
+    (33024, 8192), (8192, 16384), (8192, 8192), (1024, 8192),
+    (24576, 8192), (8192, 24576), (65536, 8192),
+    (4096, 5120), (1024, 5120), (5120, 4096), (14336, 5120),
+    (5120, 14336), (131072, 5120),
+    (1024, 1024), (4096, 1024), (1024, 4096), (51968, 1024)]
 # every OPT-6.7B, MiniCPM3-4B, Phi-4-mini-3.8B and Qwen1.5-32B decode GEMM
 # [out x in] (Qwen's with its untied head), Mixtral's attention and head,
-# and DeepSeek-V2's kv_a and head and Mamba2's in_proj (a ragged out-tile:
-# 10576 = 165 x 64 + 16)
+# DeepSeek-V2's kv_a and head and Mamba2's in_proj (a ragged out-tile:
+# 10576 = 165 x 64 + 16), and the last three configs'
 DECODE_SHAPES = [(4096, 4096), (16384, 4096), (4096, 16384), (768, 2560),
                  (3840, 768), (288, 2560), (2560, 2560), (6400, 2560),
                  (2560, 6400), (73472, 2560), (3072, 3072), (1024, 3072),
                  (8192, 3072), (3072, 8192), (5120, 5120), (27392, 5120),
                  (5120, 27392), (152064, 5120), (1024, 4096), (32000, 4096),
-                 (576, 5120), (102400, 5120), (10576, 2560)]
+                 (576, 5120), (102400, 5120), (10576, 2560)] + [
+                     sh for sh in LAST_CONFIG_SHAPES
+                     if sh != (1024, 4096)]      # Mixtral's k/v above
 
 
 @pytest.mark.cuda
@@ -467,16 +479,18 @@ def test_cuda_prefill_mma_matches_plain(chunk, rep, d, bs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hkv", [32, 8])
-def test_cuda_prefill_mma_main_width(hkv):
+@pytest.mark.parametrize("hkv,b,chunk", [(32, 1, 512), (8, 1, 512),
+                                         (8, 3, 200)])
+def test_cuda_prefill_mma_main_width(hkv, b, chunk):
     """OPT-6.7B's prefill chunk: B 1, C 512, H 32, D 128, block 16, and
-    the same at 8 kv heads (GQA, rep 4)."""
+    the same at 8 kv heads (GQA, rep 4: Pixtral-12B's serve shape), and
+    at rep 4 a ragged B 3, C 200 whose last row ends in pads."""
     require_cuda()
     h, d, bs, pages = 32, 128, 16, 40
     dev = lambda a: torch.from_numpy(a).to("cuda")
     q, k, v, pos, tables, positions = map(dev, pool_case(
-        hkv, b=1, h=h, hkv=hkv, d=d, nb=pages + 8, bs=bs, pages=pages,
-        chunk=512))
+        hkv + b, b=b, h=h, hkv=hkv, d=d, nb=b * pages + 8, bs=bs,
+        pages=pages, chunk=chunk))
     for name, kern, plain, tol in _prefill_flavours(q, k, v, pos, tables,
                                                      positions):
         _lib.reset_launch_counts()
@@ -791,12 +805,13 @@ def test_cuda_decode_matches_plain(rep, d, bs):
 @pytest.mark.parametrize("b,hkv,pages,long", [(8, 32, 32, False),
                                               (8, 8, 32, False),
                                               (8, 32, 32, True),
+                                              (8, 8, 32, True),
                                               (33, 32, 8, False)])
 def test_cuda_decode_main_width(b, hkv, pages, long):
     """OPT-6.7B's decode: H 32, D 128, block 16, B 8, MHA and 8 kv heads
-    (GQA, rep 4); every row near max_seq_len 512 (long tables); and B 33,
-    whose 1,056 (row, head) blocks fill the card without a split (the
-    direct-write path)."""
+    (GQA, rep 4: Pixtral-12B's serve shape); every row near max_seq_len
+    512 (long tables), MHA and rep 4; and B 33, whose 1,056 (row, head)
+    blocks fill the card without a split (the direct-write path)."""
     require_cuda()
     from repro_torch.kernels.paged_attention.ops import decode_splits
     h, d, bs = 32, 128, 16
@@ -1150,3 +1165,103 @@ def test_cuda_mixtral_slots_serve_matches_plain():
         streams.append({r.uid: list(r.out_tokens) for r in done})
     assert streams[0] == streams[1]
     assert all(len(v) == 24 for v in streams[0].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", LAST_CONFIG_SHAPES)
+def test_cuda_mma_last_configs_prefill_shapes(m, n):
+    """Jamba-1.5-Large's, Pixtral-12B's and Whisper-medium's GEMMs (heads
+    included) at the 512-row prefill bucket (BCQ-3, g 128, bf16
+    activations) on the tensor-core tile: 1e-3 of the output scale
+    against the plain version."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + n)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((512, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/mma": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+
+
+# the row counts the full-width runs give the tensor-core tile: Whisper's
+# encoder and cross k/v (8 x 1500 frames) and its 4-token decoder prompt
+# (8 x 4), Pixtral's VLM prefill (8 x (1024 patches + 76 tokens))
+SERVED_PREFILL_CASES = (
+    [(sh, rows) for sh in ((1024, 1024), (4096, 1024), (1024, 4096))
+     for rows in (32, 12000)]
+    + [(sh, 8800) for sh in ((4096, 5120), (1024, 5120), (5120, 4096),
+                             (14336, 5120), (5120, 14336))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rows", SERVED_PREFILL_CASES)
+def test_cuda_mma_served_prefill_rows(shape, rows):
+    """Whisper-medium's and Pixtral-12B's layer GEMMs at the row counts
+    their full-width prefills run (BCQ-3, g 128, bf16 activations) on the
+    tensor-core tile, split or not by the rule: 1e-3 of the output scale
+    against the plain version."""
+    require_cuda()
+    m, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + n + rows)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((rows, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/mma": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_prefill_decode_matches_plain():
+    """Reduced Whisper (2 encoder + 2 decoder layers), BCQ-3 g 32 in f32
+    on the card: frames [2, 16, 64] and a 5-token prompt through
+    ``Model.prefill`` into a contiguous cache, then 8 greedy decode
+    steps.  The kernel path's logits within 1e-3 of the logit scale of
+    the plain path's (dequantize and matmul) at the prefill and at every
+    step, the greedy tokens identical; every decode step runs its 17
+    linears (2 x (4 self + 2 cross + 2 MLP) + the head) on the decode
+    tile and the cross K/V are not recomputed (no GEMM on the encoder's
+    16-row output)."""
+    require_cuda()
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec, quantize_model
+    cfg = get_reduced("whisper_medium").replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    model = Model(cfg, device="cuda", dtype=torch.float32).init_params(gen)
+    spec = QuantSpec(format="bcq", bits=3, group_size=32)
+    quantize_model(model, spec)
+    kern = model.with_config(quant=spec)
+    plain = model.with_config(quant=spec.replace(backend="dense"))
+    rng = np.random.default_rng(23)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 5)),
+                           device="cuda")
+    frames = torch.as_tensor(rng.normal(size=(2, cfg.encoder_seq,
+                                              cfg.d_model)),
+                             dtype=torch.float32, device="cuda")
+    outs, tokens, routes = [], [], []
+    for m in (kern, plain):
+        lg, c = m.prefill(toks, m.init_cache(2, 32), frames=frames)
+        logits, seq, step_routes = [lg], [], []
+        for t in range(8):
+            tok = lg.argmax(-1)
+            seq.append(tok.tolist())
+            _lib.reset_launch_counts()
+            lg, c = m.decode_step(tok[:, None], c, 5 + t)
+            torch.cuda.synchronize()
+            step_routes.append(dict(_lib.route_counts))
+            logits.append(lg)
+        outs.append(logits)
+        tokens.append(seq)
+        routes.append(step_routes)
+    for got, want in zip(*outs):
+        assert torch.isfinite(got).all()
+        _close(got, want, GEMM_TOL)
+    assert tokens[0] == tokens[1]
+    assert all(r == {"bcq_matmul/gemv": 2 * 8 + 1} for r in routes[0])
+    assert all(r == {} for r in routes[1])

@@ -150,14 +150,25 @@ def test_scan_stacked_tree_forward_matches(quantized):
 
 def test_unported_variants_raise():
     """A stack whose layers are attention layers of kind "none" (no SSM
-    state: no mixer to build) is refused; GQA with rotary positions and
-    sliding windows are ported (both were refused here before) and build
-    and run.  Attention-free SSM stacks are built in
-    ``test_torch_ssm.py``."""
+    state: no mixer to build) is refused, and an unknown arch is refused
+    where it is looked up; GQA with rotary positions and sliding windows
+    are ported (both were refused here before) and build and run, as do
+    the last three configs (Jamba, Pixtral, Whisper), which
+    ``get_config`` refused before.  Attention-free SSM stacks are built
+    in ``test_torch_ssm.py``, the last three in ``test_torch_hybrid.py``,
+    ``test_torch_vlm.py`` and ``test_torch_encdec.py``."""
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    from repro.configs import get_config as j_config
+    from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.models import Model
     cfg = t_reduced("opt_6_7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg.replace(attention="none"), device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt_2")
+    assert sorted(ARCH_IDS) == sorted(J_ARCH_IDS)
+    for arch in ("jamba_1_5_large_398b", "pixtral_12b", "whisper_medium"):
+        assert get_config(arch).name == j_config(arch).name
     for over in (dict(pos="rope"), dict(pos="rope", sliding_window=2)):
         m = Model(cfg.replace(**over), device="cpu").init_params(
             torch.Generator().manual_seed(0))

@@ -271,15 +271,21 @@ def test_supports_paging_matches_reference():
     from repro.configs import get_reduced as j_reduced
     from repro_torch.configs import ARCH_IDS, get_reduced
     for arch in ARCH_IDS:
-        # every ported arch pages but Mixtral (a sliding window) and
-        # Mamba2 (SSM layers)
+        # every arch pages but Mixtral (a sliding window), Mamba2 and
+        # Jamba (SSM layers) and Whisper (an encoder-decoder)
         assert supports_paging(get_reduced(arch)) == \
             j_supports_paging(j_reduced(arch)) is (
-                arch not in ("mixtral_8x7b", "mamba2_2_7b"))
+                arch not in ("mixtral_8x7b", "mamba2_2_7b",
+                             "jamba_1_5_large_398b", "whisper_medium"))
     assert not supports_paging(get_reduced("phi4_mini_3_8b").replace(
         sliding_window=8))
-    assert not supports_paging(get_reduced("opt_6_7b").replace(
-        family="encdec"))
+    # keyed on the encoder layers (``is_encdec``), not on the family name,
+    # on both sides
+    for over, pages in ((dict(n_encoder_layers=2, encoder_seq=16), False),
+                        (dict(family="encdec"), True)):
+        assert supports_paging(get_reduced("opt_6_7b").replace(**over)) \
+            == j_supports_paging(j_reduced("opt_6_7b").replace(**over)) \
+            is pages
 
 
 @pytest.mark.parametrize("engine,want", [("slots", "slots"),
