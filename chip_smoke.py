@@ -38,13 +38,18 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      the decode rows of bcq_matmul (bf16, and f32 rows 8 of every OPT and
      MiniCPM3 weight, timed beside ``torch.matmul`` in f32 and on
      bf16-cast x) and of ternary_matmul (bf16) on the tensor-core decode
-     tile (route ``gemv``, each case logged with its split count); the
-     bodies the tiles leave calls to, each held and timed once: ternary
-     ``lut`` (rows 8 at group size 8), bcq_matmul ``gemv_fma`` (f32
-     rows 8 at group size 16) and ``fma`` (f32 rows 512), lut_gemm
-     ``lut_tile`` (mu 2, full table, f32 rows 512); the split-table MLA
-     decode kernel logged with its split count and held to repeat itself
-     exactly;
+     tile (route ``gemv``, each case logged with its split count); f32
+     activations above 8 rows on the tensor-core tile (route ``mma``, x
+     split in the kernel into three bf16 parts) for bcq_matmul, lut_gemm
+     (mu 2 full table, mu 4 half table) and ternary_matmul at rows 512 on
+     [16384 x 4096] and 12,000 on Whisper's [4096 x 1024], beside
+     ``torch.matmul`` in f32; the bodies the tiles leave calls to, each
+     held and timed once at a call it keeps: ternary ``lut`` (rows 8 and
+     f32 rows 512, both at group size 8), bcq_matmul ``gemv_fma`` (f32
+     rows 8 at group size 16) and ``fma`` (f32 rows 512 at group size
+     8), lut_gemm ``lut_tile`` (f32 rows 8, mu 2, full table); the
+     split-table MLA decode kernel logged with its split count and held
+     to repeat itself exactly;
   4. serve (random weights from ``--seed``; the paged engine with fused
      paged attention unless said otherwise): full-width OPT-6.7B
      BCQ-quantized on the card
@@ -140,8 +145,9 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
 
 Every serve run gates the count of linears on the tiles: each decode
 step runs all of them on the decode tile, each prefill chunk all but an
-untied head's on the tensor-core tile; every logit row of every decode
-step and prefill is finite; a paged run's decode step launches its
+untied head's on the tensor-core tile, and so does each f32 view's
+prefill (its time printed; no CUDA-core body); every logit row of every
+decode step and prefill is finite; a paged run's decode step launches its
 decode attention kernel once per layer, and each of its prefill chunks
 its prefill kernel (where it has one) once per layer.
 
@@ -398,27 +404,38 @@ def f32_decode_case(torch, timer, gen, w, dense_bf16, results, model):
 
 def cuda_core_cases(torch, timer, gen, results):
     """The CUDA-core bodies the tensor-core tiles leave calls to, each
-    held to 1e-3 of the output scale and timed at [16384 x 4096]:
-    bcq_matmul's ``gemv_fma`` (f32 rows 8 at group size 16, which the
-    decode tile does not take), bcq_matmul's ``fma`` (f32 rows 512) and
-    lut_gemm's ``lut_tile`` (mu 2, full table, f32 rows 512)."""
+    held to 1e-3 of the output scale and timed at [16384 x 4096] on f32
+    activations, at a call it keeps: bcq_matmul's ``gemv_fma`` (rows 8 at
+    group size 16, which the decode tile does not take) and ``fma``
+    (rows 512 at group size 8, which the tensor-core tile does not
+    take), lut_gemm's ``lut_tile`` (rows 8 at mu 2 with the full table)
+    and ternary_matmul's ``lut`` (rows 512 at group size 8)."""
     from repro_torch.core import bcq
     from repro_torch.core.plane import dequantize
     from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
     from repro_torch.kernels.lut_gemm import lut_gemm
+    from repro_torch.kernels.ternary_matmul import dense_ref, ternary_matmul
+    from repro_torch.quant.formats import quantize_ternary
     tol, m, n = 1e-3, 16384, 4096
     for key, gs, rows, name, want, fn in (
             ("bcq_matmul_gemv_fma", 16, 8, "bcq_matmul", "gemv_fma",
              lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)),
-            ("bcq_matmul_fma", 128, 512, "bcq_matmul", "fma",
+            ("bcq_matmul_fma", 8, 512, "bcq_matmul", "fma",
              lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)),
-            ("lut_gemm_lut_tile", 128, 512, "lut_gemm", "lut_tile",
+            ("lut_gemm_lut_tile", 128, 8, "lut_gemm", "lut_tile",
              lambda x, w: lut_gemm(x, w, mu=2, half_lut=False,
-                                   out_dtype=torch.float32))):
-        w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
-                         * 0.02, bits=3, group_size=gs)
+                                   out_dtype=torch.float32)),
+            ("ternary_matmul_lut_prefill", 8, 512, "ternary_matmul", "lut",
+             lambda x, w: ternary_matmul(x, w, out_dtype=torch.float32))):
+        wd = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+        if name == "ternary_matmul":
+            w, plain_fn = quantize_ternary(wd, group_size=gs), dense_ref
+        else:
+            w, plain_fn = (bcq.quantize(wd, bits=3, group_size=gs),
+                           bcq_matmul_ref)
+        del wd
         x = torch.randn((rows, n), generator=gen, device="cuda")
-        plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
+        plain = plain_fn(x, w, torch.float32)
         got, route = routed(torch, name, lambda: fn(x, w))
         if route != want:
             fail(f"{name} {key}: ran {route}, not {want}")
@@ -427,7 +444,7 @@ def cuda_core_cases(torch, timer, gen, results):
         b_ms, b_by = bound(rows * n * 4 + w.nbytes() + rows * m * 4,
                            2.0 * rows * m * n)
         t = timer(lambda: fn(x, w))
-        t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
+        t_plain = timer(lambda: plain_fn(x, w, torch.float32))
         dense_f32 = dequantize(w, torch.float32)
         t_lib = timer(lambda: torch.matmul(x, dense_f32.T))
         del dense_f32
@@ -444,6 +461,80 @@ def cuda_core_cases(torch, timer, gen, results):
         if rel > tol:
             fail(f"{name} {route} disagrees with its plain version")
         del w
+
+
+def f32_mma_cases(torch, timer, gen, results):
+    """f32 activations above 8 rows on the tensor-core tile (route
+    ``mma``, x split into three bf16 parts in the kernel), BCQ-3 g 128:
+    bcq_matmul, lut_gemm at mu 2 with the full table and at mu 4 with the
+    half table (the same tile), and ternary_matmul (g 128), at rows 512
+    on [16384 x 4096] and at Whisper's encoder rows (12,000) on its MLP
+    up projection [4096 x 1024]; each held to 1e-3 of the output scale
+    (~1e-6 is expected: only the f32 summation order differs) and timed
+    beside the plain version, ``torch.matmul`` in f32 (TF32 off) on the
+    dense f32 weight, and the bound (operations at the bf16 rate, as for
+    every GEMM row here)."""
+    from repro_torch.core import bcq
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.lut_gemm import lut_gemm
+    from repro_torch.kernels.ternary_matmul import dense_ref, ternary_matmul
+    from repro_torch.quant.formats import quantize_ternary
+    tol, out = 1e-3, []
+    for m, n, rows in ((16384, 4096, 512), (4096, 1024, 12000)):
+        wd = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+        ws = {"bcq": bcq.quantize(wd, bits=3, group_size=128),
+              "ternary": quantize_ternary(wd, group_size=128)}
+        del wd
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        for name, variant, kind, fn, plain_fn in (
+                ("bcq_matmul", "", "bcq",
+                 lambda w: bcq_matmul(x, w, out_dtype=torch.float32),
+                 bcq_matmul_ref),
+                ("lut_gemm", "mu 2, full table", "bcq",
+                 lambda w: lut_gemm(x, w, mu=2, half_lut=False,
+                                    out_dtype=torch.float32),
+                 bcq_matmul_ref),
+                ("lut_gemm", "mu 4, half table", "bcq",
+                 lambda w: lut_gemm(x, w, mu=4, half_lut=True,
+                                    out_dtype=torch.float32),
+                 bcq_matmul_ref),
+                ("ternary_matmul", "", "ternary",
+                 lambda w: ternary_matmul(x, w, out_dtype=torch.float32),
+                 dense_ref)):
+            w = ws[kind]
+            plain = plain_fn(x, w, torch.float32)
+            got, route = routed(torch, name, lambda: fn(w))
+            if route != "mma":
+                fail(f"{name} f32 rows {rows} [{m}x{n}] ran {route}, not "
+                     "mma")
+            if got.shape != plain.shape or not torch.isfinite(got).all():
+                fail(f"{name} f32 [{rows}x{n}]x[{m}x{n}]^T: bad output")
+            err = float((got - plain).abs().max())
+            rel = err / (float(plain.abs().max()) + 1e-12)
+            del got, plain
+            b_ms, b_by = bound(rows * n * 4 + w.nbytes() + rows * m * 4,
+                               2.0 * rows * m * n)
+            t = timer(lambda: fn(w))
+            t_plain = timer(lambda: plain_fn(x, w, torch.float32))
+            dense_f32 = dequantize(w, torch.float32)
+            t_lib = timer(lambda: torch.matmul(x, dense_f32.T))
+            del dense_f32
+            out.append(dict(name=name, variant=variant, m=m, n=n,
+                            rows=rows, dtype="float32", route=route,
+                            max_abs_err=err, rel_err=rel, tol=tol, ms=t,
+                            plain_ms=t_plain, library_ms=t_lib,
+                            bound_ms=b_ms, bound_by=b_by))
+            log(f"{name} {variant + ' ' if variant else ''}rows={rows:5d} "
+                f"M={m:5d} N={n:5d} f32 [{route}]: err {err:.3e} (rel "
+                f"{rel:.2e} <= {tol:g}: {rel <= tol})  kernel {t:.4f} ms  "
+                f"plain {t_plain:.4f} ms  torch.matmul f32 {t_lib:.4f} ms  "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            if rel > tol:
+                fail(f"{name} f32 mma disagrees with its plain version")
+        del ws, x
+        torch.cuda.empty_cache()
+    results["f32_mma"] = out
 
 
 def check_bcq_widths(torch, timer, gen, results):
@@ -1407,6 +1498,35 @@ def f32_view(m):
     return v
 
 
+# the bodies a prefill of more than 8 rows must not reach: the CUDA-core
+# bodies the tiles leave odd shapes to
+CUDA_CORE_BODIES = ("bcq_matmul/fma", "bcq_matmul/gemv_fma",
+                    "lut_gemm/lut_tile", "ternary_matmul/lut")
+
+
+def f32_on_tiles(torch, tag, fn):
+    """Run ``fn``, a kernel-path call on an f32 view that prefills more
+    than 8 rows a linear, and gate the GEMM bodies it launched: its BCQ
+    linears on the tensor-core tile (``mma``; an untied head's rows of 8
+    or fewer on the decode tile), no CUDA-core body.  Returns (fn's
+    result, its route counts, its wall time in ms between two
+    synchronizes)."""
+    from repro_torch.kernels import _lib
+    before = dict(_lib.route_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ran = {k: n - before.get(k, 0) for k, n in _lib.route_counts.items()
+           if n != before.get(k, 0)}
+    if any(k in CUDA_CORE_BODIES for k in ran) or not any(
+            k.endswith("/mma") for k in ran):
+        fail(f"serve[{tag}]: the f32 view's prefill ran {ran}, not its "
+             "linears on the tensor-core tile")
+    return got, ran, ms
+
+
 def logit_error_by_depth(torch, kern, plain, toks, depths):
     """First-prefill logit error (relative to the logit scale) of the
     kernel path against the plain path after the first k layers, in the
@@ -1414,12 +1534,19 @@ def logit_error_by_depth(torch, kern, plain, toks, depths):
     depth, and what is left without bf16 rounding.  A third column holds
     the plain bf16 path against the plain f32 path, with whether their
     argmax agrees: the error bf16 rounding alone makes, no kernel on
-    either side."""
+    either side.  The f32 view's kernel-path prefill must run its linears
+    on the tensor-core tile (``f32_on_tiles``); its time is recorded."""
     out = {}
     for k in depths:
         row, logits = {}, {}
         for name, view in (("bf16", lambda x: x), ("f32", f32_view)):
-            got = first_logits(torch, view(depth_view(kern, k)), toks)
+            if name == "f32":
+                got, row["f32_routes"], row["f32_prefill_ms"] = f32_on_tiles(
+                    torch, f"{kern.cfg.name} f32, {k} layers",
+                    lambda: first_logits(torch, view(depth_view(kern, k)),
+                                         toks))
+            else:
+                got = first_logits(torch, view(depth_view(kern, k)), toks)
             want = first_logits(torch, view(depth_view(plain, k)), toks)
             row[name] = float((got - want).abs().max()) / float(
                 want.abs().max())
@@ -1434,7 +1561,9 @@ def logit_error_by_depth(torch, kern, plain, toks, depths):
         log(f"first-prefill logit error after {k:2d} layers: bf16 "
             f"{row['bf16']:.3e}, f32 {row['f32']:.3e}; plain bf16 vs "
             f"plain f32 {row['plain_bf16_vs_f32']:.3e} (argmax equal: "
-            f"{row['plain_argmax_equal']})")
+            f"{row['plain_argmax_equal']}); the f32 view's kernel prefill "
+            f"{row['f32_prefill_ms']:.1f} ms, GEMM bodies "
+            f"{row['f32_routes']}")
     torch.cuda.empty_cache()
     return out
 
@@ -1671,8 +1800,11 @@ def contiguous_prefill_gate(torch, tag, kern, plain, toks, cache_len,
     and in both f32 views.  ``inputs`` are ``Model.prefill``'s keyword
     tensors (``patch_embeds``, ``frames``), cast to f32 for the f32
     views.  Gate: the f32 views within ``F32_LOGIT_TOL`` of the logit
-    scale; the bf16 error is printed beside it, not gated.  Fails on a
-    non-finite logit on either path.  Returns {"bf16": rel, "f32": rel}."""
+    scale, the kernel path's f32 prefill on the tensor-core tile
+    (``f32_on_tiles``); the bf16 error is printed beside it, not gated.
+    Fails on a non-finite logit on either path.  Returns {"bf16": rel,
+    "f32": rel, "f32_prefill_ms": the f32 kernel prefill's wall time,
+    "f32_routes": its GEMM bodies}."""
     def contiguous(view, kw):
         got, _ = view.prefill(toks, view.init_cache(toks.shape[0],
                                                     cache_len), 0, **kw)
@@ -1682,7 +1814,11 @@ def contiguous_prefill_gate(torch, tag, kern, plain, toks, cache_len,
     for name, view in (("bf16", lambda v: v), ("f32", f32_view)):
         kw = {k: (t.float() if name == "f32" else t)
               for k, t in (inputs or {}).items()}
-        got = contiguous(view(kern), kw)
+        if name == "f32":
+            got, routes, ms = f32_on_tiles(
+                torch, tag, lambda: contiguous(view(kern), kw))
+        else:
+            got = contiguous(view(kern), kw)
         want = (reference(view(plain)) if reference
                 else contiguous(view(plain), kw))
         if (got.shape != want.shape or not torch.isfinite(got).all()
@@ -1696,12 +1832,13 @@ def contiguous_prefill_gate(torch, tag, kern, plain, toks, cache_len,
         f"): gate: the f32 view's {rel['f32']:.3e} <= {F32_LOGIT_TOL:g}: "
         f"{rel['f32'] <= F32_LOGIT_TOL}; bf16 rel err {rel['bf16']:.3e} "
         f"(reported, not gated); argmax equal: bf16 {argmax['bf16']}, f32 "
-        f"{argmax['f32']}")
+        f"{argmax['f32']}; the f32 view's kernel prefill {ms:.1f} ms, GEMM "
+        f"bodies {routes}")
     if not rel["f32"] <= F32_LOGIT_TOL:
         fail(f"serve[{tag}]: kernel path disagrees with plain path (f32 "
              "view)")
     torch.cuda.empty_cache()
-    return rel
+    return dict(rel, f32_prefill_ms=ms, f32_routes=routes)
 
 
 def serve_slots(torch, tag, m, plain, toks, prompts, results, gemm, totals,
@@ -1739,6 +1876,8 @@ def serve_slots(torch, tag, m, plain, toks, prompts, results, gemm, totals,
     out.update(
         first_prefill_rel_err=rel["bf16"],
         first_prefill_f32_rel_err=rel["f32"],
+        gate_f32_prefill_ms=rel["f32_prefill_ms"],
+        gate_f32_routes=rel["f32_routes"],
         weight_bytes=manifest.quant_bytes,
         kv_bytes_per_token=kv_entry_bytes(cfg) * cfg.n_layers,
         tokens_equal_to_paged=share,
@@ -1966,8 +2105,13 @@ def long_prompt_gate(torch, kern, plain, prompt, steps=4):
     for name, m in (("kernel", kern), ("plain", plain)):
         v = f32_view(m)
         cache = v.init_cache(1, MIXTRAL_CACHE_LEN)
-        _, cache = v.prefill(torch.as_tensor(toks, device="cuda"), cache,
-                             plen - bucket)
+        pre = lambda: v.prefill(torch.as_tensor(toks, device="cuda"), cache,
+                                plen - bucket)
+        if name == "kernel":
+            (_, cache), routes, pre_ms = f32_on_tiles(
+                torch, "mixtral long prompt", pre)
+        else:
+            _, cache = pre()
         if drops is None:
             drops = moe_drops(v, slice(bucket - plen, None))
         for t in range(steps):
@@ -1992,7 +2136,8 @@ def long_prompt_gate(torch, kern, plain, prompt, steps=4):
         f"{steps} past the wrap, f32 view, kernel vs plain path: rel err "
         f"{rel:.3e} <= {F32_LOGIT_TOL:g}: {rel <= F32_LOGIT_TOL}; argmax "
         f"{int(got.argmax())} vs {int(want.argmax())}; its prefill dropped "
-        f"{drops[0]} real-token and {drops[1]} pad assignments; the plain "
+        f"{drops[0]} real-token and {drops[1]} pad assignments; the f32 "
+        f"kernel prefill {pre_ms:.1f} ms, GEMM bodies {routes}; the plain "
         f"path against a plain full-sequence forward with the window "
         f"(not gated): {rel_full:.3e}")
     if not rel <= F32_LOGIT_TOL:
@@ -2000,6 +2145,7 @@ def long_prompt_gate(torch, kern, plain, prompt, steps=4):
              "after the wrap (f32 view)")
     return dict(prompt_len=plen, bucket=bucket, decode_steps=steps,
                 f32_rel_err=rel, plain_vs_full_forward_rel=rel_full,
+                f32_prefill_ms=pre_ms, f32_routes=routes,
                 dropped_real=drops[0], dropped_pads=drops[1])
 
 
@@ -2056,7 +2202,9 @@ def serve_mixtral(torch, args, power_line, results, totals):
     out.update(
         ring=min(MIXTRAL_CACHE_LEN, cfg.sliding_window),
         first_prefill_rel_err=rel["bf16"],
-        first_prefill_f32_rel_err=rel["f32"], long_prompt=wrap,
+        first_prefill_f32_rel_err=rel["f32"],
+        gate_f32_prefill_ms=rel["f32_prefill_ms"],
+        gate_f32_routes=rel["f32_routes"], long_prompt=wrap,
         step_kernel_ms=kern_ms, expert_path=expert,
         expert_path_ms_per_step=expert_ms,
         weight_bytes=manifest.quant_bytes,
@@ -2121,7 +2269,9 @@ def serve_mamba(torch, args, power_line, results, totals):
             for p in prompts]
     out.update(
         left_pads=pads, first_prefill_rel_err=rel["bf16"],
-        first_prefill_f32_rel_err=rel["f32"], step_kernel_ms=kern_ms,
+        first_prefill_f32_rel_err=rel["f32"],
+        gate_f32_prefill_ms=rel["f32_prefill_ms"],
+        gate_f32_routes=rel["f32_routes"], step_kernel_ms=kern_ms,
         tied_head_ms=head["ms"], weight_bytes=manifest.quant_bytes,
         params=n_params)
     log(f"serve[mamba2]: {out['requests']} requests, {out['tokens_out']} "
@@ -2192,7 +2342,9 @@ def serve_jamba(torch, args, power_line, results, totals):
     expert_ms = n_moe * expert["decode_b8"]["ms"]
     out.update(
         first_prefill_rel_err=rel["bf16"],
-        first_prefill_f32_rel_err=rel["f32"], step_kernel_ms=kern_ms,
+        first_prefill_f32_rel_err=rel["f32"],
+        gate_f32_prefill_ms=rel["f32_prefill_ms"],
+        gate_f32_routes=rel["f32_routes"], step_kernel_ms=kern_ms,
         expert_path=expert, expert_path_ms_per_step=expert_ms,
         weight_bytes=manifest.quant_bytes, params=n_params,
         dropped_all_prefills=[list(d) for d in drops])
@@ -2312,6 +2464,8 @@ def pixtral_vlm(torch, args, model, spec, manifest, totals, power_line):
         decode_steps=len(steps), launches=counts, routes=routes,
         first_prefill_rel_err=rel["bf16"],
         first_prefill_f32_rel_err=rel["f32"],
+        gate_f32_prefill_ms=rel["f32_prefill_ms"],
+        gate_f32_routes=rel["f32_routes"],
         weight_bytes=manifest.quant_bytes, tokens=tokens)}
 
 
@@ -2369,12 +2523,18 @@ def serve_whisper(torch, args, power_line, results, totals):
 
     def f32_run(m):
         v = f32_view(m)
-        first, c = v.prefill(toks, v.init_cache(b, cache_len), 0,
-                             frames=frames.float())
+        pre = lambda: v.prefill(toks, v.init_cache(b, cache_len), 0,
+                                frames=frames.float())
+        if m is kern:
+            (first, c), f32_out["routes"], f32_out["ms"] = f32_on_tiles(
+                torch, "whisper f32 run", pre)
+        else:
+            first, c = pre()
         for t, tok in enumerate(tokens):
             last, c = v.decode_step(tok[:, None], c, WHISPER_PROMPT + t)
         torch.cuda.synchronize()
         return first, last
+    f32_out = {}
     got, want = f32_run(kern), f32_run(plain)
     rel_first, rel_last = (float((g - w).abs().max()) / float(w.abs().max())
                            for g, w in zip(got, want))
@@ -2383,7 +2543,8 @@ def serve_whisper(torch, args, power_line, results, totals):
     log(f"serve[whisper] f32 view, kernel vs plain path with the served "
         f"tokens: prefill {rel_first:.3e}, step {WHISPER_STEPS} "
         f"{rel_last:.3e} (<= {F32_LOGIT_TOL:g}: "
-        f"{max(rel_first, rel_last) <= F32_LOGIT_TOL})")
+        f"{max(rel_first, rel_last) <= F32_LOGIT_TOL}); the f32 kernel "
+        f"prefill {f32_out['ms']:.1f} ms, GEMM bodies {f32_out['routes']}")
     if not max(rel_first, rel_last) <= F32_LOGIT_TOL:
         fail("serve[whisper]: kernel path disagrees with plain path (f32 "
              "view)")
@@ -2411,7 +2572,10 @@ def serve_whisper(torch, args, power_line, results, totals):
         * 1e3, step_kernel_ms=kern_ms, launches=counts, routes=routes,
         first_prefill_rel_err=rel["bf16"],
         first_prefill_f32_rel_err=rel["f32"],
+        gate_f32_prefill_ms=rel["f32_prefill_ms"],
+        gate_f32_routes=rel["f32_routes"],
         f32_rel_err_prefill=rel_first, f32_rel_err_last_step=rel_last,
+        f32_prefill_ms=f32_out["ms"], f32_routes=f32_out["routes"],
         weight_bytes=manifest.quant_bytes, params=n_params,
         tokens=tokens.tolist())
 
@@ -2421,7 +2585,9 @@ def engines_f32(torch, m, prompts, eng_kw):
     (fused paged kernels) and the slots engine (8 slots of 512) on the f32
     view of ``m``: the share of greedy tokens equal, and where each
     request's streams part, printed and recorded, not gated.  Equal
-    streams in f32 put the bf16 runs' disagreement on rounding."""
+    streams in f32 put the bf16 runs' disagreement on rounding.  Each
+    engine's run must put its prefills' linears on the tensor-core tile
+    and reach no CUDA-core body (``f32_on_tiles``)."""
     from repro_torch.serve import PagedServeEngine, Request, ServeEngine
     v = f32_view(m)
     toks = {}
@@ -2429,8 +2595,11 @@ def engines_f32(torch, m, prompts, eng_kw):
             ("paged", PagedServeEngine(v, paged_kernel="fused", **eng_kw)),
             ("slots", ServeEngine(v, slots=8, cache_len=512,
                                   prefill_buckets=(32, 128, 512)))):
-        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=32)
-                        for i, p in enumerate(prompts)], max_ticks=4000)
+        done, routes, _ = f32_on_tiles(
+            torch, f"engines_f32[{name}]", lambda: eng.run(
+                [Request(uid=i, prompt=p, max_new_tokens=32)
+                 for i, p in enumerate(prompts)], max_ticks=4000))
+        log(f"{m.cfg.name} f32 view, {name} engine: GEMM bodies {routes}")
         if len(done) != len(prompts) or any(r.error for r in done):
             fail(f"engines_f32[{name}]: requests incomplete")
         toks[name] = {r.uid: list(r.out_tokens) for r in done}
@@ -2801,6 +2970,7 @@ def main():
     check_paged(torch, timer, gen, results, args.seed)
     check_ternary(torch, timer, gen, results)
     cuda_core_cases(torch, timer, gen, results)
+    f32_mma_cases(torch, timer, gen, results)
     check_paged_int8(torch, timer, gen, results, args.seed)
     check_paged_mla(torch, timer, gen, results, args.seed)
     check_bcq_minicpm3(torch, timer, gen, results)
@@ -2860,6 +3030,8 @@ def main():
             plain_ms=sel["plain_ms"], bound_ms=sel["bound_ms"],
             bound_by=sel["bound_by"], library_ms=sel["library_ms"],
             case={k: sel[k] for k in rep[name]}))
+        keys = ("rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
         if name in ROUTED:
             # the prefill case beside the decode case: the serve's 512-row
             # chunk on the widest weight, on the tensor-core tile
@@ -2867,15 +3039,17 @@ def main():
                    and r.get("m") == 16384 and "model" not in r
                    and "ms" in r][0]
             kernels[-1]["case"]["route"] = sel["route"]
-            kernels[-1]["prefill"] = {k: pre[k] for k in (
-                "rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}
-        keys = ("rows", "m", "n", "route", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")
+            kernels[-1]["prefill"] = {k: pre[k] for k in keys}
+            # f32 activations above 8 rows on the tensor-core tile: rows
+            # 512 on [16384 x 4096] and Whisper's 12,000 on [4096 x 1024]
+            kernels[-1]["f32_mma"] = [
+                {k: r[k] for k in keys + ("variant",)}
+                for r in results["f32_mma"] if r["name"] == name]
         if name == "bcq_matmul":
             # the decode tile's split count, f32 rows of the same weight on
             # the decode tile, and the CUDA-core bodies at the calls they
-            # keep (f32 rows 8 at group size 16; f32 rows 512)
+            # keep (f32 rows 8 at group size 16; f32 rows 512 at group
+            # size 8)
             kernels[-1]["case"]["splits"] = sel["splits"]
             f32 = [r for r in results["bcq_matmul_f32"]
                    if r["m"] == sel["m"] and r["n"] == sel["n"]][0]
@@ -2903,6 +3077,7 @@ def main():
                 for r in results["bcq_matmul_widths"]
                 if r["rows"] in (8, 512) and r["m"] == 16384]
         if name == "lut_gemm":
+            # the LUT tile at a call it keeps: f32 rows 8, mu 2, full table
             r = results["lut_gemm_lut_tile"][0]
             kernels[-1]["lut_tile"] = {k: r[k] for k in keys}
         if name == "paged_decode_mla":
@@ -2917,8 +3092,13 @@ def main():
             kernels[-1]["exact_inputs_max_abs_err"] = max(
                 r["max_abs_err"] for r in results[name]
                 if r.get("exact_inputs"))
+            # the half-LUT body at calls it keeps: rows 8 and f32 rows 512,
+            # both at group size 8
             r = results["ternary_matmul_lut"][0]
             kernels[-1]["lut"] = {k: r[k] for k in keys + ("group_size",)}
+            r = results["ternary_matmul_lut_prefill"][0]
+            kernels[-1]["lut_prefill"] = {k: r[k] for k in keys
+                                          + ("group_size",)}
         if name in ("paged_decode", "paged_prefill"):
             # Phi-4-mini's serve shape: 24 query heads over 8 kv heads;
             # Pixtral-12B's: 32 over 8 (rep 4)

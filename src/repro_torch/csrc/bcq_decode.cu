@@ -193,22 +193,13 @@ __device__ __forceinline__ void dt_split(const unsigned char* xf,
     const int r = i / (DT_STEP / 4), c = i % (DT_STEP / 4);
     const float4 v =
         *reinterpret_cast<const float4*>(xf + r * (DT_STEP * 4) + c * 16);
-    float2 rem[2] = {make_float2(v.x, v.y), make_float2(v.z, v.w)};
-    unsigned w[3][2];
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(rem[j].x, rem[j].y);
-        w[p][j] = *reinterpret_cast<const unsigned*>(&h);
-        const float2 hf = __bfloat1622float2(h);
-        rem[j].x -= hf.x;
-        rem[j].y -= hf.y;
-      }
+    unsigned lo[3], hi[3];
+    split_bf16x3(make_float2(v.x, v.y), lo);
+    split_bf16x3(make_float2(v.z, v.w), hi);
 #pragma unroll
     for (int p = 0; p < 3; ++p)
       *reinterpret_cast<uint2*>(xb + p * DT_XB + r * DT_XS + c * 8) =
-          make_uint2(w[p][0], w[p][1]);
+          make_uint2(lo[p], hi[p]);
   }
 }
 

@@ -19,12 +19,15 @@
 //                       and the like, in_features not a multiple of 8):
 //                       the weight-streaming GEMV on the CUDA cores
 //                       (bcq_gemv_kernel below), which keeps x in f32;
-//   route 2 "mma"       B > 8, bf16 activations, group size a multiple of
-//                       16: the tensor-core BCQ tile of bcq_mma.cu, one
+//   route 2 "mma"       B > 8, bf16 or f32 activations, group size a
+//                       multiple of 16 up to 256, in_features a multiple
+//                       of 8: the tensor-core BCQ tile of bcq_mma.cu, one
 //                       bf16 mma.sync product per bit plane and alpha
-//                       group against the +-1 plane decoded in registers;
-//   route 0 "fma"       B > 8 otherwise (f32 activations, group size 8
-//                       mod 16): bcq_matmul_kernel below.  Each block
+//                       group against the +-1 plane decoded in registers
+//                       (f32 x split there into three bf16 parts);
+//   route 0 "fma"       B > 8 otherwise (group size 8 mod 16 or above
+//                       256, in_features not a multiple of 8):
+//                       bcq_matmul_kernel below.  Each block
 //                       owns a 64-row slice of M and a tile of B rows,
 //                       and walks the whole reduction axis itself (CUDA
 //                       blocks run in no order, so nothing is carried
@@ -320,12 +323,11 @@ extern "C" int launch_bcq_matmul(const void* x, const void* packed,
                                                 x_is_bf16 != 0, false, splits,
                                                 s));
     case 2:
-      if (!x_is_bf16 || B <= GB)
-        return static_cast<int>(cudaErrorInvalidValue);
+      if (B <= GB) return static_cast<int>(cudaErrorInvalidValue);
       return static_cast<int>(launch_bcq_mma(
           x, packed, alpha, z, static_cast<float*>(y),
           static_cast<float*>(part), B, M, N, NB, G, q, gs, splits, false,
-          s));
+          x_is_bf16 != 0, s));
     case 3:
       if (B > GB) return static_cast<int>(cudaErrorInvalidValue);
       if (x_is_bf16)

@@ -1,6 +1,6 @@
 // The tensor-core BCQ tile: y[B, M] = x . dequant(W)^T on bit planes,
-// bf16 activations, more than 8 batch rows.  The "mma" route of both
-// bcq_matmul and lut_gemm.
+// bf16 or f32 activations, more than 8 batch rows.  The "mma" route of
+// bcq_matmul, lut_gemm and ternary_matmul.
 //
 // Replaces, at prefill widths: src/repro/kernels/lut_gemm/lut_gemm.py
 // ::_lut_gemm_kernel (launcher lut_gemm_tiled) and
@@ -27,13 +27,14 @@
 //    split's share) one group of gs columns at a time; each warp owns 16
 //    weight rows and all the block's batch rows (1 m16 x 8 or 4 n8 mma
 //    tiles), so each weight fragment is decoded once per block;
-//  - staging: the group's x tile (bf16) and plane bytes (q x 128 rows x
-//    gs/8 bytes) go through a cp.async ring of 3 stages (2 where 3 do
-//    not fit), one barrier per group; the alpha and z values of 8 groups
-//    at a time ride with the first of them, into two buffers; x rows are
-//    padded by 16 bytes, so the 8 row addresses of an ldmatrix fall in 8
-//    distinct 16-byte bank groups (conflict-free), and rows past B or M
-//    are zero-filled by the copy itself;
+//  - staging: the group's x tile (bf16; f32 x below) and plane bytes (q
+//    x 128 rows x gs/8 bytes) go through a cp.async ring of 3 stages (2
+//    where 3 do not fit), one barrier per group; the alpha and z values
+//    of 8 groups at a time ride with the first of them, into two
+//    buffers; x rows are padded by 16 bytes, so the 8 row addresses of
+//    an ldmatrix fall in 8 distinct 16-byte bank groups
+//    (conflict-free), and rows past B or M are zero-filled by the copy
+//    itself;
 //  - the weight operand (mma A, weight rows x k) is built by each thread
 //    in registers straight from two plane bytes: bits 2t and 2t+1 of a
 //    byte become the two bf16 halves of a register, 0x3F80 (+1) or
@@ -74,7 +75,34 @@
 // The stored planes are read as they are: nothing is re-encoded.  On
 // exact inputs (integer x, power-of-two alpha) every product and partial
 // sum is an exact f32, so the route equals the plain versions bit for bit.
+//
+// f32 activations (F32; the plain version of this order is
+// bcq_matmul.ref.mma_split_ref).  The decode tile's split (bcq_decode.cu)
+// at prefill widths: each x is split into three bf16 parts, h = bf16(x),
+// m = bf16(x - h), l = bf16(x - h - m), every residual exact in f32, so
+// for normal x h + m + l = x.  The ring stages the group's f32 x tile;
+// after the stage's barrier the block writes its three bf16 parts to one
+// shared tile (rows laid out as a staged bf16 x tile), and a second
+// barrier hands it to the warps; the next group's first barrier keeps it
+// until every warp has read it.  Each decoded A fragment then runs
+// against the x fragments of all three parts into the same partial
+// fragment of its plane and group (no more registers), which is folded
+// with alpha as in bf16; the x-sum pass runs the three parts too.  The
+// decode, the alpha and the z folds are shared by the parts; the mmas
+// and x loads are three times bf16's.  What bounds it: operations, 3 q
+// bf16 products of the dense size (618 GFLOP at rows 512, [16384 x
+// 4096], q 3: 0.63 ms at 989 TFLOP/s, against 1.03 ms for the dense f32
+// product on the CUDA cores at 67 TFLOP/s).  An f32 stage is twice a
+// bf16 one and the parts take another 3 x 64 rows x (2 gs + 16) bytes,
+// so a block holds 64 batch rows where three or two stages of that fit
+// (gs <= 128 at q <= 7), else 32 (gs 128 at q 8, gs 256 at q <= 6), else
+// 16 (gs 256 at q 7 and 8); one block an SM (its 128-203 registers a
+// thread, and at gs 128 its shared memory).  Only the f32 summation
+// order differs from the plain version; on exact inputs (m = l = 0) it
+// equals the plain versions bit for bit.
 #include "bcq_mma.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -93,23 +121,36 @@ __device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
   return *reinterpret_cast<const unsigned*>(&r);
 }
 
+// shared memory: a ring of stages (x tile, plane bytes), with f32 x the
+// three bf16 parts of the current group's x tile, then two blocks of SG
+// groups' alpha and z
 struct Layout {
-  int xs;       // bytes per staged x row: gs bf16 and 16 of padding
-  int x_bytes;  // the x tile
+  int xs;       // bytes per bf16 x row (staged, or one part): gs bf16
+                // and 16 of padding
+  int xrow;     // bytes per staged x row: xs, or gs f32 with f32 x
+  int x_bytes;  // the staged x tile
   int p_bytes;  // the plane bytes, rounded up to 16
   int stage;    // one ring stage: x tile and plane bytes
+  int part;     // one bf16 part of an f32 x tile
+  int conv;     // the three parts (f32 x), or 0
   int sc_bytes;  // two blocks of SG groups' alpha and z, after the ring
-  __host__ __device__ Layout(int gs, int q, int bt) {
+  __host__ __device__ Layout(int gs, int q, int bt, bool f32) {
     xs = gs * 2 + 16;
-    x_bytes = bt * xs;
+    xrow = f32 ? gs * 4 : xs;
+    x_bytes = bt * xrow;
     p_bytes = (q * MT * (gs / 8) + 15) / 16 * 16;
     stage = x_bytes + p_bytes;
+    part = bt * xs;
+    conv = f32 ? 3 * part : 0;
     sc_bytes = 2 * (q + 1) * MT * SGP * 4;
+  }
+  __host__ __device__ int bytes(int stages) const {
+    return stages * stage + conv + sc_bytes;
   }
 };
 
 struct Args {
-  const __nv_bfloat16* x;
+  const void* x;  // bf16, or f32 with the F32 kernels
   const uint8_t* packed;
   const float* alpha;
   const float* z;
@@ -120,12 +161,12 @@ struct Args {
   int pw;         // bytes per plane copy: 16, 8, 4, or 1 (plain loads)
 };
 
-// stage the x tile (BT rows) and plane bytes of alpha group grp, and
-// the alpha and z values of groups grp .. grp + SG - 1 when grp starts a
-// block of SG.  GS and PW are the group size and plane copy width when
-// fixed at compile time (0: read from the arguments), so the index
-// arithmetic folds.
-template <int GS, int PW, int BT>
+// stage the x tile (BT rows; bf16, or f32 with F32) and plane bytes of
+// alpha group grp, and the alpha and z values of groups grp .. grp + SG
+// - 1 when grp starts a block of SG.  GS and PW are the group size and
+// plane copy width when fixed at compile time (0: read from the
+// arguments), so the index arithmetic folds.
+template <int GS, int PW, int BT, bool F32>
 __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
                                            unsigned char* st, float* scb,
                                            int grp, int gbeg, int gend,
@@ -133,13 +174,17 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
   const int gs = GS ? GS : a.gs;
   const int pw = PW ? PW : a.pw;
   const int k0 = grp * gs;
-  const int nch = gs / 8;                   // 16-byte chunks per x row
+  // 16-byte chunks per x row: 8 bf16 or 4 f32 values
+  constexpr int EPC = F32 ? 4 : 8;
+  using T = typename std::conditional<F32, float, __nv_bfloat16>::type;
+  const T* x = static_cast<const T*>(a.x);
+  const int nch = gs / EPC;
   for (int i = tid; i < BT * nch; i += NT) {
     const int r = i / nch, c = i % nch;
-    const int b = b0 + r, k = k0 + c * 8;
+    const int b = b0 + r, k = k0 + c * EPC;
     const bool ok = b < a.B && k < a.N;
-    cp_async16(st + r * L.xs + c * 16,
-               ok ? a.x + (size_t)b * a.N + k : a.x, ok ? 16 : 0);
+    cp_async16(st + r * L.xrow + c * 16,
+               ok ? x + (size_t)b * a.N + k : x, ok ? 16 : 0);
   }
   unsigned char* ps = st + L.x_bytes;
   const int pb = gs / 8;                    // plane bytes per row
@@ -178,21 +223,46 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
   }
 }
 
+// F32: the staged f32 x tile (BT rows of gs values) -> its three bf16
+// parts in conv (part j at j * L.part, rows L.xs bytes apart: the layout
+// of a staged bf16 x tile)
+template <int BT>
+__device__ __forceinline__ void split_stage(const unsigned char* xf,
+                                            unsigned char* conv,
+                                            const Layout& L, int gs,
+                                            int tid) {
+  const int nch = gs / 4;                   // float4 chunks per row
+  for (int i = tid; i < BT * nch; i += NT) {
+    const int r = i / nch, c = i % nch;
+    const float4 v =
+        *reinterpret_cast<const float4*>(xf + r * L.xrow + c * 16);
+    unsigned lo[3], hi[3];
+    split_bf16x3(make_float2(v.x, v.y), lo);
+    split_bf16x3(make_float2(v.z, v.w), hi);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint2*>(conv + p * L.part + r * L.xs + c * 8) =
+          make_uint2(lo[p], hi[p]);
+  }
+}
+
 // One pass of NP planes (1 or 2) over a staged group for one warp:
 // part[i] += x . (+-1 plane i)^T over gs/16 k16 steps, one m16 x NB8 n8
-// tiles each, the x fragments loaded once for all NP planes.  prow is
-// this thread's row g of the first plane (planes are MT rows apart).
-// With XS it also runs the x fragments of 16-row pair xpair as an A
-// operand against an all-ones B, which leaves each of those batch rows'
-// sum of x over the group in xs (row 16 xpair + g in xs[0], + 8 in
-// xs[2]).  With TERN (NP 1) the pass reads the sign plane at prow and the
-// mask plane MT rows below it, and its operand is the sum of the two
-// derived planes' +-1 pairs.
-template <int GS, int NB8, int NP, bool XS, bool TERN>
+// tiles each, the x fragments loaded once for all NP planes.  NX x tiles
+// (1, or the 3 bf16 parts of f32 x, xpart bytes apart) run against the
+// same A fragments into the same partials.  prow is this thread's row g
+// of the first plane (planes are MT rows apart).  With XS it also runs
+// the x fragments of 16-row pair xpair (all NX tiles) as an A operand
+// against an all-ones B, which leaves each of those batch rows' sum of x
+// over the group in xs (row 16 xpair + g in xs[0], + 8 in xs[2]).  With
+// TERN (NP 1) the pass reads the sign plane at prow and the mask plane
+// MT rows below it, and its operand is the sum of the two derived
+// planes' +-1 pairs.
+template <int GS, int NB8, int NP, bool XS, bool TERN, int NX>
 __device__ __forceinline__ void plane_pass(
     const unsigned char* prow, int pb, int ksteps, unsigned xaddr,
-    int xstride, int xpair, unsigned mlo, unsigned klo, unsigned mhi,
-    unsigned khi, float (&part)[NP][NB8][4], float (&xs)[4]) {
+    int xstride, int xpart, int xpair, unsigned mlo, unsigned klo,
+    unsigned mhi, unsigned khi, float (&part)[NP][NB8][4], float (&xs)[4]) {
   const unsigned ones[2] = {ONES, ONES};
 #pragma unroll
   for (int kk = 0; kk < (GS ? GS / 16 : ksteps); ++kk) {
@@ -233,25 +303,30 @@ __device__ __forceinline__ void plane_pass(
       }
     }
 #pragma unroll
-    for (int j = 0; j < NB8 / 2; ++j) {
-      // n8 tiles 2j and 2j + 1: batch rows 16 j + [0, 16)
-      unsigned r[4];
-      ldsm_x4(r, xaddr + j * 16 * xstride + kk * 32);
+    for (int j = 0; j < NB8 / 2; ++j)
 #pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        mma_bf16(part[i][2 * j], af[i], r[0], r[1]);
-        mma_bf16(part[i][2 * j + 1], af[i], r[2], r[3]);
+      for (int x = 0; x < NX; ++x) {
+        // n8 tiles 2j and 2j + 1: batch rows 16 j + [0, 16) of x tile x
+        unsigned r[4];
+        ldsm_x4(r, xaddr + x * xpart + j * 16 * xstride + kk * 32);
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          mma_bf16(part[i][2 * j], af[i], r[0], r[1]);
+          mma_bf16(part[i][2 * j + 1], af[i], r[2], r[3]);
+        }
       }
-    }
     if constexpr (XS) {
       // pair xpair's x fragments once more, as an A operand: (rows 0-7,
       // k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k
       // 8-15) are ldmatrix registers 0, 2, 1, 3 (one more load rather
       // than a branch around a mma.sync)
-      unsigned r[4];
-      ldsm_x4(r, xaddr + xpair * 16 * xstride + kk * 32);
-      const unsigned xa[4] = {r[0], r[2], r[1], r[3]};
-      mma_bf16(xs, xa, ones[0], ones[1]);
+#pragma unroll
+      for (int x = 0; x < NX; ++x) {
+        unsigned r[4];
+        ldsm_x4(r, xaddr + x * xpart + xpair * 16 * xstride + kk * 32);
+        const unsigned xa[4] = {r[0], r[2], r[1], r[3]};
+        mma_bf16(xs, xa, ones[0], ones[1]);
+      }
     }
   }
 }
@@ -259,12 +334,12 @@ __device__ __forceinline__ void plane_pass(
 // zero NP partial fragments, run one pass over planes p .. p + NP - 1
 // and fold them into acc with their alphas (TERN: the one combined pass,
 // folded with alpha / 2)
-template <int GS, int NB8, int NP, bool XS, bool TERN>
+template <int GS, int NB8, int NP, bool XS, bool TERN, int NX>
 __device__ __forceinline__ void planes_step(
     const unsigned char* ps, const float* sc, int p, int wm, int g, int pb,
-    int ksteps, unsigned xaddr, int xstride, int xpair, unsigned mlo,
-    unsigned klo, unsigned mhi, unsigned khi, float (&acc)[NB8][4],
-    float (&xs)[4]) {
+    int ksteps, unsigned xaddr, int xstride, int xpart, int xpair,
+    unsigned mlo, unsigned klo, unsigned mhi, unsigned khi,
+    float (&acc)[NB8][4], float (&xs)[4]) {
   float part[NP][NB8][4];
 #pragma unroll
   for (int i = 0; i < NP; ++i)
@@ -272,9 +347,9 @@ __device__ __forceinline__ void planes_step(
     for (int j = 0; j < NB8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-  plane_pass<GS, NB8, NP, XS, TERN>(ps + (p * MT + wm + g) * pb, pb, ksteps,
-                                    xaddr, xstride, xpair, mlo, klo, mhi,
-                                    khi, part, xs);
+  plane_pass<GS, NB8, NP, XS, TERN, NX>(ps + (p * MT + wm + g) * pb, pb,
+                                        ksteps, xaddr, xstride, xpart, xpair,
+                                        mlo, klo, mhi, khi, part, xs);
   // fold: c0, c1 are weight row g, c2, c3 row g + 8
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
@@ -289,15 +364,19 @@ __device__ __forceinline__ void planes_step(
   }
 }
 
-template <int S, int GS, int PW, int NB8, bool TERN>
-__global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
+// one block a SM with f32 x (its shared memory), two with bf16
+template <int S, int GS, int PW, int NB8, bool TERN, bool F32>
+__global__ void __launch_bounds__(NT, F32 ? 1 : 2)
+    bcq_mma_kernel(const Args a) {
   constexpr int BT = NB8 * 8;       // batch rows per block
+  constexpr int NX = F32 ? 3 : 1;   // x tiles per group: the f32 parts
   extern __shared__ __align__(16) unsigned char smem[];
   // sums of x per batch row, by group parity
   __shared__ __align__(16) float xsum_s[2][BT];
   const int gs = GS ? GS : a.gs;
-  const Layout L(gs, a.q, BT);
-  float* scb = reinterpret_cast<float*>(smem + S * L.stage);
+  const Layout L(gs, a.q, BT, F32);
+  unsigned char* conv = smem + S * L.stage;       // F32: the bf16 parts
+  float* scb = reinterpret_cast<float*>(conv + L.conv);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp * WM;
@@ -340,8 +419,8 @@ __global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
     if (s < ng)
-      load_stage<GS, PW, BT>(a, L, smem + s * L.stage, scb, gbeg + s, gbeg,
-                             gbeg + ng, m0, b0, tid);
+      load_stage<GS, PW, BT, F32>(a, L, smem + s * L.stage, scb, gbeg + s,
+                                  gbeg, gbeg + ng, m0, b0, tid);
     cp_async_commit();
   }
 
@@ -352,12 +431,17 @@ __global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
     {
       const int nx = it + S - 1;
       if (nx < ng)
-        load_stage<GS, PW, BT>(a, L, smem + (nx % S) * L.stage, scb,
-                               gbeg + nx, gbeg, gbeg + ng, m0, b0, tid);
+        load_stage<GS, PW, BT, F32>(a, L, smem + (nx % S) * L.stage, scb,
+                                    gbeg + nx, gbeg, gbeg + ng, m0, b0, tid);
       cp_async_commit();
     }
     const unsigned char* st = smem + (it % S) * L.stage;
-    const unsigned xaddr = smem_u32(st + lrow * L.xs + lcol);
+    if constexpr (F32) {
+      split_stage<BT>(st, conv, L, gs, tid);
+      __syncthreads();
+    }
+    const unsigned xaddr =
+        smem_u32((F32 ? conv : st) + lrow * L.xs + lcol);
     const unsigned char* ps = st + L.x_bytes;
     // this group's column of the staged alpha and z block
     const float* sc =
@@ -365,37 +449,37 @@ __global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
     float xs[4] = {0.f, 0.f, 0.f, 0.f};
     if constexpr (TERN) {
       // sign and mask planes in one combined pass, alpha / 2
-      planes_step<GS, NB8, 1, false, true>(ps, sc, 0, wm, g, pb, ksteps,
-                                           xaddr, L.xs, warp, mlo, klo, mhi,
-                                           khi, acc, xs);
+      planes_step<GS, NB8, 1, false, true, NX>(
+          ps, sc, 0, wm, g, pb, ksteps, xaddr, L.xs, L.part, warp, mlo, klo,
+          mhi, khi, acc, xs);
     } else {
       // planes two at a time (the x fragments loaded once for both), the
       // sums of x in the first pass
       int p = 0;
       if (a.q >= 2) {
         if (sums)
-          planes_step<GS, NB8, 2, true, false>(ps, sc, 0, wm, g, pb, ksteps,
-                                               xaddr, L.xs, warp, mlo, klo,
-                                               mhi, khi, acc, xs);
+          planes_step<GS, NB8, 2, true, false, NX>(
+              ps, sc, 0, wm, g, pb, ksteps, xaddr, L.xs, L.part, warp, mlo,
+              klo, mhi, khi, acc, xs);
         else
-          planes_step<GS, NB8, 2, false, false>(ps, sc, 0, wm, g, pb, ksteps,
-                                                xaddr, L.xs, warp, mlo, klo,
-                                                mhi, khi, acc, xs);
+          planes_step<GS, NB8, 2, false, false, NX>(
+              ps, sc, 0, wm, g, pb, ksteps, xaddr, L.xs, L.part, warp, mlo,
+              klo, mhi, khi, acc, xs);
         p = 2;
       } else if (sums) {
-        planes_step<GS, NB8, 1, true, false>(ps, sc, 0, wm, g, pb, ksteps,
-                                             xaddr, L.xs, warp, mlo, klo, mhi,
-                                             khi, acc, xs);
+        planes_step<GS, NB8, 1, true, false, NX>(
+            ps, sc, 0, wm, g, pb, ksteps, xaddr, L.xs, L.part, warp, mlo,
+            klo, mhi, khi, acc, xs);
         p = 1;
       }
       for (; p + 1 < a.q; p += 2)
-        planes_step<GS, NB8, 2, false, false>(ps, sc, p, wm, g, pb, ksteps,
-                                              xaddr, L.xs, warp, mlo, klo,
-                                              mhi, khi, acc, xs);
+        planes_step<GS, NB8, 2, false, false, NX>(
+            ps, sc, p, wm, g, pb, ksteps, xaddr, L.xs, L.part, warp, mlo,
+            klo, mhi, khi, acc, xs);
       if (p < a.q)
-        planes_step<GS, NB8, 1, false, false>(ps, sc, p, wm, g, pb, ksteps,
-                                              xaddr, L.xs, warp, mlo, klo,
-                                              mhi, khi, acc, xs);
+        planes_step<GS, NB8, 1, false, false, NX>(
+            ps, sc, p, wm, g, pb, ksteps, xaddr, L.xs, L.part, warp, mlo,
+            klo, mhi, khi, acc, xs);
     }
     if (has_z) {
       zp0 = sc[(a.arows * MT + wm + g) * SGP];
@@ -423,10 +507,10 @@ __global__ void __launch_bounds__(NT, 2) bcq_mma_kernel(const Args a) {
     }
 }
 
-template <int S, int GS, int PW, int NB8, bool TERN>
+template <int S, int GS, int PW, int NB8, bool TERN, bool F32>
 cudaError_t launch_s(const Args& a, int smem, int splits, float* y,
                      cudaStream_t s) {
-  auto kernel = bcq_mma_kernel<S, GS, PW, NB8, TERN>;
+  auto kernel = bcq_mma_kernel<S, GS, PW, NB8, TERN, F32>;
   // the shared-memory opt-in (to the card's maximum), once per device
   static unsigned ready = 0;
   int dev = 0;
@@ -449,19 +533,41 @@ cudaError_t launch_s(const Args& a, int smem, int splits, float* y,
 
 // the stage count and compile-time shapes for NB8 n8 tiles per warp:
 // the main path's group size 128 with 16-byte plane rows has them fixed
-// (three stages always fit: at most 180 KB at q 8); other shapes run the
-// same body with runtime shapes, in three stages or, where those do not
-// fit, two
-template <int NB8, bool TERN>
+// where three stages fit (always with bf16 x: at most 180 KB at q 8;
+// with f32 x up to q 4 at 64 batch rows); other shapes run the same body
+// with runtime shapes, in three stages or, where those do not fit, two
+template <int NB8, bool TERN, bool F32>
 cudaError_t launch_nb8(const Args& a, int splits, float* y, cudaStream_t s) {
-  const Layout L(a.gs, a.q, NB8 * 8);
-  const int s3 = 3 * L.stage + L.sc_bytes, s2 = 2 * L.stage + L.sc_bytes;
-  if (a.gs == 128 && a.pw == 16)
-    return launch_s<3, 128, 16, NB8, TERN>(a, s3, splits, y, s);
+  const Layout L(a.gs, a.q, NB8 * 8, F32);
+  const int s3 = L.bytes(3), s2 = L.bytes(2);
+  if (a.gs == 128 && a.pw == 16 && s3 <= MAX_SMEM)
+    return launch_s<3, 128, 16, NB8, TERN, F32>(a, s3, splits, y, s);
   if (s3 <= MAX_SMEM)
-    return launch_s<3, 0, 0, NB8, TERN>(a, s3, splits, y, s);
+    return launch_s<3, 0, 0, NB8, TERN, F32>(a, s3, splits, y, s);
   if (s2 <= MAX_SMEM)
-    return launch_s<2, 0, 0, NB8, TERN>(a, s2, splits, y, s);
+    return launch_s<2, 0, 0, NB8, TERN, F32>(a, s2, splits, y, s);
+  return cudaErrorInvalidValue;
+}
+
+// batch rows per block: 32 when B fits in 32, else 64; with f32 x the
+// widest of 64, 32 and 16 whose two stages fit in shared memory (no
+// ternary bundle needs 16: its two planes fit 32 rows at every group
+// size)
+int batch_tile(int B, int q, int gs, bool ternary, bool f32) {
+  int nb8 = B <= 32 ? 4 : 8;
+  if (!f32) return nb8;
+  for (; nb8 > (ternary ? 4 : 2); nb8 /= 2)
+    if (Layout(gs, q, nb8 * 8, true).bytes(2) <= MAX_SMEM) break;
+  return nb8;
+}
+
+template <bool TERN, bool F32>
+cudaError_t launch_tile(const Args& a, int nb8, int splits, float* y,
+                        cudaStream_t s) {
+  if (nb8 == 8) return launch_nb8<8, TERN, F32>(a, splits, y, s);
+  if (nb8 == 4) return launch_nb8<4, TERN, F32>(a, splits, y, s);
+  if constexpr (F32 && !TERN)
+    if (nb8 == 2) return launch_nb8<2, TERN, F32>(a, splits, y, s);
   return cudaErrorInvalidValue;
 }
 
@@ -475,16 +581,18 @@ cudaError_t launch_bcq_mma(const void* x, const void* packed,
                            const void* alpha, const void* z, float* y,
                            float* part, int B, int M, int N, int NB, int G,
                            int q, int gs, int splits, bool ternary,
-                           cudaStream_t s) {
+                           bool x_is_bf16, cudaStream_t s) {
   if (gs < 16 || gs % 16 || gs > BCQ_MMA_MAX_GS || q < 1 || q > 8 ||
       (ternary && (q != 2 || z != nullptr)) ||
       N % 8 || N > NB * 8 || G * gs != NB * 8 || !aligned(x, 16) ||
-      splits < 1 || splits > G || ceil_div(B, BCQ_MMA_BATCH) > 65535 ||
-      splits > 65535)
+      splits < 1 || splits > G || splits > 65535)
     return cudaErrorInvalidValue;
   const int per = ceil_div(G, splits);
   if (ceil_div(G, per) != splits || (splits > 1 && part == nullptr))
     return cudaErrorInvalidValue;
+  const bool f32 = !x_is_bf16;
+  const int nb8 = batch_tile(B, q, gs, ternary, f32);
+  if (ceil_div(B, nb8 * 8) > 65535) return cudaErrorInvalidValue;
   const int pb = gs / 8;
   int pw = 1;
   const int widths[3] = {16, 8, 4};
@@ -493,16 +601,15 @@ cudaError_t launch_bcq_mma(const void* x, const void* packed,
       pw = w;
       break;
     }
-  Args a{static_cast<const __nv_bfloat16*>(x),
+  Args a{x,
          static_cast<const uint8_t*>(packed),
          static_cast<const float*>(alpha),
          static_cast<const float*>(z),
          splits > 1 ? part : y,
          B, M, N, NB, G, q, gs, ternary ? 1 : q, per, pw};
-  // 32 batch rows per block when B fits in 32, else 64
   if (ternary)
-    return B <= 32 ? launch_nb8<4, true>(a, splits, y, s)
-                   : launch_nb8<8, true>(a, splits, y, s);
-  return B <= 32 ? launch_nb8<4, false>(a, splits, y, s)
-                 : launch_nb8<8, false>(a, splits, y, s);
+    return f32 ? launch_tile<true, true>(a, nb8, splits, y, s)
+               : launch_tile<true, false>(a, nb8, splits, y, s);
+  return f32 ? launch_tile<false, true>(a, nb8, splits, y, s)
+             : launch_tile<false, false>(a, nb8, splits, y, s);
 }

@@ -1,6 +1,6 @@
-// The tensor-core BCQ tile: y[B, M] = x . dequant(W)^T for bf16
-// activations at prefill widths, shared by bcq_matmul and lut_gemm.
-// See bcq_mma.cu for the design.
+// The tensor-core BCQ tile: y[B, M] = x . dequant(W)^T for bf16 or f32
+// activations at prefill widths, shared by bcq_matmul, lut_gemm and
+// ternary_matmul.  See bcq_mma.cu for the design.
 #pragma once
 
 #include "common.cuh"
@@ -53,6 +53,20 @@ __device__ __forceinline__ unsigned decode_pm1_at(unsigned w, unsigned mask,
 
 constexpr unsigned ONES = 0x3F803F80u;  // two bf16 +1
 
+// two f32 values -> their three bf16 parts as bf16 pairs: w[0] = h =
+// bf16(v), w[1] = m = bf16(v - h), w[2] = l = bf16(v - h - m), each
+// residual exact in f32 (for normal v, h + m + l = v)
+__device__ __forceinline__ void split_bf16x3(float2 v, unsigned (&w)[3]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+    w[p] = *reinterpret_cast<const unsigned*>(&h);
+    const float2 hf = __bfloat1622float2(h);
+    v.x -= hf.x;
+    v.y -= hf.y;
+  }
+}
+
 // alpha and z are staged SG groups at a time (a row's values for
 // consecutive groups are contiguous, so 8 lanes fill one 32-byte
 // sector), rows SGP floats apart (odd: the 8 rows a warp reads at once
@@ -60,7 +74,8 @@ constexpr unsigned ONES = 0x3F803F80u;  // two bf16 +1
 constexpr int SG = 8;
 constexpr int SGP = SG + 1;
 
-// x bf16 [B, N] (rows 16-byte aligned, N % 8 == 0), packed uint8
+// x bf16 or f32 (x_is_bf16) [B, N] (rows 16-byte aligned, N % 8 == 0;
+// f32 x is split into three bf16 parts in the kernel), packed uint8
 // [q, M, NB], alpha f32 [q, M, G], z f32 [M, G] or null, y f32 [B, M].
 // With ternary, packed holds the sign and mask planes (q = 2), alpha is
 // one row [1, M, G] and z is null: y = sum_g (alpha / 2) x . ((+-1 b1) +
@@ -73,4 +88,4 @@ cudaError_t launch_bcq_mma(const void* x, const void* packed,
                            const void* alpha, const void* z, float* y,
                            float* part, int B, int M, int N, int NB, int G,
                            int q, int gs, int splits, bool ternary,
-                           cudaStream_t s);
+                           bool x_is_bf16, cudaStream_t s);

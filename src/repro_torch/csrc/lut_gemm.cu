@@ -8,12 +8,16 @@
 // one by a documented rule and passes it as `route`:
 //   route 1 "lut"      1-8 batch rows, mu 4 with the half table (the
 //                      serve path's decode): lut_decode_kernel below;
-//   route 2 "mma"      more than 8 rows of bf16 activations, group size
-//                      a multiple of 16: the tensor-core BCQ tile of
-//                      bcq_mma.cu (the keyed read re-associated into one
-//                      product per bit plane, exact in bf16);
-//   route 0 "lut_tile" everything else (f32 activations above 8 rows,
-//                      mu 2, the full table): lut_gemm_kernel below.
+//   route 2 "mma"      more than 8 rows of bf16 or f32 activations,
+//                      group size a multiple of 16 up to 256,
+//                      in_features a multiple of 8, any mu and table: the
+//                      tensor-core BCQ tile of bcq_mma.cu (the keyed read
+//                      re-associated into one product per bit plane,
+//                      exact in bf16; f32 x split into three bf16 parts);
+//   route 0 "lut_tile" everything else (decode rows at mu 2 or with the
+//                      full table; above 8 rows, group sizes 8 mod 16 or
+//                      above 256, in_features not a multiple of 8):
+//                      lut_gemm_kernel below.
 //
 // What bounds it on an H100: at decode it is bound by bytes (the packed
 // planes, alpha and z, as for bcq_matmul) on paper; in practice the keyed
@@ -511,9 +515,9 @@ extern "C" int launch_lut_gemm(const void* x, const void* packed,
                                            N, NB, G, q, gs, splits, s);
       break;
     case 2:
-      if (!x_is_bf16 || B <= 8) return static_cast<int>(cudaErrorInvalidValue);
+      if (B <= 8) return static_cast<int>(cudaErrorInvalidValue);
       e = launch_bcq_mma(x, packed, alpha, z, yf, pf, B, M, N, NB, G, q, gs,
-                         splits, false, s);
+                         splits, false, x_is_bf16 != 0, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -7,11 +7,12 @@
 // in_features a multiple of 8, the tensor-core decode tile of
 // bcq_decode.cu with its ternary flag (one {-1, 0, +1} operand decoded
 // from the sign and mask words, see there); "mma" (1), more than 8 rows
-// of bf16 activations, the tensor-core tile of bcq_mma.cu with the
-// derived planes decoded in registers (see there); "lut" (0), the
-// half-LUT body below, for every other call (f32 rows above 8, group
-// sizes that are 8 mod 16 or 8, 16, 24 at decode rows, in_features not
-// a multiple of 8).
+// of bf16 or f32 activations with group size a multiple of 16 up to 256
+// and in_features a multiple of 8, the tensor-core tile of bcq_mma.cu
+// with the derived planes decoded in registers (f32 x split into three
+// bf16 parts; see there); "lut" (0), the half-LUT body below, for every
+// other call (group sizes that are 8 mod 16 or above 256 at any rows, 8,
+// 16, 24 at decode rows, in_features not a multiple of 8).
 //
 // Replaces: src/repro/kernels/ternary_matmul/ternary_matmul.py
 // ::_ternary_matmul_kernel (launcher ternary_matmul_tiled) with
@@ -221,10 +222,11 @@ extern "C" int launch_ternary_matmul(const void* x, const void* packed,
         x, packed, alpha, nullptr, y, part, sem, B, M, N, NB, G, 2, gs,
         x_is_bf16 != 0, true, splits, s));
   if (route == 1) {
-    if (!x_is_bf16 || B <= 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (B <= 8) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_bcq_mma(
         x, packed, alpha, nullptr, static_cast<float*>(y),
-        static_cast<float*>(part), B, M, N, NB, G, 2, gs, splits, true, s));
+        static_cast<float*>(part), B, M, N, NB, G, 2, gs, splits, true,
+        x_is_bf16 != 0, s));
   }
   if (route != 0 || gs % 8 || G * gs != NB * 8 || N > NB * 8 ||
       splits < 1 || splits > ceil_div(NB * 8, KC))

@@ -2,7 +2,8 @@
 tensor-core tile, CUDA-core tile) and its plain versions."""
 from .ops import bcq_matmul, route_for
 from .ref import (bcq_matmul_ref, bcq_planes_ref, gemv_split_ref,
-                  plane_group_sums, split_bf16x3)
+                  mma_split_ref, plane_group_sums, split_bf16x3)
 
 __all__ = ["bcq_matmul", "route_for", "bcq_matmul_ref", "bcq_planes_ref",
-           "gemv_split_ref", "plane_group_sums", "split_bf16x3"]
+           "gemv_split_ref", "mma_split_ref", "plane_group_sums",
+           "split_bf16x3"]

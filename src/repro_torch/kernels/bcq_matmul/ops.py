@@ -21,12 +21,16 @@ when it fails):
   * ``gemv_fma`` — any other call of at most 8 rows (group sizes 16, 96,
     8 mod 16, or an input width that is not a multiple of 8): the
     weight-streaming GEMV on the CUDA cores, which keeps x in f32;
-  * ``mma``      — more than 8 rows of bf16 activations, a group size
-    that is a multiple of 16 (at most 256) and an input width that is a
-    multiple of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, one bf16
-    product per bit plane and alpha group (prefill);
-  * ``fma``      — any other call above 8 rows (f32 activations, or
-    group size 8 mod 16): the CUDA-core tile.
+  * ``mma``      — more than 8 rows of bf16 or f32 activations, a group
+    size that is a multiple of 16 (at most 256) and an input width that
+    is a multiple of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, one
+    bf16 product per bit plane and alpha group (prefill; f32 activations
+    split in the kernel into three bf16 parts, each A fragment run
+    against all three, ``ref.mma_split_ref`` the plain version of that
+    order);
+  * ``fma``      — any other call above 8 rows (group size 8 mod 16 or
+    above 256, or an input width that is not a multiple of 8): the
+    CUDA-core tile.
 
 The launch counter keeps the kernel's name; ``_lib.route_counts``
 counts each body under ``"bcq_matmul/<route>"``.  ``ref.gemv_split_ref``
@@ -55,10 +59,10 @@ GEMV_GROUPS = (32, 64, 128, 256)
 
 
 def mma_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
-    """The tensor-core tile's rule, shared with lut_gemm: more than 8
-    rows of bf16 activations, 16 | group size <= 256, 8 | in_features
-    (16-byte activation rows)."""
-    return (rows > DECODE_ROWS and dtype == torch.bfloat16
+    """The tensor-core tile's rule, shared with lut_gemm and
+    ternary_matmul: more than 8 rows of bf16 or f32 activations,
+    16 | group size <= 256, 8 | in_features (16-byte activation rows)."""
+    return (rows > DECODE_ROWS and dtype in _X_DTYPES
             and group_size % 16 == 0 and group_size <= MMA_MAX_GROUP
             and in_features % 8 == 0)
 
@@ -104,7 +108,9 @@ def gemv_splits(m: int, padded_in: int, sms: int) -> int:
 
 def aligned_rows(x2: torch.Tensor) -> torch.Tensor:
     """x2 itself, or a copy when its base is not 16-byte aligned (the
-    tensor-core tiles stage activation rows with 16-byte copies)."""
+    tensor-core tiles stage activation rows, bf16 or f32, with 16-byte
+    copies; with 8 | in_features every row then starts 16-byte
+    aligned)."""
     return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
 
 

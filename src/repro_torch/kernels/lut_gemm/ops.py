@@ -13,12 +13,14 @@ rule (never by trying one and switching when it fails):
     serve path's decode): the shared-memory LUT body, 512-column table
     builds, the reduction axis split over blocks where the row tiles
     alone would leave SMs idle;
-  * ``mma``      — more than 8 rows of bf16 activations under
-    ``bcq_matmul``'s tensor-core rule (``mma_takes``): the keyed read
-    re-associated into one bf16 product per bit plane and alpha group
-    (``csrc/bcq_mma.cu``), the same tile as bcq_matmul's prefill;
-  * ``lut_tile`` — everything else (f32 activations above 8 rows, mu 2,
-    the full table): the 128-column LUT tile.
+  * ``mma``      — more than 8 rows of bf16 or f32 activations under
+    ``bcq_matmul``'s tensor-core rule (``mma_takes``), at any mu and
+    either table: the keyed read re-associated into one bf16 product per
+    bit plane and alpha group (``csrc/bcq_mma.cu``, f32 activations split
+    there into three bf16 parts), the same tile as bcq_matmul's prefill;
+  * ``lut_tile`` — everything else (decode rows at mu 2 or with the full
+    table; above 8 rows, group sizes 8 mod 16 or above 256 and input
+    widths that are not a multiple of 8): the 128-column LUT tile.
 
 The launch counter keeps the kernel's name; ``_lib.route_counts``
 counts each body under ``"lut_gemm/<route>"``.

@@ -16,14 +16,15 @@ when it fails):
     of ``csrc/bcq_decode.cu`` with its ternary flag, one {-1, 0, +1}
     operand (mask times the +-1 sign) per k16 step scaled by alpha
     (decode);
-  * ``mma`` — more than 8 rows of bf16 activations, a group size that is
-    a multiple of 16 (at most 256) and an input width that is a multiple
-    of 8 (``bcq_matmul.mma_takes``): the tensor-core tile of
+  * ``mma`` — more than 8 rows of bf16 or f32 activations, a group size
+    that is a multiple of 16 (at most 256) and an input width that is a
+    multiple of 8 (``bcq_matmul.mma_takes``): the tensor-core tile of
     ``csrc/bcq_mma.cu``, which derives the b1 / b2 planes from the sign
-    and mask words in registers (prefill);
-  * ``lut`` — every other call (f32 activations above 8 rows, group sizes
-    8, 16, 24 and the like at decode rows, an input width that is not a
-    multiple of 8): the half-LUT body of ``csrc/ternary_matmul.cu``,
+    and mask words in registers (prefill; f32 activations split there
+    into three bf16 parts);
+  * ``lut`` — every other call (group sizes 8 mod 16 or above 256, group
+    sizes 8, 16, 24 and the like at decode rows, an input width that is
+    not a multiple of 8): the half-LUT body of ``csrc/ternary_matmul.cu``,
     which walks the reduction axis in chunks of ``CHUNK`` columns, one
     LUT build each.
 

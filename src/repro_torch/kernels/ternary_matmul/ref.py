@@ -13,9 +13,10 @@
                       (``mma``, ``csrc/bcq_mma.cu`` with its ternary
                       flag): the table read re-associated into x against
                       the derived +-1 planes, which the tile adds into
-                      one operand, summed per alpha group in f32, then
-                      scaled by alpha / 2.  Memory grows as B x M x
-                      n_groups: a test-size function;
+                      one operand, summed per alpha group in f32 (f32 x
+                      over its three bf16 parts), then scaled by alpha /
+                      2.  Memory grows as B x M x n_groups: a test-size
+                      function;
   * ``ternary_masked_ref`` — the arithmetic of the decode tile (``gemv``,
                       ``csrc/bcq_decode.cu`` with its ternary flag): the
                       derived planes' pair re-written as one {-1, 0, +1}
@@ -33,6 +34,7 @@ import torch
 from repro_torch.core.plane import (PlaneBundle, dequantize, pad_operands,
                                     unpack_planes)
 from repro_torch.kernels import lut_common
+from repro_torch.kernels.bcq_matmul.ref import bcq_planes_ref
 
 
 def dense_ref(x: torch.Tensor, w: PlaneBundle, out_dtype=None) -> torch.Tensor:
@@ -76,20 +78,13 @@ def ternary_planes_ref(x: torch.Tensor, w: PlaneBundle,
                        out_dtype=None) -> torch.Tensor:
     """y[b, m] = sum_g (alpha[m, g] / 2) s[b, m, g], with s the group sum
     of x times ((+-1 b1) + (+-1 b2)), b1 = sign | ~mask, b2 = sign & mask:
-    the reference's V1 + V2 per group, as the ``mma`` route sums it."""
+    the reference's V1 + V2 per group, as the ``mma`` route sums it (f32
+    x through its three bf16 parts, as the route splits it; bcq_matmul's
+    ``bcq_planes_ref`` on a ternary bundle)."""
     if w.kind != "ternary":
         raise ValueError(f"ternary_planes_ref needs a ternary bundle, got "
                          f"{w.kind!r}")
-    lead = x.shape[:-1]
-    x2 = pad_operands(x.reshape(-1, x.shape[-1]).float(), w)
-    b = x2.shape[0]
-    g, gs, m = w.n_groups, w.group_size, w.out_features
-    b1, b2 = lut_common.ternary_plane_bytes(w.packed[0], w.packed[1])
-    pm1 = unpack_planes(torch.stack([b1, b2]), torch.float32)
-    both = (pm1[0] + pm1[1]).reshape(m, g, gs)          # {-2, 0, +2}
-    s = torch.einsum("bgk,mgk->bmg", x2.reshape(b, g, gs), both)
-    y = torch.einsum("bmg,mg->bm", s, w.alpha[0].float() * 0.5)
-    return y.reshape(*lead, m).to(out_dtype or x.dtype)
+    return bcq_planes_ref(x, w, out_dtype)
 
 
 def ternary_masked_ref(x: torch.Tensor, w: PlaneBundle,

@@ -28,7 +28,17 @@ then z times the group's sum of x), is held here
       f32 activations (each group's terms summed over the three bf16
       parts) matches the reference's ``bcq_matmul_ref`` in f32 within
       1e-6 of the output scale (only the f32 summation order differs),
-      q 1-4, with and without z.
+      q 1-4, with and without z;
+  (f) the tensor-core tile's f32 path: its walk (``mma_split_ref``: each
+      plane's group sums over the three bf16 parts of x, then alpha, then
+      z times the parts' x-sums; the alpha groups split as ``mma_splits``
+      cuts them, the partials added in split order), at rows 9 / 32 /
+      128, q 1-4, splits 1 and 3, against the reference kernels
+      ``bcq_matmul``, ``lut_gemm`` (mu 2 and 4, half and full table) and
+      ``ternary_matmul`` in Pallas interpret mode on f32 activations that
+      are not bf16 values (the reference's plain ``bcq_matmul_ref`` where
+      a bundle has no z: its kernels take none), within 1e-6 of the
+      output scale, and bit for bit on exact inputs.
 
 The CUDA tile itself is held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
@@ -44,9 +54,10 @@ from repro.kernels import lut_common as jlc
 from repro.kernels.bcq_matmul import ops as j_mxu
 from repro.kernels.bcq_matmul.ref import bcq_matmul_ref as j_bcq_ref
 from repro.kernels.lut_gemm import ops as j_lut
+from repro.kernels.ternary_matmul import ternary_matmul as j_ternary
 from repro_torch.kernels.bcq_matmul import (bcq_matmul_ref, bcq_planes_ref,
-                                            gemv_split_ref, plane_group_sums,
-                                            split_bf16x3)
+                                            gemv_split_ref, mma_split_ref,
+                                            plane_group_sums, split_bf16x3)
 from repro_torch.kernels.bcq_matmul import route_for as bcq_route
 from repro_torch.kernels.bcq_matmul.ops import gemv_splits, mma_splits
 from repro_torch.kernels.lut_gemm import route_for as lut_route
@@ -150,7 +161,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("rows,dtype,gs,n,want", [
     (8, BF16, 128, 4096, "gemv"), (9, BF16, 128, 4096, "mma"),
-    (1, F32, 128, 4096, "gemv"), (9, F32, 128, 4096, "fma"),
+    (1, F32, 128, 4096, "gemv"), (9, F32, 128, 4096, "mma"),
     (512, BF16, 16, 4096, "mma"), (512, BF16, 8, 136, "fma"),
     (512, BF16, 128, 4100, "fma"), (512, BF16, 512, 4096, "fma"),
     # the decode tile's edges: group sizes 32..256 that divide its
@@ -162,6 +173,12 @@ BF16, F32 = torch.bfloat16, torch.float32
     # f32 decode rows take the decode tile under the same rule
     (8, F32, 16, 4096, "gemv_fma"), (1, F32, 96, 4224, "gemv_fma"),
     (8, F32, 128, 4100, "gemv_fma"), (8, F32, 256, 2560, "gemv"),
+    # f32 prefill rows take the tensor-core tile under the bf16 rule; the
+    # CUDA-core tile keeps group sizes 8 mod 16 or above 256 and input
+    # widths that are not a multiple of 8
+    (512, F32, 16, 4096, "mma"), (12000, F32, 256, 1024, "mma"),
+    (512, F32, 8, 136, "fma"), (512, F32, 512, 4096, "fma"),
+    (512, F32, 128, 4100, "fma"),
 ])
 def test_bcq_matmul_route_edges(rows, dtype, gs, n, want):
     assert bcq_route(rows, dtype, gs, n) == want
@@ -169,13 +186,29 @@ def test_bcq_matmul_route_edges(rows, dtype, gs, n, want):
 
 @pytest.mark.parametrize("rows,dtype,gs,mu,half,want", [
     (8, BF16, 128, 4, True, "lut"), (9, BF16, 128, 4, True, "mma"),
-    (8, F32, 8, 4, True, "lut"), (9, F32, 128, 4, True, "lut_tile"),
+    (8, F32, 8, 4, True, "lut"), (9, F32, 128, 4, True, "mma"),
     (1, BF16, 128, 2, True, "lut_tile"), (8, BF16, 128, 4, False,
                                           "lut_tile"),
     (9, BF16, 16, 2, False, "mma"), (32, BF16, 8, 4, True, "lut_tile"),
+    # f32 above 8 rows at any mu and table on the tensor-core tile; the
+    # LUT tile keeps f32 decode rows at mu 2 or with the full table and
+    # the group sizes the tile does not take
+    (512, F32, 128, 2, False, "mma"), (32, F32, 256, 4, False, "mma"),
+    (8, F32, 128, 2, True, "lut_tile"), (512, F32, 8, 4, True, "lut_tile"),
+    (512, F32, 512, 2, False, "lut_tile"),
 ])
 def test_lut_gemm_route_edges(rows, dtype, gs, mu, half, want):
     assert lut_route(rows, dtype, gs, 4096, mu, half) == want
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("mu,half", [(4, True), (2, False)])
+def test_lut_gemm_keeps_the_lut_tile_at_odd_widths(dtype, mu, half):
+    """Input widths that are not a multiple of 8 stay on the LUT tile
+    above 8 rows, f32 and bf16 alike; 8 | width takes the tensor-core
+    tile."""
+    assert lut_route(512, dtype, 128, 4100, mu, half) == "lut_tile"
+    assert lut_route(512, dtype, 128, 4096, mu, half) == "mma"
 
 
 def test_split_counts():
@@ -317,3 +350,90 @@ def test_gemv_split_ref_f32_matches_reference(m, n, b, g, q, with_z):
         got = gemv_split_ref(xt, wt, s, torch.float32).numpy()
         assert got.shape == want.shape == (b, m)
         _close(got, want, 1e-6)
+
+
+def _random_bundles(rng, m, n, g, q, with_z):
+    """(BCQ bundle, ternary bundle) of random planes and scales, built
+    directly (no quantizer run): alphas in [0.5, 1.5) that are not powers
+    of two, offsets N(0, 0.1) or none; the ternary bundle's sign and mask
+    planes and one alpha row."""
+    nb, ng = -(-n // g) * g // 8, -(-n // g)
+    bcq = JPlaneBundle(
+        packed=jnp.asarray(rng.integers(0, 256, (q, m, nb), dtype=np.uint8)),
+        alpha=jnp.asarray(rng.uniform(0.5, 1.5, (q, m, ng)), jnp.float32),
+        z=jnp.asarray(0.1 * rng.normal(size=(m, ng)), jnp.float32)
+        if with_z else None, group_size=g, in_features=n, out_features=m)
+    tern = JPlaneBundle(
+        packed=jnp.asarray(rng.integers(0, 256, (2, m, nb), dtype=np.uint8)),
+        alpha=jnp.asarray(rng.uniform(0.5, 1.5, (1, m, ng)), jnp.float32),
+        z=None, group_size=g, in_features=n, out_features=m, kind="ternary")
+    return bcq, tern
+
+
+# (out, in, rows, group size, planes, z, lut_gemm variants): rows 9 / 32 /
+# 128 (ragged M; 376 at g 128 pads to 384), q 1-4, group sizes 16-128,
+# each with 3 alpha groups or more, so 3 splits are whole
+F32_MMA_CASES = [(33, 384, 9, 64, 1, True, ((4, True), (2, False))),
+                 (40, 192, 32, 16, 3, False, ()),
+                 (24, 376, 128, 128, 4, True, ((4, False), (2, True))),
+                 (17, 320, 128, 64, 2, False, ())]
+
+
+@pytest.mark.parametrize("m,n,b,g,q,with_z,luts", F32_MMA_CASES)
+def test_mma_split_ref_f32_matches_reference_kernels(m, n, b, g, q, with_z,
+                                                     luts):
+    """The tensor-core tile's f32 walk at splits 1 and 3 against the
+    reference kernels in interpret mode on f32 activations that are not
+    bf16 values: bcq_matmul and the given lut_gemm variants (the
+    reference's plain bcq_matmul_ref where the bundle has no z: its
+    kernels take none) and ternary_matmul; within 1e-6 of the output
+    scale (only the f32 summation order differs)."""
+    rng = np.random.default_rng(m + n + b)
+    wj, tj = _random_bundles(rng, m, n, g, q, with_z)
+    x = rng.normal(size=(b, n)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    assert not torch.equal(xt, split_bf16x3(xt)[0])
+    if with_z:
+        wants = [j_mxu.bcq_matmul(jnp.asarray(x), wj, interpret=True)]
+        wants += [j_lut.lut_gemm(jnp.asarray(x), wj, mu=mu, half_lut=half,
+                                 interpret=True) for mu, half in luts]
+    else:
+        wants = [j_bcq_ref(jnp.asarray(x), wj, jnp.float32)]
+    want_t = np.asarray(j_ternary(jnp.asarray(x), tj, interpret=True))
+    wt, tt = torch_bundle(wj), torch_bundle(tj)
+    for s in (1, 3):
+        got = mma_split_ref(xt, wt, s, torch.float32).numpy()
+        for want in wants:
+            assert got.shape == want.shape == (b, m)
+            _close(got, np.asarray(want), 1e-6)
+        _close(mma_split_ref(xt, tt, s, torch.float32).numpy(), want_t,
+               1e-6)
+
+
+def test_mma_split_ref_f32_exact_and_refuses_empty_splits():
+    """On exact inputs (integer f32 x: its m and l parts are 0;
+    power-of-two alphas) the f32 walk at splits 1 and 3 equals the
+    reference kernels bit for bit (bcq_matmul, lut_gemm at mu 4 half and
+    mu 2 full, ternary_matmul); a split count that would leave a split
+    empty is refused."""
+    x, wj, wt = _exact_case(40, 384, 32, 64, 3, seed=24)
+    xt = torch.from_numpy(x)
+    wants = [j_mxu.bcq_matmul(jnp.asarray(x), wj, interpret=True),
+             j_lut.lut_gemm(jnp.asarray(x), wj, mu=4, half_lut=True,
+                            interpret=True),
+             j_lut.lut_gemm(jnp.asarray(x), wj, mu=2, half_lut=False,
+                            interpret=True)]
+    _, tj = _random_bundles(np.random.default_rng(24), 40, 384, 64, 3, False)
+    tj = JPlaneBundle(packed=tj.packed, alpha=2.0 ** jnp.round(tj.alpha),
+                      z=None, group_size=64, in_features=384,
+                      out_features=40, kind="ternary")
+    want_t = np.asarray(j_ternary(jnp.asarray(x), tj, interpret=True))
+    for s in (1, 3):
+        got = mma_split_ref(xt, wt, s, torch.float32).numpy()
+        for want in wants:
+            np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(
+            mma_split_ref(xt, torch_bundle(tj), s, torch.float32).numpy(),
+            want_t)
+    with pytest.raises(ValueError):
+        mma_split_ref(xt, wt, 4, torch.float32)

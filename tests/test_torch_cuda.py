@@ -27,7 +27,11 @@ The split-table MLA kernel keeps 1e-4 at every split count, and both
 split merges (MLA, the decode tile) give bit-identical outputs on a
 repeated call.  The decode tile on f32 activations (x split into three
 bf16 parts) is also held to 1e-5 at the served shapes: the split is
-exact for normal values, so only the f32 summation order differs.
+exact for normal values, so only the f32 summation order differs.  The
+tensor-core tile on f32 activations above 8 rows (the same split) is
+held to 1e-3 of the output scale and bit for bit on exact inputs, at
+every group size it takes, q 1-8 at group size 256 (its shared-memory
+budget: 64, 32 or 16 batch rows a block), split and unsplit.
 """
 import numpy as np
 import pytest
@@ -112,7 +116,8 @@ LUT_VARIANTS = ((4, True), (4, False), (2, True))
 def test_cuda_gemm_routes_match_plain(rows, gs, q):
     """Every body of bcq_matmul and lut_gemm against the plain version,
     1e-3 of the output scale: decode rows (gemv / lut), prefill rows in
-    bf16 (the tensor-core tile) and f32 (the CUDA-core tiles); ragged M
+    bf16 and f32 (the tensor-core tile, f32 split into three bf16
+    parts); ragged M
     (33, 288), ragged batch rows (9), an input width that is not a whole
     number of groups (376 at gs 128: padded planes).  The route counters
     show which body ran."""
@@ -133,16 +138,15 @@ def test_cuda_gemm_routes_match_plain(rows, gs, q):
         _close(got, want, GEMM_TOL)
         route = bcq_route(rows, dtype, gs, n)
         assert routes == {f"bcq_matmul/{route}": 1}
-        bf16 = dtype == torch.bfloat16
         assert route == (("gemv" if gs != 16 else "gemv_fma")
-                         if rows <= 8 else "mma" if bf16 else "fma")
+                         if rows <= 8 else "mma")
         for mu, half in LUT_VARIANTS:
             got, routes = _routes_run(lambda: lut_gemm(
                 xt, wt, mu=mu, half_lut=half, out_dtype=torch.float32))
             _close(got, want, GEMM_TOL)
             route = lut_route(rows, dtype, gs, n, mu, half)
             assert routes == {f"lut_gemm/{route}": 1}
-            if rows > 8 and dtype == torch.bfloat16:
+            if rows > 8:
                 assert route == "mma"
             elif rows <= 8 and (mu, half) == (4, True):
                 assert route == "lut"
@@ -157,17 +161,11 @@ def test_cuda_gemm_routes_exact(rows):
     sum is exact in f32, so every body equals the plain version bit for
     bit."""
     require_cuda()
-    from repro_torch.core.plane import PlaneBundle
     rng = np.random.default_rng(rows)
     m, n, gs, q = 160, 512, 128, 3
-    dev = lambda a: torch.from_numpy(a).to("cuda")
-    wt = PlaneBundle(
-        packed=dev(rng.integers(0, 256, (q, m, n // 8)).astype(np.uint8)),
-        alpha=dev((2.0 ** rng.integers(-3, 2, (q, m, n // gs))
-                   ).astype(np.float32)),
-        z=dev((0.25 * rng.integers(-4, 5, (m, n // gs))).astype(np.float32)),
-        group_size=gs, in_features=n, out_features=m)
-    x = dev(rng.integers(-8, 9, (rows, n)).astype(np.float32))
+    wt = _exact_bundle(rng, q, m, n, gs, True)
+    x = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+        np.float32)).to("cuda")
     want = bcq_matmul_ref(x, wt, torch.float32)
     for dtype in (torch.float32, torch.bfloat16):
         xt = x.to(dtype)
@@ -212,6 +210,97 @@ def test_cuda_gemm_split_path(rows):
     assert torch.equal(got, bcq_matmul(xt, wt, out_dtype=torch.float32))
     again = lut_gemm(xt, wt, out_dtype=torch.float32)
     assert torch.equal(again, lut_gemm(xt, wt, out_dtype=torch.float32))
+
+
+# the tensor-core tile on f32 activations: (group size, planes) at every
+# group size it takes, all widths at group size 256 (64 batch rows a
+# block up to q 3 there, 32 to q 6, 16 at q 7 and 8)
+F32_MMA_GROUPS = [(16, 1), (16, 3), (32, 2), (32, 4), (64, 3), (128, 3),
+                  (128, 8)] + [(256, q) for q in range(1, 9)]
+
+
+def _exact_bundle(rng, q, m, n, gs, z):
+    """Random planes, power-of-two alphas and quarter-integer offsets (or
+    none) on the card: with integer x every partial sum is exact."""
+    from repro_torch.core.plane import PlaneBundle
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    g = -(-n // gs)
+    return PlaneBundle(
+        packed=dev(rng.integers(0, 256, (q, m, g * gs // 8)).astype(
+            np.uint8)),
+        alpha=dev((2.0 ** rng.integers(-3, 2, (q, m, g))).astype(
+            np.float32)),
+        z=dev((0.25 * rng.integers(-4, 5, (m, g))).astype(np.float32))
+        if z else None,
+        group_size=gs, in_features=n, out_features=m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs,q", F32_MMA_GROUPS)
+def test_cuda_mma_f32_groups(gs, q):
+    """f32 activations above 8 rows on the tensor-core tile, both
+    wrappers (lut_gemm at mu 2 full and mu 4 half runs the same tile:
+    bit-identical to bcq_matmul): ragged M (200), ragged B (77: 64-row
+    tiles, and 20: one 32-row tile) and a padded N (3 groups less 8
+    columns), with and without z: 1e-3 of the output scale on random
+    inputs, bit for bit on exact ones (integer x, power-of-two
+    alphas)."""
+    require_cuda()
+    rng = np.random.default_rng(gs * 10 + q)
+    m, n = 200, 3 * gs - 8
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    wt = bcq.from_uniform(w.to("cuda"), bits=q, group_size=gs)
+    for rows in (77, 20):
+        x = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+            np.float32)).to("cuda")
+        got, routes = _routes_run(lambda: bcq_matmul(
+            x, wt, out_dtype=torch.float32))
+        assert routes == {"bcq_matmul/mma": 1}
+        _close(got, bcq_matmul_ref(x, wt, torch.float32), GEMM_TOL)
+        for mu, half in ((2, False), (4, True)):
+            again, routes = _routes_run(lambda: lut_gemm(
+                x, wt, mu=mu, half_lut=half, out_dtype=torch.float32))
+            assert routes == {"lut_gemm/mma": 1}
+            assert torch.equal(again, got)
+        for z in (True, False):
+            we = _exact_bundle(rng, q, m, n, gs, z)
+            xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+                np.float32)).to("cuda")
+            assert torch.equal(bcq_matmul(xe, we, out_dtype=torch.float32),
+                               bcq_matmul_ref(xe, we, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 128])
+def test_cuda_mma_f32_split_path(rows):
+    """f32 activations on a narrow, long weight (64 x 16384): the tile
+    splits its alpha groups over blocks as for bf16 and adds the partials
+    in a fixed order: 1e-3 of the output scale against the plain version
+    and against the walk's own plain version (``mma_split_ref``), a
+    second call repeats the first exactly, exact inputs bit for bit."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul import mma_split_ref
+    from repro_torch.kernels.bcq_matmul.ops import mma_splits
+    rng = np.random.default_rng(rows + 24)
+    m, n = 64, 16384
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    wt = bcq.from_uniform(w.to("cuda"), bits=3, group_size=128)
+    splits = mma_splits(rows, m, n // 128, _lib.sm_count(0))
+    assert splits > 1
+    x = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+        np.float32)).to("cuda")
+    got, routes = _routes_run(lambda: bcq_matmul(x, wt,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/mma": 1}
+    _close(got, bcq_matmul_ref(x, wt, torch.float32), GEMM_TOL)
+    _close(got, mma_split_ref(x.cpu(), wt.to("cpu"), splits,
+                              torch.float32), GEMM_TOL)
+    assert torch.equal(got, bcq_matmul(x, wt, out_dtype=torch.float32))
+    we = _exact_bundle(rng, 3, m, n, 128, True)
+    xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+        np.float32)).to("cuda")
+    assert torch.equal(bcq_matmul(xe, we, out_dtype=torch.float32),
+                       bcq_matmul_ref(xe, we, torch.float32))
 
 
 # Jamba-1.5-Large's GEMMs at full width (in_proj, out_proj, q/o, k/v,
@@ -276,7 +365,6 @@ def test_cuda_gemv_tile_groups(rows, gs, q):
     of the output scale on random inputs, bit for bit on exact ones
     (integer x, power-of-two alphas), split and unsplit."""
     require_cuda()
-    from repro_torch.core.plane import PlaneBundle
     from repro_torch.kernels.bcq_matmul.ops import gemv_splits
     rng = np.random.default_rng(rows * 100 + gs + q)
     m, n = 70, (520 if gs == 32 else 600)
@@ -290,18 +378,10 @@ def test_cuda_gemv_tile_groups(rows, gs, q):
         assert routes == {"bcq_matmul/gemv": 1}
         _close(got, bcq_matmul_ref(xt, wt, torch.float32), GEMM_TOL)
     assert gemv_splits(m, wt.n_groups * gs, _lib.sm_count(0)) > 1
-    dev = lambda a: torch.from_numpy(a).to("cuda")
-    g = -(-n // gs)
     for z in (True, False):
-        we = PlaneBundle(
-            packed=dev(rng.integers(0, 256, (q, m, g * gs // 8)).astype(
-                np.uint8)),
-            alpha=dev((2.0 ** rng.integers(-3, 2, (q, m, g))).astype(
-                np.float32)),
-            z=dev((0.25 * rng.integers(-4, 5, (m, g))).astype(np.float32))
-            if z else None,
-            group_size=gs, in_features=n, out_features=m)
-        xe = dev(rng.integers(-8, 9, (rows, n)).astype(np.float32))
+        we = _exact_bundle(rng, q, m, n, gs, z)
+        xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+            np.float32)).to("cuda")
         for dtype in (torch.bfloat16, torch.float32):
             assert torch.equal(
                 bcq_matmul(xe.to(dtype), we, out_dtype=torch.float32),
@@ -663,8 +743,10 @@ def test_cuda_ternary_mma_matches_plain(rows, gs):
     bit on exact inputs (integer x, alpha 0.5) against both plain
     versions and the route's own arithmetic, 1e-3 of the output scale on
     random inputs; ragged M (33, 288), ragged N (376 at gs 128: padded
-    planes) and ragged B (9).  f32 activations at the same rows stay on
-    the half-LUT body.  The route counters show which body ran."""
+    planes) and ragged B (9).  f32 activations at the same rows take the
+    same route (x split into three bf16 parts): bit for bit on exact
+    inputs, 1e-3 on random ones.  The route counters show which body
+    ran."""
     require_cuda()
     from repro_torch.kernels.ternary_matmul import route_for
     rng = np.random.default_rng(rows * 10 + gs)
@@ -688,9 +770,15 @@ def test_cuda_ternary_mma_matches_plain(rows, gs):
         lambda: ternary_matmul(xb, wr, out_dtype=torch.float32))
     assert routes == {"ternary_matmul/mma": 1}
     _close(got, dense_ref(xb, wr, torch.float32), GEMM_TOL)
+    assert route_for(rows, torch.float32, gs, n) == "mma"
+    got, routes = _routes_run(
+        lambda: ternary_matmul(xe, we, out_dtype=torch.float32))
+    assert routes == {"ternary_matmul/mma": 1}
+    assert torch.equal(got, dense_ref(xe, we, torch.float32))
+    assert torch.equal(got, ternary_planes_ref(xe, we, torch.float32))
     got, routes = _routes_run(
         lambda: ternary_matmul(xr, wr, out_dtype=torch.float32))
-    assert routes == {"ternary_matmul/lut": 1}
+    assert routes == {"ternary_matmul/mma": 1}
     _close(got, dense_ref(xr, wr, torch.float32), GEMM_TOL)
 
 
@@ -719,6 +807,16 @@ def test_cuda_ternary_mma_split_path(m, n, rows):
     got = ternary_matmul(xr, wr, out_dtype=torch.float32)
     _close(got, dense_ref(xr, wr, torch.float32), GEMM_TOL)
     assert torch.equal(got, ternary_matmul(xr, wr, out_dtype=torch.float32))
+    # f32 activations on the same route and splits
+    xf = xr.float() + 1e-3 * torch.randn(xr.shape, device="cuda")
+    got, routes = _routes_run(
+        lambda: ternary_matmul(xf, wr, out_dtype=torch.float32))
+    assert routes == {"ternary_matmul/mma": 1}
+    _close(got, dense_ref(xf, wr, torch.float32), GEMM_TOL)
+    assert torch.equal(got, ternary_matmul(xf, wr, out_dtype=torch.float32))
+    xe = xe.float()
+    assert torch.equal(ternary_matmul(xe, we, out_dtype=torch.float32),
+                       dense_ref(xe, we, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -1210,6 +1308,26 @@ def test_cuda_mma_served_prefill_rows(shape, rows):
                      * 0.02, bits=3, group_size=128)
     x = torch.randn((rows, n), generator=gen,
                     device="cuda").to(torch.bfloat16)
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {"bcq_matmul/mma": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rows", [((4096, 1024), 12000),
+                                        ((4096, 5120), 8800)])
+def test_cuda_mma_f32_served_prefill_rows(shape, rows):
+    """The f32 views' prefills at full width: Whisper's [4096 x 1024] at
+    its encoder's 12,000 rows and Pixtral's q [4096 x 5120] at the VLM
+    prefill's 8,800 (BCQ-3, g 128, f32 activations) on the tensor-core
+    tile: 1e-3 of the output scale against the plain version."""
+    require_cuda()
+    m, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + n + rows)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    x = torch.randn((rows, n), generator=gen, device="cuda")
     got, routes = _routes_run(lambda: bcq_matmul(x, w,
                                                  out_dtype=torch.float32))
     assert routes == {"bcq_matmul/mma": 1}

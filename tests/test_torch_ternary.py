@@ -260,7 +260,7 @@ def test_ternary_masked_ref_matches_reference(m, n, b, g):
     (9, torch.bfloat16, 128, 4096, "mma"), (512, torch.bfloat16, 16, 136,
                                             "mma"),
     (512, torch.bfloat16, 256, 4096, "mma"),
-    (512, torch.float32, 128, 4096, "lut"),
+    (512, torch.float32, 128, 4096, "mma"),
     (512, torch.bfloat16, 8, 4096, "lut"), (512, torch.bfloat16, 24, 4096,
                                             "lut"),
     (512, torch.bfloat16, 512, 4096, "lut"),
@@ -273,12 +273,19 @@ def test_ternary_masked_ref_matches_reference(m, n, b, g):
                                           "lut"),
     (8, torch.bfloat16, 16, 4096, "lut"), (8, torch.float32, 512, 4096,
                                            "lut"),
-    (8, torch.bfloat16, 128, 4092, "lut")])
+    (8, torch.bfloat16, 128, 4092, "lut"),
+    # f32 above 8 rows: the mma route under the same rule, the LUT body
+    # for the group sizes and widths it does not take
+    (9, torch.float32, 16, 4096, "mma"), (512, torch.float32, 8, 4096,
+                                          "lut"),
+    (512, torch.float32, 512, 4096, "lut"),
+    (512, torch.float32, 128, 4100, "lut")])
 def test_ternary_route_edges(rows, dtype, gs, n, want):
     """The decode tile takes at most 8 bf16 or f32 rows with gs 32, 64,
     128 or 256 and 8 | in_features (bcq_matmul's gemv rule); the mma
-    route more than 8 bf16 rows with 16 | gs <= 256 and 8 | in_features
-    (bcq_matmul's mma rule); every other call the LUT body."""
+    route more than 8 bf16 or f32 rows with 16 | gs <= 256 and 8 |
+    in_features (bcq_matmul's mma rule); every other call the LUT
+    body."""
     assert route_for(rows, dtype, gs, n) == want
 
 
