@@ -44,10 +44,13 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      (mu 2 full table, mu 4 half table) and ternary_matmul at rows 512 on
      [16384 x 4096] and 12,000 on Whisper's [4096 x 1024], beside
      ``torch.matmul`` in f32; the bodies the tiles leave calls to, each
-     held and timed once at a call it keeps: ternary ``lut`` (rows 8 and
-     f32 rows 512, both at group size 8), bcq_matmul ``gemv_fma`` (f32
-     rows 8 at group size 16) and ``fma`` (f32 rows 512 at group size
-     8), lut_gemm ``lut_tile`` (f32 rows 8, mu 2, full table); the
+     held and timed at [16384 x 4096] at calls it takes: the
+     dequantizing tensor-core tile (route ``mma_dq``) of bcq_matmul (f32
+     and bf16 rows 512 at group size 8) and of ternary_matmul (bf16 rows
+     8, f32 and bf16 rows 512, all at group size 8; also to 0 on exact
+     inputs), each also against its walk's plain version
+     (``dq_split_ref``), bcq_matmul ``gemv_fma`` (f32 rows 8 at group
+     size 16), lut_gemm ``lut_tile`` (f32 rows 8, mu 2, full table); the
      split-table MLA decode kernel logged with its split count and held
      to repeat itself exactly;
   4. serve (random weights from ``--seed``; the paged engine with fused
@@ -402,31 +405,45 @@ def f32_decode_case(torch, timer, gen, w, dense_bf16, results, model):
         fail("bcq_matmul f32 decode rows disagree with the plain version")
 
 
-def cuda_core_cases(torch, timer, gen, results):
-    """The CUDA-core bodies the tensor-core tiles leave calls to, each
-    held to 1e-3 of the output scale and timed at [16384 x 4096] on f32
-    activations, at a call it keeps: bcq_matmul's ``gemv_fma`` (rows 8 at
-    group size 16, which the decode tile does not take) and ``fma``
-    (rows 512 at group size 8, which the tensor-core tile does not
-    take), lut_gemm's ``lut_tile`` (rows 8 at mu 2 with the full table)
-    and ternary_matmul's ``lut`` (rows 512 at group size 8)."""
+def odd_shape_cases(torch, timer, gen, results):
+    """The bodies the tiles leave calls to, each held to 1e-3 of the
+    output scale and timed at [16384 x 4096] at calls it takes:
+    bcq_matmul's ``gemv_fma`` (f32 rows 8 at group size 16, which the
+    decode tile does not take) and ``mma_dq`` (rows 512 at group size 8,
+    which the tensor-core tile does not take; f32 and bf16), lut_gemm's
+    ``lut_tile`` (f32 rows 8 at mu 2 with the full table) and
+    ternary_matmul's ``mma_dq`` (group size 8: bf16 rows 8, f32 and bf16
+    rows 512).  The ``mma_dq`` cases are also held to 1e-3 against the
+    tile's walk (``dq_split_ref`` at the wrapper's split count)."""
     from repro_torch.core import bcq
     from repro_torch.core.plane import dequantize
-    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.bcq_matmul import (bcq_matmul, bcq_matmul_ref,
+                                                dq_split_ref)
+    from repro_torch.kernels.bcq_matmul.ops import dq_splits
     from repro_torch.kernels.lut_gemm import lut_gemm
     from repro_torch.kernels.ternary_matmul import dense_ref, ternary_matmul
     from repro_torch.quant.formats import quantize_ternary
     tol, m, n = 1e-3, 16384, 4096
-    for key, gs, rows, name, want, fn in (
-            ("bcq_matmul_gemv_fma", 16, 8, "bcq_matmul", "gemv_fma",
-             lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)),
-            ("bcq_matmul_fma", 8, 512, "bcq_matmul", "fma",
-             lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)),
-            ("lut_gemm_lut_tile", 128, 8, "lut_gemm", "lut_tile",
+    f32, bf16 = torch.float32, torch.bfloat16
+    bcq_fn = lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)
+    tern_fn = lambda x, w: ternary_matmul(x, w, out_dtype=torch.float32)
+    for key, gs, rows, dtype, name, want, fn in (
+            ("bcq_matmul_gemv_fma", 16, 8, f32, "bcq_matmul", "gemv_fma",
+             bcq_fn),
+            ("bcq_matmul_mma_dq", 8, 512, f32, "bcq_matmul", "mma_dq",
+             bcq_fn),
+            ("bcq_matmul_mma_dq_bf16", 8, 512, bf16, "bcq_matmul", "mma_dq",
+             bcq_fn),
+            ("lut_gemm_lut_tile", 128, 8, f32, "lut_gemm", "lut_tile",
              lambda x, w: lut_gemm(x, w, mu=2, half_lut=False,
                                    out_dtype=torch.float32)),
-            ("ternary_matmul_lut_prefill", 8, 512, "ternary_matmul", "lut",
-             lambda x, w: ternary_matmul(x, w, out_dtype=torch.float32))):
+            ("ternary_matmul_mma_dq", 8, 8, bf16, "ternary_matmul",
+             "mma_dq", tern_fn),
+            ("ternary_matmul_mma_dq_f32", 8, 512, f32, "ternary_matmul",
+             "mma_dq", tern_fn),
+            ("ternary_matmul_mma_dq_bf16", 8, 512, bf16, "ternary_matmul",
+             "mma_dq", tern_fn)):
         wd = torch.randn((m, n), generator=gen, device="cuda") * 0.02
         if name == "ternary_matmul":
             w, plain_fn = quantize_ternary(wd, group_size=gs), dense_ref
@@ -434,30 +451,44 @@ def cuda_core_cases(torch, timer, gen, results):
             w, plain_fn = (bcq.quantize(wd, bits=3, group_size=gs),
                            bcq_matmul_ref)
         del wd
-        x = torch.randn((rows, n), generator=gen, device="cuda")
+        x = torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
         plain = plain_fn(x, w, torch.float32)
         got, route = routed(torch, name, lambda: fn(x, w))
         if route != want:
             fail(f"{name} {key}: ran {route}, not {want}")
+        if got.shape != plain.shape or not torch.isfinite(got).all():
+            fail(f"{name} {key}: bad output")
+        scale = float(plain.abs().max()) + 1e-12
         err = float((got - plain).abs().max())
-        rel = err / (float(plain.abs().max()) + 1e-12)
-        b_ms, b_by = bound(rows * n * 4 + w.nbytes() + rows * m * 4,
+        rel = err / scale
+        rec = dict(m=m, n=n, rows=rows, group_size=gs,
+                   dtype=str(dtype).split(".")[1], route=route)
+        walk = ""
+        if route == "mma_dq":
+            splits = dq_splits(rows, m, w.n_groups * gs, _lib.sm_count(0))
+            dq_rel = float((got - dq_split_ref(x, w, splits, torch.float32)
+                            ).abs().max()) / scale
+            rec.update(splits=splits, dq_rel_err=dq_rel)
+            walk = (f", {splits} splits; walk rel {dq_rel:.2e} <= {tol:g}: "
+                    f"{dq_rel <= tol}")
+            rel = max(rel, dq_rel)
+        xb = x.numel() * x.element_size()
+        b_ms, b_by = bound(xb + w.nbytes() + rows * m * 4,
                            2.0 * rows * m * n)
         t = timer(lambda: fn(x, w))
         t_plain = timer(lambda: plain_fn(x, w, torch.float32))
-        dense_f32 = dequantize(w, torch.float32)
-        t_lib = timer(lambda: torch.matmul(x, dense_f32.T))
-        del dense_f32
-        results[key] = [dict(m=m, n=n, rows=rows, group_size=gs,
-                             dtype="float32", route=route, max_abs_err=err,
-                             rel_err=rel, tol=tol, ms=t, plain_ms=t_plain,
-                             library_ms=t_lib, bound_ms=b_ms,
-                             bound_by=b_by)]
-        log(f"{name} rows={rows:4d} M={m:5d} N={n:5d} f32 g={gs} "
-            f"[{route}]: err {err:.3e} (rel {rel:.2e} <= {tol:g}: "
-            f"{rel <= tol})  kernel {t:.4f} ms  plain {t_plain:.4f} ms  "
-            f"torch.matmul f32 {t_lib:.4f} ms  bound {b_ms:.4f} ms "
-            f"({b_by})")
+        dense = dequantize(w, dtype)
+        t_lib = timer(lambda: torch.matmul(x, dense.T))
+        del dense
+        rec.update(max_abs_err=err, rel_err=rel, tol=tol, ms=t,
+                   plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                   bound_by=b_by)
+        results[key] = [rec]
+        log(f"{name} rows={rows:4d} M={m:5d} N={n:5d} {rec['dtype']} "
+            f"g={gs} [{route}{walk}]: err {err:.3e} (rel {rel:.2e} <= "
+            f"{tol:g}: {rel <= tol})  kernel {t:.4f} ms  plain "
+            f"{t_plain:.4f} ms  torch.matmul {rec['dtype']} {t_lib:.4f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if rel > tol:
             fail(f"{name} {route} disagrees with its plain version")
         del w
@@ -866,53 +897,17 @@ def check_ternary(torch, timer, gen, results):
         # prefill tile)
         exact_err(torch, gen, m, n, 8, 128, out, "gemv")
         exact_err(torch, gen, m, n, 512, 128, out, "mma")
-    # ragged M, N and B (a partial LUT chunk, the split-sum launch; group
-    # size 8 keeps 19 rows on the LUT body), decode rows the tile does not
-    # take (group size 8), a ragged decode-tile case (split steps, padded
-    # planes) and a ragged mma case (split alpha groups, padded planes)
-    exact_err(torch, gen, 1000, 1032, 19, 8, out, "lut")
-    exact_err(torch, gen, 4096, 4096, 8, 8, out, "lut")
+    # ragged M, N and B on the dequantizing tile (group size 8 at 19
+    # rows; a part-full last stage), decode rows the decode tile does not
+    # take (group size 8: split stages), prefill rows at group size 512,
+    # a ragged decode-tile case (split steps, padded planes) and a ragged
+    # mma case (split alpha groups, padded planes)
+    exact_err(torch, gen, 1000, 1032, 19, 8, out, "mma_dq")
+    exact_err(torch, gen, 4096, 4096, 8, 8, out, "mma_dq")
+    exact_err(torch, gen, 4096, 4096, 512, 512, out, "mma_dq")
     exact_err(torch, gen, 1000, 1016, 5, 64, out, "gemv")
     exact_err(torch, gen, 1000, 1016, 77, 64, out, "mma")
     results["ternary_matmul"] = out
-    ternary_lut_case(torch, timer, gen, results)
-
-
-def ternary_lut_case(torch, timer, gen, results):
-    """The half-LUT body at a decode call it still takes (rows 8 at group
-    size 8, which the decode tile does not take), [16384 x 4096], held to
-    1e-3 of the output scale and timed."""
-    from repro_torch.core.plane import dequantize
-    from repro_torch.kernels.ternary_matmul import dense_ref, ternary_matmul
-    from repro_torch.quant.formats import quantize_ternary
-    tol, m, n, rows = 1e-3, 16384, 4096, 8
-    w = quantize_ternary(torch.randn((m, n), generator=gen, device="cuda")
-                         * 0.02, group_size=8)
-    x = torch.randn((rows, n), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    fn = lambda: ternary_matmul(x, w, out_dtype=torch.float32)
-    plain = dense_ref(x, w, torch.float32)
-    got, route = routed(torch, "ternary_matmul", fn)
-    if route != "lut":
-        fail(f"ternary_matmul rows 8 g 8 ran {route}, not lut")
-    err = float((got - plain).abs().max())
-    rel = err / (float(plain.abs().max()) + 1e-12)
-    b_ms, b_by = bound(rows * n * 2 + w.nbytes() + rows * m * 4,
-                       2.0 * rows * m * n)
-    t = timer(fn)
-    t_plain = timer(lambda: dense_ref(x, w, torch.float32))
-    dense_bf16 = dequantize(w, torch.bfloat16)
-    t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
-    results["ternary_matmul_lut"] = [dict(
-        m=m, n=n, rows=rows, group_size=8, route=route, max_abs_err=err,
-        rel_err=rel, tol=tol, ms=t, plain_ms=t_plain, library_ms=t_lib,
-        bound_ms=b_ms, bound_by=b_by)]
-    log(f"ternary_matmul rows={rows:4d} M={m:5d} N={n:5d} g=8 [{route}]: "
-        f"err {err:.3e} (rel {rel:.2e} <= {tol:g}: {rel <= tol})  kernel "
-        f"{t:.4f} ms  plain {t_plain:.4f} ms  torch.matmul {t_lib:.4f} ms  "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    if rel > tol:
-        fail("ternary_matmul lut disagrees with its plain version")
 
 
 def exact_err(torch, gen, m, n, rows, g, out, want):
@@ -1498,17 +1493,17 @@ def f32_view(m):
     return v
 
 
-# the bodies a prefill of more than 8 rows must not reach: the CUDA-core
-# bodies the tiles leave odd shapes to
-CUDA_CORE_BODIES = ("bcq_matmul/fma", "bcq_matmul/gemv_fma",
-                    "lut_gemm/lut_tile", "ternary_matmul/lut")
+# the bodies a prefill of more than 8 rows must not reach: those the
+# tiles leave odd shapes to
+ODD_SHAPE_BODIES = ("bcq_matmul/mma_dq", "bcq_matmul/gemv_fma",
+                    "lut_gemm/lut_tile", "ternary_matmul/mma_dq")
 
 
 def f32_on_tiles(torch, tag, fn):
     """Run ``fn``, a kernel-path call on an f32 view that prefills more
     than 8 rows a linear, and gate the GEMM bodies it launched: its BCQ
     linears on the tensor-core tile (``mma``; an untied head's rows of 8
-    or fewer on the decode tile), no CUDA-core body.  Returns (fn's
+    or fewer on the decode tile), no body of the odd shapes.  Returns (fn's
     result, its route counts, its wall time in ms between two
     synchronizes)."""
     from repro_torch.kernels import _lib
@@ -1520,7 +1515,7 @@ def f32_on_tiles(torch, tag, fn):
     ms = (time.perf_counter() - t0) * 1e3
     ran = {k: n - before.get(k, 0) for k, n in _lib.route_counts.items()
            if n != before.get(k, 0)}
-    if any(k in CUDA_CORE_BODIES for k in ran) or not any(
+    if any(k in ODD_SHAPE_BODIES for k in ran) or not any(
             k.endswith("/mma") for k in ran):
         fail(f"serve[{tag}]: the f32 view's prefill ran {ran}, not its "
              "linears on the tensor-core tile")
@@ -2969,7 +2964,7 @@ def main():
     check_gemms(torch, timer, gen, results)
     check_paged(torch, timer, gen, results, args.seed)
     check_ternary(torch, timer, gen, results)
-    cuda_core_cases(torch, timer, gen, results)
+    odd_shape_cases(torch, timer, gen, results)
     f32_mma_cases(torch, timer, gen, results)
     check_paged_int8(torch, timer, gen, results, args.seed)
     check_paged_mla(torch, timer, gen, results, args.seed)
@@ -3047,17 +3042,19 @@ def main():
                 for r in results["f32_mma"] if r["name"] == name]
         if name == "bcq_matmul":
             # the decode tile's split count, f32 rows of the same weight on
-            # the decode tile, and the CUDA-core bodies at the calls they
-            # keep (f32 rows 8 at group size 16; f32 rows 512 at group
-            # size 8)
+            # the decode tile, and the bodies of the odd shapes at calls
+            # they take (f32 rows 8 at group size 16 on the CUDA-core
+            # GEMV; f32 and bf16 rows 512 at group size 8 on the
+            # dequantizing tile)
             kernels[-1]["case"]["splits"] = sel["splits"]
             f32 = [r for r in results["bcq_matmul_f32"]
                    if r["m"] == sel["m"] and r["n"] == sel["n"]][0]
             kernels[-1]["f32_decode"] = {k: f32[k] for k in keys + (
                 "splits", "library_bf16_ms")}
-            for key in ("gemv_fma", "fma"):
+            for key in ("gemv_fma", "mma_dq", "mma_dq_bf16"):
                 r = results[f"bcq_matmul_{key}"][0]
-                kernels[-1][key] = {k: r[k] for k in keys + ("group_size",)}
+                kernels[-1][key] = {k: r[k] for k in keys + (
+                    "group_size", "dtype")}
             # the GEMMs of Mixtral-8x7B's (attention, head), DeepSeek-V2's
             # (MLA, dense MLP, shared experts, head), Mamba2's (in_proj,
             # out_proj), Jamba's, Pixtral's and Whisper's serve paths
@@ -3092,13 +3089,12 @@ def main():
             kernels[-1]["exact_inputs_max_abs_err"] = max(
                 r["max_abs_err"] for r in results[name]
                 if r.get("exact_inputs"))
-            # the half-LUT body at calls it keeps: rows 8 and f32 rows 512,
-            # both at group size 8
-            r = results["ternary_matmul_lut"][0]
-            kernels[-1]["lut"] = {k: r[k] for k in keys + ("group_size",)}
-            r = results["ternary_matmul_lut_prefill"][0]
-            kernels[-1]["lut_prefill"] = {k: r[k] for k in keys
-                                          + ("group_size",)}
+            # the dequantizing tile at calls it takes, all at group size
+            # 8: bf16 rows 8, f32 and bf16 rows 512
+            for key in ("mma_dq", "mma_dq_f32", "mma_dq_bf16"):
+                r = results[f"ternary_matmul_{key}"][0]
+                kernels[-1][key] = {k: r[k] for k in keys + (
+                    "group_size", "dtype", "splits")}
         if name in ("paged_decode", "paged_prefill"):
             # Phi-4-mini's serve shape: 24 query heads over 8 kv heads;
             # Pixtral-12B's: 32 over 8 (rep 4)

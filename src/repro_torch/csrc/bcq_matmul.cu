@@ -25,104 +25,18 @@
 //                       bf16 mma.sync product per bit plane and alpha
 //                       group against the +-1 plane decoded in registers
 //                       (f32 x split there into three bf16 parts);
-//   route 0 "fma"       B > 8 otherwise (group size 8 mod 16 or above
-//                       256, in_features not a multiple of 8):
-//                       bcq_matmul_kernel below.  Each block
-//                       owns a 64-row slice of M and a tile of B rows,
-//                       and walks the whole reduction axis itself (CUDA
-//                       blocks run in no order, so nothing is carried
-//                       between blocks the way the Pallas grid revisits
-//                       its output block).  Per 64-column step it stages
-//                       the x tile in shared memory, unpacks the
-//                       LSB-first plane bytes to +-1, applies alpha per
-//                       group and z, stages that f32 weight tile in
-//                       shared memory (row stride 65 floats, so the 32
-//                       lanes reading one column hit 32 banks) and
-//                       accumulates in f32 registers with FMAs.
+//   route 0 "mma_dq"    B > 8 otherwise (group size 8 mod 16 or above
+//                       256, in_features not a multiple of 8): the
+//                       dequantizing tensor-core tile of bcq_dq.cu, which
+//                       builds W = sum_i alpha_i (+-1)_i + z in registers
+//                       and runs it, split into two bf16 parts, against x
+//                       (f32 x split there into bf16 parts).
 // The weight is never written back dense, and ragged M / N / B edges
 // are masked in-kernel instead of padded by a copy per call.
 #include "bcq_decode.cuh"
+#include "bcq_dq.cuh"
 
 namespace {
-
-constexpr int BM = 64;   // weight rows per block
-constexpr int BK = 64;   // reduction columns per step
-constexpr int NT = 256;  // threads per block
-
-template <typename T, int TB, int TX>
-__global__ void __launch_bounds__(NT) bcq_matmul_kernel(
-    const T* __restrict__ x, const uint8_t* __restrict__ packed,
-    const float* __restrict__ alpha, const float* __restrict__ z,
-    float* __restrict__ y, int B, int M, int N, int NB, int G, int q,
-    int gs) {
-  constexpr int TY = NT / TX;
-  constexpr int RB = TB / TY;  // batch rows per thread
-  constexpr int RM = BM / TX;  // weight rows per thread
-  __shared__ float xs[TB][BK];
-  __shared__ float ws[BM][BK + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.x * BM, b0 = blockIdx.y * TB;
-  const int K = NB * 8;
-  float acc[RB][RM];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int j = 0; j < RM; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < TB * BK; i += NT) {
-      const int bb = i / BK, kk = i % BK;
-      const int b = b0 + bb, k = k0 + kk;
-      xs[bb][kk] = (b < B && k < N) ? to_f32(x[(size_t)b * N + k]) : 0.f;
-    }
-    for (int i = tid; i < BM * (BK / 8); i += NT) {
-      const int mm = i / (BK / 8), jb = i % (BK / 8);
-      const int m = m0 + mm, col = k0 / 8 + jb;
-      float w[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) w[e] = 0.f;
-      if (m < M && col < NB) {
-        const int grp = (col * 8) / gs;
-        for (int p = 0; p < q; ++p) {
-          const uint32_t byte = packed[((size_t)p * M + m) * NB + col];
-          const float a = alpha[((size_t)p * M + m) * G + grp];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) w[e] += ((byte >> e) & 1u) ? a : -a;
-        }
-        const float zz = z ? z[(size_t)m * G + grp] : 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) w[e] += zz;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ws[mm][jb * 8 + e] = w[e];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float xv[RB], wv[RM];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) xv[r] = xs[ty * RB + r][kk];
-#pragma unroll
-      for (int j = 0; j < RM; ++j) wv[j] = ws[tx + TX * j][kk];
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int j = 0; j < RM; ++j) acc[r][j] = fmaf(xv[r], wv[j], acc[r][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int b = b0 + ty * RB + r;
-#pragma unroll
-    for (int j = 0; j < RM; ++j) {
-      const int m = m0 + tx + TX * j;
-      if (b < B && m < M) y[(size_t)b * M + m] = acc[r][j];
-    }
-  }
-}
 
 // Route "gemv_fma" (B <= 8 where the decode tile does not apply): a
 // weight-streaming GEMV.  Each warp owns GR
@@ -284,21 +198,10 @@ void launch_gemv_t(const void* x, const void* packed, const void* alpha,
   }
 }
 
-template <typename T>
-void launch_fma_t(const void* x, const void* packed, const void* alpha,
-                  const void* z, void* y, int B, int M, int N, int NB, int G,
-                  int q, int gs, cudaStream_t s) {
-  dim3 grid(ceil_div(M, BM), ceil_div(B, 32));
-  bcq_matmul_kernel<T, 32, 16><<<grid, NT, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(alpha), static_cast<const float*>(z),
-      static_cast<float*>(y), B, M, N, NB, G, q, gs);
-}
-
 }  // namespace
 
-// route: 0 fma, 1 gemv, 2 mma, 3 gemv_fma (see the note at the top);
-// part: scratch f32 [splits, B, M] for routes 1 and 2 when splits > 1;
+// route: 0 mma_dq, 1 gemv, 2 mma, 3 gemv_fma (see the note at the top);
+// part: scratch f32 [splits, B, M] for routes 0, 1 and 2 when splits > 1;
 // sem: int32 counters, one per 64-row tile, all zero, for route 1 when
 // splits > 1 (the last block of each tile sets its counter back to 0)
 extern "C" int launch_bcq_matmul(const void* x, const void* packed,
@@ -311,12 +214,11 @@ extern "C" int launch_bcq_matmul(const void* x, const void* packed,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (route) {
     case 0:
-      if (x_is_bf16)
-        launch_fma_t<__nv_bfloat16>(x, packed, alpha, z, y, B, M, N, NB, G, q,
-                                    gs, s);
-      else
-        launch_fma_t<float>(x, packed, alpha, z, y, B, M, N, NB, G, q, gs, s);
-      return static_cast<int>(cudaGetLastError());
+      if (B <= GB) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_bcq_dq(
+          x, packed, alpha, z, static_cast<float*>(y),
+          static_cast<float*>(part), B, M, N, NB, G, q, gs, splits, false,
+          x_is_bf16 != 0, s));
     case 1:
       return static_cast<int>(launch_bcq_decode(x, packed, alpha, z, y, part,
                                                 sem, B, M, N, NB, G, q, gs,

@@ -28,13 +28,20 @@ when it fails):
     split in the kernel into three bf16 parts, each A fragment run
     against all three, ``ref.mma_split_ref`` the plain version of that
     order);
-  * ``fma``      — any other call above 8 rows (group size 8 mod 16 or
+  * ``mma_dq``   — any other call above 8 rows (group size 8 mod 16 or
     above 256, or an input width that is not a multiple of 8): the
-    CUDA-core tile.
+    dequantizing tensor-core tile of ``csrc/bcq_dq.cu``, which builds
+    W = sum_i alpha_i (+-1)_i + z in registers, splits it into two bf16
+    parts and runs them against x (f32 activations split into bf16
+    parts; ``ref.dq_split_ref`` the plain version of that walk), the
+    group size only an index.
 
 The launch counter keeps the kernel's name; ``_lib.route_counts``
 counts each body under ``"bcq_matmul/<route>"``.  ``ref.gemv_split_ref``
-is the plain version of the decode tile's split walk.
+is the plain version of the decode tile's split walk.  The tiles split
+their reduction axis over blocks where the output tiles alone would
+leave SMs idle (:func:`gemv_splits`, :func:`mma_splits`,
+:func:`dq_splits`).
 """
 from __future__ import annotations
 
@@ -43,12 +50,12 @@ import torch
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
 from . import ref as _ref
-from .ref import GEMV_STEP
+from .ref import GEMV_STEP, dq_step
 
 _X_DTYPES = (torch.bfloat16, torch.float32)
 
 # index = the launcher's route code
-ROUTES = ("fma", "gemv", "mma", "gemv_fma")
+ROUTES = ("mma_dq", "gemv", "mma", "gemv_fma")
 DECODE_ROWS = 8                   # most rows the decode bodies take
 MMA_ROWS, MMA_BATCH = 128, 64     # the mma tile's block (csrc/bcq_mma.cuh)
 MMA_MAX_GROUP = 256
@@ -82,7 +89,7 @@ def route_for(rows: int, dtype, group_size: int, in_features: int) -> str:
                 else "gemv_fma")
     if mma_takes(rows, dtype, group_size, in_features):
         return "mma"
-    return "fma"
+    return "mma_dq"
 
 
 def mma_splits(rows: int, m: int, n_groups: int, sms: int) -> int:
@@ -91,6 +98,20 @@ def mma_splits(rows: int, m: int, n_groups: int, sms: int) -> int:
     two blocks per SM, never more than there are groups."""
     tiles = -(-m // MMA_ROWS) * -(-rows // MMA_BATCH)
     return 1 if tiles >= sms else _lib.split_count(n_groups, tiles, sms, 2)
+
+
+def dq_splits(rows: int, m: int, padded_in: int, sms: int) -> int:
+    """How many blocks share one output tile's stages on the dequantizing
+    tile (``ref.dq_step(rows)`` columns each; ``padded_in``: the planes'
+    width): none while the (row, batch) tiles fill every SM, else enough
+    for about three blocks per SM at 8 rows or fewer (one n8 tile,
+    bytes-bound) and two above, never more than there are stages."""
+    tiles = -(-m // MMA_ROWS) * (1 if rows <= DECODE_ROWS
+                                 else -(-rows // MMA_BATCH))
+    if tiles >= sms:
+        return 1
+    return _lib.split_count(-(-padded_in // dq_step(rows)), tiles, sms,
+                            3 if rows <= DECODE_ROWS else 2)
 
 
 def gemv_splits(m: int, padded_in: int, sms: int) -> int:
@@ -109,8 +130,9 @@ def gemv_splits(m: int, padded_in: int, sms: int) -> int:
 def aligned_rows(x2: torch.Tensor) -> torch.Tensor:
     """x2 itself, or a copy when its base is not 16-byte aligned (the
     tensor-core tiles stage activation rows, bf16 or f32, with 16-byte
-    copies; with 8 | in_features every row then starts 16-byte
-    aligned)."""
+    copies; with 8 | in_features every row then starts 16-byte aligned,
+    and the dequantizing tile narrows its copies to what the width
+    allows)."""
     return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
 
 
@@ -161,11 +183,12 @@ def bcq_matmul(x: torch.Tensor, w: PlaneBundle, *,
     if b:
         route = route_for(b, x2.dtype, w.group_size, w.in_features)
         splits, part, sem = 1, None, None
-        if route in ("mma", "gemv"):
+        if route != "gemv_fma":
             x2 = aligned_rows(x2)
             sms = _lib.sm_count(x.device.index or 0)
             splits = (mma_splits(b, m, w.n_groups, sms) if route == "mma"
-                      else gemv_splits(m, nb * 8, sms))
+                      else gemv_splits(m, nb * 8, sms) if route == "gemv"
+                      else dq_splits(b, m, nb * 8, sms))
             if splits > 1:
                 part = torch.empty((splits, b, m), dtype=torch.float32,
                                    device=x.device)

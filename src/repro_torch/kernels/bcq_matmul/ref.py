@@ -19,6 +19,10 @@
     of ``csrc/bcq_decode.cu``): the same group terms, the padded
     reduction axis cut into ranges of whole 256-column steps, each
     range's sum a partial, the partials added in split order;
+  * ``dq_split_ref`` — the dequantizing tile's walk (the ``mma_dq`` route
+    of ``csrc/bcq_dq.cu``): W dequantized in f32 in the reference's order,
+    split into two bf16 parts, the products in the tile's order, the
+    stages (``dq_step``) cut into ranges, partials added in split order;
   * ``split_bf16x3`` — an f32 tensor's three bf16 parts (h, m, l), each
     rounded from the residual of the ones before it.
 """
@@ -31,6 +35,14 @@ from repro_torch.core.plane import (PlaneBundle, dequantize, pad_operands,
 from repro_torch.kernels.lut_common import ternary_plane_bytes
 
 GEMV_STEP = 256   # reduction columns per stage of the decode tile
+# reduction columns per stage of the dequantizing tile (csrc/bcq_dq.cuh),
+# above 8 rows and at 8 rows or fewer
+DQ_STEP, DQ_DECODE_STEP = 64, 128
+
+
+def dq_step(rows: int) -> int:
+    """The dequantizing tile's stage width for a call of ``rows`` rows."""
+    return DQ_DECODE_STEP if rows <= 8 else DQ_STEP
 
 
 def bcq_matmul_ref(x: torch.Tensor, w: PlaneBundle,
@@ -144,3 +156,39 @@ def gemv_split_ref(x: torch.Tensor, w: PlaneBundle, splits: int,
         raise ValueError(f"{splits} splits of {steps} steps leave one empty "
                          "by construction")
     return _walk(x, w, per * gps, splits, out_dtype)
+
+
+def dq_split_ref(x: torch.Tensor, w: PlaneBundle, splits: int = 1,
+                 out_dtype=None) -> torch.Tensor:
+    """y by the dequantizing tile's walk (BCQ or ternary bundles, bf16 or
+    f32 x): W dequantized in f32 in the reference's order (``dequantize``:
+    the planes in order, then z; ternary alpha * sign * mask), split into
+    hi = bf16(W) and lo = bf16(W - hi); bf16 x runs x . hi^T then
+    x . lo^T, f32 x its two leading bf16 parts h, m (``split_bf16x3``) as
+    h . hi^T, h . lo^T, m . hi^T (the products below 2^-16 of h . hi
+    dropped), into one f32 sum per range; the padded reduction axis in
+    stages of ``dq_step(rows)`` columns cut into ``splits`` ranges of
+    ceil(stages / splits) (``ops.dq_splits`` counts them), the partials
+    added in split order."""
+    n = w.in_features
+    x2 = x.reshape(-1, n)
+    step = dq_step(x2.shape[0])
+    stages = -(-w.packed.shape[-1] * 8 // step)
+    per = -(-stages // max(splits, 1))
+    if splits < 1 or -(-stages // per) != splits:
+        raise ValueError(f"{splits} splits of {stages} stages leave one "
+                         "empty by construction")
+    dense = dequantize(w, torch.float32)                   # [M, N]
+    hi = dense.to(torch.bfloat16).float()
+    lo = (dense - hi).to(torch.bfloat16).float()
+    if x.dtype == torch.float32:
+        h, m, _ = split_bf16x3(x2)
+        prods = ((h, hi), (h, lo), (m, hi))
+    else:
+        prods = ((x2.float(), hi), (x2.float(), lo))
+    y = torch.zeros((x2.shape[0], w.out_features), dtype=torch.float32,
+                    device=x.device)
+    for sp in range(splits):
+        c0, c1 = sp * per * step, (sp + 1) * per * step
+        y = y + sum(xp[:, c0:c1] @ wp[:, c0:c1].T for xp, wp in prods)
+    return y.reshape(*x.shape[:-1], w.out_features).to(out_dtype or x.dtype)

@@ -1,4 +1,4 @@
-"""Dedicated ternary (1.58-bit) LUT GEMM (CUDA) and its plain versions."""
+"""Dedicated ternary (1.58-bit) GEMM (CUDA) and its plain versions."""
 from .ops import route_for, ternary_matmul
 from .ref import (dense_ref, ternary_masked_ref, ternary_planes_ref,
                   ternary_ref)

@@ -22,20 +22,23 @@ when it fails):
     ``csrc/bcq_mma.cu``, which derives the b1 / b2 planes from the sign
     and mask words in registers (prefill; f32 activations split there
     into three bf16 parts);
-  * ``lut`` — every other call (group sizes 8 mod 16 or above 256, group
-    sizes 8, 16, 24 and the like at decode rows, an input width that is
-    not a multiple of 8): the half-LUT body of ``csrc/ternary_matmul.cu``,
-    which walks the reduction axis in chunks of ``CHUNK`` columns, one
-    LUT build each.
+  * ``mma_dq`` — every other call, at any row count (group sizes 8 mod
+    16 or above 256, group sizes 8, 16, 24 and the like at decode rows,
+    an input width that is not a multiple of 8): the dequantizing
+    tensor-core tile of ``csrc/bcq_dq.cu`` with its ternary flag, which
+    builds W = alpha mask (+-1 sign) in registers, splits it into two
+    bf16 parts and runs them against x (``bcq_matmul.ref.dq_split_ref``
+    the plain version of that walk).
 
 Where the (row, batch) tiles alone would leave the card under-filled,
-the reduction axis (LUT chunks, alpha groups on ``mma`` as
+the reduction axis (alpha groups on ``mma`` as
 ``bcq_matmul.mma_splits`` counts them, 256-column steps on ``gemv`` as
-``bcq_matmul.gemv_splits`` counts them) is split over ``splits`` blocks
-whose partial sums (scratch allocated here) are added in a fixed order
-(a second pass, or on ``gemv`` the last block of each row tile, counted
-in ``_lib.split_counters``), so the result does not depend on
-scheduling.  The launch counter keeps the kernel's name;
+``bcq_matmul.gemv_splits`` counts them, 64- or 128-column stages on
+``mma_dq`` as ``bcq_matmul.dq_splits`` counts them) is split over
+``splits`` blocks whose partial sums (scratch allocated here) are added
+in a fixed order (a second pass, or on ``gemv`` the last block of each
+row tile, counted in ``_lib.split_counters``), so the result does not
+depend on scheduling.  The launch counter keeps the kernel's name;
 ``_lib.route_counts`` counts each body under
 ``"ternary_matmul/<route>"``.
 """
@@ -48,15 +51,14 @@ import torch
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
 from repro_torch.kernels.bcq_matmul.ops import (GEMV_ROWS, aligned_rows,
-                                                gemv_splits, gemv_takes,
-                                                mma_splits, mma_takes)
+                                                dq_splits, gemv_splits,
+                                                gemv_takes, mma_splits,
+                                                mma_takes)
 from repro_torch.kernels.lut_common import READ_MODES
 from . import ref as _ref
 
-CHUNK = 512          # columns per LUT build (csrc/ternary_matmul.cu: KC)
-ROWS, BATCH = 32, 8  # weight rows and batch rows per block (TM, TB)
 _X_DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("lut", "mma", "gemv")   # index = the launcher's route code
+ROUTES = ("mma_dq", "mma", "gemv")   # index = the launcher's route code
 
 
 def route_for(rows: int, dtype, group_size: int, in_features: int) -> str:
@@ -65,14 +67,7 @@ def route_for(rows: int, dtype, group_size: int, in_features: int) -> str:
         return "gemv"
     if mma_takes(rows, dtype, group_size, in_features):
         return "mma"
-    return "lut"
-
-
-def splits_for(b: int, m: int, nb: int, sms: int) -> int:
-    """How many blocks share one (row, batch) tile's chunks: enough for
-    about four blocks per SM, never more than there are chunks."""
-    return _lib.split_count(-(-nb * 8 // CHUNK),
-                            -(-m // ROWS) * -(-b // BATCH), sms, 4)
+    return "mma_dq"
 
 
 def _check_operands(x2: torch.Tensor, w: PlaneBundle) -> None:
@@ -103,8 +98,9 @@ def _check_operands(x2: torch.Tensor, w: PlaneBundle) -> None:
 def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
                    read_mode: Optional[str] = None,
                    out_dtype=None) -> torch.Tensor:
-    """y = x @ dequant(w).T via the ternary half-LUT GEMM, f32
-    accumulation.  x: [..., in_features] -> [..., out_features]."""
+    """y = x @ dequant(w).T for a ternary bundle, f32 accumulation (the
+    half-LUT algorithm on the CPU).  x: [..., in_features] ->
+    [..., out_features]."""
     if w.kind != "ternary":
         raise ValueError(
             f"ternary_matmul needs a kind='ternary' bundle, got {w.kind!r}; "
@@ -120,8 +116,8 @@ def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
     if x.device.type != "cuda":
         raise ValueError(f"ternary_matmul: unsupported device {x.device}")
     if mu != 4:
-        raise ValueError(f"ternary_matmul: the kernel reads mu=4 groups, "
-                         f"got mu={mu}")
+        raise ValueError(f"ternary_matmul: the CUDA path takes mu=4 only "
+                         f"(the reference's default), got mu={mu}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     _check_operands(x2, w)
@@ -131,18 +127,17 @@ def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
     if b:
         route = route_for(b, x2.dtype, w.group_size, w.in_features)
         sms = _lib.sm_count(x.device.index or 0)
+        x2 = aligned_rows(x2)
         sem = None
         if route == "gemv":
-            x2 = aligned_rows(x2)
             splits = gemv_splits(m, nb * 8, sms)
             if splits > 1:
                 sem = _lib.split_counters("ternary_matmul", x.device,
                                           -(-m // GEMV_ROWS))
         elif route == "mma":
-            x2 = aligned_rows(x2)
             splits = mma_splits(b, m, w.n_groups, sms)
         else:
-            splits = splits_for(b, m, nb, sms)
+            splits = dq_splits(b, m, nb * 8, sms)
         part = torch.empty((splits, b, m), dtype=torch.float32,
                            device=x.device) if splits > 1 else y
         rc = _lib.lib().launch_ternary_matmul(

@@ -3,7 +3,8 @@
 
   * ``dense_ref``   — dequantize (alpha * sign * mask) to dense f32 and
                       matmul: ground truth;
-  * ``ternary_ref`` — the algorithm the CUDA kernel runs: one half LUT
+  * ``ternary_ref`` — the reference kernel's algorithm, the CPU path's
+                      counterpart of its ``ternary_ref``: one half LUT
                       per mu-group, the (sign, mask) bytes decoded into
                       b1 = s | ~m and b2 = s & m, both planes read from
                       the same table, y = sum_groups (alpha/2)(V1 + V2).
@@ -24,8 +25,10 @@
                       in f32, then scaled by alpha itself.  A test-size
                       function, as above.
 
-On exact inputs (integer activations, power-of-two alphas) every partial
-sum is an exact f32, so the two agree with the kernel bit for bit.
+The dequantizing route (``mma_dq``) has its plain walk in
+``bcq_matmul.ref.dq_split_ref``.  On exact inputs (integer activations,
+power-of-two alphas) every partial sum is an exact f32, so all of them
+agree with the kernel bit for bit.
 """
 from __future__ import annotations
 

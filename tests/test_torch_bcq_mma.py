@@ -162,8 +162,8 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("rows,dtype,gs,n,want", [
     (8, BF16, 128, 4096, "gemv"), (9, BF16, 128, 4096, "mma"),
     (1, F32, 128, 4096, "gemv"), (9, F32, 128, 4096, "mma"),
-    (512, BF16, 16, 4096, "mma"), (512, BF16, 8, 136, "fma"),
-    (512, BF16, 128, 4100, "fma"), (512, BF16, 512, 4096, "fma"),
+    (512, BF16, 16, 4096, "mma"), (512, BF16, 8, 136, "mma_dq"),
+    (512, BF16, 128, 4100, "mma_dq"), (512, BF16, 512, 4096, "mma_dq"),
     # the decode tile's edges: group sizes 32..256 that divide its
     # 256-column step, 16-byte activation rows, bf16 only
     (1, BF16, 32, 4096, "gemv"), (8, BF16, 256, 2560, "gemv"),
@@ -174,11 +174,11 @@ BF16, F32 = torch.bfloat16, torch.float32
     (8, F32, 16, 4096, "gemv_fma"), (1, F32, 96, 4224, "gemv_fma"),
     (8, F32, 128, 4100, "gemv_fma"), (8, F32, 256, 2560, "gemv"),
     # f32 prefill rows take the tensor-core tile under the bf16 rule; the
-    # CUDA-core tile keeps group sizes 8 mod 16 or above 256 and input
+    # dequantizing tile takes group sizes 8 mod 16 or above 256 and input
     # widths that are not a multiple of 8
     (512, F32, 16, 4096, "mma"), (12000, F32, 256, 1024, "mma"),
-    (512, F32, 8, 136, "fma"), (512, F32, 512, 4096, "fma"),
-    (512, F32, 128, 4100, "fma"),
+    (512, F32, 8, 136, "mma_dq"), (512, F32, 512, 4096, "mma_dq"),
+    (512, F32, 128, 4100, "mma_dq"),
 ])
 def test_bcq_matmul_route_edges(rows, dtype, gs, n, want):
     assert bcq_route(rows, dtype, gs, n) == want

@@ -31,7 +31,12 @@ exact for normal values, so only the f32 summation order differs.  The
 tensor-core tile on f32 activations above 8 rows (the same split) is
 held to 1e-3 of the output scale and bit for bit on exact inputs, at
 every group size it takes, q 1-8 at group size 256 (its shared-memory
-budget: 64, 32 or 16 batch rows a block), split and unsplit.
+budget: 64, 32 or 16 batch rows a block), split and unsplit.  The
+dequantizing tile (route ``mma_dq``: the group sizes and input widths the
+other tiles refuse) is held to 1e-3 of the output scale against the
+plain version and its own walk (``dq_split_ref``), bit for bit on exact
+inputs, at group sizes 8 and 512, q 1-8, ragged M / N / B, split and
+unsplit, bf16 and f32.
 """
 import numpy as np
 import pytest
@@ -451,8 +456,9 @@ def test_cuda_paged_match_plain(h, hkv):
                                    (512, 4096, 40)])
 def test_cuda_ternary_matches_plain(m, n, b):
     """Exact inputs agree bit for bit; random ones within 1e-3.  The
-    shapes cover ragged M, N (a partial LUT chunk) and B, and both the
-    direct and the split-sum launches."""
+    shapes cover ragged M, N (a part-full last stage) and B, every body
+    (group size 8 takes the dequantizing tile at every row count), and
+    both the direct and the split-sum launches."""
     require_cuda()
     rng = np.random.default_rng(m + n + b)
     g = 64 if n % 64 == 0 else 8
@@ -1011,20 +1017,160 @@ def test_cuda_ternary_gemv_exact(m, n, gs, rows):
 @pytest.mark.parametrize("m,n,gs", [(4096, 4096, 8), (300, 1032, 24),
                                     (300, 1032, 16), (300, 4092, 128)])
 def test_cuda_ternary_lut_keeps_other_decode_rows(m, n, gs):
-    """Decode rows the tile does not take (group sizes 8, 16, 24; an input
-    width that is not a multiple of 8) stay on the half-LUT body: bit for
-    bit on exact inputs, bf16 and f32."""
+    """Decode rows the decode tile does not take (group sizes 8, 16, 24;
+    an input width that is not a multiple of 8), which the half-LUT body
+    took before, run the dequantizing tile: bit for bit on exact inputs
+    against the half-LUT plain version and the tile's own walk, bf16 and
+    f32."""
     require_cuda()
+    from repro_torch.kernels.bcq_matmul import dq_split_ref
+    from repro_torch.kernels.bcq_matmul.ops import dq_splits
     rng = np.random.default_rng(m + gs)
     we, _ = _ternary_pair(rng, m, n, gs)
     xe = torch.from_numpy(rng.integers(-8, 9, (8, n)).astype(
+        np.float32)).to("cuda")
+    splits = dq_splits(8, m, we.packed.shape[-1] * 8, _lib.sm_count(0))
+    for dtype in (torch.bfloat16, torch.float32):
+        xt = xe.to(dtype)
+        got, routes = _routes_run(
+            lambda: ternary_matmul(xt, we, out_dtype=torch.float32))
+        assert routes == {"ternary_matmul/mma_dq": 1}
+        assert torch.equal(got, ternary_ref(xt, we, out_dtype=torch.float32))
+        assert torch.equal(got, dq_split_ref(xt, we, splits, torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# the dequantizing tile (route mma_dq of bcq_matmul and ternary_matmul)
+# ---------------------------------------------------------------------------
+
+
+def _dq_width(gs, q):
+    """An input width for a dequantizing-tile case: aligned (16-byte x
+    rows, plane rows and scale runs) for odd q, ragged (in_features 1004:
+    8-byte bf16 rows, byte-wide plane copies at gs 8, single-value scale
+    copies) for even q."""
+    if q % 2:
+        return 1024 if gs == 8 else 3 * gs
+    return 1004
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", list(range(1, 9)))
+@pytest.mark.parametrize("gs", [8, 512])
+def test_cuda_mma_dq_bcq(gs, q):
+    """bcq_matmul above 8 rows at group sizes the tensor-core tile does
+    not take (8, 512), q 1-8, ragged M (200) and B (77: 64-row tiles, 20:
+    one 32-row tile, 9), aligned and ragged input widths, with z at odd
+    q and without at even: 1e-3 of the output scale against the plain
+    version and the tile's walk (``dq_split_ref``), bf16 and f32; bit for
+    bit on exact inputs (integer x, power-of-two alphas, quarter-integer
+    offsets)."""
+    require_cuda()
+    from repro_torch.core.plane import PlaneBundle
+    from repro_torch.kernels.bcq_matmul import dq_split_ref
+    from repro_torch.kernels.bcq_matmul.ops import dq_splits
+    rng = np.random.default_rng(gs * 10 + q)
+    m, n = 200, _dq_width(gs, q)
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    wt = bcq.from_uniform(w.to("cuda"), bits=q, group_size=gs)
+    if q % 2 == 0:
+        wt = PlaneBundle(packed=wt.packed, alpha=wt.alpha, z=None,
+                         group_size=gs, in_features=n, out_features=m)
+    we = _exact_bundle(rng, q, m, n, gs, q % 2 == 1)
+    for rows in (77, 20, 9):
+        splits = dq_splits(rows, m, wt.packed.shape[-1] * 8,
+                           _lib.sm_count(0))
+        x = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+            np.float32)).to("cuda")
+        xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+            np.float32)).to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            xt = x.to(dtype)
+            got, routes = _routes_run(lambda: bcq_matmul(
+                xt, wt, out_dtype=torch.float32))
+            assert routes == {"bcq_matmul/mma_dq": 1}
+            _close(got, bcq_matmul_ref(xt, wt, torch.float32), GEMM_TOL)
+            _close(got, dq_split_ref(xt, wt, splits, torch.float32),
+                   GEMM_TOL)
+            xt = xe.to(dtype)
+            assert torch.equal(bcq_matmul(xt, we, out_dtype=torch.float32),
+                               bcq_matmul_ref(xt, we, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 9, 77, 512])
+@pytest.mark.parametrize("m,n,gs", [(200, 1004, 8), (130, 1100, 512),
+                                    (300, 4092, 24), (4096, 4096, 8)])
+def test_cuda_ternary_mma_dq(m, n, gs, rows):
+    """ternary_matmul at group sizes and widths neither the decode tile
+    nor the tensor-core tile takes, at decode and prefill rows: 0 error on
+    exact inputs (integer x, alpha 0.5) against the half-LUT plain
+    version, the dense product and the tile's walk; 1e-3 of the output
+    scale on random ones; bf16 and f32; ragged M, N and B, and [4096 x
+    4096] at 8 rows splits its stages."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul import dq_split_ref
+    from repro_torch.kernels.bcq_matmul.ops import dq_splits
+    rng = np.random.default_rng(m + n + gs + rows)
+    we, wr = _ternary_pair(rng, m, n, gs)
+    splits = dq_splits(rows, m, we.packed.shape[-1] * 8, _lib.sm_count(0))
+    if (m, rows) == (4096, 8):
+        assert splits > 1
+    xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+        np.float32)).to("cuda")
+    xr = torch.from_numpy(rng.normal(size=(rows, n)).astype(
         np.float32)).to("cuda")
     for dtype in (torch.bfloat16, torch.float32):
         xt = xe.to(dtype)
         got, routes = _routes_run(
             lambda: ternary_matmul(xt, we, out_dtype=torch.float32))
-        assert routes == {"ternary_matmul/lut": 1}
+        assert routes == {"ternary_matmul/mma_dq": 1}
         assert torch.equal(got, ternary_ref(xt, we, out_dtype=torch.float32))
+        assert torch.equal(got, dense_ref(xt, we, torch.float32))
+        assert torch.equal(got, dq_split_ref(xt, we, splits, torch.float32))
+        xt = xr.to(dtype)
+        got = ternary_matmul(xt, wr, out_dtype=torch.float32)
+        _close(got, dense_ref(xt, wr, torch.float32), GEMM_TOL)
+        _close(got, dq_split_ref(xt, wr, splits, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 32])
+def test_cuda_mma_dq_split_path(rows):
+    """A narrow, long weight (64 x 16384, g 8): the output tiles alone
+    fill few SMs, so the dequantizing tile splits its 64-column stages
+    over blocks and adds the partials in a fixed order: 1e-3 of the
+    output scale against the plain version and the walk at that split,
+    a second call repeats the first exactly (ternary at rows 8 and 32,
+    bcq_matmul at 32: its 8 rows stay on the CUDA-core GEMV)."""
+    require_cuda()
+    from repro_torch.kernels.bcq_matmul import dq_split_ref
+    from repro_torch.kernels.bcq_matmul.ops import dq_splits
+    rng = np.random.default_rng(rows + 31)
+    m, n = 64, 16384
+    splits = dq_splits(rows, m, n, _lib.sm_count(0))
+    assert splits > 1
+    w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    cases = [("ternary_matmul", quantize_ternary(w.to("cuda"), group_size=8),
+              ternary_matmul)]
+    if rows > 8:
+        cases.append(("bcq_matmul", bcq.from_uniform(w.to("cuda"), bits=3,
+                                                     group_size=8),
+                      bcq_matmul))
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+            np.float32)).to("cuda", dtype)
+        for name, wt, fn in cases:
+            got, routes = _routes_run(lambda: fn(x, wt,
+                                                 out_dtype=torch.float32))
+            assert routes == {f"{name}/mma_dq": 1}
+            _close(got, bcq_matmul_ref(x, wt, torch.float32)
+                   if name == "bcq_matmul" else dense_ref(x, wt,
+                                                          torch.float32),
+                   GEMM_TOL)
+            _close(got, dq_split_ref(x, wt, splits, torch.float32),
+                   GEMM_TOL)
+            assert torch.equal(got, fn(x, wt, out_dtype=torch.float32))
 
 
 @pytest.mark.cuda

@@ -18,6 +18,8 @@ Fig. 17) against the reference.
     ``from_jax_params``: plain-path logits within 1e-3 of the logit
     scale, in f32.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,13 +192,42 @@ def test_allocate_bits_injected_table_matches_reference(budget):
 # ---------------------------------------------------------------------------
 
 
-def _ref_model(arch, scan, dtype="float32"):
-    cfg = j_reduced(arch).replace(remat=False, dtype=dtype, scan_layers=scan)
+@functools.lru_cache(maxsize=None)
+def _ref_model(arch, scan):
+    """The reference's reduced ``arch`` in f32 and its parameters, built
+    once per module (nothing changes them)."""
+    cfg = j_reduced(arch).replace(remat=False, dtype="float32",
+                                  scan_layers=scan)
     jm = JModel(cfg)
-    params = jm.init(jax.random.PRNGKey(0))
-    if dtype == "float32":
-        params = f32_params(params)
-    return jm, params
+    return jm, f32_params(jm.init(jax.random.PRNGKey(0)))
+
+
+_REF_QUANT = {}
+
+
+def _ref_quant(arch, scan, bits, over=None):
+    """The reference's plan (``plan_bits``), quantized tree and manifest
+    of ``_ref_model(arch, scan)`` at ``bits`` (group size G, 2
+    iterations), computed once and shared by the plan and forward tests.
+    The tree and manifest are the reference's ``quantize_model`` step by
+    step (``plan_bits``, ``ptq.quantize_model`` with that plan,
+    ``build_manifest``), so its sensitivity probe runs once, not twice."""
+    key = arch, scan, bits, repr(over)
+    if key not in _REF_QUANT:
+        jm, params = _ref_model(arch, scan)
+        jspec = jquant.QuantSpec(bits=bits, group_size=G, iters=2,
+                                 overrides=over or {})
+        linears = jptq.collect_linears(params, jm.axes())
+        plan = jquant.plan_bits(linears, jspec)
+        fmt = jquant.get_format(jspec.format)
+        qparams = jptq.quantize_model(
+            params, jm.axes(), bits=fmt.plane_bits(max(jspec.bits, 1)),
+            method=jspec.format, group_size=jspec.group_size,
+            iters=jspec.iters, bit_map=plan)
+        jman = jquant.build_manifest(qparams, jspec, plan, linears,
+                                     axes_tree=jm.axes())
+        _REF_QUANT[key] = plan, qparams, jman
+    return _REF_QUANT[key]
 
 
 def _port_model(arch, scan, params, spec=None, dtype="float32"):
@@ -216,9 +247,7 @@ def test_plan_and_manifest_match_reference(arch, scan, bits, over):
     kw = dict(bits=bits, group_size=G, iters=2, overrides=over or {})
     jm, params = _ref_model(arch, scan)
     jlin = jptq.collect_linears(params, jm.axes())
-    jspec = jquant.QuantSpec(**kw)
-    want_plan = jquant.plan_bits(jlin, jspec)
-    _, jman = jquant.quantize_model(params, jspec, jm.axes())
+    want_plan, _, jman = _ref_quant(arch, scan, bits, over)
     tm = _port_model(arch, scan, params)
     tlin = collect_linears(tm)
     assert list(tlin) == list(jlin)                # keys and their order
@@ -304,11 +333,13 @@ def test_mixed_forward_matches_reference(arch, bits):
     """A mixed model quantized by the reference, served by the port's plain
     path (``dense`` backend: dequantize and matmul in f32): logits within
     1e-3 of the logit scale."""
-    jm, params = _ref_model(arch, True)
+    jm, _ = _ref_model(arch, True)
+    # the reference's quantization at this width (the backend is not
+    # part of it), served by its dense backend
+    _, params, jman = _ref_quant(arch, True, bits)
+    assert len({(l["format"], l["plane_bits"]) for l in jman.layers}) > 1
     jspec = jquant.QuantSpec(bits=bits, group_size=G, iters=2,
                              backend="dense")
-    params, jman = jquant.quantize_model(params, jspec, jm.axes())
-    assert len({(l["format"], l["plane_bits"]) for l in jman.layers}) > 1
     jm = JModel(jm.cfg.replace(quant=jspec))
     spec = QuantSpec(bits=bits, group_size=G, iters=2, backend="dense")
     tm = _port_model(arch, True, params, spec)

@@ -4,8 +4,10 @@
 Cases: Phi-4-mini (rotary GQA, cut to a group of 3 as in
 ``test_torch_dense.py``), OPT (learned positions, clamped at 0 under
 left-pads), OPT with an int8 KV cache (whose whole-prompt prefill attends
-over the fresh K/V, not the cache) and MiniCPM3 (the MLA latent cache).
-Tolerances:
+over the fresh K/V, not the cache) and MiniCPM3 (the MLA latent cache),
+each at one layer, each pair built once per module and shared.  The
+reference's prefill and decode are jitted in the logit test (its
+engine prefills eagerly, as it does).  Tolerances:
 
 - ``cache_insert`` into a contiguous cache: exact (a ring write);
 - logits (``prefill`` with left-pads, then ``decode_step``): 1e-4 of the
@@ -14,6 +16,7 @@ Tolerances:
   against the reference ``ServeEngine`` and against the port's own
   ``PagedServeEngine`` on the same weights.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,23 +29,39 @@ from repro_torch.models import attention as tattn
 from repro_torch.serve import (PagedServeEngine, Request, ServeEngine,
                                supports_paging)
 
-from torch_port_cases import port_pair, prompts_of
+from torch_port_cases import port_pair, prompts_of, quantized_pair
 
 TOL = 1e-4
-# case -> (arch, config overrides on both sides, BCQ group size)
+# case -> (arch, config overrides on both sides, BCQ group size); one
+# layer each (the reduced configs have two): the cases test the cache
+# and the engines, not depth, and the reference's compiles scale with it
 CASES = {
-    "phi4": ("phi4_mini_3_8b", dict(n_heads=6, n_kv_heads=2), 32),
-    "opt": ("opt_6_7b", {}, 32),
-    "opt_int8kv": ("opt_6_7b", dict(kv_cache_bits=8), 32),
-    "minicpm3": ("minicpm3_4b", {}, 16),
+    "phi4": ("phi4_mini_3_8b", dict(n_heads=6, n_kv_heads=2, n_layers=1),
+             32),
+    "opt": ("opt_6_7b", dict(n_layers=1), 32),
+    "opt_int8kv": ("opt_6_7b", dict(kv_cache_bits=8, n_layers=1), 32),
+    "minicpm3": ("minicpm3_4b", dict(n_layers=1), 16),
 }
 
 
-def _pair(case, quantized=False, backend="bcq_xla", **over):
-    arch, base, g = CASES[case]
-    quant = (dict(bits=3, group_size=g, iters=2, backend=backend)
-             if quantized else None)
-    return port_pair(arch, quant=quant, perturb=5, **base, **over)
+_PAIRS = {}
+
+
+def _pair(case, quantized=False):
+    """(reference Model, params, port Model) of a case, built once and
+    shared by the tests that read it (none changes a pair); the BCQ-3
+    pair quantizes the float pair's reference tree (``bcq_xla``)."""
+    key = case, quantized
+    if key not in _PAIRS:
+        arch, base, g = CASES[case]
+        if quantized:
+            jm, params, tm = _pair(case)
+            _PAIRS[key] = quantized_pair(
+                jm, params, tm.cfg,
+                dict(bits=3, group_size=g, iters=2, backend="bcq_xla"))
+        else:
+            _PAIRS[key] = port_pair(arch, perturb=5, **base)
+    return _PAIRS[key]
 
 
 def _rel(got, want):
@@ -154,19 +173,19 @@ def test_prefill_with_left_pads_matches_reference(case):
     toks = np.zeros((b, bucket), np.int32)
     toks[:, -plen:] = prompt
     start = plen - bucket
-    jl, jc = jm.prefill(params, {"tokens": jnp.asarray(toks)},
-                        jm.init_cache(b, length), jnp.int32(start))
+    jl, jc = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(toks)},
+                                 jm.init_cache(b, length), jnp.int32(start))
     tl, tc = tm.prefill(torch.from_numpy(toks), tm.init_cache(b, length),
                         start)
     assert tl.shape == (b, tm.cfg.vocab_size) and tl.dtype == torch.float32
     assert _rel(tl, jl) < TOL
     ul, _ = tm.prefill(torch.from_numpy(prompt), tm.init_cache(b, length), 0)
     assert _rel(tl, ul) < TOL
+    decode = jax.jit(jm.decode_step)
     for t in range(2):
         step = rng.integers(0, 256, (b, 1)).astype(np.int32)
         pos = np.full(b, plen + t, np.int32)
-        jl, jc = jm.decode_step(params, jnp.asarray(step), jc,
-                                jnp.asarray(pos))
+        jl, jc = decode(params, jnp.asarray(step), jc, jnp.asarray(pos))
         tl, tc = tm.decode_step(torch.from_numpy(step), tc,
                                 torch.from_numpy(pos))
         assert _rel(tl, jl) < TOL

@@ -49,7 +49,8 @@ from repro_torch.kernels.ternary_matmul import (dense_ref, route_for,
                                                 ternary_matmul,
                                                 ternary_planes_ref,
                                                 ternary_ref)
-from repro_torch.kernels.ternary_matmul.ops import splits_for
+from repro_torch.kernels.bcq_matmul.ops import dq_splits
+from repro_torch.kernels.bcq_matmul.ref import dq_step
 from repro_torch.models import from_jax_params
 from repro_torch.quant import QuantSpec, backends as tbackends, quantize_model
 from repro_torch.quant.formats import quantize_ternary
@@ -261,42 +262,46 @@ def test_ternary_masked_ref_matches_reference(m, n, b, g):
                                             "mma"),
     (512, torch.bfloat16, 256, 4096, "mma"),
     (512, torch.float32, 128, 4096, "mma"),
-    (512, torch.bfloat16, 8, 4096, "lut"), (512, torch.bfloat16, 24, 4096,
-                                            "lut"),
-    (512, torch.bfloat16, 512, 4096, "lut"),
-    (512, torch.bfloat16, 128, 4092, "lut"),
+    (512, torch.bfloat16, 8, 4096, "mma_dq"),
+    (512, torch.bfloat16, 24, 4096, "mma_dq"),
+    (512, torch.bfloat16, 512, 4096, "mma_dq"),
+    (512, torch.bfloat16, 128, 4092, "mma_dq"),
     # the decode tile: bf16 and f32 rows <= 8, gs 32-256, 8 | in_features
     (8, torch.float32, 128, 4096, "gemv"), (1, torch.float32, 32, 2560,
                                             "gemv"),
     (8, torch.bfloat16, 256, 768, "gemv"),
-    (8, torch.bfloat16, 8, 4096, "lut"), (8, torch.bfloat16, 24, 4096,
-                                          "lut"),
-    (8, torch.bfloat16, 16, 4096, "lut"), (8, torch.float32, 512, 4096,
-                                           "lut"),
-    (8, torch.bfloat16, 128, 4092, "lut"),
-    # f32 above 8 rows: the mma route under the same rule, the LUT body
-    # for the group sizes and widths it does not take
-    (9, torch.float32, 16, 4096, "mma"), (512, torch.float32, 8, 4096,
-                                          "lut"),
-    (512, torch.float32, 512, 4096, "lut"),
-    (512, torch.float32, 128, 4100, "lut")])
+    (8, torch.bfloat16, 8, 4096, "mma_dq"),
+    (8, torch.bfloat16, 24, 4096, "mma_dq"),
+    (8, torch.bfloat16, 16, 4096, "mma_dq"),
+    (8, torch.float32, 512, 4096, "mma_dq"),
+    (8, torch.bfloat16, 128, 4092, "mma_dq"),
+    # f32 above 8 rows: the mma route under the same rule, the
+    # dequantizing tile for the group sizes and widths it does not take
+    (9, torch.float32, 16, 4096, "mma"),
+    (512, torch.float32, 8, 4096, "mma_dq"),
+    (512, torch.float32, 512, 4096, "mma_dq"),
+    (512, torch.float32, 128, 4100, "mma_dq")])
 def test_ternary_route_edges(rows, dtype, gs, n, want):
     """The decode tile takes at most 8 bf16 or f32 rows with gs 32, 64,
     128 or 256 and 8 | in_features (bcq_matmul's gemv rule); the mma
     route more than 8 bf16 or f32 rows with 16 | gs <= 256 and 8 |
-    in_features (bcq_matmul's mma rule); every other call the LUT
-    body."""
+    in_features (bcq_matmul's mma rule); every other call, at any row
+    count, the dequantizing tile."""
     assert route_for(rows, dtype, gs, n) == want
 
 
 def test_split_count_covers_every_chunk():
+    """The dequantizing tile's split of its stages (the route the
+    half-LUT body's calls now take; 64 columns, 128 at 8 rows or fewer):
+    every split holds whole stages, none is empty, and every stage is
+    covered."""
     for b, m, nb, sms in ((8, 16384, 512, 132), (8, 4096, 512, 132),
                           (8, 4096, 2048, 132), (512, 4096, 512, 132),
                           (1, 33, 17, 132), (3, 96, 25, 4)):
-        s = splits_for(b, m, nb, sms)
-        nchunks = -(-nb * 8 // 512)
-        per = -(-nchunks // s)
-        assert 1 <= s <= nchunks and (s - 1) * per < nchunks <= s * per
+        s = dq_splits(b, m, nb * 8, sms)
+        stages = -(-nb * 8 // dq_step(b))
+        per = -(-stages // s)
+        assert 1 <= s <= stages and (s - 1) * per < stages <= s * per
 
 
 # ---------------------------------------------------------------------------

@@ -85,12 +85,10 @@ def port_pair(arch, *, quant=None, perturb=None, **over):
     reference tree and carries the bundles across; ``perturb`` (a seed)
     draws the biases and norm parameters (``_perturb``) first."""
     import jax
-    from repro import quant as jquant
     from repro.configs import get_reduced as j_reduced
     from repro.models import Model as JModel
     from repro_torch.configs import get_reduced as t_reduced
     from repro_torch.models import from_jax_params
-    from repro_torch.quant import QuantSpec
     over = {"dtype": "float32", **over}
     jcfg = j_reduced(arch).replace(remat=False, **over)
     jm = JModel(jcfg)
@@ -99,12 +97,26 @@ def port_pair(arch, *, quant=None, perturb=None, **over):
         params = _perturb(params, perturb)
     tcfg = t_reduced(arch).replace(**over)
     if quant:
-        jspec = jquant.QuantSpec(**quant)
-        params, _ = jquant.quantize_model(params, jspec, jm.axes())
-        jm = JModel(jcfg.replace(quant=jspec))
-        tcfg = tcfg.replace(quant=QuantSpec(**quant))
+        return quantized_pair(jm, params, tcfg, quant)
     return jm, params, from_jax_params(to_numpy_tree(params), tcfg,
                                        device="cpu")
+
+
+def quantized_pair(jm, params, tcfg, quant):
+    """``port_pair``'s quantized triple from a float one: the reference
+    tree quantized with ``quant`` (QuantSpec fields), the reference Model
+    that reads it and the port Model (config ``tcfg``) it is carried
+    into."""
+    from repro import quant as jquant
+    from repro.models import Model as JModel
+    from repro_torch.models import from_jax_params
+    from repro_torch.quant import QuantSpec
+    jspec = jquant.QuantSpec(**quant)
+    qparams, _ = jquant.quantize_model(params, jspec, jm.axes())
+    return (JModel(jm.cfg.replace(quant=jspec)), qparams,
+            from_jax_params(to_numpy_tree(qparams),
+                            tcfg.replace(quant=QuantSpec(**quant)),
+                            device="cpu"))
 
 
 def prompts_of(lens, seed=0, vocab=256):
