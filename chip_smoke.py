@@ -46,11 +46,14 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      ``torch.matmul`` in f32; the bodies the tiles leave calls to, each
      held and timed at [16384 x 4096] at calls it takes: the
      dequantizing tensor-core tile (route ``mma_dq``) of bcq_matmul (f32
-     and bf16 rows 512 at group size 8) and of ternary_matmul (bf16 rows
-     8, f32 and bf16 rows 512, all at group size 8; also to 0 on exact
-     inputs), each also against its walk's plain version
-     (``dq_split_ref``), bcq_matmul ``gemv_fma`` (f32 rows 8 at group
-     size 16), lut_gemm ``lut_tile`` (f32 rows 8, mu 2, full table); the
+     and bf16 rows 8 at group size 16, its decode stage; f32 and bf16
+     rows 512 at group size 8) and of ternary_matmul (bf16 rows 8, f32
+     and bf16 rows 512, all at group size 8; also to 0 on exact inputs),
+     each also against its walk's plain version (``dq_split_ref``), and
+     lut_gemm's LUT body (route ``lut``) at the paper's LUT-size and
+     hFFLUT variants (f32 rows 8: mu 2 with the full and the half table,
+     mu 4 with the full table), each timed beside the decode tile on the
+     same call, and its ``mma_dq`` (f32 rows 512 at group size 8); the
      split-table MLA decode kernel logged with its split count and held
      to repeat itself exactly;
   4. serve (random weights from ``--seed``; the paged engine with fused
@@ -408,10 +411,14 @@ def f32_decode_case(torch, timer, gen, w, dense_bf16, results, model):
 def odd_shape_cases(torch, timer, gen, results):
     """The bodies the tiles leave calls to, each held to 1e-3 of the
     output scale and timed at [16384 x 4096] at calls it takes:
-    bcq_matmul's ``gemv_fma`` (f32 rows 8 at group size 16, which the
-    decode tile does not take) and ``mma_dq`` (rows 512 at group size 8,
-    which the tensor-core tile does not take; f32 and bf16), lut_gemm's
-    ``lut_tile`` (f32 rows 8 at mu 2 with the full table) and
+    bcq_matmul's ``mma_dq`` (f32 and bf16 rows 8 at group size 16, which
+    the decode tile does not take: the tile's decode stage; rows 512 at
+    group size 8, which the tensor-core tile does not take; f32 and
+    bf16), lut_gemm's ``lut`` at its ablation variants (f32 rows 8 at mu
+    2 with the full and the half table, mu 4 with the full table; each
+    also timed beside the decode tile, ``bcq_matmul`` route ``gemv``, on
+    the same call, which computes the same function) and ``mma_dq`` (f32
+    rows 512 at group size 8, mu 2, full table) and
     ternary_matmul's ``mma_dq`` (group size 8: bf16 rows 8, f32 and bf16
     rows 512).  The ``mma_dq`` cases are also held to 1e-3 against the
     tile's walk (``dq_split_ref`` at the wrapper's split count)."""
@@ -428,29 +435,41 @@ def odd_shape_cases(torch, timer, gen, results):
     f32, bf16 = torch.float32, torch.bfloat16
     bcq_fn = lambda x, w: bcq_matmul(x, w, out_dtype=torch.float32)
     tern_fn = lambda x, w: ternary_matmul(x, w, out_dtype=torch.float32)
+    lut_fn = lambda mu, half: lambda x, w: lut_gemm(
+        x, w, mu=mu, half_lut=half, out_dtype=torch.float32)
+    weights = {}
     for key, gs, rows, dtype, name, want, fn in (
-            ("bcq_matmul_gemv_fma", 16, 8, f32, "bcq_matmul", "gemv_fma",
+            ("bcq_matmul_mma_dq_decode", 16, 8, f32, "bcq_matmul", "mma_dq",
              bcq_fn),
+            ("bcq_matmul_mma_dq_decode_bf16", 16, 8, bf16, "bcq_matmul",
+             "mma_dq", bcq_fn),
             ("bcq_matmul_mma_dq", 8, 512, f32, "bcq_matmul", "mma_dq",
              bcq_fn),
             ("bcq_matmul_mma_dq_bf16", 8, 512, bf16, "bcq_matmul", "mma_dq",
              bcq_fn),
-            ("lut_gemm_lut_tile", 128, 8, f32, "lut_gemm", "lut_tile",
-             lambda x, w: lut_gemm(x, w, mu=2, half_lut=False,
-                                   out_dtype=torch.float32)),
+            ("lut_gemm_lut_mu2_full", 128, 8, f32, "lut_gemm", "lut",
+             lut_fn(2, False)),
+            ("lut_gemm_lut_mu2_half", 128, 8, f32, "lut_gemm", "lut",
+             lut_fn(2, True)),
+            ("lut_gemm_lut_mu4_full", 128, 8, f32, "lut_gemm", "lut",
+             lut_fn(4, False)),
+            ("lut_gemm_mma_dq", 8, 512, f32, "lut_gemm", "mma_dq",
+             lut_fn(2, False)),
             ("ternary_matmul_mma_dq", 8, 8, bf16, "ternary_matmul",
              "mma_dq", tern_fn),
             ("ternary_matmul_mma_dq_f32", 8, 512, f32, "ternary_matmul",
              "mma_dq", tern_fn),
             ("ternary_matmul_mma_dq_bf16", 8, 512, bf16, "ternary_matmul",
              "mma_dq", tern_fn)):
-        wd = torch.randn((m, n), generator=gen, device="cuda") * 0.02
-        if name == "ternary_matmul":
-            w, plain_fn = quantize_ternary(wd, group_size=gs), dense_ref
-        else:
-            w, plain_fn = (bcq.quantize(wd, bits=3, group_size=gs),
-                           bcq_matmul_ref)
-        del wd
+        tern = name == "ternary_matmul"
+        if (tern, gs) not in weights:
+            wd = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+            weights[(tern, gs)] = (
+                quantize_ternary(wd, group_size=gs) if tern
+                else bcq.quantize(wd, bits=3, group_size=gs))
+            del wd
+        w = weights[(tern, gs)]
+        plain_fn = dense_ref if tern else bcq_matmul_ref
         x = torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
         plain = plain_fn(x, w, torch.float32)
         got, route = routed(torch, name, lambda: fn(x, w))
@@ -483,15 +502,22 @@ def odd_shape_cases(torch, timer, gen, results):
         rec.update(max_abs_err=err, rel_err=rel, tol=tol, ms=t,
                    plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
                    bound_by=b_by)
+        gemv = ""
+        if route == "lut":
+            _, g_route = routed(torch, "bcq_matmul", lambda: bcq_fn(x, w))
+            if g_route != "gemv":
+                fail(f"bcq_matmul {key}'s call ran {g_route}, not gemv")
+            rec["gemv_ms"] = timer(lambda: bcq_fn(x, w))
+            gemv = f"  decode tile {rec['gemv_ms']:.4f} ms"
         results[key] = [rec]
         log(f"{name} rows={rows:4d} M={m:5d} N={n:5d} {rec['dtype']} "
             f"g={gs} [{route}{walk}]: err {err:.3e} (rel {rel:.2e} <= "
             f"{tol:g}: {rel <= tol})  kernel {t:.4f} ms  plain "
             f"{t_plain:.4f} ms  torch.matmul {rec['dtype']} {t_lib:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by}){gemv}")
         if rel > tol:
             fail(f"{name} {route} disagrees with its plain version")
-        del w
+    del weights
 
 
 def f32_mma_cases(torch, timer, gen, results):
@@ -1495,8 +1521,8 @@ def f32_view(m):
 
 # the bodies a prefill of more than 8 rows must not reach: those the
 # tiles leave odd shapes to
-ODD_SHAPE_BODIES = ("bcq_matmul/mma_dq", "bcq_matmul/gemv_fma",
-                    "lut_gemm/lut_tile", "ternary_matmul/mma_dq")
+ODD_SHAPE_BODIES = ("bcq_matmul/mma_dq", "lut_gemm/mma_dq",
+                    "ternary_matmul/mma_dq")
 
 
 def f32_on_tiles(torch, tag, fn):
@@ -3042,16 +3068,16 @@ def main():
                 for r in results["f32_mma"] if r["name"] == name]
         if name == "bcq_matmul":
             # the decode tile's split count, f32 rows of the same weight on
-            # the decode tile, and the bodies of the odd shapes at calls
-            # they take (f32 rows 8 at group size 16 on the CUDA-core
-            # GEMV; f32 and bf16 rows 512 at group size 8 on the
-            # dequantizing tile)
+            # the decode tile, and the dequantizing tile at calls it takes
+            # (f32 and bf16 rows 8 at group size 16, its decode stage; f32
+            # and bf16 rows 512 at group size 8)
             kernels[-1]["case"]["splits"] = sel["splits"]
             f32 = [r for r in results["bcq_matmul_f32"]
                    if r["m"] == sel["m"] and r["n"] == sel["n"]][0]
             kernels[-1]["f32_decode"] = {k: f32[k] for k in keys + (
                 "splits", "library_bf16_ms")}
-            for key in ("gemv_fma", "mma_dq", "mma_dq_bf16"):
+            for key in ("mma_dq_decode", "mma_dq_decode_bf16", "mma_dq",
+                        "mma_dq_bf16"):
                 r = results[f"bcq_matmul_{key}"][0]
                 kernels[-1][key] = {k: r[k] for k in keys + (
                     "group_size", "dtype")}
@@ -3074,9 +3100,16 @@ def main():
                 for r in results["bcq_matmul_widths"]
                 if r["rows"] in (8, 512) and r["m"] == 16384]
         if name == "lut_gemm":
-            # the LUT tile at a call it keeps: f32 rows 8, mu 2, full table
-            r = results["lut_gemm_lut_tile"][0]
-            kernels[-1]["lut_tile"] = {k: r[k] for k in keys}
+            # the LUT body at the ablation variants (f32 rows 8), each
+            # beside the decode tile on the same call
+            for key in ("mu2_full", "mu2_half", "mu4_full"):
+                r = results[f"lut_gemm_lut_{key}"][0]
+                kernels[-1][f"lut_{key}"] = {k: r[k] for k in keys + (
+                    "dtype", "gemv_ms")}
+            # the dequantizing tile at a call it takes: f32 rows 512, g 8
+            r = results["lut_gemm_mma_dq"][0]
+            kernels[-1]["mma_dq"] = {k: r[k] for k in keys + (
+                "group_size", "dtype", "splits")}
         if name == "paged_decode_mla":
             kernels[-1]["case"]["splits"] = sel["splits"]
             # DeepSeek-V2's widths: 128 heads (4 head tiles), lora 512

@@ -1,14 +1,14 @@
 // The dequantizing tensor-core tile: y[B, M] = x . dequant(W)^T with the
-// weight dequantized in registers, the "mma_dq" route of bcq_matmul and
-// ternary_matmul (every group size and input width).  See bcq_dq.cu for
-// the design.
+// weight dequantized in registers, the "mma_dq" route of bcq_matmul,
+// lut_gemm and ternary_matmul (every group size and input width, at any
+// row count).  See bcq_dq.cu for the design.
 #pragma once
 
 #include "bcq_mma.cuh"
 
-constexpr int BCQ_DQ_ROWS = 128;         // weight rows per block
+constexpr int BCQ_DQ_ROWS = 128;         // weight rows per block above 8
 constexpr int BCQ_DQ_STEP = 64;          // reduction columns per stage
-constexpr int BCQ_DQ_DECODE_STEP = 128;  // the same at 8 rows or fewer
+constexpr int BCQ_DQ_DECODE_STEP = 512;  // the same at 8 rows or fewer
 
 // x [B, N] bf16 (x_is_bf16) or f32, base 16-byte aligned (any N);
 // packed uint8 [q, M, NB]; alpha f32 [q, M, G]; z f32 [M, G] or null;

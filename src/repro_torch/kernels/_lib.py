@@ -50,9 +50,9 @@ _SIGNATURES = {
     "launch_bcq_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P],
     # x, packed, alpha, z, y, part, B, M, N, NB, G, q, group_size,
-    # x_is_bf16, mu, half_lut, chunk, route, splits, stream
+    # x_is_bf16, mu, half_lut, route, splits, stream
     "launch_lut_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _P],
     # q, k, v, pos, tables, positions, out, part_o, part_ml, sem, B, C,
     # Hkv, rep, D, BS, pages, kv_is_bf16, scale, q_is_bf16, out_is_bf16,
     # splits, stream

@@ -5,9 +5,9 @@ because CUDA has no interpret mode; on a CUDA tensor it launches the
 kernel or raises — it never falls back.  Ragged edges are masked
 in-kernel, so no operand is padded per call.
 
-The kernel has four bodies, and :func:`route_for` picks one by a fixed
-rule of the call's shape and type (never by trying one and switching
-when it fails):
+The kernel has three bodies, all on the tensor cores, and
+:func:`route_for` picks one by a fixed rule of the call's shape and type
+(never by trying one and switching when it fails):
 
   * ``gemv``     — at most 8 rows (decode) of bf16 or f32 activations,
     a group size of 32, 64, 128 or 256 and an input width that is a
@@ -18,9 +18,6 @@ when it fails):
     reduction axis split over blocks where the row tiles alone would
     leave SMs idle, :func:`gemv_splits`, and the partials added in split
     order by the last block of each row tile);
-  * ``gemv_fma`` — any other call of at most 8 rows (group sizes 16, 96,
-    8 mod 16, or an input width that is not a multiple of 8): the
-    weight-streaming GEMV on the CUDA cores, which keeps x in f32;
   * ``mma``      — more than 8 rows of bf16 or f32 activations, a group
     size that is a multiple of 16 (at most 256) and an input width that
     is a multiple of 8: the tensor-core tile of ``csrc/bcq_mma.cu``, one
@@ -28,13 +25,14 @@ when it fails):
     split in the kernel into three bf16 parts, each A fragment run
     against all three, ``ref.mma_split_ref`` the plain version of that
     order);
-  * ``mma_dq``   — any other call above 8 rows (group size 8 mod 16 or
-    above 256, or an input width that is not a multiple of 8): the
-    dequantizing tensor-core tile of ``csrc/bcq_dq.cu``, which builds
-    W = sum_i alpha_i (+-1)_i + z in registers, splits it into two bf16
-    parts and runs them against x (f32 activations split into bf16
+  * ``mma_dq``   — every other call, at any row count (group sizes 16,
+    96, 8 mod 16 or above 256, or an input width that is not a multiple
+    of 8): the dequantizing tensor-core tile of ``csrc/bcq_dq.cu``, which
+    builds W = sum_i alpha_i (+-1)_i + z in registers, splits it into two
+    bf16 parts and runs them against x (f32 activations split into bf16
     parts; ``ref.dq_split_ref`` the plain version of that walk), the
-    group size only an index.
+    group size only an index; at 8 rows or fewer in 512-column stages,
+    bound by the bytes of the planes and scales.
 
 The launch counter keeps the kernel's name; ``_lib.route_counts``
 counts each body under ``"bcq_matmul/<route>"``.  ``ref.gemv_split_ref``
@@ -55,10 +53,13 @@ from .ref import GEMV_STEP, dq_step
 _X_DTYPES = (torch.bfloat16, torch.float32)
 
 # index = the launcher's route code
-ROUTES = ("mma_dq", "gemv", "mma", "gemv_fma")
+ROUTES = ("mma_dq", "gemv", "mma")
 DECODE_ROWS = 8                   # most rows the decode bodies take
 MMA_ROWS, MMA_BATCH = 128, 64     # the mma tile's block (csrc/bcq_mma.cuh)
 MMA_MAX_GROUP = 256
+# the dequantizing tile's weight rows a block at 8 rows or fewer
+# (csrc/bcq_dq.cu: 64, or 32 or 16 where shared memory needs it)
+DQ_DECODE_ROWS = 64
 # the decode tile (csrc/bcq_decode.cu): weight rows per block, and the
 # group sizes it takes (whole groups in each 256-column step)
 GEMV_ROWS = 64
@@ -84,9 +85,8 @@ def gemv_takes(rows: int, dtype, group_size: int, in_features: int) -> bool:
 
 def route_for(rows: int, dtype, group_size: int, in_features: int) -> str:
     """The body a call of ``rows`` activation rows of ``dtype`` runs."""
-    if rows <= DECODE_ROWS:
-        return ("gemv" if gemv_takes(rows, dtype, group_size, in_features)
-                else "gemv_fma")
+    if gemv_takes(rows, dtype, group_size, in_features):
+        return "gemv"
     if mma_takes(rows, dtype, group_size, in_features):
         return "mma"
     return "mma_dq"
@@ -103,15 +103,15 @@ def mma_splits(rows: int, m: int, n_groups: int, sms: int) -> int:
 def dq_splits(rows: int, m: int, padded_in: int, sms: int) -> int:
     """How many blocks share one output tile's stages on the dequantizing
     tile (``ref.dq_step(rows)`` columns each; ``padded_in``: the planes'
-    width): none while the (row, batch) tiles fill every SM, else enough
-    for about three blocks per SM at 8 rows or fewer (one n8 tile,
-    bytes-bound) and two above, never more than there are stages."""
-    tiles = -(-m // MMA_ROWS) * (1 if rows <= DECODE_ROWS
-                                 else -(-rows // MMA_BATCH))
+    width): none while the output tiles (128 weight rows x 64 batch rows,
+    or at 8 rows or fewer up to ``DQ_DECODE_ROWS`` weight rows) fill
+    every SM, else enough for about two blocks per SM, never more than
+    there are stages."""
+    tiles = (-(-m // DQ_DECODE_ROWS) if rows <= DECODE_ROWS
+             else -(-m // MMA_ROWS) * -(-rows // MMA_BATCH))
     if tiles >= sms:
         return 1
-    return _lib.split_count(-(-padded_in // dq_step(rows)), tiles, sms,
-                            3 if rows <= DECODE_ROWS else 2)
+    return _lib.split_count(-(-padded_in // dq_step(rows)), tiles, sms, 2)
 
 
 def gemv_splits(m: int, padded_in: int, sms: int) -> int:
@@ -182,19 +182,18 @@ def bcq_matmul(x: torch.Tensor, w: PlaneBundle, *,
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
         route = route_for(b, x2.dtype, w.group_size, w.in_features)
-        splits, part, sem = 1, None, None
-        if route != "gemv_fma":
-            x2 = aligned_rows(x2)
-            sms = _lib.sm_count(x.device.index or 0)
-            splits = (mma_splits(b, m, w.n_groups, sms) if route == "mma"
-                      else gemv_splits(m, nb * 8, sms) if route == "gemv"
-                      else dq_splits(b, m, nb * 8, sms))
-            if splits > 1:
-                part = torch.empty((splits, b, m), dtype=torch.float32,
-                                   device=x.device)
-                if route == "gemv":
-                    sem = _lib.split_counters("bcq_matmul", x.device,
-                                              -(-m // GEMV_ROWS))
+        part, sem = None, None
+        x2 = aligned_rows(x2)
+        sms = _lib.sm_count(x.device.index or 0)
+        splits = (mma_splits(b, m, w.n_groups, sms) if route == "mma"
+                  else gemv_splits(m, nb * 8, sms) if route == "gemv"
+                  else dq_splits(b, m, nb * 8, sms))
+        if splits > 1:
+            part = torch.empty((splits, b, m), dtype=torch.float32,
+                               device=x.device)
+            if route == "gemv":
+                sem = _lib.split_counters("bcq_matmul", x.device,
+                                          -(-m // GEMV_ROWS))
         rc = _lib.lib().launch_bcq_matmul(
             x2.data_ptr(), w.packed.data_ptr(), w.alpha.data_ptr(),
             w.z.data_ptr() if w.z is not None else None, y.data_ptr(),

@@ -37,7 +37,7 @@ from repro_torch.kernels.lut_common import ternary_plane_bytes
 GEMV_STEP = 256   # reduction columns per stage of the decode tile
 # reduction columns per stage of the dequantizing tile (csrc/bcq_dq.cuh),
 # above 8 rows and at 8 rows or fewer
-DQ_STEP, DQ_DECODE_STEP = 64, 128
+DQ_STEP, DQ_DECODE_STEP = 64, 512
 
 
 def dq_step(rows: int) -> int:

@@ -9,18 +9,21 @@ not change the math (a keyed shared-memory read is the RAC on the card).
 The kernel has three bodies, and :func:`route_for` picks one by a fixed
 rule (never by trying one and switching when it fails):
 
-  * ``lut``      — at most 8 rows with mu 4 and the half table (the
-    serve path's decode): the shared-memory LUT body, 512-column table
-    builds, the reduction axis split over blocks where the row tiles
-    alone would leave SMs idle;
-  * ``mma``      — more than 8 rows of bf16 or f32 activations under
+  * ``lut``    — at most 8 rows (decode), at mu 2 or 4 with the half or
+    the full table (the serve path's decode is mu 4 with the half table;
+    the others are the paper's LUT-size and hFFLUT ablations): the
+    shared-memory LUT body, 512-column table builds, the reduction axis
+    split over blocks where the row tiles alone would leave SMs idle;
+  * ``mma``    — more than 8 rows of bf16 or f32 activations under
     ``bcq_matmul``'s tensor-core rule (``mma_takes``), at any mu and
     either table: the keyed read re-associated into one bf16 product per
     bit plane and alpha group (``csrc/bcq_mma.cu``, f32 activations split
     there into three bf16 parts), the same tile as bcq_matmul's prefill;
-  * ``lut_tile`` — everything else (decode rows at mu 2 or with the full
-    table; above 8 rows, group sizes 8 mod 16 or above 256 and input
-    widths that are not a multiple of 8): the 128-column LUT tile.
+  * ``mma_dq`` — every other call above 8 rows (group sizes 8 mod 16 or
+    above 256, input widths that are not a multiple of 8), at any mu and
+    either table: the dequantizing tensor-core tile of
+    ``csrc/bcq_dq.cu``, the keyed read re-associated as on ``mma``
+    (``bcq_matmul.dq_splits`` counts its splits).
 
 The launch counter keeps the kernel's name; ``_lib.route_counts``
 counts each body under ``"lut_gemm/<route>"``.
@@ -34,33 +37,25 @@ import torch
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
 from repro_torch.kernels.bcq_matmul.ops import (DECODE_ROWS, aligned_rows,
-                                               check_operands, mma_splits,
-                                               mma_takes)
+                                               check_operands, dq_splits,
+                                               mma_splits, mma_takes)
 from repro_torch.kernels.lut_common import READ_MODES
 from . import ref as _ref
 
 
-def chunk_for(group_size: int, limit: int = 128) -> int:
-    """Largest chunk of at most ``limit`` columns that tiles an alpha
-    group and is a whole number of bytes (the kernel's reduction step)."""
-    for c in range(min(group_size, limit), 7, -1):
-        if group_size % c == 0 and c % 8 == 0:
-            return c
-    raise ValueError(f"group_size {group_size} has no byte-aligned chunk")
-
-
-ROUTES = ("lut_tile", "lut", "mma")   # index = the launcher's route code
+ROUTES = ("mma_dq", "lut", "mma")   # index = the launcher's route code
 DECODE_CHUNK, DECODE_ROWS_PER_BLOCK = 512, 64   # csrc/lut_gemm.cu: DKC, DM
 
 
 def route_for(rows: int, dtype, group_size: int, in_features: int,
               mu: int = 4, half_lut: bool = True) -> str:
-    """The body a call of ``rows`` activation rows of ``dtype`` runs."""
+    """The body a call of ``rows`` activation rows of ``dtype`` runs (the
+    same at every ``mu`` and ``half_lut``)."""
     if rows <= DECODE_ROWS:
-        return "lut" if mu == 4 and half_lut else "lut_tile"
+        return "lut"
     if mma_takes(rows, dtype, group_size, in_features):
         return "mma"
-    return "lut_tile"
+    return "mma_dq"
 
 
 def decode_splits(m: int, nb: int, sms: int) -> int:
@@ -100,12 +95,13 @@ def lut_gemm(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
         route = route_for(b, x2.dtype, w.group_size, w.in_features, mu,
                           half_lut)
         sms = _lib.sm_count(x.device.index or 0)
-        splits, part = 1, None
-        if route == "mma":
-            x2 = aligned_rows(x2)
-            splits = mma_splits(b, m, w.n_groups, sms)
-        elif route == "lut":
+        part = None
+        if route == "lut":
             splits = decode_splits(m, nb, sms)
+        else:
+            x2 = aligned_rows(x2)
+            splits = (mma_splits(b, m, w.n_groups, sms) if route == "mma"
+                      else dq_splits(b, m, nb * 8, sms))
         if splits > 1:
             part = torch.empty((splits, b, m), dtype=torch.float32,
                                device=x.device)
@@ -115,8 +111,7 @@ def lut_gemm(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
             part.data_ptr() if part is not None else None,
             b, m, w.in_features, nb, w.n_groups, q, w.group_size,
             int(x2.dtype == torch.bfloat16), mu, int(half_lut),
-            chunk_for(w.group_size), ROUTES.index(route), splits,
-            _lib.stream_ptr(x.device))
+            ROUTES.index(route), splits, _lib.stream_ptr(x.device))
         _lib.check(rc, "lut_gemm")
         _lib.count_launch("lut_gemm", route)
     return y.reshape(*lead, m).to(out_dtype)

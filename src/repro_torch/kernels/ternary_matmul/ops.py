@@ -33,7 +33,7 @@ when it fails):
 Where the (row, batch) tiles alone would leave the card under-filled,
 the reduction axis (alpha groups on ``mma`` as
 ``bcq_matmul.mma_splits`` counts them, 256-column steps on ``gemv`` as
-``bcq_matmul.gemv_splits`` counts them, 64- or 128-column stages on
+``bcq_matmul.gemv_splits`` counts them, 64- or 512-column stages on
 ``mma_dq`` as ``bcq_matmul.dq_splits`` counts them) is split over
 ``splits`` blocks whose partial sums (scratch allocated here) are added
 in a fixed order (a second pass, or on ``gemv`` the last block of each

@@ -167,12 +167,13 @@ BF16, F32 = torch.bfloat16, torch.float32
     # the decode tile's edges: group sizes 32..256 that divide its
     # 256-column step, 16-byte activation rows, bf16 only
     (1, BF16, 32, 4096, "gemv"), (8, BF16, 256, 2560, "gemv"),
-    (8, BF16, 64, 768, "gemv"), (8, BF16, 16, 4096, "gemv_fma"),
-    (8, BF16, 96, 4224, "gemv_fma"), (8, BF16, 512, 4096, "gemv_fma"),
-    (8, BF16, 128, 4100, "gemv_fma"), (8, F32, 128, 4096, "gemv"),
-    # f32 decode rows take the decode tile under the same rule
-    (8, F32, 16, 4096, "gemv_fma"), (1, F32, 96, 4224, "gemv_fma"),
-    (8, F32, 128, 4100, "gemv_fma"), (8, F32, 256, 2560, "gemv"),
+    (8, BF16, 64, 768, "gemv"), (8, BF16, 16, 4096, "mma_dq"),
+    (8, BF16, 96, 4224, "mma_dq"), (8, BF16, 512, 4096, "mma_dq"),
+    (8, BF16, 128, 4100, "mma_dq"), (8, F32, 128, 4096, "gemv"),
+    # f32 decode rows take the decode tile under the same rule, and the
+    # dequantizing tile where it refuses them
+    (8, F32, 16, 4096, "mma_dq"), (1, F32, 96, 4224, "mma_dq"),
+    (8, F32, 128, 4100, "mma_dq"), (8, F32, 256, 2560, "gemv"),
     # f32 prefill rows take the tensor-core tile under the bf16 rule; the
     # dequantizing tile takes group sizes 8 mod 16 or above 256 and input
     # widths that are not a multiple of 8
@@ -187,15 +188,14 @@ def test_bcq_matmul_route_edges(rows, dtype, gs, n, want):
 @pytest.mark.parametrize("rows,dtype,gs,mu,half,want", [
     (8, BF16, 128, 4, True, "lut"), (9, BF16, 128, 4, True, "mma"),
     (8, F32, 8, 4, True, "lut"), (9, F32, 128, 4, True, "mma"),
-    (1, BF16, 128, 2, True, "lut_tile"), (8, BF16, 128, 4, False,
-                                          "lut_tile"),
-    (9, BF16, 16, 2, False, "mma"), (32, BF16, 8, 4, True, "lut_tile"),
+    (1, BF16, 128, 2, True, "lut"), (8, BF16, 128, 4, False, "lut"),
+    (9, BF16, 16, 2, False, "mma"), (32, BF16, 8, 4, True, "mma_dq"),
     # f32 above 8 rows at any mu and table on the tensor-core tile; the
-    # LUT tile keeps f32 decode rows at mu 2 or with the full table and
-    # the group sizes the tile does not take
+    # LUT body takes decode rows at every mu and table, the dequantizing
+    # tile the group sizes the tensor-core tile does not take
     (512, F32, 128, 2, False, "mma"), (32, F32, 256, 4, False, "mma"),
-    (8, F32, 128, 2, True, "lut_tile"), (512, F32, 8, 4, True, "lut_tile"),
-    (512, F32, 512, 2, False, "lut_tile"),
+    (8, F32, 128, 2, True, "lut"), (512, F32, 8, 4, True, "mma_dq"),
+    (512, F32, 512, 2, False, "mma_dq"),
 ])
 def test_lut_gemm_route_edges(rows, dtype, gs, mu, half, want):
     assert lut_route(rows, dtype, gs, 4096, mu, half) == want
@@ -203,12 +203,14 @@ def test_lut_gemm_route_edges(rows, dtype, gs, mu, half, want):
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("mu,half", [(4, True), (2, False)])
-def test_lut_gemm_keeps_the_lut_tile_at_odd_widths(dtype, mu, half):
-    """Input widths that are not a multiple of 8 stay on the LUT tile
-    above 8 rows, f32 and bf16 alike; 8 | width takes the tensor-core
-    tile."""
-    assert lut_route(512, dtype, 128, 4100, mu, half) == "lut_tile"
+def test_lut_gemm_takes_the_dequantizing_tile_at_odd_widths(dtype, mu,
+                                                           half):
+    """Input widths that are not a multiple of 8 take the dequantizing
+    tile above 8 rows, f32 and bf16 alike; 8 | width takes the tensor-core
+    tile; decode rows take the LUT body at either width."""
+    assert lut_route(512, dtype, 128, 4100, mu, half) == "mma_dq"
     assert lut_route(512, dtype, 128, 4096, mu, half) == "mma"
+    assert lut_route(8, dtype, 128, 4100, mu, half) == "lut"
 
 
 def test_split_counts():

@@ -109,9 +109,10 @@ def _routes_run(fn):
     return out, dict(_lib.route_counts)
 
 
-# lut_gemm's table variants: the serve path's (mu 4, half) and two that
-# take the lut_tile body at decode rows
-LUT_VARIANTS = ((4, True), (4, False), (2, True))
+# lut_gemm's table variants: the serve path's (mu 4, half) and the
+# paper's LUT-size and hFFLUT ablations, all on the lut body at decode
+# rows
+LUT_VARIANTS = ((4, True), (4, False), (2, True), (2, False))
 
 
 @pytest.mark.cuda
@@ -143,7 +144,7 @@ def test_cuda_gemm_routes_match_plain(rows, gs, q):
         _close(got, want, GEMM_TOL)
         route = bcq_route(rows, dtype, gs, n)
         assert routes == {f"bcq_matmul/{route}": 1}
-        assert route == (("gemv" if gs != 16 else "gemv_fma")
+        assert route == (("gemv" if gs != 16 else "mma_dq")
                          if rows <= 8 else "mma")
         for mu, half in LUT_VARIANTS:
             got, routes = _routes_run(lambda: lut_gemm(
@@ -151,12 +152,7 @@ def test_cuda_gemm_routes_match_plain(rows, gs, q):
             _close(got, want, GEMM_TOL)
             route = lut_route(rows, dtype, gs, n, mu, half)
             assert routes == {f"lut_gemm/{route}": 1}
-            if rows > 8:
-                assert route == "mma"
-            elif rows <= 8 and (mu, half) == (4, True):
-                assert route == "lut"
-            else:
-                assert route == "lut_tile"
+            assert route == ("mma" if rows > 8 else "lut")
 
 
 @pytest.mark.cuda
@@ -178,6 +174,46 @@ def test_cuda_gemm_routes_exact(rows):
         for mu, half in LUT_VARIANTS:
             assert torch.equal(lut_gemm(xt, wt, mu=mu, half_lut=half,
                                         out_dtype=torch.float32), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu,half", LUT_VARIANTS)
+def test_cuda_lut_variants_exact(mu, half):
+    """The LUT body at every mu and table, decode rows 1, 2, 5 and 8 (its
+    1-, 2-, 4- and 8-row tables), group size 8 and 96 (a group change
+    inside a lane's bytes), a ragged width (1000) and a split reduction
+    axis (256 rows of 64): integer x and power-of-two alphas and offsets
+    give every table entry and sum exactly, so it equals the plain
+    versions (``lut_ref``, the same algorithm, and ``bcq_matmul_ref``) bit
+    for bit, bf16 and f32; random inputs within 1e-3 of the output
+    scale."""
+    require_cuda()
+    from repro_torch.kernels.lut_gemm.ops import decode_splits
+    rng = np.random.default_rng(mu * 10 + half)
+    m, n = 256, 1000
+    for gs in (8, 96):
+        we = _exact_bundle(rng, 3, m, n, gs, True)
+        wr = bcq.from_uniform(torch.from_numpy(rng.normal(size=(m, n)).astype(
+            np.float32)).to("cuda"), bits=3, group_size=gs)
+        assert decode_splits(m, we.packed.shape[-1], _lib.sm_count(0)) > 1
+        for rows in (1, 2, 5, 8):
+            xe = torch.from_numpy(rng.integers(-8, 9, (rows, n)).astype(
+                np.float32)).to("cuda")
+            xr = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+                np.float32)).to("cuda")
+            for dtype in (torch.bfloat16, torch.float32):
+                xt = xe.to(dtype)
+                got, routes = _routes_run(lambda: lut_gemm(
+                    xt, we, mu=mu, half_lut=half, out_dtype=torch.float32))
+                assert routes == {"lut_gemm/lut": 1}
+                assert torch.equal(got, lut_ref(xt, we, mu=mu, half_lut=half,
+                                                out_dtype=torch.float32))
+                assert torch.equal(got, bcq_matmul_ref(xt, we, torch.float32))
+                xt = xr.to(dtype)
+                _close(lut_gemm(xt, wr, mu=mu, half_lut=half,
+                                out_dtype=torch.float32),
+                       lut_ref(xt, wr, mu=mu, half_lut=half,
+                               out_dtype=torch.float32), GEMM_TOL)
 
 
 @pytest.mark.cuda
@@ -396,19 +432,24 @@ def test_cuda_gemv_tile_groups(rows, gs, q):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n", [(288, 2560), (2560, 6400), (4096, 4096)])
 @pytest.mark.parametrize("rows", [1, 8])
-def test_cuda_gemv_f32_rows_keep_the_cuda_core_body(m, n, rows):
+def test_cuda_gemv_f32_rows_take_the_dequantizing_tile(m, n, rows):
     """f32 activations at decode rows where the decode tile does not
-    take the group size (16) stay on the CUDA-core GEMV, under its own
-    route name, 1e-3 of the output scale."""
+    take the group size (16) run the dequantizing tile's decode stage:
+    1e-3 of the output scale against the plain version and the tile's
+    walk (``dq_split_ref``)."""
     require_cuda()
+    from repro_torch.kernels.bcq_matmul import dq_split_ref
+    from repro_torch.kernels.bcq_matmul.ops import dq_splits
     gen = torch.Generator(device="cuda").manual_seed(m + rows)
     w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
                      * 0.02, bits=3, group_size=16)
     x = torch.randn((rows, n), generator=gen, device="cuda")
     got, routes = _routes_run(lambda: bcq_matmul(x, w,
                                                  out_dtype=torch.float32))
-    assert routes == {"bcq_matmul/gemv_fma": 1}
+    assert routes == {"bcq_matmul/mma_dq": 1}
     _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+    splits = dq_splits(rows, m, w.packed.shape[-1] * 8, _lib.sm_count(0))
+    _close(got, dq_split_ref(x, w, splits, torch.float32), GEMM_TOL)
 
 
 @pytest.mark.cuda
@@ -1058,13 +1099,14 @@ def _dq_width(gs, q):
 @pytest.mark.parametrize("q", list(range(1, 9)))
 @pytest.mark.parametrize("gs", [8, 512])
 def test_cuda_mma_dq_bcq(gs, q):
-    """bcq_matmul above 8 rows at group sizes the tensor-core tile does
-    not take (8, 512), q 1-8, ragged M (200) and B (77: 64-row tiles, 20:
-    one 32-row tile, 9), aligned and ragged input widths, with z at odd
-    q and without at even: 1e-3 of the output scale against the plain
-    version and the tile's walk (``dq_split_ref``), bf16 and f32; bit for
-    bit on exact inputs (integer x, power-of-two alphas, quarter-integer
-    offsets)."""
+    """bcq_matmul at group sizes neither tile takes (8, 512), q 1-8,
+    ragged M (200) and B (77: 64-row tiles, 20: one 32-row tile, 9; 8
+    and 3: the decode stage), aligned and ragged input widths, with z at
+    odd q and without at even: 1e-3 of the output scale against the
+    plain version and the tile's walk (``dq_split_ref``), bf16 and f32;
+    bit for bit on exact inputs (integer x, power-of-two alphas,
+    quarter-integer offsets).  lut_gemm above 8 rows takes the same tile
+    at these shapes (mu 2, full table)."""
     require_cuda()
     from repro_torch.core.plane import PlaneBundle
     from repro_torch.kernels.bcq_matmul import dq_split_ref
@@ -1077,7 +1119,7 @@ def test_cuda_mma_dq_bcq(gs, q):
         wt = PlaneBundle(packed=wt.packed, alpha=wt.alpha, z=None,
                          group_size=gs, in_features=n, out_features=m)
     we = _exact_bundle(rng, q, m, n, gs, q % 2 == 1)
-    for rows in (77, 20, 9):
+    for rows in (77, 20, 9, 8, 3):
         splits = dq_splits(rows, m, wt.packed.shape[-1] * 8,
                            _lib.sm_count(0))
         x = torch.from_numpy(rng.normal(size=(rows, n)).astype(
@@ -1092,6 +1134,12 @@ def test_cuda_mma_dq_bcq(gs, q):
             _close(got, bcq_matmul_ref(xt, wt, torch.float32), GEMM_TOL)
             _close(got, dq_split_ref(xt, wt, splits, torch.float32),
                    GEMM_TOL)
+            if rows > 8:
+                got, routes = _routes_run(lambda: lut_gemm(
+                    xt, wt, mu=2, half_lut=False, out_dtype=torch.float32))
+                assert routes == {"lut_gemm/mma_dq": 1}
+                _close(got, dq_split_ref(xt, wt, splits, torch.float32),
+                       GEMM_TOL)
             xt = xe.to(dtype)
             assert torch.equal(bcq_matmul(xt, we, out_dtype=torch.float32),
                                bcq_matmul_ref(xt, we, torch.float32))
@@ -1138,11 +1186,11 @@ def test_cuda_ternary_mma_dq(m, n, gs, rows):
 @pytest.mark.parametrize("rows", [8, 32])
 def test_cuda_mma_dq_split_path(rows):
     """A narrow, long weight (64 x 16384, g 8): the output tiles alone
-    fill few SMs, so the dequantizing tile splits its 64-column stages
-    over blocks and adds the partials in a fixed order: 1e-3 of the
-    output scale against the plain version and the walk at that split,
-    a second call repeats the first exactly (ternary at rows 8 and 32,
-    bcq_matmul at 32: its 8 rows stay on the CUDA-core GEMV)."""
+    fill few SMs, so the dequantizing tile splits its stages (64 columns,
+    512 at 8 rows) over blocks and adds the partials in a fixed order:
+    1e-3 of the output scale against the plain version and the walk at
+    that split, a second call repeats the first exactly (ternary and
+    bcq_matmul at rows 8 and 32)."""
     require_cuda()
     from repro_torch.kernels.bcq_matmul import dq_split_ref
     from repro_torch.kernels.bcq_matmul.ops import dq_splits
@@ -1152,11 +1200,9 @@ def test_cuda_mma_dq_split_path(rows):
     assert splits > 1
     w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
     cases = [("ternary_matmul", quantize_ternary(w.to("cuda"), group_size=8),
-              ternary_matmul)]
-    if rows > 8:
-        cases.append(("bcq_matmul", bcq.from_uniform(w.to("cuda"), bits=3,
-                                                     group_size=8),
-                      bcq_matmul))
+              ternary_matmul),
+             ("bcq_matmul", bcq.from_uniform(w.to("cuda"), bits=3,
+                                             group_size=8), bcq_matmul)]
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.from_numpy(rng.normal(size=(rows, n)).astype(
             np.float32)).to("cuda", dtype)

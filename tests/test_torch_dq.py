@@ -1,8 +1,8 @@
 """Port parity: the arithmetic of the dequantizing tensor-core tile.
 
-``csrc/bcq_dq.cu`` (the ``mma_dq`` route of ``bcq_matmul`` above 8 rows
-and of ``ternary_matmul`` at any rows, for the group sizes and input
-widths the other tiles refuse) dequantizes W in registers, in f32 and
+``csrc/bcq_dq.cu`` (the ``mma_dq`` route of ``bcq_matmul``,
+``lut_gemm`` and ``ternary_matmul`` at any rows, for the group sizes and
+input widths the other tiles refuse) dequantizes W in registers, in f32 and
 in the reference's order (BCQ: the planes, then z; ternary: alpha *
 mask * sign), splits it into hi = bf16(W) and lo = bf16(W - hi) and runs
 the products hi . x, lo . x (bf16 x) or hi . h, lo . h, hi . m (f32 x's
@@ -18,7 +18,8 @@ here
       reference's GEMM gate): group sizes 8, 24, 40 and 512, input widths
       4096, 4100 and 4092 (padded planes, rows not 16-byte multiples),
       q 1-8, with and without z, bf16 and f32 activations, split and
-      unsplit;
+      unsplit; and at decode rows (8 and 1, 512-column stages) at group
+      sizes 16 and 96 and in_features 4100;
   (b) exactly, on exact inputs (integer x, alpha 0.5 ternary weights;
       power-of-two alphas and quarter-integer offsets for BCQ): equal to
       ``ternary_ref`` (the half-LUT algorithm) and ``bcq_matmul_ref`` bit
@@ -132,6 +133,35 @@ def test_dq_split_ref_matches_plain_and_reference(g, n, q, with_z):
             _close(got, np.asarray(want), GEMM_TOL)
 
 
+@pytest.mark.parametrize("g,n,q,with_z", [(16, 4096, 3, True),
+                                          (96, 4224, 2, True),
+                                          (16, 4100, 4, False)])
+def test_dq_split_ref_decode_rows(g, n, q, with_z):
+    """Decode rows (8; 1 against the plain version only) at the group
+    sizes and width the decode tile refuses (16, 96; in_features 4100),
+    which the dequantizing tile now takes in 512-column stages: the walk
+    against the port's plain version (1e-5) and the reference's
+    bcq_matmul kernel in interpret mode (1e-3), bf16 and f32 x, at every
+    split count it takes."""
+    rng = np.random.default_rng(g * 3 + n + q)
+    wj = _bundle(rng, 24, n, g, q, with_z)
+    wt = torch_bundle(wj)
+    for b in (8, 1):
+        for xt, xn in _xs(rng, b, n):
+            want = None
+            if b == 8 and with_z:
+                want = j_mxu.bcq_matmul(jnp.asarray(xn), wj, interpret=True)
+            elif b == 8:
+                want = j_bcq_ref(jnp.asarray(xn), wj, jnp.float32)
+            plain = bcq_matmul_ref(xt, wt, torch.float32).numpy()
+            for s in _splits(wt, b):
+                got = dq_split_ref(xt, wt, s, torch.float32).numpy()
+                assert got.shape == (b, 24)
+                _close(got, plain, PLAIN_TOL)
+                if want is not None:
+                    _close(got, np.asarray(want), GEMM_TOL)
+
+
 @pytest.mark.parametrize("g,n", [(8, 4096), (24, 4100), (40, 4092),
                                  (512, 4096), (16, 4092), (8, 4100)])
 def test_dq_split_ref_ternary_matches_plain_and_reference(g, n):
@@ -194,14 +224,15 @@ def test_dq_split_ref_bcq_exact(g, n, q):
 
 @pytest.mark.parametrize("rows,stages", [(9, 10), (2, 5)])
 def test_dq_split_ref_refuses_empty_splits(rows, stages):
-    """640 columns are 10 stages of 64 above 8 rows and 5 of 128 at 8 rows
-    or fewer.  10 split 4 ways are 3 + 3 + 3 + 1, 6 ways would be five
-    ranges of 2 and an empty sixth; 5 split 3 ways are 2 + 2 + 1, 4 ways
-    would leave one empty; those and 0 are refused."""
+    """640 columns are 10 stages of 64 above 8 rows, 2560 are 5 of 512 at
+    8 rows or fewer.  10 split 4 ways are 3 + 3 + 3 + 1, 6 ways would be
+    five ranges of 2 and an empty sixth; 5 split 3 ways are 2 + 2 + 1, 4
+    ways would leave one empty; those and 0 are refused."""
     rng = np.random.default_rng(3)
-    wt = torch_bundle(_bundle(rng, 8, 640, 8, 2, False))
-    assert -(-640 // dq_step(rows)) == stages
-    x = torch.from_numpy(rng.normal(size=(rows, 640)).astype(np.float32))
+    n = stages * dq_step(rows)
+    wt = torch_bundle(_bundle(rng, 8, n, 8, 2, False))
+    assert -(-n // dq_step(rows)) == stages
+    x = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
     good, bad = (4, 6) if stages == 10 else (3, 4)
     _close(dq_split_ref(x, wt, good).numpy(),
            bcq_matmul_ref(x, wt, torch.float32).numpy(), PLAIN_TOL)
@@ -212,14 +243,16 @@ def test_dq_split_ref_refuses_empty_splits(rows, stages):
 
 def test_dq_split_counts():
     """The dequantizing tile's split rule (132 SMs): none while the
-    (row, batch) tiles fill the card, else whole stages (64 columns, 128
+    (row, batch) tiles fill the card, else whole stages (64 columns, 512
     at 8 rows or fewer) per split, never more splits than stages."""
-    assert (dq_step(8), dq_step(9)) == (128, 64)
-    # rows 512 on [16384 x 4096]: 128 x 8 tiles
+    assert (dq_step(8), dq_step(9)) == (512, 64)
+    # rows 512 on [16384 x 4096]: 128 x 8 tiles; rows 8: 256 row tiles
+    # of 64
     assert dq_splits(512, 16384, 4096, 132) == 1
-    # rows 8 on [16384 x 4096]: 128 row tiles, 32 stages
-    s = dq_splits(8, 16384, 4096, 132)
-    assert 1 < s <= 32 and -(-32 // -(-32 // s)) == s
+    assert dq_splits(8, 16384, 4096, 132) == 1
+    # rows 8 on [4096 x 4096]: 64 row tiles, 8 stages
+    s = dq_splits(8, 4096, 4096, 132)
+    assert 1 < s <= 8 and -(-8 // -(-8 // s)) == s
     # a narrow, long weight above 8 rows
     s = dq_splits(32, 64, 16384, 132)
     assert 1 < s <= 256 and -(-256 // -(-256 // s)) == s

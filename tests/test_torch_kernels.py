@@ -86,6 +86,20 @@ def test_lut_gemm_matches_reference(m, n, b, mu, half):
     _close(got, want, GEMM_TOL)
 
 
+@pytest.mark.parametrize("mu,half", [(4, True), (4, False), (2, True),
+                                     (2, False)])
+def test_lut_gemm_decode_rows_at_group_size_8(mu, half):
+    """Decode rows (8) at group size 8, where every plane byte of a lane
+    starts a new alpha group, at every mu and table: the LUT body's plain
+    version against the reference kernel."""
+    x, wj, wt = _gemm_case(40, 136, 8, 3, seed=17 + mu + half, g=8)
+    want = np.asarray(j_lut.lut_gemm(jnp.asarray(x), wj, mu=mu,
+                                     half_lut=half, interpret=True))
+    got = lut_gemm(torch.from_numpy(x), wt, mu=mu, half_lut=half).numpy()
+    assert got.shape == want.shape
+    _close(got, want, GEMM_TOL)
+
+
 def test_lut_read_modes_are_one_function():
     x, wj, wt = _gemm_case(32, 128, 3, 2, seed=9)
     xt = torch.from_numpy(x)

@@ -292,7 +292,7 @@ def test_ternary_route_edges(rows, dtype, gs, n, want):
 
 def test_split_count_covers_every_chunk():
     """The dequantizing tile's split of its stages (the route the
-    half-LUT body's calls now take; 64 columns, 128 at 8 rows or fewer):
+    half-LUT body's calls now take; 64 columns, 512 at 8 rows or fewer):
     every split holds whole stages, none is empty, and every stage is
     covered."""
     for b, m, nb, sms in ((8, 16384, 512, 132), (8, 4096, 512, 132),
