@@ -209,6 +209,8 @@ WHISPER_PROMPT, WHISPER_STEPS = 4, 32
 # the engines' prefill buckets (a longer prompt rounds up to a multiple
 # of the top one)
 BUCKETS = (32, 128, 512)
+# serving breadth: the shared prompt prefix, in 16-token blocks
+PREFIX_BLOCKS = 16
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 # the kernels with several bodies, chosen by their wrappers' route_for
 ROUTED = ("bcq_matmul", "lut_gemm", "ternary_matmul")
@@ -668,11 +670,14 @@ def routed(torch, name, fn):
 
 
 def pool_case(torch, gen, seed, *, b, h, d, nb, bs, pages, dtype,
-              prefill_c=0, hkv=None, long=False):
+              prefill_c=0, hkv=None, long=False, shared=0):
     """Scrambled paged problem: random live lengths, -1 table pads, a
     recycled block with stale positions, an idle row (decode) or pad
     query rows (prefill); ``hkv`` kv heads (default ``h``); ``long``:
-    every decode row live to within a block of the table's end."""
+    every decode row live to within a block of the table's end;
+    ``shared``: every row's first ``shared`` table entries are the same
+    blocks (a prefix-cache hit) and the prefill chunk starts right after
+    them."""
     import numpy as np
     rng = np.random.default_rng(seed)
     hkv = hkv or h
@@ -680,20 +685,21 @@ def pool_case(torch, gen, seed, *, b, h, d, nb, bs, pages, dtype,
     v = torch.randn((nb, bs, hkv, d), generator=gen, device="cuda").to(dtype)
     pos, tables, positions = paged_tables(torch, rng, b=b, nb=nb, bs=bs,
                                           pages=pages, prefill_c=prefill_c,
-                                          long=long)
+                                          long=long, shared=shared)
     q_shape = (b, prefill_c, h, d) if prefill_c else (b, h, d)
     q = torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
     return q, k, v, pos, tables, positions
 
 
 def paged_tables(torch, rng, *, b, nb, bs, pages, prefill_c=0,
-                 idle_row=True, long=False):
+                 idle_row=True, long=False, shared=0):
     """(pos pool, tables, positions) on the card for a scrambled paged
     problem drawn from numpy ``rng`` (see ``pool_case``)."""
     import numpy as np
     tables = np.full((b, pages), -1, np.int32)
     pos = np.full((nb, bs), -1, np.int32)
     free = list(rng.permutation(np.arange(1, nb)))
+    common = [free.pop() for _ in range(shared)]
     cap = pages * bs
     if prefill_c:
         positions = np.full((b, prefill_c), -1, np.int32)
@@ -701,7 +707,8 @@ def paged_tables(torch, rng, *, b, nb, bs, pages, prefill_c=0,
         positions = np.zeros(b, np.int32)
     for row in range(b):
         if prefill_c:
-            ctx = int(rng.integers(0, cap - prefill_c + 1))
+            ctx = shared * bs if shared else \
+                int(rng.integers(0, cap - prefill_c + 1))
             real = prefill_c - (int(rng.integers(1, 9)) if row == b - 1
                                 else 0)
             live = ctx + real
@@ -715,7 +722,7 @@ def paged_tables(torch, rng, *, b, nb, bs, pages, prefill_c=0,
             live = int(rng.integers(1, cap + 1))
             positions[row] = live - 1
         for j in range(-(-live // bs)):
-            blk = free.pop()
+            blk = common[j] if j < shared else free.pop()
             tables[row, j] = blk
             pos[blk] = j * bs + np.arange(bs)
     stale = free.pop()
@@ -780,18 +787,23 @@ def check_paged(torch, timer, gen, results, args_seed):
     # at C 128 and at OPT's C 512 chunk, then GQA (rep 4) at C 512 and a
     # ragged B 3, C 200 whose last row ends in pads; then the rotary GQA
     # decoders' serve shapes (dense_attn_cases)
-    cases = [(name, b, c, h0, hkv, long) for name, b, c, hkv, long
+    cases = [(name, b, c, h0, hkv, long, 0) for name, b, c, hkv, long
              in paged_cases("paged_decode", "paged_prefill", h0)] + \
-        [(name, b, c, h, hkv, False)
-         for name, b, c, h, hkv in dense_attn_cases()]
-    for name, b, c, h, hkv, long in cases:
+        [(name, b, c, h, hkv, False, 0)
+         for name, b, c, h, hkv in dense_attn_cases()] + \
+        [("paged_prefill", 2, 144, h0, h0, False, PREFIX_BLOCKS)]
+    # the last: a prefix-cache hit, two rows whose tables share their
+    # first 16 blocks (256 tokens) and a chunk of the 144-token tail
+    # starting past them (the second row ragged)
+    for name, b, c, h, hkv, long, shared in cases:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             # OPT's cases keep their earlier seeds
             seed = args_seed + b + c + (hkv if hkv != h else 0) \
                 + 1000 * long + (h if h != h0 else 0)
             q, k, v, pos, tables, positions = pool_case(
                 torch, gen, seed, b=b, h=h, d=d, nb=nb + long, bs=bs,
-                pages=pages, dtype=dtype, prefill_c=c, hkv=hkv, long=long)
+                pages=pages, dtype=dtype, prefill_c=c, hkv=hkv, long=long,
+                shared=shared)
             if c:
                 kern = lambda: paged_prefill(q, k, v, pos, tables,
                                              positions,
@@ -813,7 +825,8 @@ def check_paged(torch, timer, gen, results, args_seed):
             err = float((got - want).abs().max())
             ok = err <= tol
             tag = (f"{name:13s} B={b} C={max(c, 1):3d} H={h} Hkv={hkv:2d} "
-                   f"{str(dtype)[6:]:8s}{' long' if long else ''}")
+                   f"{str(dtype)[6:]:8s}{' long' if long else ''}"
+                   f"{f' after {shared} shared blocks' if shared else ''}")
             if dtype == torch.float32:
                 log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}")
                 if not ok:
@@ -844,7 +857,8 @@ def check_paged(torch, timer, gen, results, args_seed):
                 qs, kv, vv, attn_mask=mask, enable_gqa=hkv != h))
             t_k, t_p = timer(kern), timer(plain)
             rec = dict(b=b, c=max(c, 1), h=h, hkv=hkv, d=d, block_size=bs,
-                       long=long, max_abs_err=err, tol=tol, ms=t_k,
+                       long=long, shared_blocks=shared, max_abs_err=err,
+                       tol=tol, ms=t_k,
                        plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
                        bound_by=b_by, visited_pages=visited)
             if not c:
@@ -2704,8 +2718,15 @@ def serve(torch, args, power_line, results):
                                "paged")], "paged_decode_mla", None),
     )
     for cfg, spec, kv_bits, backends, attn, prefill in runs:
+        # serving breadth (prefix cache, async tick, sampling, cancel,
+        # deadlines, trace) on the weights the OPT BCQ-3 run quantized
+        after = None
+        if cfg is opt and spec is bcq3:
+            after = lambda model, manifest: {"serve_breadth": serve_breadth(
+                torch, args, model, bcq3, power_line, totals)}
         serve_model(torch, args, cfg, spec, kv_bits, backends, attn,
-                    prefill, eng_kw, results, totals, power_line, serve_out)
+                    prefill, eng_kw, results, totals, power_line, serve_out,
+                    after=after)
     # sliding-window attention and MoE layers through the slots engine
     serve_out["mixtral"] = serve_mixtral(torch, args, power_line, results,
                                          totals)
@@ -2731,6 +2752,267 @@ def serve(torch, args, power_line, results):
     serve_out["checkpoint_round_trip"] = checkpoint_round_trip(
         torch, args, eng_kw)
     return serve_out, totals
+
+
+BREADTH_COUNTERS = ("admitted", "preempted", "tokens_out", "prefill_chunks",
+                    "prefix_lookups", "prefix_hit_requests",
+                    "prefix_hit_blocks", "prefix_tokens_saved",
+                    "prefix_cow_tokens")
+
+
+def serve_breadth(torch, args, model, spec, power_line, totals):
+    """Phase 4, serving breadth, on the OPT-6.7B BCQ-3 weights the OPT run
+    quantized: 8 requests that share a 256-token prefix, tails of 16-144
+    tokens, 32 new tokens each; the first submitted one tick before the
+    rest (so its prompt blocks are registered when they are admitted).
+    (a) prefix cache on against off: identical greedy tokens on the f32
+    view (the bf16 share printed), hit blocks > 0; (b) ``run``-style sync ticks against async ticks: identical
+    tokens and counters, decode-step p50 and device-busy fraction of
+    each, every async decode-only tick under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync fails the
+    run; ticks with a prefill run under "warn" and their flagged syncs
+    are counted); (c) seeded sampling (temperature 0.7, top-k 40) sync
+    against async, top-k 1 against greedy, the sampler's device time at
+    [8, vocab]; (d) one cancel and one expired deadline, then the pool
+    back at capacity; (e) that run's trace, written as ``--trace-out``
+    writes it, through ``validate_chrome``."""
+    import json as _json
+    import traceback
+    import warnings
+
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import sample_tokens
+    from repro_torch.serve import PagedServeEngine, Request
+
+    m = model.with_config(quant=spec.replace(backend="auto"),
+                          paged_kernel="fused")
+    cfg = m.cfg
+    rng = np.random.default_rng(args.seed + 17)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_BLOCKS * 16)
+    tails = [int(t) for t in rng.integers(16, 145, 8)]
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, t)])
+               .astype(np.int32) for t in tails]
+    eng_kw = dict(num_blocks=256, block_size=16, max_batch=8,
+                  max_seq_len=512, prefill_buckets=(32, 128, 512))
+    need = ("bcq_matmul", "paged_decode", "paged_prefill")
+    log(f"serve_breadth: {cfg.name} depth {cfg.n_layers}, 8 requests "
+        f"sharing a 256-token prefix, tails {tails}, 32 new tokens each; "
+        f"card {power_line}")
+
+    def drive(tag, mode, prefix_cache, sample=None, tracer=None,
+              lifecycle=False, view=None):
+        eng = PagedServeEngine((view or m).with_config(),
+                               prefix_cache=prefix_cache,
+                               rng_seed=args.seed, tracer=tracer, **eng_kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            if sample:
+                r.temperature, r.top_k = sample
+        step = eng.step_async if mode == "async" else eng.step
+        tick_ms, flagged, strict, where = [], 0, 0, []
+
+        def flag_sync(message, category, filename, lineno, file=None,
+                      line=None):
+            """Record a sync the debug mode flagged: its last frames in
+            the port and in torch."""
+            nonlocal flagged
+            if "synchroniz" not in str(message):
+                return
+            flagged += 1
+            frames = [f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                      for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename
+                      or "/torch/" in f.filename]
+            where.append(" < ".join(reversed(frames[-4:])))
+
+        def tick():
+            nonlocal strict
+            decode_only = not eng.sched.waiting and all(
+                s.kv_len >= s.prefill_target for s in eng.sched.running)
+            c0 = dict(eng.metrics.counters)
+            t = time.perf_counter()
+            if mode == "async" and decode_only:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                strict += 1
+            elif mode == "async":
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.showwarning = flag_sync
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        step()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+            else:
+                step()
+            dt = (time.perf_counter() - t) * 1e3
+            c1 = eng.metrics.counters
+            if c1["decode_steps"] > c0["decode_steps"] \
+                    and c1["prefill_chunks"] == c0["prefill_chunks"]:
+                tick_ms.append(dt)
+
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.submit(reqs[0])
+        tick()
+        for r in reqs[1:]:
+            eng.submit(r)
+        n = 0
+        while eng.sched.has_work() or eng.has_inflight:
+            n += 1
+            if lifecycle and n == 3:
+                if not eng.cancel(reqs[2]):
+                    fail(f"serve_breadth[{tag}]: cancel found nothing")
+            if lifecycle and n == 5:
+                reqs[5].deadline_s = eng.clock()      # expires next tick
+            tick()
+            if n > 4000:
+                fail(f"serve_breadth[{tag}]: did not drain")
+        eng.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launch_counts)
+        for k in totals:
+            totals[k] += counts[k]
+        missing = [k for k in need if counts[k] <= 0]
+        if missing:
+            fail(f"serve_breadth[{tag}]: {missing} never launched")
+        bad = {r.uid: r.error for r in reqs
+               if r.error or len(r.out_tokens) != 32}
+        want_bad = {2: "cancelled", 5: "deadline"} if lifecycle else {}
+        if {u: e for u, e in bad.items()} != want_bad:
+            fail(f"serve_breadth[{tag}]: unexpected request outcomes {bad}")
+        eng.pool.check()
+        if eng.prefix is not None:
+            eng.prefix.clear()
+        if eng.pool.free_blocks != eng.pool.capacity:
+            fail(f"serve_breadth[{tag}]: pool not back at capacity "
+                 f"({eng.pool.free_blocks} of {eng.pool.capacity} free)")
+        s = eng.metrics.summary()
+        steps = sorted(tick_ms)
+        out = dict(
+            mode=mode, prefix_cache=prefix_cache, sample=sample,
+            wall_s=wall, tokens_out=s["counters"]["tokens_out"],
+            ttft_p50_ms=s["ttft_s"]["p50"] * 1e3,
+            decode_step_ms_p50=steps[len(steps) // 2] if steps else None,
+            decode_ticks=len(steps),
+            device_busy_fraction=s["device_busy_fraction"],
+            counters={k: s["counters"][k] for k in BREADTH_COUNTERS},
+            launches=counts, strict_ticks=strict, flagged_syncs=flagged,
+            flagged_at=sorted(set(where)),
+            tokens={r.uid: list(r.out_tokens) for r in reqs})
+        log(f"serve_breadth[{tag}]: {mode}, prefix cache "
+            f"{'on' if prefix_cache else 'off'}"
+            f"{f', sampled {sample}' if sample else ''}: {wall:.2f} s, "
+            f"TTFT p50 {out['ttft_p50_ms']:.1f} ms, decode step p50 "
+            f"{out['decode_step_ms_p50']:.2f} ms over {len(steps)} "
+            f"decode-only ticks, device busy fraction "
+            f"{out['device_busy_fraction']:.3f}; prefix hit blocks "
+            f"{s['counters']['prefix_hit_blocks']}, tokens saved "
+            f"{s['counters']['prefix_tokens_saved']}; "
+            + (f"{strict} decode-only ticks under sync debug 'error', "
+               f"{flagged} syncs flagged in ticks with a prefill "
+               f"{sorted(set(where))}; "
+               if mode == "async" else "")
+            + f"launches {counts}; card {power_line}")
+        del eng
+        return out
+
+    def agreement(a, b):
+        """Share of equal greedy tokens and each request's first
+        differing token (None: identical streams)."""
+        same = sum(x == y for u in a for x, y in zip(a[u], b[u]))
+        parts = {u: next((i for i, (x, y) in enumerate(zip(a[u], b[u]))
+                          if x != y), None) for u in a}
+        return same / sum(len(t) for t in a.values()), parts
+
+    res = {}
+    # (a) prefix cache on against off (greedy, sync).  In bf16 the tail
+    # of an adopted prompt is prefilled as its own chunk, at another row
+    # count than inside the whole prompt, so its bf16 roundings differ
+    # and the streams may part: the share is printed.  The gate is the
+    # f32 view (f32_view), where only f32 summation order differs.
+    res["off"] = drive("off", "sync", False)
+    res["on"] = drive("on", "sync", True)
+    share, parts = agreement(res["off"]["tokens"], res["on"]["tokens"])
+    res["on_off_bf16"] = dict(tokens_equal=share, parts_at=parts)
+    log(f"serve_breadth: prefix on vs off in bf16: greedy tokens equal "
+        f"{share:.1%}; first differing token per request {parts}")
+    v = f32_view(m)
+    res["off_f32"] = drive("off_f32", "sync", False, view=v)
+    res["on_f32"] = drive("on_f32", "sync", True, view=v)
+    del v
+    if res["on_f32"]["tokens"] != res["off_f32"]["tokens"]:
+        fail("serve_breadth: prefix cache on and off give different "
+             "tokens on the f32 view: "
+             f"{agreement(res['off_f32']['tokens'], res['on_f32']['tokens'])}")
+    log("serve_breadth: prefix on vs off on the f32 view: identical greedy "
+        "tokens")
+    if res["on"]["counters"]["prefix_hit_blocks"] <= 0:
+        fail("serve_breadth: no prefix hit blocks")
+    # (b) async against sync (greedy, prefix on)
+    res["async"] = drive("async", "async", True)
+    for key in ("tokens", "counters"):
+        if res["async"][key] != res["on"][key]:
+            fail(f"serve_breadth: async and sync {key} differ: "
+                 f"{res['async'][key] if key == 'counters' else ''} vs "
+                 f"{res['on'][key] if key == 'counters' else ''}")
+    if not res["async"]["device_busy_fraction"] \
+            > res["on"]["device_busy_fraction"]:
+        fail("serve_breadth: async device busy fraction not above sync's")
+    # (c) seeded sampling: sync against async; top-k 1 against greedy
+    res["sampled_sync"] = drive("sampled_sync", "sync", True, (0.7, 40))
+    res["sampled_async"] = drive("sampled_async", "async", True, (0.7, 40))
+    if res["sampled_async"]["tokens"] != res["sampled_sync"]["tokens"]:
+        fail("serve_breadth: sampled tokens differ between sync and async")
+    if res["sampled_async"]["tokens"] == res["async"]["tokens"]:
+        fail("serve_breadth: sampling at temperature 0.7 gave the greedy "
+             "tokens")
+    res["top1"] = drive("top1", "async", True, (0.7, 1))
+    if res["top1"]["tokens"] != res["async"]["tokens"]:
+        fail("serve_breadth: top-k 1 differs from greedy")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    logits = torch.randn((8, cfg.vocab_size), generator=gen, device="cuda")
+    keys = torch.randint(0, 2**32, (8, 2), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    temps = torch.full((8,), 0.7, device="cuda")
+    topk = torch.full((8,), 40, dtype=torch.int32, device="cuda")
+    timer = Timer(torch)
+    res["sampler_ms"] = timer(lambda: sample_tokens(logits, keys, temps,
+                                                    topk))
+    res["argmax_ms"] = timer(lambda: torch.argmax(logits, -1))
+    log(f"serve_breadth: sample_tokens at [8, {cfg.vocab_size}] (top-k 40): "
+        f"{res['sampler_ms']:.4f} ms of device time, argmax alone "
+        f"{res['argmax_ms']:.4f} ms; card {power_line}")
+    del timer
+    # (d) cancel and deadline, (e) the trace
+    tracer = obs.Tracer()
+    res["lifecycle"] = drive("lifecycle", "async", True, tracer=tracer,
+                             lifecycle=True)
+    path = ROOT / "chiprun_out" / "serve_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    obs.save_chrome(tracer, str(path))
+    errs = obs.validate_chrome(_json.loads(path.read_text()))
+    obs.set_active(None)
+    if errs:
+        fail(f"serve_breadth: trace invalid: {errs[:5]}")
+    res["trace_events"] = len(tracer.events)
+    log(f"serve_breadth: trace {path.name}: {len(tracer.events)} events, "
+        f"{tracer.dropped} dropped, validate_chrome clean; card "
+        f"{power_line}")
+    for run in res.values():
+        if isinstance(run, dict):
+            run.pop("tokens", None)
+    torch.cuda.empty_cache()
+    return res
 
 
 def mix_prompts(seed, vocab):
@@ -3137,6 +3419,14 @@ def main():
                 kernels[-1][key] = {k: r.get(k) for k in (
                     "b", "c", "h", "hkv", "splits", "max_abs_err", "ms",
                     "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name == "paged_prefill":
+            # a chunk after a prefix-cache hit: two rows sharing their
+            # first PREFIX_BLOCKS blocks, the chunk starting past them
+            r = [r for r in results[name] if "ms" in r
+                 and r.get("shared_blocks")][0]
+            kernels[-1]["shared_prefix"] = {k: r[k] for k in (
+                "b", "c", "h", "hkv", "shared_blocks", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name in ("paged_decode", "paged_decode_int8"):
             # the split-table kernel: its split count at the main case,
             # and its GQA (rep 4) and long-table cases

@@ -39,6 +39,21 @@ reference; the paged engine's flags (``--num-blocks``,
 ``--block-size``, ``--max-batch``, ``--paged-kernel``) are ignored under
 ``slots``.
 
+``--prefix-cache on|off`` (default on for the paged engine, as in the
+reference) shares KV blocks across requests with a common
+block-aligned prompt prefix (refcounted; a shared block is never
+written: the first divergent or partly filled block is recomputed).
+``--async`` serves through the asyncio frontend
+(``serve.frontend.AsyncServeFrontend``) and the double-buffered tick:
+one coroutine per request, sampling on the device, step N's host wait
+after step N+1's dispatch; ``--deadline-ms`` (with ``--async``) gives
+every third request that deadline.  ``--stream`` prints tokens as they
+come.  ``--trace-out PATH`` writes the serving trace as Chrome
+trace-event JSON (``repro_torch.obs``; ``--trace-timeline N`` also
+prints N rows of the per-request timeline, ``--trace-profiler-bridge``
+wraps every span in ``torch.profiler.record_function``).  These flags
+need the paged engine, as in the reference.
+
 Runs on the card by default; ``--device cpu`` runs every kernel's plain
 version on the CPU (small shapes only).  Without a GPU and without
 ``--device cpu`` it stops with an error instead of falling back.
@@ -125,6 +140,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-seq-len", type=int, default=0,
                     help="[paged engine] per-sequence context cap "
                          "(default: --cache-len)")
+    ap.add_argument("--prefix-cache", default=None, choices=["on", "off"],
+                    help="[paged engine] share KV blocks across requests "
+                         "with a common block-aligned prompt prefix "
+                         "(default: on for the paged engine)")
+    ap.add_argument("--async", dest="async_engine", action="store_true",
+                    help="[paged engine] serve through the asyncio "
+                         "frontend and the double-buffered tick")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="with --async: give every third request this "
+                         "deadline (0: no deadlines)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they are generated")
+    ap.add_argument("--trace-out", default="",
+                    help="[paged engine] write the serving trace as "
+                         "Chrome trace-event JSON to this path")
+    ap.add_argument("--trace-timeline", type=int, default=0, metavar="N",
+                    help="with --trace-out: also print the first N rows "
+                         "of the per-request timeline")
+    ap.add_argument("--trace-profiler-bridge", action="store_true",
+                    help="with --trace-out: wrap host spans in "
+                         "torch.profiler.record_function")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda",
@@ -206,7 +242,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from repro_torch import default_device
+    from repro_torch import default_device, obs
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.models import Model
     from repro_torch.quant import (fallback_chain, quantize_model,
@@ -273,13 +309,33 @@ def main(argv=None):
     if engine == "auto":
         engine = "paged" if supports_paging(cfg) else "slots"
         print(f"[launch.serve] engine=auto -> {engine}")
+    # the reference's refusals
+    if args.prefix_cache is not None and engine != "paged":
+        raise SystemExit("--prefix-cache requires the paged engine "
+                         "(the slots engine has no shared KV pool)")
+    if args.async_engine and engine != "paged":
+        raise SystemExit("--async requires the paged engine (the slots "
+                         "engine has no double-buffered tick)")
+    if args.deadline_ms and not args.async_engine:
+        raise SystemExit("--deadline-ms requires --async")
+    tracer = None
+    if args.trace_out:
+        if engine != "paged":
+            raise SystemExit("--trace-out requires the paged engine "
+                             "(the slots engine has no trace hooks)")
+        tracer = obs.Tracer(profiler_bridge=args.trace_profiler_bridge)
+    elif args.trace_timeline or args.trace_profiler_bridge:
+        raise SystemExit("--trace-timeline/--trace-profiler-bridge "
+                         "require --trace-out")
     if engine == "paged":
         eng = PagedServeEngine(model, num_blocks=args.num_blocks,
                                block_size=args.block_size,
                                max_batch=args.max_batch,
                                max_seq_len=max_seq_len,
                                prefill_buckets=(16, 32, 64),
-                               paged_kernel=args.paged_kernel)
+                               paged_kernel=args.paged_kernel,
+                               prefix_cache=args.prefix_cache != "off",
+                               rng_seed=args.seed, tracer=tracer)
         print(f"[launch.serve] paged-kernel={args.paged_kernel} -> decode "
               f"path: {eng.decode_path}  prefill path: {eng.prefill_path}")
     else:
@@ -288,10 +344,17 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(4, 24)),))
                for _ in range(args.requests)]
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=args.max_new)
-            for i, p in enumerate(prompts)]
+    on_token = None
+    if args.stream:
+        on_token = lambda tok, req: print(f"  [stream] req {req.uid} "
+                                          f"+tok {tok}")
     t0 = time.time()
-    done = eng.run(reqs)
+    if args.async_engine:
+        done = _run_async_demo(eng, prompts, args)
+    else:
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=args.max_new,
+                                on_token=on_token)
+                        for i, p in enumerate(prompts)])
     dt = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     print(f"[launch.serve] {len(done)} requests, {toks} tokens, "
@@ -301,12 +364,66 @@ def main(argv=None):
         print(f"[launch.serve] ttft p50={s['ttft_s']['p50']*1e3:.1f}ms  "
               f"per-token p50={s['per_token_s']['p50']*1e3:.1f}ms  "
               f"preempted={s['counters']['preempted']}")
+        print(f"[launch.serve] device busy fraction="
+              f"{s['device_busy_fraction']:.2f}  "
+              f"cancelled={s['counters']['cancelled']} "
+              f"deadline-expired={s['counters']['deadline_expired']}")
+        if eng.prefix is not None:
+            pc = s["prefix_cache"]
+            print(f"[launch.serve] prefix cache: hit-rate "
+                  f"{pc['hit_rate']:.2f}  blocks saved {pc['blocks_saved']}"
+                  f"  tokens saved {pc['tokens_saved']}")
         if args.metrics_json:
             eng.metrics.to_json(args.metrics_json)
             print(f"[launch.serve] metrics -> {args.metrics_json}")
+        if tracer is not None:
+            obs.save_chrome(tracer, args.trace_out)
+            print(f"[launch.serve] trace -> {args.trace_out} "
+                  f"({len(tracer.events)} events, {tracer.dropped} "
+                  f"dropped)")
+            if args.trace_timeline:
+                print(obs.format_timeline(tracer,
+                                          max_rows=args.trace_timeline))
     elif args.metrics_json:
         print("[launch.serve] warning: --metrics-json ignored (the slots "
               "engine keeps no serving metrics, as in the reference)")
+    return done
+
+
+def _run_async_demo(eng, prompts, args):
+    """Serve ``prompts`` through :class:`AsyncServeFrontend`: one
+    submitting coroutine per request beside the engine loop, every token
+    read from its handle's stream, and with ``--deadline-ms`` a deadline
+    on every third request."""
+    import asyncio
+
+    from repro_torch.serve import AsyncServeFrontend
+
+    fe = AsyncServeFrontend(eng, max_queue=max(8, 2 * len(prompts)))
+
+    async def client(i, prompt):
+        dl = args.deadline_ms if args.deadline_ms and i % 3 == 2 else None
+        h = await fe.submit(prompt, max_new_tokens=args.max_new,
+                            deadline_ms=dl)
+        async for tok in h:
+            if args.stream:
+                print(f"  [stream] req {h.uid} +tok {tok}")
+        return await h.wait()
+
+    async def run():
+        loop = asyncio.ensure_future(fe.serve_forever())
+        try:
+            return await asyncio.gather(
+                *(client(i, p) for i, p in enumerate(prompts)))
+        finally:
+            fe.close()
+            await loop
+
+    done = asyncio.run(run())
+    expired = [r.uid for r in done if r.error == "deadline"]
+    if expired:
+        print(f"[launch.serve] deadline expired: {len(expired)} requests "
+              f"{expired}")
     return done
 
 

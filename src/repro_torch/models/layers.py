@@ -151,7 +151,11 @@ class Embed(nn.Module):
                 positions: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.tok[tokens.long()]
         if self.pos is not None and positions is not None:
-            x = x + self.pos[torch.clamp(positions, min=0).long()]
+            # clamped at both ends, as JAX clamps a gather: a chunk's pads
+            # past the table (a chunk after adopted prefix blocks, rounded
+            # up to its bucket) read the last row; they are dead writes
+            x = x + self.pos[torch.clamp(positions, 0,
+                                         self.pos.shape[0] - 1).long()]
         return x
 
     def logits(self, x: torch.Tensor, backend=None) -> torch.Tensor:

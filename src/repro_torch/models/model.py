@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.model`` for the paths serving uses:
 ``forward`` (full-sequence logits), ``prefill_chunk`` over a paged
 cache, ``prefill`` (a whole prompt, left-pads at negative positions)
-over a contiguous cache, and ``decode_step`` over either.  A Mamba
+over a contiguous cache, ``decode_step`` over either, and
+``decode_and_sample`` (a decode step ending in :func:`sample_tokens`
+on the device, JAX's sampling bits from ``core.prng``).  A Mamba
 layer's contiguous cache is its decode state (the ``conv`` window and
 the f32 ``state``, ``models/ssm.py``); a paged cache refuses a stack
 that has one.  The
@@ -43,6 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch import default_device
+from repro_torch.core import prng
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import Embed, Linear, Norm, _normal_
@@ -163,6 +166,11 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def _positions(self, b: int, s: int, start_pos) -> torch.Tensor:
+        if isinstance(start_pos, (int, np.integer)):
+            # built on the device: no host-to-device copy, no stream sync
+            start_pos = int(start_pos)
+            return torch.arange(start_pos, start_pos + s, dtype=torch.int32,
+                                device=self.device).expand(b, s).contiguous()
         start = torch.as_tensor(start_pos, dtype=torch.int32,
                                 device=self.device)
         if start.ndim == 0:
@@ -261,11 +269,15 @@ class Model(nn.Module):
         x, positions = self._embed(tokens.to(self.device), start_pos,
                                    patch_embeds)
         x, cache = self._run(x, positions, cache, positions[:, 0])
-        b = x.shape[0]
-        idx = torch.as_tensor(last_idx, dtype=torch.long, device=x.device)
-        if idx.ndim == 0:
-            idx = idx.expand(b)
-        x = x[torch.arange(b, device=x.device), idx][:, None]
+        if isinstance(last_idx, (int, np.integer)):
+            x = x[:, int(last_idx)][:, None]     # no host-to-device copy
+        else:
+            b = x.shape[0]
+            idx = torch.as_tensor(last_idx, dtype=torch.long,
+                                  device=x.device)
+            if idx.ndim == 0:
+                idx = idx.expand(b)
+            x = x[torch.arange(b, device=x.device), idx][:, None]
         return self._head(x)[:, 0], cache
 
     @torch.no_grad()
@@ -285,14 +297,57 @@ class Model(nn.Module):
         x, cache = self._run(x, positions, cache, pos_arr)
         return self._head(x)[:, 0], cache
 
+    @torch.no_grad()
+    def decode_and_sample(self, tokens: torch.Tensor, cache: dict, pos,
+                          keys, temperature, top_k):
+        """One decode step, then :func:`sample_tokens` on the device, so
+        only the sampled ids (int32 [B]) leave it: the async engine's
+        tick.  ``keys`` int64 [B, 2] (uint32 key words; None when every
+        row is greedy: then the step ends in an argmax), ``temperature``
+        float [B], ``top_k`` int [B].  Returns (ids int32 [B], cache)."""
+        logits, cache = self.decode_step(tokens, cache, pos)
+        if keys is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return sample_tokens(logits, keys, temperature, top_k), cache
+
+
+def sample_tokens(logits: torch.Tensor, keys: torch.Tensor, temperature,
+                  top_k) -> torch.Tensor:
+    """Batched sampling as a pure function of each row's logits and key
+    (the reference's ``sample_tokens``).  Per row: ``temperature <= 0``
+    is the argmax (ties to the lowest index); otherwise logits below the
+    ``top_k``-th largest are masked to ``-inf`` (every tie at the
+    threshold stays; ``top_k <= 0`` keeps all), the rest divided by the
+    temperature (floored at 1e-6) and drawn by the Gumbel-max trick
+    under the row's key (``core.prng.categorical``: JAX's bits).
+
+    logits [B, V]; keys int64 [B, 2]; temperature float [B]; top_k int
+    [B] (tensors on the logits' device).  Returns int32 [B]."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1)
+    k = top_k.to(torch.int64)
+    kk = torch.where(k <= 0, torch.full_like(k, v), k).clamp(1, v)
+    order = torch.sort(logits, dim=-1, descending=True).values
+    thresh = torch.gather(order, 1, (kk - 1)[:, None])
+    masked = torch.where(logits < thresh,
+                         torch.full_like(logits, float("-inf")), logits)
+    temp = temperature.to(torch.float32)
+    scaled = masked / torch.clamp_min(temp, 1e-6)[:, None]
+    sampled = prng.categorical(keys, scaled)
+    return torch.where(temp <= 0.0, greedy, sampled).to(torch.int32)
+
 
 def set_block_tables(cache: dict, tables) -> dict:
     """Return ``cache`` with every layer's ``block_tables`` set to
     ``tables`` [B, max_blocks_per_seq] (all layers share one table); the
-    pools are shared, not copied."""
+    pools are shared, not copied.  A tensor already on the pools' device
+    is used as it is (no host copy)."""
     layers = cache["layers"]
     dev = layers[0]["pos"].device if layers else None
-    t = torch.as_tensor(np.asarray(tables), dtype=torch.int32, device=dev)
+    if not isinstance(tables, torch.Tensor):
+        tables = torch.as_tensor(np.asarray(tables))
+    t = tables.to(device=dev, dtype=torch.int32)
     return {**cache, "layers": [{**c, "block_tables": t} for c in layers]}
 
 

@@ -1,11 +1,34 @@
-"""Continuous-batching engines (synchronous tick).
+"""Continuous-batching engines of the port.
 
 ``PagedServeEngine`` is the counterpart of
-``repro.serve.engine.PagedServeEngine.step``/``run``: KV lives in a
-shared block pool, the scheduler admits FCFS by free-block budget,
-prefill runs in bucket-sized chunks written straight into the pool, one
-decode batch and at most one prefill chunk run every tick, and the pool
-preempts by recompute when it runs dry.
+``repro.serve.engine.PagedServeEngine``: KV lives in a shared block
+pool, the scheduler admits FCFS by free-block budget, prefill runs in
+bucket-sized chunks written straight into the pool, one decode batch and
+at most one prefill chunk run every tick, and the pool preempts by
+recompute when it runs dry.  With ``prefix_cache=True`` full prompt
+blocks are indexed by their tokens and later requests with the same
+block-aligned prefix adopt them (shared, never written: the chunk after
+them starts at a block boundary past the adopted blocks).  Requests can
+be cancelled (``cancel``) and carry deadlines (``deadline_s``, swept at
+the top of every tick).  ``attach_tracer`` records an event trace of
+every tick (``repro_torch.obs``).
+
+It has two tick modes over one scheduler and one cache, as the
+reference:
+
+  * ``step()``: dispatch, wait for the logits, sample on the host side
+    (greedy rows by argmax; sampled rows on the model's device, so both
+    modes draw the same bits);
+  * ``step_async()``: plan against projected state, dispatch step N with
+    sampling on the device (``Model.decode_and_sample``), queue its
+    token ids' copy to pinned host memory and record an event, and only
+    then wait on step N-1's event and emit its tokens.  The host runs
+    one step behind the device.  Every upload in a tick is a
+    non-blocking copy from pinned memory (a block of PyTorch's caching
+    host allocator, which is not reused before the copy that reads it
+    has run), so the one host wait per tick is that event.  Freeing a
+    finished row's blocks at dispatch is safe because every kernel and
+    copy of a tick runs in order on the current stream.
 
 ``ServeEngine`` is the counterpart of the reference's fixed-slot engine
 over a contiguous cache (one ``cache_len`` row per request): each prompt
@@ -18,13 +41,12 @@ encoder-decoder at construction: its requests carry no ``frames``
 ``KeyError``); such a model is driven through ``Model.prefill`` and
 ``Model.decode_step``.
 
-Sampling is greedy on the host (``np.argmax``, ties to the lowest
-index, as the reference's ``_sample_host``).
+Sampling matches the reference's: ``temperature <= 0`` is the argmax
+(ties to the lowest index); otherwise ``sample_tokens`` (top-k, then
+the Gumbel-max draw) under the key of :func:`request_key`, whose words
+equal ``jax.random``'s (``core/prng.py``).
 
-Not ported yet (ROADMAP.md queue 1 item 9): temperature sampling (the
-reference derives its keys from ``jax.random``), the double-buffered
-async tick and frontend, the prefix cache, tracing, deadlines and mesh
-serving.
+Not ported (ROADMAP.md queue 1 item 10): mesh serving.
 """
 from __future__ import annotations
 
@@ -36,12 +58,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.models.attention import (kv_entry_bytes, paged_kernel_mode,
                                           paged_prefill_mode)
-from repro_torch.models.model import set_block_tables
+from repro_torch.models.model import sample_tokens, set_block_tables
 from repro_torch.models.transformer import layer_plan
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import req_track
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.paging import BlockPool
+from repro_torch.serve.paging import BlockPool, PrefixCache
 from repro_torch.serve.scheduler import Scheduler
 
 
@@ -50,11 +75,15 @@ class Request:
     uid: int
     prompt: np.ndarray
     max_new_tokens: int = 32
-    temperature: float = 0.0      # only greedy (0) is ported
+    temperature: float = 0.0      # 0 => greedy
+    top_k: int = 0                # 0 => no truncation (temperature > 0 only)
+    seed: Optional[int] = None    # None: the engine seed folded with uid
+    deadline_s: Optional[float] = None   # absolute, on the engine's clock
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
-    on_token: Optional[Callable] = None
-    error: Optional[str] = None
+    on_token: Optional[Callable] = None   # streaming: fn(token, request)
+    error: Optional[str] = None           # "too_long" | "oom" | "callback"
+                                          # | "deadline" | "cancelled" | ...
 
 
 def _emit(req: Request, tok: int) -> None:
@@ -70,18 +99,37 @@ def _emit(req: Request, tok: int) -> None:
         req.on_token = None
 
 
-def _sample_host(req: Request, logits_row: np.ndarray) -> int:
-    if req.temperature > 0:
-        raise NotImplementedError("temperature sampling is not ported yet "
-                                  "(ROADMAP.md queue 1 item 9)")
-    return int(np.argmax(logits_row))
+def _base_key(req: Request, engine_seed: int) -> torch.Tensor:
+    if req.seed is not None:
+        return prng.PRNGKey(req.seed)
+    return prng.fold_in(prng.PRNGKey(engine_seed), req.uid)
 
 
-def _refuse_temperature(req: Request) -> None:
-    if req.temperature > 0:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet (ROADMAP.md queue 1 "
-            "item 9); submit greedy requests (temperature=0)")
+def request_key(req: Request, index: int, engine_seed: int) -> torch.Tensor:
+    """The key (int64 [2], uint32 words) of a request's ``index``-th
+    sampled token: ``req.seed``'s key, else the engine seed's folded
+    with the uid, folded with ``index``, as the reference derives it
+    with ``jax.random``.  ``index`` counts tokens sampled so far, so a
+    request preempted and recomputed draws the same tokens again."""
+    return prng.fold_in(_base_key(req, engine_seed), index)
+
+
+def _sample_host(req: Request, logits_row: torch.Tensor,
+                 engine_seed: int, key: Optional[torch.Tensor] = None) -> int:
+    """Sample one token from ``logits_row`` [V] (any device): the argmax
+    for greedy requests, else :func:`sample_tokens` on the row's device
+    under ``key`` (default :func:`request_key` at the request's next
+    index), the same function the async tick runs."""
+    if req.temperature <= 0:
+        return int(torch.argmax(logits_row))
+    if key is None:
+        key = request_key(req, len(req.out_tokens), engine_seed)
+    dev = logits_row.device
+    tok = sample_tokens(
+        logits_row[None], key[None].to(dev),
+        torch.full((1,), req.temperature, dtype=torch.float32, device=dev),
+        torch.full((1,), req.top_k, dtype=torch.int32, device=dev))
+    return int(tok[0])
 
 
 def supports_paging(cfg) -> bool:
@@ -107,18 +155,48 @@ def check_servable(cfg) -> None:
             "frames=...), then Model.decode_step")
 
 
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device without a stream sync: on a card, a copy
+    into a fresh pinned block of PyTorch's caching host allocator (which
+    keeps the block until the copy reading it has run), then a
+    non-blocking copy."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched-but-unsynced async step: the sampled ids on the
+    device (next tick's decode input), their pinned host copy and the
+    event after that copy, and what to emit."""
+    tokens: torch.Tensor           # device int32 [max_batch]
+    host: torch.Tensor             # host int32 [max_batch] (being copied)
+    event: Optional[object]        # torch.cuda.Event after the copy
+    emits: list                    # [(SeqState, row)] in sampling order
+    row_of: dict                   # uid -> row
+    t_dispatch: float              # engine-clock time of dispatch
+    tick: int
+
+
 class PagedServeEngine:
-    """Continuous batching over a paged KV cache (see module docstring).
+    """Continuous batching over a paged KV cache (see the module
+    docstring).
 
     ``paged_kernel`` ("auto" | "fused" | "gather", default: the model
     config's) picks the paged attention path; ``decode_path`` and
-    ``prefill_path`` report the one taken."""
+    ``prefill_path`` report the one taken.  ``prefix_cache`` turns on
+    block sharing across requests with a common prompt prefix;
+    ``rng_seed`` seeds the keys of requests without their own ``seed``;
+    ``tracer`` (or ``attach_tracer``) records the event trace."""
 
     def __init__(self, model, *, num_blocks: int = 64, block_size: int = 16,
                  max_batch: int = 8, max_seq_len: int = 0,
                  prefill_buckets=(32, 128, 512),
                  paged_kernel: Optional[str] = None,
-                 clock=time.perf_counter):
+                 prefix_cache: bool = False, rng_seed: int = 0,
+                 clock=time.perf_counter, tracer=None):
         if paged_kernel is not None and paged_kernel != model.cfg.paged_kernel:
             model = model.with_config(paged_kernel=paged_kernel)
         self.model = model
@@ -132,23 +210,41 @@ class PagedServeEngine:
         self.prefill_path = paged_prefill_mode(model.cfg)
         # MLA: the latent + rotary key; int8 pools: with their scale rows
         self._kv_entry_bytes = kv_entry_bytes(model.cfg)
+        self.trace = obs_trace.NULL
         self.cache = model.init_paged_cache(max_batch, num_blocks, block_size,
                                             self.max_blocks_per_seq)
         self.pool = BlockPool(num_blocks, block_size)
+        self.prefix = PrefixCache(self.pool) if prefix_cache else None
         self.sched = Scheduler(self.pool, rows=max_batch, buckets=self.buckets,
                                max_blocks_per_seq=self.max_blocks_per_seq,
-                               max_seq_len=max_seq_len)
+                               max_seq_len=max_seq_len,
+                               prefix_cache=self.prefix, tracer=self.trace)
+        if tracer is not None:
+            self.attach_tracer(tracer)
         self.clock = clock
         self.metrics = ServeMetrics(clock)
         self.tables = np.full((max_batch, self.max_blocks_per_seq), -1,
                               np.int32)
+        self.rng_seed = rng_seed
+        self._key_cache: dict = {}          # uid -> base key words
+        self._inflight: Optional[_InFlight] = None
         self.ticks = 0
         self.finished: list = []
 
     # ------------------------------------------------------------------
+    def attach_tracer(self, tracer) -> None:
+        """Attach (or detach with ``None``) an ``obs.Tracer``; it also
+        becomes the module's active tracer, for code that cannot be
+        handed one."""
+        self.trace = tracer if tracer is not None else obs_trace.NULL
+        obs_trace.set_active(tracer)
+        self.sched.trace = self.trace
+
     def submit(self, req: Request) -> None:
-        _refuse_temperature(req)
         self.metrics.on_submit(req.uid)
+        self.trace.instant("submit", track=req_track(req.uid), cat="request",
+                           uid=req.uid, prompt_len=len(req.prompt),
+                           max_new=req.max_new_tokens)
         self.sched.submit(req)
 
     def _sync_tables(self) -> None:
@@ -157,17 +253,68 @@ class PagedServeEngine:
             self.tables[seq.row, :len(seq.table)] = seq.table
 
     def _finalize_detached(self, req: Request) -> None:
+        """Complete or fail a request whose blocks and row are already
+        released."""
         req.done = True
         self.finished.append(req)
+        self._key_cache.pop(req.uid, None)
         if req.error:
             self.metrics.on_fail(req.uid, req.error)
+            self.trace.instant("fail", track=req_track(req.uid),
+                               cat="request", uid=req.uid, error=req.error)
         else:
             self.metrics.on_complete(req.uid)
+            self.trace.instant("complete", track=req_track(req.uid),
+                               cat="request", uid=req.uid,
+                               tokens=len(req.out_tokens))
 
     def _retire(self, seq) -> None:
         self.sched.finish(seq)
         self._finalize_detached(seq.req)
 
+    def _fail_detached(self, req: Request, error: str) -> None:
+        req.error = req.error or error
+        self._finalize_detached(req)
+
+    # ------------------------------------------------------------------
+    def cancel(self, req: Request, error: str = "cancelled") -> bool:
+        """Cancel a request wherever it is: waiting, running (its blocks
+        and row are freed; prefix-cache references stay), or retiring
+        with tokens still in flight (they are dropped at emission).
+        False if it had already finished."""
+        if req.done:
+            return False
+        if req in self.sched.waiting:
+            self.sched.waiting.remove(req)
+            self._fail_detached(req, error)
+            return True
+        for seq in self.sched.running:
+            if seq.req is req:
+                req.error = error
+                self._retire(seq)
+                return True
+        self._fail_detached(req, error)
+        return True
+
+    def _check_deadlines(self) -> None:
+        """Expire waiting and running requests whose deadline passed (top
+        of every tick, both modes, on the engine clock)."""
+        now = self.clock()
+        for req in [r for r in self.sched.waiting
+                    if r.deadline_s is not None and now >= r.deadline_s]:
+            self.sched.waiting.remove(req)
+            self.trace.instant("deadline", track=req_track(req.uid),
+                               cat="request", uid=req.uid)
+            self._fail_detached(req, "deadline")
+        for seq in [s for s in self.sched.running
+                    if s.req.deadline_s is not None
+                    and now >= s.req.deadline_s]:
+            seq.req.error = "deadline"
+            self.trace.instant("deadline", track=req_track(seq.uid),
+                               cat="request", uid=seq.uid)
+            self._retire(seq)
+
+    # ------------------------------------------------------------------
     def _decode_kv_bytes(self, decode) -> tuple:
         """Analytic per-step KV traffic of both decode paths (bytes): the
         fused kernels read each live block once per layer; the gathered
@@ -187,9 +334,23 @@ class PagedServeEngine:
         gathered = 3 * self.max_blocks_per_seq * per_layer * layers
         return fused, gathered
 
+    def _request_key(self, req: Request, index: int) -> np.ndarray:
+        """:func:`request_key` (as int64 [2] words) with the request's
+        base key memoised; the fold with ``index`` runs on Python ints."""
+        base = self._key_cache.get(req.uid)
+        if base is None:
+            base = tuple(int(w) for w in _base_key(req, self.rng_seed))
+            self._key_cache[req.uid] = base
+        return np.array(prng.threefry2x32(base[0], base[1], 0,
+                                          index & 0xFFFFFFFF), np.int64)
+
     def _emit_token(self, seq, tok: int) -> None:
         _emit(seq.req, tok)
         self.metrics.on_token(seq.req.uid)
+        self.trace.instant(
+            "first_token" if len(seq.req.out_tokens) == 1 else "token",
+            track=req_track(seq.req.uid), cat="request", uid=seq.req.uid,
+            pos=seq.kv_len)
         if seq.req.error == "callback":
             self._retire(seq)
             return
@@ -197,6 +358,55 @@ class PagedServeEngine:
         if len(seq.req.out_tokens) >= seq.req.max_new_tokens \
                 or seq.kv_len + 1 >= self.max_seq_len:
             self._retire(seq)
+
+    # ------------------------------------------------------------------
+    def _plan_and_apply(self):
+        """Shared tick head: deadline sweep, plan, plan-event metrics and
+        trace, table sync, and the prefix cache's write-safety checks."""
+        self._check_deadlines()
+        with self.trace.span("admission", track="engine/admission"):
+            plan = self.sched.plan_tick()
+        assert {s.uid for s in plan.admitted}.isdisjoint(
+            {s.uid for s in plan.preempted}), \
+            "scheduler emitted admit+preempt for one seq in one tick"
+        for req in plan.rejected:
+            self.metrics.on_reject(req.uid)
+            self.trace.instant("reject", track=req_track(req.uid),
+                               cat="request", uid=req.uid, error=req.error)
+            self.finished.append(req)
+        for seq in plan.admitted:
+            self.metrics.on_admit(seq.req.uid)
+            self.trace.instant("admit", track=req_track(seq.req.uid),
+                               cat="request", uid=seq.req.uid, row=seq.row,
+                               prefill_target=seq.prefill_target,
+                               prefix_hit_blocks=seq.prefix_hit,
+                               free_blocks=self.pool.free_blocks)
+            if self.prefix is not None:
+                self.metrics.on_prefix_lookup(
+                    seq.req.uid, seq.prefix_queried, seq.prefix_hit,
+                    seq.shared_tokens, seq.cow_tokens)
+        for seq in plan.preempted:
+            self.metrics.on_preempt(seq.req.uid)
+            self.trace.instant("preempted", track=req_track(seq.req.uid),
+                               cat="request", uid=seq.req.uid)
+        for seq in plan.failed:
+            self._retire(seq)
+        self._sync_tables()
+        if self.prefix is not None:
+            # every block this tick writes is the writer's alone (shared
+            # prefix blocks are read-only)
+            for seq in plan.decode:
+                blk = seq.table[seq.kv_len // self.block_size]
+                assert self.pool.writable(blk, seq.uid), \
+                    f"decode would write shared block {blk}"
+            if plan.prefill is not None:
+                pf = plan.prefill
+                lo = pf.start // self.block_size
+                hi = (pf.start + pf.length - 1) // self.block_size
+                for blk in pf.seq.table[lo:hi + 1]:
+                    assert self.pool.writable(blk, pf.seq.uid), \
+                        f"prefill would write shared block {blk}"
+        return plan
 
     def _masked_tables(self, decode) -> np.ndarray:
         tables = self.tables.copy()
@@ -206,79 +416,315 @@ class PagedServeEngine:
                 tables[r] = -1       # idle rows write to the trash block
         return tables
 
+    def _decode_inputs(self, decode):
+        """Host arrays of one decode batch: (tables, tokens, positions)."""
+        tokens = np.zeros((self.max_batch, 1), np.int32)
+        posv = np.zeros(self.max_batch, np.int32)
+        for seq in decode:
+            tokens[seq.row, 0] = seq.req.out_tokens[-1] \
+                if seq.req.out_tokens else 0
+            posv[seq.row] = seq.kv_len
+        return self._masked_tables(decode), tokens, posv
+
+    def _tick_metrics(self) -> None:
+        self.ticks += 1
+        if self.prefix is not None:
+            self.metrics.on_tick(
+                self.pool.occupancy(), self.sched.active,
+                logical_blocks=sum(len(s.table) for s in self.sched.running),
+                physical_blocks=self.pool.used_blocks,
+                prefix_cached=len(self.prefix),
+                prefix_evictions=self.prefix.evictions)
+        else:
+            self.metrics.on_tick(self.pool.occupancy(), self.sched.active)
+
+    # ------------------------------------------------------------------
+    # synchronous tick
     # ------------------------------------------------------------------
     def step(self) -> None:
-        """One synchronous tick: plan, one decode batch, at most one
-        prefill chunk, greedy sampling on the host."""
-        plan = self.sched.plan_tick()
-        for req in plan.rejected:
-            self.metrics.on_reject(req.uid)
-            self.finished.append(req)
-        for seq in plan.admitted:
-            self.metrics.on_admit(seq.req.uid)
-        for seq in plan.preempted:
-            self.metrics.on_preempt(seq.req.uid)
-        for seq in plan.failed:
-            self._retire(seq)
-        self._sync_tables()
+        """One synchronous tick: plan, one decode batch and at most one
+        prefill chunk, waiting on the device and sampling per request.
+        An in-flight async step is flushed first, so modes can mix."""
+        self.flush()
+        self.trace.tick = self.ticks
+        with self.trace.span("tick", track="engine/tick",
+                             free_blocks=self.pool.free_blocks,
+                             running=len(self.sched.running),
+                             waiting=len(self.sched.waiting)):
+            self._step_traced()
+
+    def _step_traced(self) -> None:
+        plan = self._plan_and_apply()
         dev = self.model.device
 
         if plan.decode:
-            tables = self._masked_tables(plan.decode)
-            tokens = np.zeros((self.max_batch, 1), np.int32)
-            posv = np.zeros(self.max_batch, np.int32)
-            for seq in plan.decode:
-                tokens[seq.row, 0] = seq.req.out_tokens[-1]
-                posv[seq.row] = seq.kv_len
-            cache = set_block_tables(self.cache, tables)
+            tables, tokens, posv = self._decode_inputs(plan.decode)
+            cache = set_block_tables(self.cache, _to_device(tables, dev))
             t_disp = self.clock()
-            logits, self.cache = self.model.decode_step(
-                torch.from_numpy(tokens).to(dev), cache,
-                torch.from_numpy(posv).to(dev))
-            logits = logits.float().cpu().numpy()
+            with self.trace.span("decode_dispatch", track="engine/decode",
+                                 rows=len(plan.decode),
+                                 path=self.decode_path,
+                                 uids=[s.uid for s in plan.decode]):
+                logits, self.cache = self.model.decode_step(
+                    _to_device(tokens, dev), cache, _to_device(posv, dev))
+            with self.trace.span("device_sync", track="engine/sync",
+                                 rows=len(plan.decode)):
+                host = logits.float().cpu()
             self.metrics.on_device_interval(t_disp, self.clock())
+            fused_b, gathered_b = self._decode_kv_bytes(plan.decode)
+            self.metrics.on_decode_step(len(plan.decode), fused_b,
+                                        gathered_b, self.decode_path)
+            with self.trace.span("sample", track="engine/sample",
+                                 rows=len(plan.decode)):
+                for seq in plan.decode:
+                    seq.kv_len += 1
+                    # sampled rows draw on the device, as the async tick
+                    row = logits[seq.row] if seq.req.temperature > 0 \
+                        else host[seq.row]
+                    tok = _sample_host(seq.req, row, self.rng_seed,
+                                       self._key_for(seq.req))
+                    self._emit_token(seq, tok)
+
+        if plan.prefill is not None:
+            logits, seq = self._dispatch_prefill(plan.prefill)
+            if seq.kv_len >= seq.prefill_target:
+                with self.trace.span("sample", track="engine/sample",
+                                     rows=1):
+                    tok = _sample_host(seq.req, logits[0], self.rng_seed,
+                                       self._key_for(seq.req))
+                    self._emit_token(seq, tok)
+
+        self._tick_metrics()
+
+    def _key_for(self, req: Request, inflight: int = 0):
+        """The key tensor of the request's next token (None if greedy)."""
+        if req.temperature <= 0:
+            return None
+        return torch.from_numpy(
+            self._request_key(req, len(req.out_tokens) + inflight))
+
+    def _dispatch_prefill(self, pf):
+        """Dispatch one prefill chunk (both tick modes); advances
+        ``kv_len`` and returns (device logits [1, V], seq)."""
+        seq, start, clen = pf.seq, pf.start, pf.length
+        dev = self.model.device
+        bucket = self.sched.bucket(clen)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :clen] = seq.tokens[start:start + clen]
+        cache = set_block_tables(
+            self.cache, _to_device(self.tables[seq.row:seq.row + 1], dev))
+        with self.trace.span("prefill_chunk", track="engine/prefill",
+                             uid=seq.uid, start=start, length=clen,
+                             bucket=bucket):
+            logits, self.cache = self.model.prefill_chunk(
+                _to_device(toks, dev), cache, start, clen - 1)
+        self.trace.instant("prefill_chunk", track=req_track(seq.uid),
+                           cat="request", uid=seq.uid, start=start,
+                           length=clen)
+        fused_b, gathered_b = self._prefill_kv_bytes(seq)
+        self.metrics.on_prefill_chunk(clen, fused_b, gathered_b,
+                                      self.prefill_path)
+        seq.kv_len += clen
+        return logits, seq
+
+    # ------------------------------------------------------------------
+    # double-buffered async tick
+    # ------------------------------------------------------------------
+    def step_async(self) -> None:
+        """One double-buffered tick: plan against projected state
+        (``kv_len`` and ``inflight`` advance at dispatch), dispatch step
+        N with sampling on the device, then wait for and emit step N-1's
+        token ids."""
+        self.trace.tick = self.ticks
+        with self.trace.span("tick", track="engine/tick", mode="async",
+                             free_blocks=self.pool.free_blocks,
+                             running=len(self.sched.running),
+                             waiting=len(self.sched.waiting),
+                             inflight=self._inflight is not None):
+            self._step_async_traced()
+
+    def _step_async_traced(self) -> None:
+        prev, self._inflight = self._inflight, None
+        plan = self._plan_and_apply()
+        dev = self.model.device
+        cur = None                   # device int32 [max_batch]
+        emits: list = []
+        t_disp = None
+
+        if plan.decode:
+            tables, tokens, posv = self._decode_inputs(plan.decode)
+            keys = np.zeros((self.max_batch, 2), np.int64)
+            temps = np.zeros(self.max_batch, np.float32)
+            topks = np.zeros(self.max_batch, np.int32)
+            on_dev = np.zeros(self.max_batch, bool)
+            for seq in plan.decode:
+                if prev is not None and seq.uid in prev.row_of:
+                    # the input token is still on the device (sampled
+                    # last tick, not yet emitted); rows are stable while
+                    # a seq keeps running
+                    assert prev.row_of[seq.uid] == seq.row
+                    on_dev[seq.row] = True
+                if seq.req.temperature > 0:
+                    keys[seq.row] = self._request_key(
+                        seq.req, len(seq.req.out_tokens) + seq.inflight)
+                temps[seq.row] = seq.req.temperature
+                topks[seq.row] = seq.req.top_k
+            inp = _to_device(tokens, dev)
+            if on_dev.any():
+                inp = torch.where(_to_device(on_dev, dev)[:, None],
+                                  prev.tokens[:, None], inp)
+            sampled = bool((temps > 0).any())
+            cache = set_block_tables(self.cache, _to_device(tables, dev))
+            t_disp = self.clock()
+            with self.trace.span("decode_dispatch", track="engine/decode",
+                                 rows=len(plan.decode), mode="async",
+                                 path=self.decode_path,
+                                 uids=[s.uid for s in plan.decode]):
+                cur, self.cache = self.model.decode_and_sample(
+                    inp, cache, _to_device(posv, dev),
+                    _to_device(keys, dev) if sampled else None,
+                    _to_device(temps, dev), _to_device(topks, dev))
             fused_b, gathered_b = self._decode_kv_bytes(plan.decode)
             self.metrics.on_decode_step(len(plan.decode), fused_b,
                                         gathered_b, self.decode_path)
             for seq in plan.decode:
                 seq.kv_len += 1
-                self._emit_token(seq, _sample_host(seq.req, logits[seq.row]))
+                seq.inflight += 1
+                emits.append((seq, seq.row))
+                self._maybe_finish_async(seq)
 
         if plan.prefill is not None:
-            pf = plan.prefill
-            seq, start, clen = pf.seq, pf.start, pf.length
-            bucket = self.sched.bucket(clen)
-            toks = np.zeros((1, bucket), np.int32)
-            toks[0, :clen] = seq.tokens[start:start + clen]
-            cache = set_block_tables(self.cache,
-                                     self.tables[seq.row:seq.row + 1])
-            logits, self.cache = self.model.prefill_chunk(
-                torch.from_numpy(toks).to(dev), cache, start, clen - 1)
-            fused_b, gathered_b = self._prefill_kv_bytes(seq)
-            self.metrics.on_prefill_chunk(clen, fused_b, gathered_b,
-                                          self.prefill_path)
-            seq.kv_len += clen
+            logits, seq = self._dispatch_prefill(plan.prefill)
             if seq.kv_len >= seq.prefill_target:
-                row = logits.float().cpu().numpy()[0]
-                self._emit_token(seq, _sample_host(seq.req, row))
+                with self.trace.span("sample", track="engine/sample",
+                                     rows=1, mode="async"):
+                    req = seq.req
+                    key = self._key_for(req, seq.inflight)
+                    if key is None:
+                        tok = torch.argmax(logits[0])
+                    else:
+                        tok = sample_tokens(
+                            logits, _to_device(key[None].numpy(), dev),
+                            _to_device(np.array([req.temperature],
+                                                np.float32), dev),
+                            _to_device(np.array([req.top_k], np.int32),
+                                       dev))[0]
+                if cur is None:
+                    cur = torch.zeros(self.max_batch, dtype=torch.int32,
+                                      device=dev)
+                cur[seq.row] = tok
+                seq.inflight += 1
+                emits.append((seq, seq.row))
+                self._maybe_finish_async(seq)
 
-        self.ticks += 1
-        self.metrics.on_tick(self.pool.occupancy(), self.sched.active)
+        inflight = None
+        if emits:
+            # queue this tick's ids for the host behind its work, THEN
+            # wait for the previous tick's: that order is the overlap
+            if dev.type == "cuda":
+                host = torch.empty(cur.shape, dtype=cur.dtype,
+                                   pin_memory=True)
+                host.copy_(cur, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            else:
+                host, event = cur, None
+            inflight = _InFlight(
+                tokens=cur, host=host, event=event, emits=emits,
+                row_of={s.uid: row for s, row in emits},
+                t_dispatch=t_disp if t_disp is not None else self.clock(),
+                tick=self.ticks)
+        self._sync_prev(prev)
+        self._inflight = inflight
+        self._tick_metrics()
 
+    def _maybe_finish_async(self, seq) -> None:
+        """Retire at dispatch: when the dispatched token is the request's
+        last (by count), release its row and blocks now so the next
+        tick's admission sees them; completion waits for the emission."""
+        if len(seq.req.out_tokens) + seq.inflight \
+                >= seq.req.max_new_tokens \
+                or seq.kv_len + 1 >= self.max_seq_len:
+            seq.retiring = True
+            self.sched.finish(seq)
+
+    def _sync_prev(self, prev: Optional[_InFlight]) -> None:
+        """Wait for the previous async step's ids and emit them."""
+        if prev is None:
+            return
+        with self.trace.span("device_sync", track="engine/sync",
+                             rows=len(prev.emits), sync_tick=prev.tick):
+            if prev.event is not None:
+                prev.event.synchronize()
+            toks = prev.host.numpy()
+        self.metrics.on_device_interval(prev.t_dispatch, self.clock())
+        with self.trace.span("emit", track="engine/sample",
+                             rows=len(prev.emits)):
+            for seq, row in prev.emits:
+                self._emit_async(seq, int(toks[row]))
+
+    def _emit_async(self, seq, tok: int) -> None:
+        """Emit one step-N-1 token for ``seq``, which may by now be
+        running, retiring or preempted (the token still belongs to the
+        stream); a request cancelled or expired meanwhile drops it."""
+        seq.inflight -= 1
+        req = seq.req
+        if req.done:
+            return
+        _emit(req, tok)
+        self.metrics.on_token(req.uid)
+        self.trace.instant(
+            "first_token" if len(req.out_tokens) == 1 else "token",
+            track=req_track(req.uid), cat="request", uid=req.uid,
+            pos=seq.kv_len)
+        if req.error == "callback":
+            if seq in self.sched.running:
+                self._retire(seq)
+            elif req in self.sched.waiting:      # preempted victim
+                self.sched.waiting.remove(req)
+                self._fail_detached(req, "callback")
+            else:                                # retiring: already freed
+                self._fail_detached(req, "callback")
+            return
+        if seq.retiring and seq.inflight == 0:
+            self._finalize_detached(req)
+
+    def flush(self) -> None:
+        """Wait for and emit any in-flight async step, dispatching
+        nothing (the drain point for the frontend and for mode mixing)."""
+        prev, self._inflight = self._inflight, None
+        self._sync_prev(prev)
+
+    @property
+    def has_inflight(self) -> bool:
+        return self._inflight is not None
+
+    # ------------------------------------------------------------------
     def _drain_tick_budget(self) -> None:
         for seq in list(self.sched.running):
             seq.req.error = "tick_budget"
             self._retire(seq)
         while self.sched.waiting:
-            req = self.sched.waiting.popleft()
-            req.error = req.error or "tick_budget"
-            self._finalize_detached(req)
+            self._fail_detached(self.sched.waiting.popleft(), "tick_budget")
 
     def run(self, requests: list, max_ticks: int = 1000) -> list:
         for req in requests:
             self.submit(req)
         while self.sched.has_work() and self.ticks < max_ticks:
             self.step()
+        if self.sched.has_work():
+            self._drain_tick_budget()
+        return self.finished
+
+    def run_async(self, requests: list, max_ticks: int = 1000) -> list:
+        """Drain a batch through the double-buffered tick (the asyncio
+        frontend drives ``step_async`` itself)."""
+        for req in requests:
+            self.submit(req)
+        while (self.sched.has_work() or self._inflight is not None) \
+                and self.ticks < max_ticks:
+            self.step_async()
+        self.flush()
         if self.sched.has_work():
             self._drain_tick_budget()
         return self.finished
@@ -307,7 +753,7 @@ class ServeEngine:
         self.cache = model.init_cache(slots, cache_len)
         self.slot_req: list = [None] * slots
         self.slot_pos = np.zeros(slots, np.int32)
-        self.rng_seed = rng_seed     # kept for temperature sampling (item 9)
+        self.rng_seed = rng_seed
         self.ticks = 0
 
     # ------------------------------------------------------------------
@@ -323,7 +769,6 @@ class ServeEngine:
 
     def add_request(self, req: Request) -> bool:
         """Prefill into a free slot; False if every slot is taken."""
-        _refuse_temperature(req)
         free = self._free_slots()
         if not free:
             return False
@@ -347,7 +792,7 @@ class ServeEngine:
             torch.from_numpy(toks).to(self.model.device), small,
             plen - bucket)
         _splice_cache(self.cache, small, slot)
-        _emit(req, _sample_host(req, logits.float().cpu().numpy()[0]))
+        _emit(req, _sample_host(req, logits[0], self.rng_seed))
         if req.error == "callback" \
                 or len(req.out_tokens) >= req.max_new_tokens:
             req.done = True                   # done (or its consumer broke):
@@ -369,11 +814,13 @@ class ServeEngine:
         logits, self.cache = self.model.decode_step(
             torch.from_numpy(tokens).to(dev), self.cache,
             torch.from_numpy(self.slot_pos.copy()).to(dev))
-        logits = logits.float().cpu().numpy()
+        host = logits.float().cpu()
         retired = []
         for i in active:
             req = self.slot_req[i]
-            _emit(req, _sample_host(req, logits[i]))
+            # sampled rows draw on the device, as the paged engine's
+            row = logits[i] if req.temperature > 0 else host[i]
+            _emit(req, _sample_host(req, row, self.rng_seed))
             self.slot_pos[i] += 1
             if req.error == "callback" \
                     or len(req.out_tokens) >= req.max_new_tokens \

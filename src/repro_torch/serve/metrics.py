@@ -3,9 +3,12 @@
 The port's own copy of ``repro.serve.metrics`` (numpy only).  The engine
 feeds events through the ``on_*`` hooks with timestamps from an
 injectable clock; ``summary()`` renders TTFT, per-token latency,
-throughput, pool occupancy and the analytic KV-traffic counters, and
-``to_json`` persists them.  Prefix-cache keys stay in the summary at
-zero until the prefix cache is ported.
+throughput, pool occupancy, the analytic KV-traffic counters, the
+prefix cache's hits, tokens saved, copy-on-write recomputes and
+evictions, the cancel and deadline counters, and the device-busy
+fraction over the union of the decode steps' dispatch-to-sync windows
+(under the async tick they overlap the next tick's host work); and
+``to_json`` persists them.
 """
 from __future__ import annotations
 

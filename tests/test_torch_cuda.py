@@ -1575,3 +1575,70 @@ def test_cuda_whisper_prefill_decode_matches_plain():
     assert tokens[0] == tokens[1]
     assert all(r == {"bcq_matmul/gemv": 2 * 8 + 1} for r in routes[0])
     assert all(r == {} for r in routes[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", [None, (0.7, 40)])
+def test_cuda_async_tick_has_one_host_wait(sample):
+    """OPT-6.7B at full width and 2 layers, BCQ-3 (g 128), bf16, with the
+    prefix cache: the async tick gives the sync tick's tokens and
+    counters (greedy and seeded sampling), and every decode-only async
+    tick runs under ``torch.cuda.set_sync_debug_mode("error")``: its one
+    host wait is the event after the previous tick's token copy, which
+    that mode does not flag."""
+    require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec, quantize_model
+    from repro_torch.serve import PagedServeEngine, Request
+    cfg = get_config("opt_6_7b").replace(n_layers=2, max_seq_len=512)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = Model(cfg, device="cuda").init_params(gen)
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    quantize_model(model, spec)
+    model = model.with_config(quant=spec, paged_kernel="fused")
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, cfg.vocab_size, (64,))
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                    (n,))])
+               for n in (5, 30, 17, 44)]
+    outs, strict = {}, 0
+    for mode in ("sync", "async"):
+        eng = PagedServeEngine(model, num_blocks=64, block_size=16,
+                               max_batch=4, max_seq_len=256,
+                               prefill_buckets=(32, 128), prefix_cache=True)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            if sample:
+                r.temperature, r.top_k = sample
+        eng.submit(reqs[0])
+        eng.step_async() if mode == "async" else eng.step()
+        for r in reqs[1:]:
+            eng.submit(r)
+        while eng.sched.has_work() or eng.has_inflight:
+            if mode == "sync":
+                eng.step()
+                continue
+            decode_only = not eng.sched.waiting and all(
+                s.kv_len >= s.prefill_target for s in eng.sched.running)
+            if decode_only:
+                torch.cuda.set_sync_debug_mode("error")
+                strict += 1
+            try:
+                eng.step_async()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        eng.flush()
+        assert all(r.error is None and len(r.out_tokens) == 12
+                   for r in reqs)
+        outs[mode] = ({r.uid: r.out_tokens for r in reqs},
+                      {k: eng.metrics.counters[k] for k in (
+                          "admitted", "tokens_out", "prefill_chunks",
+                          "prefix_hit_blocks")})
+        eng.prefix.clear()
+        eng.pool.check()
+        assert eng.pool.free_blocks == eng.pool.capacity
+    assert outs["async"] == outs["sync"]
+    assert outs["sync"][1]["prefix_hit_blocks"] > 0
+    assert strict >= 8

@@ -46,7 +46,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro import quant as jquant
 from repro.configs import get_config as j_config
 from repro.configs import get_reduced as j_reduced
 from repro.core.plane import dequantize as j_dequantize
@@ -60,7 +59,7 @@ from repro_torch.models.moe import MoE
 from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import PagedServeEngine, Request
 
-from torch_port_cases import (f32_params, port_pair, prompts_of,
+from torch_port_cases import (port_pair, prompts_of, quantized_pair,
                               to_numpy_tree)
 
 ARCH = "deepseek_v2_236b"
@@ -78,11 +77,16 @@ def _rel(got, want):
 @pytest.fixture(scope="module")
 def deepseek():
     """{(weights, scan): (reference Model, params, port Model)}, biases
-    and norm scales perturbed, the fused paged path."""
-    return {(name, scan): port_pair(ARCH, quant=quant, perturb=3,
-                                    scan_layers=scan, paged_kernel="fused")
-            for name, quant in (("float", None), ("bcq3", BCQ3))
-            for scan in (False, True)}
+    and norm scales perturbed, the fused paged path; the BCQ-3 pair
+    quantizes the float pair's reference tree, and ``("manifest", scan)``
+    holds the reference's manifest of that quantization."""
+    out = {}
+    for scan in (False, True):
+        jm, params, tm = out["float", scan] = port_pair(
+            ARCH, perturb=3, scan_layers=scan, paged_kernel="fused")
+        out["bcq3", scan], out["manifest", scan] = quantized_pair(
+            jm, params, tm.cfg, BCQ3, with_manifest=True)
+    return out
 
 
 @pytest.mark.parametrize("scan", [False, True])
@@ -209,20 +213,17 @@ def test_deepseek_params_round_trip(deepseek, weights, scan):
 
 
 @pytest.mark.parametrize("scan", [False, True])
-def test_deepseek_manifest_matches_reference(scan):
+def test_deepseek_manifest_matches_reference(deepseek, scan):
     """Every MLA projection, the dense prefix layer's MLP, the expert
     banks (per expert, E leading), the shared expert and the head, entry
-    for entry as the reference's (path, shape, width, bytes)."""
-    cfg = j_reduced(ARCH).replace(remat=False, dtype="float32",
-                                  scan_layers=scan)
-    jm = JModel(cfg)
-    params = f32_params(jm.init(jax.random.PRNGKey(0)))
-    spec = dict(bits=3, group_size=16, iters=2)
-    _, jman = jquant.quantize_model(params, jquant.QuantSpec(**spec),
-                                    jm.axes())
-    tm = from_jax_params(to_numpy_tree(params), t_reduced(ARCH).replace(
-        dtype="float32", scan_layers=scan), device="cpu")
-    tman = quantize_model(tm, QuantSpec(**spec))
+    for entry as the reference's (path, shape, width, bytes).  Both sides
+    quantize the float pair's weights (the reference's in the fixture,
+    the port a fresh copy: ``quantize_model`` replaces its linears in
+    place)."""
+    _, params, tm = deepseek["float", scan]
+    jman = deepseek["manifest", scan]
+    tm = from_jax_params(to_numpy_tree(params), tm.cfg, device="cpu")
+    tman = quantize_model(tm, QuantSpec(**BCQ3))
     keys = ("path", "shape", "plane_bits", "quant_bytes", "dense_bytes")
     assert [{k: l[k] for k in keys} for l in tman.layers] == \
         [{k: list(l[k]) if k == "shape" else l[k] for k in keys}

@@ -50,7 +50,7 @@ from repro_torch.models.attention import CrossAttention
 from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import PagedServeEngine, ServeEngine
 
-from torch_port_cases import port_pair, to_numpy_tree
+from torch_port_cases import port_pair, quantized_pair, to_numpy_tree
 
 ARCH = "whisper_medium"
 TOL = 1e-4
@@ -70,10 +70,14 @@ def _rel(got, want):
 @pytest.fixture(scope="module")
 def whisper():
     """{(weights, scan): (reference Model, params, port Model)}, biases
-    and norm parameters perturbed."""
+    and norm parameters perturbed; the BCQ-3 pair quantizes the float
+    pair's reference tree, and ``("manifest", False)`` holds the
+    reference's manifest of that quantization."""
     out = {("float", scan): port_pair(ARCH, perturb=9, scan_layers=scan)
            for scan in (False, True)}
-    out["bcq3", False] = port_pair(ARCH, quant=BCQ3, perturb=9)
+    jm, params, tm = out["float", False]
+    out["bcq3", False], out["manifest", False] = quantized_pair(
+        jm, params, tm.cfg, BCQ3, with_manifest=True)
     return out
 
 
@@ -244,11 +248,12 @@ def test_whisper_manifest_matches_reference(whisper, scan):
     FP.  Both sides quantize the float pair's weights (the port a fresh
     copy: ``quantize_model`` replaces its linears in place)."""
     jm, params, tm = whisper["float", scan]
-    spec = dict(bits=3, group_size=G, iters=2)
-    _, jman = jquant.quantize_model(params, jquant.QuantSpec(**spec),
-                                    jm.axes())
+    jman = whisper.get(("manifest", scan))
+    if jman is None:            # no BCQ-3 pair of this layout to share
+        _, jman = jquant.quantize_model(params, jquant.QuantSpec(**BCQ3),
+                                        jm.axes())
     tm = from_jax_params(to_numpy_tree(params), tm.cfg, device="cpu")
-    tman = quantize_model(tm, QuantSpec(**spec))
+    tman = quantize_model(tm, QuantSpec(**BCQ3))
     keys = ("path", "shape", "plane_bits", "quant_bytes", "dense_bytes")
     assert [{k: l[k] for k in keys} for l in tman.layers] == \
         [{k: list(l[k]) if k == "shape" else l[k] for k in keys}

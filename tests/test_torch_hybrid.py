@@ -38,7 +38,7 @@ from repro import quant as jquant
 from repro.configs import get_config as j_config
 from repro.configs import get_reduced as j_reduced
 from repro.models import Model as JModel
-from repro.serve import Request as JRequest, ServeEngine as JSlots
+from repro.serve import Request as JRequest
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
 from repro_torch.models import from_jax_params, to_params
@@ -47,7 +47,8 @@ from repro_torch.models.ssm import SSM
 from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import Request, ServeEngine
 
-from torch_port_cases import port_pair, prompts_of, to_numpy_tree
+from torch_port_cases import (port_pair, prompts_of, ref_slots_engine,
+                              to_numpy_tree)
 
 ARCH = "jamba_1_5_large_398b"
 TOL = {"float": 1e-4, "bcq3": 2.0 ** -7}
@@ -132,7 +133,7 @@ def test_jamba_slots_stream_matches_reference(jamba):
     # requests on two slots, so the third reuses a freed slot.  Three new
     # tokens each: the reference engine's steps are the file's cost
     kw = dict(slots=2, cache_len=64, prefill_buckets=(32,))
-    jdone = JSlots(jm, params, **kw).run(
+    jdone = ref_slots_engine(jm, params, **kw).run(
         [JRequest(uid=i, prompt=p, max_new_tokens=3)
          for i, p in enumerate(prompts)], max_ticks=400)
     tdone = ServeEngine(tm, **kw).run(

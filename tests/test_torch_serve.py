@@ -8,7 +8,6 @@ short case with ``paged_kernel="fused"`` interpreted.  Host logic
 (``BlockPool``, ``Scheduler``) is checked for its invariants, and the
 launcher must refuse to run without a GPU unless given ``--device cpu``.
 """
-import numpy as np
 import pytest
 import torch
 
@@ -140,14 +139,6 @@ def test_scheduler_invariants():
     assert sorted(finished) == [0, 1, 2, 3]
     assert reqs[3].error == "too_long"           # 30 + 4 > 8 blocks * 4
     assert pool.used_blocks == 0
-
-
-def test_engine_refuses_temperature_sampling():
-    _, _, tm = _models("gather")
-    eng = PagedServeEngine(tm, num_blocks=8, block_size=4, max_batch=1,
-                           max_seq_len=16, prefill_buckets=(8,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(Request(uid=0, prompt=np.array([1, 2]), temperature=0.7))
 
 
 def test_launcher_refuses_cpu_fallback(monkeypatch):

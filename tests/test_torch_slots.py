@@ -23,13 +23,14 @@ import pytest
 import torch
 
 from repro.models import attention as jattn
-from repro.serve import Request as JRequest, ServeEngine as JSlots
+from repro.serve import Request as JRequest
 from repro.serve.engine import supports_paging as j_supports_paging
 from repro_torch.models import attention as tattn
 from repro_torch.serve import (PagedServeEngine, Request, ServeEngine,
                                supports_paging)
 
-from torch_port_cases import port_pair, prompts_of, quantized_pair
+from torch_port_cases import (port_pair, prompts_of, quantized_pair,
+                              ref_slots_engine)
 
 TOL = 1e-4
 # case -> (arch, config overrides on both sides, BCQ group size); one
@@ -232,7 +233,7 @@ def test_slots_greedy_stream_matches_reference(case):
     jm, params, tm = _pair(case, True)
     prompts = prompts_of([3, 9, 21, 6, 12])
     kw = dict(slots=3, cache_len=40, prefill_buckets=(8, 16))
-    want = _j_streams(JSlots(jm, params, **kw), prompts, 5)
+    want = _j_streams(ref_slots_engine(jm, params, **kw), prompts, 5)
     got = _streams(ServeEngine(tm, **kw), prompts, 5)
     assert got == want
     assert all(len(toks) == 5 and err is None for toks, err in got.values())
@@ -263,7 +264,7 @@ def test_slots_engine_rules_match_reference():
     prompts = [np.zeros(0, np.int32)] + prompts_of([15, 4, 9, 3])
     lens = dict(enumerate([5, 5, 40, 1, 6]))
     kw = dict(slots=2, cache_len=16, prefill_buckets=(8,))
-    jdone = JSlots(jm, params, **kw).run(
+    jdone = ref_slots_engine(jm, params, **kw).run(
         [JRequest(uid=i, prompt=p, max_new_tokens=lens[i])
          for i, p in enumerate(prompts)], max_ticks=400)
     tdone = ServeEngine(tm, **kw).run(
@@ -276,14 +277,6 @@ def test_slots_engine_rules_match_reference():
     assert got[0][1] == "empty_prompt" and got[1][1] == "too_long"
     assert len(got[2][0]) == 16 - 1 - 4 + 1      # retired at cache_len - 1
     assert len(got[3][0]) == 1
-
-
-def test_slots_engine_refuses_temperature_sampling():
-    _, _, tm = _pair("phi4")
-    eng = ServeEngine(tm, slots=1, cache_len=16, prefill_buckets=(8,))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.add_request(Request(uid=0, prompt=np.array([1, 2]),
-                                temperature=0.7))
 
 
 def test_supports_paging_matches_reference():

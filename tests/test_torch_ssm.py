@@ -40,7 +40,7 @@ from repro import quant as jquant
 from repro.configs import get_config as j_config
 from repro.configs import get_reduced as j_reduced
 from repro.models import ssm as jssm
-from repro.serve import Request as JRequest, ServeEngine as JSlots
+from repro.serve import Request as JRequest
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
 from repro_torch.models import from_jax_params, to_params
@@ -49,7 +49,7 @@ from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import Request, ServeEngine
 
 from torch_port_cases import (f32_params, port_pair, prompts_of,
-                              to_numpy_tree)
+                              ref_slots_engine, to_numpy_tree)
 
 ARCH = "mamba2_2_7b"
 F32_TOL = 1e-5
@@ -280,7 +280,7 @@ def test_mamba_slots_stream_matches_reference(mamba):
     jm, params, tm = mamba["bcq3"]
     prompts = prompts_of([5, 13, 29])
     kw = dict(slots=2, cache_len=64, prefill_buckets=(8, 16, 32))
-    jdone = JSlots(jm, params, **kw).run(
+    jdone = ref_slots_engine(jm, params, **kw).run(
         [JRequest(uid=i, prompt=p, max_new_tokens=6)
          for i, p in enumerate(prompts)], max_ticks=400)
     eng = ServeEngine(tm, **kw)

@@ -29,11 +29,11 @@ import pytest
 import torch
 
 from repro.models import attention as jattn
-from repro.serve import Request as JRequest, ServeEngine as JSlots
+from repro.serve import Request as JRequest
 from repro_torch.models import attention as tattn
 from repro_torch.serve import Request, ServeEngine
 
-from torch_port_cases import port_pair, prompts_of
+from torch_port_cases import port_pair, prompts_of, ref_slots_engine
 
 TOL = 1e-4
 ATTN_TOL = 1e-5
@@ -195,7 +195,7 @@ def test_mixtral_slots_stream_wraps_the_window(mixtral):
     jm, params, tm = mixtral["bcq3"]
     prompts = prompts_of([40, 35])
     kw = dict(slots=2, cache_len=72, prefill_buckets=(8, 16))
-    jdone = JSlots(jm, params, **kw).run(
+    jdone = ref_slots_engine(jm, params, **kw).run(
         [JRequest(uid=i, prompt=p, max_new_tokens=16)
          for i, p in enumerate(prompts)], max_ticks=400)
     eng = ServeEngine(tm, **kw)

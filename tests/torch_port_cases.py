@@ -102,21 +102,47 @@ def port_pair(arch, *, quant=None, perturb=None, **over):
                                        device="cpu")
 
 
-def quantized_pair(jm, params, tcfg, quant):
+def quantized_pair(jm, params, tcfg, quant, with_manifest=False):
     """``port_pair``'s quantized triple from a float one: the reference
     tree quantized with ``quant`` (QuantSpec fields), the reference Model
     that reads it and the port Model (config ``tcfg``) it is carried
-    into."""
+    into; with ``with_manifest``, (that triple, the reference's manifest
+    of the quantization)."""
     from repro import quant as jquant
     from repro.models import Model as JModel
     from repro_torch.models import from_jax_params
     from repro_torch.quant import QuantSpec
     jspec = jquant.QuantSpec(**quant)
-    qparams, _ = jquant.quantize_model(params, jspec, jm.axes())
-    return (JModel(jm.cfg.replace(quant=jspec)), qparams,
-            from_jax_params(to_numpy_tree(qparams),
-                            tcfg.replace(quant=QuantSpec(**quant)),
-                            device="cpu"))
+    qparams, jman = jquant.quantize_model(params, jspec, jm.axes())
+    triple = (JModel(jm.cfg.replace(quant=jspec)), qparams,
+              from_jax_params(to_numpy_tree(qparams),
+                              tcfg.replace(quant=QuantSpec(**quant)),
+                              device="cpu"))
+    return (triple, jman) if with_manifest else triple
+
+
+class _JitPrefill:
+    """A reference Model whose ``prefill`` is jitted (every other
+    attribute is the model's own)."""
+
+    def __init__(self, jm):
+        import jax
+        self._jm = jm
+        self.prefill = jax.jit(jm.prefill)
+
+    def __getattr__(self, name):
+        return getattr(self._jm, name)
+
+
+def ref_slots_engine(jm, params, **kw):
+    """The reference's ``ServeEngine`` over ``jm``, its prefill jitted as
+    its decode step already is.  The engine calls ``Model.prefill``
+    eagerly, op by op, which takes tens of seconds on the CPU for the
+    reduced stacks; the function and its inputs are the same."""
+    from repro.serve import ServeEngine
+    eng = ServeEngine(jm, params, **kw)
+    eng.model = _JitPrefill(jm)
+    return eng
 
 
 def prompts_of(lens, seed=0, vocab=256):
