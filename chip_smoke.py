@@ -736,18 +736,22 @@ def paged_tables(torch, rng, *, b, nb, bs, pages, prefill_c=0,
 
 
 def _visited(tables, positions, bs):
-    """(row, page) pairs the kernels read: allocated and not past the
-    row's last query position."""
+    """(pairs, pages): the (row, page) pairs the kernels read (allocated
+    and not past the row's last query position), which set the FLOPs,
+    and the distinct pages among them, which set the bytes (a page that
+    rows share is read from memory once at least)."""
     import numpy as np
     tables = np.asarray(tables.cpu())
     qmax = np.asarray(positions.cpu()).reshape(tables.shape[0], -1).max(1)
-    n = 0
+    n, pages = 0, set()
     for r in range(tables.shape[0]):
         if qmax[r] < 0:
             continue
         last = min(tables.shape[1] - 1, qmax[r] // bs)
-        n += int((tables[r, :last + 1] >= 0).sum())
-    return n
+        row = tables[r, :last + 1]
+        n += int((row >= 0).sum())
+        pages.update(int(p) for p in row[row >= 0])
+    return n, len(pages)
 
 
 def paged_cases(decode, prefill, h):
@@ -833,9 +837,9 @@ def check_paged(torch, timer, gen, results, args_seed):
                     fail(f"{name} (f32 pool) disagrees with its plain version")
                 continue
             # bf16 pools: the main path's type — check and time
-            visited = _visited(tables, positions, bs)
+            visited, distinct = _visited(tables, positions, bs)
             slots = visited * bs
-            kv_bytes = visited * bs * hkv * d * 2 * 2 + visited * bs * 4
+            kv_bytes = distinct * bs * hkv * d * 2 * 2 + distinct * bs * 4
             nq = b * max(c, 1)
             nbytes = kv_bytes + nq * h * d * 2 + nq * h * d * 4 \
                 + tables.numel() * 4 + positions.numel() * 4
@@ -860,14 +864,16 @@ def check_paged(torch, timer, gen, results, args_seed):
                        long=long, shared_blocks=shared, max_abs_err=err,
                        tol=tol, ms=t_k,
                        plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
-                       bound_by=b_by, visited_pages=visited)
+                       bound_by=b_by, visited_pages=visited,
+                       distinct_pages=distinct)
             if not c:
                 rec["splits"] = decode_splits(b, hkv, h // hkv, pages, bs,
                                               _lib.sm_count(0))
             out[name].append(rec)
             log(f"{tag}: err {err:.3e} <= {tol:g}: {ok}  kernel {t_k:.4f} "
                 f"ms  plain {t_p:.4f} ms  sdpa {t_lib:.4f} ms  bound "
-                f"{b_ms:.4f} ms ({b_by}, {visited} live pages"
+                f"{b_ms:.4f} ms ({b_by}, {visited} live pages, {distinct} "
+                f"distinct"
                 + (f", {rec['splits']} splits)" if not c else ")"))
             if not ok:
                 fail(f"{name} (bf16 pool) disagrees with its plain version")
@@ -1042,9 +1048,11 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
         vq, vs = _quantize_kv(v)
         kern, plain, err, rel = run(kq, vq, ks, vs, None)
         ok = rel <= 5e-2
-        visited = _visited(tables, positions, bs)
+        visited, distinct = _visited(tables, positions, bs)
         slots = visited * bs
-        kv_bytes = slots * hkv * d * 2 + slots * hkv * 4 * 2 + slots * 4
+        kv_slots = distinct * bs
+        kv_bytes = kv_slots * hkv * d * 2 + kv_slots * hkv * 4 * 2 \
+            + kv_slots * 4
         nq = b * max(c, 1)
         nbytes = kv_bytes + nq * h * d * 2 + nq * h * d * 4 \
             + tables.numel() * 4 + positions.numel() * 4
@@ -1136,9 +1144,10 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
         err = float((got - want).abs().max())
         rel = err / (float(want.abs().max()) + 1e-12)
         ok = rel <= tol
-        visited = _visited(tables, positions, bs)
+        visited, distinct = _visited(tables, positions, bs)
         slots = visited * bs
-        nbytes = slots * (kd * 2 + 4) + b * h * kd * 4 + b * h * lora * 4 \
+        nbytes = distinct * bs * (kd * 2 + 4) + b * h * kd * 4 \
+            + b * h * lora * 4 \
             + tables.numel() * 4 + positions.numel() * 4
         flops = slots * h * (2.0 * kd + 2.0 * lora)
         b_ms, b_by = bound(nbytes, flops)
@@ -2765,8 +2774,14 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
     quantized: 8 requests that share a 256-token prefix, tails of 16-144
     tokens, 32 new tokens each; the first submitted one tick before the
     rest (so its prompt blocks are registered when they are admitted).
-    (a) prefix cache on against off: identical greedy tokens on the f32
-    view (the bf16 share printed), hit blocks > 0; (b) ``run``-style sync ticks against async ticks: identical
+    (a) prefix cache on against off: identical greedy tokens in bf16
+    with the top prefill bucket at the prefix's 256 tokens (so off splits
+    each prompt where on adopts, and every tail chunk runs at the same
+    bucket in both) and on the f32 view at the engine's buckets; at those
+    buckets in bf16 the share of equal tokens is printed; hit blocks > 0;
+    in every prefix-on run the pool bytes of every adopted block are
+    unchanged from the copy taken when its writer's prefill filled it;
+    (b) ``run``-style sync ticks against async ticks: identical
     tokens and counters, decode-step p50 and device-busy fraction of
     each, every async decode-only tick under
     ``torch.cuda.set_sync_debug_mode("error")`` (any host sync fails the
@@ -2801,11 +2816,18 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
         f"sharing a 256-token prefix, tails {tails}, 32 new tokens each; "
         f"card {power_line}")
 
+    def pool_blocks(eng, blocks):
+        """Every layer's pool entries of ``blocks``, copied on the card."""
+        idx = torch.as_tensor(blocks, device="cuda")
+        return [{k: v[idx].clone() for k, v in layer.items()
+                 if k != "block_tables"} for layer in eng.cache["layers"]]
+
     def drive(tag, mode, prefix_cache, sample=None, tracer=None,
-              lifecycle=False, view=None):
+              lifecycle=False, view=None, buckets=None):
+        kw = dict(eng_kw, prefill_buckets=buckets or eng_kw["prefill_buckets"])
         eng = PagedServeEngine((view or m).with_config(),
                                prefix_cache=prefix_cache,
-                               rng_seed=args.seed, tracer=tracer, **eng_kw)
+                               rng_seed=args.seed, tracer=tracer, **kw)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -2863,6 +2885,14 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
         t0 = time.perf_counter()
         eng.submit(reqs[0])
         tick()
+        # the first request's prefix blocks, copied once its first chunk
+        # has written them (queued behind that chunk on the stream) and
+        # before any other request is submitted: the blocks the others
+        # adopt, as their writer left them
+        first = next(s for s in eng.sched.running if s.req is reqs[0])
+        witnessed = first.table[:first.kv_len // 16][:PREFIX_BLOCKS]
+        before = pool_blocks(eng, witnessed) if prefix_cache else None
+        adopted = set()
         for r in reqs[1:]:
             eng.submit(r)
         n = 0
@@ -2874,11 +2904,26 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
             if lifecycle and n == 5:
                 reqs[5].deadline_s = eng.clock()      # expires next tick
             tick()
+            for s_ in eng.sched.running:
+                adopted.update(s_.table[:s_.prefix_hit])
             if n > 4000:
                 fail(f"serve_breadth[{tag}]: did not drain")
         eng.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if prefix_cache:
+            if not adopted:
+                fail(f"serve_breadth[{tag}]: no block was adopted")
+            if not adopted <= set(witnessed):
+                fail(f"serve_breadth[{tag}]: blocks adopted outside the "
+                     f"shared prefix: {sorted(adopted - set(witnessed))}")
+            after = pool_blocks(eng, witnessed)
+            changed = [k for b_, a_ in zip(before, after) for k in b_
+                       if not torch.equal(b_[k], a_[k])]
+            if changed:
+                fail(f"serve_breadth[{tag}]: adopted blocks' pool bytes "
+                     f"changed ({sorted(set(changed))})")
+            del before, after
         counts = dict(_lib.launch_counts)
         for k in totals:
             totals[k] += counts[k]
@@ -2907,6 +2952,8 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
             device_busy_fraction=s["device_busy_fraction"],
             counters={k: s["counters"][k] for k in BREADTH_COUNTERS},
             launches=counts, strict_ticks=strict, flagged_syncs=flagged,
+            adopted_blocks_unchanged=len(adopted) if prefix_cache else None,
+            buckets=list(kw["prefill_buckets"]),
             flagged_at=sorted(set(where)),
             tokens={r.uid: list(r.out_tokens) for r in reqs})
         log(f"serve_breadth[{tag}]: {mode}, prefix cache "
@@ -2917,7 +2964,10 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
             f"decode-only ticks, device busy fraction "
             f"{out['device_busy_fraction']:.3f}; prefix hit blocks "
             f"{s['counters']['prefix_hit_blocks']}, tokens saved "
-            f"{s['counters']['prefix_tokens_saved']}; "
+            f"{s['counters']['prefix_tokens_saved']}"
+            + (f", {len(adopted)} adopted blocks' pool bytes unchanged"
+               if prefix_cache else "")
+            + f"; prefill buckets {kw['prefill_buckets']}; "
             + (f"{strict} decode-only ticks under sync debug 'error', "
                f"{flagged} syncs flagged in ticks with a prefill "
                f"{sorted(set(where))}; "
@@ -2935,17 +2985,29 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
         return same / sum(len(t) for t in a.values()), parts
 
     res = {}
-    # (a) prefix cache on against off (greedy, sync).  In bf16 the tail
-    # of an adopted prompt is prefilled as its own chunk, at another row
-    # count than inside the whole prompt, so its bf16 roundings differ
-    # and the streams may part: the share is printed.  The gate is the
-    # f32 view (f32_view), where only f32 summation order differs.
+    # (a) prefix cache on against off (greedy, sync).  At the engine's
+    # buckets an adopted prompt's tail is prefilled as its own chunk, at
+    # another bucket than the whole prompt is without the cache, so its
+    # bf16 roundings differ and the streams may part: the share is
+    # printed.  With the top bucket at the prefix's 256 tokens, off
+    # splits every prompt at the prefix too and each tail runs at the
+    # same bucket in both: there, and on the f32 view (f32_view) at the
+    # engine's buckets, the tokens must be identical.
     res["off"] = drive("off", "sync", False)
     res["on"] = drive("on", "sync", True)
     share, parts = agreement(res["off"]["tokens"], res["on"]["tokens"])
     res["on_off_bf16"] = dict(tokens_equal=share, parts_at=parts)
     log(f"serve_breadth: prefix on vs off in bf16: greedy tokens equal "
         f"{share:.1%}; first differing token per request {parts}")
+    split = (32, 128, PREFIX_BLOCKS * 16)
+    res["off_split"] = drive("off_split", "sync", False, buckets=split)
+    res["on_split"] = drive("on_split", "sync", True, buckets=split)
+    if res["on_split"]["tokens"] != res["off_split"]["tokens"]:
+        fail("serve_breadth: prefix cache on and off give different bf16 "
+             f"tokens at buckets {split}: "
+             f"{agreement(res['off_split']['tokens'], res['on_split']['tokens'])}")
+    log(f"serve_breadth: prefix on vs off in bf16 at buckets {split}: "
+        "identical greedy tokens")
     v = f32_view(m)
     res["off_f32"] = drive("off_f32", "sync", False, view=v)
     res["on_f32"] = drive("on_f32", "sync", True, view=v)

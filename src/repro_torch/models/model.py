@@ -301,8 +301,8 @@ class Model(nn.Module):
     def decode_and_sample(self, tokens: torch.Tensor, cache: dict, pos,
                           keys, temperature, top_k):
         """One decode step, then :func:`sample_tokens` on the device, so
-        only the sampled ids (int32 [B]) leave it: the async engine's
-        tick.  ``keys`` int64 [B, 2] (uint32 key words; None when every
+        only the sampled ids (int32 [B]) leave it: both ticks of the
+        paged engine.  ``keys`` int64 [B, 2] (uint32 key words; None when every
         row is greedy: then the step ends in an argmax), ``temperature``
         float [B], ``top_k`` int [B].  Returns (ids int32 [B], cache)."""
         logits, cache = self.decode_step(tokens, cache, pos)

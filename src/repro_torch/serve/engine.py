@@ -16,11 +16,11 @@ every tick (``repro_torch.obs``).
 It has two tick modes over one scheduler and one cache, as the
 reference:
 
-  * ``step()``: dispatch, wait for the logits, sample on the host side
-    (greedy rows by argmax; sampled rows on the model's device, so both
-    modes draw the same bits);
-  * ``step_async()``: plan against projected state, dispatch step N with
-    sampling on the device (``Model.decode_and_sample``), queue its
+  * ``step()``: dispatch step N with sampling on the device
+    (``Model.decode_and_sample``), wait for its token ids and emit them;
+  * ``step_async()``: plan against projected state, dispatch step N as
+    ``step()`` does (the same sampler, so both modes draw the same
+    tokens), queue its
     token ids' copy to pinned host memory and record an event, and only
     then wait on step N-1's event and emit its tokens.  The host runs
     one step behind the device.  Every upload in a tick is a
@@ -115,15 +115,14 @@ def request_key(req: Request, index: int, engine_seed: int) -> torch.Tensor:
 
 
 def _sample_host(req: Request, logits_row: torch.Tensor,
-                 engine_seed: int, key: Optional[torch.Tensor] = None) -> int:
-    """Sample one token from ``logits_row`` [V] (any device): the argmax
-    for greedy requests, else :func:`sample_tokens` on the row's device
-    under ``key`` (default :func:`request_key` at the request's next
-    index), the same function the async tick runs."""
+                 engine_seed: int) -> int:
+    """The slots engine's draw of one token from ``logits_row`` [V] (any
+    device): the argmax for greedy requests, else :func:`sample_tokens`
+    on the row's device under :func:`request_key` at the request's next
+    index."""
     if req.temperature <= 0:
         return int(torch.argmax(logits_row))
-    if key is None:
-        key = request_key(req, len(req.out_tokens), engine_seed)
+    key = request_key(req, len(req.out_tokens), engine_seed)
     dev = logits_row.device
     tok = sample_tokens(
         logits_row[None], key[None].to(dev),
@@ -465,11 +464,14 @@ class PagedServeEngine:
                                  rows=len(plan.decode),
                                  path=self.decode_path,
                                  uids=[s.uid for s in plan.decode]):
-                logits, self.cache = self.model.decode_step(
-                    _to_device(tokens, dev), cache, _to_device(posv, dev))
+                ids, self.cache = self.model.decode_and_sample(
+                    _to_device(tokens, dev), cache, _to_device(posv, dev),
+                    *self._sampler_args(
+                        [(seq.row, seq) for seq in plan.decode],
+                        self.max_batch))
             with self.trace.span("device_sync", track="engine/sync",
                                  rows=len(plan.decode)):
-                host = logits.float().cpu()
+                ids = ids.cpu().numpy()
             self.metrics.on_device_interval(t_disp, self.clock())
             fused_b, gathered_b = self._decode_kv_bytes(plan.decode)
             self.metrics.on_decode_step(len(plan.decode), fused_b,
@@ -478,30 +480,44 @@ class PagedServeEngine:
                                  rows=len(plan.decode)):
                 for seq in plan.decode:
                     seq.kv_len += 1
-                    # sampled rows draw on the device, as the async tick
-                    row = logits[seq.row] if seq.req.temperature > 0 \
-                        else host[seq.row]
-                    tok = _sample_host(seq.req, row, self.rng_seed,
-                                       self._key_for(seq.req))
-                    self._emit_token(seq, tok)
+                    self._emit_token(seq, int(ids[seq.row]))
 
         if plan.prefill is not None:
             logits, seq = self._dispatch_prefill(plan.prefill)
             if seq.kv_len >= seq.prefill_target:
                 with self.trace.span("sample", track="engine/sample",
                                      rows=1):
-                    tok = _sample_host(seq.req, logits[0], self.rng_seed,
-                                       self._key_for(seq.req))
-                    self._emit_token(seq, tok)
+                    self._emit_token(seq, int(self._sample_last(logits, seq)))
 
         self._tick_metrics()
 
-    def _key_for(self, req: Request, inflight: int = 0):
-        """The key tensor of the request's next token (None if greedy)."""
-        if req.temperature <= 0:
-            return None
-        return torch.from_numpy(
-            self._request_key(req, len(req.out_tokens) + inflight))
+    def _sampler_args(self, rows, n: int):
+        """Device (keys, temperature, top_k) of ``n`` sampler rows from
+        ``rows`` [(row, seq)] (rows not listed are greedy): each sampled
+        row's key is its request's next index past the tokens in flight;
+        ``keys`` is None when every row is greedy (the draw is then an
+        argmax).  Both tick modes sample through this."""
+        dev = self.model.device
+        keys = np.zeros((n, 2), np.int64)
+        temps = np.zeros(n, np.float32)
+        topks = np.zeros(n, np.int32)
+        for row, seq in rows:
+            req = seq.req
+            if req.temperature > 0:
+                keys[row] = self._request_key(
+                    req, len(req.out_tokens) + seq.inflight)
+            temps[row] = req.temperature
+            topks[row] = req.top_k
+        return (_to_device(keys, dev) if (temps > 0).any() else None,
+                _to_device(temps, dev), _to_device(topks, dev))
+
+    def _sample_last(self, logits, seq) -> torch.Tensor:
+        """Device int32 [1]: the token after a prompt's last prefill chunk
+        (``logits`` [1, V]), drawn as a decode row is."""
+        keys, temps, topks = self._sampler_args([(0, seq)], 1)
+        if keys is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sample_tokens(logits, keys, temps, topks)
 
     def _dispatch_prefill(self, pf):
         """Dispatch one prefill chunk (both tick modes); advances
@@ -553,9 +569,6 @@ class PagedServeEngine:
 
         if plan.decode:
             tables, tokens, posv = self._decode_inputs(plan.decode)
-            keys = np.zeros((self.max_batch, 2), np.int64)
-            temps = np.zeros(self.max_batch, np.float32)
-            topks = np.zeros(self.max_batch, np.int32)
             on_dev = np.zeros(self.max_batch, bool)
             for seq in plan.decode:
                 if prev is not None and seq.uid in prev.row_of:
@@ -564,16 +577,10 @@ class PagedServeEngine:
                     # a seq keeps running
                     assert prev.row_of[seq.uid] == seq.row
                     on_dev[seq.row] = True
-                if seq.req.temperature > 0:
-                    keys[seq.row] = self._request_key(
-                        seq.req, len(seq.req.out_tokens) + seq.inflight)
-                temps[seq.row] = seq.req.temperature
-                topks[seq.row] = seq.req.top_k
             inp = _to_device(tokens, dev)
             if on_dev.any():
                 inp = torch.where(_to_device(on_dev, dev)[:, None],
                                   prev.tokens[:, None], inp)
-            sampled = bool((temps > 0).any())
             cache = set_block_tables(self.cache, _to_device(tables, dev))
             t_disp = self.clock()
             with self.trace.span("decode_dispatch", track="engine/decode",
@@ -582,8 +589,9 @@ class PagedServeEngine:
                                  uids=[s.uid for s in plan.decode]):
                 cur, self.cache = self.model.decode_and_sample(
                     inp, cache, _to_device(posv, dev),
-                    _to_device(keys, dev) if sampled else None,
-                    _to_device(temps, dev), _to_device(topks, dev))
+                    *self._sampler_args(
+                        [(seq.row, seq) for seq in plan.decode],
+                        self.max_batch))
             fused_b, gathered_b = self._decode_kv_bytes(plan.decode)
             self.metrics.on_decode_step(len(plan.decode), fused_b,
                                         gathered_b, self.decode_path)
@@ -598,21 +606,11 @@ class PagedServeEngine:
             if seq.kv_len >= seq.prefill_target:
                 with self.trace.span("sample", track="engine/sample",
                                      rows=1, mode="async"):
-                    req = seq.req
-                    key = self._key_for(req, seq.inflight)
-                    if key is None:
-                        tok = torch.argmax(logits[0])
-                    else:
-                        tok = sample_tokens(
-                            logits, _to_device(key[None].numpy(), dev),
-                            _to_device(np.array([req.temperature],
-                                                np.float32), dev),
-                            _to_device(np.array([req.top_k], np.int32),
-                                       dev))[0]
+                    tok = self._sample_last(logits, seq)
                 if cur is None:
                     cur = torch.zeros(self.max_batch, dtype=torch.int32,
                                       device=dev)
-                cur[seq.row] = tok
+                cur[seq.row] = tok[0]
                 seq.inflight += 1
                 emits.append((seq, seq.row))
                 self._maybe_finish_async(seq)
