@@ -161,13 +161,36 @@ Phase 3 also holds bcq_matmul at q 2 and q 4 (the widths the mixed
 plans use beside q 3) at OPT's three shapes on the decode tile (rows 1
 and 8) and the tensor-core tile (rows 512).
 
+Launch-config tuning (``repro_torch.tune``; every phase but these reads
+a cold cache under ``build/``, so launches the wrappers' fixed rules):
+phase 4 starts by tuning OPT-6.7B BCQ-3 g 128's three layer shapes at
+rows 8, 32, 128 and 512 for bcq_matmul and lut_gemm (mu 4) and paged
+decode at the phase-3 B 8 case (``tune_phase``: each key's heuristic
+and winner times and the winner's config printed; every winner, after
+the cache is reloaded from disk, resolved from it and held against its
+plain version again); the first OPT run's weights are then served
+through the paged engine with ``pretune=True`` on that cache and with
+``REPRO_TORCH_TUNE=off``, in bf16 and on the f32 view (``serve_tuned``:
+the trace holds ``cache`` config records, ``off`` only heuristic ones;
+f32 greedy tokens identical; the bf16 share of equal tokens and each
+run's step-kernel ms printed).  Last, OPTQ (``optq_phase``): OPT-6.7B
+at full width, 4 of 32 layers, calibrated on 2 seeded random batches
+(256 rows a linear) and quantized at 3 bits, g 64 on the card (seconds
+per linear printed; OPTQ's calibration error at most RTN's on every
+linear), served through bcq_matmul and lut_gemm with ``serve_one``'s
+gates: bf16 first-prefill logits within 5e-2, the f32 view within
+1e-3.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
 """
 import argparse
+import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -229,39 +252,6 @@ def bound(nbytes: float, flops: float):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / BF16_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-
-
-class Timer:
-    """Per-launch CUDA-event timing of device work, L2 flushed before each
-    call (the serve path streams each weight once per step, cold).
-
-    A spin kernel queued ahead of the events keeps the card busy while
-    the host runs the Python wrapper and enqueues the work, so the events
-    bracket device time only, not the host's dispatch time."""
-
-    SPIN_CYCLES = 4_000_000          # ~2 ms at H100 clocks
-
-    def __init__(self, torch, iters: int = 10, warmup: int = 2):
-        self.torch = torch
-        self.iters, self.warmup = iters, warmup
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn) -> float:
-        torch = self.torch
-        for _ in range(self.warmup):
-            fn()
-        total = 0.0
-        for _ in range(self.iters):
-            self.flush.zero_()
-            torch.cuda._sleep(self.SPIN_CYCLES)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            total += a.elapsed_time(b)
-        return total / self.iters
 
 
 # ---------------------------------------------------------------------------
@@ -1665,7 +1655,7 @@ def instrument(torch, model, prefill):
 
 def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
               attn, prefill, required, totals, power_line, manifest,
-              by_depth=None, mixed=None):
+              by_depth=None, mixed=None, kern_ms=None):
     """One serve run of the 8-request mix on model view ``m``: the first
     prefill's logits against the plain path's ``want``, then the engine
     with the launch counters set to 0 just before and read just after;
@@ -1676,7 +1666,8 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     ``mixed`` (a mixed-precision plan, ``mixed_plan``) ``gemm`` is the
     plan's kernels, every decode step and prefill chunk must run all of
     its linears on them, and the step's kernel time sums the plan's
-    widths."""
+    widths.  ``kern_ms``, where given, is the step's kernel time (for
+    weights phase 3 did not time)."""
     from repro_torch.kernels import _lib
     from repro_torch.models.attention import kv_entry_bytes
     from repro_torch.serve import PagedServeEngine, Request
@@ -1753,8 +1744,9 @@ def serve_one(torch, tag, m, want, toks, prompts, eng_kw, results, gemm,
     toks_out = s["counters"]["tokens_out"]
     steps = sorted(step_ms)
     p50 = steps[len(steps) // 2] if steps else float("nan")
-    kern_ms = (mixed["kern_ms"] if mixed
-               else step_kernel_ms(results, gemm, attn, cfg))
+    if kern_ms is None:
+        kern_ms = (mixed["kern_ms"] if mixed
+                   else step_kernel_ms(results, gemm, attn, cfg))
     per_step = step_launches[len(step_launches) // 2] \
         if step_launches else {}
     kv_tok = kv_entry_bytes(cfg) * cfg.n_layers
@@ -2090,7 +2082,8 @@ def expert_path_times(torch, model, gen):
     host read of the routed experts falls inside the time."""
     from repro_torch.models.moe import MoE, route
     moe = next(b.mlp for b in model.stack.layers if isinstance(b.mlp, MoE))
-    timer = Timer(torch, iters=5, warmup=1)
+    from repro_torch.tune.measure import Timer
+    timer = Timer(iters=5, warmup=1)
     out = {}
     for name, shape in (("decode_b8", (8, 1)), ("prefill_512", (1, 512))):
         x = torch.randn((*shape, model.cfg.d_model), generator=gen,
@@ -2731,8 +2724,12 @@ def serve(torch, args, power_line, results):
         # deadlines, trace) on the weights the OPT BCQ-3 run quantized
         after = None
         if cfg is opt and spec is bcq3:
-            after = lambda model, manifest: {"serve_breadth": serve_breadth(
-                torch, args, model, bcq3, power_line, totals)}
+            # then the tune phase's winners served on the same weights
+            after = lambda model, manifest: {
+                "serve_breadth": serve_breadth(torch, args, model, bcq3,
+                                               power_line, totals),
+                "serve_tuned": serve_tuned(torch, args, model, bcq3, eng_kw,
+                                           totals, power_line)}
         serve_model(torch, args, cfg, spec, kv_bits, backends, attn,
                     prefill, eng_kw, results, totals, power_line, serve_out,
                     after=after)
@@ -2760,6 +2757,9 @@ def serve(torch, args, power_line, results):
                                          totals)
     serve_out["checkpoint_round_trip"] = checkpoint_round_trip(
         torch, args, eng_kw)
+    # an OPTQ checkpoint through both GEMM kernels
+    serve_out["optq"] = optq_phase(torch, args, power_line, results, totals,
+                                   eng_kw)
     return serve_out, totals
 
 
@@ -3047,7 +3047,8 @@ def serve_breadth(torch, args, model, spec, power_line, totals):
                          dtype=torch.int64)
     temps = torch.full((8,), 0.7, device="cuda")
     topk = torch.full((8,), 40, dtype=torch.int32, device="cuda")
-    timer = Timer(torch)
+    from repro_torch.tune.measure import Timer
+    timer = Timer()
     res["sampler_ms"] = timer(lambda: sample_tokens(logits, keys, temps,
                                                     topk))
     res["argmax_ms"] = timer(lambda: torch.argmax(logits, -1))
@@ -3216,6 +3217,406 @@ def checkpoint_round_trip(torch, args, eng_kw):
                                       for l in manifest.layers})
 
 
+# ---------------------------------------------------------------------------
+# phase 4: launch-config tuning and OPTQ
+# ---------------------------------------------------------------------------
+
+# OPT-6.7B's three layer shapes ([out, in]: q/k/v/o, up, down) and the
+# rows the tune phase tunes them at (decode, and the prefill buckets)
+OPT_SHAPES = ((4096, 4096), (16384, 4096), (4096, 16384))
+TUNE_ROWS = (8, 32, 128, 512)
+# the tuning caches of this run (git-ignored, removed at the end): every
+# phase but the tuned ones reads a cold cache, so launches the
+# heuristic's configs, the wrappers' fixed rules
+TUNE_DIR = ROOT / "build" / "chip_smoke_tune"
+TUNED_CACHE = TUNE_DIR / "tuned.json"
+# OPTQ on OPT-6.7B at full width: the column loop costs seconds a layer,
+# so depth is cut to 4 of 32 layers
+OPTQ_LAYERS, OPTQ_BITS, OPTQ_GROUP = 4, 3, 64
+
+
+@contextlib.contextmanager
+def tune_env(path, mode="on"):
+    """Point ``repro_torch.tune`` at the cache file ``path`` in ``mode``
+    for the block (the process-wide cache re-read on entry and exit)."""
+    from repro_torch import tune as T
+    keys = ("REPRO_TORCH_TUNE_CACHE", "REPRO_TORCH_TUNE")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(REPRO_TORCH_TUNE_CACHE=str(path), REPRO_TORCH_TUNE=mode)
+    T.reset_default_cache()
+    try:
+        yield T.default_cache()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        T.reset_default_cache()
+
+
+def kernel_events(tracer):
+    """{kernel: {source: count}} of a trace's kernel-config records."""
+    out = {}
+    for e in tracer.events:
+        if e["name"].startswith("kernel_config:"):
+            src = out.setdefault(e["args"]["kernel"], {})
+            src[e["args"]["source"]] = src.get(e["args"]["source"], 0) + 1
+    return out
+
+
+def tune_phase(torch, args, power_line):
+    """Tune OPT-6.7B BCQ-3 g 128's three layer shapes at rows 8, 32, 128
+    and 512 for bcq_matmul and lut_gemm (mu 4), and paged decode at the
+    phase-3 case (B 8, H 32, D 128, bs 16, a 32-page table, ~150 live
+    pages), into ``TUNED_CACHE``.  Each key's heuristic time, winner
+    time and winner config are printed.  Then the cache is reloaded
+    from disk and every winner resolves from it (trace source ``cache``,
+    the winner's body launched) and is held against its plain version
+    again: the GEMMs at 1e-3 of the output scale, paged decode at its
+    bf16-pool gate (2e-2) and, on the same case's f32 pools at the
+    winner's split count, at 1e-4."""
+    from repro_torch import obs, tune as T
+    from repro_torch.core import bcq
+    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.lut_gemm import lut_gemm
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_decode_ref)
+    if TUNED_CACHE.exists():
+        TUNED_CACHE.unlink()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 28)
+    f32 = torch.float32
+    cases, recs = [], []
+    t0 = time.perf_counter()
+
+    def record(res, kernel, **case):
+        heur = res.timings[0]
+        rec = dict(kernel=kernel, key=res.key, **case,
+                   heuristic=heur.config.to_dict(),
+                   heuristic_ms=heur.seconds * 1e3,
+                   best=res.best.to_dict(), best_ms=res.best_time * 1e3,
+                   speedup=res.speedup, candidates=len(res.timings),
+                   invalid=sum(not t.ok for t in res.timings))
+        recs.append(rec)
+        log(f"tune {kernel:12s} {case}: heuristic {rec['heuristic']} "
+            f"{rec['heuristic_ms']:.4f} ms -> winner {rec['best']} "
+            f"{rec['best_ms']:.4f} ms (x{rec['speedup']:.3f}; "
+            f"{rec['candidates']} candidates, {rec['invalid']} invalid)")
+
+    with tune_env(TUNED_CACHE) as cache:
+        for m, n in OPT_SHAPES:
+            w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                             * 0.02, bits=3, group_size=128)
+            for rows in TUNE_ROWS:
+                x = torch.randn((rows, n), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                for kernel in ("bcq_matmul", "lut_gemm"):
+                    res = T.tune(kernel, x, w, mu=4, cache=cache)
+                    cases.append((kernel, x, w, res))
+                    record(res, kernel, rows=rows, m=m, n=n)
+        pool = pool_case(torch, gen, args.seed + 8, b=8, h=32, d=128, nb=257,
+                         bs=16, pages=32, dtype=torch.bfloat16)
+        res_pd = T.tune("paged_decode", *pool, cache=cache)
+        record(res_pd, "paged_decode", b=8, h=32, hkv=32, d=128, pages=32)
+        cache.save()
+    tune_s = time.perf_counter() - t0
+
+    # the winners, read back from disk, through the unpinned wrappers
+    tracer = obs.Tracer()
+    with tune_env(TUNED_CACHE) as cache, obs.activate(tracer):
+        if len(cache) != len(recs):
+            fail(f"tune: {len(cache)} cache entries after the reload, "
+                 f"{len(recs)} tuned")
+        for kernel, x, w, res in cases:
+            if cache.lookup(res.key) != res.best:
+                fail(f"tune: {res.key} reloads as {cache.lookup(res.key)}")
+            fn = bcq_matmul if kernel == "bcq_matmul" else lut_gemm
+            got, route = routed(torch, kernel,
+                                lambda: fn(x, w, out_dtype=f32))
+            want = bcq_matmul_ref(x, w, f32)
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            if route != res.best.route or not rel <= 1e-3:
+                fail(f"tune: {res.key} after the reload ran {route} with "
+                     f"rel err {rel:.3e} (winner {res.best})")
+        q, k, v, pos, tables, positions = pool
+        want = paged_decode_ref(*pool, out_dtype=f32)
+        got = paged_attention(*pool, out_dtype=f32)
+        rel_bf16 = float((got - want).abs().max()) / float(want.abs().max())
+        pool32 = (q.float(), k.float(), v.float(), pos, tables, positions)
+        want = paged_decode_ref(*pool32, out_dtype=f32)
+        got = paged_attention(*pool32, out_dtype=f32,
+                              splits=res_pd.best.splits)
+        rel_f32 = float((got - want).abs().max()) / float(want.abs().max())
+        if not (rel_bf16 <= 2e-2 and rel_f32 <= 1e-4):
+            fail(f"tune: paged decode winner {res_pd.best}: rel err "
+                 f"{rel_bf16:.3e} (bf16 pools), {rel_f32:.3e} (f32 pools)")
+        torch.cuda.synchronize()
+    sources = kernel_events(tracer)
+    if any(set(src) != {"cache"} for src in sources.values()) or \
+            set(sources) != {"bcq_matmul", "lut_gemm", "paged_decode"}:
+        fail(f"tune: the reloaded winners resolved from {sources}")
+    moved = sum(r["best"] != r["heuristic"] for r in recs)
+    log(f"tune: {len(recs)} keys in {tune_s:.1f} s ({moved} winners other "
+        f"than the heuristic); reloaded from {TUNED_CACHE.name}: every "
+        f"winner resolved from the cache (trace {sources}) and held "
+        f"against its plain version (GEMMs <= 1e-3; paged decode bf16 "
+        f"{rel_bf16:.2e} <= 2e-2, f32 pools {rel_f32:.2e} <= 1e-4); card "
+        f"{power_line}")
+    return dict(records=recs, tune_s=tune_s, moved=moved,
+                paged_rel_err_bf16=rel_bf16, paged_rel_err_f32=rel_f32)
+
+
+def tuned_step_ms(cache, cfg, dtype, tag):
+    """A decode step's kernel time at batch 8 from the tuning cache's
+    measurements (``tag``: the card's device tag): (winners, heuristics)
+    in ms, each GEMM of every layer (bcq_matmul) plus paged decode once
+    a layer where its key was tuned, and whether it was; None where a
+    GEMM key is missing."""
+    from repro_torch.tune import cache as tcache
+    best = heur = 0.0
+    pd = cache.entries.get(tcache.cache_key(
+        "paged_decode", b=8, m=cfg.n_kv_heads, n=512, dtype=dtype,
+        mu=cfg.n_heads // cfg.n_kv_heads, group_size=16, device=tag))
+    for i in range(cfg.n_layers):
+        for m, n in layer_gemm_shapes(cfg, i):
+            ent = cache.entries.get(tcache.cache_key(
+                "bcq_matmul", b=8, m=m, n=n, dtype=dtype, mu=0,
+                group_size=128, device=tag))
+            if ent is None:
+                return None
+            best += ent["time_s"] * 1e3
+            heur += ent["default_time_s"] * 1e3
+        if pd is not None:
+            best += pd["time_s"] * 1e3
+            heur += pd["default_time_s"] * 1e3
+    return best, heur, pd is not None
+
+
+def serve_tuned(torch, args, model, spec, eng_kw, totals, power_line):
+    """Full-depth OPT-6.7B BCQ-3 (the first OPT run's weights) through the
+    paged engine with ``pretune=True`` on the tune phase's cache (every
+    bf16 GEMM key is there, so nothing is re-measured) and again under
+    ``REPRO_TORCH_TUNE=off``, then both on the f32 view (where pretune
+    tunes the f32 keys first).  Gates: the tuned bf16 run's trace holds
+    kernel-config records of source ``cache`` and none ``tuned``; the
+    ``off`` runs' records are all ``heuristic``; greedy tokens are
+    identical on the f32 view.  Printed: the share of bf16 tokens equal,
+    each run's step-kernel ms (the cache's measured times x the step's
+    launches) and its GEMM bodies."""
+    from repro_torch import obs
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import PagedServeEngine, Request
+    from repro_torch.tune import dispatch
+
+    m = model.with_config(quant=spec.replace(backend="auto"),
+                          paged_kernel="fused")
+    prompts = mix_prompts(args.seed, m.cfg.vocab_size)
+    _, tag = dispatch.device_of(torch.empty(0, device="cuda"))
+
+    def run(name, view, mode, pretune):
+        with tune_env(TUNED_CACHE, mode) as cache:
+            tracer = obs.Tracer()
+            t0 = time.perf_counter()
+            eng = PagedServeEngine(view.with_config(), tracer=tracer,
+                                   pretune=pretune, **eng_kw)
+            pre_s = time.perf_counter() - t0
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+                    for i, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            done = eng.run(reqs, max_ticks=4000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eng.attach_tracer(None)
+            counts = dict(_lib.launch_counts)
+            for k in totals:
+                totals[k] += counts[k]
+            if len(done) != 8 or any(r.error or len(r.out_tokens) != 32
+                                     for r in done):
+                fail(f"serve_tuned[{name}]: requests incomplete")
+            step = tuned_step_ms(cache, m.cfg, torch.bfloat16 if view is m
+                                 else torch.float32, tag)
+            s = eng.metrics.summary()
+            out = dict(tokens={r.uid: list(r.out_tokens) for r in done},
+                       sources=kernel_events(tracer), pretune_s=pre_s,
+                       cache_entries=len(cache), wall_s=wall,
+                       tokens_per_s=s["counters"]["tokens_out"] / wall,
+                       ttft_p50_ms=s["ttft_s"]["p50"] * 1e3,
+                       per_token_ms_p50=s["per_token_s"]["p50"] * 1e3,
+                       routes=dict(_lib.route_counts), launches=counts)
+            if step is not None:
+                out["step_kernel_ms"] = step[0] if mode == "on" else step[1]
+                out["step_kernel_ms_has_attention"] = step[2]
+            del eng
+        torch.cuda.empty_cache()
+        log(f"serve_tuned[{name}]: pretune {pre_s:.1f} s ({len(cache)} "
+            f"cache entries); {out['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{out['ttft_p50_ms']:.1f} ms, per-token p50 "
+            f"{out['per_token_ms_p50']:.2f} ms; step kernels "
+            f"{out.get('step_kernel_ms', float('nan')):.3f} ms by the "
+            f"cache's times (paged decode in it: "
+            f"{out.get('step_kernel_ms_has_attention')}); config sources "
+            f"{out['sources']}; GEMM bodies "
+            f"{out['routes']}; card {power_line}")
+        return out
+
+    res = {"bf16_pretune": run("bf16, pretune", m, "on", True),
+           "bf16_off": run("bf16, off", m, "off", False)}
+    view = f32_view(m)
+    res["f32_pretune"] = run("f32 view, pretune", view, "on", True)
+    res["f32_off"] = run("f32 view, off", view, "off", False)
+    for tag in ("bf16_pretune", "f32_pretune"):
+        src = res[tag]["sources"]
+        if not any("cache" in v for v in src.values()) or \
+                any("tuned" in v for v in src.values()):
+            fail(f"serve_tuned[{tag}]: config sources {src}: the tuned "
+                 "cache was not read")
+    for tag in ("bf16_off", "f32_off"):
+        if any(set(v) != {"heuristic"} for v in res[tag]["sources"].values()):
+            fail(f"serve_tuned[{tag}]: REPRO_TORCH_TUNE=off resolved "
+                 f"{res[tag]['sources']}")
+    if res["f32_pretune"]["tokens"] != res["f32_off"]["tokens"]:
+        fail("serve_tuned: greedy tokens on the f32 view differ between the "
+             "tuned configs and the heuristic's")
+    a, b = res["bf16_pretune"]["tokens"], res["bf16_off"]["tokens"]
+    same = sum(x == y for u in a for x, y in zip(a[u], b[u]))
+    res["bf16_equal_share"] = same / sum(len(t) for t in a.values())
+    log(f"serve_tuned: f32 view greedy tokens identical, tuned vs off; "
+        f"bf16 tokens equal {res['bf16_equal_share']:.1%} (printed, not "
+        f"gated); step kernels bf16 "
+        f"{res['bf16_pretune'].get('step_kernel_ms', float('nan')):.3f} ms "
+        f"tuned vs {res['bf16_off'].get('step_kernel_ms', float('nan')):.3f}"
+        f" ms heuristic; card {power_line}")
+    return res
+
+
+def optq_phase(torch, args, power_line, results, totals, eng_kw):
+    """OPT-6.7B at full width and ``OPTQ_LAYERS`` of its 32 layers: random
+    weights from ``--seed``, calibration captured from 2 batches of
+    [2 x 256] seeded random tokens (256 rows a linear), OPTQ at 3 bits,
+    group 64 (the paper's Fig. 17 baseline) on the card, the seconds of
+    each linear printed.  Gate, per linear: OPTQ's output error on its
+    calibration rows at most RTN's at the same bits and group.  Then the
+    checkpoint is served through the paged engine with ``auto``
+    (bcq_matmul) and ``lut_pallas`` (lut_gemm) with ``serve_one``'s
+    gates and route counts; the first prefill's logits within 5e-2 of
+    the logit scale of the plain path and the f32 view's within 1e-3."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.bcq import from_uniform
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels.bcq_matmul import bcq_matmul
+    from repro_torch.kernels.lut_gemm import lut_gemm
+    from repro_torch.models import Model
+    from repro_torch.quant import QuantSpec
+    from repro_torch.quant.api import (QUANT_KEYS, build_manifest,
+                                       linear_leaves, walk_linears)
+    from repro_torch.quant.optq import (capture_calibration,
+                                        optq_quantize_model)
+    from repro_torch.tune.measure import Timer
+
+    cfg = get_config("opt_6_7b").replace(n_layers=OPTQ_LAYERS)
+    log(f"optq: {cfg.name} full width, depth cut to {cfg.n_layers} of 32 "
+        f"layers (the column loop costs seconds a layer); {OPTQ_BITS} bits, "
+        f"group {OPTQ_GROUP}")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = Model(cfg, device="cuda").init_params(gen)
+    rng = np.random.default_rng(args.seed + 29)
+    batches = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                               device="cuda") for _ in range(2)]
+    t0 = time.perf_counter()
+    cal = capture_calibration(model, batches, max_samples=256)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    dense = {p: lin.weight.clone() for p, lin in walk_linears(model)
+             if p.rsplit("/", 1)[-1] in QUANT_KEYS}
+    leaves = linear_leaves(model)        # the manifest's leaves, dense
+    stamps = []
+
+    def calib(path, n):
+        torch.cuda.synchronize()
+        stamps.append((path, time.perf_counter()))
+        return cal[path]
+
+    done = optq_quantize_model(model, calib, bits=OPTQ_BITS,
+                               group_size=OPTQ_GROUP)
+    torch.cuda.synchronize()
+    ends = [t for _, t in stamps[1:]] + [time.perf_counter()]
+    secs = {p: e - t for (p, t), e in zip(stamps, ends)}
+    if set(done) != set(dense) or any(c.shape[0] != 256
+                                      for c in cal.values()):
+        fail(f"optq: quantized {len(done)} of {len(dense)} linears, "
+             f"calibration rows {sorted({c.shape[0] for c in cal.values()})}")
+    errs = {}
+    for path, wq in done.items():
+        x, w = cal[path], dense[path].float()
+        y = x @ w.T
+        e_optq = float(((x @ dequantize(wq, torch.float32).T - y) ** 2)
+                       .mean())
+        rtn = from_uniform(w, bits=OPTQ_BITS, group_size=OPTQ_GROUP)
+        e_rtn = float(((x @ dequantize(rtn, torch.float32).T - y) ** 2)
+                      .mean())
+        errs[path] = dict(optq=e_optq, rtn=e_rtn, seconds=secs[path],
+                          shape=list(w.shape))
+        log(f"optq {path:28s} [{w.shape[0]}x{w.shape[1]}]: "
+            f"{secs[path]:.2f} s; calibration output MSE OPTQ "
+            f"{e_optq:.4e} vs RTN {e_rtn:.4e} ({e_optq / e_rtn:.3f}x)")
+        if not e_optq <= e_rtn:
+            fail(f"optq: {path} output error {e_optq:.4e} above RTN's "
+                 f"{e_rtn:.4e}")
+    del dense
+    spec = QuantSpec(format="rtn", bits=OPTQ_BITS, group_size=OPTQ_GROUP)
+    manifest = build_manifest(leaves, spec)
+    # the step's GEMM time at batch 8 on these group-64 weights (phase 3
+    # timed group 128): one timed call of each distinct shape
+    timer = Timer(iters=5, warmup=1)
+    x8 = {n: torch.randn((8, n), generator=gen, device="cuda").to(
+        torch.bfloat16) for n in (4096, 16384)}
+    shape_w = {}
+    for path, wq in done.items():
+        shape_w.setdefault((wq.out_features, wq.in_features), wq)
+    attn_ms = attn_record(results, "paged_decode", cfg, b=8)["ms"]
+    prompts = mix_prompts(args.seed, cfg.vocab_size)
+    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
+    plain = model.with_config(quant=spec.replace(backend="dense"),
+                              paged_kernel="gather")
+    want = first_logits(torch, plain, toks)
+    out = dict(layers=cfg.n_layers, calibration_s=cal_s, linears=errs,
+               bits=OPTQ_BITS, group_size=OPTQ_GROUP)
+    for tag, backend, gemm in (("optq_auto", "auto", "bcq_matmul"),
+                               ("optq_lut_pallas", "lut_pallas",
+                                "lut_gemm")):
+        fn = bcq_matmul if gemm == "bcq_matmul" else lut_gemm
+        t = {sh: timer(lambda w=w: fn(x8[sh[1]], w)) for sh, w
+             in shape_w.items()}
+        kern_ms = sum(sum(t[sh] for sh in layer_gemm_shapes(cfg, i))
+                      + attn_ms for i in range(cfg.n_layers))
+        kern = model.with_config(quant=spec.replace(backend=backend),
+                                 paged_kernel="fused")
+        by_depth = logit_error_by_depth(torch, kern, plain, toks,
+                                        [cfg.n_layers])
+        res = serve_one(torch, tag, kern, want, toks, prompts, eng_kw,
+                        results, gemm, "paged_decode", "paged_prefill",
+                        (gemm, "paged_decode", "paged_prefill"), totals,
+                        power_line, manifest, by_depth=by_depth,
+                        kern_ms=kern_ms)
+        rel = res["first_prefill_rel_err"]
+        log(f"optq[{tag}]: first-prefill logits bf16 {rel:.3e} <= 5e-2: "
+            f"{rel <= 5e-2}; f32 view {by_depth[cfg.n_layers]['f32']:.3e} "
+            f"<= {F32_LOGIT_TOL:g} (gated in serve_one); GEMM times at "
+            f"rows 8: " + ", ".join(f"[{a}x{b}] {ms:.4f} ms"
+                                    for (a, b), ms in t.items()))
+        if not rel <= 5e-2:
+            fail(f"optq[{tag}]: kernel path disagrees with the plain path")
+        res["gemm_ms_rows8"] = {f"{a}x{b}": ms for (a, b), ms in t.items()}
+        res["logit_error_by_depth"] = by_depth
+        out[tag] = res
+    del model, plain, kern, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
                 eng_kw, results, totals, power_line, serve_out, after=None):
     """Build ``cfg`` with random weights from ``--seed``, quantize it on
@@ -3319,6 +3720,11 @@ def main():
         fail(f"need compute capability (9, 0), got {cap}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every phase but the tuned ones reads a cold tuning cache inside the
+    # checkout, so launches the wrappers' fixed rules
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    os.environ.update(REPRO_TORCH_TUNE_CACHE=str(TUNE_DIR / "cold.json"),
+                      REPRO_TORCH_TUNE="on")
 
     # phase 2: build
     from repro_torch.kernels import _lib
@@ -3329,7 +3735,8 @@ def main():
 
     # phase 3: kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    timer = Timer(torch)
+    from repro_torch.tune.measure import Timer
+    timer = Timer()
     results = {}
     check_gemms(torch, timer, gen, results)
     check_paged(torch, timer, gen, results, args.seed)
@@ -3345,8 +3752,12 @@ def main():
     del timer
     torch.cuda.empty_cache()
 
-    # phase 4: serve
+    # phase 4: tune, then serve (the tuned runs, on the tune phase's
+    # cache, beside the first OPT run)
+    tune_out = tune_phase(torch, args, power_line)
     serve_out, totals = serve(torch, args, power_line, results)
+    serve_out["tune"] = tune_out
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
     missing = [k for k, n in totals.items() if n <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")

@@ -40,6 +40,13 @@ is the plain version of the decode tile's split walk.  The tiles split
 their reduction axis over blocks where the output tiles alone would
 leave SMs idle (:func:`gemv_splits`, :func:`mma_splits`,
 :func:`dq_splits`).
+
+The wrapper takes its route and split count from
+``repro_torch.tune.dispatch.launch_config``: a tuned cache entry where
+there is one, else the rules above (``route_for`` and the split
+functions, which are the tuner's heuristic); ``route=`` / ``splits=``
+pin them and bypass dispatch.  Every body computes the same function;
+the choice changes only the summation order and the time.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import torch
 
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
+from repro_torch.tune import dispatch as _dispatch
 from . import ref as _ref
 from .ref import GEMV_STEP, dq_step
 
@@ -163,9 +171,10 @@ def check_operands(x2: torch.Tensor, w: PlaneBundle, name: str) -> None:
         raise ValueError(f"{name}: inconsistent bundle shapes")
 
 
-def bcq_matmul(x: torch.Tensor, w: PlaneBundle, *,
+def bcq_matmul(x: torch.Tensor, w: PlaneBundle, *, route=None, splits=None,
                out_dtype=None) -> torch.Tensor:
-    """y = x @ dequant(w).T.  x: [..., in_features] -> [..., out]."""
+    """y = x @ dequant(w).T.  x: [..., in_features] -> [..., out].
+    ``route`` / ``splits`` pin the launch (CUDA only)."""
     out_dtype = out_dtype or x.dtype
     if x.shape[-1] != w.in_features:
         raise ValueError(f"x last dim {x.shape[-1]} != in_features "
@@ -181,13 +190,14 @@ def bcq_matmul(x: torch.Tensor, w: PlaneBundle, *,
     b = x2.shape[0]
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
-        route = route_for(b, x2.dtype, w.group_size, w.in_features)
+        sms, device = _dispatch.device_of(x2)
+        cfg = _dispatch.launch_config(
+            "bcq_matmul", route=route, splits=splits, b=b, m=m,
+            n=w.in_features, dtype=x2.dtype, group_size=w.group_size,
+            sms=sms, device=device, operands=(x2, w))
+        route, splits = cfg.route, cfg.splits
         part, sem = None, None
         x2 = aligned_rows(x2)
-        sms = _lib.sm_count(x.device.index or 0)
-        splits = (mma_splits(b, m, w.n_groups, sms) if route == "mma"
-                  else gemv_splits(m, nb * 8, sms) if route == "gemv"
-                  else dq_splits(b, m, nb * 8, sms))
         if splits > 1:
             part = torch.empty((splits, b, m), dtype=torch.float32,
                                device=x.device)

@@ -26,7 +26,10 @@ rule (never by trying one and switching when it fails):
     (``bcq_matmul.dq_splits`` counts its splits).
 
 The launch counter keeps the kernel's name; ``_lib.route_counts``
-counts each body under ``"lut_gemm/<route>"``.
+counts each body under ``"lut_gemm/<route>"``.  The route, the split
+count and (on ``lut``, where ``half_lut`` is not given) the table come
+from ``repro_torch.tune.dispatch.launch_config``, as bcq_matmul's do;
+``route=`` / ``splits=`` pin them.
 """
 from __future__ import annotations
 
@@ -37,9 +40,9 @@ import torch
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
 from repro_torch.kernels.bcq_matmul.ops import (DECODE_ROWS, aligned_rows,
-                                               check_operands, dq_splits,
-                                               mma_splits, mma_takes)
+                                               check_operands, mma_takes)
 from repro_torch.kernels.lut_common import READ_MODES
+from repro_torch.tune import dispatch as _dispatch
 from . import ref as _ref
 
 
@@ -68,11 +71,11 @@ def decode_splits(m: int, nb: int, sms: int) -> int:
 
 def lut_gemm(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
              half_lut: Optional[bool] = None,
-             read_mode: Optional[str] = None,
-             out_dtype=None) -> torch.Tensor:
-    """y = x @ dequant(w).T via FIGLUT's LUT GEMM, f32 accumulation."""
+             read_mode: Optional[str] = None, route: Optional[str] = None,
+             splits: Optional[int] = None, out_dtype=None) -> torch.Tensor:
+    """y = x @ dequant(w).T via FIGLUT's LUT GEMM, f32 accumulation.
+    ``route`` / ``splits`` pin the launch (CUDA only)."""
     out_dtype = out_dtype or x.dtype
-    half_lut = True if half_lut is None else bool(half_lut)
     if read_mode is not None and read_mode not in READ_MODES:
         raise ValueError(f"read_mode {read_mode!r} not in {READ_MODES}")
     if mu not in (2, 4):
@@ -81,7 +84,7 @@ def lut_gemm(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
         raise ValueError(f"x last dim {x.shape[-1]} != in_features "
                          f"{w.in_features}")
     if x.device.type == "cpu":
-        return _ref.lut_ref(x, w, mu=mu, half_lut=half_lut,
+        return _ref.lut_ref(x, w, mu=mu, half_lut=half_lut is not False,
                             out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"lut_gemm: unsupported device {x.device}")
@@ -92,16 +95,16 @@ def lut_gemm(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
     b = x2.shape[0]
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
-        route = route_for(b, x2.dtype, w.group_size, w.in_features, mu,
-                          half_lut)
-        sms = _lib.sm_count(x.device.index or 0)
+        sms, device = _dispatch.device_of(x2)
+        cfg = _dispatch.launch_config(
+            "lut_gemm", route=route, splits=splits, b=b, m=m,
+            n=w.in_features, dtype=x2.dtype, mu=mu, group_size=w.group_size,
+            sms=sms, device=device, operands=(x2, w))
+        route, splits = cfg.route, cfg.splits
+        half_lut = cfg.half_lut if half_lut is None else bool(half_lut)
         part = None
-        if route == "lut":
-            splits = decode_splits(m, nb, sms)
-        else:
+        if route != "lut":
             x2 = aligned_rows(x2)
-            splits = (mma_splits(b, m, w.n_groups, sms) if route == "mma"
-                      else dq_splits(b, m, nb * 8, sms))
         if splits > 1:
             part = torch.empty((splits, b, m), dtype=torch.float32,
                                device=x.device)

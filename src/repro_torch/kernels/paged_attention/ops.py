@@ -28,6 +28,13 @@ group) to finish merges them in split order, counted by a per-device
 buffer of int32 counters that every call leaves at 0 (so decode calls
 on one device run in stream order, as the port's do).
 (``ref.paged_decode_split_ref`` is the plain version of that walk.)
+
+Every launch resolves its config through
+``repro_torch.tune.dispatch.launch_config``: the decode kernels' split
+count is a tuned cache entry where there is one, else ``decode_splits``
+/ ``mla_splits``; ``splits=`` pins it.  Chunked prefill has no launch
+choice and resolves to its one config.  The head-width caps are the
+capability probe's (``dispatch.kernel_unsupported_reason``).
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.tune import dispatch as _dispatch
+from repro_torch.tune.space import decode_problem
 from . import ref as _ref
 
 _KV_DTYPES = (torch.bfloat16, torch.float32)
@@ -158,10 +167,11 @@ def _compute_dtype(k_pool, int8, compute_dtype):
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, pos_pool: torch.Tensor,
                     tables: torch.Tensor, positions: torch.Tensor, *,
-                    scale: Optional[float] = None,
-                    out_dtype=None) -> torch.Tensor:
+                    scale: Optional[float] = None, out_dtype=None,
+                    splits: Optional[int] = None) -> torch.Tensor:
     """Fused decode attention from a float pool.  q [B, H, D];
-    positions [B].  Returns [B, H, D] in ``out_dtype`` (default q.dtype)."""
+    positions [B].  Returns [B, H, D] in ``out_dtype`` (default q.dtype).
+    ``splits`` pins the table split (CUDA only)."""
     _check_pool("paged_attention", q, k_pool, v_pool, pos_pool, tables,
                 positions)
     if q.device.type == "cpu":
@@ -169,7 +179,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                      positions, scale=scale,
                                      out_dtype=out_dtype)
     return _decode(q, k_pool, v_pool, None, pos_pool, tables, positions,
-                   scale, out_dtype, k_pool.dtype, "paged_decode")
+                   scale, out_dtype, k_pool.dtype, "paged_decode", splits)
 
 
 def paged_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
@@ -177,11 +187,12 @@ def paged_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
                          v_scale: torch.Tensor, pos_pool: torch.Tensor,
                          tables: torch.Tensor, positions: torch.Tensor, *,
                          scale: Optional[float] = None, out_dtype=None,
-                         compute_dtype=None) -> torch.Tensor:
+                         compute_dtype=None,
+                         splits: Optional[int] = None) -> torch.Tensor:
     """Fused int8-KV decode attention: the per-slot scales fold in the
     kernel (``decode_attend``'s ordering).  q [B, H, D] float; pools int8
     [NB, BS, Hkv, D]; k_scale / v_scale f32 [NB, BS, Hkv].  Returns
-    [B, H, D]."""
+    [B, H, D].  ``splits`` pins the table split (CUDA only)."""
     _check_pool("paged_attention_int8", q, k_pool, v_pool, pos_pool,
                 tables, positions, k_scale, v_scale)
     cdt = _compute_dtype(k_pool, True, compute_dtype)
@@ -190,17 +201,21 @@ def paged_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
             q, k_pool, v_pool, k_scale, v_scale, pos_pool, tables,
             positions, scale=scale, out_dtype=out_dtype, compute_dtype=cdt)
     return _decode(q, k_pool, v_pool, (k_scale, v_scale), pos_pool, tables,
-                   positions, scale, out_dtype, cdt, "paged_decode_int8")
+                   positions, scale, out_dtype, cdt, "paged_decode_int8",
+                   splits)
 
 
 def _decode(q, k_pool, v_pool, scales, pos_pool, tables, positions, scale,
-            out_dtype, cdt, kernel):
+            out_dtype, cdt, kernel, splits):
     if q.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {q.device}")
     b, h, d = q.shape
     nb, bs, hkv, _ = k_pool.shape
     rep = h // hkv
-    if d % 16 or d > DECODE_MAX_HEAD_DIM:
+    pages = tables.shape[1]
+    if _dispatch.kernel_unsupported_reason(
+            kernel, m=h, n=pages * bs, group_size=bs, n_kv_heads=hkv,
+            head_dim=d) == "head_dim":
         raise ValueError(f"{kernel}: takes head_dim % 16 == 0 and <= "
                          f"{DECODE_MAX_HEAD_DIM}, got {d}")
     scale = scale if scale is not None else d ** -0.5
@@ -213,9 +228,11 @@ def _decode(q, k_pool, v_pool, scales, pos_pool, tables, positions, scale,
     out = torch.empty((b, h, d), device=q.device,
                       dtype=out_dtype if direct else torch.float32)
     if b:
-        pages = tables.shape[1]
-        splits = decode_splits(b, hkv, rep, pages, bs,
-                               _lib.sm_count(q.device.index or 0))
+        sms, device = _dispatch.device_of(q)
+        splits = _dispatch.launch_config(
+            kernel, splits=splits, sms=sms, device=device,
+            **decode_problem(kernel, b=b, h=h, hkv=hkv, pages=pages, bs=bs,
+                             dtype=cdt)).splits
         parts = (None, None, None)
         if splits > 1:
             parts = tuple(torch.empty((splits, b, hkv, rep, n),
@@ -263,12 +280,20 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     scales = (k_scale, v_scale) if int8 else None
     pages = tables.shape[1]
     out_dtype = out_dtype or q.dtype
+    if _dispatch.kernel_unsupported_reason(
+            kernel, m=h, n=pages * bs, group_size=bs, n_kv_heads=hkv,
+            head_dim=d, bf16=cdt == torch.bfloat16) == "head_dim":
+        raise ValueError(f"paged_prefill: bf16 compute takes head_dim "
+                         f"<= {MMA_MAX_HEAD_DIM}, got {d}")
+    if b and c:
+        # no launch choice: the one config, resolved like every launch's
+        sms, device = _dispatch.device_of(q)
+        _dispatch.launch_config(kernel, sms=sms, device=device, b=b, m=hkv,
+                                n=pages * bs, dtype=cdt, mu=rep,
+                                group_size=bs)
     if cdt == torch.bfloat16:
         # the tensor-core kernel scales and rounds q and writes the output
         # in its dtype itself: no pass of the wrapper's own
-        if d > MMA_MAX_HEAD_DIM:
-            raise ValueError(f"paged_prefill: bf16 compute takes head_dim "
-                             f"<= {MMA_MAX_HEAD_DIM}, got {d}")
         qk = (q if q.dtype in _Q_DTYPES else q.float()).contiguous()
         direct = out_dtype in _Q_DTYPES
         out = torch.empty((b, c, h, d), device=q.device,
@@ -293,14 +318,14 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
 def paged_attention_mla(q_eff: torch.Tensor, q_rope: torch.Tensor,
                         ckv_pool: torch.Tensor, krope_pool: torch.Tensor,
                         pos_pool: torch.Tensor, tables: torch.Tensor,
-                        positions: torch.Tensor, *,
-                        scale: float) -> torch.Tensor:
+                        positions: torch.Tensor, *, scale: float,
+                        splits: Optional[int] = None) -> torch.Tensor:
     """Fused absorbed MLA decode over the latent pool.  q_eff: f32 [B, H,
     lora] (``w_uk`` absorbed by the caller); q_rope: f32 [B, H,
     rope_dim]; ckv_pool [NB, BS, lora], krope_pool [NB, BS, rope_dim]
     (bf16 or f32, one type); pos_pool int32 [NB, BS]; tables int32 [B,
     pages]; positions int32 [B].  Returns the latent context, f32 [B, H,
-    lora]."""
+    lora].  ``splits`` pins the table split (CUDA only)."""
     name = "paged_attention_mla"
     b, h, lora = q_eff.shape
     nb, bs = pos_pool.shape
@@ -340,16 +365,21 @@ def paged_attention_mla(q_eff: torch.Tensor, q_rope: torch.Tensor,
               positions):
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-    if lora > MLA_MAX_LORA:
+    pages = tables.shape[1]
+    if _dispatch.kernel_unsupported_reason(
+            "paged_decode_mla", m=h, n=pages * bs, group_size=bs,
+            lora=lora) == "head_dim":
         raise ValueError(f"{name}: takes kv_lora_rank <= {MLA_MAX_LORA}, "
                          f"got {lora}")
     out = torch.empty((b, h, lora), dtype=torch.float32,
                       device=q_eff.device)
     if b and h:
-        pages = tables.shape[1]
         hb = mla_heads_per_block(h)
-        splits = mla_splits(b, h, pages, _lib.sm_count(q_eff.device.index
-                                                       or 0))
+        sms, device = _dispatch.device_of(q_eff)
+        splits = _dispatch.launch_config(
+            "paged_decode_mla", splits=splits, sms=sms, device=device,
+            **decode_problem("paged_decode_mla", b=b, h=h, hkv=h,
+                             pages=pages, bs=bs, dtype=ckv_pool.dtype)).splits
         part_o = part_ml = sem = None
         if splits > 1:
             part_o = torch.empty((splits, b, h, lora), dtype=torch.float32,

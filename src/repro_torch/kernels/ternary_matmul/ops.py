@@ -38,8 +38,10 @@ the reduction axis (alpha groups on ``mma`` as
 ``splits`` blocks whose partial sums (scratch allocated here) are added
 in a fixed order (a second pass, or on ``gemv`` the last block of each
 row tile, counted in ``_lib.split_counters``), so the result does not
-depend on scheduling.  The launch counter keeps the kernel's name;
-``_lib.route_counts`` counts each body under
+depend on scheduling.  The route and the split count come from
+``repro_torch.tune.dispatch.launch_config`` (a tuned entry, else the
+rules above); ``route=`` / ``splits=`` pin them.  The launch counter
+keeps the kernel's name; ``_lib.route_counts`` counts each body under
 ``"ternary_matmul/<route>"``.
 """
 from __future__ import annotations
@@ -51,10 +53,9 @@ import torch
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.kernels import _lib
 from repro_torch.kernels.bcq_matmul.ops import (GEMV_ROWS, aligned_rows,
-                                                dq_splits, gemv_splits,
-                                                gemv_takes, mma_splits,
-                                                mma_takes)
+                                                gemv_takes, mma_takes)
 from repro_torch.kernels.lut_common import READ_MODES
+from repro_torch.tune import dispatch as _dispatch
 from . import ref as _ref
 
 _X_DTYPES = (torch.bfloat16, torch.float32)
@@ -97,10 +98,12 @@ def _check_operands(x2: torch.Tensor, w: PlaneBundle) -> None:
 
 def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
                    read_mode: Optional[str] = None,
+                   route: Optional[str] = None, splits: Optional[int] = None,
                    out_dtype=None) -> torch.Tensor:
     """y = x @ dequant(w).T for a ternary bundle, f32 accumulation (the
     half-LUT algorithm on the CPU).  x: [..., in_features] ->
-    [..., out_features]."""
+    [..., out_features].  ``route`` / ``splits`` pin the launch (CUDA
+    only)."""
     if w.kind != "ternary":
         raise ValueError(
             f"ternary_matmul needs a kind='ternary' bundle, got {w.kind!r}; "
@@ -125,19 +128,17 @@ def ternary_matmul(x: torch.Tensor, w: PlaneBundle, *, mu: int = 4,
     b = x2.shape[0]
     y = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if b:
-        route = route_for(b, x2.dtype, w.group_size, w.in_features)
-        sms = _lib.sm_count(x.device.index or 0)
+        sms, device = _dispatch.device_of(x2)
+        cfg = _dispatch.launch_config(
+            "ternary_matmul", route=route, splits=splits, b=b, m=m,
+            n=w.in_features, dtype=x2.dtype, group_size=w.group_size,
+            sms=sms, device=device, operands=(x2, w))
+        route, splits = cfg.route, cfg.splits
         x2 = aligned_rows(x2)
         sem = None
-        if route == "gemv":
-            splits = gemv_splits(m, nb * 8, sms)
-            if splits > 1:
-                sem = _lib.split_counters("ternary_matmul", x.device,
-                                          -(-m // GEMV_ROWS))
-        elif route == "mma":
-            splits = mma_splits(b, m, w.n_groups, sms)
-        else:
-            splits = dq_splits(b, m, nb * 8, sms)
+        if route == "gemv" and splits > 1:
+            sem = _lib.split_counters("ternary_matmul", x.device,
+                                      -(-m // GEMV_ROWS))
         part = torch.empty((splits, b, m), dtype=torch.float32,
                            device=x.device) if splits > 1 else y
         rc = _lib.lib().launch_ternary_matmul(

@@ -161,6 +161,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-profiler-bridge", action="store_true",
                     help="with --trace-out: wrap host spans in "
                          "torch.profiler.record_function")
+    ap.add_argument("--pretune", action="store_true",
+                    help="tune every GEMM call of the model into the tuning "
+                         "cache (REPRO_TORCH_TUNE_CACHE) before serving; "
+                         "needs the card")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda",
@@ -259,6 +263,9 @@ def main(argv=None):
             fallback_chain(args.backend)
         except KeyError as e:
             raise SystemExit(f"--backend: {e.args[0]}")
+    if args.pretune and device.type != "cuda":
+        raise SystemExit("--pretune measures kernels on the card; no "
+                         "kernel runs on the CPU")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     try:
         check_servable(cfg)
@@ -335,12 +342,14 @@ def main(argv=None):
                                prefill_buckets=(16, 32, 64),
                                paged_kernel=args.paged_kernel,
                                prefix_cache=args.prefix_cache != "off",
-                               rng_seed=args.seed, tracer=tracer)
+                               rng_seed=args.seed, tracer=tracer,
+                               pretune=args.pretune)
         print(f"[launch.serve] paged-kernel={args.paged_kernel} -> decode "
               f"path: {eng.decode_path}  prefill path: {eng.prefill_path}")
     else:
         eng = ServeEngine(model, slots=args.slots, cache_len=args.cache_len,
-                          prefill_buckets=(16, 32, 64), rng_seed=args.seed)
+                          prefill_buckets=(16, 32, 64), rng_seed=args.seed,
+                          pretune=args.pretune)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(4, 24)),))
                for _ in range(args.requests)]

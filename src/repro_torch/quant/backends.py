@@ -7,12 +7,13 @@ Counterpart of ``repro.quant.backends``, with the same registry,
     run their plain versions on CPU tensors, so they are always available;
   * ``native()``    — is it the hardware-native path: for the kernels, a
     CUDA device with capability (9, 0) (the reference asks for a TPU);
-  * ``supports(w)`` — per-weight capability.  The port keeps its own copy
-    of the reference's matmul rules (``tune/dispatch.py:119-134``):
-    ``group_size % 8 == 0``, 1..8 planes, and the two-way kind rule:
-    ``ternary_matmul`` takes only ternary bundles, ``bcq_matmul`` and
-    ``lut_gemm`` never do; the LUT kernel also needs
-    ``group_size % mu == 0``.
+  * ``supports(w)`` — per-weight capability, asked of the kernels'
+    capability probe (``repro_torch.tune.dispatch.
+    kernel_unsupported_reason``, as the reference's registry asks
+    ``repro.tune.dispatch``): ``group_size % 8 == 0`` (which covers the
+    LUT kernel's ``group_size % mu``), 1..8 planes, and the two-way kind
+    rule: ``ternary_matmul`` takes only ternary bundles, ``bcq_matmul``
+    and ``lut_gemm`` never do.
 
 An explicit kernel preference on a host without the card resolves to
 the kernel's wrapper, which runs its plain version on the CPU tensors it
@@ -30,8 +31,7 @@ import torch
 
 from repro_torch.core import lut_gemm as _lg
 from repro_torch.core.plane import PlaneBundle
-
-LUT_MU = 4   # the LUT backend's mu (the reference wrapper's default)
+from repro_torch.tune.dispatch import kernel_unsupported_reason
 
 
 @functools.lru_cache(maxsize=1)
@@ -125,20 +125,12 @@ def execute_linear(x: torch.Tensor, w, *, backend: Optional[str] = None,
 
 
 def matmul_unsupported_reason(kernel: str, w: PlaneBundle) -> Optional[str]:
-    """The port's copy of the reference's GEMM capability rules."""
-    if w.packed.ndim != 3:
-        return "shape"
-    if w.out_features < 1 or w.in_features < 1:
-        return "shape"
-    if w.group_size < 8 or w.group_size % 8:
-        return "group_size"
-    if not 1 <= w.bits <= 8:
-        return "bits"
-    if (kernel == "ternary_matmul") != (w.kind == "ternary"):
-        return "kind"
-    if kernel == "lut_gemm" and w.group_size % LUT_MU:
-        return "group_size"
-    return None
+    """The capability probe's answer for one weight (an expert bank's
+    leading axis makes it no linear: ``lead``)."""
+    return kernel_unsupported_reason(
+        kernel, m=w.out_features, n=w.in_features, group_size=w.group_size,
+        bits=w.bits, kind=w.kind, lead=w.packed.ndim - 3)
+
 
 
 def _supports_any(w) -> bool:

@@ -46,6 +46,11 @@ Sampling matches the reference's: ``temperature <= 0`` is the argmax
 the Gumbel-max draw) under the key of :func:`request_key`, whose words
 equal ``jax.random``'s (``core/prng.py``).
 
+With ``pretune=True`` both engines tune, before their first tick, every
+GEMM call their model will launch (decode rows and each prefill bucket)
+that the tuning cache does not hold yet (``repro_torch.tune``), so the
+first ticks launch tuned configs rather than the heuristic's.
+
 Not ported (ROADMAP.md queue 1 item 10): mesh serving.
 """
 from __future__ import annotations
@@ -179,6 +184,31 @@ class _InFlight:
     tick: int
 
 
+def _pretune(model, batch_sizes) -> list:
+    """Tune the GEMM calls of ``model`` at ``batch_sizes`` rows into the
+    default tuning cache: each linear's kernel as the backend registry
+    resolves it for that weight.  Nothing to do where no weight resolves
+    to a kernel (a dense model, a plain backend); refused on the CPU,
+    where no kernel runs."""
+    from repro_torch import tune
+    from repro_torch.core.plane import PlaneBundle
+    from repro_torch.quant.api import walk_linears
+    from repro_torch.quant.backends import get_backend, resolve_backend
+    pref = model.cfg.backend_preference
+    kernels = {get_backend(resolve_backend(pref, lin.weight)).kernel
+               for _, lin in walk_linears(model)
+               if isinstance(lin.weight, PlaneBundle)
+               and lin.weight.packed.ndim == 3} - {None}
+    if not kernels:
+        return []
+    if model.device.type != "cuda":
+        raise ValueError("pretune measures kernels on the card: the model "
+                         f"lies on {model.device}")
+    return tune.pretune_params(model, kernels=tuple(sorted(kernels)),
+                               batch_sizes=sorted(set(batch_sizes)),
+                               dtype=getattr(torch, model.cfg.dtype))
+
+
 class PagedServeEngine:
     """Continuous batching over a paged KV cache (see the module
     docstring).
@@ -188,14 +218,17 @@ class PagedServeEngine:
     ``prefill_path`` report the one taken.  ``prefix_cache`` turns on
     block sharing across requests with a common prompt prefix;
     ``rng_seed`` seeds the keys of requests without their own ``seed``;
-    ``tracer`` (or ``attach_tracer``) records the event trace."""
+    ``tracer`` (or ``attach_tracer``) records the event trace;
+    ``pretune`` tunes the model's GEMM calls first (after the tracer is
+    attached, so its kernel-config records land in the trace)."""
 
     def __init__(self, model, *, num_blocks: int = 64, block_size: int = 16,
                  max_batch: int = 8, max_seq_len: int = 0,
                  prefill_buckets=(32, 128, 512),
                  paged_kernel: Optional[str] = None,
                  prefix_cache: bool = False, rng_seed: int = 0,
-                 clock=time.perf_counter, tracer=None):
+                 clock=time.perf_counter, tracer=None,
+                 pretune: bool = False):
         if paged_kernel is not None and paged_kernel != model.cfg.paged_kernel:
             model = model.with_config(paged_kernel=paged_kernel)
         self.model = model
@@ -220,6 +253,8 @@ class PagedServeEngine:
                                prefix_cache=self.prefix, tracer=self.trace)
         if tracer is not None:
             self.attach_tracer(tracer)
+        if pretune:
+            _pretune(model, [1, max_batch, *self.buckets])
         self.clock = clock
         self.metrics = ServeMetrics(clock)
         self.tables = np.full((max_batch, self.max_blocks_per_seq), -1,
@@ -742,7 +777,8 @@ class ServeEngine:
     state, as in the reference."""
 
     def __init__(self, model, *, slots: int = 8, cache_len: int = 512,
-                 prefill_buckets=(32, 128, 512), rng_seed: int = 0):
+                 prefill_buckets=(32, 128, 512), rng_seed: int = 0,
+                 pretune: bool = False):
         check_servable(model.cfg)
         self.model = model
         self.slots = slots
@@ -753,6 +789,8 @@ class ServeEngine:
         self.slot_pos = np.zeros(slots, np.int32)
         self.rng_seed = rng_seed
         self.ticks = 0
+        if pretune:
+            _pretune(model, [1, slots, *self.buckets])
 
     # ------------------------------------------------------------------
     def _bucket(self, n: int) -> int:

@@ -1642,3 +1642,78 @@ def test_cuda_async_tick_has_one_host_wait(sample):
     assert outs["async"] == outs["sync"]
     assert outs["sync"][1]["prefix_hit_blocks"] > 0
     assert strict >= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bcq_matmul", "lut_gemm",
+                                    "ternary_matmul", "paged_decode"])
+def test_cuda_tune_candidates_match_plain(kernel, tmp_path, monkeypatch):
+    """Every config the tuner may time, pinned through the wrapper, at
+    decode rows and prefill rows of one small shape (a 16-step reduction
+    axis, so the split grid is wide), against the plain version; then
+    ``tune`` stores a winner that a cache reloaded from disk resolves
+    (source ``cache``) and that still matches."""
+    require_cuda()
+    from repro_torch import obs, tune as T
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "c.json"))
+    monkeypatch.delenv("REPRO_TORCH_TUNE", raising=False)
+    T.reset_default_cache()
+    sms, device = T.dispatch.device_of(torch.empty(0, device="cuda"))
+    rng = np.random.default_rng(11)
+    if kernel == "paged_decode":
+        dev = lambda a: torch.from_numpy(a).to("cuda")
+        ops = tuple(map(dev, pool_case(5, b=4, h=8, hkv=4, d=64, nb=80,
+                                       bs=4, pages=16)))
+        want = paged_decode_ref(*ops, out_dtype=torch.float32)
+        run = lambda cfg: paged_attention(*ops, out_dtype=torch.float32,
+                                          splits=cfg.splits)
+        problems = [T.space.decode_problem(kernel, b=4, h=8, hkv=4,
+                                           pages=16, bs=4,
+                                           dtype=torch.float32)]
+        tol, tune_ops = PAGED_TOL, ops
+    else:
+        m, n, g = 96, 4096, 128
+        w = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)
+                             ).to("cuda")
+        wq = (quantize_ternary(w, group_size=g) if kernel == "ternary_matmul"
+              else bcq.from_uniform(w, bits=3, group_size=g))
+        op = {"bcq_matmul": bcq_matmul, "lut_gemm": lut_gemm,
+              "ternary_matmul": ternary_matmul}[kernel]
+        problems, tol = [], GEMM_TOL
+        for rows in (8, 64):
+            x = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+                np.float32)).to("cuda", torch.bfloat16)
+            want = bcq_matmul_ref(x, wq, torch.float32) \
+                if kernel != "ternary_matmul" else ternary_ref(
+                    x, wq, out_dtype=torch.float32)
+            for cfg in T.candidate_configs(
+                    kernel, b=rows, m=m, n=n, dtype=x.dtype,
+                    mu=4 if kernel == "lut_gemm" else 0, group_size=g,
+                    sms=sms):
+                kw = ({"half_lut": cfg.half_lut} if kernel == "lut_gemm"
+                      else {})
+                got = op(x, wq, route=cfg.route, splits=cfg.splits,
+                         out_dtype=torch.float32, **kw)
+                _close(got, want, tol)
+        run = lambda cfg: op(x, wq, out_dtype=torch.float32)
+        tune_ops = (x, wq)
+        problems = [dict(b=64, m=m, n=n, dtype=x.dtype,
+                         mu=4 if kernel == "lut_gemm" else 0,
+                         group_size=g)]
+    if kernel == "paged_decode":
+        for cfg in T.candidate_configs(kernel, sms=sms, **problems[0]):
+            _close(run(cfg), want, tol)
+    res = T.tune(kernel, *tune_ops, cache=T.default_cache(), reps=2,
+                 warmup=1)
+    assert res.timings[0].ok and res.best_time <= res.default_time
+    T.default_cache().save()
+    T.reset_default_cache()
+    tr = obs.Tracer()
+    with obs.activate(tr):
+        assert T.kernel_config(kernel, sms=sms, device=device,
+                               **problems[0]) == res.best
+        _close(run(res.best) if kernel == "paged_decode" else
+               run(None), want, tol)
+    assert [e["args"]["source"] for e in tr.events
+            if e["name"] == f"kernel_config:{kernel}"] == ["cache"]
+    T.reset_default_cache()

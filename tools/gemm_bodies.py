@@ -13,8 +13,8 @@ call (all trees are built first, in parallel).  Every case runs through
 the wrapper a user calls at [16384 x 4096] (BCQ-3 with offsets, or
 ternary), logs the body it launched (the route counter), is held to 1e-3
 of the output scale against the plain version and is timed with
-``chip_smoke.Timer`` (device time per call, L2 flushed) beside one
-PyTorch call for the same function (``torch.matmul`` on the dense weight
+``repro_torch.tune.measure.Timer`` (device time per call, L2 flushed)
+beside one PyTorch call for the same function (``torch.matmul`` on the dense weight
 in x's type, TF32 off) and the byte bound.  The LUT variants are also
 set beside the decode tile (``bcq_matmul`` on the same weight and x,
 route ``gemv``), which computes the same function.  The card's name and
@@ -52,7 +52,7 @@ CASES = {
 def worker(seed: int) -> dict:
     """Build and time every case with the checkout on sys.path."""
     import torch
-    from chip_smoke import Timer, bound, routed
+    from chip_smoke import bound, routed
     from repro_torch.core import bcq
     from repro_torch.core.plane import dequantize
     from repro_torch.kernels import _lib
@@ -64,7 +64,12 @@ def worker(seed: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     _lib.lib()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    timer = Timer(torch, iters=20, warmup=3)
+    try:
+        from repro_torch.tune.measure import Timer
+        timer = Timer(iters=20, warmup=3)
+    except ImportError:          # a tree from before the tuner
+        from chip_smoke import Timer
+        timer = Timer(torch, iters=20, warmup=3)
     weights = {}
     out = {}
     for name, (kernel, kind, gs, dt, lut) in CASES.items():
