@@ -181,6 +181,25 @@ linear), served through bcq_matmul and lut_gemm with ``serve_one``'s
 gates: bf16 first-prefill logits within 5e-2, the f32 view within
 1e-3.
 
+Mesh serving (``serve_sharded``, on the first OPT run's weights):
+OPT-6.7B BCQ-3 at full width and ``SHARDED_SERVE_LAYERS`` deep, written
+once through ``quant/checkpoint.py`` to ``build/serve_sharded/`` (deleted
+after) and served over a (1, 2) mesh by two processes that share the
+card over gloo (``chip_smoke.py --rank-job JOB``, each loading its
+shard), through bcq_matmul, lut_gemm and on the f32 view, beside the
+same requests served unsharded: every rank's decode steps and prefill
+chunks on the kernels at the shard shapes (route counters), the paged
+kernels once a layer on 16 heads, the pool shard's shape, finite
+logits, the f32 view's first-prefill logits within 1e-3 of the
+unsharded f32 view's scale; the share of equal greedy tokens (f32,
+bf16), and per rank tok/s, TTFT p50, decode-step p50 and the
+collectives' share of a step printed.  Phase 3 holds both BCQ GEMMs at
+the tp-2 shard shapes (rows 8 and 512) and the paged kernels on the
+16-head slice.  ``--sharded-mesh DxM`` runs only the build and this
+phase on a DxM mesh, one rank a card (NCCL) where there are D*M cards,
+adding an async run whose decode-only ticks run under sync debug mode
+"error".
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Full results also go to
 ``chiprun_out/chip_smoke.json``.
@@ -762,7 +781,10 @@ def dense_attn_cases():
     decode at B 8 and the C 512 prefill chunk."""
     return [("paged_decode", 8, 0, 24, 8), ("paged_prefill", 1, 512, 24, 8),
             ("paged_decode", 8, 0, 40, 40),
-            ("paged_prefill", 1, 512, 40, 40)]
+            ("paged_prefill", 1, 512, 40, 40),
+            # OPT-6.7B's 16-head slice at tp 2 (serve_sharded)
+            ("paged_decode", 8, 0, 16, 16),
+            ("paged_prefill", 1, 512, 16, 16)]
 
 
 def check_paged(torch, timer, gen, results, args_seed):
@@ -2729,7 +2751,9 @@ def serve(torch, args, power_line, results):
                 "serve_breadth": serve_breadth(torch, args, model, bcq3,
                                                power_line, totals),
                 "serve_tuned": serve_tuned(torch, args, model, bcq3, eng_kw,
-                                           totals, power_line)}
+                                           totals, power_line),
+                "serve_sharded": serve_sharded(torch, args, model, bcq3,
+                                               eng_kw, totals, power_line)}
         serve_model(torch, args, cfg, spec, kv_bits, backends, attn,
                     prefill, eng_kw, results, totals, power_line, serve_out,
                     after=after)
@@ -3690,13 +3714,445 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# mesh serving: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# OPT-6.7B's serve depth over the (1, 2) mesh (of 32; full width kept)
+SHARDED_SERVE_LAYERS = 32
+SHARDED_DIR = ROOT / "build" / "serve_sharded"
+# the tp-2 shard of each OPT-6.7B linear, [out x in]: q / k / v, out_proj,
+# fc1, fc2
+OPT_TP2_SHAPES = ((2048, 4096), (4096, 2048), (8192, 4096), (4096, 8192))
+SHARDED_VIEWS = ("auto", "lut_pallas", "f32")
+
+
+def check_shard_shapes(torch, timer, gen, results):
+    """bcq_matmul and lut_gemm, BCQ-3 g 128 on bf16 activations, at the
+    tp-2 shard shapes of OPT-6.7B's linears (the serve_sharded phase's
+    calls), rows 8 (a decode step) and 512 (the top prefill bucket):
+    1e-3 of the output scale against the plain version, timed beside it,
+    ``torch.matmul`` on the dequantized bf16 shard and the bound."""
+    from repro_torch.core import bcq
+    from repro_torch.core.plane import dequantize
+    from repro_torch.kernels.bcq_matmul import bcq_matmul, bcq_matmul_ref
+    from repro_torch.kernels.lut_gemm import lut_gemm
+
+    tol = 1e-3
+    out = []
+    for m, n in OPT_TP2_SHAPES:
+        w_dense = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+        w = bcq.quantize(w_dense, bits=3, group_size=128)
+        del w_dense
+        dense_bf16 = dequantize(w, torch.bfloat16)
+        for rows in (8, 512):
+            x = torch.randn((rows, n), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            plain = bcq_matmul_ref(x, w, out_dtype=torch.float32)
+            scale = float(plain.abs().max()) + 1e-12
+            b_ms, b_by = bound(rows * n * 2 + w.nbytes() + rows * m * 4,
+                               2.0 * rows * m * n)
+            t_plain = timer(lambda: bcq_matmul_ref(x, w, torch.float32))
+            t_lib = timer(lambda: torch.matmul(x, dense_bf16.T))
+            for name, fn in (
+                    ("bcq_matmul",
+                     lambda: bcq_matmul(x, w, out_dtype=torch.float32)),
+                    ("lut_gemm",
+                     lambda: lut_gemm(x, w, out_dtype=torch.float32))):
+                got, route = routed(torch, name, fn)
+                if got.shape != plain.shape or not torch.isfinite(got).all():
+                    fail(f"{name} shard [{rows}x{n}]x[{m}x{n}]^T: bad "
+                         "output")
+                err = float((got - plain).abs().max())
+                t = timer(fn)
+                out.append(dict(kernel=name, m=m, n=n, rows=rows,
+                                route=route, max_abs_err=err,
+                                rel_err=err / scale, tol=tol, ms=t,
+                                plain_ms=t_plain, library_ms=t_lib,
+                                bound_ms=b_ms, bound_by=b_by))
+                log(f"{name:10s} tp-2 shard rows={rows:3d} M={m:5d} "
+                    f"N={n:5d} [{route}]: rel err {err / scale:.2e} <= "
+                    f"{tol:g}: {err / scale <= tol}  kernel {t:.4f} ms  "
+                    f"plain {t_plain:.4f} ms  torch.matmul {t_lib:.4f} ms"
+                    f"  bound {b_ms:.4f} ms ({b_by})")
+                if err / scale > tol:
+                    fail(f"{name} disagrees with its plain version at a "
+                         "tp-2 shard shape")
+        del w, dense_bf16
+    results["shard_shapes"] = out
+
+
+def sharded_view(torch, m, spec, view):
+    """The serve view ``view`` of ``m``: BCQ-3 through bcq_matmul
+    (``auto``) or lut_gemm (``lut_pallas``) in bf16, or through
+    bcq_matmul on the f32 view (``f32``)."""
+    backend = "auto" if view == "f32" else view
+    v = m.with_config(quant=spec.replace(backend=backend),
+                      paged_kernel="fused")
+    return f32_view(v) if view == "f32" else v
+
+
+def sharded_serve_run(torch, tag, m, prompts, eng_kw, mesh=None):
+    """One serve of the 8-request mix (32 new tokens each) through the
+    paged engine (over ``mesh`` where given), instrumented as
+    ``serve_one``: per-step times and launches, GEMM bodies per step and
+    chunk, finite logits, and over a mesh the collectives' seconds and
+    host syncs inside each decode step."""
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import PagedServeEngine, Request
+    eng = PagedServeEngine(m, paged_kernel="fused", mesh=mesh, **eng_kw)
+    step_ms, step_launches, step_routes, chunk_routes, extra = instrument(
+        torch, eng.model, "prefill_chunk")
+    comm = []
+    if mesh is not None:
+        inner = eng.model.decode_step
+
+        def counted(*a, **kw):
+            c0, s0 = mesh.comm_s, mesh.host_syncs
+            r = inner(*a, **kw)
+            comm.append((mesh.comm_s - c0, mesh.host_syncs - s0))
+            return r
+        eng.model.decode_step = counted
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    if mesh is not None:
+        mesh.reset_counters()
+    t0 = time.perf_counter()
+    done = eng.run(reqs, max_ticks=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = dict(_lib.launch_counts), dict(_lib.route_counts)
+    bad = [r.uid for r in done if r.error or len(r.out_tokens) != 32]
+    if len(done) != len(reqs) or bad:
+        fail(f"serve[{tag}]: requests incomplete: {bad}")
+    finite_gate(tag, extra)
+    s = eng.metrics.summary()
+    steps = sorted(step_ms)
+    out = dict(
+        tokens={str(r.uid): [int(t) for t in r.out_tokens] for r in done},
+        tokens_out=s["counters"]["tokens_out"], wall_s=wall,
+        tokens_per_s=s["counters"]["tokens_out"] / wall,
+        ttft_p50_ms=s["ttft_s"]["p50"] * 1e3,
+        decode_step_ms_p50=steps[len(steps) // 2], decode_steps=len(steps),
+        launches=counts, routes=routes, step_launches=step_launches,
+        step_routes=step_routes, chunk_routes=chunk_routes,
+        decode_path=eng.decode_path, prefill_path=eng.prefill_path,
+        k_shape=list(eng.cache["layers"][0]["k"].shape))
+    if mesh is not None:
+        share = sorted(c / t * 1e3 for (c, _), t in zip(comm, step_ms))
+        out.update(comm_share_p50=share[len(share) // 2],
+                   host_syncs_per_step=sorted(h for _, h in comm)[
+                       len(comm) // 2],
+                   collectives=mesh.collectives,
+                   same_host_state=mesh.same_on_all(eng.host_state()))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_only(torch, args, power_line):
+    """``--sharded-mesh DxM``: OPT-6.7B BCQ-3 at full width and
+    ``--layers`` deep, served unsharded and over the mesh
+    (``serve_sharded``); results in ``chiprun_out/serve_sharded.json``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.quant import QuantSpec
+    shape = tuple(int(x) for x in args.sharded_mesh.lower().split("x"))
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    cfg = get_config("opt_6_7b").replace(n_layers=args.layers)
+    model, _, _, _ = build_quantized(torch, cfg, spec, args.seed)
+    eng_kw = dict(num_blocks=256, block_size=16, max_batch=8,
+                  max_seq_len=512, prefill_buckets=BUCKETS)
+    totals = {k: 0 for k in _lib.KERNELS}
+    report = serve_sharded(torch, args, model.with_config(quant=spec), spec,
+                           eng_kw, totals, power_line, mesh_shape=shape)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "serve_sharded.json").write_text(json.dumps(report,
+                                                           indent=1))
+    print(power_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def sharded_rank(job_path):
+    """One rank of ``serve_sharded`` (run as ``chip_smoke.py --rank-job
+    JOB``): join the (1, 2) mesh over gloo, load the checkpoint on the
+    host, keep this rank's shard on the card (``shard_model``), gate its
+    shapes, serve each view of the mix over the mesh, and write the
+    runs and the f32 view's first-prefill logits to the job's folder."""
+    job = json.loads(Path(job_path).read_text())
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("rank: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import shard_model
+    from repro_torch.quant.checkpoint import load_quantized
+    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"),
+                     device_type="cuda")
+    rank, tag = mesh.rank, f"sharded/rank{mesh.rank}"
+    tp = mesh.size("model")
+    t0 = time.perf_counter()
+    params, spec, _, _ = load_quantized(job["ckpt"])
+    cfg = get_config("opt_6_7b").replace(n_layers=job["layers"],
+                                         quant=spec)
+    model = shard_model(params, cfg, mesh, device=mesh.device)
+    del params
+    load_s = time.perf_counter() - t0
+    if model.device.type != "cuda" or mesh.backend != job["backend"]:
+        fail(f"{tag}: on {model.device} over {mesh.backend}")
+    # every linear holds its shard (at tp 2: q / k / v [2048 x 4096],
+    # out_proj [4096 x 2048], fc1 [8192 x 4096], fc2 [4096 x 8192]), the
+    # tied head its slice of the padded vocab (25,216 of 50,432 rows at
+    # tp 2), each layer 32 / tp heads and its pool as many kv heads
+    blk = model.stack.layers[0]
+    shapes = {name: [lin.weight.out_features, lin.weight.in_features]
+              for name, lin in (("q", blk.mixer.q), ("k", blk.mixer.k),
+                                ("v", blk.mixer.v), ("o", blk.mixer.o),
+                                ("fc1", blk.mlp.up), ("fc2", blk.mlp.down))}
+    d, f = cfg.d_model, cfg.d_ff
+    want = {"q": [d // tp, d], "k": [d // tp, d], "v": [d // tp, d],
+            "o": [d, d // tp], "fc1": [f // tp, d], "fc2": [d, f // tp]}
+    if shapes != want:
+        fail(f"{tag}: shard shapes {shapes}, want {want}")
+    heads = blk.mixer.tp.heads
+    if heads[1] - heads[0] != cfg.n_heads // tp or not blk.mixer.tp.local \
+            or list(model.embed.tok.shape) != [cfg.padded_vocab // tp, d]:
+        fail(f"{tag}: heads {heads}, tok {list(model.embed.tok.shape)}")
+    log(f"{tag}: mesh {mesh}, shard loaded in {load_s:.1f} s; linears "
+        f"{shapes}, heads {heads}, tok {list(model.embed.tok.shape)}")
+    prompts = [np.asarray(p) for p in job["prompts"]]
+    toks = torch.as_tensor(prompts[0][None, :128], device=mesh.device)
+    res = dict(rank=rank, coords=list(mesh.coords), backend=mesh.backend,
+               load_s=load_s, shapes=shapes, heads=list(heads), runs={})
+    logits = first_logits(torch, sharded_view(torch, model, spec, "f32"),
+                          toks)
+    np.save(Path(job["out"]) / f"logits{rank}.npy", logits.cpu().numpy())
+    for view in SHARDED_VIEWS:
+        res["runs"][view] = sharded_serve_run(
+            torch, f"{tag}/{view}", sharded_view(torch, model, spec, view),
+            prompts, job["eng_kw"], mesh)
+    if mesh.backend == "nccl":
+        res["async"] = sharded_async_run(
+            torch, f"{tag}/async", sharded_view(torch, model, spec, "auto"),
+            prompts, job["eng_kw"], mesh)
+        if res["async"]["tokens"] != res["runs"]["auto"]["tokens"]:
+            fail(f"{tag}: async tokens differ from sync")
+    (Path(job["out"]) / f"rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+
+
+def sharded_async_run(torch, tag, m, prompts, eng_kw, mesh):
+    """The mix through the async tick over an NCCL mesh, every
+    decode-only tick under ``torch.cuda.set_sync_debug_mode("error")``:
+    its collectives are stream-ordered on the card, so the tick keeps
+    its one host wait (the event after the previous tick's ids)."""
+    from repro_torch.serve import PagedServeEngine, Request
+    eng = PagedServeEngine(m, paged_kernel="fused", mesh=mesh, **eng_kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+    strict, tick_ms = 0, []
+    mesh.reset_counters()
+    while eng.sched.has_work() or eng.has_inflight:
+        decode_only = not eng.sched.waiting and all(
+            s.kv_len >= s.prefill_target for s in eng.sched.running)
+        t = time.perf_counter()
+        if decode_only:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step_async()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            strict += 1
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+        else:
+            eng.step_async()
+    eng.flush()
+    done = eng.finished
+    if len(done) != len(prompts) or any(r.error for r in done):
+        fail(f"serve[{tag}]: requests incomplete")
+    ticks = sorted(tick_ms)
+    log(f"serve[{tag}]: {strict} decode-only async ticks with no host sync "
+        f"but the tick's event; tick p50 {ticks[len(ticks) // 2]:.2f} ms; "
+        f"{mesh.host_syncs} collectives staged through host memory")
+    return dict(tokens={str(r.uid): [int(t) for t in r.out_tokens]
+                        for r in done},
+                strict_ticks=strict, tick_ms_p50=ticks[len(ticks) // 2],
+                host_syncs=mesh.host_syncs)
+
+
+def serve_sharded(torch, args, model, spec, eng_kw, totals, power_line,
+                  mesh_shape=(1, 2)):
+    """Mesh serving on the one card: OPT-6.7B BCQ-3 at full width
+    (``SHARDED_SERVE_LAYERS`` deep) written once through
+    ``quant/checkpoint.py`` to ``build/`` and served over a (1, 2) mesh
+    by two processes over gloo, each loading its shard (``sharded_rank``),
+    through bcq_matmul, lut_gemm and on the f32 view; the same requests
+    served unsharded here before them.  Gates, per rank: every decode
+    step's linears on the kernels' decode bodies and every chunk's on the
+    tensor-core tile at the shard shapes (route counters), the paged
+    kernels once a layer on its 16 heads, the pool shard's shape, finite
+    logits, the f32 view's first-prefill logits within 1e-3 of the
+    unsharded f32 view's scale, and the same host state on both ranks.
+    Printed: the share of equal greedy tokens (f32, bf16) and per rank
+    tok/s, TTFT p50, decode-step p50 and the collectives' share of a
+    step beside the unsharded run."""
+    import numpy as np
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.quant import save_quantized
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    layers = min(SHARDED_SERVE_LAYERS, cfg.n_layers)
+    m = depth_view(model, layers) if layers < cfg.n_layers else model
+    n = mesh_shape[0] * mesh_shape[1]
+    tp = mesh_shape[1]
+    # one rank a card where there are enough (NCCL), else all on one
+    backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
+    log(f"serve_sharded: opt-6.7b at full width, {layers} of "
+        f"{cfg.n_layers} layers, BCQ-3 g 128, over a {tuple(mesh_shape)} "
+        f"mesh of {n} processes on {torch.cuda.device_count()} card(s) "
+        f"({backend})")
+    prompts = mix_prompts(args.seed, cfg.vocab_size)
+    toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    SHARDED_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    save_quantized(str(SHARDED_DIR / "ckpt"), m.with_config(quant=spec),
+                   spec, arch=cfg.name)
+    save_s = time.perf_counter() - t0
+    want_logits = first_logits(torch, sharded_view(torch, m, spec, "f32"),
+                               toks).cpu().numpy()
+    single = {view: sharded_serve_run(
+        torch, f"single/{view}", sharded_view(torch, m, spec, view),
+        prompts, eng_kw) for view in SHARDED_VIEWS}
+    job = SHARDED_DIR / "job.json"
+    job.write_text(json.dumps(dict(
+        mesh=list(mesh_shape), backend=backend,
+        ckpt=str(SHARDED_DIR / "ckpt"), layers=layers,
+        prompts=[p.tolist() for p in prompts], eng_kw=eng_kw,
+        out=str(SHARDED_DIR))))
+    t0 = time.perf_counter()
+    outs = spawn([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-job",
+                  str(job)], n, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    for r, (rc, out, err) in enumerate(outs):
+        for line in out.splitlines():
+            log(f"  [rank {r}] {line}")
+        if rc != 0:
+            fail(f"serve_sharded: rank {r} exited {rc}:\n{err[-3000:]}")
+    ranks = [json.loads((SHARDED_DIR / f"rank{r}.json").read_text())
+             for r in range(n)]
+    step_lin, chunk_lin = step_linears(m.cfg)
+    report = dict(layers=layers, mesh=list(mesh_shape), backend=backend,
+                  save_s=save_s, ranks_s=ranks_s, card=power_line,
+                  single={}, ranks=[])
+    for view in SHARDED_VIEWS:
+        gemm = "lut_gemm" if view == "lut_pallas" else "bcq_matmul"
+        sv = single[view]
+        report["single"][view] = {k: sv[k] for k in (
+            "tokens_per_s", "ttft_p50_ms", "decode_step_ms_p50",
+            "decode_steps", "wall_s")}
+        for rk in ranks:
+            rv = rk["runs"][view]
+            tag = f"serve_sharded[rank {rk['rank']}/{view}]"
+            for k in ("paged_decode", "paged_prefill", gemm):
+                totals[k] += rv["launches"][k]
+            route_totals(tag, gemm, rv["step_routes"], rv["chunk_routes"],
+                         {k: n for k, n in rv["routes"].items()
+                          if k.split("/")[0] in ROUTED},
+                         linears=step_lin, chunk_linears=chunk_lin)
+            if gemm == "lut_gemm":
+                # lut_gemm's decode rows run its LUT body, every linear
+                for i, r in enumerate(rv["step_routes"]):
+                    if r.get("lut_gemm/lut", 0) != step_lin:
+                        fail(f"{tag}: decode step {i} bodies {r}")
+            for i, n in enumerate(rv["step_launches"]):
+                if n["paged_decode"] != layers:
+                    fail(f"{tag}: decode step {i} launched paged_decode "
+                         f"{n['paged_decode']} times, not once a layer")
+            if rv["launches"]["paged_prefill"] != \
+                    layers * len(rv["chunk_routes"]):
+                fail(f"{tag}: paged_prefill not once a layer a chunk")
+            if rv["k_shape"] != [eng_kw["num_blocks"], eng_kw["block_size"],
+                                 cfg.n_kv_heads // tp, cfg.head_dim_]:
+                fail(f"{tag}: pool shard {rv['k_shape']}")
+            if rv["decode_path"] != "fused" or not rv["same_host_state"]:
+                fail(f"{tag}: path {rv['decode_path']}, host state "
+                     f"agreed: {rv['same_host_state']}")
+            if rv["tokens"] != ranks[0]["runs"][view]["tokens"]:
+                fail(f"{tag}: the ranks emitted different tokens")
+        r0 = ranks[0]["runs"][view]
+        same = sum(a == b for u in sv["tokens"] for a, b in
+                   zip(sv["tokens"][u], r0["tokens"][u]))
+        total = sum(len(t) for t in sv["tokens"].values())
+        report["single"][view]["equal_token_share"] = same / total
+        log(f"serve_sharded[{view}]: greedy tokens equal to the unsharded "
+            f"run's: {same}/{total} = {same / total:.1%}; unsharded "
+            f"{sv['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{sv['ttft_p50_ms']:.1f} ms, decode step p50 "
+            f"{sv['decode_step_ms_p50']:.2f} ms; " + "; ".join(
+                f"rank {rk['rank']}: {rk['runs'][view]['tokens_per_s']:.1f}"
+                f" tok/s, TTFT p50 {rk['runs'][view]['ttft_p50_ms']:.1f} ms,"
+                f" decode step p50 "
+                f"{rk['runs'][view]['decode_step_ms_p50']:.2f} ms, "
+                f"collectives {rk['runs'][view]['comm_share_p50']:.1%} of "
+                f"a step ({rk['runs'][view]['host_syncs_per_step']} host "
+                "syncs a step)" for rk in ranks) + f"; card {power_line}")
+    for rk in ranks:
+        if "async" in rk:
+            a = rk["async"]
+            log(f"serve_sharded[rank {rk['rank']}/async]: tokens equal to "
+                f"the sync run's; {a['strict_ticks']} decode-only ticks "
+                f"under sync debug mode 'error', tick p50 "
+                f"{a['tick_ms_p50']:.2f} ms, {a['host_syncs']} collectives "
+                "staged through host memory")
+        got = np.load(SHARDED_DIR / f"logits{rk['rank']}.npy")
+        if got.shape != want_logits.shape or not np.isfinite(got).all():
+            fail(f"serve_sharded: rank {rk['rank']} first-prefill logits "
+                 "bad")
+        rel = float(np.abs(got - want_logits).max()) / float(
+            np.abs(want_logits).max())
+        log(f"serve_sharded[rank {rk['rank']}]: f32 view's first-prefill "
+            f"logits vs the unsharded f32 view: rel err {rel:.3e} <= "
+            f"{F32_LOGIT_TOL:g}: {rel <= F32_LOGIT_TOL}")
+        if not rel <= F32_LOGIT_TOL:
+            fail("serve_sharded: the sharded f32 view disagrees")
+        rk["f32_first_logits_rel_err"] = rel
+        report["ranks"].append({k: v for k, v in rk.items()
+                                if k != "runs"} | {
+            "runs": {view: {k: v for k, v in run.items() if k not in (
+                "step_launches", "step_routes", "chunk_routes", "tokens")}
+                for view, run in rk["runs"].items()}})
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve_sharded: checkpoint written in {save_s:.1f} s, ranks ran "
+        f"{ranks_s:.1f} s, phase {report['phase_s']:.1f} s")
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=32,
                     help="OPT-6.7B serve depth (full width is always kept)")
+    ap.add_argument("--rank-job", default="",
+                    help=argparse.SUPPRESS)  # one rank of serve_sharded
+    ap.add_argument("--sharded-mesh", default="",
+                    help="run only the build and serve_sharded on a DxM "
+                         "mesh, one rank a card where there are D*M cards "
+                         "(NCCL), e.g. 2x2 on four cards")
 
     args = ap.parse_args()
+    if args.rank_job:
+        return sharded_rank(args.rank_job)
     t_start = time.perf_counter()
 
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -3733,6 +4189,9 @@ def main():
     _lib.lib()
     log(f"built {so.name} in {time.perf_counter() - t0:.1f} s")
 
+    if args.sharded_mesh:
+        return sharded_only(torch, args, power_line)
+
     # phase 3: kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     from repro_torch.tune.measure import Timer
@@ -3749,6 +4208,7 @@ def main():
     check_bcq_widths(torch, timer, gen, results)
     check_bcq_dense_archs(torch, timer, gen, results)
     check_bcq_mixtral(torch, timer, gen, results)
+    check_shard_shapes(torch, timer, gen, results)
     del timer
     torch.cuda.empty_cache()
 

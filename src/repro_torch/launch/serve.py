@@ -77,9 +77,27 @@ spec.json`` (flags override its fields), as in the reference:
     arch and model dimensions must match ``--arch``/``--reduced``;
     ``--backend`` still applies.
   * ``--manifest-json PATH`` writes the per-leaf manifest.
+
+``--mesh auto|DxM`` serves tensor- and data-parallel over a (data,
+model) mesh of ``torch.distributed`` ranks (``launch/mesh.py``), run
+under ``torchrun``, the CPU included::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+        --mesh 1x2 --bits 3 --requests 4 --max-new 4
+
+``auto`` takes the largest (data, model) mesh over the world's ranks,
+``--tp N`` pinning the model axis; ``DxM`` must multiply to the world
+size.  Each rank builds the weights on the host, quantizes them there
+and moves only its slice to its device; every rank runs the same
+engine and only rank 0 prints.  The reference's refusals hold: the
+mesh needs the paged engine, ``--tp`` needs ``--mesh auto`` (or agrees
+with ``DxM``) and must divide the world size.
 """
 import argparse
+import contextlib
+import io
 import json
+import os
 import time
 
 
@@ -144,6 +162,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="[paged engine] share KV blocks across requests "
                          "with a common block-aligned prompt prefix "
                          "(default: on for the paged engine)")
+    ap.add_argument("--mesh", default="",
+                    help="[paged engine] serve sharded over a (data, "
+                         "model) mesh of torch.distributed ranks (run "
+                         "under torchrun): 'auto' (largest divisor mesh "
+                         "over the world; --tp pins the model axis) or "
+                         "an explicit DxM shape like 2x4")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="model-parallel extent for --mesh auto")
     ap.add_argument("--async", dest="async_engine", action="store_true",
                     help="[paged engine] serve through the asyncio "
                          "frontend and the double-buffered tick")
@@ -243,6 +269,14 @@ def load_checkpoint(args, cfg, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if not args.mesh or int(os.environ.get("RANK", "0")) == 0:
+        return _main(args)
+    # every rank runs the same program; only rank 0 prints the report
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _main(args)
+
+
+def _main(args):
     import numpy as np
     import torch
 
@@ -258,12 +292,17 @@ def main(argv=None):
         device = default_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"[launch.serve] {e}")
+    # over a mesh the full weights stay on the host: each rank moves only
+    # its slice to its device
+    rank_device = device
+    if args.mesh:
+        device = torch.device("cpu")
     if args.backend is not None:
         try:
             fallback_chain(args.backend)
         except KeyError as e:
             raise SystemExit(f"--backend: {e.args[0]}")
-    if args.pretune and device.type != "cuda":
+    if args.pretune and rank_device.type != "cuda":
         raise SystemExit("--pretune measures kernels on the card; no "
                          "kernel runs on the CPU")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -317,6 +356,23 @@ def main(argv=None):
         engine = "paged" if supports_paging(cfg) else "slots"
         print(f"[launch.serve] engine=auto -> {engine}")
     # the reference's refusals
+    mesh = None
+    if args.mesh:
+        if engine != "paged":
+            raise SystemExit("--mesh requires the paged engine "
+                             "(SSM/hybrid, enc-dec and sliding-window "
+                             "models serve single-device for now)")
+        from repro_torch.launch.mesh import make_mesh, parse_mesh_shape
+        try:
+            shape = parse_mesh_shape(args.mesh, tp=args.tp)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        mesh = make_mesh(shape, ("data", "model"),
+                         device_type=rank_device.type)
+        print(f"[launch.serve] mesh {dict(zip(mesh.axis_names, mesh.shape))}"
+              f" over {mesh.size_total} ranks, backend {mesh.backend}")
+    elif args.tp:
+        raise SystemExit("--tp only applies with --mesh auto")
     if args.prefix_cache is not None and engine != "paged":
         raise SystemExit("--prefix-cache requires the paged engine "
                          "(the slots engine has no shared KV pool)")
@@ -343,7 +399,7 @@ def main(argv=None):
                                paged_kernel=args.paged_kernel,
                                prefix_cache=args.prefix_cache != "off",
                                rng_seed=args.seed, tracer=tracer,
-                               pretune=args.pretune)
+                               pretune=args.pretune, mesh=mesh)
         print(f"[launch.serve] paged-kernel={args.paged_kernel} -> decode "
               f"path: {eng.decode_path}  prefill path: {eng.prefill_path}")
     else:
@@ -367,7 +423,13 @@ def main(argv=None):
     dt = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     print(f"[launch.serve] {len(done)} requests, {toks} tokens, "
-          f"{toks/dt:.1f} tok/s on {device}")
+          f"{toks/dt:.1f} tok/s on {rank_device}")
+    if mesh is not None:
+        if not mesh.same_on_all(eng.host_state()):
+            raise SystemExit("[launch.serve] the ranks' host state diverged")
+        print(f"[launch.serve] rank 0: {mesh.collectives} collectives "
+              f"({mesh.comm_s:.3f} s), {mesh.host_syncs} staged through "
+              f"host memory; decode path {eng.decode_path}")
     if engine == "paged":
         s = eng.metrics.summary()
         print(f"[launch.serve] ttft p50={s['ttft_s']['p50']*1e3:.1f}ms  "
@@ -396,6 +458,8 @@ def main(argv=None):
     elif args.metrics_json:
         print("[launch.serve] warning: --metrics-json ignored (the slots "
               "engine keeps no serving metrics, as in the reference)")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return done
 
 

@@ -65,6 +65,17 @@ prompt longer than the ring is written whole and only its trailing L
 entries stay, and the prefill attends over the cache after that write
 (the reference's path), so its queries before the last see only those
 entries, not their full window.
+
+Over a mesh (``shard_model``), each rank attends for its slice of the
+query heads against its slice of the pool, as the reference's
+``paged_shard_scope`` runs the kernels per model shard.  Where the kv
+heads divide the ``model`` axis, the pool holds ``Hkv / tp`` heads and
+the fused decode and prefill kernels run on that slice.  Where they do
+not (narrow GQA: 2 kv heads on tp 4), the pool shards ``head_dim``
+instead (the reference's divisibility fallback), the capability check
+refuses the fused kernels with reason ``tp`` even when ``fused`` is
+forced, and the gathered view is assembled across the ``model`` group
+before attention (:class:`AttnTP`).
 """
 from __future__ import annotations
 
@@ -73,7 +84,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Linear, apply_rope
+from repro_torch.models.layers import Linear, apply_rope, reslice
 
 NEG_INF = -1e30
 PAGED_KERNEL_MODES = ("auto", "fused", "gather")
@@ -156,7 +167,7 @@ def decode_attend(q, cache, positions, *, window=0, scale=None):
 # ---------------------------------------------------------------------------
 
 
-def _cache_leaves(cfg, rows: int, slots: int, device) -> dict:
+def _cache_leaves(cfg, rows: int, slots: int, device, kv_shape=None) -> dict:
     """One layer's KV leaves [rows, slots, ...], every ``pos`` -1 (empty):
     a contiguous cache's (batch, length) or a pool's (blocks, block
     size), as the reference derives its pool descriptors from the
@@ -175,7 +186,7 @@ def _cache_leaves(cfg, rows: int, slots: int, device) -> dict:
     hkv = cfg.n_kv_heads * cfg.kv_replication
     int8 = cfg.kv_cache_bits == 8
     dt = torch.int8 if int8 else getattr(torch, cfg.dtype)
-    shape = (rows, slots, hkv, cfg.head_dim_)
+    shape = (rows, slots, *(kv_shape or (hkv, cfg.head_dim_)))
     cache = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device), "pos": pos}
     if int8:
@@ -186,15 +197,17 @@ def _cache_leaves(cfg, rows: int, slots: int, device) -> dict:
 
 
 def init_paged_layer_cache(cfg, batch: int, num_blocks: int, block_size: int,
-                           max_blocks_per_seq: int, device) -> dict:
+                           max_blocks_per_seq: int, device,
+                           kv_shape=None) -> dict:
     """One layer's pool + block table (``paged_cache_desc`` + init).  A
     sliding window is refused, as in the reference: its ring cache is
-    already a fixed-size reservation."""
+    already a fixed-size reservation.  ``kv_shape`` (kv heads, head
+    width) is a rank's slice of the pool over a mesh."""
     check_supported(cfg)
     if cfg.sliding_window:
         raise ValueError("paged KV cache requires sliding_window == 0 "
                          "(ring caches are already fixed-size)")
-    cache = _cache_leaves(cfg, num_blocks, block_size, device)
+    cache = _cache_leaves(cfg, num_blocks, block_size, device, kv_shape)
     cache["block_tables"] = torch.full((batch, max_blocks_per_seq), -1,
                                        dtype=torch.int32, device=device)
     return cache
@@ -329,20 +342,39 @@ def fused_selected(mode: str) -> bool:
     return on_h100()
 
 
-def paged_kernel_mode(cfg) -> str:
+def tp_supported(cfg, kernel: str, tp: int = 1) -> bool:
+    """Whether the paged kernels can run per model shard at ``tp``: the
+    capability check's ``tp`` and ``heads`` reasons on the config's
+    query and pool heads (``tune.dispatch.kernel_unsupported_reason``),
+    as the reference negotiates (MLA: kv heads are the query heads)."""
+    from repro_torch.tune.dispatch import kernel_unsupported_reason
+    mla = cfg.attention == "mla"
+    hkv = cfg.n_heads if mla else cfg.n_kv_heads * cfg.kv_replication
+    return kernel_unsupported_reason(
+        kernel, m=cfg.n_heads, n=1, group_size=1, n_kv_heads=hkv,
+        tp=tp) is None
+
+
+def paged_kernel_mode(cfg, tp: int = 1) -> str:
     """Host-side label of the path a paged decode step takes ("fused" |
     "gather"): GQA pools (float and int8) and MLA latent pools all have
-    a decode kernel."""
-    return "fused" if fused_selected(cfg.paged_kernel) else "gather"
+    a decode kernel; over a ``tp``-way model axis only where the heads
+    divide it (else even a forced "fused" negotiates down to "gather")."""
+    kernel = "paged_decode_mla" if cfg.attention == "mla" else "paged_decode"
+    fused = fused_selected(cfg.paged_kernel) and tp_supported(cfg, kernel, tp)
+    return "fused" if fused else "gather"
 
 
-def paged_prefill_mode(cfg) -> str:
+def paged_prefill_mode(cfg, tp: int = 1) -> str:
     """Host-side label of the chunked-prefill path: as decode for GQA
     pools; MLA prefill always resolves to "gather" (the latent must be
     decompressed through ``kv_b``, which the prefill kernel does not
     fold)."""
-    mode = paged_kernel_mode(cfg)
-    return "gather" if cfg.attention == "mla" else mode
+    if cfg.attention == "mla":
+        return "gather"
+    fused = fused_selected(cfg.paged_kernel) and \
+        tp_supported(cfg, "paged_prefill", tp)
+    return "fused" if fused else "gather"
 
 
 def paged_decode_attend(q, cache, positions, *, scale=None, mode="auto"):
@@ -388,14 +420,39 @@ def paged_prefill_attend(q, cache, positions, *, scale=None, mode="auto"):
 # ---------------------------------------------------------------------------
 
 
+class AttnTP:
+    """A GQA layer's cut over the ``model`` axis.  ``heads`` (h0, h1):
+    the query heads this rank attends for (all of them where the heads
+    do not divide tp); ``pool``: how its pool slice is cut, ``("kv_heads",
+    k0, k1)``, ``("head_dim", d0, d1)`` or None (replicated).  The fused
+    kernels run only on a kv-heads slice (``local``)."""
+
+    def __init__(self, mesh, heads, pool):
+        self.mesh = mesh
+        self.heads = heads
+        self.pool = pool
+
+    @property
+    def local(self) -> bool:
+        return self.pool is not None and self.pool[0] == "kv_heads"
+
+
+def _heads_of(kv, h0: int, h1: int, rep: int):
+    """The kv entry of each query head in [h0, h1) ([B, L, h1-h0, D])."""
+    idx = torch.arange(h0, h1, device=kv.device) // rep
+    return kv.index_select(2, idx)
+
+
 class Attention(nn.Module):
     """GQA/MHA self-attention: q/k/v/o linears (optional q/k/v biases),
-    rotary or learned positions, a paged or contiguous KV cache."""
+    rotary or learned positions, a paged or contiguous KV cache.  ``tp``
+    (None: the whole layer) is its tensor-parallel cut."""
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.tp: Optional[AttnTP] = None
         hd = cfg.head_dim_
         d = cfg.d_model
         h, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -410,6 +467,9 @@ class Attention(nn.Module):
     def forward(self, x, positions, *, cache: Optional[dict] = None,
                 cache_at=None, causal: bool = True, backend=None,
                 paged_kernel: str = "auto"):
+        if self.tp is not None:
+            return self._forward_tp(x, positions, cache, cache_at, causal,
+                                    backend, paged_kernel)
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -455,6 +515,71 @@ class Attention(nn.Module):
                                           positions, cache["pos"],
                                           causal=True, window=window)
         out = self.o(out.reshape(b, s, h * hd), backend)
+        return (out, cache) if cache is not None else out
+
+    def _forward_tp(self, x, positions, cache, cache_at, causal, backend,
+                    paged_kernel):
+        """This rank's share of the layer: its query heads against its
+        pool slice, then ``o`` (row-parallel: all-reduced)."""
+        cfg, tp = self.cfg, self.tp
+        mesh = tp.mesh
+        b, s, _ = x.shape
+        hd, h = cfg.head_dim_, cfg.n_heads
+        h0, h1 = tp.heads
+        rep = h // (cfg.n_kv_heads * cfg.kv_replication)
+        heads = None if (h0, h1) == (0, h) else (h0 * hd, h1 * hd)
+        q = reslice(self.q(x, backend), self.q.out_slice, heads, mesh)
+        q = q.reshape(b, s, h1 - h0, hd)
+        # k / v: this rank's kv heads where the pool holds whole heads
+        # (and no replication renumbers them), else every head
+        kind = tp.pool[0] if tp.pool else None
+        want = (tp.pool[1] * hd, tp.pool[2] * hd) \
+            if kind == "kv_heads" and cfg.kv_replication == 1 else None
+        k = reslice(self.k(x, backend), self.k.out_slice, want, mesh)
+        v = reslice(self.v(x, backend), self.v.out_slice, want, mesh)
+        k, v = k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
+        if cfg.kv_replication > 1:
+            k = torch.repeat_interleave(k, cfg.kv_replication, dim=2)
+            v = torch.repeat_interleave(v, cfg.kv_replication, dim=2)
+        if cfg.pos == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        if kind == "kv_heads" and k.shape[2] != tp.pool[2] - tp.pool[1]:
+            k, v = (t[:, :, tp.pool[1]:tp.pool[2]] for t in (k, v))
+        if cache is None:
+            if kind != "kv_heads":
+                k, v = _heads_of(k, h0, h1, rep), _heads_of(v, h0, h1, rep)
+            out = blockwise_attention(q, k, v, positions, positions,
+                                      causal=causal)
+        else:
+            if kind == "head_dim":
+                updates = {"k": k[..., tp.pool[1]:tp.pool[2]],
+                           "v": v[..., tp.pool[1]:tp.pool[2]]}
+            else:
+                updates = {"k": k, "v": v}
+            cache = cache_insert(cache, updates, cache_at)
+            if kind == "kv_heads":
+                attend = (paged_decode_attend if s == 1
+                          else paged_prefill_attend)
+                out = attend(q, cache, positions, mode=paged_kernel)
+            else:
+                # negotiated down: the gathered view, whole across the
+                # model group, then every local query head's kv entry
+                view = paged_view(cache)
+                kf, vf = view["k"], view["v"]
+                if kind == "head_dim":
+                    kf = mesh.all_gather(kf, "model", dim=-1)
+                    vf = mesh.all_gather(vf, "model", dim=-1)
+                kf, vf = _heads_of(kf, h0, h1, rep), _heads_of(vf, h0, h1, rep)
+                if s == 1:
+                    out = decode_attend(q, {"k": kf, "v": vf,
+                                            "pos": view["pos"]}, positions)
+                else:
+                    out = blockwise_attention(q, kf, vf, positions,
+                                              view["pos"], causal=True)
+        out = reslice(out.reshape(b, s, (h1 - h0) * hd), heads,
+                      self.o.in_slice, mesh)
+        out = self.o(out, backend)
         return (out, cache) if cache is not None else out
 
 

@@ -7,6 +7,21 @@ by a :class:`Linear` and executed through ``linear_apply``, the single
 dispatch point of the model stack.  Weights are plain tensor attributes
 on the modules, created on an explicit device; ``quantize_model``
 swaps a dense weight for its bundle in place.
+
+Tensor parallelism (``models/model.py::shard_model``): a linear whose
+weight spec cuts its output rows over the mesh's ``model`` axis is
+column-parallel (it holds its rows, bias included, and returns them);
+one whose spec cuts its input columns is row-parallel (it holds its
+columns, takes the matching slice of its input, and all-reduces its f32
+partial product over ``model`` before the bias, which it holds whole,
+is added once).  Either runs the same ``linear_apply`` -> kernel path
+on the shard shape.  :func:`reslice` carries an activation from the
+slice one linear produced to the slice the next one takes, gathering
+it over ``model`` where they differ (a spec that fell back to
+replication).  The embedding is vocab-parallel: ids outside the rank's
+rows give 0, then an all-reduce; the head's logits are all-gathered in
+vocab order.  A module without a plan (``tp is None``) runs exactly
+the single-device code.
 """
 from __future__ import annotations
 
@@ -27,8 +42,47 @@ def _normal_(t: torch.Tensor, generator: torch.Generator) -> None:
                         dtype=torch.float32) * _INIT_SCALE)
 
 
+def reslice(y: torch.Tensor, have, want, mesh) -> torch.Tensor:
+    """``y``'s last dim moved from the column slice ``have`` to ``want``
+    ((start, stop) of the full width, or None for all of it): as it is
+    where they agree, else gathered over the mesh's ``model`` axis
+    (every rank's slice of one width, in rank order) and cut."""
+    if have == want:
+        return y
+    if have is not None:
+        y = mesh.all_gather(y, "model", dim=-1)
+    return y if want is None else y[..., want[0]:want[1]]
+
+
+class LinearTP:
+    """A linear's cut over the ``model`` axis: ``out_slice`` (rows it
+    holds, column-parallel) or ``in_slice`` (input columns it holds,
+    row-parallel), each (start, stop) of the full width or None."""
+
+    def __init__(self, mesh, out_slice=None, in_slice=None):
+        self.mesh = mesh
+        self.out_slice = out_slice
+        self.in_slice = in_slice
+
+    def apply(self, lin, x, backend, out_dtype):
+        if self.in_slice is not None:
+            a, b = self.in_slice
+            if x.shape[-1] != b - a:
+                x = x[..., a:b]
+            dt = out_dtype or x.dtype
+            y = linear_apply(lin.weight, x, backend=backend,
+                             out_dtype=torch.float32)
+            y = self.mesh.all_reduce(y, "model").to(dt)
+            if lin.bias is not None:
+                y = y + lin.bias.to(y.dtype)
+            return y
+        return linear_apply(lin.weight, x, lin.bias, backend=backend,
+                            out_dtype=out_dtype)
+
+
 class Linear(nn.Module):
-    """y = x @ W^T (+ bias); W dense [out, in] or a PlaneBundle."""
+    """y = x @ W^T (+ bias); W dense [out, in] or a PlaneBundle.  ``tp``
+    (None: the whole weight) is its tensor-parallel cut."""
 
     def __init__(self, out_features: int, in_features: int, *, bias: bool,
                  dtype, device):
@@ -37,6 +91,15 @@ class Linear(nn.Module):
                                   device=device)
         self.bias = (torch.zeros(out_features, dtype=torch.float32,
                                  device=device) if bias else None)
+        self.tp: Optional[LinearTP] = None
+
+    @property
+    def out_slice(self):
+        return self.tp.out_slice if self.tp is not None else None
+
+    @property
+    def in_slice(self):
+        return self.tp.in_slice if self.tp is not None else None
 
     def init_params(self, generator: torch.Generator) -> None:
         _normal_(self.weight, generator)
@@ -45,6 +108,8 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, backend: Optional[str] = None,
                 out_dtype=None) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.apply(self, x, backend, out_dtype)
         return linear_apply(self.weight, x, self.bias, backend=backend,
                             out_dtype=out_dtype)
 
@@ -114,16 +179,19 @@ class MLP(nn.Module):
         else:
             self.up = Linear(f, d, bias=True, dtype=dtype, device=device)
             self.down = Linear(d, f, bias=True, dtype=dtype, device=device)
+        self.mesh = None                  # set by shard_model
 
     def forward(self, x: torch.Tensor, backend=None) -> torch.Tensor:
         if self.act == "swiglu":
             g = self.gate(x, backend)
             u = self.up(x, backend)
             h = F.silu(g.float()).to(x.dtype) * u
-            return self.down(h, backend)
-        h = self.up(x, backend)
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        else:
+            h = self.up(x, backend)
+            # jax.nn.gelu defaults to the tanh approximation
+            h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        if self.mesh is not None:
+            h = reslice(h, self.up.out_slice, self.down.in_slice, self.mesh)
         return self.down(h, backend)
 
 
@@ -141,15 +209,31 @@ class Embed(nn.Module):
         self.unembed = (None if cfg.tie_embeddings else
                         Linear(cfg.padded_vocab, cfg.d_model, bias=False,
                                dtype=dtype, device=device))
+        # vocab-parallel cut (set by shard_model): the mesh and the rows
+        # of ``tok`` this rank holds, or None
+        self.mesh = None
+        self.vocab_slice = None
 
     def init_params(self, generator: torch.Generator) -> None:
         _normal_(self.tok, generator)
         if self.pos is not None:
             _normal_(self.pos, generator)
 
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.vocab_slice is None:
+            return self.tok[tokens.long()]
+        # ids outside this rank's rows give 0; the sum over the ranks is
+        # then the one row, exactly (f32 carries any storage dtype)
+        a, b = self.vocab_slice
+        local = tokens.long() - a
+        ok = (local >= 0) & (local < b - a)
+        x = self.tok[torch.clamp(local, 0, b - a - 1)]
+        x = torch.where(ok[..., None], x.float(), 0.0)
+        return self.mesh.all_reduce(x, "model").to(self.tok.dtype)
+
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.tok[tokens.long()]
+        x = self._lookup(tokens)
         if self.pos is not None and positions is not None:
             # clamped at both ends, as JAX clamps a gather: a chunk's pads
             # past the table (a chunk after adopted prefix blocks, rounded
@@ -160,6 +244,12 @@ class Embed(nn.Module):
 
     def logits(self, x: torch.Tensor, backend=None) -> torch.Tensor:
         if self.unembed is not None:
-            return self.unembed(x, backend, out_dtype=torch.float32)
-        return linear_apply(self.tok, x, backend=backend,
-                            out_dtype=torch.float32)
+            y = self.unembed(x, backend, out_dtype=torch.float32)
+            cut = self.unembed.out_slice
+        else:
+            y = linear_apply(self.tok, x, backend=backend,
+                             out_dtype=torch.float32)
+            cut = self.vocab_slice
+        if cut is not None:
+            y = reslice(y, cut, None, self.mesh)
+        return y

@@ -35,6 +35,15 @@ and kept in the contiguous cache (``cross_k`` / ``cross_v``, bf16
 paged cache refuses an encoder-decoder.  The parameter trees carry the
 ``encoder`` subtree (``stack``, ``final_norm``, ``pos``) and each
 decoder block's ``ln_cross`` / ``cross``.
+
+:func:`shard_model` builds one rank's model of a mesh (``launch/mesh.py``)
+from a reference-layout tree: each leaf cut by its logical axes
+(``models/module.py``) under the sharding rules
+(``parallel/sharding.py``), only the rank's slice moved to the device,
+and each module given its tensor-parallel plan (``models/layers.py``,
+``models/attention.py``).  Only the ``model`` axis cuts weights (the
+serving engine splits rows over ``data``); a rule that maps a weight
+axis onto another mesh axis leaves it replicated there.
 """
 from __future__ import annotations
 
@@ -98,6 +107,8 @@ class Model(nn.Module):
         self.final_norm = Norm(cfg.d_model, cfg.norm, self.device)
         self.encoder = (Encoder(cfg, dtype=dtype, device=self.device)
                         if cfg.is_encdec else None)
+        self.mesh = None        # set by shard_model
+        self.kv_shape = None    # a rank's (kv heads, head width) of a pool
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -141,7 +152,7 @@ class Model(nn.Module):
         return {"layers": [
             attn.init_paged_layer_cache(cfg, batch, num_blocks,
                                         block_size, max_blocks_per_seq,
-                                        self.device)
+                                        self.device, self.kv_shape)
             for _ in range(cfg.n_layers)]}
 
     def init_cache(self, batch: int, length: int) -> dict:
@@ -492,7 +503,8 @@ def _set_stack(stack, tree: dict, cfg, dev) -> None:
         _set_block(block, kind, layer, cfg, dev)
 
 
-def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
+def from_jax_params(params_np: dict, cfg, *, device=None,
+                    _meta: bool = False) -> Model:
     """Build a :class:`Model` holding the reference's parameters.
 
     ``params_np`` is the reference tree with numpy leaves (GQA: ``q``,
@@ -502,10 +514,13 @@ def from_jax_params(params_np: dict, cfg, *, device=None) -> Model:
     ``ln_cross`` / ``cross``); quantized leaves are dicts ``{packed,
     alpha, z, group_size, in_features, out_features, kind}``.  Both
     stack layouts are accepted; scan-stacked leaves are unstacked per
-    layer.  Leaf dtypes are kept."""
+    layer.  Leaf dtypes are kept.  With ``_meta`` the modules are built
+    on the meta device, so nothing but the given leaves is allocated."""
     tok = params_np["embed"]["tok"]
     dtype = _to_tensor(_arr(tok)[:1], "cpu").dtype
-    model = Model(cfg, device=device, dtype=dtype)
+    model = Model(cfg, device="meta" if _meta else device, dtype=dtype)
+    if _meta:
+        model.device = default_device(device)
     dev = model.device
     emb = params_np["embed"]
     model.embed.tok = _leaf(emb["tok"], dev)
@@ -617,7 +632,12 @@ def to_params(model: Model) -> dict:
     the model's device, bundles as dicts): each stack (the decoder's and
     an encoder's) as ``{"layers": [...]}`` or, under ``scan_layers``,
     ``{"prefix": [...], "scan": [...]}`` stacked as ``from_jax_params``
-    unstacks it."""
+    unstacks it.  A rank's model of a mesh is refused: it holds only its
+    slices."""
+    if model.mesh is not None:
+        raise ValueError("to_params: this model holds one rank's slices of "
+                         f"its parameters ({model.mesh}); export the tree "
+                         "it was sharded from instead")
     cfg = model.cfg
     emb = {"tok": model.embed.tok}
     if model.embed.pos is not None:
@@ -635,5 +655,152 @@ def to_params(model: Model) -> dict:
     return out
 
 
-__all__ = ["Encoder", "Model", "encoder_config", "from_jax_params",
-           "layer_trees", "set_block_tables", "to_params"]
+# ---------------------------------------------------------------------------
+# one rank's model of a mesh
+# ---------------------------------------------------------------------------
+
+
+def check_meshable(cfg) -> None:
+    """Refuse what the mesh path does not serve yet (ROADMAP.md queue 1,
+    sharding's next cut): MLA, MoE, Mamba layers, an int8 KV cache,
+    sliding windows, encoder-decoders."""
+    what = []
+    if cfg.attention == "mla":
+        what.append("MLA attention")
+    if cfg.n_experts:
+        what.append("MoE layers")
+    if any(kind != "attn" for kind, _ in layer_plan(cfg)):
+        what.append("Mamba layers")
+    if cfg.kv_cache_bits == 8:
+        what.append("an int8 KV cache")
+    if cfg.sliding_window:
+        what.append("a sliding window")
+    if cfg.is_encdec:
+        what.append("an encoder-decoder")
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name} has {', '.join(what)}: serving over a mesh is "
+            "ported for float-KV GQA/MHA decoders only (ROADMAP.md queue "
+            "1, item 10's next cut: sharding MLA, MoE, SSM, int8-KV and "
+            "sliding-window configs)")
+
+
+def _model_axis_only(specs):
+    """Keep only the ``model`` entries of a specs tree (weights never
+    shard over ``data`` when serving)."""
+    from repro_torch.parallel.sharding import BundleSpecs, _map
+
+    def keep(spec):
+        return tuple(e if e == "model" else None for e in spec)
+
+    def leaf(_, sp):
+        if isinstance(sp, BundleSpecs):
+            return BundleSpecs(keep(sp.packed), keep(sp.alpha),
+                               None if sp.z is None else keep(sp.z))
+        return keep(sp) if isinstance(sp, tuple) else sp
+    return _map(specs, leaf)
+
+
+def _linear_tp(lin: Linear, full, spec, mesh) -> None:
+    """Give ``lin`` its cut from its full leaf and spec."""
+    from repro_torch.models.layers import LinearTP
+    from repro_torch.parallel.sharding import dim_slice, is_bundle
+    if is_bundle(full):
+        get = full.get if isinstance(full, dict) else \
+            (lambda k: getattr(full, k))
+        rows, cols = int(get("out_features")), get("packed").shape[-1] * 8
+        in_features = int(get("in_features"))
+        entries = list(spec.packed) + [None] * (3 - len(spec.packed))
+    else:
+        rows, cols = full.shape
+        in_features = cols
+        entries = list(spec) + [None] * (2 - len(spec))
+    out_slice = dim_slice(rows, entries[-2], mesh)
+    in_slice = dim_slice(cols, entries[-1], mesh)
+    if in_slice is not None:
+        in_slice = (in_slice[0], min(in_slice[1], in_features))
+    if out_slice is not None or in_slice is not None:
+        lin.tp = LinearTP(mesh, out_slice, in_slice)
+
+
+def _attn_tp(cfg, mesh, rules):
+    """A GQA layer's plan (``AttnTP``) on ``mesh``: the pool's cut from
+    its logical axes, the query heads split where they divide."""
+    from repro_torch.models.module import paged_layer_axes
+    from repro_torch.parallel.sharding import dim_slice, spec_for
+    hkv = cfg.n_kv_heads * cfg.kv_replication
+    hd, h, tp = cfg.head_dim_, cfg.n_heads, mesh.size("model")
+    spec = spec_for((1, 1, hkv, hd), paged_layer_axes(cfg)["k"], mesh,
+                    rules)
+    spec = tuple(e if e == "model" else None for e in spec) + (None,) * 4
+    pool, kv_shape = None, (hkv, hd)
+    for dim, (name, size) in enumerate((("kv_heads", hkv), ("head_dim", hd))):
+        cut = dim_slice(size, spec[2 + dim], mesh)
+        if cut is not None:
+            pool = (name, *cut)
+            kv_shape = (cut[1] - cut[0], hd) if dim == 0 else \
+                (hkv, cut[1] - cut[0])
+    m = mesh.index("model")
+    heads = (m * h // tp, (m + 1) * h // tp) if h % tp == 0 else (0, h)
+    return attn.AttnTP(mesh, heads, pool), kv_shape
+
+
+def _tensors_all(model):
+    for mod in model.modules():
+        yield from _tensors_of(mod)
+
+
+def shard_model(params: dict, cfg, mesh, rules: Optional[dict] = None,
+                device=None) -> Model:
+    """One rank's :class:`Model` of ``mesh`` from the reference-layout
+    tree ``params`` (``from_jax_params``' input, or a tree loaded by
+    ``quant.checkpoint.load_quantized``; host leaves): every leaf cut by
+    ``build_specs`` under ``rules`` (default ``make_rules()``), only this
+    rank's slice moved to ``device`` (default the mesh's), the linears
+    column- or row-parallel by their specs, the embedding and head
+    vocab-parallel, each attention layer's heads and pool cut.  The
+    full tree never reaches the device."""
+    from repro_torch.models.module import logical_axes
+    from repro_torch.parallel import sharding as shd
+    check_meshable(cfg)
+    rules = rules or shd.make_rules()
+    device = default_device(device if device is not None else mesh.device)
+    # the unrolled layout: per-layer specs, stacked leaves unstacked
+    full = dict(params)
+    full["stack"] = {"layers": layer_trees(params["stack"], cfg.n_layers)}
+    axes = logical_axes(cfg.replace(scan_layers=False))
+    specs = _model_axis_only(shd.build_specs(full, axes, mesh, rules))
+    local = shd.shard_tree(full, specs, mesh)
+    model = from_jax_params(local, cfg, device=device, _meta=True)
+    model.mesh = mesh
+    emb, emb_sp = full["embed"], specs["embed"]
+    model.embed.mesh = mesh
+    model.embed.vocab_slice = shd.dim_slice(
+        _arr(emb["tok"]).shape[0], (list(emb_sp["tok"]) + [None])[0], mesh)
+    if model.embed.unembed is not None:
+        _linear_tp(model.embed.unembed, emb["unembed"], emb_sp["unembed"],
+                   mesh)
+    plan, kv_shape = _attn_tp(cfg, mesh, rules)
+    model.kv_shape = kv_shape
+    for block, tree, sp in zip(model.stack.layers, full["stack"]["layers"],
+                               specs["stack"]["layers"]):
+        block.mixer.tp = plan
+        for name in ("q", "k", "v", "o"):
+            _linear_tp(getattr(block.mixer, name), tree["mixer"][name],
+                       sp["mixer"][name], mesh)
+        if block.mlp is not None:
+            block.mlp.mesh = mesh
+            for name in ("gate", "up", "down"):
+                if name in tree["mlp"]:
+                    _linear_tp(getattr(block.mlp, name), tree["mlp"][name],
+                               sp["mlp"][name], mesh)
+    left = [t for t in _tensors_all(model) if t.device.type == "meta"]
+    if left:
+        raise ValueError(f"shard_model: {len(left)} parameters were not in "
+                         "the tree")
+    return model
+
+
+__all__ = ["Encoder", "Model", "check_meshable", "encoder_config",
+           "from_jax_params", "layer_trees", "set_block_tables",
+           "shard_model", "to_params"]

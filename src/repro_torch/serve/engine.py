@@ -51,7 +51,24 @@ GEMM call their model will launch (decode rows and each prefill bucket)
 that the tuning cache does not hold yet (``repro_torch.tune``), so the
 first ticks launch tuned configs rather than the heuristic's.
 
-Not ported (ROADMAP.md queue 1 item 10): mesh serving.
+``PagedServeEngine(mesh=...)`` serves over a (data, model) mesh of
+``torch.distributed`` ranks (``launch/mesh.py``), one process per rank
+running the same program, as the reference's mesh engine serves over
+devices.  The model is tensor-parallel over ``model``
+(``models.model.shard_model``: its weights and each pool's kv heads, or
+head width, cut per rank); decode rows are split over ``data`` when
+``max_batch`` divides it, and the sampled ids gathered over ``data`` so
+every rank emits every row's token.  Prefill chunks run on every data
+rank (the reference's replicated ``in_shardings``), so a prompt's KV is
+in every data replica of the pool, while a row's decode KV is written
+only in its own replica: a row keeps its replica while it runs, and a
+preempted request is recomputed by prefill.  The scheduler, block
+pool, prefix cache and tables are host state, the same on every rank:
+every rank submits the same requests, emits the same tokens, and takes
+the deadline sweep's clock from rank 0.  A ``cancel`` must be made on
+every rank.  On ``gloo`` every collective on the card is staged
+through host memory, one host wait each (``mesh.host_syncs``); on
+``nccl`` the async tick keeps its one host wait a tick.
 """
 from __future__ import annotations
 
@@ -184,6 +201,20 @@ class _InFlight:
     tick: int
 
 
+def _mesh_model(model, mesh, shard_rules):
+    """``model`` as this rank's model of ``mesh``: as it is if
+    ``shard_model`` built it for that mesh, else sharded from its
+    parameters (``to_params``; keep the unsharded model off the card)."""
+    from repro_torch.models.model import check_meshable, shard_model, to_params
+    check_meshable(model.cfg)
+    if model.mesh is not None:
+        if model.mesh is not mesh:
+            raise ValueError("the model was sharded for another mesh")
+        return model
+    return shard_model(to_params(model), model.cfg, mesh, shard_rules,
+                       mesh.device)
+
+
 def _pretune(model, batch_sizes) -> list:
     """Tune the GEMM calls of ``model`` at ``batch_sizes`` rows into the
     default tuning cache: each linear's kernel as the backend registry
@@ -228,7 +259,20 @@ class PagedServeEngine:
                  paged_kernel: Optional[str] = None,
                  prefix_cache: bool = False, rng_seed: int = 0,
                  clock=time.perf_counter, tracer=None,
-                 pretune: bool = False):
+                 pretune: bool = False, mesh=None,
+                 shard_rules: Optional[dict] = None):
+        self.mesh = mesh
+        self._tp, self._rows = 1, None
+        if mesh is not None:
+            model = _mesh_model(model, mesh, shard_rules)
+            self._tp = mesh.size("model")
+            dp = mesh.size("data")
+            # rows ride the data axis only where they divide it; else
+            # every data rank decodes every row (correct, no DP win)
+            if dp > 1 and max_batch % dp == 0:
+                per = max_batch // dp
+                d = mesh.index("data")
+                self._rows = slice(d * per, (d + 1) * per)
         if paged_kernel is not None and paged_kernel != model.cfg.paged_kernel:
             model = model.with_config(paged_kernel=paged_kernel)
         self.model = model
@@ -238,8 +282,8 @@ class PagedServeEngine:
         max_seq_len = max_seq_len or model.cfg.max_seq_len
         self.max_seq_len = max_seq_len
         self.max_blocks_per_seq = -(-max_seq_len // block_size)
-        self.decode_path = paged_kernel_mode(model.cfg)
-        self.prefill_path = paged_prefill_mode(model.cfg)
+        self.decode_path = paged_kernel_mode(model.cfg, tp=self._tp)
+        self.prefill_path = paged_prefill_mode(model.cfg, tp=self._tp)
         # MLA: the latent + rotary key; int8 pools: with their scale rows
         self._kv_entry_bytes = kv_entry_bytes(model.cfg)
         self.trace = obs_trace.NULL
@@ -332,8 +376,16 @@ class PagedServeEngine:
 
     def _check_deadlines(self) -> None:
         """Expire waiting and running requests whose deadline passed (top
-        of every tick, both modes, on the engine clock)."""
-        now = self.clock()
+        of every tick, both modes, on the engine clock; over a mesh, on
+        rank 0's, so every rank expires the same requests)."""
+        if self.mesh is not None:
+            if not any(r.deadline_s is not None for r in self.sched.waiting) \
+                    and not any(s.req.deadline_s is not None
+                                for s in self.sched.running):
+                return
+            now = self.mesh.broadcast_float(self.clock())
+        else:
+            now = self.clock()
         for req in [r for r in self.sched.waiting
                     if r.deadline_s is not None and now >= r.deadline_s]:
             self.sched.waiting.remove(req)
@@ -499,7 +551,7 @@ class PagedServeEngine:
                                  rows=len(plan.decode),
                                  path=self.decode_path,
                                  uids=[s.uid for s in plan.decode]):
-                ids, self.cache = self.model.decode_and_sample(
+                ids, self.cache = self._decode_and_sample(
                     _to_device(tokens, dev), cache, _to_device(posv, dev),
                     *self._sampler_args(
                         [(seq.row, seq) for seq in plan.decode],
@@ -525,6 +577,34 @@ class PagedServeEngine:
                     self._emit_token(seq, int(self._sample_last(logits, seq)))
 
         self._tick_metrics()
+
+    def _decode_and_sample(self, tokens, cache, pos, keys, temps, topks):
+        """``Model.decode_and_sample`` over every row; over a mesh whose
+        data axis splits the rows, on this rank's rows, their ids then
+        gathered over ``data`` (int32 [max_batch] on every rank)."""
+        if self._rows is None:
+            return self.model.decode_and_sample(tokens, cache, pos, keys,
+                                                temps, topks)
+        r = self._rows
+        cache = set_block_tables(cache,
+                                 cache["layers"][0]["block_tables"][r])
+        ids, cache = self.model.decode_and_sample(
+            tokens[r], cache, pos[r], None if keys is None else keys[r],
+            temps[r], topks[r])
+        return self.mesh.all_gather(ids, "data", dim=0), cache
+
+    def host_state(self) -> tuple:
+        """A digest of the host state every rank of a mesh must agree on:
+        tables, free blocks, running and waiting requests, tokens out."""
+        import hashlib
+        h = hashlib.blake2b(self.tables.tobytes(), digest_size=16)
+        h.update(repr((self.pool.free_blocks,
+                       [(s.uid, s.row, s.kv_len)
+                        for s in self.sched.running],
+                       [r.uid for r in self.sched.waiting],
+                       [(r.uid, r.out_tokens, r.error)
+                        for r in self.finished])).encode())
+        return self.ticks, h.hexdigest()
 
     def _sampler_args(self, rows, n: int):
         """Device (keys, temperature, top_k) of ``n`` sampler rows from
@@ -622,7 +702,7 @@ class PagedServeEngine:
                                  rows=len(plan.decode), mode="async",
                                  path=self.decode_path,
                                  uids=[s.uid for s in plan.decode]):
-                cur, self.cache = self.model.decode_and_sample(
+                cur, self.cache = self._decode_and_sample(
                     inp, cache, _to_device(posv, dev),
                     *self._sampler_args(
                         [(seq.row, seq) for seq in plan.decode],

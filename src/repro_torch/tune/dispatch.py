@@ -88,14 +88,16 @@ def kernel_unsupported_reason(kernel: str, *, m: int, n: int,
 
     Paged kernels, dims remapped as the reference's: ``m`` the query
     heads, ``n`` the per-row KV capacity, ``group_size`` the block size;
-    caps ``n_kv_heads`` (reason ``heads``), ``window`` (ring caches are
+    caps ``tp`` (the model axis the kernel launches per shard of: its
+    extent must divide both head counts, reason ``tp``; the rest of the
+    checks see the per-shard counts), ``n_kv_heads`` (reason ``heads``), ``window`` (ring caches are
     not paged: ``window``), ``latent`` (MLA prefill decompresses through
     ``kv_b``, which no prefill kernel folds: ``latent``), ``kv_dtype``
     (float or int8 pools: ``kv_dtype``), and the port's head caps,
     ``head_dim`` (decode: a multiple of 16 up to 256; bf16 prefill: up to
     256) and ``lora`` (MLA: up to 512) (reason ``head_dim``).
 
-    Reasons: ``unknown_kernel``, ``heads``, ``shape``, ``window``,
+    Reasons: ``unknown_kernel``, ``tp``, ``heads``, ``shape``, ``window``,
     ``kv_dtype``, ``latent``, ``head_dim``, ``group_size``, ``bits``,
     ``kind``."""
     reason = _unsupported_reason(kernel, m=m, n=n, group_size=group_size,
@@ -113,6 +115,10 @@ def _unsupported_reason(kernel, *, m, n, group_size, bits=None, **caps):
     if kernel in PAGED_KERNELS:
         from repro_torch.kernels.paged_attention import ops as pops
         hkv = int(caps.get("n_kv_heads") or m)
+        tp = int(caps.get("tp", 1) or 1)
+        if tp < 1 or m % tp or hkv % tp:
+            return "tp"
+        m, hkv = m // tp, hkv // tp            # per-shard head counts
         if m < 1 or hkv < 1 or m % hkv:
             return "heads"
         if n < 1 or group_size < 1:

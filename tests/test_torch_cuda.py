@@ -1717,3 +1717,151 @@ def test_cuda_tune_candidates_match_plain(kernel, tmp_path, monkeypatch):
     assert [e["args"]["source"] for e in tr.events
             if e["name"] == f"kernel_config:{kernel}"] == ["cache"]
     T.reset_default_cache()
+
+
+# ---------------------------------------------------------------------------
+# mesh serving: OPT-6.7B's tensor-parallel shard shapes, two ranks on the
+# one card
+# ---------------------------------------------------------------------------
+
+# [out x in] of OPT-6.7B's linears cut over tp 2 and tp 4: q / k / v
+# (column-parallel), out_proj (row-parallel), fc1, fc2
+OPT_SHARD_SHAPES = [(2048, 4096), (4096, 2048), (8192, 4096), (4096, 8192),
+                    (1024, 4096), (4096, 1024), (4096, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 512])
+@pytest.mark.parametrize("m,n", OPT_SHARD_SHAPES)
+def test_cuda_gemms_at_opt_shard_shapes(m, n, rows):
+    """Each GEMM kernel at OPT-6.7B's tp-2 and tp-4 shard shapes (BCQ-3
+    and ternary, g 128, bf16 activations) at a decode step's 8 rows and
+    the top prefill bucket's 512: 1e-3 of the output scale against its
+    plain version, on the body its rule picks."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(m + 3 * n + rows)
+    w = bcq.quantize(torch.randn((m, n), generator=gen, device="cuda")
+                     * 0.02, bits=3, group_size=128)
+    wt = quantize_ternary(torch.randn((m, n), generator=gen, device="cuda")
+                          * 0.02, group_size=128)
+    x = torch.randn((rows, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    body = "gemv" if rows <= 8 else "mma"
+    got, routes = _routes_run(lambda: bcq_matmul(x, w,
+                                                 out_dtype=torch.float32))
+    assert routes == {f"bcq_matmul/{body}": 1}
+    _close(got, bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+    got, routes = _routes_run(lambda: lut_gemm(x, w,
+                                               out_dtype=torch.float32))
+    assert routes == {f"lut_gemm/{'lut' if rows <= 8 else 'mma'}": 1}
+    _close(got, lut_ref(x, w, out_dtype=torch.float32)
+           if rows <= 8 else bcq_matmul_ref(x, w, torch.float32), GEMM_TOL)
+    got, routes = _routes_run(lambda: ternary_matmul(
+        x, wt, out_dtype=torch.float32))
+    assert routes == {f"ternary_matmul/{body}": 1}
+    _close(got, dense_ref(x, wt, torch.float32), GEMM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 128, 512])
+def test_cuda_paged_kernels_on_a_16_head_slice(chunk):
+    """The paged kernels on OPT-6.7B's tp-2 slice (16 of 32 heads, D 128,
+    block 16): decode at B 8 and prefill chunks of 128 and 512, float
+    pools 1e-4 and bf16 pools at their gates, one launch a call."""
+    require_cuda()
+    h, d, bs, pages, b = 16, 128, 16, 40, (8 if not chunk else 1)
+    if not chunk:
+        for name, kern, plain, tol, (kk, vv) in _decode_flavours(
+                *_decode_case(16, b=b, hkv=h, rep=1, d=d, bs=bs,
+                              pages=pages)):
+            _lib.reset_launch_counts()
+            got = kern(kk, vv)
+            assert _lib.launch_counts[name] == 1
+            _close(got.float(), plain(kk, vv).float(), tol)
+        return
+    dev = lambda a: torch.from_numpy(a).to("cuda")
+    q, k, v, pos, tables, positions = map(dev, pool_case(
+        h + chunk, b=b, h=h, hkv=h, d=d, nb=b * pages + 8, bs=bs,
+        pages=pages, chunk=chunk))
+    _close(paged_prefill(q, k, v, pos, tables, positions),
+           paged_prefill_ref(q, k, v, pos, tables, positions), PAGED_TOL)
+    for name, kern, plain, tol in _prefill_flavours(q, k, v, pos, tables,
+                                                     positions):
+        _lib.reset_launch_counts()
+        got = kern()
+        assert _lib.launch_counts[name] == 1
+        _close(got.float(), plain().float(), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_serve_two_ranks_on_one_card(tmp_path):
+    """OPT-6.7B at full width and 2 of its 32 layers, BCQ-3 (g 128) in
+    f32, served over a (1, 2) mesh by two processes sharing the card
+    (gloo): each rank's decode and prefill GEMMs and paged kernels
+    launch on its shard, and the greedy tokens equal the unsharded
+    engine's on the same weights."""
+    require_cuda()
+    import json
+    import os
+    import pickle
+    import sys
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import Model, to_params
+    from repro_torch.quant import QuantSpec, quantize_model
+    from repro_torch.serve import PagedServeEngine, Request
+    cfg = get_config("opt_6_7b").replace(n_layers=2, dtype="float32",
+                                         max_seq_len=256)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = Model(cfg, device="cuda", dtype=torch.float32).init_params(gen)
+    spec = QuantSpec(format="bcq", bits=3, group_size=128)
+    quantize_model(model, spec)
+    model = model.with_config(quant=spec, paged_kernel="fused")
+    kw = dict(num_blocks=48, block_size=16, max_batch=4, max_seq_len=256,
+              prefill_buckets=(16, 32, 64))
+    rng = np.random.default_rng(0)
+    lens = (9, 40, 23, 61)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    eng = PagedServeEngine(model, **kw)
+    done = eng.run([Request(uid=i, prompt=p, max_new_tokens=5)
+                    for i, p in enumerate(prompts)])
+    want = {str(r.uid): [int(t) for t in r.out_tokens] for r in done}
+
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [host(v) for v in t]
+        return t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+    job = tmp_path / "job.pkl"
+    with open(job, "wb") as f:
+        pickle.dump({"mesh": (1, 2), "device": "cuda", "arch": "opt_6_7b",
+                     "scenarios": [dict(
+                         name="opt", full=True, lens=lens,
+                         over=dict(n_layers=2, dtype="float32",
+                                   max_seq_len=256),
+                         quant=dict(format="bcq", bits=3, group_size=128),
+                         params=host(to_params(model)), kw=kw,
+                         runs=[dict(name="fused", mode="fused",
+                                    kind="sync")])]}, f)
+    del eng, model
+    torch.cuda.empty_cache()
+    here = os.path.dirname(__file__)
+    outs = spawn([sys.executable, os.path.join(here,
+                                               "torch_sharded_worker.py"),
+                  str(job), str(tmp_path)], 2,
+                 env={"PYTHONPATH": os.path.join(here, "..", "src")},
+                 timeout=600)
+    for r, (rc, _, err) in enumerate(outs):
+        assert rc == 0, f"rank {r}:\n{err[-3000:]}"
+    for r in range(2):
+        got = json.load(open(tmp_path / f"rank{r}.json"))["opt"]["fused"]
+        assert got["tokens"] == want
+        assert got["decode_path"] == "fused" and got["same_host_state"]
+        assert got["k_shape"] == [48, 16, 16, 128]
+        assert got["linears"]["q"][0] == [2048 * r, 2048 * (r + 1)]
+        launches = got["launches"]
+        assert launches["bcq_matmul"] > 0
+        assert launches["paged_decode"] > 0 and launches["paged_prefill"] > 0
+        assert got["routes"].get("bcq_matmul/gemv", 0) > 0
+        assert got["routes"].get("bcq_matmul/mma", 0) > 0
