@@ -147,7 +147,30 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      and 4 layers, saved by ``save_quantized`` and read back by
      ``load_quantized_model`` into a fresh model: every leaf
      bit-identical and the first prompt's greedy tokens identical; the
-     write and read times and the bytes on disk are printed.
+     write and read times and the bytes on disk are printed;
+  6. training (``train_phase``; no kernel of the port: the reference
+     trains dense weights, so every linear is the dense matmul and the
+     backward is autograd's): OPT-6.7B at full width, ``TRAIN_LAYERS``
+     (8) of 32 layers, bf16, remat, on ``SyntheticLM`` (vocab 50272, 8
+     x 512 tokens), ``TRAIN_STEPS`` steps of AdamW through
+     ``Trainer.run`` with one async checkpoint at the end: every loss
+     finite and the mean of the last three below the first three's,
+     no recovery; step p50 ms, tokens/s, the AdamW update's ms (CUDA
+     events), the checkpoint's snapshot and write s and the peak
+     device memory printed beside the card.  Then at full width and
+     ``TRAIN_CHECK_LAYERS`` (2): the first step on the card against the
+     host in f32 (1 x 64 tokens; loss and grad_norm within 1e-4); a run
+     that fails at step 3 (``inject_failure_at``) and resumes from its
+     async checkpoint against an uninterrupted one (final params bit for
+     bit, at most one bf16 ulp on the embedding leaves, whose gradient
+     ``index_put_`` accumulates; exactly the one injected recovery); and
+     two ranks sharing the card over gloo on a (2, 1) mesh
+     (``chip_smoke.py --train-rank-job JOB``, run beside the two
+     checks before), each on its shard of the batch, against one process
+     training the same global batch as two microbatches (losses and
+     params within 1e-5).  Checkpoints go to
+     ``build/train/`` and are deleted.  ``--train-only`` runs phase 1
+     and this phase alone (``chiprun_out/train.json``).
 
 Every serve run gates the count of linears on the tiles: each decode
 step runs all of them on the decode tile, each prefill chunk all but an
@@ -4138,6 +4161,468 @@ def serve_sharded(torch, args, model, spec, eng_kw, totals, power_line,
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+# OPT-6.7B at full width, 8 of its 32 layers: ~1.83 B parameters, ~22 GB
+# at 12 B a parameter (bf16 weights and gradients, f32 AdamW moments);
+# the full 32 layers (~6.65 B) would need ~80 GB before any activation
+TRAIN_LAYERS = 8
+# a constant lr of 1e-5 after one warmup step: with warmup 2 and cosine
+# decay, lr 1e-3 and 1e-4 made step 2's loss spike to 40.7 and 26.5 at
+# full width (Adam's first steps move every weight by ~lr, coherently,
+# so each output by ~lr x its fan-in), then end at 11.6 and 11.4
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 12, 1e-5, 1
+TRAIN_SCHEDULE = "constant"
+TRAIN_SEQ, TRAIN_BATCH = 512, 8
+# the card-vs-host check, the resume check and the data-parallel run:
+# full width, 2 layers
+TRAIN_CHECK_LAYERS = 2
+TRAIN_DIR = ROOT / "build" / "train"
+# the leaves whose gradient is accumulated by the embedding lookups'
+# backward (``index_put_`` with accumulate): the one op on the path that
+# may add in another order from run to run
+EMBED_LEAVES = ("embed/tok", "embed/pos")
+F32_PEAK_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+
+
+def train_config(layers):
+    """OPT-6.7B at full width and ``layers`` deep, remat on; the stack
+    unrolled (the checkpoint writes it so, with no host-side stacking)."""
+    from repro_torch.configs import get_config
+    return get_config("opt_6_7b").replace(n_layers=layers, remat=True,
+                                          scan_layers=False)
+
+
+def train_model(torch, cfg, seed, device="cuda", dtype=None):
+    """Random weights from ``seed`` (the trainer's init) on ``device``."""
+    from repro_torch.models import Model
+    model = Model(cfg, device=device, dtype=dtype or torch.bfloat16)
+    model.init_params(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def trainer_for(model, steps, ckpt_dir, *, ckpt_every=0, mesh=None,
+                microbatches=1):
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    return Trainer(model, adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps,
+        schedule=TRAIN_SCHEDULE),
+        TrainConfig(steps=steps, ckpt_every=ckpt_every or steps,
+                    ckpt_dir=str(ckpt_dir), log_every=1000,
+                    microbatches=microbatches), mesh=mesh)
+
+
+class ShardsPipeline:
+    """The global batch of a (D, 1) mesh: every data shard's batch at the
+    step, concatenated in rank order."""
+
+    def __init__(self, n, **kw):
+        from repro_torch.data.pipeline import SyntheticLM
+        self.parts = [SyntheticLM(data_shard=r, data_shards=n, **kw)
+                      for r in range(n)]
+
+    def batch_at(self, step):
+        import numpy as np
+        return {"tokens": np.concatenate(
+            [p.batch_at(step)["tokens"] for p in self.parts])}
+
+
+def leaf_paths(tree):
+    """The "/"-joined paths of a tree's leaves, in ``tree_leaves`` order."""
+    from repro_torch.tree import leaves_with_path
+    return ["/".join(map(str, p)) for p, _ in leaves_with_path(tree)]
+
+
+def train_gates(tag, tr, hist, steps):
+    """Every step ran, every loss is finite, and no failure was
+    recovered from (a swallowed RuntimeError, an OOM, must not pass)."""
+    if len(hist) != steps or tr.recoveries:
+        fail(f"{tag}: {len(hist)} of {steps} steps, recoveries "
+             f"{tr.recoveries}")
+    bad = [h for h in hist if not all(math.isfinite(h[k]) for k in h)]
+    if bad:
+        fail(f"{tag}: non-finite metrics {bad[0]}")
+
+
+def train_step_flops(cfg, tokens):
+    """A training step's matmul operations: each layer's linears and
+    attention scores and values (the full S x S product) forward, again
+    in the backward's recompute (remat) and twice in the backward; the
+    head forward and twice in the backward."""
+    d, f, s = cfg.d_model, cfg.d_ff, TRAIN_SEQ
+    layer = 4 * d * d + 2 * d * f + 2 * s * d
+    head = d * cfg.padded_vocab
+    return 2 * tokens * (cfg.n_layers * layer * 4 + head * 3)
+
+
+def time_adamw(torch, tr, state):
+    """Median ms of three ``apply_updates`` on the trained state (random
+    bf16 gradients), CUDA events; bytes each parameter moves: bf16
+    weight read and written, bf16 gradient read, f32 m and v read and
+    written."""
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+    params = state["params"]
+    grads = tree_map(lambda p: torch.randn(p.shape, device=p.device,
+                                           dtype=p.dtype) * 1e-3, params)
+    times, opt = [], state["opt"]
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        _, opt, _ = adamw.apply_updates(params, grads, opt, tr.opt_cfg)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    n = sum(p.numel() for p in tree_leaves(params))
+    nbytes = sum(p.numel() * (3 * p.element_size() + 16)
+                 for p in tree_leaves(params))
+    del grads
+    return sorted(times)[1], nbytes / HBM_BYTES_PER_S * 1e3, n
+
+
+def train_main(torch, args, power_line):
+    """OPT-6.7B at full width, TRAIN_LAYERS deep, bf16, remat: the
+    trainer's run with one async checkpoint at the end."""
+    from repro_torch.data.pipeline import SyntheticLM
+    cfg = train_config(TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = train_model(torch, cfg, args.seed)
+    n_params = model.n_params()
+    tr = trainer_for(model, TRAIN_STEPS, TRAIN_DIR / "main")
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=args.seed)
+    log(f"train: opt-6.7b at full width (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+        f"{cfg.padded_vocab}), {cfg.n_layers} of 32 layers, "
+        f"{n_params / 1e9:.3f} B params, bf16, remat; {TRAIN_STEPS} steps "
+        f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW lr {TRAIN_LR:g}, "
+        f"warmup {TRAIN_WARMUP}, {TRAIN_SCHEDULE} schedule")
+    t0 = time.perf_counter()
+    state, hist = tr.run(pipe, state=tr.fresh_state())
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_gates("train", tr, hist, TRAIN_STEPS)
+    losses = [h["loss"] for h in hist]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    log(f"train: losses {[round(x, 4) for x in losses]}; mean of the first "
+        f"three {first:.4f}, of the last three {last:.4f}")
+    if not last < first:
+        fail("train: the loss did not decrease")
+    steps_ms = sorted(t * 1e3 for t in tr.step_times[1:])
+    p50 = steps_ms[len(steps_ms) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_step_flops(cfg, tokens)
+    ckpt_dir = TRAIN_DIR / "main" / f"step_{TRAIN_STEPS:08d}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+    adamw_ms, adamw_bound_ms, n_leaf = time_adamw(torch, tr, state)
+    out = dict(layers=cfg.n_layers, params=n_params, steps=TRAIN_STEPS,
+               lr=TRAIN_LR, warmup=TRAIN_WARMUP, schedule=TRAIN_SCHEDULE,
+               batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, losses=losses, grad_norms=[
+                   h["grad_norm"] for h in hist], step_ms=steps_ms,
+               step_ms_p50=p50, first_step_ms=tr.step_times[0] * 1e3,
+               tokens_per_s=tokens / (p50 / 1e3), wall_s=wall,
+               peak_bytes=peak, step_flops=flops,
+               f32_bound_ms=flops / F32_PEAK_FLOPS * 1e3,
+               bf16_bound_ms=flops / BF16_FLOPS * 1e3,
+               adamw_ms=adamw_ms, adamw_bound_ms=adamw_bound_ms,
+               ckpt_snapshot_s=tr.ckpt.last_snapshot_s,
+               ckpt_write_s=tr.ckpt.last_write_s, ckpt_bytes=ckpt_bytes,
+               card=power_line)
+    log(f"train: step p50 {p50:.1f} ms (first step {out['first_step_ms']:.1f}"
+        f" ms), {out['tokens_per_s']:.0f} tokens/s; {flops / 1e12:.1f} "
+        f"TFLOP a step of matmuls on f32 operands (the dense linear's), "
+        f"bound {out['f32_bound_ms']:.1f} ms at the f32 peak, "
+        f"{out['bf16_bound_ms']:.1f} ms at the bf16 tensor-core peak; card "
+        f"{power_line}")
+    log(f"train: AdamW update {adamw_ms:.2f} ms over {n_leaf / 1e9:.3f} B "
+        f"params (bound {adamw_bound_ms:.2f} ms by bytes); card {power_line}")
+    log(f"train: async checkpoint of step {TRAIN_STEPS} "
+        f"({ckpt_bytes / 1e9:.2f} GB): snapshot to host "
+        f"{out['ckpt_snapshot_s']:.2f} s, write {out['ckpt_write_s']:.2f} s "
+        f"(in the background); card {power_line}")
+    log(f"train: peak device memory {peak / 1e9:.2f} GB "
+        f"(max_memory_allocated); card {power_line}")
+    shutil.rmtree(TRAIN_DIR / "main", ignore_errors=True)
+    return out
+
+
+def train_host_check(torch, args):
+    """The same weights (full width, TRAIN_CHECK_LAYERS deep, f32) on the
+    card and on the host: the first step's loss and grad_norm, batch 1 x
+    64 tokens, within 1e-4 relative."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import from_jax_params, to_params
+    cfg = train_config(TRAIN_CHECK_LAYERS)
+    host = train_model(torch, cfg, args.seed, device="cpu",
+                       dtype=torch.float32)
+    card = from_jax_params(to_params(host), cfg, device="cuda")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64,
+                        global_batch=1, seed=args.seed).batch_at(0)
+    got = {}
+    for where, model in (("cuda", card), ("cpu", host)):
+        tr = trainer_for(model, 1, TRAIN_DIR / f"host_{where}")
+        t0 = time.perf_counter()
+        _, metrics = tr.build_step()(tr.fresh_state(), batch)
+        got[where] = {k: float(v) for k, v in metrics.items()}
+        got[where]["s"] = time.perf_counter() - t0
+    del card, host
+    out = {"cuda": got["cuda"], "cpu": got["cpu"]}
+    for k in ("loss", "grad_norm"):
+        rel = abs(got["cuda"][k] - got["cpu"][k]) / abs(got["cpu"][k])
+        out[f"{k}_rel_err"] = rel
+        log(f"train[host check]: first-step {k} card {got['cuda'][k]:.7f}, "
+            f"host {got['cpu'][k]:.7f}: rel err {rel:.3e} <= 1e-4: "
+            f"{rel <= 1e-4}")
+        if not rel <= 1e-4:
+            fail(f"train: the card's {k} disagrees with the host's")
+    return out
+
+
+def bf16_ulps(torch, a, b):
+    """Max distance in bf16 ulps between two bf16 tensors of one sign
+    pattern (inf where a sign differs)."""
+    ai, bi = a.view(torch.int16).int(), b.view(torch.int16).int()
+    if ((ai < 0) != (bi < 0)).any():
+        return float("inf")
+    return int((ai - bi).abs().max())
+
+
+def train_resume_check(torch, args):
+    """Full width, TRAIN_CHECK_LAYERS deep, bf16, 4 steps: uninterrupted
+    against a run that fails at step 3 (``inject_failure_at``) and resumes
+    from its async checkpoint of step 2.  The final parameters equal bit
+    for bit; on the embedding leaves (``EMBED_LEAVES``: their gradient
+    comes from the lookups' ``index_put_`` accumulation) at most one bf16
+    ulp apart.  Exactly one recovery, the injected one."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.tree import tree_leaves
+    cfg = train_config(TRAIN_CHECK_LAYERS)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=args.seed)
+    finals, out = {}, {}
+    for name, inject, every in (("uninterrupted", None, 4),
+                                ("injected", 3, 2)):
+        model = train_model(torch, cfg, args.seed)
+        tr = trainer_for(model, 4, TRAIN_DIR / name, ckpt_every=every)
+        t0 = time.perf_counter()
+        state, hist = tr.run(pipe, state=tr.fresh_state(),
+                             inject_failure_at=inject)
+        wall = time.perf_counter() - t0
+        want = [] if inject is None else [(3, "simulated node failure")]
+        if tr.recoveries != want or int(state["step"]) != 4:
+            fail(f"train[{name}]: recoveries {tr.recoveries}, want {want}; "
+                 f"step {int(state['step'])}")
+        bad = [h for h in hist if not math.isfinite(h["loss"])]
+        if bad or len(hist) != (4 if inject is None else 5):
+            fail(f"train[{name}]: history {hist}")
+        paths = leaf_paths(state["params"])
+        finals[name] = [t.detach().clone() for t in
+                        tree_leaves(state["params"])]
+        out[name] = dict(losses=[h["loss"] for h in hist], wall_s=wall,
+                         recoveries=tr.recoveries,
+                         ckpt_write_s=tr.ckpt.last_write_s)
+        del model, tr, state
+        shutil.rmtree(TRAIN_DIR / name, ignore_errors=True)
+        torch.cuda.empty_cache()
+    diff = {}
+    for path, a, b in zip(paths, finals["uninterrupted"], finals["injected"]):
+        if torch.equal(a, b):
+            continue
+        ulps = (bf16_ulps(torch, a, b) if a.dtype == torch.bfloat16
+                else float("inf"))
+        diff[path] = dict(ulps=ulps, elements=int((a != b).sum()))
+        if path not in EMBED_LEAVES or ulps > 1:
+            fail(f"train[resume]: {path} differs from the uninterrupted "
+                 f"run: {diff[path]}")
+    out["differing_leaves"] = diff
+    log(f"train[resume]: failure injected at step 3, one recovery from the "
+        f"async checkpoint of step 2; final params equal the uninterrupted "
+        f"run's bit for bit on {len(paths) - len(diff)} of {len(paths)} "
+        f"leaves" + (f"; within 1 bf16 ulp on {sorted(diff)} (the "
+                     f"embedding backward's index_put_ accumulation): "
+                     f"{diff}" if diff else ""))
+    return out
+
+
+def start_data_parallel(torch, args):
+    """Two ranks sharing the card over gloo (``chip_smoke.py
+    --train-rank-job``), a (2, 1) mesh, full width, TRAIN_CHECK_LAYERS
+    deep, bf16, 2 steps, each rank on its shard of the global batch,
+    held against one process training the same global batch as the
+    same two microbatches (run here first).  The ranks run in a thread
+    while the phase's other checks run on the same card and host, so
+    their step and all-reduce times are confounded with those checks and
+    are printed as such, not as a metric; ``finish_data_parallel`` joins
+    and gates them.  Returns the pending job."""
+    import threading
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.tree import tree_leaves
+    cfg = train_config(TRAIN_CHECK_LAYERS)
+    steps = 2
+    model = train_model(torch, cfg, args.seed)
+    tr = trainer_for(model, steps, TRAIN_DIR / "solo", microbatches=2)
+    t0 = time.perf_counter()
+    state, hist = tr.run(ShardsPipeline(2, vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH,
+                                        seed=args.seed),
+                         state=tr.fresh_state())
+    solo_s = time.perf_counter() - t0
+    train_gates("train[solo]", tr, hist, steps)
+    torch.save([t.detach().cpu() for t in tree_leaves(state["params"])],
+               TRAIN_DIR / "solo.pt")
+    del model, tr, state
+    shutil.rmtree(TRAIN_DIR / "solo", ignore_errors=True)
+    torch.cuda.empty_cache()
+    job = TRAIN_DIR / "dp_job.json"
+    job.write_text(json.dumps(dict(
+        layers=TRAIN_CHECK_LAYERS, steps=steps, seed=args.seed,
+        solo=str(TRAIN_DIR / "solo.pt"), ckpt=str(TRAIN_DIR / "dp"),
+        out=str(TRAIN_DIR))))
+    pending = dict(steps=steps, hist=hist, solo_s=solo_s,
+                   t0=time.perf_counter())
+
+    def run():
+        pending["outs"] = spawn([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--train-rank-job", str(job)], 2,
+                                timeout=900)
+    pending["thread"] = threading.Thread(target=run, daemon=True)
+    pending["thread"].start()
+    return pending
+
+
+def finish_data_parallel(pending, power_line):
+    """Join the ranks of ``start_data_parallel`` and gate them: losses,
+    grad norms and every parameter within 1e-5 of the single process's,
+    no recovery, gloo."""
+    pending["thread"].join()
+    ranks_s = time.perf_counter() - pending["t0"]
+    steps, hist = pending["steps"], pending["hist"]
+    if "outs" not in pending:
+        fail("train[data parallel]: the ranks were not started")
+    for r, (rc, out, err) in enumerate(pending["outs"]):
+        for line in out.splitlines():
+            log(f"  [rank {r}] {line}")
+        if rc != 0:
+            fail(f"train[data parallel]: rank {r} exited {rc}:\n"
+                 f"{err[-3000:]}")
+    ranks = [json.loads((TRAIN_DIR / f"dp_rank{r}.json").read_text())
+             for r in range(2)]
+    for rk in ranks:
+        tag = f"train[data parallel, rank {rk['rank']}]"
+        if rk["backend"] != "gloo" or rk["recoveries"] or \
+                len(rk["hist"]) != steps:
+            fail(f"{tag}: backend {rk['backend']}, recoveries "
+                 f"{rk['recoveries']}, {len(rk['hist'])} steps")
+        for a, b in zip(hist, rk["hist"]):
+            for k in ("loss", "grad_norm"):
+                if not abs(a[k] - b[k]) <= 1e-5 * abs(a[k]):
+                    fail(f"{tag}: {k} {b[k]} vs the single rank's {a[k]}")
+        log(f"{tag}: losses {[h['loss'] for h in rk['hist']]} (single rank "
+            f"{[h['loss'] for h in hist]}); params max rel err "
+            f"{rk['max_rel']:.3e} <= 1e-5: {rk['max_rel'] <= 1e-5} (worst "
+            f"leaf {rk['worst_leaf']}); confounded, run beside the "
+            f"card-vs-host and resume checks: steps {rk['step_ms']} ms, "
+            f"gradient all-reduce {rk['comm_s']:.2f} s over "
+            f"{rk['collectives']} collectives staged through host memory; "
+            f"card {power_line}")
+        if not rk["max_rel"] <= 1e-5:
+            fail(f"{tag}: params differ from the single rank's")
+    return dict(steps=steps, solo_losses=[h["loss"] for h in hist],
+                solo_s=pending["solo_s"], ranks_s=ranks_s, ranks=ranks)
+
+
+def train_rank(job_path):
+    """One rank of ``start_data_parallel``: join the (2, 1) mesh over
+    gloo, train on this rank's shard, hold the final parameters against
+    the single process's (max |a - b| over the leaf's max-abs)."""
+    job = json.loads(Path(job_path).read_text())
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("rank: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh((2, 1), ("data", "model"), device_type="cuda")
+    cfg = train_config(job["layers"])
+    model = train_model(torch, cfg, job["seed"])
+    tr = trainer_for(model, job["steps"], job["ckpt"], mesh=mesh)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=job["seed"],
+                       data_shard=mesh.index("data"),
+                       data_shards=mesh.size("data"))
+    mesh.reset_counters()
+    state, hist = tr.run(pipe, state=tr.fresh_state())
+    solo = torch.load(job["solo"])
+    paths = leaf_paths(state["params"])
+    worst, worst_leaf = 0.0, None
+    for path, a, b in zip(paths, tree_leaves(state["params"]), solo):
+        a, b = a.detach().float().cpu(), b.float()
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, worst_leaf = rel, path
+    res = dict(rank=mesh.rank, backend=mesh.backend, hist=hist,
+               recoveries=tr.recoveries, max_rel=worst,
+               worst_leaf=worst_leaf,
+               step_ms=[round(t * 1e3, 1) for t in tr.step_times],
+               comm_s=mesh.comm_s, collectives=mesh.collectives)
+    (Path(job["out"]) / f"dp_rank{mesh.rank}.json").write_text(
+        json.dumps(res))
+    torch.distributed.destroy_process_group()
+
+
+def train_phase(torch, args, power_line):
+    """Phase 6: training (``repro_torch.train``): the main run, then the
+    data-parallel ranks on the card in the background while the
+    card-vs-host check and failure injection and resume run."""
+    import gc
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    log(f"train: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        f"allocated on the card; {shutil.disk_usage(TRAIN_DIR).free / 1e9:.0f}"
+        f" GB free for checkpoints under {TRAIN_DIR.relative_to(ROOT)}")
+    out = {"card": power_line}
+    pending = None
+    try:
+        out["main"] = train_main(torch, args, power_line)
+        # the data-parallel ranks run beside the checks that record no
+        # time
+        pending = start_data_parallel(torch, args)
+        out["host_check"] = train_host_check(torch, args)
+        out["resume"] = train_resume_check(torch, args)
+        out["data_parallel"] = finish_data_parallel(pending, power_line)
+    finally:
+        if pending is not None:
+            pending["thread"].join()
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def train_only(torch, args, power_line):
+    """``--train-only``: phase 1 and the training phase; results in
+    ``chiprun_out/train.json``."""
+    out = train_phase(torch, args, power_line)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "train.json").write_text(json.dumps(out, indent=1))
+    print(power_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4145,6 +4630,10 @@ def main():
                     help="OPT-6.7B serve depth (full width is always kept)")
     ap.add_argument("--rank-job", default="",
                     help=argparse.SUPPRESS)  # one rank of serve_sharded
+    ap.add_argument("--train-rank-job", default="",
+                    help=argparse.SUPPRESS)  # one rank of the train phase
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only phase 1 and the training phase")
     ap.add_argument("--sharded-mesh", default="",
                     help="run only the build and serve_sharded on a DxM "
                          "mesh, one rank a card where there are D*M cards "
@@ -4153,6 +4642,8 @@ def main():
     args = ap.parse_args()
     if args.rank_job:
         return sharded_rank(args.rank_job)
+    if args.train_rank_job:
+        return train_rank(args.train_rank_job)
     t_start = time.perf_counter()
 
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -4181,6 +4672,9 @@ def main():
     shutil.rmtree(TUNE_DIR, ignore_errors=True)
     os.environ.update(REPRO_TORCH_TUNE_CACHE=str(TUNE_DIR / "cold.json"),
                       REPRO_TORCH_TUNE="on")
+
+    if args.train_only:
+        return train_only(torch, args, power_line)
 
     # phase 2: build
     from repro_torch.kernels import _lib
@@ -4221,6 +4715,9 @@ def main():
     missing = [k for k, n in totals.items() if n <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    # phase 6: training (no kernel of the port: the dense path under
+    # autograd)
+    serve_out["train"] = train_phase(torch, args, power_line)
 
     paged_cu = "src/repro_torch/csrc/paged_attention.cu"
     decode_cu = "src/repro_torch/csrc/paged_decode.cu"

@@ -7,7 +7,8 @@ allocation, linear execution), ``quant`` (spec, BCQ/RTN/ternary
 formats, backends, bit plans, ``quantize_model``, quantized
 checkpoints), ``kernels`` (hand-written CUDA kernels for Hopper, each
 beside its plain PyTorch version), ``configs``, ``models``, ``serve``,
-``obs`` (serving traces), ``train`` (the numpy checkpoint layout) and
+``obs`` (serving traces), ``data`` (token pipelines), ``optim``
+(AdamW), ``train`` (the trainer and the numpy checkpoint layout) and
 ``launch``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

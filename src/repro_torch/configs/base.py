@@ -72,6 +72,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     max_seq_len: int = 524288
     quant: Optional[QuantSpec] = None
+    # checkpoint each block of a training forward (``models/transformer.py``)
+    remat: bool = True
     scan_layers: bool = True
     kv_replication: int = 1
     kv_cache_bits: int = 16

@@ -707,7 +707,7 @@ class MLAttention(nn.Module):
         self.kv_b = Linear(h * (dn + dv), lora, bias=False, dtype=dtype,
                            device=device)
         self.o = Linear(d, h * dv, bias=False, dtype=dtype, device=device)
-        self._kv_b_split = None              # (weight, w_uk, w_uv)
+        self._kv_b_split = None     # (weight, version, w_uk, w_uv)
 
     def init_params(self, generator: torch.Generator) -> None:
         self.q_a_norm.fill_(1.0)
@@ -716,18 +716,29 @@ class MLAttention(nn.Module):
     def absorbed_weights(self):
         """(w_uk [H, dn, lora], w_uv [H, dv, lora]) in f32 for the current
         ``kv_b`` weight."""
+        from repro_torch.core.plane import PlaneBundle, dequantize
         w = self.kv_b.weight
-        if self._kv_b_split is None or self._kv_b_split[0] is not w:
-            from repro_torch.core.plane import PlaneBundle, dequantize
-            cfg = self.cfg
+        cfg = self.cfg
+        dn = cfg.qk_nope_head_dim
+        if isinstance(w, torch.Tensor) and w.requires_grad \
+                and torch.is_grad_enabled():
+            # a training forward: the split is part of what autograd
+            # differentiates, so it is computed anew, never kept
+            w3 = w.float().reshape(cfg.n_heads, dn + cfg.v_head_dim,
+                                   cfg.kv_lora_rank)
+            return w3[:, :dn], w3[:, dn:]
+        # keyed by the weight object and, for a tensor, its version (an
+        # optimizer step writes it in place)
+        key = (w, getattr(w, "_version", None))
+        if self._kv_b_split is None or self._kv_b_split[0] is not key[0] \
+                or self._kv_b_split[1] != key[1]:
             dense = (dequantize(w, torch.float32)
-                     if isinstance(w, PlaneBundle) else w.float())
-            w3 = dense.reshape(cfg.n_heads, cfg.qk_nope_head_dim
-                               + cfg.v_head_dim, cfg.kv_lora_rank)
-            dn = cfg.qk_nope_head_dim
-            self._kv_b_split = (w, w3[:, :dn].contiguous(),
+                     if isinstance(w, PlaneBundle) else w.detach().float())
+            w3 = dense.reshape(cfg.n_heads, dn + cfg.v_head_dim,
+                               cfg.kv_lora_rank)
+            self._kv_b_split = (w, key[1], w3[:, :dn].contiguous(),
                                 w3[:, dn:].contiguous())
-        return self._kv_b_split[1], self._kv_b_split[2]
+        return self._kv_b_split[2], self._kv_b_split[3]
 
     def forward(self, x, positions, *, cache: Optional[dict] = None,
                 cache_at=None, backend=None, paged_kernel: str = "auto"):

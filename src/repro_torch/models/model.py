@@ -60,6 +60,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import Embed, Linear, Norm, _normal_
 from repro_torch.models.ssm import init_ssm_cache
 from repro_torch.models.transformer import Stack, layer_plan
+from repro_torch.tree import tree_leaves
 
 
 def encoder_config(cfg):
@@ -232,25 +233,85 @@ class Model(nn.Module):
         """The encoder over precomputed frame embeddings [B, S, d]: its
         learned positions added, the stack with no causal mask, the final
         norm."""
+        return self._encode(frames)
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
         enc = self.encoder
-        x = frames.to(self.device)
+        x = torch.as_tensor(frames).to(self.device)
         b, s, _ = x.shape
         if enc.pos is not None:
             x = x + enc.pos[None, :s].to(x.dtype)
         positions = self._positions(b, s, 0)
         x, _ = enc.stack(x, positions, causal=False,
-                         backend=self.cfg.backend_preference)
+                         backend=self.cfg.backend_preference,
+                         remat=self.cfg.remat)
         return enc.final_norm(x)
+
+    def _logits(self, tokens, frames=None, patch_embeds=None):
+        """Full-sequence logits [B, S, V] f32 under whatever grad mode the
+        caller is in; each block checkpointed where ``cfg.remat``."""
+        enc_out = None
+        if self.cfg.is_encdec:
+            if frames is None:
+                raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
+                                 "pass frames= (the encoder's input)")
+            enc_out = self._encode(frames)
+        if patch_embeds is not None:
+            patch_embeds = torch.as_tensor(patch_embeds)
+        x, positions = self._embed(torch.as_tensor(tokens).to(self.device),
+                                   0, patch_embeds)
+        x, _ = self.stack(x, positions, enc_out=enc_out,
+                          backend=self.cfg.backend_preference,
+                          remat=self.cfg.remat)
+        return self._head(x)
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, frames=None,
                 patch_embeds=None) -> torch.Tensor:
         """Full-sequence logits [B, S, V] (no cache); S counts the
         patches where ``patch_embeds`` are given."""
-        enc_out = self._encode_for(frames)
-        x, positions = self._embed(tokens.to(self.device), 0, patch_embeds)
-        x, _ = self._run(x, positions, None, None, enc_out)
-        return self._head(x)
+        return self._logits(tokens, frames, patch_embeds)
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        """Next-token cross-entropy (the reference's ``loss_fn``), a scalar
+        f32 tensor that autograd can differentiate: the logits over the
+        real vocab (the padded rows are out of the partition function, as
+        the reference's -1e30 mask leaves them), and with
+        ``patch_embeds`` only the text positions count.  ``batch`` holds
+        ``tokens`` [B, S] (numpy or torch) and, where the model takes
+        them, ``frames`` or ``patch_embeds``."""
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        patches = batch.get("patch_embeds")
+        logits = self._logits(tokens, batch.get("frames"), patches)
+        if patches is not None:
+            logits = logits[:, patches.shape[1]:]
+        targets = tokens[:, 1:].long()
+        logits = logits[:, :-1].float()
+        lse = torch.logsumexp(logits, dim=-1)                    # [B, S-1]
+        ltgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return (lse - ltgt).mean()
+
+    def train_params(self) -> dict:
+        """Make every parameter a leaf that autograd tracks and return
+        them as the reference's tree in the unrolled layout (``stack/
+        layers/i``; the live tensors, not copies): what the trainer
+        holds.  Only dense models train, as in the reference: a
+        quantized leaf, or one rank's slices of a mesh, is refused."""
+        if self.mesh is not None:
+            raise ValueError("train_params: this model holds one rank's "
+                             "slices of a mesh; train a whole model "
+                             "replicated on each rank")
+        tree = to_params(self, scan_layers=False)
+        if not all(isinstance(t, torch.Tensor) for t in tree_leaves(tree)):
+            raise ValueError(f"{self.cfg.name} holds quantized "
+                             f"(PlaneBundle) weights: only dense models "
+                             f"train, as in the reference")
+        for t in tree_leaves(tree):
+            if not t.is_floating_point():
+                raise ValueError(f"a parameter of dtype {t.dtype} cannot "
+                                 "train")
+            t.requires_grad_(True)
+        return tree
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict, start_pos=0, *,
@@ -610,12 +671,15 @@ def _stack_trees(trees: list):
     return torch.stack(trees)
 
 
-def _stack_tree(stack, cfg) -> dict:
-    from repro_torch.models.transformer import scan_grouping
+def _stack_tree(stack, cfg, scan: bool) -> dict:
     blocks = [_block_tree(b, cfg, kind)
               for (kind, _), b in zip(layer_plan(cfg), stack.layers)]
-    if not cfg.scan_layers:
-        return {"layers": blocks}
+    return _stack_blocks(blocks, cfg) if scan else {"layers": blocks}
+
+
+def _stack_blocks(blocks: list, cfg) -> dict:
+    """Per-layer trees in the ``scan_layers`` layout of ``cfg``."""
+    from repro_torch.models.transformer import scan_grouping
     pre, period, reps = scan_grouping(cfg)
     out = {}
     if pre:
@@ -627,32 +691,85 @@ def _stack_tree(stack, cfg) -> dict:
     return out
 
 
-def to_params(model: Model) -> dict:
+def to_params(model: Model, scan_layers: Optional[bool] = None) -> dict:
     """The model's parameters as the reference's tree (torch leaves on
     the model's device, bundles as dicts): each stack (the decoder's and
-    an encoder's) as ``{"layers": [...]}`` or, under ``scan_layers``,
-    ``{"prefix": [...], "scan": [...]}`` stacked as ``from_jax_params``
-    unstacks it.  A rank's model of a mesh is refused: it holds only its
-    slices."""
+    an encoder's) as ``{"layers": [...]}`` or, under ``scan_layers``
+    (default ``cfg.scan_layers``), ``{"prefix": [...], "scan": [...]}``
+    stacked as ``from_jax_params`` unstacks it.  The unrolled layout
+    holds the live tensors; the stacked one, copies.  A rank's model of
+    a mesh is refused: it holds only its slices."""
     if model.mesh is not None:
         raise ValueError("to_params: this model holds one rank's slices of "
                          f"its parameters ({model.mesh}); export the tree "
                          "it was sharded from instead")
     cfg = model.cfg
+    scan = cfg.scan_layers if scan_layers is None else scan_layers
     emb = {"tok": model.embed.tok}
     if model.embed.pos is not None:
         emb["pos"] = model.embed.pos
     if model.embed.unembed is not None:
         emb["unembed"] = _export(model.embed.unembed.weight)
     out = {"embed": emb, "final_norm": _norm_tree(model.final_norm),
-           "stack": _stack_tree(model.stack, cfg)}
+           "stack": _stack_tree(model.stack, cfg, scan)}
     enc = model.encoder
     if enc is not None:
-        out["encoder"] = {"stack": _stack_tree(enc.stack, enc.cfg),
+        out["encoder"] = {"stack": _stack_tree(enc.stack, enc.cfg, scan),
                           "final_norm": _norm_tree(enc.final_norm)}
         if enc.pos is not None:
             out["encoder"]["pos"] = enc.pos
     return out
+
+
+# ---------------------------------------------------------------------------
+# training trees: parameters, gradients and AdamW moments in either layout
+# ---------------------------------------------------------------------------
+
+
+def _map_stacks(tree: dict, cfg, fn) -> dict:
+    """``tree`` with ``fn(stack, its config)`` applied to each layer stack
+    (the decoder's, and an encoder's)."""
+    out = {**tree, "stack": fn(tree["stack"], cfg)}
+    if cfg.is_encdec:
+        enc = tree["encoder"]
+        out["encoder"] = {**enc, "stack": fn(enc["stack"],
+                                             encoder_config(cfg))}
+    return out
+
+
+def stack_layout(tree: dict, cfg) -> dict:
+    """An unrolled tree (``to_params(model, scan_layers=False)``'s
+    layout; any leaves: parameters, gradients, moments) in the layout of
+    ``cfg.scan_layers``: the reference's, which its checkpoints hold."""
+    if not cfg.scan_layers:
+        return tree
+    return _map_stacks(tree, cfg, lambda st, scfg: _stack_blocks(
+        list(st["layers"]), scfg))
+
+
+def unrolled(tree: dict, cfg) -> dict:
+    """A tree in either stack layout as the unrolled one (stacked leaves
+    sliced per layer: views of torch tensors, numpy slices)."""
+    return _map_stacks(tree, cfg, lambda st, scfg: {
+        "layers": layer_trees(st, scfg.n_layers)})
+
+
+@torch.no_grad()
+def load_params_(model: Model, tree: dict) -> None:
+    """Copy a reference-layout tree (either stack layout; numpy or torch
+    leaves, dense) into the model's own tensors, in place, each cast to
+    the tensor's dtype."""
+    mine = tree_leaves(to_params(model, scan_layers=False))
+    theirs = tree_leaves(unrolled(tree, model.cfg))
+    if len(mine) != len(theirs):
+        raise ValueError(f"load_params_: the tree has {len(theirs)} leaves, "
+                         f"the model {len(mine)}")
+    for dst, src in zip(mine, theirs):
+        src = _to_tensor(src, dst.device)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"load_params_: a leaf of shape "
+                             f"{tuple(src.shape)} for {tuple(dst.shape)}")
+        dst.copy_(src.to(dst.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -802,5 +919,6 @@ def shard_model(params: dict, cfg, mesh, rules: Optional[dict] = None,
 
 
 __all__ = ["Encoder", "Model", "check_meshable", "encoder_config",
-           "from_jax_params", "layer_trees", "set_block_tables",
-           "shard_model", "to_params"]
+           "from_jax_params", "layer_trees", "load_params_",
+           "set_block_tables", "shard_model", "stack_layout", "to_params",
+           "unrolled"]

@@ -27,18 +27,6 @@ from __future__ import annotations
 import math
 
 
-def tree_map_with_path(fn, tree, path=()):
-    """tree_map over dict/list/tuple trees, calling ``fn(path, leaf)``
-    with the tuple of keys/indices leading to each leaf."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, path + (k,))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path(fn, v, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
-
-
 # ---------------------------------------------------------------------------
 # parameter axes, per block as ``repro.models`` declares them
 # ---------------------------------------------------------------------------
@@ -266,4 +254,4 @@ def param_bytes(tree) -> int:
 
 
 __all__ = ["logical_axes", "paged_cache_axes", "paged_layer_axes",
-           "param_bytes", "param_count", "tree_map_with_path"]
+           "param_bytes", "param_count"]

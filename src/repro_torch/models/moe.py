@@ -25,8 +25,8 @@ per expert (``packed`` [E, q, out, in/8]); a quantized bank is
 dequantized to bf16 one expert at a time, and only for the experts some
 row routed a token to (an expert nobody routed to is never gathered, so
 this is the reference's function with one expert's dense transient).
-The load-balancing loss (``router_aux_loss``) is training work
-(ROADMAP.md queue 1 item 11).
+``router_aux_loss`` is the reference's Switch-style load-balancing
+loss.
 """
 from __future__ import annotations
 
@@ -198,4 +198,23 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
     return y.to(x.dtype), keep.reshape(b, s, k)
 
 
-__all__ = ["ExpertBank", "MoE", "moe_apply", "positions_in_expert", "route"]
+def router_aux_loss(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e,
+    f_e the share of top-k assignments to expert e and p_e its mean
+    router probability over the tokens of ``x`` [B, S, d].  ``params``
+    is a :class:`MoE` or a tree holding its f32 ``router`` [E, d]."""
+    router = params.router if isinstance(params, MoE) else params["router"]
+    d = x.shape[-1]
+    logits = torch.einsum("td,ed->te", x.reshape(-1, d).float(),
+                          router.float())
+    probs = torch.softmax(logits, dim=-1)
+    # top-k by a stable descending sort: ties to the lower expert index,
+    # as ``jax.lax.top_k``
+    experts = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).indices[:, :cfg.experts_per_token]
+    frac = F.one_hot(experts, cfg.n_experts).sum(1).float().mean(0)
+    return cfg.n_experts * torch.sum(frac * probs.mean(0))
+
+
+__all__ = ["ExpertBank", "MoE", "moe_apply", "positions_in_expert", "route",
+           "router_aux_loss"]

@@ -1,6 +1,10 @@
 """Decoder blocks and the layer stack (counterpart of
 ``repro.models.transformer``): the stack is a Python loop over an
 ``nn.ModuleList`` — PyTorch runs eagerly, so there is no scan.
+With ``remat`` (``cfg.remat``, passed by the model) a forward with no
+cache under grad mode checkpoints each block
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps
+each block in ``jax.checkpoint``.
 
 The reference's parameter tree still stacks layers under
 ``scan_layers`` (``stack/prefix/i`` and ``stack/scan/j`` with a leading
@@ -10,7 +14,9 @@ mixed-precision plans and checkpoints key by.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (Attention, CrossAttention,
                                           MLAttention)
@@ -96,9 +102,17 @@ class Stack(nn.Module):
 
     def forward(self, x, positions, *, caches=None, cache_at=None,
                 causal=True, enc_out=None, backend=None,
-                paged_kernel="auto"):
+                paged_kernel="auto", remat=False):
         new = [] if caches is not None else None
+        # activation checkpointing on the train path (the reference's
+        # ``jax.checkpoint`` in ``_run_block``): each block keeps only its
+        # input and recomputes itself in the backward pass
+        ckpt = remat and caches is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
+            if ckpt:
+                x = checkpoint(_block_out, block, x, positions, causal,
+                               enc_out, backend, use_reentrant=False)
+                continue
             c = caches["layers"][i] if caches is not None else None
             x, c = block(x, positions, cache=c, cache_at=cache_at,
                          causal=causal, enc_out=enc_out, backend=backend,
@@ -106,6 +120,11 @@ class Stack(nn.Module):
             if new is not None:
                 new.append(c)
         return x, ({**caches, "layers": new} if new is not None else None)
+
+
+def _block_out(block, x, positions, causal, enc_out, backend):
+    return block(x, positions, causal=causal, enc_out=enc_out,
+                 backend=backend)[0]
 
 
 def layer_plan(cfg):

@@ -1,2 +1,3 @@
 """Training-side utilities of the port (counterpart of ``repro.train``):
-for now the numpy-backed checkpoint layout (``train.checkpoint``)."""
+the trainer (``train.trainer``) and the numpy-backed, async
+checkpoints (``train.checkpoint``)."""

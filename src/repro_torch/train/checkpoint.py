@@ -1,7 +1,5 @@
-"""Atomic numpy-backed checkpoints in the reference's on-disk layout.
-
-Counterpart of the blocking part of ``repro.train.checkpoint`` (the
-async checkpointer is training work, ROADMAP.md queue 1 item 11):
+"""Atomic, async, numpy-backed checkpoints in the reference's on-disk
+layout (counterpart of ``repro.train.checkpoint``):
 
     <dir>/step_<N:08d>/
         manifest.json   {"step", "leaves": {key: {file, dtype, shape}},
@@ -13,34 +11,40 @@ crash never leaves a half-written latest step.  bf16 leaves are stored
 as ``uint16`` with dtype name ``bfloat16`` (numpy has no bf16) and come
 back through ``torch.from_numpy(a).view(torch.bfloat16)``, so no
 ``ml_dtypes`` is needed.  Leaves may be torch tensors (any device) or
-numpy arrays; :func:`restore` returns CPU torch tensors.  Checkpoints
-written by either package load in the other.
+numpy arrays.  A named tuple (``AdamWState``) is written as the
+reference writes it (its fields by name, marked ``__namedtuple__`` in
+the skeleton) and restores as a plain dict, as in the reference, so
+checkpoints written by either package load in the other.
+
+:class:`AsyncCheckpointer` snapshots a tree to host memory before
+``save_async`` returns (a CPU copy of every tensor, so a later in-place
+optimizer step cannot reach the file being written), then writes it in
+a daemon thread, one write in flight at a time, keeping the newest
+``keep`` steps.  :func:`restore` returns CPU tensors, or places them:
+on a device, or sliced for one rank of a mesh (``shard_tree``).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-
-def _flatten(tree, path=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten(tree[k], path + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, path + (str(i),))
-    else:
-        yield path, tree
+from repro_torch.tree import is_namedtuple, leaves_with_path, tree_map
 
 
 def _skeleton(tree):
     if isinstance(tree, dict):
         return {k: _skeleton(v) for k, v in tree.items()}
+    if is_namedtuple(tree):
+        return {"__namedtuple__": True,
+                "fields": {k: _skeleton(getattr(tree, k))
+                           for k in tree._fields}}
     if isinstance(tree, (list, tuple)):
         return [_skeleton(v) for v in tree]
     return None if tree is None else "leaf"
@@ -84,10 +88,8 @@ def save(ckpt_dir: str, step: int, tree: Any,
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}, "extra": extra or {},
                 "skeleton": _skeleton(tree)}
-    for path, leaf in _flatten(tree):
-        if leaf is None:
-            continue
-        key = "/".join(path)
+    for path, leaf in leaves_with_path(tree):
+        key = "/".join(map(str, path))
         arr, dtype_name = _host_array(leaf)
         fn = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fn), arr)
@@ -99,6 +101,79 @@ def save(ckpt_dir: str, step: int, tree: Any,
         shutil.rmtree(final)
     os.rename(tmp, final)                      # atomic commit
     return final
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if np.dtype(dtype).name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+def _snapshot(leaf):
+    """A host copy of a leaf that nothing else references."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        return t.cpu() if t.device.type != "cpu" else t.clone()
+    return np.array(leaf)
+
+
+class AsyncCheckpointer:
+    """Snapshot to host memory at once, write to disk in a daemon thread.
+
+    ``save_async`` waits for the previous write (one in flight at a
+    time), copies every tensor of the tree to CPU memory, starts the
+    write and returns; ``wait`` joins it.  After each write the steps
+    beyond the newest ``keep`` are deleted.  ``last_snapshot_s`` and
+    ``last_write_s`` time the latest save (the write's once it has
+    been waited for)."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.last_snapshot_s = 0.0
+        self.last_write_s = 0.0
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save_async(self, step: int, tree: Any, extra: Optional[dict] = None,
+                   layout=None) -> None:
+        """Snapshot ``tree`` to host memory, then write it in the
+        background; ``layout`` (optional) maps the host copy to the tree
+        to write, in the writer thread (the trainer stacks layers
+        there)."""
+        self.wait()
+        t0 = time.perf_counter()
+        host_tree = tree_map(_snapshot, tree)
+        self.last_snapshot_s = time.perf_counter() - t0
+
+        def work():
+            t1 = time.perf_counter()
+            try:
+                out = host_tree if layout is None else layout(host_tree)
+                save(self.ckpt_dir, step, out, extra)
+                self._gc()
+            except BaseException as e:        # re-raised by ``wait``
+                self._error = e
+            self.last_write_s = time.perf_counter() - t1
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _gc(self) -> None:
+        for s in list_steps(self.ckpt_dir)[:-self.keep]:
+            shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{s:08d}"),
+                          ignore_errors=True)
 
 
 def list_steps(ckpt_dir: str):
@@ -118,9 +193,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: Optional[int] = None):
-    """(tree of CPU torch tensors, step, extra) of ``step`` (default: the
-    latest complete one)."""
+def restore(ckpt_dir: str, step: Optional[int] = None, placement=None,
+            template: Any = None):
+    """(tree, step, extra) of ``step`` (default: the latest complete one).
+
+    Leaves come back as CPU torch tensors; with ``template`` (a tree of
+    the same structure, a named tuple standing for its restored dict)
+    each is cast to the template leaf's dtype.  ``placement`` moves them:
+    a device, or ``(mesh, specs)`` to keep only this rank's slice of
+    every leaf (``parallel.sharding.shard_tree`` with ``specs`` from
+    ``build_specs``) on the mesh's device, where the reference gives
+    ``jax.device_put`` its shardings."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -135,7 +218,17 @@ def restore(ckpt_dir: str, step: Optional[int] = None):
             t = t.view(torch.bfloat16)
         leaves[key] = t
     tree = _unflatten(manifest["skeleton"], leaves)
+    if template is not None:
+        tree = tree_map(lambda x, t: x if getattr(t, "dtype", None) is None
+                        else x.to(_torch_dtype(t.dtype)), tree, template)
+    if isinstance(placement, tuple):
+        from repro_torch.parallel.sharding import shard_tree
+        mesh, specs = placement
+        tree = shard_tree(tree, specs, mesh, device=mesh.device)
+    elif placement is not None:
+        tree = tree_map(lambda x: x.to(placement), tree)
     return tree, manifest["step"], manifest.get("extra", {})
 
 
-__all__ = ["latest_step", "list_steps", "restore", "save"]
+__all__ = ["AsyncCheckpointer", "latest_step", "list_steps", "restore",
+           "save"]

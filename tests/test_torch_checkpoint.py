@@ -25,7 +25,7 @@ import torch
 from repro import quant as jquant
 from repro.configs import get_reduced as j_reduced
 from repro.models import Model as JModel
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro.train import checkpoint as jckpt
 from repro_torch.configs import get_reduced as t_reduced
 from repro_torch.launch import serve as launch
@@ -36,7 +36,7 @@ from repro_torch.quant.checkpoint import load_quantized_model
 from repro_torch.serve import PagedServeEngine, Request
 from repro_torch.train import checkpoint as tckpt
 
-from torch_port_cases import f32_params, to_numpy_tree
+from torch_port_cases import f32_params, ref_paged_engine, to_numpy_tree
 
 G = 32
 
@@ -121,7 +121,7 @@ def test_reference_checkpoint_serves_identically_in_port(tmp_path, bits):
     prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
                for n in (3, 9, 17, 30)]
     jmq = JModel(jm.cfg.replace(quant=jspec2, paged_kernel="gather"))
-    jdone = JEngine(jmq, jparams, **kw).run(
+    jdone = ref_paged_engine(jmq, jparams, **kw).run(
         [JRequest(uid=i, prompt=p, max_new_tokens=5)
          for i, p in enumerate(prompts)], max_ticks=400)
     tdone = PagedServeEngine(tm, **kw).run(

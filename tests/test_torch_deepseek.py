@@ -50,7 +50,7 @@ from repro.configs import get_config as j_config
 from repro.configs import get_reduced as j_reduced
 from repro.core.plane import dequantize as j_dequantize
 from repro.models import Model as JModel
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro.serve import set_block_tables as j_set_tables
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
@@ -60,7 +60,7 @@ from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import PagedServeEngine, Request
 
 from torch_port_cases import (port_pair, prompts_of, quantized_pair,
-                              to_numpy_tree)
+                              ref_paged_engine, to_numpy_tree)
 
 ARCH = "deepseek_v2_236b"
 TOL = {"float": 1e-4, "bcq3": 2.0 ** -7, "f32": 1e-5}
@@ -244,7 +244,7 @@ def test_deepseek_paged_stream_matches_reference(deepseek):
     prompts = prompts_of([5, 11, 19])
     kw = dict(num_blocks=24, block_size=4, max_batch=2, max_seq_len=40,
               prefill_buckets=(8, 16))
-    je = JEngine(jm, params, **kw)
+    je = ref_paged_engine(jm, params, **kw)
     jdone = je.run([JRequest(uid=i, prompt=p, max_new_tokens=5)
                     for i, p in enumerate(prompts)], max_ticks=400)
     te = PagedServeEngine(tm, **kw)

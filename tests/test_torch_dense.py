@@ -18,12 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro.serve import set_block_tables as j_set_tables
 from repro_torch.models import set_block_tables, to_params
 from repro_torch.serve import PagedServeEngine, Request
 
-from torch_port_cases import port_pair, prompts_of, to_numpy_tree
+from torch_port_cases import (port_pair, prompts_of, ref_paged_engine,
+                              to_numpy_tree)
 
 TOL = 1e-4
 G = 32           # divides every reduced input width (64, 96, 128)
@@ -126,7 +127,7 @@ def test_paged_greedy_stream_matches_reference(arch, paged_kernel):
     kw = dict(num_blocks=24, block_size=4, max_batch=3, max_seq_len=48,
               prefill_buckets=(8, 16))
     prompts = prompts_of([3, 9, 21, 6])
-    je = JEngine(jm, params, **kw)
+    je = ref_paged_engine(jm, params, **kw)
     jdone = je.run([JRequest(uid=i, prompt=p, max_new_tokens=5)
                     for i, p in enumerate(prompts)], max_ticks=400)
     te = PagedServeEngine(tm, **kw)

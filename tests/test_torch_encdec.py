@@ -41,7 +41,6 @@ import torch
 from repro import quant as jquant
 from repro.configs import get_config as j_config
 from repro.configs import get_reduced as j_reduced
-from repro.serve import PagedServeEngine as JPaged
 from repro.serve import Request as JRequest, ServeEngine as JSlots
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
@@ -50,7 +49,8 @@ from repro_torch.models.attention import CrossAttention
 from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import PagedServeEngine, ServeEngine
 
-from torch_port_cases import port_pair, quantized_pair, to_numpy_tree
+from torch_port_cases import (port_pair, quantized_pair, ref_paged_engine,
+                              to_numpy_tree)
 
 ARCH = "whisper_medium"
 TOL = 1e-4
@@ -278,7 +278,7 @@ def test_whisper_engines_refuse_it(whisper, capsys):
         ServeEngine(tm, slots=2, cache_len=32)
     assert "Model.prefill" in str(e.value)
     kw = dict(num_blocks=8, block_size=4, max_batch=2, max_seq_len=32)
-    for build in (lambda: JPaged(jm, params, **kw),
+    for build in (lambda: ref_paged_engine(jm, params, **kw),
                   lambda: PagedServeEngine(tm, **kw)):
         with pytest.raises(ValueError, match="attention-only"):
             build()

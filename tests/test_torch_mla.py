@@ -25,7 +25,7 @@ from repro.kernels.paged_attention import paged_decode_mla_ref as j_mla_ref
 from repro.models import Model as JModel
 from repro.models import attention as jattn
 from repro.models.layers import apply_rope as j_rope
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro.serve import set_block_tables as j_set_tables
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
@@ -39,7 +39,7 @@ from repro_torch.quant import QuantSpec, quantize_model
 from repro_torch.serve import PagedServeEngine, Request
 
 from torch_port_cases import (f32_params, live_slots, mla_pool_case,
-                              port_pair, to_numpy_tree)
+                              port_pair, ref_paged_engine, to_numpy_tree)
 
 TOL = 1e-4
 MLA_ATOL = 1e-5
@@ -338,7 +338,7 @@ def _run_both(paged_kernel, lens, max_new, **kw):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, (int(n),)).astype(np.int32)
                for n in lens]
-    je = JEngine(jm, params, **kw)
+    je = ref_paged_engine(jm, params, **kw)
     jdone = je.run([JRequest(uid=i, prompt=p, max_new_tokens=max_new)
                     for i, p in enumerate(prompts)], max_ticks=400)
     te = PagedServeEngine(tm, **kw)

@@ -11,11 +11,11 @@ launcher must refuse to run without a GPU unless given ``--device cpu``.
 import pytest
 import torch
 
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro_torch.serve import (BlockPool, PagedServeEngine, Request,
                                Scheduler)
 
-from torch_port_cases import port_pair, prompts_of
+from torch_port_cases import port_pair, prompts_of, ref_paged_engine
 
 
 def _models(paged_kernel):
@@ -31,7 +31,7 @@ def _prompts(lens, seed=0, vocab=256):
 def _run_both(paged_kernel, lens, max_new, **kw):
     jm, params, tm = _models(paged_kernel)
     prompts = _prompts(lens)
-    je = JEngine(jm, params, **kw)
+    je = ref_paged_engine(jm, params, **kw)
     jdone = je.run([JRequest(uid=i, prompt=p, max_new_tokens=max_new)
                     for i, p in enumerate(prompts)], max_ticks=400)
     te = PagedServeEngine(tm, **kw)

@@ -21,14 +21,14 @@ import torch
 
 from repro.obs import Tracer as JTracer
 from repro.obs import set_active as j_set_active
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro_torch import obs
 from repro_torch.models.model import sample_tokens
 from repro_torch.serve import (AsyncServeFrontend, FrontendClosedError,
                                PagedServeEngine, QueueFullError, Request,
                                ServeEngine)
 
-from torch_port_cases import port_pair
+from torch_port_cases import port_pair, ref_paged_engine
 
 COUNTERS = ("admitted", "preempted", "tokens_out", "prefill_chunks",
             "prefix_lookups", "prefix_hit_blocks", "prefix_tokens_saved",
@@ -108,7 +108,7 @@ def test_engine_matches_reference_sync_and_async(pair, scenario):
               prefix_cache=scenario == "prefix")
     if scenario == "preempt":
         kw.update(num_blocks=10, block_size=4)
-    je = JEngine(jm, params, **kw)
+    je = ref_paged_engine(jm, params, **kw)
     want = _by_uid(je.run(_scenario(JRequest, vocab, scenario),
                           max_ticks=300))
     want_counters = {k: je.metrics.counters[k] for k in COUNTERS}
@@ -527,7 +527,7 @@ def test_trace_names_match_reference_engine(pair):
     kw = dict(num_blocks=16, block_size=8, max_batch=2, max_seq_len=64,
               prefill_buckets=(16,), prefix_cache=True)
     jtr = JTracer()
-    JEngine(jm, params, tracer=jtr, **kw).run(
+    ref_paged_engine(jm, params, tracer=jtr, **kw).run(
         _scenario(JRequest, jm.cfg.vocab_size, "prefix"), max_ticks=100)
     j_set_active(None)
     ttr = obs.Tracer()

@@ -22,7 +22,7 @@ import sys
 import numpy as np
 import pytest
 
-from torch_port_cases import f32_params, to_numpy_tree
+from torch_port_cases import f32_params, ref_paged_engine, to_numpy_tree
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 WORKER = os.path.join(os.path.dirname(__file__), "torch_sharded_worker.py")
@@ -50,24 +50,11 @@ def _ref_setup(over, quant=None):
 
 
 def _ref_tokens(model, params, reqs, kw=KW, **eng):
-    """The reference engine's tokens.  Its ticks hand the engine's own
-    ``tables`` array (a row slice of it at prefill) to ``jnp.asarray``,
-    which on the CPU may alias that host memory, and the engine rewrites
-    the array in place every tick: its tokens then vary from run to run
-    (greedy ones too, by whether the buffer happened to alias).  Each
-    call here gets a copy of the tables instead; the function is the
-    same."""
-    import repro.serve.engine as ref_engine
-    from repro.serve import PagedServeEngine
-    set_tables = ref_engine.set_block_tables
-    ref_engine.set_block_tables = \
-        lambda cache, tables: set_tables(cache, np.array(tables))
-    try:
-        e = PagedServeEngine(model, params, **kw, **eng)
-        done = e.run(reqs)
-        e.pool.check()
-    finally:
-        ref_engine.set_block_tables = set_tables
+    """The reference engine's tokens (``ref_paged_engine``: a copy of its
+    block tables on every tick)."""
+    e = ref_paged_engine(model, params, **kw, **eng)
+    done = e.run(reqs)
+    e.pool.check()
     return {str(r.uid): [int(t) for t in r.out_tokens] for r in done}
 
 

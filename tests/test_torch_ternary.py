@@ -37,7 +37,7 @@ from repro.kernels.ternary_matmul import ternary_matmul as j_ternary
 from repro.kernels.ternary_matmul import ternary_ref as j_ternary_ref
 from repro.models import Model as JModel
 from repro.quant import formats as jformats
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro_torch.configs import get_reduced as t_reduced
 from repro_torch.core import bcq as tbcq
 from repro_torch.core import lut_gemm as tlg
@@ -56,7 +56,8 @@ from repro_torch.quant import QuantSpec, backends as tbackends, quantize_model
 from repro_torch.quant.formats import quantize_ternary
 from repro_torch.serve import PagedServeEngine, Request
 
-from torch_port_cases import f32_params, to_numpy_tree, torch_bundle
+from torch_port_cases import (f32_params, ref_paged_engine, to_numpy_tree,
+                              torch_bundle)
 
 RECON_TOL = 1e-6
 FLOAT_TOL = 1e-4
@@ -415,7 +416,7 @@ def test_greedy_stream_ternary_int8_kv_matches_reference(paged_kernel):
     lens, max_new = ([3, 9, 17, 30, 5], 5) if big else ([6, 11], 3)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, (n,)).astype(np.int32) for n in lens]
-    je = JEngine(jm, params, **kw)
+    je = ref_paged_engine(jm, params, **kw)
     jdone = je.run([JRequest(uid=i, prompt=p, max_new_tokens=max_new)
                     for i, p in enumerate(prompts)], max_ticks=400)
     te = PagedServeEngine(tm, **kw)

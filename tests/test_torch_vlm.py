@@ -32,14 +32,14 @@ import torch
 
 from repro.configs import get_config as j_config
 from repro.configs import get_reduced as j_reduced
-from repro.serve import PagedServeEngine as JEngine, Request as JRequest
+from repro.serve import Request as JRequest
 from repro.serve import set_block_tables as j_set_tables
 from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
 from repro_torch.models import set_block_tables
 from repro_torch.serve import PagedServeEngine, Request
 
-from torch_port_cases import port_pair, prompts_of
+from torch_port_cases import port_pair, prompts_of, ref_paged_engine
 
 ARCH = "pixtral_12b"
 TOL = 1e-4
@@ -178,7 +178,7 @@ def test_pixtral_paged_text_stream_matches_reference(pixtral):
     kw = dict(num_blocks=24, block_size=4, max_batch=3, max_seq_len=48,
               prefill_buckets=(8, 16))
     prompts = prompts_of([3, 9, 21, 6], seed=5)
-    jdone = JEngine(jm, params, **kw).run(
+    jdone = ref_paged_engine(jm, params, **kw).run(
         [JRequest(uid=i, prompt=p, max_new_tokens=5)
          for i, p in enumerate(prompts)], max_ticks=400)
     te = PagedServeEngine(tm, paged_kernel="fused", **kw)

@@ -4,6 +4,8 @@ Inputs are made with numpy from a seed and handed to both packages;
 reference parameter trees cross over as numpy arrays.  Whether a card is
 present is decided inside tests (``require_cuda``), never at import.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -143,6 +145,54 @@ def ref_slots_engine(jm, params, **kw):
     eng = ServeEngine(jm, params, **kw)
     eng.model = _JitPrefill(jm)
     return eng
+
+
+@contextlib.contextmanager
+def _ref_tables_copied():
+    """While active, the reference engine's ``set_block_tables`` gets a
+    copy of the tables it is handed."""
+    import repro.serve.engine as ref_engine
+    set_tables = ref_engine.set_block_tables
+    ref_engine.set_block_tables = \
+        lambda cache, tables: set_tables(cache, np.array(tables))
+    try:
+        yield
+    finally:
+        ref_engine.set_block_tables = set_tables
+
+
+class _RefPaged:
+    """A reference ``PagedServeEngine`` whose every method call runs
+    under :func:`_ref_tables_copied` (attributes pass through)."""
+
+    def __init__(self, eng):
+        object.__setattr__(self, "_eng", eng)
+
+    def __getattr__(self, name):
+        attr = getattr(self._eng, name)
+        if not callable(attr):
+            return attr
+
+        def call(*args, **kw):
+            with _ref_tables_copied():
+                return attr(*args, **kw)
+        return call
+
+    def __setattr__(self, name, value):
+        setattr(self._eng, name, value)
+
+
+def ref_paged_engine(jm, params, **kw):
+    """The reference's ``PagedServeEngine`` over ``jm``, handed a copy of
+    its block tables on every tick.  Its ticks give the engine's own
+    ``tables`` array (a row slice of it at prefill) to ``jnp.asarray``,
+    which on the CPU may alias that host memory, and the engine rewrites
+    the array in place every tick: its tokens then vary from run to run
+    (greedy ones too, by whether the buffer happened to alias).  The
+    function is the same."""
+    from repro.serve import PagedServeEngine
+    with _ref_tables_copied():
+        return _RefPaged(PagedServeEngine(jm, params, **kw))
 
 
 def prompts_of(lens, seed=0, vocab=256):

@@ -4,14 +4,16 @@
 
     python tests/torch_sharded_worker.py JOB.pkl OUT_DIR
 
-``JOB.pkl`` holds the mesh shape, the device type (default the CPU)
-and the scenarios, each with its OPT config (reduced, or ``full`` width)
-and overrides, its numpy parameter tree (the reference's, quantized
-where the scenario is) and its engine arguments; every rank serves each
-scenario through ``PagedServeEngine(mesh=...)`` over ``gloo`` and
-writes ``OUT_DIR/rank{r}.json``: per scenario and run, the greedy
-(or seeded) tokens, the paths taken, the pool slice's shape and spec,
-and whether every rank's host state agrees.  Imports no JAX.
+``JOB.pkl`` holds the mesh shape, the device type (default the CPU),
+optionally a data-parallel training job (``run_train``, for
+``tests/test_torch_train_mesh.py``) and the scenarios, each with its
+OPT config (reduced, or ``full`` width) and overrides, its numpy
+parameter tree (the reference's, quantized where the scenario is) and
+its engine arguments; every rank serves each scenario through
+``PagedServeEngine(mesh=...)`` over ``gloo`` and writes
+``OUT_DIR/rank{r}.json``: per scenario and run, the greedy (or seeded)
+tokens, the paths taken, the pool slice's shape and spec, and whether
+every rank's host state agrees.  Imports no JAX.
 """
 import json
 import os
@@ -128,6 +130,52 @@ def run_scenario(sc, mesh):
     return out
 
 
+def run_train(tj, mesh, out_dir):
+    """Train reduced OPT (f32, the job's numpy weights) data-parallel on
+    ``mesh``: each rank its shard of the global batch.  Writes the
+    rank's losses, grad norms and final parameters; then asks for a
+    trainer on a (1, world) mesh and records its refusal."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import from_jax_params
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = get_reduced("opt_6_7b").replace(**tj["over"])
+    model = from_jax_params(tj["params"], cfg, device=mesh.device)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=tj["seq_len"],
+                       global_batch=tj["global_batch"], seed=1,
+                       data_shard=mesh.index("data"),
+                       data_shards=mesh.size("data"))
+    tr = Trainer(model, adamw.AdamWConfig(**tj["opt"]),
+                 TrainConfig(steps=tj["steps"], ckpt_every=tj["steps"],
+                             ckpt_dir=tj["ckpt_dir"], log_every=100),
+                 mesh=mesh)
+    state, hist = tr.run(pipe, state=tr.fresh_state())
+    np.savez(os.path.join(out_dir, f"train{mesh.rank}.npz"),
+             *[t.detach().cpu().numpy() for t in tree_leaves(state["params"])])
+    out = {"hist": hist, "recoveries": tr.recoveries,
+           "batch": pipe.batch_at(0)["tokens"].tolist()}
+    # the checkpoint rank 0 wrote, restored by a trainer off the mesh and
+    # placed on it
+    before = [t.detach().clone() for t in tree_leaves(state)]
+    solo = Trainer(model, adamw.AdamWConfig(**tj["opt"]),
+                   TrainConfig(ckpt_dir=tj["ckpt_dir"]))
+    restored, at = solo._restore(tj["steps"])
+    placed = solo.reshard_to(mesh, restored)
+    out["reshard"] = {"step": at, "on_mesh": solo.mesh is mesh, "equal": all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(placed), before))}
+    tp = make_mesh((1, mesh.size_total), ("data", "model"),
+                   device_type=mesh.device.type)
+    try:
+        Trainer(model, adamw.AdamWConfig(), TrainConfig(), mesh=tp)
+        out["tp_refusal"] = None
+    except NotImplementedError as e:
+        out["tp_refusal"] = str(e)
+    return out
+
+
 def main():
     job_path, out_dir = sys.argv[1], sys.argv[2]
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
@@ -137,8 +185,10 @@ def main():
     mesh = make_mesh(tuple(job["mesh"]), ("data", "model"),
                      device_type=job.get("device", "cpu"))
     res = {"coords": list(mesh.coords), "backend": mesh.backend}
-    for sc in job["scenarios"]:
+    for sc in job.get("scenarios", []):
         res[sc["name"]] = run_scenario(sc, mesh)
+    if "train" in job:
+        res["train"] = run_train(job["train"], mesh, out_dir)
     res["collectives"] = mesh.collectives
     res["host_syncs"] = mesh.host_syncs
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
