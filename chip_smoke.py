@@ -170,7 +170,30 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      training the same global batch as two microbatches (losses and
      params within 1e-5).  Checkpoints go to
      ``build/train/`` and are deleted.  ``--train-only`` runs phase 1
-     and this phase alone (``chiprun_out/train.json``).
+     and this phase alone (``chiprun_out/train.json``);
+  7. analysis (``analysis_phase``; no kernel of its own: the reference
+     has none in these modules): (a) FIGLUT-I (``core/prealign.py``) at
+     OPT-6.7B's three layer shapes, BCQ-3 g 128, rows 8 and 512,
+     mantissa bits 11 (fp16) and 8 (bf16), TF32 off: the card's integer
+     mantissas, scales and partial sums bit-identical to the host's and
+     its output within the f32 rounding bound of the alpha / z
+     contraction (any summation order) of the host's; the Table IV rows, FIGLUT-I and FIGLUT-F (the
+     ``bcq_matmul`` kernel) against the dense dequantized product in
+     f32, printed and gated at the reference's 5e-3 at mantissa bits 11;
+     the plain function's time beside the card, taken after (b) has
+     finished (no speed claim); (b), run in a thread beside (a)'s checks:
+     ``launch/dryrun.run_cell`` for every (arch x shape) an arch
+     supports (``long_500k`` only on sub-quadratic archs), at full size
+     on the meta device, on the production 16 x 16 mesh and on one card
+     (1 x 1), BCQ-3: one line a cell with the per-rank GB, whether it
+     fits in this card's memory, FLOPs, bottleneck and roofline terms
+     (no cell may count 0 FLOPs); (c) the meta prediction of OPT-6.7B
+     BCQ-3 g 128's parameter bytes exactly equal to the bytes of the
+     model phase 4 built on the card and to the dry run's one-card cell,
+     and the ``serve_analytic_bytes`` decode bound at batch 8 printed as
+     a share of phase 4's OPT ``auto`` decode-step p50.
+     ``--analysis-only`` runs phase 1, the build and this phase, (c) on
+     that one model built alone (``chiprun_out/analysis.json``).
 
 Every serve run gates the count of linears on the tiles: each decode
 step runs all of them on the decode tile, each prefill chunk all but an
@@ -2771,6 +2794,8 @@ def serve(torch, args, power_line, results):
         if cfg is opt and spec is bcq3:
             # then the tune phase's winners served on the same weights
             after = lambda model, manifest: {
+                # the stored bytes phase 7's byte model is held against
+                "opt_param_bytes": opt_param_bytes(model),
                 "serve_breadth": serve_breadth(torch, args, model, bcq3,
                                                power_line, totals),
                 "serve_tuned": serve_tuned(torch, args, model, bcq3, eng_kw,
@@ -4623,6 +4648,326 @@ def train_only(torch, args, power_line):
         "count": torch.cuda.device_count()}}))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: analysis (FIGLUT-I numerics, the dry run, the byte model)
+# ---------------------------------------------------------------------------
+
+PREALIGN_ROWS = (8, 512)
+# mantissa bits: fp16 inputs (1 implicit + 10 stored), bf16 inputs
+PREALIGN_MBS = (11, 8)
+# the reference's Table IV gate on FIGLUT-F and FIGLUT-I at fp16
+# mantissas against the dense dequantized product
+# (``benchmarks/bench_table4_numerics.py``)
+TABLE4_TOL = 5e-3
+# f32 unit roundoff: the card-vs-host bound of the alpha / z contraction
+F32_U = 2.0 ** -24
+ANALYSIS_BITS = 3            # the width phase 4 serves
+
+
+def contraction_tol(torch, part, mant, scale, w):
+    """Per output element of FIGLUT-I, how far two f32 evaluations of its
+    alpha / z contraction of the same integer partials ``part`` can lie
+    apart in any summation order: each is within gamma_K * T of the exact
+    sum (T the sum of the K terms' magnitudes, gamma_K = K u / (1 - K u)),
+    so 2 gamma_K T, de-aligned by ``scale``; doubled for the rounding of T
+    itself and of the de-aligned product (at most u |y| a side, which
+    2 gamma_K T scale already exceeds)."""
+    q, _, _, n_groups = part.shape
+    terms = torch.einsum("qbmG,qmG->bm", part.abs(), w.alpha.float().abs())
+    k = q * n_groups
+    if w.z is not None:
+        msum = mant.reshape(mant.shape[0], n_groups, -1).sum(-1)
+        terms = terms + torch.einsum("bG,mG->bm", msum.abs(),
+                                     w.z.float().abs())
+        k += n_groups + 1
+    gamma = k * F32_U / (1 - k * F32_U)
+    return 2 * (2 * gamma * terms) * scale
+
+
+def prealign_cases(torch, gen, power_line):
+    """Phase 7 (a): FIGLUT-I (``core/prealign.py``) at OPT-6.7B's three
+    layer shapes, BCQ-3 g 128, rows 8 and 512, mantissa bits 11 and 8:
+    the card against the host (mantissas, scales and partial sums bit for
+    bit, the output within :func:`contraction_tol` of the host's, its
+    share of the output's scale printed), and the Table IV rows: FIGLUT-I and
+    FIGLUT-F (the ``bcq_matmul`` kernel) against the dense dequantized
+    product in f32 ("GPU").  Returns (records, [(record, call)]): each
+    case's call, for :func:`time_prealign`."""
+    import functools
+    from repro_torch.core import bcq
+    from repro_torch.core.plane import dequantize
+    from repro_torch.core.prealign import prealign, prealigned_bcq_matmul
+    from repro_torch.kernels.bcq_matmul import bcq_matmul
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("prealign: TF32 is on; FIGLUT-I's integer sums are exact only "
+             "in f32")
+    out, calls = [], []
+    for m, n in OPT_SHAPES:
+        w_dense = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+        w = bcq.quantize(w_dense, bits=ANALYSIS_BITS, group_size=128)
+        del w_dense
+        w_host = w.to("cpu")
+        dense = dequantize(w, torch.float32)
+        for rows in PREALIGN_ROWS:
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            x_host = x.cpu()
+            gpu = torch.matmul(x, dense.T)
+            scale = float(gpu.abs().max())
+            fig_f = bcq_matmul(x, w, out_dtype=torch.float32)
+            err_f = float((fig_f - gpu).abs().max()) / scale
+            for mb in PREALIGN_MBS:
+                y, part = prealigned_bcq_matmul(
+                    x, w, mb, torch.float32, with_partials=True)
+                yh, part_h = prealigned_bcq_matmul(
+                    x_host, w_host, mb, torch.float32, with_partials=True)
+                same = torch.equal(part.cpu(), part_h)
+                del part_h
+                mant, sc = prealign(x, mb)
+                mant_h, sc_h = prealign(x_host, mb)
+                aligned = (torch.equal(mant.cpu(), mant_h)
+                           and torch.equal(sc.cpu(), sc_h))
+                del mant_h, sc_h
+                # the bound from the card's operands (the same bits as the
+                # host's where the gates above pass)
+                tol = contraction_tol(torch, part, mant, sc, w)
+                del part, mant, sc
+                diff = (y - yh.to(y.device)).abs()
+                # the share of the contraction bound the difference uses
+                used = float((diff / tol.clamp(min=1e-30)).max())
+                within = bool((diff <= tol).all())
+                host_err = float(diff.max()) / (float(yh.abs().max())
+                                                + 1e-30)
+                del diff, tol
+                err_i = float((y - gpu).abs().max()) / scale
+                rec = dict(m=m, n=n, rows=rows, mantissa_bits=mb,
+                           partials_bit_identical=same,
+                           alignment_bit_identical=aligned,
+                           card_vs_host_rel=host_err,
+                           card_vs_host_of_bound=used,
+                           figlut_i_rel_err=err_i, figlut_f_rel_err=err_f)
+                out.append(rec)
+                calls.append((rec, functools.partial(
+                    prealigned_bcq_matmul, x, w, mb, torch.float32)))
+                log(f"prealign [{m}x{n}] rows {rows} mb {mb}: mantissas "
+                    f"and scales card == host {aligned}, partial sums "
+                    f"{same}, output card vs host {host_err:.2e} of its "
+                    f"scale, {used:.3f} of the f32 contraction bound; "
+                    f"Table IV max rel err vs GPU: "
+                    f"FIGLUT-I {err_i:.3e}, FIGLUT-F {err_f:.3e}")
+                if not same:
+                    fail(f"prealign [{m}x{n}] rows {rows} mb {mb}: the "
+                         "card's integer partial sums differ from the "
+                         "host's")
+                if not aligned:
+                    fail(f"prealign [{m}x{n}] rows {rows} mb {mb}: the "
+                         "card's mantissas or scales differ from the "
+                         "host's")
+                if not within:
+                    fail(f"prealign [{m}x{n}] rows {rows} mb {mb}: output "
+                         f"{used:.2f}x the f32 contraction bound from the "
+                         "host's")
+                if mb == 11 and max(err_i, err_f) > TABLE4_TOL:
+                    fail(f"prealign [{m}x{n}] rows {rows}: Table IV rows "
+                         f"{err_i:.2e} / {err_f:.2e} above {TABLE4_TOL}")
+                del y, yh
+        del w_host, dense
+        torch.cuda.empty_cache()
+    return out, calls
+
+
+def time_prealign(torch, calls, power_line):
+    """The plain FIGLUT-I function's device time at each case (CUDA
+    events, L2 flushed), with no other host work beside it; no speed
+    claim: it has no kernel."""
+    from repro_torch.tune.measure import Timer
+    timer = Timer(iters=5, warmup=1)
+    for rec, call in calls:
+        rec["plain_ms"] = timer(call)
+        log(f"prealign [{rec['m']}x{rec['n']}] rows {rec['rows']} mb "
+            f"{rec['mantissa_bits']}: plain FIGLUT-I {rec['plain_ms']:.3f} "
+            f"ms on {power_line}")
+
+
+def dryrun_cells(torch):
+    """Phase 7 (b): ``launch/dryrun.run_cell`` for every (arch x shape)
+    the arch supports, at full size on the meta device, on the
+    production mesh (16 x 16) and on one card (1 x 1), at the served
+    width (BCQ-3 g 128): per-rank GB, whether it fits in this card's
+    memory, FLOPs, bottleneck and roofline terms, one line per cell."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.launch import dryrun
+    cap = torch.cuda.get_device_properties(0).total_memory
+    meshes = (("16x16", dryrun.production_mesh()),
+              ("1x1", dryrun.ShapeMesh((1, 1), ("data", "model"))))
+    out = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            if shape == "long_500k" and \
+                    not get_config(arch).supports_long_context():
+                log(f"dryrun {arch}/{shape}: SKIP (full attention)")
+                continue
+            for label, mesh in meshes:
+                r = dryrun.run_cell(arch, shape, quant=ANALYSIS_BITS,
+                                    mesh=mesh, capacity_bytes=cap,
+                                    verbose=False)
+                roof = r["roofline"]
+                if roof["flops_per_dev"] <= 0:
+                    fail(f"dryrun {arch}/{shape}/{label}: 0 FLOPs")
+                gb = (r["arg_bytes"] + r["out_bytes"] - r["alias_bytes"]) \
+                    / 1e9
+                row = dict(arch=arch, shape=shape, mesh=label, gb=gb,
+                           fits=r["fits"], per_rank_bytes=r["per_rank_bytes"],
+                           flops=roof["flops_per_dev"],
+                           bottleneck=roof["bottleneck"],
+                           t_compute_ms=roof["t_compute_s"] * 1e3,
+                           t_memory_ms=roof["t_memory_s"] * 1e3,
+                           useful=roof["useful_flops_ratio"])
+                out.append(row)
+                log(f"dryrun {arch:21s} {shape:11s} {label:5s}: "
+                    f"{gb:9.2f} GB/rank (fits {cap / 1e9:.1f} GB: "
+                    f"{r['fits']}), {row['flops']:.3e} FLOPs/rank, "
+                    f"{row['bottleneck']}-bound, t_comp "
+                    f"{row['t_compute_ms']:.3f} ms, t_mem "
+                    f"{row['t_memory_ms']:.3f} ms, useful "
+                    f"{row['useful']:.3f}")
+    return out
+
+
+def byte_model(torch, args, cells, card_bytes, decode_p50):
+    """Phase 7 (c): the meta prediction of OPT-6.7B BCQ-3 g 128's
+    parameter bytes against the model phase 4 built on the card (exactly
+    equal, and equal to the dry run's one-card cell at full depth); the
+    ``serve_analytic_bytes`` decode bound at batch 8 beside phase 4's
+    measured OPT ``auto`` decode-step p50 (printed, not gated)."""
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.launch.dryrun import active_params
+    from repro_torch.models.model import to_params
+    from repro_torch.models.module import abstract_model, param_bytes
+    from repro_torch.quant.api import abstract_quantized_params
+    from repro_torch.roofline import analysis as ra
+    cfg = get_config("opt_6_7b").replace(n_layers=args.layers)
+    meta = abstract_model(cfg)
+    manifest = abstract_quantized_params(meta, bits=ANALYSIS_BITS,
+                                         group_size=128)
+    pred = param_bytes(to_params(meta, scan_layers=False))
+    log(f"byte model: OPT-6.7B BCQ-3 g 128 ({cfg.n_layers} layers) "
+        f"predicted on meta {pred:,} B; built on the card {card_bytes:,} B")
+    if pred != card_bytes:
+        fail(f"byte model: meta prediction {pred} != the card's "
+             f"{card_bytes}")
+    cell = [c for c in cells if c["arch"] == "opt_6_7b"
+            and c["shape"] == "decode_32k" and c["mesh"] == "1x1"][0]
+    if cfg.n_layers == get_config("opt_6_7b").n_layers and \
+            cell["per_rank_bytes"]["params"] != pred:
+        fail(f"byte model: the dry run's one-card cell holds "
+             f"{cell['per_rank_bytes']['params']} B of parameters, the "
+             f"meta model {pred}")
+    # the mix's mean live context during decode: its prompts plus half
+    # of the 32 new tokens
+    lens = [len(p) for p in mix_prompts(args.seed, cfg.vocab_size)]
+    ctx = int(round(sum(lens) / len(lens) + 16))
+    n_act, _ = active_params(cfg, meta)
+    rows = ra.serve_analytic_bytes(cfg, ShapeCfg("serve_b8", ctx, 8,
+                                                 "decode"),
+                                   n_act, ANALYSIS_BITS, n_model=1,
+                                   n_data=1)
+    kq = rows["kernel_q"]
+    t_packed = kq["t_memory_s"] * 1e3
+    # the same bound with the f32 alpha / z rows of every quantized
+    # linear (the bytes the kernels stream besides the planes)
+    t_scales = (manifest.quant_bytes + kq["cache_bytes"]) / ra.HBM_BW * 1e3
+    out = dict(predicted_bytes=pred, card_bytes=card_bytes,
+               mean_context=ctx, n_active_params=n_act,
+               kernel_q_bound_ms=t_packed, cache_bytes=kq["cache_bytes"],
+               with_scales_bound_ms=t_scales, decode_p50_ms=decode_p50)
+    if decode_p50:
+        out["bound_share_of_p50"] = t_packed / decode_p50
+        share = (f"{t_packed / decode_p50:.2%} of phase 4's OPT `auto` "
+                 f"decode-step p50 {decode_p50:.2f} ms")
+    else:
+        share = "phase 4's decode-step p50 not measured in this run"
+    log(f"byte model: serve_analytic_bytes kernel_q bound at batch 8, "
+        f"context {ctx}: {t_packed:.4f} ms (packed planes "
+        f"{kq['weight_bytes'] / 1e9:.3f} GB + cache "
+        f"{kq['cache_bytes'] / 1e9:.3f} GB at 3.35 TB/s); with the f32 "
+        f"alpha / z rows {t_scales:.4f} ms; {share}")
+    return out
+
+
+def analysis_phase(torch, args, power_line, card_bytes, decode_p50):
+    """Phase 7: (a) FIGLUT-I numerics, (b) the dry run of every cell,
+    (c) the byte model against the card."""
+    import threading
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    out = {"card": power_line}
+    # the dry run is host work on meta tensors (Python dispatch, one
+    # core): it runs beside (a), whose host side is multi-threaded
+    # products that release the interpreter
+    dry, errors, spans = {}, [], {}
+
+    def run_dry():
+        t = time.perf_counter()
+        try:
+            dry["cells"] = dryrun_cells(torch)
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+        spans["dryrun"] = time.perf_counter() - t
+    thread = threading.Thread(target=run_dry)
+    thread.start()
+    try:
+        out["prealign"], calls = prealign_cases(torch, gen, power_line)
+        spans["prealign"] = time.perf_counter() - t0
+    finally:
+        thread.join()
+    if errors:
+        raise errors[0]
+    # timed alone: the dry run's thread would delay the launches
+    time_prealign(torch, calls, power_line)
+    del calls
+    torch.cuda.empty_cache()
+    out["dryrun"] = dry["cells"]
+    out["byte_model"] = byte_model(torch, args, out["dryrun"], card_bytes,
+                                   decode_p50)
+    out["phase_s"] = time.perf_counter() - t0
+    out["spans_s"] = spans
+    log(f"analysis: phase {out['phase_s']:.1f} s (prealign checks "
+        f"{spans['prealign']:.1f} s beside the dry run "
+        f"{spans['dryrun']:.1f} s, then the timings)")
+    return out
+
+
+def opt_param_bytes(model) -> int:
+    """The stored bytes of a model's parameters (``param_bytes`` of its
+    reference-layout tree)."""
+    from repro_torch.models.model import to_params
+    from repro_torch.models.module import param_bytes
+    return param_bytes(to_params(model, scan_layers=False))
+
+
+def analysis_only(torch, args, power_line):
+    """``--analysis-only``: phase 1, the build and phase 7, phase 7 (c)
+    on OPT-6.7B BCQ-3 built alone; results in
+    ``chiprun_out/analysis.json``."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant import QuantSpec
+    cfg = get_config("opt_6_7b").replace(n_layers=args.layers)
+    model, _, _, _ = build_quantized(
+        torch, cfg, QuantSpec(format="bcq", bits=ANALYSIS_BITS,
+                              group_size=128), args.seed)
+    card_bytes = opt_param_bytes(model)
+    del model
+    torch.cuda.empty_cache()
+    out = analysis_phase(torch, args, power_line, card_bytes, None)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "analysis.json").write_text(json.dumps(out, indent=1))
+    print(power_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4634,6 +4979,9 @@ def main():
                     help=argparse.SUPPRESS)  # one rank of the train phase
     ap.add_argument("--train-only", action="store_true",
                     help="run only phase 1 and the training phase")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="run only phase 1, the build and the analysis "
+                         "phase")
     ap.add_argument("--sharded-mesh", default="",
                     help="run only the build and serve_sharded on a DxM "
                          "mesh, one rank a card where there are D*M cards "
@@ -4685,6 +5033,8 @@ def main():
 
     if args.sharded_mesh:
         return sharded_only(torch, args, power_line)
+    if args.analysis_only:
+        return analysis_only(torch, args, power_line)
 
     # phase 3: kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4718,6 +5068,11 @@ def main():
     # phase 6: training (no kernel of the port: the dense path under
     # autograd)
     serve_out["train"] = train_phase(torch, args, power_line)
+    # phase 7: analysis (FIGLUT-I numerics, the dry run, the byte model
+    # against phase 4's first OPT model)
+    serve_out["analysis"] = analysis_phase(
+        torch, args, power_line, serve_out["opt_param_bytes"],
+        serve_out["auto"]["decode_step_ms_p50"])
 
     paged_cu = "src/repro_torch/csrc/paged_attention.cu"
     decode_cu = "src/repro_torch/csrc/paged_decode.cu"

@@ -8,8 +8,9 @@ formats, backends, bit plans, ``quantize_model``, quantized
 checkpoints), ``kernels`` (hand-written CUDA kernels for Hopper, each
 beside its plain PyTorch version), ``configs``, ``models``, ``serve``,
 ``obs`` (serving traces), ``data`` (token pipelines), ``optim``
-(AdamW), ``train`` (the trainer and the numpy checkpoint layout) and
-``launch``.
+(AdamW), ``train`` (the trainer and the numpy checkpoint layout),
+``roofline`` (roofline terms with the H100's constants) and ``launch``
+(serving, training, the meta-device dry run).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper takes its plain version, because CUDA

@@ -1,4 +1,6 @@
-from repro_torch.configs.base import (ARCH_IDS, ModelConfig, get_config,
-                                     get_reduced)
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ModelConfig,
+                                     ShapeCfg, get_config, get_reduced,
+                                     registry)
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_reduced"]
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeCfg", "get_config",
+           "get_reduced", "registry"]

@@ -13,6 +13,11 @@ encoder-decoder: ``n_encoder_layers`` over ``encoder_seq`` stub frames,
 ``is_encdec``).  Each layer's mixer is ``layer_kind(i)`` ("attn" or
 "mamba") and its MLP ``mlp_kind(i)``, as in the reference.  An unknown
 architecture is refused where it is looked up.
+
+The shape cells are the reference's (``SHAPES``: train_4k, prefill_32k,
+decode_32k, long_500k), and ``ModelConfig.input_specs`` gives a cell's
+model inputs as tensors on ``torch.device("meta")``: shapes and dtypes,
+no storage (the dry run's, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,25 @@ import dataclasses
 import importlib
 from typing import Optional
 
+import torch
+
 from repro_torch.quant.spec import QuantSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str             # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,8 +143,38 @@ class ModelConfig:
             return "moe"
         return "dense"
 
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: SSM, hybrid, or sliding-window attention."""
+        return self.is_ssm_only or self.is_hybrid or self.sliding_window > 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def input_specs(self, shape: ShapeCfg, *, per_device: bool = False,
+                    data_shards: int = 1) -> dict:
+        """Every model input of a shape cell as a meta tensor.
+
+        ``train`` / ``prefill`` -> the token batch [B, S] (an
+        encoder-decoder adds ``frames`` [B, encoder_seq, d]; a VLM takes
+        ``patch_embeds`` [B, P, d] and S - P tokens); ``decode`` -> [B, 1]
+        new tokens (the cache is built separately)."""
+        b = shape.global_batch // (data_shards if per_device else 1)
+        s = shape.seq_len
+        dt = getattr(torch, self.dtype)
+
+        def meta(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+        if shape.kind == "decode":
+            return {"tokens": meta((b, 1))}
+        if self.is_encdec:
+            enc = self.encoder_seq or 1500
+            return {"frames": meta((b, enc, self.d_model), dt),
+                    "tokens": meta((b, s))}
+        if self.num_patches:
+            p = min(self.num_patches, s // 2)
+            return {"tokens": meta((b, s - p)),
+                    "patch_embeds": meta((b, p, self.d_model), dt)}
+        return {"tokens": meta((b, s))}
 
 
 ARCH_IDS = ["opt_6_7b", "minicpm3_4b", "phi4_mini_3_8b", "qwen1_5_32b",
@@ -143,3 +196,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+def registry() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}

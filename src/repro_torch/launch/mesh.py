@@ -16,8 +16,10 @@ Its backend is chosen, and printed, by :func:`choose_backend`: ``nccl``
 where every rank has a card of its own, ``gloo`` where ranks share one
 card (NCCL refuses two ranks on one device) or run on the CPU.  A gloo
 collective on CUDA tensors is staged through host memory, which costs a
-host wait; the mesh counts those (``host_syncs``) and the seconds spent
-in collectives (``comm_s``).  A second, gloo group spans the world for
+host wait; the mesh counts those (``host_syncs``), the seconds spent
+in collectives (``comm_s``) and the bytes they moved, per kind
+(``coll_bytes``: ``all-reduce`` / ``all-gather``, the result bytes on
+this rank, the convention ``roofline/analysis.py`` reads).  A second, gloo group spans the world for
 host-side agreement (``broadcast_float``, ``same_on_all``), since NCCL
 carries only device tensors.
 """
@@ -108,6 +110,10 @@ class Mesh:
         self.host_syncs = 0          # gloo collectives staged through host
         self.collectives = 0
         self.comm_s = 0.0            # host seconds inside collectives
+        # result bytes of this rank's collectives, per kind: an
+        # all-reduce's output is its input's shape, an all-gather's the
+        # concatenation of every rank's part
+        self.coll_bytes = {"all-reduce": 0, "all-gather": 0}
 
     @property
     def size_total(self) -> int:
@@ -141,6 +147,7 @@ class Mesh:
         dist.all_reduce(buf, group=self.groups[axis])
         out = buf.to(t.device) if staged else buf
         self.collectives += 1
+        self.coll_bytes["all-reduce"] += out.numel() * out.element_size()
         self.comm_s += time.perf_counter() - t0
         return out
 
@@ -160,6 +167,7 @@ class Mesh:
         if staged:
             out = out.to(t.device)
         self.collectives += 1
+        self.coll_bytes["all-gather"] += out.numel() * out.element_size()
         self.comm_s += time.perf_counter() - t0
         return out
 
@@ -185,6 +193,7 @@ class Mesh:
     def reset_counters(self) -> None:
         self.host_syncs = self.collectives = 0
         self.comm_s = 0.0
+        self.coll_bytes = {"all-reduce": 0, "all-gather": 0}
 
 
 def _coords(rank: int, shape) -> tuple:

@@ -16,11 +16,15 @@ Logical axis names: ``embed`` (d_model), ``vocab``, ``heads``,
 ``batch`` and ``kv_seq`` (caches); ``parallel/sharding.py`` maps them
 onto mesh axes.
 
-``ParamDesc`` / ``abstract_params`` have no counterpart yet: a
-shape-only model is ``torch.device("meta")``'s to build (the dry-run
-slice).  :func:`param_count` and :func:`param_bytes` count a parameter
-tree (``to_params``' output: tensors, bundles as dicts or
-``PlaneBundle``\\ s).
+The reference's ``ParamDesc`` trees and ``abstract_params`` have a
+simpler counterpart here: a model built on ``torch.device("meta")``
+(:func:`abstract_model`) holds every parameter's shape and dtype and no
+storage, and :func:`abstract_params` is its reference-layout tree.
+:func:`cache_axes` gives the contiguous cache's logical axes (the
+reference's ``logical_axes(model.cache_desc(...))``).
+:func:`param_count` and :func:`param_bytes` count a parameter tree
+(``to_params``' output: tensors, bundles as dicts or
+``PlaneBundle``\\ s), meta tensors included.
 """
 from __future__ import annotations
 
@@ -150,6 +154,54 @@ def logical_axes(cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# abstract (shape-only) models
+# ---------------------------------------------------------------------------
+
+
+def abstract_model(cfg, dtype=None):
+    """``cfg``'s :class:`~repro_torch.models.model.Model` on the meta
+    device: shapes and dtypes, zero allocation (the dry run's model)."""
+    import torch
+    from repro_torch.models.model import Model
+    return Model(cfg, device="meta", dtype=dtype or torch.bfloat16)
+
+
+def abstract_params(cfg, dtype=None) -> dict:
+    """The reference-layout parameter tree of ``cfg`` as meta tensors, in
+    the stack layout of ``cfg.scan_layers`` (``Model(cfg).abstract()``)."""
+    from repro_torch.models.model import to_params
+    return to_params(abstract_model(cfg, dtype))
+
+
+def _layer_cache_axes(cfg, kind: str) -> dict:
+    """One layer's contiguous-cache axes (``cache_desc_gqa`` /
+    ``cache_desc_mla`` / ``ssm_cache_desc``), in the port's leaf names."""
+    if kind == "mamba":
+        c = {"conv": ("batch", None, "mlp"),
+             "state": ("batch", "heads", None, None)}
+    elif cfg.attention == "mla":
+        c = {"ckv": ("batch", "kv_seq", "lora"),
+             "krope": ("batch", "kv_seq", None), "pos": ("batch", "kv_seq")}
+    else:
+        kv = ("batch", None, "kv_heads", "head_dim")
+        c = {"k": kv, "v": kv, "pos": ("batch", None)}
+        if cfg.kv_cache_bits == 8:
+            c["k_scale"] = c["v_scale"] = ("batch", None, "kv_heads")
+    if cfg.is_encdec:
+        c["cross_k"] = c["cross_v"] = ("batch", None, "kv_heads",
+                                       "head_dim")
+    return c
+
+
+def cache_axes(cfg) -> dict:
+    """Logical axes of ``Model.init_cache``'s contiguous cache
+    (``{"layers": [...]}``, one dict per layer)."""
+    from repro_torch.models.transformer import layer_plan
+    return {"layers": [_layer_cache_axes(cfg, kind)
+                       for kind, _ in layer_plan(cfg)]}
+
+
+# ---------------------------------------------------------------------------
 # paged cache axes
 # ---------------------------------------------------------------------------
 
@@ -253,5 +305,6 @@ def param_bytes(tree) -> int:
     return total
 
 
-__all__ = ["logical_axes", "paged_cache_axes", "paged_layer_axes",
+__all__ = ["abstract_model", "abstract_params", "cache_axes",
+           "logical_axes", "paged_cache_axes", "paged_layer_axes",
            "param_bytes", "param_count"]

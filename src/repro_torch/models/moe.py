@@ -25,8 +25,10 @@ per expert (``packed`` [E, q, out, in/8]); a quantized bank is
 dequantized to bf16 one expert at a time, and only for the experts some
 row routed a token to (an expert nobody routed to is never gathered, so
 this is the reference's function with one expert's dense transient).
-``router_aux_loss`` is the reference's Switch-style load-balancing
-loss.
+On the meta device (shape only: the dry run's FLOP count) every
+expert runs its C slots, the products of the reference's batched einsum
+over all E experts.  ``router_aux_loss`` is the reference's Switch-style
+load-balancing loss.
 """
 from __future__ import annotations
 
@@ -63,6 +65,10 @@ class ExpertBank(nn.Module):
                 raise ValueError(f"an expert bank's bundle needs packed "
                                  f"[E, q, out, in/8], got "
                                  f"{tuple(w.packed.shape)}")
+            if w.packed.device.type == "meta":
+                # shape only (the dry run): nothing to dequantize
+                return torch.empty((w.out_features, w.in_features),
+                                   dtype=dtype, device="meta")
             return dequantize(w.index(e), dtype)
         return w[e]
 
@@ -168,8 +174,11 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
     xin.index_put_((rows, safe_e, safe_p), contrib, accumulate=True)
 
     # 4. the expert FFN, one routed expert at a time, f32 accumulation
+    # (a meta tensor cannot say which experts were routed to: every one)
+    routed = (range(e) if x.device.type == "meta"
+              else torch.unique(flat_e[keep]).tolist())
     yout = torch.zeros((b, e, cap, d), dtype=torch.float32, device=x.device)
-    for ex in torch.unique(flat_e[keep]).tolist():
+    for ex in routed:
         wg = mod.gate.expert(ex, mod.bank_dtype)
         wu = mod.up.expert(ex, mod.bank_dtype)
         xe = xin[:, ex].to(wg.dtype).float()                 # [B, C, d]

@@ -98,29 +98,46 @@ def ssd_chunked(xh, dt, A, B, C, chunk: int, h0=None):
                      device=xh.device).tril()[None, :, :, None]
     state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
              if h0 is None else h0.float())
+    if xh.device.type == "meta":
+        # shape only (the dry run's FLOP count): every chunk's products in
+        # one call, each chunk against the carried state's shape
+        states = state[:, None].expand(b, nc, h, p, n)
+        y, dec, s_chunk = _chunk_terms(xc, dtc, A, Bc, Cc, tri, states)
+        state = dec[:, -1, :, None, None] * state + s_chunk[:, -1]
+        return y.reshape(b, nc * chunk, h, p)[:, :l], state
     ys = []
     for c in range(nc):
-        xi, dti, Bi, Ci = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
-        dA = dti * A[None, None, :]                           # [b, lc, h]
-        cums = torch.cumsum(dA, dim=1)
-        total = cums[:, -1, :]                                # [b, h]
-        # intra-chunk: decay(q, k) = exp(cums_q - cums_k) for q >= k,
-        # masked before the exponent (above the diagonal diff > 0)
-        diff = cums[:, :, None, :] - cums[:, None, :, :]      # [b, q, k, h]
-        decay = torch.exp(torch.where(tri, diff, float("-inf")))
-        cb = torch.einsum("bqn,bkn->bqk", Ci, Bi)
-        gates = cb[..., None] * decay * dti[:, None, :, :]
-        y_intra = torch.einsum("bqkh,bkhp->bqhp", gates, xi)
-        # inter-chunk: the carried state, decayed to each position
-        y_inter = torch.einsum("bqn,bhpn->bqhp", Ci, state) \
-            * torch.exp(cums)[..., None]
-        # the state at the chunk's end
-        w = dti * torch.exp(total[:, None, :] - cums)         # [b, lc, h]
-        s_chunk = torch.einsum("bkhp,bkn->bhpn", xi * w[..., None], Bi)
-        state = torch.exp(total)[:, :, None, None] * state + s_chunk
-        ys.append(y_intra + y_inter)
+        y, dec, s_chunk = _chunk_terms(xc[:, c], dtc[:, c], A, Bc[:, c],
+                                       Cc[:, c], tri, state)
+        state = dec[..., None, None] * state + s_chunk
+        ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, nc * chunk, h, p)
     return y[:, :l], state
+
+
+def _chunk_terms(xi, dti, A, Bi, Ci, tri, state):
+    """One chunk of the SSD scan, over any leading dims ``...``: xi [...,
+    q, h, p], dti [..., q, h], Bi, Ci [..., q, n], the state carried in
+    [..., h, p, n].  Returns (y [..., q, h, p], the chunk's state decay
+    exp(total) [..., h], the chunk's own state contribution [..., h, p,
+    n]); the state at the chunk's end is decay * state + contribution."""
+    dA = dti * A                                              # [..., q, h]
+    cums = torch.cumsum(dA, dim=-2)
+    total = cums[..., -1, :]                                  # [..., h]
+    # intra-chunk: decay(q, k) = exp(cums_q - cums_k) for q >= k,
+    # masked before the exponent (above the diagonal diff > 0)
+    diff = cums[..., :, None, :] - cums[..., None, :, :]     # [..., q, k, h]
+    decay = torch.exp(torch.where(tri, diff, float("-inf")))
+    cb = torch.einsum("...qn,...kn->...qk", Ci, Bi)
+    gates = cb[..., None] * decay * dti[..., None, :, :]
+    y_intra = torch.einsum("...qkh,...khp->...qhp", gates, xi)
+    # inter-chunk: the carried state, decayed to each position
+    y_inter = torch.einsum("...qn,...hpn->...qhp", Ci, state) \
+        * torch.exp(cums)[..., None]
+    # the chunk's own contribution to the state at its end
+    w = dti * torch.exp(total[..., None, :] - cums)          # [..., q, h]
+    s_chunk = torch.einsum("...khp,...kn->...hpn", xi * w[..., None], Bi)
+    return y_intra + y_inter, torch.exp(total), s_chunk
 
 
 class SSM(nn.Module):

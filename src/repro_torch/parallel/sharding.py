@@ -232,6 +232,36 @@ def batch_specs(mesh, shapes: dict, rules: dict) -> dict:
     return out
 
 
+def local_nbytes(tree, specs, mesh) -> int:
+    """Bytes of one rank's slices of every leaf of ``tree`` under
+    ``specs`` (``build_specs``' tree; bundles as dicts or PlaneBundles):
+    each dim divided by the extent of its spec entry, shapes only, so
+    meta tensors serve.  Every rank holds as many (the specs split dims
+    that divide)."""
+    sizes = axis_sizes(mesh)
+
+    def one(t, spec) -> int:
+        n = 1
+        for size, entry in zip(t.shape, _pad(tuple(spec or ()),
+                                             len(t.shape))):
+            n *= size // _extent(entry, sizes)
+        return n * t.element_size()
+
+    total = 0
+    for path, x in _walk(tree):
+        spec = _get(specs, path)
+        if x is None or not (is_bundle(x) or hasattr(x, "shape")):
+            continue
+        if is_bundle(x):
+            for k in ("packed", "alpha", "z"):
+                t = _field(x, k)
+                if t is not None:
+                    total += one(t, getattr(spec, k))
+        else:
+            total += one(x, spec)
+    return total
+
+
 def dim_slice(size: int, entry, mesh) -> Optional[tuple]:
     """(start, stop) of this rank's slice of a dim of ``size`` under
     spec entry ``entry`` (None: the whole dim, returned as None).  A
@@ -320,4 +350,5 @@ def shard_tree(tree, specs, mesh, device=None):
 
 __all__ = ["DEFAULT_RULES", "BundleSpecs", "axis_sizes", "batch_specs",
            "build_specs", "bundle_specs", "dim_slice", "is_bundle",
-           "local_shard", "make_rules", "shard_tree", "spec_for"]
+           "local_nbytes", "local_shard", "make_rules", "shard_tree",
+           "spec_for"]

@@ -29,6 +29,11 @@ application of ``repro.quant.ptq`` (both live here):
      one entry per reference leaf (stacked shape, summed bytes), so the
      manifests of the two packages compare entry for entry in either
      stack layout.
+
+:func:`abstract_quantized_params` is the shape-only counterpart of step
+3 (the reference's ``abstract_quantized_params``, the dry run's): every
+leaf's weight becomes a bundle of meta tensors laid out as a BCQ
+``quantize_model`` lays it out, and nothing is quantized.
 """
 from __future__ import annotations
 
@@ -237,6 +242,43 @@ def quantize_model(model, spec: QuantSpec, *,
     return build_manifest(leaves, spec)
 
 
+def _abstract_bundle(shape, *, bits: int, group_size: int,
+                     device="meta") -> PlaneBundle:
+    """The BCQ bundle of a dense weight of ``shape`` ([*lead, out, in]) as
+    ``quantize_model`` lays it out, of empty tensors: packed uint8 [*lead,
+    bits, out, in_pad / 8] (in_pad: the input width padded to a whole
+    group), alpha f32 [*lead, bits, out, n_groups], z f32 [*lead, out,
+    n_groups]."""
+    *lead, rows, cols = (int(d) for d in shape)
+    n_pad = -(-cols // group_size) * group_size
+    n_groups = n_pad // group_size
+
+    def empty(shp, dtype):
+        return torch.empty((*lead, *shp), dtype=dtype, device=device)
+    return PlaneBundle(packed=empty((bits, rows, n_pad // 8), torch.uint8),
+                       alpha=empty((bits, rows, n_groups), torch.float32),
+                       z=empty((rows, n_groups), torch.float32),
+                       group_size=int(group_size), in_features=cols,
+                       out_features=rows)
+
+
+def abstract_quantized_params(model, *, bits: int = 4,
+                              group_size: int = 128) -> QuantManifest:
+    """Shape-only ``quantize_model`` (the dry run's): every quantizable
+    linear's weight of ``model`` (a meta model, ``models.module
+    .abstract_model``) replaced in place by an empty bundle in its layout, an
+    expert bank's with its expert axis leading.  No weight is read or
+    allocated.  Returns the manifest."""
+    leaves = linear_leaves(model)
+    for lins, _ in leaves.values():
+        for lin in lins:
+            lin.weight = _abstract_bundle(lin.weight.shape, bits=bits,
+                                          group_size=group_size,
+                                          device=lin.weight.device)
+    return build_manifest(leaves, QuantSpec(format="bcq", bits=bits,
+                                            group_size=group_size))
+
+
 def _stack_bundles(bundles: list) -> PlaneBundle:
     """Per-expert bundles stacked on a leading axis (packed [E, q, out,
     in/8])."""
@@ -287,5 +329,5 @@ def build_manifest(leaves: Mapping[str, tuple], spec: QuantSpec
 
 
 __all__ = ["QUANT_KEYS", "QuantManifest", "QuantSpec", "PlaneBundle",
-           "build_manifest", "collect_linears", "linear_leaves",
+           "abstract_quantized_params", "build_manifest", "collect_linears", "linear_leaves",
            "plan_bits", "quantize_model", "walk_linears"]

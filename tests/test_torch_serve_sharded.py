@@ -106,7 +106,7 @@ def _mesh22_scenarios():
     dense_np = to_numpy_tree(dense_p)
     scenarios = [
         dict(name="gqa_bcq", over=GQA, quant=BCQ3,
-             params=to_numpy_tree(gqa_p), kw=KW,
+             params=to_numpy_tree(gqa_p), kw=KW, step_bytes=True,
              runs=[dict(name=m, mode=m, kind="sync")
                    for m in ("fused", "gather")]),
         dict(name="dense_preempt", over=GQA, params=dense_np,
@@ -306,6 +306,21 @@ def test_mesh_ranks_and_backend(mesh22, mesh14):
                           for m in range(shape[1])]
         assert all(r["backend"] == "gloo" and r["host_syncs"] == 0
                    and r["collectives"] > 0 for r in ranks)
+
+
+def test_mesh_counts_collective_bytes(mesh22):
+    """One tp-2 decode step's all-reduce bytes are the TP plan's closed
+    form: the vocab-parallel embedding's lookup, then each layer's two
+    row-parallel linears (``o``, ``down``), each an f32 [B, d] sum; its
+    all-gathers hold at least the vocab-parallel logits, f32 [B, V]."""
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced("opt_6_7b").replace(**GQA)
+    for r in mesh22[0]:
+        step = r["gqa_bcq"]["step_coll"]
+        b = step["rows"]
+        assert step["bytes"]["all-reduce"] == \
+            (1 + 2 * cfg.n_layers) * b * cfg.d_model * 4
+        assert step["bytes"]["all-gather"] >= b * cfg.padded_vocab * 4
 
 
 LAUNCH = ["--device", "cpu", "--bits", "3", "--group-size", "32",

@@ -88,6 +88,8 @@ def run_scenario(sc, mesh):
     except ValueError:
         refused = True
     out = {"to_params_refused": refused}
+    if sc.get("step_bytes"):
+        out["step_coll"] = decode_step_bytes(model, mesh)
     for run in sc["runs"]:
         _lib.reset_launch_counts()
         eng = PagedServeEngine(model, mesh=mesh, paged_kernel=run["mode"],
@@ -128,6 +130,21 @@ def run_scenario(sc, mesh):
                     ("down", model.stack.layers[0].mlp.down))},
         }
     return out
+
+
+def decode_step_bytes(model, mesh, b=3):
+    """The bytes each collective kind moved in one decode step of ``b``
+    rows on a fresh paged cache (``Mesh.coll_bytes``, read through
+    ``roofline.analysis.measure``)."""
+    from repro_torch.models import set_block_tables
+    from repro_torch.roofline.analysis import measure
+    cache = model.init_paged_cache(b, num_blocks=8, block_size=4,
+                                   max_blocks_per_seq=2)
+    cache = set_block_tables(cache, [[2 * i, 2 * i + 1] for i in range(b)])
+    tokens = torch.arange(1, b + 1, dtype=torch.int32)[:, None]
+    _, _, coll = measure(model.decode_step, tokens, cache,
+                         torch.zeros(b, dtype=torch.int32), mesh=mesh)
+    return {"rows": b, "bytes": coll}
 
 
 def run_train(tj, mesh, out_dir):
