@@ -239,11 +239,25 @@ kernels once a layer on 16 heads, the pool shard's shape, finite
 logits, the f32 view's first-prefill logits within 1e-3 of the
 unsharded f32 view's scale; the share of equal greedy tokens (f32,
 bf16), and per rank tok/s, TTFT p50, decode-step p50 and the
-collectives' share of a step printed.  Phase 3 holds both BCQ GEMMs at
-the tp-2 shard shapes (rows 8 and 512) and the paged kernels on the
-16-head slice.  ``--sharded-mesh DxM`` runs only the build and this
-phase on a DxM mesh, one rank a card (NCCL) where there are D*M cards,
-adding an async run whose decode-only ticks run under sync debug mode
+collectives' share of a step printed.  The same phase then serves, 4
+requests x 16 new tokens in bf16 and on the f32 view, the weights of
+the ternary + int8-KV OPT run (``TERNARY_SHARDED_LAYERS`` deep; 16 of 32
+heads, int8 pools and their scale pools cut by kv heads), of
+MiniCPM3-4B (``MINICPM3_SHARDED_LAYERS`` of 62 layers; 20 of 40 query
+heads a rank on the MLA decode kernel, the latent pool whole) and of
+DeepSeek-V2's 4 layers (64 of 128 heads, 80 of 160 experts a
+rank, the router whole): each rank's cuts gated (``shard_gates``), the
+decode attention kernel once a layer a step at the shard's heads, the
+pool leaves a model group holds whole equal on its ranks, and the MoE
+drops equal to the unsharded run's (on the f32 view exactly, in bf16
+within ``BF16_DROPS_TOL``); per rank the host syncs a step and the
+drops printed.  Phase 3 holds both BCQ GEMMs at
+the tp-2 shard shapes (rows 8 and 512), the paged kernels (float and
+int8) on the 16-head slice and MLA decode at 20 and 64 heads.
+``--sharded-mesh DxM`` runs only the build and this phase
+(``--sharded-kinds``: OPT, MiniCPM3 and DeepSeek-V2 by default) on a
+DxM mesh, one rank a card (NCCL) where there are D*M cards, adding an
+async OPT run whose decode-only ticks run under sync debug mode
 "error".
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
@@ -1049,12 +1063,18 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
     from repro_torch.models.attention import _quantize_kv
     from repro_torch.kernels import _lib
     from repro_torch.kernels.paged_attention.ops import decode_splits
-    h, d, bs, pages, nb = 32, 128, 16, 32, 257
+    h0, d, bs, pages, nb = 32, 128, 16, 32, 257
     out = {"paged_decode_int8": [], "paged_prefill_int8": []}
-    # the cases of check_paged
-    for name, b, c, hkv, long in paged_cases("paged_decode_int8",
-                                             "paged_prefill_int8", h):
-        seed = args_seed + b + c + (hkv if hkv != h else 0) + 1000 * long
+    # the cases of check_paged, then OPT-6.7B's 16-head slice at tp 2
+    # (serve_sharded's ternary + int8-KV run): decode at B 8, the C 512
+    # prefill chunk
+    cases = [(name, b, c, h0, hkv, long) for name, b, c, hkv, long in
+             paged_cases("paged_decode_int8", "paged_prefill_int8", h0)] + [
+        ("paged_decode_int8", 8, 0, 16, 16, False),
+        ("paged_prefill_int8", 1, 512, 16, 16, False)]
+    for name, b, c, h, hkv, long in cases:
+        seed = args_seed + b + c + (hkv if hkv != h else 0) + 1000 * long \
+            + (h if h != h0 else 0)
         q, k, v, pos, tables, positions = pool_case(
             torch, gen, seed, b=b, h=h, d=d, nb=nb + long, bs=bs,
             pages=pages, dtype=torch.float32, prefill_c=c, hkv=hkv,
@@ -1082,7 +1102,7 @@ def check_paged_int8(torch, timer, gen, results, args_seed):
             err = float((got - want).abs().max())
             return kern, plain, err, err / (float(want.abs().max()) + 1e-12)
 
-        tag = (f"{name:18s} B={b} C={max(c, 1):3d} Hkv={hkv:2d}"
+        tag = (f"{name:18s} B={b} C={max(c, 1):3d} H={h} Hkv={hkv:2d}"
                f"{' long' if long else ''}")
         # f32 compute with power-of-two scales: the arithmetic is exact up
         # to f32 rounding, so kernel and plain agree within 1e-4
@@ -1157,7 +1177,9 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
     """Absorbed MLA decode at the MiniCPM3-4B widths (H 40, lora 256,
     rope 32) and at DeepSeek-V2's (H 128: head tiles of 40, 40, 40 and 8;
     lora 512; rope 64), bf16 latent pools, block 16, against its plain
-    version at B 8 (the serve batch), B 1 and a ragged B 3 case, within
+    version at B 8 (the serve batch), B 1 and a ragged B 3 case, and at
+    both models' tp-2 shards (H 20; H 64: tiles of 40 and 24) at B 8,
+    within
     1e-4 of the output scale (the reference's ``paged_attention_mla_maxerr``
     gate: both compute in f32 from the same pools)."""
     import numpy as np
@@ -1173,11 +1195,15 @@ def check_paged_mla(torch, timer, gen, results, args_seed):
     # (model, heads, lora, rope, qk_nope) x (B, seed, idle row 0): the
     # serve batch with an idle row; one live row; a ragged case (idle
     # row, stale recycled block, -1 pads)
-    for (model, h, lora, dr, dn), (b, seed, idle) in (
+    for (model, h, lora, dr, dn), (b, seed, idle) in [
             (w, c) for w in (("minicpm3_4b", 40, 256, 32, 64),
                              ("deepseek_v2_236b", 128, 512, 64, 128))
             for c in ((8, args_seed + 8, True), (1, args_seed + 1, False),
-                      (3, args_seed + 3, True))):
+                      (3, args_seed + 3, True))] + [
+            # the tp-2 shards serve_sharded runs: 20 and 64 query heads
+            (w, (8, args_seed + 8 + w[1], True))
+            for w in (("minicpm3_4b", 20, 256, 32, 64),
+                      ("deepseek_v2_236b", 64, 512, 64, 128))]:
         kd = lora + dr
         scale = (dn + dr) ** -0.5           # (qk_nope + qk_rope)^-0.5
         rng = np.random.default_rng(seed)
@@ -2788,11 +2814,18 @@ def serve(torch, args, power_line, results):
                                "paged")], "paged_decode_mla", None),
     )
     for cfg, spec, kv_bits, backends, attn, prefill in runs:
-        # serving breadth (prefix cache, async tick, sampling, cancel,
-        # deadlines, trace) on the weights the OPT BCQ-3 run quantized
-        after = None
-        if cfg is opt and spec is bcq3:
-            # then the tune phase's winners served on the same weights
+        # the mesh run (serve_sharded, two ranks on the one card) of the
+        # weights of each run SHARDED_KINDS names
+        kind = sharded_kind(cfg, spec, kv_bits)
+        after = None if kind is None else (
+            lambda model, manifest, kind=kind, spec=spec:
+            {f"serve_sharded_{kind}": serve_sharded(
+                torch, args, model, spec, eng_kw, totals, power_line,
+                kind=kind)})
+        if kind == "opt":
+            # the OPT BCQ-3 weights: serving breadth (prefix cache, async
+            # tick, sampling, cancel, deadlines, trace), then the tune
+            # phase's winners, then the mesh run
             after = lambda model, manifest: {
                 # the stored bytes phase 7's byte model is held against
                 "opt_param_bytes": opt_param_bytes(model),
@@ -3766,13 +3799,61 @@ def serve_model(torch, args, cfg, spec, kv_bits, backends, attn, prefill,
 # mesh serving: two ranks on the one card
 # ---------------------------------------------------------------------------
 
-# OPT-6.7B's serve depth over the (1, 2) mesh (of 32; full width kept)
+# OPT-6.7B's serve depth over the mesh (of 32; full width kept), and the
+# depths of the ternary + int8-KV OPT run (of 32) and of MiniCPM3-4B (of
+# 62), cut so that the script stays within its 1200 s on one H100, the
+# build included (README): with those two at 32 and 62 layers the whole
+# script took 973 s
 SHARDED_SERVE_LAYERS = 32
+TERNARY_SHARDED_LAYERS = 8
+MINICPM3_SHARDED_LAYERS = 16
 SHARDED_DIR = ROOT / "build" / "serve_sharded"
 # the tp-2 shard of each OPT-6.7B linear, [out x in]: q / k / v, out_proj,
 # fc1, fc2
 OPT_TP2_SHAPES = ((2048, 4096), (4096, 2048), (8192, 4096), (4096, 8192))
-SHARDED_VIEWS = ("auto", "lut_pallas", "f32")
+# the sharded runs, each on the weights of a phase-4 run: the arch, its
+# weight format (``QuantSpec`` fields) and KV bits, the layers served (the
+# first ones of the phase-4 model; OPT's also at most ``--layers``), the
+# views served (``sharded_view``), the requests of the mix and the new
+# tokens of each, and the decode and prefill attention kernels (prefill
+# None: MLA prefill is gathered, as in the reference).  The GEMM kernel
+# is bcq_matmul (ternary_matmul for ternary weights), lut_gemm on the
+# lut_pallas view.
+BCQ3 = dict(format="bcq", bits=3, group_size=128)
+# a MoE model's drops over a mesh in bf16 against the unsharded run's, a
+# share of them (on DeepSeek-V2's 4 layers they were equal on every rank
+# at (1, 2) and (2, 2): 16,573 of 16,573)
+BF16_DROPS_TOL = 0.01
+SHARDED_KINDS = {
+    "opt": dict(arch="opt_6_7b", spec=BCQ3, kv_bits=16,
+                layers=SHARDED_SERVE_LAYERS,
+                views=("auto", "lut_pallas", "f32"), requests=8,
+                max_new=32, attn="paged_decode", prefill="paged_prefill"),
+    "opt_ternary_int8kv": dict(arch="opt_6_7b",
+                               spec=dict(format="ternary", group_size=128),
+                               kv_bits=8, layers=TERNARY_SHARDED_LAYERS,
+                               views=("auto", "f32"), requests=4,
+                               max_new=16, attn="paged_decode_int8",
+                               prefill="paged_prefill_int8"),
+    "minicpm3": dict(arch="minicpm3_4b", spec=BCQ3, kv_bits=16,
+                     layers=MINICPM3_SHARDED_LAYERS,
+                     views=("auto", "f32"), requests=4, max_new=16,
+                     attn="paged_decode_mla", prefill=None),
+    "deepseek": dict(arch="deepseek_v2_236b", spec=BCQ3, kv_bits=16,
+                     layers=DEEPSEEK_SERVE_LAYERS,
+                     views=("auto", "f32"), requests=4, max_new=16,
+                     attn="paged_decode_mla", prefill=None),
+}
+
+
+def sharded_kind(cfg, spec, kv_bits):
+    """The ``SHARDED_KINDS`` entry a phase-4 run's weights are served
+    over the mesh as (its arch, weight spec and KV bits), or None."""
+    from repro_torch.quant import QuantSpec
+    arch = cfg.name.replace("-", "_").replace(".", "_")
+    return next((k for k, r in SHARDED_KINDS.items()
+                 if r["arch"] == arch and r["kv_bits"] == kv_bits
+                 and QuantSpec(**r["spec"]) == spec), None)
 
 
 def check_shard_shapes(torch, timer, gen, results):
@@ -3831,21 +3912,25 @@ def check_shard_shapes(torch, timer, gen, results):
 
 
 def sharded_view(torch, m, spec, view):
-    """The serve view ``view`` of ``m``: BCQ-3 through bcq_matmul
-    (``auto``) or lut_gemm (``lut_pallas``) in bf16, or through
-    bcq_matmul on the f32 view (``f32``)."""
+    """The serve view ``view`` of ``m``: its weights through the ``auto``
+    backend's kernel (bcq_matmul, or ternary_matmul for ternary weights)
+    or through lut_gemm (``lut_pallas``) in bf16, or through the ``auto``
+    kernel on the f32 view (``f32``)."""
     backend = "auto" if view == "f32" else view
     v = m.with_config(quant=spec.replace(backend=backend),
                       paged_kernel="fused")
     return f32_view(v) if view == "f32" else v
 
 
-def sharded_serve_run(torch, tag, m, prompts, eng_kw, mesh=None):
-    """One serve of the 8-request mix (32 new tokens each) through the
+def sharded_serve_run(torch, tag, m, prompts, eng_kw, mesh=None,
+                      max_new=32):
+    """One serve of ``prompts`` (``max_new`` new tokens each) through the
     paged engine (over ``mesh`` where given), instrumented as
     ``serve_one``: per-step times and launches, GEMM bodies per step and
-    chunk, finite logits, and over a mesh the collectives' seconds and
-    host syncs inside each decode step."""
+    chunk, finite logits, the MoE drops; over a mesh also the
+    collectives' seconds inside each decode step, the host syncs a step
+    (``rank_report``) and whether the pool leaves a model group holds
+    whole agree."""
     from repro_torch.kernels import _lib
     from repro_torch.serve import PagedServeEngine, Request
     eng = PagedServeEngine(m, paged_kernel="fused", mesh=mesh, **eng_kw)
@@ -3856,12 +3941,12 @@ def sharded_serve_run(torch, tag, m, prompts, eng_kw, mesh=None):
         inner = eng.model.decode_step
 
         def counted(*a, **kw):
-            c0, s0 = mesh.comm_s, mesh.host_syncs
+            c0 = mesh.comm_s
             r = inner(*a, **kw)
-            comm.append((mesh.comm_s - c0, mesh.host_syncs - s0))
+            comm.append(mesh.comm_s - c0)
             return r
         eng.model.decode_step = counted
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=32)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
@@ -3872,12 +3957,14 @@ def sharded_serve_run(torch, tag, m, prompts, eng_kw, mesh=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, routes = dict(_lib.launch_counts), dict(_lib.route_counts)
-    bad = [r.uid for r in done if r.error or len(r.out_tokens) != 32]
+    bad = [r.uid for r in done if r.error or len(r.out_tokens) != max_new]
     if len(done) != len(reqs) or bad:
         fail(f"serve[{tag}]: requests incomplete: {bad}")
     finite_gate(tag, extra)
     s = eng.metrics.summary()
     steps = sorted(step_ms)
+    layer = eng.cache["layers"][0]
+    pool = layer["k"] if "k" in layer else layer["ckv"]
     out = dict(
         tokens={str(r.uid): [int(t) for t in r.out_tokens] for r in done},
         tokens_out=s["counters"]["tokens_out"], wall_s=wall,
@@ -3887,35 +3974,53 @@ def sharded_serve_run(torch, tag, m, prompts, eng_kw, mesh=None):
         launches=counts, routes=routes, step_launches=step_launches,
         step_routes=step_routes, chunk_routes=chunk_routes,
         decode_path=eng.decode_path, prefill_path=eng.prefill_path,
-        k_shape=list(eng.cache["layers"][0]["k"].shape))
+        k_shape=list(pool.shape), k_dtype=str(pool.dtype),
+        scale_shape=list(layer["k_scale"].shape) if "k_scale" in layer
+        else None, **eng.rank_report())
     if mesh is not None:
-        share = sorted(c / t * 1e3 for (c, _), t in zip(comm, step_ms))
+        share = sorted(c / t * 1e3 for c, t in zip(comm, step_ms))
         out.update(comm_share_p50=share[len(share) // 2],
-                   host_syncs_per_step=sorted(h for _, h in comm)[
-                       len(comm) // 2],
                    collectives=mesh.collectives,
-                   same_host_state=mesh.same_on_all(eng.host_state()))
+                   same_host_state=mesh.same_on_all(eng.host_state()),
+                   same_pool_leaves=mesh.same_within(eng.pool_state(),
+                                                     "model"))
     del eng
     torch.cuda.empty_cache()
     return out
 
 
-def sharded_only(torch, args, power_line):
-    """``--sharded-mesh DxM``: OPT-6.7B BCQ-3 at full width and
-    ``--layers`` deep, served unsharded and over the mesh
-    (``serve_sharded``); results in ``chiprun_out/serve_sharded.json``."""
+def sharded_model(torch, args, kind):
+    """(model, weight spec) of ``kind``'s sharded run, built as its
+    phase-4 run builds it (OPT ``--layers`` deep) and cut to the run's
+    depth."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _lib
     from repro_torch.quant import QuantSpec
-    shape = tuple(int(x) for x in args.sharded_mesh.lower().split("x"))
-    spec = QuantSpec(format="bcq", bits=3, group_size=128)
-    cfg = get_config("opt_6_7b").replace(n_layers=args.layers)
+    run = SHARDED_KINDS[kind]
+    cfg = get_config(run["arch"])
+    n = args.layers if run["arch"] == "opt_6_7b" else cfg.n_layers
+    cfg = cfg.replace(n_layers=min(run["layers"], n))
+    spec = QuantSpec(**run["spec"])
     model, _, _, _ = build_quantized(torch, cfg, spec, args.seed)
+    return model.with_config(quant=spec), spec
+
+
+def sharded_only(torch, args, power_line):
+    """``--sharded-mesh DxM``: each of ``--sharded-kinds`` (default OPT-6.7B
+    BCQ-3, MiniCPM3-4B and DeepSeek-V2, at full width) served unsharded
+    and over the mesh (``serve_sharded``); results in
+    ``chiprun_out/serve_sharded.json``."""
+    from repro_torch.kernels import _lib
+    shape = tuple(int(x) for x in args.sharded_mesh.lower().split("x"))
     eng_kw = dict(num_blocks=256, block_size=16, max_batch=8,
                   max_seq_len=512, prefill_buckets=BUCKETS)
     totals = {k: 0 for k in _lib.KERNELS}
-    report = serve_sharded(torch, args, model.with_config(quant=spec), spec,
-                           eng_kw, totals, power_line, mesh_shape=shape)
+    report = {}
+    for kind in args.sharded_kinds.split(","):
+        model, spec = sharded_model(torch, args, kind)
+        report[kind] = serve_sharded(torch, args, model, spec, eng_kw, totals,
+                                     power_line, mesh_shape=shape, kind=kind)
+        del model
+        torch.cuda.empty_cache()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "serve_sharded.json").write_text(json.dumps(report,
@@ -3926,12 +4031,76 @@ def sharded_only(torch, args, power_line):
         "count": torch.cuda.device_count()}}))
 
 
+def shard_gates(tag, model, cfg, tp, mesh):
+    """This rank's cuts of ``model``, gated: every linear holds its shard
+    (OPT at tp 2: q / k / v [2048 x 4096], out_proj [4096 x 2048], fc1
+    [8192 x 4096], fc2 [4096 x 8192]; an MLA layer's q_b its heads' rows
+    and o their columns, q_a and kv_a whole, kv_b its heads'; a MoE
+    layer's banks E / tp whole experts, the router whole, the shared
+    experts column- and row-parallel), the head its slice of the padded
+    vocab, each layer H / tp query heads.  Returns the shapes."""
+    from repro_torch.models.moe import MoE
+    blk = model.stack.layers[0]
+    mix = blk.mixer
+    d, h = cfg.d_model, cfg.n_heads
+
+    def dims(lin):
+        w = lin.weight
+        return [w.out_features, w.in_features] if hasattr(
+            w, "out_features") else list(w.shape)
+    if cfg.attention == "mla":
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        lins = (("q_a", mix.q_a), ("q_b", mix.q_b), ("kv_a", mix.kv_a),
+                ("kv_b", mix.kv_b), ("o", mix.o))
+        want = {"q_a": [cfg.q_lora_rank, d],
+                "q_b": [h // tp * (dn + dr), cfg.q_lora_rank],
+                "kv_a": [cfg.kv_lora_rank + dr, d],
+                "kv_b": [h // tp * (dn + dv), cfg.kv_lora_rank],
+                "o": [d, h // tp * dv]}
+    else:
+        lins = (("q", mix.q), ("k", mix.k), ("v", mix.v), ("o", mix.o))
+        want = {"q": [d // tp, d], "k": [d // tp, d], "v": [d // tp, d],
+                "o": [d, d // tp]}
+    f = cfg.d_ff
+    lins += tuple((n, getattr(blk.mlp, n)) for n in ("gate", "up", "down")
+                  if getattr(blk.mlp, n, None) is not None)
+    want.update({n: [f // tp, d] for n in ("gate", "up")
+                 if getattr(blk.mlp, n, None) is not None})
+    want["down"] = [d, f // tp]
+    shapes = {n: dims(lin) for n, lin in lins}
+    moe = next((b.mlp for b in model.stack.layers
+                if isinstance(b.mlp, MoE)), None)
+    if moe is not None:
+        e, fs = cfg.n_experts, cfg.moe_d_ff * cfg.n_shared_experts
+        m = mesh.index("model")
+        shapes.update(
+            experts=list(moe.tp.experts), router=list(moe.router.shape),
+            bank=list(moe.gate.weight.packed.shape),
+            shared_gate=dims(moe.shared_gate),
+            shared_down=dims(moe.shared_down))
+        want.update(
+            experts=[m * e // tp, (m + 1) * e // tp], router=[e, d],
+            bank=[e // tp] + list(moe.gate.weight.packed.shape[1:]),
+            shared_gate=[fs // tp, d], shared_down=[d, fs // tp])
+    if shapes != want:
+        fail(f"{tag}: shard shapes {shapes}, want {want}")
+    heads = mix.tp.heads
+    if heads[1] - heads[0] != h // tp \
+            or list(model.embed.tok.shape) != [cfg.padded_vocab // tp, d]:
+        fail(f"{tag}: heads {heads}, tok {list(model.embed.tok.shape)}")
+    if cfg.attention != "mla" and not mix.tp.local:
+        fail(f"{tag}: the pool is not cut on kv heads ({mix.tp.pool})")
+    return shapes, heads
+
+
 def sharded_rank(job_path):
     """One rank of ``serve_sharded`` (run as ``chip_smoke.py --rank-job
-    JOB``): join the (1, 2) mesh over gloo, load the checkpoint on the
-    host, keep this rank's shard on the card (``shard_model``), gate its
-    shapes, serve each view of the mix over the mesh, and write the
-    runs and the f32 view's first-prefill logits to the job's folder."""
+    JOB``): join the job's mesh, load the checkpoint on the host, keep
+    this rank's shard on the card (``shard_model``), gate its cuts
+    (``shard_gates``), serve each view of the mix over the mesh, and
+    write the runs and the f32 view's first-prefill logits to the job's
+    folder."""
     job = json.loads(Path(job_path).read_text())
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -3945,36 +4114,20 @@ def sharded_rank(job_path):
     from repro_torch.quant.checkpoint import load_quantized
     mesh = make_mesh(tuple(job["mesh"]), ("data", "model"),
                      device_type="cuda")
-    rank, tag = mesh.rank, f"sharded/rank{mesh.rank}"
+    rank = mesh.rank
+    tag = f"sharded/{job['kind']}/rank{rank}"
     tp = mesh.size("model")
     t0 = time.perf_counter()
     params, spec, _, _ = load_quantized(job["ckpt"])
-    cfg = get_config("opt_6_7b").replace(n_layers=job["layers"],
-                                         quant=spec)
+    cfg = get_config(job["arch"]).replace(
+        n_layers=job["layers"], quant=spec, kv_cache_bits=job["kv_bits"])
     model = shard_model(params, cfg, mesh, device=mesh.device)
     del params
     load_s = time.perf_counter() - t0
     if model.device.type != "cuda" or mesh.backend != job["backend"]:
         fail(f"{tag}: on {model.device} over {mesh.backend}")
-    # every linear holds its shard (at tp 2: q / k / v [2048 x 4096],
-    # out_proj [4096 x 2048], fc1 [8192 x 4096], fc2 [4096 x 8192]), the
-    # tied head its slice of the padded vocab (25,216 of 50,432 rows at
-    # tp 2), each layer 32 / tp heads and its pool as many kv heads
-    blk = model.stack.layers[0]
-    shapes = {name: [lin.weight.out_features, lin.weight.in_features]
-              for name, lin in (("q", blk.mixer.q), ("k", blk.mixer.k),
-                                ("v", blk.mixer.v), ("o", blk.mixer.o),
-                                ("fc1", blk.mlp.up), ("fc2", blk.mlp.down))}
-    d, f = cfg.d_model, cfg.d_ff
-    want = {"q": [d // tp, d], "k": [d // tp, d], "v": [d // tp, d],
-            "o": [d, d // tp], "fc1": [f // tp, d], "fc2": [d, f // tp]}
-    if shapes != want:
-        fail(f"{tag}: shard shapes {shapes}, want {want}")
-    heads = blk.mixer.tp.heads
-    if heads[1] - heads[0] != cfg.n_heads // tp or not blk.mixer.tp.local \
-            or list(model.embed.tok.shape) != [cfg.padded_vocab // tp, d]:
-        fail(f"{tag}: heads {heads}, tok {list(model.embed.tok.shape)}")
-    log(f"{tag}: mesh {mesh}, shard loaded in {load_s:.1f} s; linears "
+    shapes, heads = shard_gates(tag, model, cfg, tp, mesh)
+    log(f"{tag}: mesh {mesh}, shard loaded in {load_s:.1f} s; shapes "
         f"{shapes}, heads {heads}, tok {list(model.embed.tok.shape)}")
     prompts = [np.asarray(p) for p in job["prompts"]]
     toks = torch.as_tensor(prompts[0][None, :128], device=mesh.device)
@@ -3983,18 +4136,23 @@ def sharded_rank(job_path):
     logits = first_logits(torch, sharded_view(torch, model, spec, "f32"),
                           toks)
     np.save(Path(job["out"]) / f"logits{rank}.npy", logits.cpu().numpy())
-    for view in SHARDED_VIEWS:
+    for view in job["views"]:
         res["runs"][view] = sharded_serve_run(
             torch, f"{tag}/{view}", sharded_view(torch, model, spec, view),
-            prompts, job["eng_kw"], mesh)
-    if mesh.backend == "nccl":
+            prompts, job["eng_kw"], mesh, max_new=job["max_new"])
+    if mesh.backend == "nccl" and job["kind"] == "opt":
         res["async"] = sharded_async_run(
             torch, f"{tag}/async", sharded_view(torch, model, spec, "auto"),
             prompts, job["eng_kw"], mesh)
         if res["async"]["tokens"] != res["runs"]["auto"]["tokens"]:
             fail(f"{tag}: async tokens differ from sync")
     (Path(job["out"]) / f"rank{rank}.json").write_text(json.dumps(res))
-    torch.distributed.destroy_process_group()
+    # every rank done, the process ends without tearing the groups down
+    # (gloo's teardown has aborted a rank now and then after all its work)
+    torch.distributed.barrier(group=mesh.host_group)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def sharded_async_run(torch, tag, m, prompts, eng_kw, mesh):
@@ -4036,57 +4194,115 @@ def sharded_async_run(torch, tag, m, prompts, eng_kw, mesh):
                 host_syncs=mesh.host_syncs)
 
 
+def sharded_rank_gates(tag, view, rv, cfg, tp, layers, run, gemm, eng_kw,
+                       step_lin, chunk_lin, single):
+    """One rank's run of one view, gated: every decode step's linears on
+    the decode tile and every chunk's on the tensor-core tile at the
+    shard shapes (``route_totals``), the decode attention kernel once a
+    layer a step and the prefill kernel (where the config has one) once
+    a layer a chunk, the pool's cut (GQA: Hkv / tp heads, int8 with its
+    scale pools; MLA: the latent pool whole), the paths, the host state
+    and the pool leaves a model group holds whole agreeing, and a MoE
+    model's drops equal to the unsharded run's: exactly on the f32 view
+    (the routing is whole on every rank), within ``BF16_DROPS_TOL`` of
+    them in bf16, where the row-parallel sums round the router's input
+    otherwise than one GEMM does and may reroute a token."""
+    attn, prefill = run["attn"], run["prefill"]
+    route_totals(tag, gemm, rv["step_routes"], rv["chunk_routes"],
+                 {k: n for k, n in rv["routes"].items()
+                  if k.split("/")[0] in ROUTED},
+                 linears=step_lin, chunk_linears=chunk_lin)
+    if gemm == "lut_gemm":
+        # lut_gemm's decode rows run its LUT body, every linear
+        for i, r in enumerate(rv["step_routes"]):
+            if r.get("lut_gemm/lut", 0) != step_lin:
+                fail(f"{tag}: decode step {i} bodies {r}")
+    for i, n in enumerate(rv["step_launches"]):
+        if n[attn] != layers:
+            fail(f"{tag}: decode step {i} launched {attn} {n[attn]} times, "
+                 "not once a layer")
+    if prefill and rv["launches"][prefill] != layers * len(
+            rv["chunk_routes"]):
+        fail(f"{tag}: {prefill} not once a layer a chunk")
+    nb, bs = eng_kw["num_blocks"], eng_kw["block_size"]
+    if cfg.attention == "mla":
+        pool, scales = [nb, bs, cfg.kv_lora_rank], None
+    else:
+        hkv = cfg.n_kv_heads // tp
+        pool = [nb, bs, hkv, cfg.head_dim_]
+        scales = [nb, bs, hkv] if cfg.kv_cache_bits == 8 else None
+    if rv["k_shape"] != pool or rv["scale_shape"] != scales or (
+            scales and rv["k_dtype"] != "torch.int8"):
+        fail(f"{tag}: pool {rv['k_shape']} {rv['k_dtype']}, scales "
+             f"{rv['scale_shape']}; want {pool}, {scales}")
+    want_prefill = "fused" if prefill else "gather"
+    if rv["decode_path"] != "fused" or rv["prefill_path"] != want_prefill \
+            or not rv["same_host_state"] or not rv["same_pool_leaves"]:
+        fail(f"{tag}: paths {rv['decode_path']} / {rv['prefill_path']}, "
+             f"host state agreed: {rv['same_host_state']}, pool leaves "
+             f"agreed: {rv['same_pool_leaves']}")
+    tol = 0 if view == "f32" else BF16_DROPS_TOL * single["moe_drops"]
+    if abs(rv["moe_drops"] - single["moe_drops"]) > tol:
+        fail(f"{tag}: MoE drops {rv['moe_drops']}, unsharded "
+             f"{single['moe_drops']} (tolerance {tol:g})")
+
+
 def serve_sharded(torch, args, model, spec, eng_kw, totals, power_line,
-                  mesh_shape=(1, 2)):
-    """Mesh serving on the one card: OPT-6.7B BCQ-3 at full width
-    (``SHARDED_SERVE_LAYERS`` deep) written once through
-    ``quant/checkpoint.py`` to ``build/`` and served over a (1, 2) mesh
-    by two processes over gloo, each loading its shard (``sharded_rank``),
-    through bcq_matmul, lut_gemm and on the f32 view; the same requests
-    served unsharded here before them.  Gates, per rank: every decode
-    step's linears on the kernels' decode bodies and every chunk's on the
-    tensor-core tile at the shard shapes (route counters), the paged
-    kernels once a layer on its 16 heads, the pool shard's shape, finite
-    logits, the f32 view's first-prefill logits within 1e-3 of the
-    unsharded f32 view's scale, and the same host state on both ranks.
-    Printed: the share of equal greedy tokens (f32, bf16) and per rank
-    tok/s, TTFT p50, decode-step p50 and the collectives' share of a
-    step beside the unsharded run."""
+                  mesh_shape=(1, 2), kind="opt"):
+    """Mesh serving on the card(s): ``model`` (a phase-4 run's weights:
+    ``SHARDED_KINDS[kind]``, its first ``layers``) written
+    once through ``quant/checkpoint.py`` to ``build/`` and served over a
+    ``mesh_shape`` mesh by one process a rank (gloo where they share one
+    card), each loading its shard (``sharded_rank``), on each of the
+    kind's views; the same requests served unsharded here before them.
+    Gates, per rank: its cuts (``shard_gates``), the run's
+    (``sharded_rank_gates``), finite logits, the f32 view's
+    first-prefill logits within 1e-3 of the unsharded f32 view's scale,
+    and the same tokens on every rank.  Printed: the share of greedy
+    tokens equal to the unsharded run's (f32, bf16) and per rank tok/s,
+    TTFT p50, decode-step p50, the collectives' share of a step, host
+    syncs a step and MoE drops beside the unsharded run."""
     import numpy as np
     from repro_torch.launch.mesh import spawn
     from repro_torch.quant import save_quantized
 
     t_phase = time.perf_counter()
+    run = SHARDED_KINDS[kind]
     cfg = model.cfg
-    layers = min(SHARDED_SERVE_LAYERS, cfg.n_layers)
+    layers = min(run["layers"], cfg.n_layers)
     m = depth_view(model, layers) if layers < cfg.n_layers else model
+    kv_bits = run["kv_bits"]
+    m = m.with_config(kv_cache_bits=kv_bits)
     n = mesh_shape[0] * mesh_shape[1]
     tp = mesh_shape[1]
     # one rank a card where there are enough (NCCL), else all on one
     backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
-    log(f"serve_sharded: opt-6.7b at full width, {layers} of "
-        f"{cfg.n_layers} layers, BCQ-3 g 128, over a {tuple(mesh_shape)} "
-        f"mesh of {n} processes on {torch.cuda.device_count()} card(s) "
-        f"({backend})")
-    prompts = mix_prompts(args.seed, cfg.vocab_size)
+    log(f"serve_sharded[{kind}]: {cfg.name} at full width, {layers} of "
+        f"{cfg.n_layers} layers, {spec.describe()}, {kv_bits}-bit KV, "
+        f"over a {tuple(mesh_shape)} mesh of {n} processes on "
+        f"{torch.cuda.device_count()} card(s) ({backend}); "
+        f"{run['requests']} requests x {run['max_new']} new tokens")
+    prompts = mix_prompts(args.seed, cfg.vocab_size)[:run["requests"]]
     toks = torch.as_tensor(prompts[0][None, :128], device="cuda")
-    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
-    SHARDED_DIR.mkdir(parents=True)
+    out_dir = SHARDED_DIR / kind
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
     t0 = time.perf_counter()
-    save_quantized(str(SHARDED_DIR / "ckpt"), m.with_config(quant=spec),
+    save_quantized(str(out_dir / "ckpt"), m.with_config(quant=spec),
                    spec, arch=cfg.name)
     save_s = time.perf_counter() - t0
     want_logits = first_logits(torch, sharded_view(torch, m, spec, "f32"),
                                toks).cpu().numpy()
     single = {view: sharded_serve_run(
-        torch, f"single/{view}", sharded_view(torch, m, spec, view),
-        prompts, eng_kw) for view in SHARDED_VIEWS}
-    job = SHARDED_DIR / "job.json"
+        torch, f"single/{kind}/{view}", sharded_view(torch, m, spec, view),
+        prompts, eng_kw, max_new=run["max_new"]) for view in run["views"]}
+    job = out_dir / "job.json"
     job.write_text(json.dumps(dict(
-        mesh=list(mesh_shape), backend=backend,
-        ckpt=str(SHARDED_DIR / "ckpt"), layers=layers,
+        kind=kind, arch=run["arch"], mesh=list(mesh_shape), backend=backend,
+        ckpt=str(out_dir / "ckpt"), layers=layers, kv_bits=kv_bits,
+        views=list(run["views"]), max_new=run["max_new"],
         prompts=[p.tolist() for p in prompts], eng_kw=eng_kw,
-        out=str(SHARDED_DIR))))
+        out=str(out_dir))))
     t0 = time.perf_counter()
     outs = spawn([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-job",
                   str(job)], n, timeout=900)
@@ -4095,46 +4311,28 @@ def serve_sharded(torch, args, model, spec, eng_kw, totals, power_line,
         for line in out.splitlines():
             log(f"  [rank {r}] {line}")
         if rc != 0:
-            fail(f"serve_sharded: rank {r} exited {rc}:\n{err[-3000:]}")
-    ranks = [json.loads((SHARDED_DIR / f"rank{r}.json").read_text())
+            fail(f"serve_sharded[{kind}]: rank {r} exited {rc}:\n"
+                 f"{err[-3000:]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(n)]
     step_lin, chunk_lin = step_linears(m.cfg)
-    report = dict(layers=layers, mesh=list(mesh_shape), backend=backend,
-                  save_s=save_s, ranks_s=ranks_s, card=power_line,
-                  single={}, ranks=[])
-    for view in SHARDED_VIEWS:
-        gemm = "lut_gemm" if view == "lut_pallas" else "bcq_matmul"
+    report = dict(kind=kind, arch=run["arch"], layers=layers,
+                  mesh=list(mesh_shape), backend=backend, save_s=save_s,
+                  ranks_s=ranks_s, card=power_line, single={}, ranks=[])
+    for view in run["views"]:
+        gemm = "lut_gemm" if view == "lut_pallas" else (
+            "ternary_matmul" if spec.format == "ternary" else "bcq_matmul")
         sv = single[view]
         report["single"][view] = {k: sv[k] for k in (
             "tokens_per_s", "ttft_p50_ms", "decode_step_ms_p50",
-            "decode_steps", "wall_s")}
+            "decode_steps", "wall_s", "moe_drops")}
         for rk in ranks:
             rv = rk["runs"][view]
-            tag = f"serve_sharded[rank {rk['rank']}/{view}]"
-            for k in ("paged_decode", "paged_prefill", gemm):
+            tag = f"serve_sharded[{kind}/rank {rk['rank']}/{view}]"
+            for k in {run["attn"], run["prefill"], gemm} - {None}:
                 totals[k] += rv["launches"][k]
-            route_totals(tag, gemm, rv["step_routes"], rv["chunk_routes"],
-                         {k: n for k, n in rv["routes"].items()
-                          if k.split("/")[0] in ROUTED},
-                         linears=step_lin, chunk_linears=chunk_lin)
-            if gemm == "lut_gemm":
-                # lut_gemm's decode rows run its LUT body, every linear
-                for i, r in enumerate(rv["step_routes"]):
-                    if r.get("lut_gemm/lut", 0) != step_lin:
-                        fail(f"{tag}: decode step {i} bodies {r}")
-            for i, n in enumerate(rv["step_launches"]):
-                if n["paged_decode"] != layers:
-                    fail(f"{tag}: decode step {i} launched paged_decode "
-                         f"{n['paged_decode']} times, not once a layer")
-            if rv["launches"]["paged_prefill"] != \
-                    layers * len(rv["chunk_routes"]):
-                fail(f"{tag}: paged_prefill not once a layer a chunk")
-            if rv["k_shape"] != [eng_kw["num_blocks"], eng_kw["block_size"],
-                                 cfg.n_kv_heads // tp, cfg.head_dim_]:
-                fail(f"{tag}: pool shard {rv['k_shape']}")
-            if rv["decode_path"] != "fused" or not rv["same_host_state"]:
-                fail(f"{tag}: path {rv['decode_path']}, host state "
-                     f"agreed: {rv['same_host_state']}")
+            sharded_rank_gates(tag, view, rv, m.cfg, tp, layers, run, gemm,
+                               eng_kw, step_lin, chunk_lin, sv)
             if rv["tokens"] != ranks[0]["runs"][view]["tokens"]:
                 fail(f"{tag}: the ranks emitted different tokens")
         r0 = ranks[0]["runs"][view]
@@ -4142,47 +4340,49 @@ def serve_sharded(torch, args, model, spec, eng_kw, totals, power_line,
                    zip(sv["tokens"][u], r0["tokens"][u]))
         total = sum(len(t) for t in sv["tokens"].values())
         report["single"][view]["equal_token_share"] = same / total
-        log(f"serve_sharded[{view}]: greedy tokens equal to the unsharded "
-            f"run's: {same}/{total} = {same / total:.1%}; unsharded "
-            f"{sv['tokens_per_s']:.1f} tok/s, TTFT p50 "
+        log(f"serve_sharded[{kind}/{view}]: greedy tokens equal to the "
+            f"unsharded run's: {same}/{total} = {same / total:.1%}; "
+            f"unsharded {sv['tokens_per_s']:.1f} tok/s, TTFT p50 "
             f"{sv['ttft_p50_ms']:.1f} ms, decode step p50 "
-            f"{sv['decode_step_ms_p50']:.2f} ms; " + "; ".join(
+            f"{sv['decode_step_ms_p50']:.2f} ms, MoE drops "
+            f"{sv['moe_drops']}; " + "; ".join(
                 f"rank {rk['rank']}: {rk['runs'][view]['tokens_per_s']:.1f}"
                 f" tok/s, TTFT p50 {rk['runs'][view]['ttft_p50_ms']:.1f} ms,"
                 f" decode step p50 "
                 f"{rk['runs'][view]['decode_step_ms_p50']:.2f} ms, "
                 f"collectives {rk['runs'][view]['comm_share_p50']:.1%} of "
-                f"a step ({rk['runs'][view]['host_syncs_per_step']} host "
-                "syncs a step)" for rk in ranks) + f"; card {power_line}")
+                f"a step ({rk['runs'][view]['host_syncs_per_step']:g} host "
+                f"syncs a step), MoE drops {rk['runs'][view]['moe_drops']}"
+                for rk in ranks) + f"; card {power_line}")
     for rk in ranks:
         if "async" in rk:
             a = rk["async"]
-            log(f"serve_sharded[rank {rk['rank']}/async]: tokens equal to "
-                f"the sync run's; {a['strict_ticks']} decode-only ticks "
-                f"under sync debug mode 'error', tick p50 "
+            log(f"serve_sharded[{kind}/rank {rk['rank']}/async]: tokens "
+                f"equal to the sync run's; {a['strict_ticks']} decode-only "
+                f"ticks under sync debug mode 'error', tick p50 "
                 f"{a['tick_ms_p50']:.2f} ms, {a['host_syncs']} collectives "
                 "staged through host memory")
-        got = np.load(SHARDED_DIR / f"logits{rk['rank']}.npy")
+        got = np.load(out_dir / f"logits{rk['rank']}.npy")
         if got.shape != want_logits.shape or not np.isfinite(got).all():
-            fail(f"serve_sharded: rank {rk['rank']} first-prefill logits "
-                 "bad")
+            fail(f"serve_sharded[{kind}]: rank {rk['rank']} first-prefill "
+                 "logits bad")
         rel = float(np.abs(got - want_logits).max()) / float(
             np.abs(want_logits).max())
-        log(f"serve_sharded[rank {rk['rank']}]: f32 view's first-prefill "
-            f"logits vs the unsharded f32 view: rel err {rel:.3e} <= "
-            f"{F32_LOGIT_TOL:g}: {rel <= F32_LOGIT_TOL}")
+        log(f"serve_sharded[{kind}/rank {rk['rank']}]: f32 view's "
+            f"first-prefill logits vs the unsharded f32 view: rel err "
+            f"{rel:.3e} <= {F32_LOGIT_TOL:g}: {rel <= F32_LOGIT_TOL}")
         if not rel <= F32_LOGIT_TOL:
-            fail("serve_sharded: the sharded f32 view disagrees")
+            fail(f"serve_sharded[{kind}]: the sharded f32 view disagrees")
         rk["f32_first_logits_rel_err"] = rel
         report["ranks"].append({k: v for k, v in rk.items()
                                 if k != "runs"} | {
-            "runs": {view: {k: v for k, v in run.items() if k not in (
+            "runs": {view: {k: v for k, v in r.items() if k not in (
                 "step_launches", "step_routes", "chunk_routes", "tokens")}
-                for view, run in rk["runs"].items()}})
-    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+                for view, r in rk["runs"].items()}})
+    shutil.rmtree(out_dir, ignore_errors=True)
     report["phase_s"] = time.perf_counter() - t_phase
-    log(f"serve_sharded: checkpoint written in {save_s:.1f} s, ranks ran "
-        f"{ranks_s:.1f} s, phase {report['phase_s']:.1f} s")
+    log(f"serve_sharded[{kind}]: checkpoint written in {save_s:.1f} s, "
+        f"ranks ran {ranks_s:.1f} s, phase {report['phase_s']:.1f} s")
     return report
 
 
@@ -4986,6 +5186,9 @@ def main():
                     help="run only the build and serve_sharded on a DxM "
                          "mesh, one rank a card where there are D*M cards "
                          "(NCCL), e.g. 2x2 on four cards")
+    ap.add_argument("--sharded-kinds", default="opt,minicpm3,deepseek",
+                    help="the serve_sharded runs of --sharded-mesh, of "
+                         + ", ".join(SHARDED_KINDS))
 
     args = ap.parse_args()
     if args.rank_job:
@@ -5183,6 +5386,17 @@ def main():
             r = [r for r in results[name] if "ms" in r and r["h"] == 128][0]
             kernels[-1]["deepseek"] = {k: r[k] for k in (
                 "b", "h", "lora", "dr", "splits", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            # the tp-2 shards serve_sharded runs: 20 and 64 heads
+            kernels[-1]["tp2_shards"] = [{k: r[k] for k in (
+                "b", "h", "lora", "dr", "splits", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for r in results[name] if "ms" in r and r["h"] in (20, 64)]
+        if name in ("paged_decode_int8", "paged_prefill_int8"):
+            # OPT-6.7B's 16-head slice at tp 2 (serve_sharded)
+            r = [r for r in results[name] if "ms" in r and r["h"] == 16][0]
+            kernels[-1]["tp2_shard"] = {k: r.get(k) for k in (
+                "b", "c", "h", "hkv", "splits", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name == "ternary_matmul":
             kernels[-1]["case"]["splits"] = sel["splits"]

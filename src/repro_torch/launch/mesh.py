@@ -181,14 +181,32 @@ class Mesh:
         dist.broadcast(t, src=0, group=self.host_group)
         return float(t[0])
 
-    def same_on_all(self, obj) -> bool:
-        """Whether every rank holds an equal ``obj`` (picklable)."""
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj`` (picklable), by rank, on every rank."""
         if self.size_total == 1:
-            return True
+            return [obj]
         import torch.distributed as dist
         out = [None] * self.size_total
         dist.all_gather_object(out, obj, group=self.host_group)
+        return out
+
+    def same_on_all(self, obj) -> bool:
+        """Whether every rank holds an equal ``obj`` (picklable)."""
+        out = self.gather_objects(obj)
         return all(o == out[0] for o in out)
+
+    def same_within(self, obj, axis: str) -> bool:
+        """Whether the ranks of each ``axis`` group (the ranks that differ
+        only along ``axis``) hold an equal ``obj``; the same answer on
+        every rank."""
+        i = self.axis_names.index(axis)
+        first = {}
+        for r, o in enumerate(self.gather_objects(obj)):
+            key = tuple(c for j, c in enumerate(_coords(r, self.shape))
+                        if j != i)
+            if first.setdefault(key, o) != o:
+                return False
+        return True
 
     def reset_counters(self) -> None:
         self.host_syncs = self.collectives = 0

@@ -89,9 +89,13 @@ under ``torchrun``, the CPU included::
 ``--tp N`` pinning the model axis; ``DxM`` must multiply to the world
 size.  Each rank builds the weights on the host, quantizes them there
 and moves only its slice to its device; every rank runs the same
-engine and only rank 0 prints.  The reference's refusals hold: the
-mesh needs the paged engine, ``--tp`` needs ``--mesh auto`` (or agrees
-with ``DxM``) and must divide the world size.
+engine and only rank 0 prints, with every rank's MoE drops and host
+syncs a decode step.  MLA (MiniCPM3, DeepSeek-V2), MoE (DeepSeek-V2)
+and int8-KV configs serve over the mesh as GQA ones do.  The
+reference's refusals hold: the mesh needs the paged engine (so no
+Mamba layers, sliding window or encoder-decoder), ``--tp`` needs
+``--mesh auto`` (or agrees with ``DxM``) and must divide the world
+size.
 """
 import argparse
 import contextlib
@@ -427,9 +431,16 @@ def _main(args):
     if mesh is not None:
         if not mesh.same_on_all(eng.host_state()):
             raise SystemExit("[launch.serve] the ranks' host state diverged")
+        if not mesh.same_within(eng.pool_state(), "model"):
+            raise SystemExit("[launch.serve] the pool leaves a model group "
+                             "holds whole diverged")
         print(f"[launch.serve] rank 0: {mesh.collectives} collectives "
               f"({mesh.comm_s:.3f} s), {mesh.host_syncs} staged through "
               f"host memory; decode path {eng.decode_path}")
+        for r, rep in enumerate(mesh.gather_objects(eng.rank_report())):
+            print(f"[launch.serve] rank {r}: MoE drops {rep['moe_drops']}, "
+                  f"host syncs a decode step "
+                  f"{rep['host_syncs_per_step']:g}")
     if engine == "paged":
         s = eng.metrics.summary()
         print(f"[launch.serve] ttft p50={s['ttft_s']['p50']*1e3:.1f}ms  "

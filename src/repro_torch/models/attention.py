@@ -75,7 +75,14 @@ not (narrow GQA: 2 kv heads on tp 4), the pool shards ``head_dim``
 instead (the reference's divisibility fallback), the capability check
 refuses the fused kernels with reason ``tp`` even when ``fused`` is
 forced, and the gathered view is assembled across the ``model`` group
-before attention (:class:`AttnTP`).
+before attention (:class:`AttnTP`).  An int8 pool's scale pools take
+its kv-heads cut; where it cuts ``head_dim`` each (token, head) row is
+quantized whole before the cut and the scale pools hold every head.
+An MLA layer runs its query heads per rank (``q_b`` column-parallel,
+``kv_b`` cut to the rank's heads, ``o`` row-parallel) against the
+latent pool, which every rank holds whole and writes alike (the
+reference's shard_map keeps it replicated); heads that do not divide
+the axis run whole on every rank, gathered.
 """
 from __future__ import annotations
 
@@ -421,10 +428,11 @@ def paged_prefill_attend(q, cache, positions, *, scale=None, mode="auto"):
 
 
 class AttnTP:
-    """A GQA layer's cut over the ``model`` axis.  ``heads`` (h0, h1):
-    the query heads this rank attends for (all of them where the heads
-    do not divide tp); ``pool``: how its pool slice is cut, ``("kv_heads",
-    k0, k1)``, ``("head_dim", d0, d1)`` or None (replicated).  The fused
+    """An attention layer's cut over the ``model`` axis.  ``heads`` (h0,
+    h1): the query heads this rank attends for (all of them where the
+    heads do not divide tp); ``pool``: how its pool slice is cut,
+    ``("kv_heads", k0, k1)``, ``("head_dim", d0, d1)`` or None
+    (replicated: an MLA layer's latent pool always).  A GQA layer's fused
     kernels run only on a kv-heads slice (``local``)."""
 
     def __init__(self, mesh, heads, pool):
@@ -552,12 +560,18 @@ class Attention(nn.Module):
             out = blockwise_attention(q, k, v, positions, positions,
                                       causal=causal)
         else:
-            if kind == "head_dim":
-                updates = {"k": k[..., tp.pool[1]:tp.pool[2]],
-                           "v": v[..., tp.pool[1]:tp.pool[2]]}
+            if cache["k"].dtype == torch.int8:
+                # each (token, head) row quantized whole, then cut: a
+                # head_dim slice keeps the full row's scale (the scale
+                # pools hold every kv head there)
+                (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+                updates = {"k_scale": ks, "v_scale": vs}
             else:
-                updates = {"k": k, "v": v}
-            cache = cache_insert(cache, updates, cache_at)
+                updates = {}
+            if kind == "head_dim":
+                k, v = (t[..., tp.pool[1]:tp.pool[2]] for t in (k, v))
+            cache = cache_insert(cache, {"k": k, "v": v, **updates},
+                                 cache_at)
             if kind == "kv_heads":
                 attend = (paged_decode_attend if s == 1
                           else paged_prefill_attend)
@@ -566,15 +580,22 @@ class Attention(nn.Module):
                 # negotiated down: the gathered view, whole across the
                 # model group, then every local query head's kv entry
                 view = paged_view(cache)
-                kf, vf = view["k"], view["v"]
                 if kind == "head_dim":
-                    kf = mesh.all_gather(kf, "model", dim=-1)
-                    vf = mesh.all_gather(vf, "model", dim=-1)
-                kf, vf = _heads_of(kf, h0, h1, rep), _heads_of(vf, h0, h1, rep)
+                    for key in ("k", "v"):
+                        view[key] = mesh.all_gather(view[key], "model",
+                                                    dim=-1)
+                for key in ("k", "v", "k_scale", "v_scale"):
+                    if key in view:
+                        view[key] = _heads_of(view[key], h0, h1, rep)
                 if s == 1:
-                    out = decode_attend(q, {"k": kf, "v": vf,
-                                            "pos": view["pos"]}, positions)
+                    out = decode_attend(q, view, positions)
                 else:
+                    kf, vf = view["k"], view["v"]
+                    if "k_scale" in view:
+                        kf = (kf.float() * view["k_scale"][..., None]
+                              ).to(q.dtype)
+                        vf = (vf.float() * view["v_scale"][..., None]
+                              ).to(q.dtype)
                     out = blockwise_attention(q, kf, vf, positions,
                                               view["pos"], causal=True)
         out = reslice(out.reshape(b, s, (h1 - h0) * hd), heads,
@@ -708,6 +729,7 @@ class MLAttention(nn.Module):
                            device=device)
         self.o = Linear(d, h * dv, bias=False, dtype=dtype, device=device)
         self._kv_b_split = None     # (weight, version, w_uk, w_uv)
+        self.tp: Optional[AttnTP] = None
 
     def init_params(self, generator: torch.Generator) -> None:
         self.q_a_norm.fill_(1.0)
@@ -715,7 +737,8 @@ class MLAttention(nn.Module):
 
     def absorbed_weights(self):
         """(w_uk [H, dn, lora], w_uv [H, dv, lora]) in f32 for the current
-        ``kv_b`` weight."""
+        ``kv_b`` weight: over a mesh, of the heads whose rows this rank's
+        ``kv_b`` holds."""
         from repro_torch.core.plane import PlaneBundle, dequantize
         w = self.kv_b.weight
         cfg = self.cfg
@@ -724,7 +747,7 @@ class MLAttention(nn.Module):
                 and torch.is_grad_enabled():
             # a training forward: the split is part of what autograd
             # differentiates, so it is computed anew, never kept
-            w3 = w.float().reshape(cfg.n_heads, dn + cfg.v_head_dim,
+            w3 = w.float().reshape(-1, dn + cfg.v_head_dim,
                                    cfg.kv_lora_rank)
             return w3[:, :dn], w3[:, dn:]
         # keyed by the weight object and, for a tensor, its version (an
@@ -734,23 +757,38 @@ class MLAttention(nn.Module):
                 or self._kv_b_split[1] != key[1]:
             dense = (dequantize(w, torch.float32)
                      if isinstance(w, PlaneBundle) else w.detach().float())
-            w3 = dense.reshape(cfg.n_heads, dn + cfg.v_head_dim,
-                               cfg.kv_lora_rank)
+            w3 = dense.reshape(-1, dn + cfg.v_head_dim, cfg.kv_lora_rank)
             self._kv_b_split = (w, key[1], w3[:, :dn].contiguous(),
                                 w3[:, dn:].contiguous())
         return self._kv_b_split[2], self._kv_b_split[3]
 
     def forward(self, x, positions, *, cache: Optional[dict] = None,
                 cache_at=None, backend=None, paged_kernel: str = "auto"):
+        """The layer, or over a mesh (``tp``) this rank's query heads of
+        it: ``q_a``, ``kv_a`` and the latent pool whole on every rank
+        (each inserts the same latent), ``q_b`` column-parallel and
+        ``kv_b`` cut on the rank's heads, ``o`` row-parallel.  Where the
+        heads do not divide the model axis every rank attends for all of
+        them on the gathered path, as the reference negotiates."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = cfg.n_heads
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         dv, lora = cfg.v_head_dim, cfg.kv_lora_rank
         scale = (dn + dr) ** -0.5
+        tp = self.tp
+        mesh = tp.mesh if tp is not None else None
+        h0, h1 = tp.heads if tp is not None else (0, h)
+        hl = h1 - h0
+        whole = hl == h
+        if tp is not None and not tp_supported(cfg, "paged_decode_mla",
+                                               mesh.size("model")):
+            paged_kernel = "gather"
 
         qa = _rms(self.q_a(x, backend), self.q_a_norm)
-        q = self.q_b(qa, backend).reshape(b, s, h, dn + dr)
+        q = reslice(self.q_b(qa, backend), self.q_b.out_slice,
+                    None if whole else (h0 * (dn + dr), h1 * (dn + dr)),
+                    mesh).reshape(b, s, hl, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -759,6 +797,8 @@ class MLAttention(nn.Module):
         krope = apply_rope(kv_a[..., lora:][:, :, None, :], positions,
                            cfg.rope_theta)[:, :, 0, :]       # shared head
         w_uk, w_uv = self.absorbed_weights()
+        if w_uk.shape[0] != hl:
+            w_uk, w_uv = w_uk[h0:h1], w_uv[h0:h1]
 
         if cache is not None:
             cache = cache_insert(cache, {"ckv": ckv, "krope": krope},
@@ -787,9 +827,12 @@ class MLAttention(nn.Module):
             k_nope = torch.einsum("bkl,hnl->bkhn", c, w_uk)
             v = torch.einsum("bkl,hvl->bkhv", c, w_uv)
             k_full = torch.cat([k_nope, krope_all.float()[:, :, None, :]
-                                .expand(-1, -1, h, dr)], dim=-1)
+                                .expand(-1, -1, hl, dr)], dim=-1)
             q_full = torch.cat([q_nope, q_rope], dim=-1).float()
             out = blockwise_attention(q_full, k_full, v, positions, kpos,
                                       causal=True, scale=scale)
-        out = self.o(out.reshape(b, s, h * dv).to(x.dtype), backend)
+        out = reslice(out.reshape(b, s, hl * dv).to(x.dtype),
+                      None if whole else (h0 * dv, h1 * dv),
+                      self.o.in_slice, mesh)
+        out = self.o(out, backend)
         return (out, cache) if cache is not None else out

@@ -41,9 +41,10 @@ from a reference-layout tree: each leaf cut by its logical axes
 (``models/module.py``) under the sharding rules
 (``parallel/sharding.py``), only the rank's slice moved to the device,
 and each module given its tensor-parallel plan (``models/layers.py``,
-``models/attention.py``).  Only the ``model`` axis cuts weights (the
-serving engine splits rows over ``data``); a rule that maps a weight
-axis onto another mesh axis leaves it replicated there.
+``models/attention.py``, ``models/moe.py``: a MoE layer's f32 router
+stays whole).  Only the ``model`` axis cuts weights (the serving engine
+splits rows over ``data``); a rule that maps a weight axis onto another
+mesh axis leaves it replicated there.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ from repro_torch.core import prng
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import Embed, Linear, Norm, _normal_
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import init_ssm_cache
 from repro_torch.models.transformer import Stack, layer_plan
 from repro_torch.tree import tree_leaves
@@ -778,28 +780,24 @@ def load_params_(model: Model, tree: dict) -> None:
 
 
 def check_meshable(cfg) -> None:
-    """Refuse what the mesh path does not serve yet (ROADMAP.md queue 1,
-    sharding's next cut): MLA, MoE, Mamba layers, an int8 KV cache,
-    sliding windows, encoder-decoders."""
+    """Refuse what the reference's mesh engine cannot serve: its one mesh
+    engine is the paged one, and its paged cache holds attention-only
+    decoders without a sliding window (``repro/models/model.py:119-122``,
+    ``repro/models/attention.py:247-249``).  So Mamba layers, a sliding
+    window and an encoder-decoder are refused; MLA, MoE and an int8 KV
+    cache are served."""
     what = []
-    if cfg.attention == "mla":
-        what.append("MLA attention")
-    if cfg.n_experts:
-        what.append("MoE layers")
     if any(kind != "attn" for kind, _ in layer_plan(cfg)):
         what.append("Mamba layers")
-    if cfg.kv_cache_bits == 8:
-        what.append("an int8 KV cache")
     if cfg.sliding_window:
         what.append("a sliding window")
     if cfg.is_encdec:
         what.append("an encoder-decoder")
     if what:
         raise NotImplementedError(
-            f"{cfg.name} has {', '.join(what)}: serving over a mesh is "
-            "ported for float-KV GQA/MHA decoders only (ROADMAP.md queue "
-            "1, item 10's next cut: sharding MLA, MoE, SSM, int8-KV and "
-            "sliding-window configs)")
+            f"{cfg.name} has {', '.join(what)}: only the paged engine "
+            "serves over a mesh, and a paged cache holds attention-only "
+            "decoders without a sliding window, as the reference's")
 
 
 def _model_axis_only(specs):
@@ -818,35 +816,63 @@ def _model_axis_only(specs):
     return _map(specs, leaf)
 
 
-def _linear_tp(lin: Linear, full, spec, mesh) -> None:
-    """Give ``lin`` its cut from its full leaf and spec."""
-    from repro_torch.models.layers import LinearTP
+def _cuts(full, spec, mesh):
+    """(lead, out, in) slices of a weight leaf ([*lead, out, in] dense, or
+    a bundle with packed [*lead, q, out, in/8]) under its spec: each
+    (start, stop) of the full width or None; an input slice past a
+    bundle's real width keeps only its real columns."""
     from repro_torch.parallel.sharding import dim_slice, is_bundle
     if is_bundle(full):
         get = full.get if isinstance(full, dict) else \
             (lambda k: getattr(full, k))
-        rows, cols = int(get("out_features")), get("packed").shape[-1] * 8
+        shape = tuple(get("packed").shape)
+        rows, cols = int(get("out_features")), shape[-1] * 8
         in_features = int(get("in_features"))
-        entries = list(spec.packed) + [None] * (3 - len(spec.packed))
+        entries = list(spec.packed) + [None] * (len(shape) - len(spec.packed))
+        lead = entries[:len(shape) - 3]
     else:
-        rows, cols = full.shape
+        shape = tuple(full.shape)
+        rows, cols = shape[-2:]
         in_features = cols
-        entries = list(spec) + [None] * (2 - len(spec))
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        lead = entries[:len(shape) - 2]
+    lead_slice = (dim_slice(shape[0], lead[0], mesh) if lead else None)
     out_slice = dim_slice(rows, entries[-2], mesh)
     in_slice = dim_slice(cols, entries[-1], mesh)
     if in_slice is not None:
         in_slice = (in_slice[0], min(in_slice[1], in_features))
+    return lead_slice, out_slice, in_slice
+
+
+def _linear_tp(lin: Linear, full, spec, mesh) -> None:
+    """Give ``lin`` its cut from its full leaf and spec."""
+    from repro_torch.models.layers import LinearTP
+    _, out_slice, in_slice = _cuts(full, spec, mesh)
     if out_slice is not None or in_slice is not None:
         lin.tp = LinearTP(mesh, out_slice, in_slice)
 
 
+def _whole(spec):
+    """A leaf's spec replicated (a bundle's fields too)."""
+    from repro_torch.parallel.sharding import BundleSpecs
+    if isinstance(spec, BundleSpecs):
+        return BundleSpecs((), (), None if spec.z is None else ())
+    return ()
+
+
 def _attn_tp(cfg, mesh, rules):
-    """A GQA layer's plan (``AttnTP``) on ``mesh``: the pool's cut from
-    its logical axes, the query heads split where they divide."""
+    """An attention layer's plan (``AttnTP``) on ``mesh``: the query
+    heads split where they divide, and a GQA pool's cut from its logical
+    axes (an MLA latent pool is whole on every rank)."""
     from repro_torch.models.module import paged_layer_axes
     from repro_torch.parallel.sharding import dim_slice, spec_for
+    h, tp = cfg.n_heads, mesh.size("model")
+    m = mesh.index("model")
+    heads = (m * h // tp, (m + 1) * h // tp) if h % tp == 0 else (0, h)
+    if cfg.attention == "mla":
+        return attn.AttnTP(mesh, heads, None), None
     hkv = cfg.n_kv_heads * cfg.kv_replication
-    hd, h, tp = cfg.head_dim_, cfg.n_heads, mesh.size("model")
+    hd = cfg.head_dim_
     spec = spec_for((1, 1, hkv, hd), paged_layer_axes(cfg)["k"], mesh,
                     rules)
     spec = tuple(e if e == "model" else None for e in spec) + (None,) * 4
@@ -857,9 +883,34 @@ def _attn_tp(cfg, mesh, rules):
             pool = (name, *cut)
             kv_shape = (cut[1] - cut[0], hd) if dim == 0 else \
                 (hkv, cut[1] - cut[0])
-    m = mesh.index("model")
-    heads = (m * h // tp, (m + 1) * h // tp) if h % tp == 0 else (0, h)
     return attn.AttnTP(mesh, heads, pool), kv_shape
+
+
+def _whole_leaves(cfg, specs, mesh) -> None:
+    """Keep whole, in ``specs`` (in place), the leaves the plans hold
+    whole: a MoE layer's f32 router (routing runs on every rank as
+    unsharded), and an MLA layer's ``kv_b`` where the heads do not
+    divide the model axis (every rank absorbs all of them)."""
+    mla_whole = cfg.attention == "mla" and cfg.n_heads % mesh.size("model")
+    for sp in specs["stack"]["layers"]:
+        mlp = sp.get("mlp") or {}
+        if "router" in mlp:
+            mlp["router"] = _whole(mlp["router"])
+        if mla_whole:
+            sp["mixer"]["kv_b"] = _whole(sp["mixer"]["kv_b"])
+
+
+def _moe_tp(tree, sp, mesh):
+    """A MoE layer's plan from its banks' specs: the experts' slice where
+    the experts claim the model axis, else each expert's cut of
+    ``moe_d_ff`` (``gate`` / ``up`` rows and ``down`` columns alike)."""
+    from repro_torch.models.moe import MoETP
+    experts, rows, _ = _cuts(tree["gate"], sp["gate"], mesh)
+    _, _, cols = _cuts(tree["down"], sp["down"], mesh)
+    if rows != cols:
+        raise ValueError(f"expert gate rows {rows} and down columns {cols} "
+                         "are cut differently")
+    return MoETP(mesh, experts, rows)
 
 
 def _tensors_all(model):
@@ -875,8 +926,9 @@ def shard_model(params: dict, cfg, mesh, rules: Optional[dict] = None,
     ``build_specs`` under ``rules`` (default ``make_rules()``), only this
     rank's slice moved to ``device`` (default the mesh's), the linears
     column- or row-parallel by their specs, the embedding and head
-    vocab-parallel, each attention layer's heads and pool cut.  The
-    full tree never reaches the device."""
+    vocab-parallel, each attention layer's heads and pool cut, each MoE
+    layer's experts (or each expert's rows and columns) cut.  The full
+    tree never reaches the device."""
     from repro_torch.models.module import logical_axes
     from repro_torch.parallel import sharding as shd
     check_meshable(cfg)
@@ -887,6 +939,7 @@ def shard_model(params: dict, cfg, mesh, rules: Optional[dict] = None,
     full["stack"] = {"layers": layer_trees(params["stack"], cfg.n_layers)}
     axes = logical_axes(cfg.replace(scan_layers=False))
     specs = _model_axis_only(shd.build_specs(full, axes, mesh, rules))
+    _whole_leaves(cfg, specs, mesh)
     local = shd.shard_tree(full, specs, mesh)
     model = from_jax_params(local, cfg, device=device, _meta=True)
     model.mesh = mesh
@@ -899,18 +952,26 @@ def shard_model(params: dict, cfg, mesh, rules: Optional[dict] = None,
                    mesh)
     plan, kv_shape = _attn_tp(cfg, mesh, rules)
     model.kv_shape = kv_shape
+    linears = (("q_a", "q_b", "kv_a", "o") if cfg.attention == "mla"
+               else ("q", "k", "v", "o"))
     for block, tree, sp in zip(model.stack.layers, full["stack"]["layers"],
                                specs["stack"]["layers"]):
         block.mixer.tp = plan
-        for name in ("q", "k", "v", "o"):
+        for name in linears:
             _linear_tp(getattr(block.mixer, name), tree["mixer"][name],
                        sp["mixer"][name], mesh)
-        if block.mlp is not None:
+        if isinstance(block.mlp, MoE):
+            block.mlp.tp = _moe_tp(tree["mlp"], sp["mlp"], mesh)
+            names = ("shared_gate", "shared_up", "shared_down")
+        elif block.mlp is not None:
             block.mlp.mesh = mesh
-            for name in ("gate", "up", "down"):
-                if name in tree["mlp"]:
-                    _linear_tp(getattr(block.mlp, name), tree["mlp"][name],
-                               sp["mlp"][name], mesh)
+            names = ("gate", "up", "down")
+        else:
+            names = ()
+        for name in names:
+            if name in tree["mlp"]:
+                _linear_tp(getattr(block.mlp, name), tree["mlp"][name],
+                           sp["mlp"][name], mesh)
     left = [t for t in _tensors_all(model) if t.device.type == "meta"]
     if left:
         raise ValueError(f"shard_model: {len(left)} parameters were not in "

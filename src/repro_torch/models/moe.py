@@ -29,15 +29,29 @@ On the meta device (shape only: the dry run's FLOP count) every
 expert runs its C slots, the products of the reference's batched einsum
 over all E experts.  ``router_aux_loss`` is the reference's Switch-style
 load-balancing loss.
+
+Over a mesh (``MoETP``, set by ``shard_model``) the experts go over the
+``model`` axis where they divide it (each rank runs only its routed
+experts), else every expert's ``gate`` / ``up`` rows and ``down``
+columns are cut (the rules' mlp-TP fallback); the shared experts are
+column- and row-parallel linears as a dense MLP's.  The f32 router is
+whole on every rank, so routing, capacity and drops are computed as
+unsharded, and the gated assignments are summed over the ranks before
+the k-sum: under expert parallelism that sum adds only zeros, and the
+routed part equals the unsharded layer's bit for bit.  The host read
+of the routed experts stays on every rank (a mesh counts it in
+``host_syncs`` on the card).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.plane import PlaneBundle, dequantize
-from repro_torch.models.layers import Linear, _normal_
+from repro_torch.models.layers import Linear, _normal_, reslice
 
 
 class ExpertBank(nn.Module):
@@ -109,6 +123,7 @@ class MoE(nn.Module):
             self.shared_down = Linear(d, fs, bias=False, dtype=dtype,
                                       device=device)
         self.last_keep = None
+        self.tp: Optional[MoETP] = None
 
     def init_params(self, generator: torch.Generator) -> None:
         _normal_(self.router, generator)
@@ -116,6 +131,28 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, backend=None) -> torch.Tensor:
         y, self.last_keep = moe_apply(self, self.cfg, x, backend=backend)
         return y
+
+
+class MoETP:
+    """A MoE layer's cut over the ``model`` axis (``shard_model``).
+    ``experts`` (e0, e1): the experts this rank's banks hold, where they
+    divide the axis (expert parallelism); else None, and the banks are
+    cut inside each expert: ``cut`` the slice of ``moe_d_ff`` this rank
+    holds (its ``gate`` / ``up`` rows and ``down`` input columns), None
+    where it is whole.  The router and the routing are whole on every
+    rank."""
+
+    def __init__(self, mesh, experts=None, cut=None):
+        self.mesh = mesh
+        self.experts = experts
+        self.cut = cut
+
+    @property
+    def partial(self) -> bool:
+        """Whether a rank's expert outputs are parts of a sum over the
+        ranks (an expert computed elsewhere is 0 here, or a row-parallel
+        ``down``)."""
+        return self.experts is not None or self.cut is not None
 
 
 def route(router: torch.Tensor, x: torch.Tensor, k: int):
@@ -174,26 +211,40 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
     xin.index_put_((rows, safe_e, safe_p), contrib, accumulate=True)
 
     # 4. the expert FFN, one routed expert at a time, f32 accumulation
-    # (a meta tensor cannot say which experts were routed to: every one)
-    routed = (range(e) if x.device.type == "meta"
-              else torch.unique(flat_e[keep]).tolist())
+    # (a meta tensor cannot say which experts were routed to: every one);
+    # over a mesh only this rank's experts, or its cut of each
+    tp = mod.tp
+    if x.device.type == "meta":
+        routed = range(e)
+    else:
+        routed = torch.unique(flat_e[keep]).tolist()
+        if tp is not None and x.device.type == "cuda":
+            tp.mesh.host_syncs += 1                # the host read above
+    e0, e1 = tp.experts if tp is not None and tp.experts else (0, e)
     yout = torch.zeros((b, e, cap, d), dtype=torch.float32, device=x.device)
     for ex in routed:
-        wg = mod.gate.expert(ex, mod.bank_dtype)
-        wu = mod.up.expert(ex, mod.bank_dtype)
+        if not e0 <= ex < e1:
+            continue
+        wg = mod.gate.expert(ex - e0, mod.bank_dtype)
+        wu = mod.up.expert(ex - e0, mod.bank_dtype)
         xe = xin[:, ex].to(wg.dtype).float()                 # [B, C, d]
         g = torch.matmul(xe, wg.float().T)
         u = torch.matmul(xe, wu.float().T)
         del wg, wu
         h = (F.silu(g) * u).to(x.dtype)
-        wd = mod.down.expert(ex, mod.bank_dtype)
+        wd = mod.down.expert(ex - e0, mod.bank_dtype)
         yout[:, ex] = torch.matmul(h.to(wd.dtype).float(), wd.float().T)
         del wd, g, u, h
 
-    # 5. combine: gather back, gate (in x.dtype), sum over k in f32
+    # 5. combine: gather back, gate (in x.dtype), sum over k in f32.  Over
+    # a mesh the gated assignments are summed over the ranks first: with
+    # experts cut each is computed on one rank and 0 on the others, so
+    # that sum is exact and the k-sum runs as unsharded
     vals = yout[rows, safe_e, safe_p]                        # [B, n, d]
     vals = torch.where(keep[..., None], vals, torch.zeros_like(vals)) \
         * gates.reshape(b, n)[..., None].to(x.dtype)
+    if tp is not None and tp.partial:
+        vals = tp.mesh.all_reduce(vals, "model")
     vals = vals.float().reshape(b, s, k, d)
     y = vals[:, :, 0]
     for j in range(1, k):
@@ -203,6 +254,9 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
         sg = mod.shared_gate(x, backend)
         su = mod.shared_up(x, backend)
         sh = F.silu(sg.float()).to(x.dtype) * su
+        if tp is not None:
+            sh = reslice(sh, mod.shared_up.out_slice,
+                         mod.shared_down.in_slice, tp.mesh)
         y = y + mod.shared_down(sh, backend).float()
     return y.to(x.dtype), keep.reshape(b, s, k)
 
@@ -225,5 +279,5 @@ def router_aux_loss(params, x: torch.Tensor, cfg) -> torch.Tensor:
     return cfg.n_experts * torch.sum(frac * probs.mean(0))
 
 
-__all__ = ["ExpertBank", "MoE", "moe_apply", "positions_in_expert", "route",
+__all__ = ["ExpertBank", "MoE", "MoETP", "moe_apply", "positions_in_expert", "route",
            "router_aux_loss"]

@@ -84,6 +84,7 @@ from repro_torch.core import prng
 from repro_torch.models.attention import (kv_entry_bytes, paged_kernel_mode,
                                           paged_prefill_mode)
 from repro_torch.models.model import sample_tokens, set_block_tables
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import layer_plan
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.trace import req_track
@@ -308,6 +309,12 @@ class PagedServeEngine:
         self._inflight: Optional[_InFlight] = None
         self.ticks = 0
         self.finished: list = []
+        # the MoE layers' drops over this engine's model calls (a device
+        # scalar); a mesh's host syncs inside the decode steps, and the
+        # steps
+        self._moes = [m for m in model.modules() if isinstance(m, MoE)]
+        self._drops = None
+        self._step_syncs = self._mesh_steps = 0
 
     # ------------------------------------------------------------------
     def attach_tracer(self, tracer) -> None:
@@ -582,16 +589,35 @@ class PagedServeEngine:
         """``Model.decode_and_sample`` over every row; over a mesh whose
         data axis splits the rows, on this rank's rows, their ids then
         gathered over ``data`` (int32 [max_batch] on every rank)."""
+        if self.mesh is None:
+            out = self.model.decode_and_sample(tokens, cache, pos, keys,
+                                               temps, topks)
+            self._count_drops()
+            return out
+        s0 = self.mesh.host_syncs
         if self._rows is None:
-            return self.model.decode_and_sample(tokens, cache, pos, keys,
-                                                temps, topks)
-        r = self._rows
-        cache = set_block_tables(cache,
-                                 cache["layers"][0]["block_tables"][r])
-        ids, cache = self.model.decode_and_sample(
-            tokens[r], cache, pos[r], None if keys is None else keys[r],
-            temps[r], topks[r])
-        return self.mesh.all_gather(ids, "data", dim=0), cache
+            out = self.model.decode_and_sample(tokens, cache, pos, keys,
+                                               temps, topks)
+        else:
+            r = self._rows
+            cache = set_block_tables(cache,
+                                     cache["layers"][0]["block_tables"][r])
+            ids, cache = self.model.decode_and_sample(
+                tokens[r], cache, pos[r], None if keys is None else keys[r],
+                temps[r], topks[r])
+            out = self.mesh.all_gather(ids, "data", dim=0), cache
+        self._count_drops()
+        self._step_syncs += self.mesh.host_syncs - s0
+        self._mesh_steps += 1
+        return out
+
+    def _count_drops(self) -> None:
+        """Add the drops of the model call just made (each MoE layer's
+        ``last_keep``) to the engine's count, on the device: nothing is
+        read back."""
+        for m in self._moes:
+            n = (~m.last_keep).sum()
+            self._drops = n if self._drops is None else self._drops + n
 
     def host_state(self) -> tuple:
         """A digest of the host state every rank of a mesh must agree on:
@@ -605,6 +631,44 @@ class PagedServeEngine:
                        [(r.uid, r.out_tokens, r.error)
                         for r in self.finished])).encode())
         return self.ticks, h.hexdigest()
+
+    def pool_state(self) -> str:
+        """A digest of the pool leaves this rank holds whole: every
+        layer's ``pos``, an MLA layer's latent pools, an int8 pool's
+        scales where its values are cut on ``head_dim``, every leaf of a
+        pool nothing cuts; the trash block 0 left out (pads and idle
+        rows write it, in an order a card does not fix, and nothing
+        reads it).  Every rank writes the same entries into them, so the
+        ranks of one ``model`` group must agree (``Mesh.same_within``);
+        the ranks of a ``data`` axis hold their own rows' decode
+        entries."""
+        import hashlib
+        h = hashlib.blake2b(digest_size=16)
+        for blk, layer in zip(self.model.stack.layers, self.cache["layers"]):
+            tp = blk.mixer.tp
+            kind = tp.pool[0] if tp is not None and tp.pool else None
+            cut = {"kv_heads": ("k", "v", "k_scale", "v_scale"),
+                   "head_dim": ("k", "v")}.get(kind, ())
+            for key in sorted(layer):
+                if key == "block_tables" or key in cut:
+                    continue
+                t = layer[key][1:].contiguous().view(torch.uint8)
+                h.update(key.encode())
+                h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def moe_drops(self) -> int:
+        """Assignments the model's MoE layers dropped beyond capacity over
+        this engine's calls (one host read)."""
+        return 0 if self._drops is None else int(self._drops)
+
+    def rank_report(self) -> dict:
+        """This rank's MoE drops and, over a mesh, its host syncs a decode
+        step (the mean; gloo stages a collective on the card through
+        host memory, and a MoE layer reads its routed experts)."""
+        return {"moe_drops": self.moe_drops(),
+                "host_syncs_per_step":
+                    self._step_syncs / max(1, self._mesh_steps)}
 
     def _sampler_args(self, rows, n: int):
         """Device (keys, temperature, top_k) of ``n`` sampler rows from
@@ -649,6 +713,7 @@ class PagedServeEngine:
                              bucket=bucket):
             logits, self.cache = self.model.prefill_chunk(
                 _to_device(toks, dev), cache, start, clen - 1)
+            self._count_drops()
         self.trace.instant("prefill_chunk", track=req_track(seq.uid),
                            cat="request", uid=seq.uid, start=start,
                            length=clen)

@@ -2,15 +2,22 @@
 over ``gloo`` ranks against the reference's single-device
 ``PagedServeEngine`` on the same numpy weights, token for token in f32.
 
-The six scenarios mirror the reference's ``tests/test_serve_sharded.py``
+Six scenarios mirror the reference's ``tests/test_serve_sharded.py``
 (GQA + BCQ-3 fused and gather; dense under preemption pressure; narrow
 GQA, whose pool shards ``head_dim`` and whose decode negotiates down to
 ``gather``; ``scan_layers``; async against sync with sampled rows; the
 prefix cache on, sharded, against off, single-device), plus a BCQ model
 whose row-parallel shard boundaries fall inside a group (those linears
-fall back to replication and gather their input).  The reference runs
-once per scenario in this process (module-scoped fixtures); every
-scenario of one mesh runs in one spawn of 4 ranks, (2, 2) or (1, 4).
+fall back to replication and gather their input).  The MLA, MoE and
+int8-KV configs: reduced MiniCPM3 (fused and gather at tp 2, one head a
+rank at tp 4, 6 heads that tp 4 does not divide), reduced DeepSeek-V2
+with its experts over the model axis at (2, 2) and (1, 4) (drops equal
+to the unsharded engine's, the routed part bit for bit) and with its
+experts kept whole (the mlp-TP fallback) on tp 4, reduced OPT with
+ternary weights and an int8 KV cache (fused and gather), and narrow GQA
+on an int8 pool.  The reference runs once per weight set in this process
+(module-scoped fixtures); every scenario of one mesh runs in one spawn
+of 4 ranks, (2, 2) or (1, 4).
 Also the launcher under ``torchrun`` at (1, 2) and its refusals.
 """
 import json
@@ -31,14 +38,18 @@ KW = dict(num_blocks=24, block_size=4, max_batch=4, max_seq_len=64,
           prefill_buckets=(8, 16))
 GQA = dict(dtype="float32", n_heads=8, n_kv_heads=4, head_dim=16)
 BCQ3 = dict(bits=3, group_size=32, iters=2, backend="bcq_xla")
+F32 = dict(dtype="float32")
+BCQ16 = dict(BCQ3, group_size=16)
+INT8 = dict(GQA, kv_cache_bits=8)
+TERNARY = dict(format="ternary", group_size=32, backend="bcq_xla")
 
 
-def _ref_setup(over, quant=None):
-    """(reference Model, params) of reduced OPT with ``over``."""
+def _ref_setup(over, quant=None, arch="opt_6_7b"):
+    """(reference Model, params) of reduced ``arch`` with ``over``."""
     import jax
     from repro.configs import get_reduced
     from repro.models import Model
-    cfg = get_reduced("opt_6_7b").replace(remat=False, **over)
+    cfg = get_reduced(arch).replace(remat=False, **over)
     model = Model(cfg)
     params = f32_params(model.init(jax.random.PRNGKey(0)))
     if quant:
@@ -124,7 +135,27 @@ def _mesh22_scenarios():
              runs=[dict(name="on", mode="fused", kind="prefix",
                         prefix=True)]),
     ]
+    mla_m, mla_p = _ref_setup(F32, BCQ16, "minicpm3_4b")
+    ds_m, ds_p = _ref_setup(F32, arch="deepseek_v2_236b")
+    int8_m, int8_p = _ref_setup(INT8, TERNARY)
+    both = [dict(name=m, mode=m, kind="sync") for m in ("fused", "gather")]
+    scenarios += [
+        dict(name="mla", arch="minicpm3_4b", over=F32, quant=BCQ16,
+             params=to_numpy_tree(mla_p), kw=KW, runs=both),
+        dict(name="deepseek", arch="deepseek_v2_236b", over=F32,
+             params=to_numpy_tree(ds_p), kw=KW, routed_exact=True,
+             runs=[dict(name="fused", mode="fused", kind="sync")]),
+        dict(name="int8", over=INT8, quant=TERNARY,
+             params=to_numpy_tree(int8_p), kw=KW, runs=both),
+    ]
     refs = {
+        "mla": lambda: _ref_tokens(mla_m, mla_p, _ref_requests(mla_m.cfg)),
+        "deepseek": lambda: _ref_tokens(ds_m, ds_p,
+                                        _ref_requests(ds_m.cfg)),
+        "deepseek_drops": lambda: _port_drops(
+            "deepseek_v2_236b", F32, to_numpy_tree(ds_p)),
+        "int8": lambda: _ref_tokens(int8_m, int8_p,
+                                    _ref_requests(int8_m.cfg)),
         "gqa_bcq": lambda: _ref_tokens(gqa_m, gqa_p,
                                        _ref_requests(gqa_m.cfg)),
         "dense_preempt": lambda: _ref_tokens(
@@ -140,24 +171,60 @@ def _mesh22_scenarios():
     return scenarios, refs
 
 
-def _mesh14_scenarios():
-    """(scenarios on (1, 4), reference jobs): narrow GQA, and BCQ
-    groups straddling the row-parallel shard boundaries."""
+def _mesh14_scenarios(shared):
+    """(scenarios on (1, 4), reference jobs): narrow GQA, BCQ groups
+    straddling the row-parallel shard boundaries, MLA at heads that do
+    not divide, narrow GQA on an int8 pool, and on (2, 2)'s weights
+    (``shared``; their reference tokens are (2, 2)'s) MLA at one head a
+    rank, DeepSeek-V2 with two experts a rank and with its experts kept
+    whole (the rules' ``experts`` mapped nowhere: the mlp-TP cut inside
+    each expert that experts not dividing the axis fall back to)."""
     narrow = dict(GQA, n_kv_heads=2)
     nm, np_ = _ref_setup(narrow)
     g64 = dict(BCQ3, group_size=64)
     gm, gp = _ref_setup(GQA, g64)
+    odd = dict(F32, n_heads=6, n_kv_heads=6)
+    om, op = _ref_setup(odd, arch="minicpm3_4b")
+    i8n = dict(narrow, kv_cache_bits=8)
+    im, ip = _ref_setup(i8n)
+    fused = [dict(name="fused", mode="fused", kind="sync")]
     scenarios = [
         dict(name="narrow", over=narrow, params=to_numpy_tree(np_), kw=KW,
-             runs=[dict(name="fused", mode="fused", kind="sync")]),
+             runs=fused),
         dict(name="group_fallback", over=GQA, quant=g64,
-             params=to_numpy_tree(gp), kw=KW,
-             runs=[dict(name="fused", mode="fused", kind="sync")]),
-    ]
+             params=to_numpy_tree(gp), kw=KW, runs=fused),
+        dict(name="mla_odd_heads", arch="minicpm3_4b", over=odd,
+             params=to_numpy_tree(op), kw=KW, runs=fused),
+        dict(name="int8_narrow", over=i8n, params=to_numpy_tree(ip),
+             kw=KW, runs=fused),
+    ] + [dict(sc, runs=fused) for sc in shared] + [
+        dict(sc, name="moe_mlp_tp", rules={"experts": None}, runs=fused,
+             routed_exact=False)
+        for sc in shared if sc["name"] == "deepseek"]
     refs = {"narrow": lambda: _ref_tokens(nm, np_, _ref_requests(nm.cfg)),
             "group_fallback": lambda: _ref_tokens(gm, gp,
-                                                  _ref_requests(gm.cfg))}
+                                                  _ref_requests(gm.cfg)),
+            "mla_odd_heads": lambda: _ref_tokens(om, op,
+                                                 _ref_requests(om.cfg)),
+            "int8_narrow": lambda: _ref_tokens(im, ip,
+                                               _ref_requests(im.cfg))}
     return scenarios, refs
+
+
+def _port_drops(arch, over, params):
+    """The drops beyond capacity of the port's single-device engine (its
+    tokens equal the reference's, and so does its routing in f32,
+    ``tests/test_torch_moe.py``) on the requests the ranks serve."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import from_jax_params
+    from repro_torch.serve import PagedServeEngine, Request
+    cfg = get_reduced(arch).replace(**over)
+    eng = PagedServeEngine(from_jax_params(params, cfg, device="cpu"),
+                           paged_kernel="fused", **KW)
+    eng.run([Request(uid=r.uid, prompt=np.asarray(r.prompt),
+                     max_new_tokens=r.max_new_tokens)
+             for r in _ref_requests(cfg)])
+    return eng.moe_drops()
 
 
 @pytest.fixture(scope="module")
@@ -167,19 +234,22 @@ def served(tmp_path_factory):
     import threading
     out, refs, errors = {}, {}, []
 
-    def run(key, shape, scenarios):
+    def run(key, tmp, shape, scenarios):
         try:
-            tmp = str(tmp_path_factory.mktemp(key))
             out[key] = _spawn(tmp, shape, scenarios)
         except BaseException as e:          # re-raised below
             errors.append(e)
     threads = []
-    for key, shape, make in (("mesh22", (2, 2), _mesh22_scenarios),
-                             ("mesh14", (1, 4), _mesh14_scenarios)):
-        scenarios, jobs = make()
-        refs.update(jobs)
+    s22, jobs = _mesh22_scenarios()
+    refs.update(jobs)
+    s14, jobs = _mesh14_scenarios(
+        [sc for sc in s22 if sc["name"] in ("mla", "deepseek")])
+    refs.update(jobs)
+    for key, shape, scenarios in (("mesh22", (2, 2), s22),
+                                  ("mesh14", (1, 4), s14)):
+        tmp = str(tmp_path_factory.mktemp(key))   # not from two threads
         threads.append(threading.Thread(target=run,
-                                        args=(key, shape, scenarios)))
+                                        args=(key, tmp, shape, scenarios)))
         threads[-1].start()
     ref = {name: job() for name, job in refs.items()}
     for t in threads:
@@ -294,6 +364,101 @@ def test_sharded_bcq_group_boundary_falls_back(mesh14):
         assert got["decode_path"] == "fused"
 
 
+@pytest.mark.parametrize("mode", ["fused", "gather"])
+def test_sharded_mla_matches_single_device(mesh22, mode):
+    """Reduced MiniCPM3 (BCQ-3 g 16) at tp 2: each rank's q_b rows and o
+    columns are its 2 query heads' (dn + dr = 24, dv = 16 wide), the
+    latent pool is whole and equal on both ranks of a model group, the
+    decode runs ``mode`` on the local heads and prefill gathers."""
+    ranks, ref = mesh22
+    _assert_equal_tokens(ranks, ref["mla"], "mla", mode)
+    for r, got in zip(ranks, _every_rank(ranks, "mla", mode)):
+        m = r["coords"][1]
+        assert got["decode_path"] == mode and got["prefill_path"] == "gather"
+        assert got["k_shape"] == [24, 4, 16] and got["k_spec"] is None
+        assert got["same_pool_leaves"]
+        assert got["linears"]["q"] == [[48 * m, 48 * (m + 1)], None]
+        assert got["linears"]["o"] == [None, [32 * m, 32 * (m + 1)]]
+
+
+def test_sharded_mla_one_head_a_rank_and_odd_heads(mesh14):
+    """MiniCPM3 at tp 4 (one head a rank: fused), and with 6 heads,
+    which tp 4 does not divide: every rank attends for all heads on the
+    gathered path even when ``fused`` is forced, as the reference
+    negotiates."""
+    ranks, ref = mesh14
+    _assert_equal_tokens(ranks, ref["mla"], "mla", "fused")
+    _assert_equal_tokens(ranks, ref["mla_odd_heads"], "mla_odd_heads",
+                         "fused")
+    for r in ranks:
+        m = r["coords"][1]
+        one, odd = r["mla"]["fused"], r["mla_odd_heads"]["fused"]
+        assert one["decode_path"] == "fused" and one["same_pool_leaves"]
+        assert one["linears"]["q"] == [[24 * m, 24 * (m + 1)], None]
+        assert odd["decode_path"] == "gather" and odd["same_pool_leaves"]
+
+
+@pytest.mark.parametrize("mesh", ["mesh22", "mesh14"])
+def test_sharded_deepseek_expert_parallel(request, mesh):
+    """Reduced DeepSeek-V2 (8 experts top-2, a shared expert, a dense
+    first layer) with its experts over the model axis:
+    4 a rank at tp 2, 2 at tp 4.  Tokens equal the reference's, drops
+    the unsharded engine's, and the routed part of a MoE layer equals
+    the unsharded layer's bit for bit."""
+    ranks, ref = request.getfixturevalue(mesh)
+    tp = ranks[0]["coords"] and max(r["coords"][1] for r in ranks) + 1
+    _assert_equal_tokens(ranks, ref["deepseek"], "deepseek", "fused")
+    for r in ranks:
+        got = r["deepseek"]["fused"]
+        m, per = r["coords"][1], 8 // tp
+        assert r["deepseek"]["routed_exact"]
+        assert got["moe_drops"] == ref["deepseek_drops"] > 0
+        assert got["decode_path"] == "fused" and got["same_pool_leaves"]
+        assert got["linears"]["moe"]["experts"] == [per * m, per * (m + 1)]
+        assert got["linears"]["moe"]["bank_shape"][0] == per
+
+
+def test_sharded_moe_falls_back_to_mlp_tp(mesh14):
+    """The experts kept whole (as where they do not divide the axis):
+    every rank holds all 8, each expert's gate / up rows and down
+    columns split (moe_d_ff 32: 8 a rank), its output all-reduced."""
+    ranks, ref = mesh14
+    _assert_equal_tokens(ranks, ref["deepseek"], "moe_mlp_tp", "fused")
+    for r in ranks:
+        m = r["coords"][1]
+        got = r["moe_mlp_tp"]["fused"]
+        moe = got["linears"]["moe"]
+        assert moe["experts"] is None and moe["bank_shape"] == [8, 8, 64]
+        assert moe["cut"] == [8 * m, 8 * (m + 1)]
+        assert got["moe_drops"] == ref["deepseek_drops"]
+
+
+@pytest.mark.parametrize("mode", ["fused", "gather"])
+def test_sharded_int8_kv_matches_single_device(mesh22, mode):
+    """Reduced OPT, ternary weights and an int8 KV cache at tp 2: each
+    rank's pool and its scale pools hold 2 of the 4 kv heads."""
+    ranks, ref = mesh22
+    _assert_equal_tokens(ranks, ref["int8"], "int8", mode)
+    for got in _every_rank(ranks, "int8", mode):
+        assert got["decode_path"] == got["prefill_path"] == mode
+        assert got["k_dtype"] == "torch.int8"
+        assert got["k_shape"] == [24, 4, 2, 16]
+        assert got["scale_shape"] == [24, 4, 2]
+
+
+def test_sharded_int8_narrow_gqa_keeps_row_scales(mesh14):
+    """2 kv heads on tp 4, int8: the pool cuts head_dim, each row is
+    quantized whole before the cut so its scale pools hold every head
+    (equal on every rank), and the path negotiates down to gather."""
+    ranks, ref = mesh14
+    _assert_equal_tokens(ranks, ref["int8_narrow"], "int8_narrow", "fused")
+    for got in _every_rank(ranks, "int8_narrow", "fused"):
+        assert got["decode_path"] == got["prefill_path"] == "gather"
+        assert got["k_shape"] == [24, 4, 2, 4]
+        assert got["scale_shape"] == [24, 4, 2]
+        assert got["same_pool_leaves"]
+
+
 def test_mesh_ranks_and_backend(mesh22, mesh14):
     """Every rank sits at its own coordinates, runs gloo with nothing
     staged through host memory (CPU tensors), and refuses to export its
@@ -327,12 +492,18 @@ LAUNCH = ["--device", "cpu", "--bits", "3", "--group-size", "32",
           "--requests", "4", "--max-new", "4"]
 
 
-def test_launcher_under_torchrun():
+@pytest.mark.parametrize("arch", [[], ["--arch", "deepseek_v2_236b",
+                                         "--reduced", "1",
+                                         "--group-size", "16"]])
+def test_launcher_under_torchrun(arch):
+    """OPT, and reduced DeepSeek-V2 (MLA + MoE): rank 0 reports every
+    rank's MoE drops (equal: the routing is whole on each) and host
+    syncs a decode step (0: CPU tensors)."""
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
-         *LAUNCH, "--mesh", "1x2"],
+         *LAUNCH, "--mesh", "1x2", *arch],
         capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
     out = r.stdout
@@ -340,6 +511,11 @@ def test_launcher_under_torchrun():
     assert "4 requests, 16 tokens" in out
     # only rank 0 prints the report
     assert out.count("4 requests, 16 tokens") == 1
+    drops = [line.split("MoE drops ")[1].split(",")[0]
+             for line in out.splitlines() if "MoE drops" in line]
+    assert len(drops) == 2 and drops[0] == drops[1]
+    assert (int(drops[0]) > 0) == bool(arch)
+    assert out.count("host syncs a decode step 0\n") == 2
 
 
 @pytest.mark.parametrize("extra,msg", [

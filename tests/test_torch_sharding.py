@@ -407,50 +407,116 @@ def test_bundle_group_boundary_falls_back():
     assert torch.equal(local.alpha, w.alpha[:, 8:])
 
 
-@pytest.mark.parametrize("kernel,ref_kernel", [
-    ("paged_decode", "paged_attention"), ("paged_prefill", "paged_prefill")])
-def test_tp_capability_reason_matches_reference(kernel, ref_kernel):
+def test_expert_bank_bundle_cut_keeps_experts_whole():
+    """A BCQ expert bank (packed [E, q, out, in/8]) with its experts over
+    the model axis: each rank's bundle holds whole experts (its packed,
+    alpha and z rows of the lead axis, widths unchanged), each
+    dequantizing to the full bank's expert.  With 3 experts on tp 2 the
+    experts stay whole and the ``mlp`` rows split instead."""
+    import torch
+    from repro_torch.core.plane import PlaneBundle, dequantize
+    from repro_torch.parallel import sharding as shd
+    rules = shd.make_rules()
+
+    def bank(e):
+        gen = torch.Generator().manual_seed(e)
+        return PlaneBundle(
+            packed=torch.randint(0, 255, (e, 3, 16, 8), dtype=torch.uint8,
+                                 generator=gen),
+            alpha=torch.rand((e, 3, 16, 4), generator=gen),
+            z=torch.rand((e, 16, 4), generator=gen), group_size=16,
+            in_features=64, out_features=16)
+    axes = ("experts", "mlp", "embed")
+    w = bank(4)
+    sp = shd.bundle_specs(w, axes, PortMesh((1, 2)), rules)
+    assert sp == shd.BundleSpecs(packed=("model",), alpha=("model",),
+                                 z=("model",))
+    for m in range(2):
+        local = shd.shard_tree({"w": w}, {"w": sp},
+                               PortMesh((1, 2), (0, m)))["w"]
+        assert tuple(local.packed.shape) == (2, 3, 16, 8)
+        assert (local.in_features, local.out_features) == (64, 16)
+        for j in range(2):
+            assert torch.equal(dequantize(local.index(j)),
+                               dequantize(w.index(2 * m + j)))
+    w = bank(3)
+    sp = shd.bundle_specs(w, axes, PortMesh((1, 2)), rules)
+    assert sp.packed == (None, None, "model")
+    local = shd.shard_tree({"w": w}, {"w": sp}, PortMesh((1, 2), (0, 1)))["w"]
+    assert tuple(local.packed.shape) == (3, 3, 8, 8)
+    assert local.out_features == 8
+    assert torch.equal(local.z, w.z[:, 8:])
+
+
+# (port kernel, reference kernel, pool): a float, int8 or MLA latent pool
+CAPS = [("paged_decode", "paged_attention", "float"),
+        ("paged_prefill", "paged_prefill", "float"),
+        ("paged_decode", "paged_attention", "int8"),
+        ("paged_prefill", "paged_prefill", "int8"),
+        ("paged_decode_mla", "paged_attention", "latent"),
+        ("paged_prefill", "paged_prefill", "latent")]
+
+
+@pytest.mark.parametrize("kernel,ref_kernel,pool", CAPS)
+def test_tp_capability_reason_matches_reference(kernel, ref_kernel, pool):
+    """The ``tp`` and ``heads`` reasons of the paged kernels' capability
+    check, float and int8 pools at GQA head counts, MLA latent pools at
+    MiniCPM3's 40 and DeepSeek-V2's 128 heads (the kv heads are the
+    query heads)."""
+    import jax.numpy as jnp
+    import torch
     from repro.tune.dispatch import _unsupported_reason as ref_reason
     from repro_torch.tune.dispatch import kernel_unsupported_reason
-    for m in (8, 6, 24, 32):
-        for hkv in (1, 2, 3, 4, 8):
-            if m % hkv:
-                continue
-            for tp in (1, 2, 4, 16):
-                want = ref_reason(ref_kernel, m=m, n=64, group_size=16,
-                                  n_kv_heads=hkv, tp=tp)
-                got = kernel_unsupported_reason(kernel, m=m, n=64,
-                                                group_size=16,
-                                                n_kv_heads=hkv, tp=tp)
-                assert got == want, (m, hkv, tp, got, want)
+    dt = {"float": (jnp.float32, torch.float32),
+          "int8": (jnp.int8, torch.int8)}.get(pool)
+    caps = ({"latent": True} if pool == "latent" else {})
+    cases = ([(m, m) for m in (4, 6, 40, 128)] if pool == "latent" else
+             [(m, hkv) for m in (8, 6, 24, 32) for hkv in (1, 2, 3, 4, 8)
+              if m % hkv == 0])
+    for m, hkv in cases:
+        for tp in (1, 2, 4, 16):
+            want = ref_reason(ref_kernel, m=m, n=64, group_size=16,
+                              n_kv_heads=hkv, tp=tp, **caps,
+                              **({"kv_dtype": dt[0]} if dt else {}))
+            got = kernel_unsupported_reason(
+                kernel, m=m, n=64, group_size=16, n_kv_heads=hkv, tp=tp,
+                **caps, **({"kv_dtype": dt[1]} if dt else {}))
+            assert got == want, (m, hkv, tp, got, want)
 
 
 @pytest.mark.parametrize("arch", ["opt_6_7b", "phi4_mini_3_8b",
                                   "qwen1_5_32b", "stablelm_1_6b",
                                   "pixtral_12b", "minicpm3_4b",
-                                  "deepseek_v2_236b"])
+                                  "deepseek_v2_236b", "opt_6_7b+int8"])
 def test_paged_modes_negotiate_as_reference(arch):
     from repro.configs import get_config as j_config
     from repro.models import attention as jattn
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attn
+    arch, _, int8 = arch.partition("+")
+    over = {"kv_cache_bits": 8} if int8 else {}
     for mode in ("fused", "gather"):
         for tp in (1, 2, 4, 8, 16, 3):
-            jc = j_config(arch).replace(paged_kernel=mode)
-            cfg = get_config(arch).replace(paged_kernel=mode)
+            jc = j_config(arch).replace(paged_kernel=mode, **over)
+            cfg = get_config(arch).replace(paged_kernel=mode, **over)
             for fn in ("paged_kernel_mode", "paged_prefill_mode"):
                 want = getattr(jattn, fn)(jc, block_size=16, pages=8, tp=tp)
                 assert getattr(attn, fn)(cfg, tp=tp) == want, (fn, mode, tp)
 
 
 def test_mesh_refuses_unported_configs():
+    """``check_meshable`` refuses what the reference's mesh engine cannot
+    page (Mamba layers, a sliding window, an encoder-decoder) and serves
+    MLA, MoE and an int8 KV cache."""
     from repro_torch.configs import get_reduced
     from repro_torch.models.model import check_meshable
-    check_meshable(get_reduced("opt_6_7b"))
-    for arch, what in (("minicpm3_4b", "MLA"), ("mixtral_8x7b", "MoE"),
-                       ("mamba2_2_7b", "Mamba"),
-                       ("whisper_medium", "encoder-decoder")):
+    for arch in ("opt_6_7b", "minicpm3_4b", "deepseek_v2_236b",
+                 "pixtral_12b"):
+        check_meshable(get_reduced(arch))
+    check_meshable(get_reduced("opt_6_7b").replace(kv_cache_bits=8))
+    for arch, what in (("mamba2_2_7b", "Mamba layers"),
+                       ("jamba_1_5_large_398b", "Mamba layers"),
+                       ("mixtral_8x7b", "a sliding window"),
+                       ("whisper_medium", "an encoder-decoder")):
         with pytest.raises(NotImplementedError, match=what):
             check_meshable(get_reduced(arch))
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        check_meshable(get_reduced("opt_6_7b").replace(kv_cache_bits=8))

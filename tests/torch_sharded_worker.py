@@ -56,9 +56,12 @@ def tokens_of(done):
 
 def pool_spec(cfg, mesh, rules):
     """The spec of the first layer's ``k`` pool leaf in the reference's
-    cache layout (a leading ``layers`` axis under ``scan_layers``)."""
+    cache layout (a leading ``layers`` axis under ``scan_layers``); an
+    MLA layer's ``ckv`` pool has no head axis: None."""
     from repro_torch.models.module import paged_cache_axes
     from repro_torch.parallel.sharding import spec_for
+    if cfg.attention == "mla":
+        return None
     axes = paged_cache_axes(cfg)
     stack = axes.get("layers") or axes.get("prefix") or axes["scan"]
     k = stack[0]["self"]["k"]
@@ -66,6 +69,48 @@ def pool_spec(cfg, mesh, rules):
     shape = ((cfg.n_layers,) if k[0] == "layers" else ()) \
         + (1, 1, hkv, cfg.head_dim_)
     return list(spec_for(shape, k, mesh, rules))
+
+
+def layer_cuts(model):
+    """The first layer's linears' (out, in) slices (GQA: ``q``, ``o``;
+    MLA: ``q_b``, ``o``), its dense MLP's (``up``, ``down``), and the
+    first MoE layer's plan (``experts``, ``rows``, ``cols``)."""
+    from repro_torch.models.moe import MoE
+    blk = model.stack.layers[0]
+    mix = blk.mixer
+    mla = model.cfg.attention == "mla"
+    lins = [("q", mix.q_b if mla else mix.q), ("o", mix.o)]
+    if blk.mlp is not None and not isinstance(blk.mlp, MoE):
+        lins += [("up", blk.mlp.up), ("down", blk.mlp.down)]
+    out = {name: [lin.out_slice, lin.in_slice] for name, lin in lins}
+    moe = next((b.mlp for b in model.stack.layers
+                if isinstance(b.mlp, MoE)), None)
+    if moe is not None:
+        out["moe"] = {k: getattr(moe.tp, k) for k in ("experts", "cut")}
+        out["moe"]["bank_shape"] = list(
+            getattr(moe.gate.weight, "packed", moe.gate.weight).shape)
+    return out
+
+
+def routed_exact(sc, model, mesh):
+    """Whether the first MoE layer's routed output (shared experts
+    left out) on this rank equals the unsharded layer's bit for bit, on
+    a seeded f32 input of 3 rows x 7 tokens."""
+    import copy
+
+    from repro_torch.models import from_jax_params
+    from repro_torch.models.moe import MoE
+    whole = from_jax_params(sc["params"], model.cfg, device="cpu")
+    pick = lambda m: next(b.mlp for b in m.stack.layers
+                          if isinstance(b.mlp, MoE))
+    mine, ref = copy.copy(pick(model)), copy.copy(pick(whole))
+    for mod in (mine, ref):
+        mod._modules = dict(mod._modules)     # the copies' own
+        mod.shared_gate = mod.shared_up = mod.shared_down = None
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(3, 7, model.cfg.d_model)).astype(np.float32))
+    return bool(torch.equal(mine(x), ref(x))
+                and torch.equal(mine.last_keep, ref.last_keep))
 
 
 def run_scenario(sc, mesh):
@@ -76,10 +121,10 @@ def run_scenario(sc, mesh):
     from repro_torch.quant import QuantSpec
     from repro_torch.serve import PagedServeEngine
     base = get_config if sc.get("full") else get_reduced
-    cfg = base("opt_6_7b").replace(**sc["over"])
+    cfg = base(sc.get("arch", "opt_6_7b")).replace(**sc["over"])
     if sc.get("quant"):
         cfg = cfg.replace(quant=QuantSpec(**sc["quant"]))
-    rules = make_rules()
+    rules = make_rules(extra=sc.get("rules"))
     model = shard_model(sc["params"], cfg, mesh, rules, mesh.device)
     from repro_torch.models import to_params
     try:
@@ -90,6 +135,8 @@ def run_scenario(sc, mesh):
     out = {"to_params_refused": refused}
     if sc.get("step_bytes"):
         out["step_coll"] = decode_step_bytes(model, mesh)
+    if sc.get("routed_exact"):
+        out["routed_exact"] = routed_exact(sc, model, mesh)
     for run in sc["runs"]:
         _lib.reset_launch_counts()
         eng = PagedServeEngine(model, mesh=mesh, paged_kernel=run["mode"],
@@ -107,27 +154,27 @@ def run_scenario(sc, mesh):
         s = eng.metrics.summary()
         if eng.prefix is not None:
             eng.prefix.clear()          # its references hold blocks
-        k = eng.cache["layers"][0]["k"]
+        layer = eng.cache["layers"][0]
+        k = layer["k"] if "k" in layer else layer["ckv"]
         out[run["name"]] = {
             "tokens": tokens_of(done),
             "decode_path": eng.decode_path,
             "prefill_path": eng.prefill_path,
             "k_shape": list(k.shape),
+            "k_dtype": str(k.dtype),
+            "scale_shape": list(layer["k_scale"].shape)
+            if "k_scale" in layer else None,
             "k_spec": pool_spec(cfg, mesh, rules),
             "tokens_out": s["counters"]["tokens_out"],
             "preempted": s["counters"]["preempted"],
             "hit_blocks": s["counters"].get("prefix_hit_blocks", 0),
             "pool_free": eng.pool.free_blocks == eng.pool.capacity,
             "same_host_state": mesh.same_on_all(eng.host_state()),
+            "same_pool_leaves": mesh.same_within(eng.pool_state(), "model"),
+            **eng.rank_report(),
             "launches": dict(_lib.launch_counts),
             "routes": dict(_lib.route_counts),
-            "linears": {
-                name: [getattr(lin, "out_slice"), getattr(lin, "in_slice")]
-                for name, lin in (
-                    ("q", model.stack.layers[0].mixer.q),
-                    ("o", model.stack.layers[0].mixer.o),
-                    ("up", model.stack.layers[0].mlp.up),
-                    ("down", model.stack.layers[0].mlp.down))},
+            "linears": layer_cuts(model),
         }
     return out
 
@@ -210,7 +257,12 @@ def main():
     res["host_syncs"] = mesh.host_syncs
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(res, f)
-    torch.distributed.destroy_process_group()
+    # every rank done, the process ends without tearing the groups down
+    # (gloo's teardown has aborted a rank now and then after all its work)
+    torch.distributed.barrier(group=mesh.host_group)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":
