@@ -168,7 +168,19 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      (``chip_smoke.py --train-rank-job JOB``, run beside the two
      checks before), each on its shard of the batch, against one process
      training the same global batch as two microbatches (losses and
-     params within 1e-5).  Checkpoints go to
+     params within 1e-5).  Last, alone on the card (``train_sharded``):
+     four ranks sharing the card over gloo on a (2, 2) mesh
+     (``chip_smoke.py --train-tp-rank-job JOB``), full width,
+     ``TRAIN_CHECK_LAYERS`` deep, f32, tensor parallel over ``model``,
+     weights and AdamW moments cut over ``data`` (fsdp) and the remat
+     stash over ``model`` (act_shard), ``TP_STEPS`` (2) steps of
+     ``TP_BATCH`` x ``TP_SEQ`` tokens, against one unsharded process on
+     the same global batch: each rank's init slices bit-equal to the
+     unsharded init's, losses and grad norms within 1e-5 relative and
+     params within ``TP_PARAM_BOUND`` (derived from the learning rate);
+     each rank's slice bytes of weights and moments against the
+     unsharded bytes, its collectives' count, bytes and host seconds and
+     the run's seconds are printed.  Checkpoints go to
      ``build/train/`` and are deleted.  ``--train-only`` runs phase 1
      and this phase alone (``chiprun_out/train.json``);
   7. analysis (``analysis_phase``; no kernel of its own: the reference
@@ -194,6 +206,15 @@ Phases (any failure exits non-zero; nothing is caught to keep going):
      a share of phase 4's OPT ``auto`` decode-step p50.
      ``--analysis-only`` runs phase 1, the build and this phase, (c) on
      that one model built alone (``chiprun_out/analysis.json``).
+
+``--train-mesh DxM`` (D x M cards, one rank a card over NCCL) runs
+phase 1 and OPT-6.7B's training at full width and full depth (32
+layers), bf16, fsdp and act_shard, ``MESH_TRAIN_STEPS`` steps of 8 x
+512 tokens: per rank the step p50, tokens/s, the collectives' share of
+the step's device time (CUDA events around each collective), peak
+memory and its slice bytes; then one checkpoint written slice by slice
+and restored on a (D x M, 1) mesh, every leaf's sum equal, where the
+disk holds it (``chiprun_out/train_mesh.json``).
 
 Every serve run gates the count of linears on the tiles: each decode
 step runs all of them on the decode tile, each prefill chunk all but an
@@ -4429,15 +4450,19 @@ def train_model(torch, cfg, seed, device="cuda", dtype=None):
 
 
 def trainer_for(model, steps, ckpt_dir, *, ckpt_every=0, mesh=None,
-                microbatches=1):
+                microbatches=1, sharded=False):
+    """The phase's trainer; ``sharded``: the launcher's rules, fsdp and
+    act_shard on."""
     from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import make_rules
     from repro_torch.train.trainer import TrainConfig, Trainer
     return Trainer(model, adamw.AdamWConfig(
         lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps,
         schedule=TRAIN_SCHEDULE),
         TrainConfig(steps=steps, ckpt_every=ckpt_every or steps,
                     ckpt_dir=str(ckpt_dir), log_every=1000,
-                    microbatches=microbatches), mesh=mesh)
+                    microbatches=microbatches, fsdp=sharded), mesh=mesh,
+        rules=make_rules(fsdp=True, act_shard=True) if sharded else None)
 
 
 class ShardsPipeline:
@@ -4803,6 +4828,386 @@ def train_rank(job_path):
     torch.distributed.destroy_process_group()
 
 
+# the (2, 2) mesh run on the one card: four gloo ranks, full width,
+# TRAIN_CHECK_LAYERS deep, f32, against one unsharded process
+TP_MESH, TP_STEPS, TP_BATCH, TP_SEQ = (2, 2), 2, 4, 256
+# An AdamW step moves an element by lr x |m^ / (sqrt(v^) + eps)|, which
+# is at most ~1.0004 lr at steps 1 and 2 with betas (0.9, 0.95), plus
+# weight decay (lr x 0.1 x |p|, the same in both runs).  Summed in
+# another order (the shards), a gradient within rounding of eps can turn
+# that update around: 2 lr a step.  So no element may move further apart
+# than 2 lr per step (4e-5 at lr 1e-5 over 2 steps).
+TP_PARAM_BOUND = 2 * TRAIN_LR * TP_STEPS * 1.001
+
+
+class ShardRows:
+    """This data shard's rows of a pipeline's global batch."""
+
+    def __init__(self, pipe, shard, shards):
+        self.pipe, self.shard, self.shards = pipe, shard, shards
+
+    def batch_at(self, step):
+        t = self.pipe.batch_at(step)["tokens"]
+        n = t.shape[0] // self.shards
+        return {"tokens": t[self.shard * n:(self.shard + 1) * n]}
+
+
+def train_sharded(torch, args, power_line):
+    """The (2, 2) mesh on the one card (``TP_MESH``): one unsharded f32
+    process on the global batch here, saving its initial and final
+    params, then four gloo ranks (``--train-tp-rank-job``), each holding
+    its slices and gated against the unsharded run."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = train_config(TRAIN_CHECK_LAYERS)
+    model = train_model(torch, cfg, args.seed, dtype=torch.float32)
+    torch.save([t.detach().cpu() for t in tree_leaves(
+        model.train_params())], TRAIN_DIR / "tp_init.pt")
+    tr = trainer_for(model, TP_STEPS, TRAIN_DIR / "tp_solo")
+    t0 = time.perf_counter()
+    state, hist = tr.run(SyntheticLM(vocab_size=cfg.vocab_size,
+                                     seq_len=TP_SEQ, global_batch=TP_BATCH,
+                                     seed=args.seed),
+                         state=tr.fresh_state())
+    solo_s = time.perf_counter() - t0
+    train_gates("train[sharded, solo]", tr, hist, TP_STEPS)
+    leaves = tree_leaves(state["params"])
+    whole_w = sum(t.numel() * t.element_size() for t in leaves)
+    torch.save([t.detach().cpu() for t in leaves], TRAIN_DIR / "tp_final.pt")
+    del model, tr, state, leaves
+    shutil.rmtree(TRAIN_DIR / "tp_solo", ignore_errors=True)
+    torch.cuda.empty_cache()
+    job = TRAIN_DIR / "tp_job.json"
+    job.write_text(json.dumps(dict(
+        mesh=TP_MESH, layers=TRAIN_CHECK_LAYERS, steps=TP_STEPS,
+        seed=args.seed, init=str(TRAIN_DIR / "tp_init.pt"),
+        final=str(TRAIN_DIR / "tp_final.pt"), ckpt=str(TRAIN_DIR / "tp"),
+        out=str(TRAIN_DIR))))
+    n = TP_MESH[0] * TP_MESH[1]
+    t0 = time.perf_counter()
+    outs = spawn([sys.executable, str(ROOT / "chip_smoke.py"),
+                  "--train-tp-rank-job", str(job)], n, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    for r, (rc, out, err) in enumerate(outs):
+        for line in out.splitlines():
+            log(f"  [rank {r}] {line}")
+        if rc != 0:
+            fail(f"train[sharded]: rank {r} exited {rc}:\n{err[-3000:]}")
+    ranks = [json.loads((TRAIN_DIR / f"tp_rank{r}.json").read_text())
+             for r in range(n)]
+    for rk in ranks:
+        tag = f"train[sharded {TP_MESH}, rank {rk['rank']} at {rk['coords']}]"
+        if rk["backend"] != "gloo" or rk["recoveries"] or \
+                len(rk["hist"]) != TP_STEPS or not rk["init_equal"]:
+            fail(f"{tag}: backend {rk['backend']}, recoveries "
+                 f"{rk['recoveries']}, {len(rk['hist'])} steps, init equal "
+                 f"{rk['init_equal']}")
+        for a, b in zip(hist, rk["hist"]):
+            for k in ("loss", "grad_norm"):
+                if not abs(a[k] - b[k]) <= 1e-5 * abs(a[k]):
+                    fail(f"{tag}: {k} {b[k]} vs the unsharded {a[k]}")
+        log(f"{tag}: init slices equal the unsharded init's; losses "
+            f"{[h['loss'] for h in rk['hist']]}, grad norms "
+            f"{[h['grad_norm'] for h in rk['hist']]} (unsharded "
+            f"{[h['loss'] for h in hist]}, "
+            f"{[h['grad_norm'] for h in hist]}: within 1e-5); params max "
+            f"|diff| {rk['max_abs']:.3e} <= {TP_PARAM_BOUND:.3e} (2 lr a "
+            f"step): {rk['max_abs'] <= TP_PARAM_BOUND}, "
+            f"{rk['beyond_1e-6']} of {rk['elements']} elements beyond 1e-6 "
+            f"of their leaf's max-abs (worst leaf {rk['worst_leaf']})")
+        log(f"{tag}: holds {rk['weight_bytes'] / 1e9:.3f} GB of f32 weights"
+            f" and {rk['moment_bytes'] / 1e9:.3f} GB of AdamW moments, of "
+            f"{rk['whole_weight_bytes'] / 1e9:.3f} and "
+            f"{rk['whole_moment_bytes'] / 1e9:.3f} GB unsharded "
+            f"({rk['weight_bytes'] / rk['whole_weight_bytes']:.3f}); "
+            f"{rk['collectives']} collectives, {rk['coll_bytes']} bytes, "
+            f"{rk['comm_s']:.2f} s of host time in them ({rk['host_syncs']} "
+            f"staged through host memory) over steps of {rk['step_ms']} ms; "
+            f"checkpoint written slice by slice in "
+            f"{rk['ckpt_write_s']:.2f} s; card {power_line}")
+        if not rk["max_abs"] <= TP_PARAM_BOUND:
+            fail(f"{tag}: params differ from the unsharded run's beyond "
+                 f"{TP_PARAM_BOUND:.3e}")
+        if rk["whole_weight_bytes"] != whole_w:
+            fail(f"{tag}: unsharded weight bytes {rk['whole_weight_bytes']} "
+                 f"vs the unsharded process's {whole_w}")
+    out = dict(mesh=TP_MESH, layers=TRAIN_CHECK_LAYERS, steps=TP_STEPS,
+               batch=TP_BATCH, seq=TP_SEQ, solo_losses=[h["loss"]
+                                                        for h in hist],
+               solo_grad_norms=[h["grad_norm"] for h in hist],
+               solo_s=solo_s, ranks_s=ranks_s, param_bound=TP_PARAM_BOUND,
+               ranks=ranks, card=power_line)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train[sharded]: {out['phase_s']:.1f} s (unsharded run "
+        f"{solo_s:.1f} s, ranks {ranks_s:.1f} s from spawn to exit)")
+    return out
+
+
+def train_tp_rank(job_path):
+    """One rank of ``train_sharded``: the (2, 2) mesh over gloo, this
+    rank's slices of the seed's init (held against the unsharded init),
+    ``TP_STEPS`` steps on its data shard's rows, its slices of the final
+    params held against the unsharded run's."""
+    job = json.loads(Path(job_path).read_text())
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("rank: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"),
+                     device_type="cuda")
+    cfg = train_config(job["layers"])
+    tr = trainer_for(Model(cfg, device="meta", dtype=torch.float32),
+                     job["steps"], job["ckpt"], mesh=mesh, sharded=True)
+    plan = tr.plan
+    state = tr.init_state(job["seed"])
+    init = torch.load(job["init"])
+    init_equal = all(torch.equal(t.detach(), plan.local(w, i)) for i, (t, w)
+                     in enumerate(zip(tree_leaves(state["params"]), init)))
+    del init
+    pipe = ShardRows(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TP_SEQ,
+                                 global_batch=TP_BATCH, seed=job["seed"]),
+                     mesh.index("data"), mesh.size("data"))
+    mesh.reset_counters()
+    state, hist = tr.run(pipe, state=state)
+    comm = dict(collectives=mesh.collectives, coll_bytes=dict(
+        mesh.coll_bytes), comm_s=mesh.comm_s, host_syncs=mesh.host_syncs)
+    final = torch.load(job["final"])
+    worst, worst_leaf, beyond, elements = 0.0, None, 0, 0
+    for i, (t, w) in enumerate(zip(tree_leaves(state["params"]), final)):
+        want = plan.local(w, i).float()
+        err = (t.detach().float() - want).abs()
+        if float(err.max()) >= worst:
+            worst, worst_leaf = float(err.max()), "/".join(
+                map(str, plan.paths[i]))
+        beyond += int((err > 1e-6 * float(w.abs().max())).sum())
+        elements += err.numel()
+    res = dict(rank=mesh.rank, coords=list(mesh.coords),
+               backend=mesh.backend, hist=hist, recoveries=tr.recoveries,
+               init_equal=init_equal, max_abs=worst, worst_leaf=worst_leaf,
+               **{"beyond_1e-6": beyond}, elements=elements,
+               weight_bytes=plan.nbytes(),
+               moment_bytes=2 * plan.nbytes(dtype=torch.float32),
+               whole_weight_bytes=plan.nbytes(whole=True),
+               whole_moment_bytes=2 * plan.nbytes(whole=True,
+                                                  dtype=torch.float32),
+               step_ms=[round(t * 1e3, 1) for t in tr.step_times],
+               ckpt_write_s=tr.ckpt.last_write_s, **comm)
+    (Path(job["out"]) / f"tp_rank{mesh.rank}.json").write_text(
+        json.dumps(res))
+    torch.distributed.destroy_process_group()
+
+
+# --train-mesh: OPT-6.7B at full depth on a mesh of cards, one rank a card
+# over NCCL (the four-card run)
+MESH_TRAIN_STEPS = 6
+MESH_TRAIN_DIR = ROOT / "build" / "train_mesh"
+
+
+def train_mesh_only(torch, args, power_line):
+    """``--train-mesh DxM``: phase 1, then OPT-6.7B at full width and
+    depth (32 layers), bf16, remat, ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens, ``MESH_TRAIN_STEPS`` steps on a (D, M) mesh of D x M cards
+    (``--train-mesh-rank-job``), fsdp and act_shard on; then one
+    checkpoint written slice by slice and restored on a (D x M, 1) mesh
+    with fsdp, every leaf's sum equal.  ``chiprun_out/train_mesh.json``."""
+    from repro_torch.launch.mesh import spawn
+    shape = tuple(int(x) for x in args.train_mesh.lower().split("x"))
+    n = shape[0] * shape[1]
+    if torch.cuda.device_count() < n:
+        fail(f"--train-mesh {args.train_mesh} needs {n} cards, "
+             f"{torch.cuda.device_count()} visible")
+    shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    MESH_TRAIN_DIR.mkdir(parents=True)
+    job = MESH_TRAIN_DIR / "job.json"
+    job.write_text(json.dumps(dict(
+        mesh=shape, layers=32, steps=MESH_TRAIN_STEPS, seed=args.seed,
+        ckpt=str(MESH_TRAIN_DIR / "ckpt"), out=str(MESH_TRAIN_DIR))))
+    t0 = time.perf_counter()
+    try:
+        outs = spawn([sys.executable, str(ROOT / "chip_smoke.py"),
+                      "--train-mesh-rank-job", str(job)], n, timeout=2400)
+        for r, (rc, out, err) in enumerate(outs):
+            for line in out.splitlines():
+                log(f"  [rank {r}] {line}")
+            if rc != 0:
+                fail(f"train[mesh]: rank {r} exited {rc}:\n{err[-3000:]}")
+        ranks = [json.loads((MESH_TRAIN_DIR / f"rank{r}.json").read_text())
+                 for r in range(n)]
+    finally:
+        shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for rk in ranks:
+        tag = f"train[mesh {shape}, rank {rk['rank']} at {rk['coords']}]"
+        p50 = rk["step_ms_p50"]
+        log(f"{tag}: backend {rk['backend']}; losses {rk['losses']}; step "
+            f"p50 {p50:.1f} ms ({tokens} tokens a step: "
+            f"{tokens / (p50 / 1e3):.0f} tokens/s); collectives "
+            f"{rk['comm_share_p50']:.3f} of the step's device time (p50; "
+            f"{rk['collectives']} a step, {rk['coll_bytes']} bytes); peak "
+            f"device memory {rk['peak_bytes'] / 1e9:.2f} GB (weights "
+            f"{rk['weight_bytes'] / 1e9:.2f}, moments "
+            f"{rk['moment_bytes'] / 1e9:.2f} GB of "
+            f"{rk['whole_weight_bytes'] / 1e9:.2f} and "
+            f"{rk['whole_moment_bytes'] / 1e9:.2f} unsharded); card "
+            f"{power_line}")
+        if rk["backend"] != "nccl" or not all(
+                math.isfinite(x) for x in rk["losses"]):
+            fail(f"{tag}: backend {rk['backend']}, losses {rk['losses']}")
+        ck = rk["ckpt"]
+        if ck.get("skipped"):
+            log(f"{tag}: checkpoint skipped: {ck['skipped']}")
+            continue
+        log(f"{tag}: checkpoint of {ck['bytes'] / 1e9:.2f} GB: snapshot "
+            f"{ck['snapshot_s']:.2f} s, write and commit {ck['write_s']:.2f}"
+            f" s; restored on a {ck['restore_mesh']} mesh in "
+            f"{ck['restore_s']:.2f} s (peak "
+            f"{ck['restore_peak_bytes'] / 1e9:.2f} GB, "
+            f"{ck['held_before_restore'] / 1e9:.2f} GB held before it), "
+            f"every leaf's sum equal: {ck['sums_equal']}")
+        if not ck["sums_equal"]:
+            fail(f"{tag}: the restored state differs from the saved one")
+    out = dict(mesh=shape, layers=32, steps=MESH_TRAIN_STEPS,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, wall_s=wall, ranks=ranks,
+               card=power_line)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "train_mesh.json").write_text(json.dumps(out, indent=1))
+    log(f"train[mesh]: {wall:.1f} s")
+    print(power_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def train_mesh_rank(job_path):
+    """One rank of ``--train-mesh``: the steps through ``build_step``,
+    each timed on the host to the read of its loss, its collectives
+    timed by CUDA events (``Mesh.timing``); then the checkpoint and its
+    restore on (n, 1)."""
+    job = json.loads(Path(job_path).read_text())
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"),
+                     device_type="cuda")
+    cfg = train_config(job["layers"])
+    tr = trainer_for(Model(cfg, device="meta"), job["steps"], job["ckpt"],
+                     mesh=mesh, sharded=True)
+    plan = tr.plan
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.init_state(job["seed"])
+    pipe = ShardRows(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=job["seed"]),
+                     mesh.index("data"), mesh.size("data"))
+    step = tr.build_step()
+    mesh.timing = True
+    losses, step_ms, shares = [], [], []
+    for i in range(job["steps"]):
+        mesh.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, pipe.batch_at(i))
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        step_ms.append(dt * 1e3)
+        shares.append(mesh.device_comm_s() / dt)
+        coll = dict(collectives=mesh.collectives,
+                    coll_bytes=dict(mesh.coll_bytes))
+    mesh.timing = False
+    peak = torch.cuda.max_memory_allocated()
+    later = sorted(step_ms[1:])
+    res = dict(rank=mesh.rank, coords=list(mesh.coords), backend=mesh.backend,
+               losses=losses, step_ms=step_ms,
+               step_ms_p50=later[len(later) // 2], comm_shares=shares,
+               comm_share_p50=sorted(shares[1:])[len(later) // 2],
+               peak_bytes=peak, weight_bytes=plan.nbytes(),
+               moment_bytes=2 * plan.nbytes(dtype=torch.float32),
+               whole_weight_bytes=plan.nbytes(whole=True),
+               whole_moment_bytes=2 * plan.nbytes(whole=True,
+                                                  dtype=torch.float32),
+               **coll)
+    # one checkpoint, written slice by slice, then restored on (n, 1)
+    # with nothing else on the card
+    need = plan.nbytes(whole=True) * 5       # weights + f32 m and v
+    free = shutil.disk_usage(Path(job["ckpt"]).parent).free
+    if free < 1.2 * need:
+        res["ckpt"] = {"skipped": f"{free / 1e9:.0f} GB free for a "
+                                  f"{need / 1e9:.0f}-GB checkpoint"}
+    else:
+        before = leaf_sums(torch, tr, state)
+        t0 = time.perf_counter()
+        tr.save_async(job["steps"], state)
+        saved = dict(bytes=need, snapshot_s=tr.ckpt.last_snapshot_s)
+        tr.ckpt.wait()
+        saved["write_s"] = time.perf_counter() - t0
+        cfg = tr.model.cfg
+        del tr, state, step, plan
+        res["ckpt"] = {**saved, **mesh_restore(torch, cfg, mesh, job,
+                                               before)}
+    (Path(job["out"]) / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    torch.distributed.barrier(group=mesh.host_group)
+    torch.distributed.destroy_process_group()
+
+
+def leaf_sums(torch, tr, state):
+    """Each whole leaf's (sum, sum of magnitudes) in f64 from this rank's
+    slices: the params, then both moments."""
+    from repro_torch.tree import tree_leaves
+    out = []
+    for tree in (state["params"], state["opt"].m, state["opt"].v):
+        leaves = tree_leaves(tree)
+        sums = tr._over_slices([t.detach().double().sum() for t in leaves],
+                               "sum")
+        mags = tr._over_slices([t.detach().double().abs().sum()
+                                for t in leaves], "sum")
+        out += [(float(a), float(m)) for a, m in zip(sums, mags)]
+    return out
+
+
+def mesh_restore(torch, cfg, mesh, job, before):
+    """Restore the checkpoint of ``train_mesh_rank`` on an (n, 1) mesh with
+    fsdp, its time and peak device memory taken with nothing else on the
+    card; then the sums of every params and moments leaf against
+    ``before``."""
+    import gc
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n = mesh.size_total
+    flat = make_mesh((n, 1), ("data", "model"), device_type="cuda")
+    back = trainer_for(Model(cfg, device="meta"), job["steps"], job["ckpt"],
+                       mesh=flat, sharded=True)
+    t0 = time.perf_counter()
+    restored, at = back._restore(job["steps"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    after = leaf_sums(torch, back, restored)
+    return dict(restore_mesh=[n, 1], restore_s=restore_s, step=at,
+                restore_peak_bytes=peak, held_before_restore=held,
+                # each sum taken over other slices: equal up to f64
+                # rounding of the partial sums
+                sums_equal=len(before) == len(after) and all(
+                    abs(a - b) <= 1e-12 * max(m, 1e-300) and
+                    abs(m - mb) <= 1e-12 * max(m, 1e-300)
+                    for (a, m), (b, mb) in zip(before, after)))
+
+
 def train_phase(torch, args, power_line):
     """Phase 6: training (``repro_torch.train``): the main run, then the
     data-parallel ranks on the card in the background while the
@@ -4826,6 +5231,7 @@ def train_phase(torch, args, power_line):
         out["host_check"] = train_host_check(torch, args)
         out["resume"] = train_resume_check(torch, args)
         out["data_parallel"] = finish_data_parallel(pending, power_line)
+        out["sharded"] = train_sharded(torch, args, power_line)
     finally:
         if pending is not None:
             pending["thread"].join()
@@ -5177,6 +5583,14 @@ def main():
                     help=argparse.SUPPRESS)  # one rank of serve_sharded
     ap.add_argument("--train-rank-job", default="",
                     help=argparse.SUPPRESS)  # one rank of the train phase
+    ap.add_argument("--train-tp-rank-job", default="",
+                    help=argparse.SUPPRESS)  # one rank of train_sharded
+    ap.add_argument("--train-mesh-rank-job", default="",
+                    help=argparse.SUPPRESS)  # one rank of --train-mesh
+    ap.add_argument("--train-mesh", default="",
+                    help="run only phase 1 and OPT-6.7B's full-depth "
+                         "training on a DxM mesh, one rank a card (NCCL), "
+                         "e.g. 2x2 on four cards")
     ap.add_argument("--train-only", action="store_true",
                     help="run only phase 1 and the training phase")
     ap.add_argument("--analysis-only", action="store_true",
@@ -5195,6 +5609,10 @@ def main():
         return sharded_rank(args.rank_job)
     if args.train_rank_job:
         return train_rank(args.train_rank_job)
+    if args.train_tp_rank_job:
+        return train_tp_rank(args.train_tp_rank_job)
+    if args.train_mesh_rank_job:
+        return train_mesh_rank(args.train_mesh_rank_job)
     t_start = time.perf_counter()
 
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -5226,6 +5644,8 @@ def main():
 
     if args.train_only:
         return train_only(torch, args, power_line)
+    if args.train_mesh:
+        return train_mesh_only(torch, args, power_line)
 
     # phase 2: build
     from repro_torch.kernels import _lib

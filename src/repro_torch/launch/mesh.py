@@ -18,10 +18,35 @@ card (NCCL refuses two ranks on one device) or run on the CPU.  A gloo
 collective on CUDA tensors is staged through host memory, which costs a
 host wait; the mesh counts those (``host_syncs``), the seconds spent
 in collectives (``comm_s``) and the bytes they moved, per kind
-(``coll_bytes``: ``all-reduce`` / ``all-gather``, the result bytes on
-this rank, the convention ``roofline/analysis.py`` reads).  A second, gloo group spans the world for
-host-side agreement (``broadcast_float``, ``same_on_all``), since NCCL
-carries only device tensors.
+(``coll_bytes``: ``all-reduce`` / ``all-gather`` / ``reduce-scatter``,
+the result bytes on this rank, the convention ``roofline/analysis.py``
+reads).  A second, gloo group spans the world for host-side agreement
+(``broadcast_float``, ``same_on_all``), since NCCL carries only device
+tensors.
+
+The mesh's own collectives are outside autograd.  Training runs through
+the differentiable ones below it, Megatron's pairs:
+
+  * :func:`sum_partials`: forward the all-reduce of a partial result (a
+    row-parallel product, a vocab-parallel lookup, the MoE combine),
+    backward the gradient as it is;
+  * :func:`enter_parallel`: forward the replicated activation as it is,
+    backward the all-reduce of the ranks' gradients (the input of a
+    column-parallel linear, of the local experts, of the vocab-parallel
+    head: without it each rank's gradient of every earlier layer would
+    be its own part);
+  * :func:`gather_replicated`: forward the all-gather of the ranks'
+    slices, backward the rank's own slice of the gradient (every rank
+    computes the same loss from the gathered tensor);
+  * :func:`split_replicated`: forward the rank's slice of a replicated
+    tensor, backward the all-gather (the sharded remat stash);
+  * :func:`gather_shards`: forward the all-gather of a weight's shards
+    (FSDP), backward the reduce-scatter of its gradient divided by the
+    axis extent: the data-parallel mean of the shard.
+
+Each runs its plain collective (or nothing) where no gradient is
+tracked, so serving, which runs under ``torch.no_grad()``, takes the
+same path as before.
 """
 from __future__ import annotations
 
@@ -32,6 +57,9 @@ import subprocess
 import threading
 import time
 from typing import Optional
+
+import torch
+
 
 def world_size() -> int:
     import torch.distributed as dist
@@ -48,7 +76,6 @@ def local_world_size() -> int:
 def choose_backend(device_type: str) -> tuple:
     """(backend, reason): ``nccl`` when every local rank has a card of
     its own, else ``gloo``."""
-    import torch
     if device_type != "cuda":
         return "gloo", "ranks run on the CPU"
     cards, ranks = torch.cuda.device_count(), local_world_size()
@@ -61,7 +88,6 @@ def choose_backend(device_type: str) -> tuple:
 def rank_device(device_type: str):
     """This rank's device: its own card where there are enough, else the
     cards shared round-robin."""
-    import torch
     if device_type != "cuda":
         return torch.device(device_type)
     local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
@@ -71,7 +97,6 @@ def rank_device(device_type: str):
 def init_distributed(device_type: str = "cuda", *, verbose: bool = True):
     """Create the default process group from the environment (once).
     Returns (backend, device)."""
-    import torch
     import torch.distributed as dist
     device = rank_device(device_type)
     if device.type == "cuda":
@@ -113,7 +138,13 @@ class Mesh:
         # result bytes of this rank's collectives, per kind: an
         # all-reduce's output is its input's shape, an all-gather's the
         # concatenation of every rank's part
-        self.coll_bytes = {"all-reduce": 0, "all-gather": 0}
+        self.coll_bytes = {"all-reduce": 0, "all-gather": 0,
+                           "reduce-scatter": 0}
+        # with ``timing``, CUDA events around each collective on a card:
+        # NCCL returns to the host before the device is done, so only the
+        # device's clock sees an NCCL collective's time (``device_comm_s``)
+        self.timing = False
+        self._events = []
 
     @property
     def size_total(self) -> int:
@@ -130,6 +161,34 @@ class Mesh:
                 f"{self.rank} at {self.coords}, {self.backend})")
 
     # ------------------------------------------------------------------
+    def _begin(self, t):
+        """(host clock, start event or None) of a collective on ``t``."""
+        ev = None
+        if self.timing and t.is_cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        return time.perf_counter(), ev
+
+    def _end(self, began, kind: str, out) -> None:
+        t0, ev = began
+        if ev is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events.append((ev, end))
+        self.collectives += 1
+        self.coll_bytes[kind] += out.numel() * out.element_size()
+        self.comm_s += time.perf_counter() - t0
+
+    def device_comm_s(self) -> float:
+        """Device seconds between the events around this rank's
+        collectives since the counters were reset (``timing`` on): the
+        collective and its wait for the other ranks, on the current
+        stream.  Synchronizes the card."""
+        if not self._events:
+            return 0.0
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self._events) / 1e3
+
     def _staged(self, t):
         """(tensor the backend takes, whether it was staged to host)."""
         if self.backend == "gloo" and t.device.type == "cuda":
@@ -137,18 +196,19 @@ class Mesh:
             return t.cpu(), True
         return t.contiguous(), False
 
-    def all_reduce(self, t, axis: str):
-        """Sum of ``t`` over ``axis`` (a new tensor on t's device)."""
+    def all_reduce(self, t, axis: str, op: str = "sum"):
+        """Sum (or with ``op="max"`` the maximum) of ``t`` over ``axis``
+        (a new tensor on t's device)."""
         if self.size(axis) == 1:
             return t
         import torch.distributed as dist
-        t0 = time.perf_counter()
+        began = self._begin(t)
         buf, staged = self._staged(t.clone())
-        dist.all_reduce(buf, group=self.groups[axis])
+        dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op],
+                        group=self.groups[axis])
         out = buf.to(t.device) if staged else buf
-        self.collectives += 1
-        self.coll_bytes["all-reduce"] += out.numel() * out.element_size()
-        self.comm_s += time.perf_counter() - t0
+        self._end(began, "all-reduce", out)
         return out
 
     def all_gather(self, t, axis: str, dim: int = -1):
@@ -157,25 +217,51 @@ class Mesh:
         n = self.size(axis)
         if n == 1:
             return t
-        import torch
         import torch.distributed as dist
-        t0 = time.perf_counter()
+        began = self._begin(t)
         buf, staged = self._staged(t)
         parts = [torch.empty_like(buf) for _ in range(n)]
         dist.all_gather(parts, buf, group=self.groups[axis])
         out = torch.cat(parts, dim=dim)
         if staged:
             out = out.to(t.device)
-        self.collectives += 1
-        self.coll_bytes["all-gather"] += out.numel() * out.element_size()
-        self.comm_s += time.perf_counter() - t0
+        self._end(began, "all-gather", out)
+        return out
+
+    def reduce_scatter(self, t, axis: str, dim: int = 0):
+        """This rank's slice along ``dim`` of the sum of ``t`` over
+        ``axis`` (the ranks' slices in rank order, equal in size).  NCCL
+        runs it as one reduce-scatter; gloo, which stages through host
+        memory anyway, as an all-reduce cut to the slice."""
+        n = self.size(axis)
+        if n == 1:
+            return t
+        import torch.distributed as dist
+        dim = dim % t.dim()
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                             f"does not divide over {axis} ({n})")
+        began = self._begin(t)
+        part = t.shape[dim] // n
+        if self.backend == "nccl":
+            src = t.movedim(dim, 0).contiguous()
+            buf = torch.empty((part, *src.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            dist.reduce_scatter_tensor(buf, src, group=self.groups[axis])
+            out = buf.movedim(0, dim)
+        else:
+            buf, staged = self._staged(t.clone())
+            dist.all_reduce(buf, group=self.groups[axis])
+            out = buf.narrow(dim, self.index(axis) * part, part).contiguous()
+            if staged:
+                out = out.to(t.device)
+        self._end(began, "reduce-scatter", out)
         return out
 
     def broadcast_float(self, value: float) -> float:
         """Rank 0's ``value`` on every rank (host state: a clock)."""
         if self.size_total == 1:
             return value
-        import torch
         import torch.distributed as dist
         t = torch.tensor([value], dtype=torch.float64)
         dist.broadcast(t, src=0, group=self.host_group)
@@ -211,7 +297,141 @@ class Mesh:
     def reset_counters(self) -> None:
         self.host_syncs = self.collectives = 0
         self.comm_s = 0.0
-        self.coll_bytes = {"all-reduce": 0, "all-gather": 0}
+        self.coll_bytes = {"all-reduce": 0, "all-gather": 0,
+                           "reduce-scatter": 0}
+        self._events = []
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (training)
+# ---------------------------------------------------------------------------
+
+
+def _tracked(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _own(t, mesh, axis: str, dim: int):
+    """This rank's slice along ``dim`` of ``t`` (every rank's slice one
+    width, in rank order)."""
+    n = t.shape[dim] // mesh.size(axis)
+    return t.narrow(dim, mesh.index(axis) * n, n)
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh.all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axis), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(t, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_own(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _SplitReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own(t, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_gather(g.contiguous(), ctx.axis, dim=ctx.dim),
+                None, None, None)
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(t, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # summed in f32 whatever the weight's dtype, then the mean
+        n = ctx.mesh.size(ctx.axis)
+        out = ctx.mesh.reduce_scatter(g.float(), ctx.axis, dim=ctx.dim)
+        return out.div_(n).to(g.dtype), None, None, None
+
+
+def sum_partials(t, mesh, axis: str = "model"):
+    """The sum over ``axis`` of each rank's partial ``t``; its gradient
+    passes unchanged to every rank."""
+    if mesh.size(axis) == 1:
+        return t
+    if not _tracked(t):
+        return mesh.all_reduce(t, axis)
+    return _SumPartials.apply(t, mesh, axis)
+
+
+def enter_parallel(t, mesh, axis: str = "model"):
+    """``t``, replicated over ``axis``, as the input of work that differs
+    from rank to rank: its gradient is the sum of the ranks'.  A tensor
+    this returned is returned as it is, so a caller that enters one
+    input of several such consumers (the q, k and v of one activation)
+    all-reduces its gradient once."""
+    if mesh.size(axis) == 1 or not _tracked(t):
+        return t
+    if getattr(t, "_parallel", None) == (mesh, axis):
+        return t
+    out = _EnterParallel.apply(t, mesh, axis)
+    out._parallel = (mesh, axis)
+    return out
+
+
+def gather_replicated(t, mesh, axis: str = "model", dim: int = -1):
+    """Every rank's slice of ``t`` along ``dim``, concatenated in rank
+    order, for work that is the same on every rank; the gradient of the
+    rank's slice is its slice of the (equal) gradient."""
+    if mesh.size(axis) == 1:
+        return t
+    if not _tracked(t):
+        return mesh.all_gather(t, axis, dim=dim)
+    return _GatherReplicated.apply(t, mesh, axis, dim % t.dim())
+
+
+def split_replicated(t, mesh, axis: str = "model", dim: int = -1):
+    """This rank's slice along ``dim`` of ``t``, replicated over
+    ``axis``; the gradient of ``t`` is every rank's slice gathered."""
+    if mesh.size(axis) == 1:
+        return t
+    if not _tracked(t):
+        return _own(t, mesh, axis, dim % t.dim()).contiguous()
+    return _SplitReplicated.apply(t, mesh, axis, dim % t.dim())
+
+
+def gather_shards(t, mesh, axis: str = "data", dim: int = 0):
+    """A weight whose ``dim`` is cut over ``axis`` (FSDP), gathered whole
+    along it; the shard's gradient is the reduce-scatter of the whole
+    one's, divided by the extent of ``axis``: the data-parallel mean."""
+    if mesh.size(axis) == 1:
+        return t
+    if not _tracked(t):
+        return mesh.all_gather(t, axis, dim=dim)
+    return _GatherShards.apply(t, mesh, axis, dim % t.dim())
 
 
 def _coords(rank: int, shape) -> tuple:
@@ -226,7 +446,6 @@ def make_mesh(shape, axes, *, device_type: Optional[str] = None) -> Mesh:
     """The mesh of ``shape`` over the world's ranks, creating the
     process group from the environment if there is none.  Every rank
     must call it, with the same arguments."""
-    import torch
     import torch.distributed as dist
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
@@ -382,7 +601,8 @@ def spawn(argv, nprocs: int, *, env: Optional[dict] = None,
             for i, p in enumerate(procs)]
 
 
-__all__ = ["Mesh", "choose_backend", "free_port", "init_distributed",
+__all__ = ["Mesh", "choose_backend", "enter_parallel", "free_port",
+           "gather_replicated", "gather_shards", "init_distributed",
            "make_mesh", "make_mesh_for", "make_production_mesh",
            "mesh_shape_for", "parse_mesh", "parse_mesh_shape", "spawn",
-           "world_size"]
+           "split_replicated", "sum_partials", "world_size"]

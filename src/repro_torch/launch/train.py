@@ -14,11 +14,17 @@ async checkpoint every 50 steps and at the end into ``--ckpt-dir``
 (resumed from where one is found).  ``--layers N`` keeps the full width
 at a cut depth; ``--device`` is ``cuda`` by default (an error without a
 card) or ``cpu``.  ``--mesh DxM`` runs under ``torchrun`` (one process a
-rank): the global batch is split over ``data`` and the gradients
-averaged over it; the weights and AdamW states stay replicated over
-``data`` (``--fsdp`` is accepted and printed: FSDP's sharded layout is
-ROADMAP's "training's next cut"), and a ``model`` axis above 1 is
-refused.  Only rank 0 prints.
+rank) with the reference's rules, ``make_rules(fsdp=bool(--fsdp),
+act_shard=True)``: the global batch is split over ``data``, the layers
+run tensor-parallel over ``model``, with ``--fsdp 1`` (the default) the
+weights and both AdamW moments are cut over ``data`` too, and each
+checkpointed block keeps only its ``model`` slice of its input.  The
+model is built on the meta device and each rank draws only its slices
+of the seed's weights.  Mamba and encoder-decoder configs train on a
+(D, 1) mesh only (refused by name otherwise).  Only rank 0 prints.
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --reduced 1 --device cpu --mesh 2x2
 """
 import argparse
 import os
@@ -52,48 +58,58 @@ def main(argv=None):
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import Model
     from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import make_rules
     from repro_torch.train.trainer import (TrainConfig, Trainer,
                                            check_trainable_mesh)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
-    mesh = None
+    mesh = rules = None
     if args.mesh:
         from repro_torch.launch.mesh import parse_mesh
         try:
             mesh = parse_mesh(args.mesh,
                               device_type=torch.device(args.device).type)
-            check_trainable_mesh(mesh)
+            check_trainable_mesh(mesh, cfg)
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(f"--mesh {args.mesh}: {e}")
-        device = mesh.device
-    else:
-        device = default_device(args.device)
+        rules = make_rules(fsdp=bool(args.fsdp), act_shard=True)
     lead = mesh is None or mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)
 
-    model = Model(cfg, device=device)
+    # over a mesh the model starts on the meta device: each rank keeps
+    # only its slices of the weights it draws
+    model = Model(cfg, device="meta" if mesh is not None
+                  else default_device(args.device))
     say(f"[launch.train] {cfg.name}: {model.n_params():,} params "
-        f"({cfg.n_layers} layers, d_model {cfg.d_model}) on {device}")
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}) on "
+        f"{mesh.device if mesh is not None else model.device}")
     data_shard, data_shards = 0, 1
     if mesh is not None:
         data_shard, data_shards = mesh.index("data"), mesh.size("data")
-        say(f"[launch.train] mesh {dict(zip(mesh.axis_names, mesh.shape))}: "
-            f"global batch {args.global_batch} split over data; weights "
-            f"and AdamW states replicated over data (fsdp={args.fsdp} is "
-            "a memory layout, not ported: ROADMAP.md training's next cut)")
     pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                        global_batch=args.global_batch, seed=0,
                        data_shard=data_shard, data_shards=data_shards)
     tcfg = TrainConfig(steps=args.steps, ckpt_every=50,
                        ckpt_dir=args.ckpt_dir,
                        microbatches=args.microbatches,
-                       grad_compression=args.grad_compression)
+                       grad_compression=args.grad_compression,
+                       fsdp=bool(args.fsdp))
     ocfg = adamw.AdamWConfig(lr=3e-4,
                              warmup_steps=min(100, args.steps // 10 + 1),
                              total_steps=args.steps)
-    trainer = Trainer(model, ocfg, tcfg, mesh=mesh)
+    trainer = Trainer(model, ocfg, tcfg, mesh=mesh, rules=rules)
+    if mesh is not None:
+        plan = trainer.plan
+        say(f"[launch.train] mesh {dict(zip(mesh.axis_names, mesh.shape))}"
+            f", fsdp={args.fsdp}, act_shard on: global batch "
+            f"{args.global_batch} split over data; this rank holds "
+            f"{plan.nbytes() / 1e6:.2f} MB of weights and "
+            f"{2 * plan.nbytes(dtype=torch.float32) / 1e6:.2f} MB of AdamW "
+            f"moments, of {plan.nbytes(whole=True) / 1e6:.2f} and "
+            f"{2 * plan.nbytes(whole=True, dtype=torch.float32) / 1e6:.2f}"
+            " MB unsharded")
     state, hist = trainer.run(pipe)
     final = f"final loss {hist[-1]['loss']:.4f}" if hist else "no new steps"
     say(f"[launch.train] finished at step {int(state['step'])}, {final}")

@@ -91,7 +91,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Linear, apply_rope, reslice
+from repro_torch.launch.mesh import enter_parallel
+from repro_torch.models.layers import Linear, apply_rope, enter_for, reslice
 
 NEG_INF = -1e30
 PAGED_KERNEL_MODES = ("auto", "fused", "gather")
@@ -536,6 +537,7 @@ class Attention(nn.Module):
         h0, h1 = tp.heads
         rep = h // (cfg.n_kv_heads * cfg.kv_replication)
         heads = None if (h0, h1) == (0, h) else (h0 * hd, h1 * hd)
+        x = enter_for(x, (self.q, self.k, self.v), mesh)
         q = reslice(self.q(x, backend), self.q.out_slice, heads, mesh)
         q = q.reshape(b, s, h1 - h0, hd)
         # k / v: this rank's kv heads where the pool holds whole heads
@@ -553,12 +555,19 @@ class Attention(nn.Module):
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
         if kind == "kv_heads" and k.shape[2] != tp.pool[2] - tp.pool[1]:
-            k, v = (t[:, :, tp.pool[1]:tp.pool[2]] for t in (k, v))
+            k, v = (enter_parallel(t, mesh)[:, :, tp.pool[1]:tp.pool[2]]
+                    for t in (k, v))
         if cache is None:
-            if kind != "kv_heads":
+            if kind != "kv_heads" and heads is not None:
+                k, v = (_heads_of(enter_parallel(t, mesh), h0, h1, rep)
+                        for t in (k, v))
+            elif kind != "kv_heads":
                 k, v = _heads_of(k, h0, h1, rep), _heads_of(v, h0, h1, rep)
+            # the window's mask is per head, so a rank's heads take it as
+            # the whole layer does (training; a paged cache has no window)
             out = blockwise_attention(q, k, v, positions, positions,
-                                      causal=causal)
+                                      causal=causal,
+                                      window=cfg.sliding_window)
         else:
             if cache["k"].dtype == torch.int8:
                 # each (token, head) row quantized whole, then cut: a
@@ -821,6 +830,10 @@ class MLAttention(nn.Module):
                 ckv_all, krope_all, kpos = kv["ckv"], kv["krope"], kv["pos"]
             else:
                 ckv_all, krope_all, kpos = ckv, krope, positions
+            if not whole:
+                # the latent, whole on every rank, meets the rank's heads
+                ckv_all, krope_all = (enter_parallel(t, mesh)
+                                      for t in (ckv_all, krope_all))
             # decompress the latent (the reference's per-block kv_map, here
             # over the whole view at once), all in f32
             c = ckv_all.float()

@@ -22,9 +22,21 @@ replication).  The embedding is vocab-parallel: ids outside the rank's
 rows give 0, then an all-reduce; the head's logits are all-gathered in
 vocab order.  A module without a plan (``tp is None``) runs exactly
 the single-device code.
+
+Every collective of these plans is a differentiable one of
+``launch/mesh.py``, so the same plans train: a replicated activation
+enters a column-parallel linear, a cut of ``reslice`` or the
+vocab-parallel head through ``enter_parallel`` (its gradient summed over
+``model``), partial products leave through ``sum_partials`` and
+gathered slices through ``gather_replicated``.  Under
+``torch.no_grad()`` (serving) each is its plain collective.
+:class:`Shards` holds a module tree's FSDP leaves: weights cut over the
+mesh's ``data`` axis, gathered whole where a block runs
+(``Shards.gathered``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -32,6 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.quantized_linear import linear_apply
+from repro_torch.launch.mesh import (enter_parallel, gather_replicated,
+                                     gather_shards, sum_partials)
 
 _INIT_SCALE = 0.02
 
@@ -50,8 +64,50 @@ def reslice(y: torch.Tensor, have, want, mesh) -> torch.Tensor:
     if have == want:
         return y
     if have is not None:
-        y = mesh.all_gather(y, "model", dim=-1)
-    return y if want is None else y[..., want[0]:want[1]]
+        y = gather_replicated(y, mesh, "model", dim=-1)
+    if want is None:
+        return y
+    return enter_parallel(y, mesh)[..., want[0]:want[1]]
+
+
+def enter_for(x: torch.Tensor, linears, mesh) -> torch.Tensor:
+    """``x`` entered once (``enter_parallel``) for ``linears`` where every
+    one of them is column-parallel; as it is otherwise (each cut one then
+    enters it on its own, an uncut one reads it replicated)."""
+    if mesh is not None and all(lin.out_slice is not None
+                                for lin in linears):
+        return enter_parallel(x, mesh)
+    return x
+
+
+class Shards:
+    """The FSDP leaves of a module tree: ``(module, attribute, dim)``,
+    each tensor attribute cut along ``dim`` over the mesh's ``data``
+    axis.  Inside :meth:`gathered` each attribute is the whole tensor
+    (``gather_shards``: its shard's gradient is the data-parallel mean);
+    outside, the shard.  Run inside a checkpointed block, the recompute
+    of the backward gathers again."""
+
+    def __init__(self, mesh, leaves):
+        self.mesh = mesh
+        self.leaves = list(leaves)
+
+    @contextlib.contextmanager
+    def gathered(self):
+        held = [getattr(m, name) for m, name, _ in self.leaves]
+        try:
+            for (m, name, dim), t in zip(self.leaves, held):
+                setattr(m, name, gather_shards(t, self.mesh, "data", dim))
+            yield
+        finally:
+            for (m, name, _), t in zip(self.leaves, held):
+                setattr(m, name, t)
+
+
+def gathered(shards: Optional[Shards]):
+    """``shards.gathered()``, or nothing to gather."""
+    return shards.gathered() if shards is not None else \
+        contextlib.nullcontext()
 
 
 class LinearTP:
@@ -68,16 +124,16 @@ class LinearTP:
         if self.in_slice is not None:
             a, b = self.in_slice
             if x.shape[-1] != b - a:
-                x = x[..., a:b]
+                x = enter_parallel(x, self.mesh)[..., a:b]
             dt = out_dtype or x.dtype
             y = linear_apply(lin.weight, x, backend=backend,
                              out_dtype=torch.float32)
-            y = self.mesh.all_reduce(y, "model").to(dt)
+            y = sum_partials(y, self.mesh).to(dt)
             if lin.bias is not None:
                 y = y + lin.bias.to(y.dtype)
             return y
-        return linear_apply(lin.weight, x, lin.bias, backend=backend,
-                            out_dtype=out_dtype)
+        return linear_apply(lin.weight, enter_parallel(x, self.mesh),
+                            lin.bias, backend=backend, out_dtype=out_dtype)
 
 
 class Linear(nn.Module):
@@ -183,6 +239,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, backend=None) -> torch.Tensor:
         if self.act == "swiglu":
+            x = enter_for(x, (self.gate, self.up), self.mesh)
             g = self.gate(x, backend)
             u = self.up(x, backend)
             h = F.silu(g.float()).to(x.dtype) * u
@@ -229,7 +286,7 @@ class Embed(nn.Module):
         ok = (local >= 0) & (local < b - a)
         x = self.tok[torch.clamp(local, 0, b - a - 1)]
         x = torch.where(ok[..., None], x.float(), 0.0)
-        return self.mesh.all_reduce(x, "model").to(self.tok.dtype)
+        return sum_partials(x, self.mesh).to(self.tok.dtype)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor]) -> torch.Tensor:
@@ -247,9 +304,11 @@ class Embed(nn.Module):
             y = self.unembed(x, backend, out_dtype=torch.float32)
             cut = self.unembed.out_slice
         else:
+            cut = self.vocab_slice
+            if cut is not None:
+                x = enter_parallel(x, self.mesh)
             y = linear_apply(self.tok, x, backend=backend,
                              out_dtype=torch.float32)
-            cut = self.vocab_slice
         if cut is not None:
             y = reslice(y, cut, None, self.mesh)
         return y

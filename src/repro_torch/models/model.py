@@ -58,7 +58,8 @@ from repro_torch import default_device
 from repro_torch.core import prng
 from repro_torch.core.plane import PlaneBundle
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import Embed, Linear, Norm, _normal_
+from repro_torch.models.layers import (Embed, Linear, Norm, _normal_,
+                                       gathered)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import init_ssm_cache
 from repro_torch.models.transformer import Stack, layer_plan
@@ -110,8 +111,10 @@ class Model(nn.Module):
         self.final_norm = Norm(cfg.d_model, cfg.norm, self.device)
         self.encoder = (Encoder(cfg, dtype=dtype, device=self.device)
                         if cfg.is_encdec else None)
-        self.mesh = None        # set by shard_model
+        self.mesh = None        # set by shard_model or a training plan
         self.kv_shape = None    # a rank's (kv heads, head width) of a pool
+        self.shards = None      # FSDP leaves outside the blocks (training)
+        self.train_plan = None  # ``train.sharded.TrainPlan`` over a mesh
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -251,21 +254,25 @@ class Model(nn.Module):
 
     def _logits(self, tokens, frames=None, patch_embeds=None):
         """Full-sequence logits [B, S, V] f32 under whatever grad mode the
-        caller is in; each block checkpointed where ``cfg.remat``."""
-        enc_out = None
-        if self.cfg.is_encdec:
-            if frames is None:
-                raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
-                                 "pass frames= (the encoder's input)")
-            enc_out = self._encode(frames)
-        if patch_embeds is not None:
-            patch_embeds = torch.as_tensor(patch_embeds)
-        x, positions = self._embed(torch.as_tensor(tokens).to(self.device),
-                                   0, patch_embeds)
-        x, _ = self.stack(x, positions, enc_out=enc_out,
-                          backend=self.cfg.backend_preference,
-                          remat=self.cfg.remat)
-        return self._head(x)
+        caller is in; each block checkpointed where ``cfg.remat``.  The
+        FSDP leaves outside the blocks (embeddings, final norms) are
+        gathered for the whole pass."""
+        with gathered(self.shards):
+            enc_out = None
+            if self.cfg.is_encdec:
+                if frames is None:
+                    raise ValueError(f"{self.cfg.name} is an encoder-"
+                                     "decoder: pass frames= (the encoder's "
+                                     "input)")
+                enc_out = self._encode(frames)
+            if patch_embeds is not None:
+                patch_embeds = torch.as_tensor(patch_embeds)
+            x, positions = self._embed(
+                torch.as_tensor(tokens).to(self.device), 0, patch_embeds)
+            x, _ = self.stack(x, positions, enc_out=enc_out,
+                              backend=self.cfg.backend_preference,
+                              remat=self.cfg.remat)
+            return self._head(x)
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, frames=None,
@@ -297,13 +304,16 @@ class Model(nn.Module):
         """Make every parameter a leaf that autograd tracks and return
         them as the reference's tree in the unrolled layout (``stack/
         layers/i``; the live tensors, not copies): what the trainer
-        holds.  Only dense models train, as in the reference: a
-        quantized leaf, or one rank's slices of a mesh, is refused."""
-        if self.mesh is not None:
+        holds.  Over a training mesh (``train_plan``) they are this
+        rank's slices, keyed by the same paths.  Only dense models
+        train, as in the reference: a quantized leaf is refused, and so
+        is a model ``shard_model`` cut for serving."""
+        if self.mesh is not None and self.train_plan is None:
             raise ValueError("train_params: this model holds one rank's "
-                             "slices of a mesh; train a whole model "
-                             "replicated on each rank")
-        tree = to_params(self, scan_layers=False)
+                             "slices of a serving mesh; train through "
+                             "Trainer(model, ..., mesh=...) on a whole or "
+                             "meta-device model")
+        tree = _params_tree(self, scan=False)
         if not all(isinstance(t, torch.Tensor) for t in tree_leaves(tree)):
             raise ValueError(f"{self.cfg.name} holds quantized "
                              f"(PlaneBundle) weights: only dense models "
@@ -706,7 +716,14 @@ def to_params(model: Model, scan_layers: Optional[bool] = None) -> dict:
                          f"its parameters ({model.mesh}); export the tree "
                          "it was sharded from instead")
     cfg = model.cfg
-    scan = cfg.scan_layers if scan_layers is None else scan_layers
+    return _params_tree(model, cfg.scan_layers if scan_layers is None
+                        else scan_layers)
+
+
+def _params_tree(model: Model, scan: bool) -> dict:
+    """``to_params``' tree of whatever the modules hold (a rank's slices
+    over a mesh)."""
+    cfg = model.cfg
     emb = {"tok": model.embed.tok}
     if model.embed.pos is not None:
         emb["pos"] = model.embed.pos
@@ -754,6 +771,21 @@ def unrolled(tree: dict, cfg) -> dict:
     sliced per layer: views of torch tensors, numpy slices)."""
     return _map_stacks(tree, cfg, lambda st, scfg: {
         "layers": layer_trees(st, scfg.n_layers)})
+
+
+def layout_path(path: tuple, cfg) -> tuple:
+    """(path in the layout of ``cfg.scan_layers``, index on its stacked
+    layers axis or None) of an unrolled tree's leaf path: where
+    :func:`stack_layout` puts that leaf."""
+    from repro_torch.models.transformer import stack_path
+    enc = path[:1] == ("encoder",)
+    head = path[:1] if enc else ()
+    rest = path[len(head):]
+    if not cfg.scan_layers or rest[:2] != ("stack", "layers"):
+        return path, None
+    scfg = encoder_config(cfg) if enc else cfg
+    where, r = stack_path(scfg.replace(scan_layers=True), rest[2])
+    return head + where + rest[3:], r
 
 
 @torch.no_grad()
@@ -853,11 +885,19 @@ def _linear_tp(lin: Linear, full, spec, mesh) -> None:
 
 
 def _whole(spec):
-    """A leaf's spec replicated (a bundle's fields too)."""
+    """A leaf's spec whole over ``model`` (a bundle's fields too); its
+    other entries (FSDP's ``data``) kept."""
     from repro_torch.parallel.sharding import BundleSpecs
+
+    def drop(sp):
+        parts = [None if e == "model" else e for e in sp]
+        while parts and parts[-1] is None:
+            parts.pop()
+        return tuple(parts)
     if isinstance(spec, BundleSpecs):
-        return BundleSpecs((), (), None if spec.z is None else ())
-    return ()
+        return BundleSpecs(drop(spec.packed), drop(spec.alpha),
+                           None if spec.z is None else drop(spec.z))
+    return drop(spec)
 
 
 def _attn_tp(cfg, mesh, rules):
@@ -942,6 +982,21 @@ def shard_model(params: dict, cfg, mesh, rules: Optional[dict] = None,
     _whole_leaves(cfg, specs, mesh)
     local = shd.shard_tree(full, specs, mesh)
     model = from_jax_params(local, cfg, device=device, _meta=True)
+    attach_tp(model, full, specs, mesh, rules)
+    left = [t for t in _tensors_all(model) if t.device.type == "meta"]
+    if left:
+        raise ValueError(f"shard_model: {len(left)} parameters were not in "
+                         "the tree")
+    return model
+
+
+def attach_tp(model: Model, full: dict, specs: dict, mesh, rules) -> None:
+    """Give ``model``'s modules their tensor-parallel plans on ``mesh``:
+    ``full`` is the unrolled tree of the whole leaves (anything with
+    their shapes: host arrays, meta tensors), ``specs`` its specs over
+    ``model`` only (``_model_axis_only``, the whole leaves' kept)."""
+    from repro_torch.parallel import sharding as shd
+    cfg = model.cfg
     model.mesh = mesh
     emb, emb_sp = full["embed"], specs["embed"]
     model.embed.mesh = mesh
@@ -972,14 +1027,9 @@ def shard_model(params: dict, cfg, mesh, rules: Optional[dict] = None,
             if name in tree["mlp"]:
                 _linear_tp(getattr(block.mlp, name), tree["mlp"][name],
                            sp["mlp"][name], mesh)
-    left = [t for t in _tensors_all(model) if t.device.type == "meta"]
-    if left:
-        raise ValueError(f"shard_model: {len(left)} parameters were not in "
-                         "the tree")
-    return model
 
 
-__all__ = ["Encoder", "Model", "check_meshable", "encoder_config",
-           "from_jax_params", "layer_trees", "load_params_",
-           "set_block_tables", "shard_model", "stack_layout", "to_params",
-           "unrolled"]
+__all__ = ["Encoder", "Model", "attach_tp", "check_meshable",
+           "encoder_config", "from_jax_params", "layer_trees",
+           "layout_path", "load_params_", "set_block_tables", "shard_model",
+           "stack_layout", "to_params", "unrolled"]

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.plane import PlaneBundle, dequantize
+from repro_torch.launch.mesh import enter_parallel, sum_partials
 from repro_torch.models.layers import Linear, _normal_, reslice
 
 
@@ -192,8 +193,14 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
     cap = int(-(-s * k // e) * cfg.capacity_factor)
     cap = max(4, min(cap, s))
 
-    # 1. route
+    # 1. route (whole on every rank over a mesh; the tokens and gates
+    # then meet the rank's experts, so their gradients are summed over
+    # the ranks: ``enter_parallel``)
+    tp = mod.tp
     gates, experts = route(mod.router, x, k)
+    xd = x
+    if tp is not None and tp.partial:
+        xd, gates = (enter_parallel(t, tp.mesh) for t in (x, gates))
     flat_e = experts.reshape(b, n)
 
     # 2. positions within (row, expert); drop beyond capacity
@@ -204,7 +211,7 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
     token_idx = torch.arange(n, device=x.device) // k
     safe_e = torch.where(keep, flat_e, torch.zeros_like(flat_e))
     safe_p = torch.where(keep, flat_pos, torch.full_like(flat_pos, cap - 1))
-    contrib = torch.where(keep[..., None], x[:, token_idx, :],
+    contrib = torch.where(keep[..., None], xd[:, token_idx, :],
                           torch.zeros((), dtype=x.dtype, device=x.device))
     rows = torch.arange(b, device=x.device)[:, None].expand(b, n)
     xin = torch.zeros((b, e, cap, d), dtype=x.dtype, device=x.device)
@@ -213,7 +220,6 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
     # 4. the expert FFN, one routed expert at a time, f32 accumulation
     # (a meta tensor cannot say which experts were routed to: every one);
     # over a mesh only this rank's experts, or its cut of each
-    tp = mod.tp
     if x.device.type == "meta":
         routed = range(e)
     else:
@@ -244,15 +250,20 @@ def moe_apply(mod: MoE, cfg, x: torch.Tensor, backend=None):
     vals = torch.where(keep[..., None], vals, torch.zeros_like(vals)) \
         * gates.reshape(b, n)[..., None].to(x.dtype)
     if tp is not None and tp.partial:
-        vals = tp.mesh.all_reduce(vals, "model")
+        vals = sum_partials(vals, tp.mesh)
     vals = vals.float().reshape(b, s, k, d)
     y = vals[:, :, 0]
     for j in range(1, k):
         y = y + vals[:, :, j]
 
     if mod.shared_gate is not None:
-        sg = mod.shared_gate(x, backend)
-        su = mod.shared_up(x, backend)
+        sx = x
+        if tp is not None and mod.shared_gate.out_slice is not None \
+                and mod.shared_up.out_slice is not None:
+            # one entry for the dispatch and both column-parallel linears
+            sx = enter_parallel(xd, tp.mesh)
+        sg = mod.shared_gate(sx, backend)
+        su = mod.shared_up(sx, backend)
         sh = F.silu(sg.float()).to(x.dtype) * su
         if tp is not None:
             sh = reslice(sh, mod.shared_up.out_slice,

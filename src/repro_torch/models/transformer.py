@@ -6,6 +6,15 @@ cache under grad mode checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
 each block in ``jax.checkpoint``.
 
+Trained over a mesh (``train/sharded.py``), a block gathers its FSDP
+leaves (``Block.shards``, the weights cut over ``data``) where it runs,
+inside the checkpointed function, so the backward's recompute gathers
+them again and none is kept whole between the passes; and with the
+``act_embed`` rule (``Stack.act_mesh``) each checkpointed block keeps
+only this rank's ``model`` slice of its input's ``d_model`` columns,
+gathered whole again before the recompute, as the reference shards its
+remat stash.
+
 The reference's parameter tree still stacks layers under
 ``scan_layers`` (``stack/prefix/i`` and ``stack/scan/j`` with a leading
 layers axis); :func:`scan_grouping` and :func:`stack_path` name where a
@@ -18,9 +27,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import gather_replicated, split_replicated
 from repro_torch.models.attention import (Attention, CrossAttention,
                                           MLAttention)
-from repro_torch.models.layers import MLP, Norm
+from repro_torch.models.layers import MLP, Norm, gathered
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
 
@@ -51,6 +61,7 @@ class Block(nn.Module):
             self.ln2 = Norm(cfg.d_model, cfg.norm, device)
             mlp = MoE if mlp_kind == "moe" else MLP
             self.mlp = mlp(cfg, dtype=dtype, device=device)
+        self.shards = None     # FSDP leaves (``layers.Shards``), training
 
     def forward(self, x, positions, *, cache=None, cache_at=None,
                 causal=True, enc_out=None, backend=None,
@@ -99,6 +110,7 @@ class Stack(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, i, dtype=dtype, device=device, cross=cross)
             for i in range(cfg.n_layers))
+        self.act_mesh = None   # the remat stash cut over ``model``
 
     def forward(self, x, positions, *, caches=None, cache_at=None,
                 causal=True, enc_out=None, backend=None,
@@ -109,22 +121,37 @@ class Stack(nn.Module):
         # input and recomputes itself in the backward pass
         ckpt = remat and caches is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
+            if ckpt and self.act_mesh is not None:
+                xs = split_replicated(x, self.act_mesh, "model", dim=-1)
+                x = checkpoint(_block_from_slice, block, xs, self.act_mesh,
+                               positions, causal, enc_out, backend,
+                               use_reentrant=False)
+                continue
             if ckpt:
                 x = checkpoint(_block_out, block, x, positions, causal,
                                enc_out, backend, use_reentrant=False)
                 continue
             c = caches["layers"][i] if caches is not None else None
-            x, c = block(x, positions, cache=c, cache_at=cache_at,
-                         causal=causal, enc_out=enc_out, backend=backend,
-                         paged_kernel=paged_kernel)
+            with gathered(block.shards):
+                x, c = block(x, positions, cache=c, cache_at=cache_at,
+                             causal=causal, enc_out=enc_out,
+                             backend=backend, paged_kernel=paged_kernel)
             if new is not None:
                 new.append(c)
         return x, ({**caches, "layers": new} if new is not None else None)
 
 
 def _block_out(block, x, positions, causal, enc_out, backend):
-    return block(x, positions, causal=causal, enc_out=enc_out,
-                 backend=backend)[0]
+    with gathered(block.shards):
+        return block(x, positions, causal=causal, enc_out=enc_out,
+                     backend=backend)[0]
+
+
+def _block_from_slice(block, xs, mesh, positions, causal, enc_out, backend):
+    """The block on its input gathered from this rank's column slice
+    (the checkpoint keeps only ``xs``)."""
+    x = gather_replicated(xs, mesh, "model", dim=-1)
+    return _block_out(block, x, positions, causal, enc_out, backend)
 
 
 def layer_plan(cfg):

@@ -89,11 +89,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
+def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig,
+                  gnorm=None):
     """One AdamW step, in place: clip by the global norm, bias-corrected
-    moments, decoupled weight decay.  Returns (params, new state,
-    metrics {"grad_norm", "lr"} as device scalars)."""
-    gnorm = global_norm(grads)
+    moments, decoupled weight decay.  ``gnorm`` is the global norm where
+    the caller took it (over a mesh: of the whole gradient, from its
+    slices); default ``global_norm(grads)``.  Returns (params, new
+    state, metrics {"grad_norm", "lr"} as device scalars)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     count = state.count + 1
     lr = schedule_lr(cfg, count)
@@ -120,20 +124,26 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
 # ---------------------------------------------------------------------------
 
 
-def _compress_one(g, r):
+def _compress_one(g, r, absmax=None):
     gf = g.float() + r if r is not None else g.float()
-    scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / 127.0
+    if absmax is None:
+        absmax = torch.max(torch.abs(gf))
+    scale = torch.clamp(absmax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return q, scale, gf - q.float() * scale
 
 
-def compress_grads(grads, residual=None):
+def compress_grads(grads, residual=None, absmax=None):
     """-> (int8 tree, f32 scale tree, new f32 residual tree), g ~= int8 *
-    scale."""
+    scale.  ``absmax`` (a tree of f32 scalars, optional) is each
+    tensor's largest magnitude where the caller took it: over a mesh,
+    the whole tensor's, for its slice."""
     flat = tree_leaves(grads)
     flat_r = tree_leaves(residual) if residual is not None \
         else [None] * len(flat)
-    outs = [_compress_one(g, r) for g, r in zip(flat, flat_r)]
+    flat_m = tree_leaves(absmax) if absmax is not None \
+        else [None] * len(flat)
+    outs = [_compress_one(g, r, m) for g, r, m in zip(flat, flat_r, flat_m)]
     return tuple(tree_unflatten(grads, [o[i] for o in outs])
                  for i in range(3))
 

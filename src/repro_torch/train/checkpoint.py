@@ -20,8 +20,17 @@ checkpoints written by either package load in the other.
 ``save_async`` returns (a CPU copy of every tensor, so a later in-place
 optimizer step cannot reach the file being written), then writes it in
 a daemon thread, one write in flight at a time, keeping the newest
-``keep`` steps.  :func:`restore` returns CPU tensors, or places them:
-on a device, or sliced for one rank of a mesh (``shard_tree``).
+``keep`` steps.  Over a mesh (``save_sharded_async``) the step has the
+same layout, one whole file per leaf, but no process holds the whole
+state: rank 0 creates every leaf's file at its whole shape
+(``np.lib.format.open_memmap``), every rank writes the slices it is to
+write into them from its own snapshot, in its writer thread, and the
+commit (manifest, rename, GC) waits for every rank's writes: the next
+``wait``, which every rank calls, brackets it with the mesh's host
+barriers.  :func:`restore` returns CPU tensors (with ``mmap``,
+memory-mapped: a caller that slices them reads only its slices), or
+places them: on a device, or sliced for one rank of a mesh
+(``shard_tree``, memory-mapped).
 """
 from __future__ import annotations
 
@@ -64,6 +73,19 @@ def _unflatten(skeleton, leaves: dict, path=()):
     return leaves["/".join(path)]
 
 
+def _np_dtype(dtype: torch.dtype) -> tuple:
+    """(numpy dtype a file holds, dtype name to record) of a torch
+    dtype."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16), "bfloat16"
+    a = torch.empty(0, dtype=dtype).numpy()
+    return a.dtype, str(a.dtype)
+
+
+def _file_of(key: str) -> str:
+    return key.replace("/", "__") + ".npy"
+
+
 def _host_array(leaf):
     """(numpy array to write, dtype name to record)."""
     if isinstance(leaf, torch.Tensor):
@@ -91,7 +113,7 @@ def save(ckpt_dir: str, step: int, tree: Any,
     for path, leaf in leaves_with_path(tree):
         key = "/".join(map(str, path))
         arr, dtype_name = _host_array(leaf)
-        fn = key.replace("/", "__") + ".npy"
+        fn = _file_of(key)
         np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"][key] = {"file": fn, "dtype": dtype_name,
                                    "shape": list(arr.shape)}
@@ -134,6 +156,8 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = None       # a sharded step to commit: (mesh, tmp,
+        #                            final, manifest)
         self.last_snapshot_s = 0.0
         self.last_write_s = 0.0
         os.makedirs(ckpt_dir, exist_ok=True)
@@ -142,9 +166,81 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._pending is not None:
+            self._commit(err is None)
+        if err is not None:
             raise err
+
+    def _commit(self, mine_ok: bool) -> None:
+        """Every rank's writes of the pending sharded step are done (each
+        rank is here): rank 0 commits it if every rank wrote its slices,
+        then all pass a barrier, so each sees the step or none."""
+        import torch.distributed as dist
+        mesh, tmp, final, manifest = self._pending
+        self._pending = None
+        ok = all(mesh.gather_objects(mine_ok))
+        if ok and mesh.rank == 0:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)                  # atomic commit
+            self._gc()
+        dist.barrier(group=mesh.host_group)
+        if not ok and mine_ok:
+            raise RuntimeError(f"checkpoint {os.path.basename(final)}: "
+                               "another rank failed to write its slices")
+
+    def save_sharded_async(self, step: int, meta_tree: Any, parts: list,
+                           mesh, extra: Optional[dict] = None) -> None:
+        """A step written by every rank of ``mesh`` (each calls this, in
+        the same order): ``meta_tree`` gives the tree's structure and each
+        leaf's whole shape and dtype (meta tensors), ``parts`` this rank's
+        writes, ``(key, index, tensor)``: the leaf's "/"-joined path,
+        the index of the slice in the whole leaf (a tuple of ints and
+        slices) and its values."""
+        import torch.distributed as dist
+        self.wait()
+        t0 = time.perf_counter()
+        host = [(key, index, _snapshot(t)) for key, index, t in parts]
+        self.last_snapshot_s = time.perf_counter() - t0
+        final = os.path.join(self.ckpt_dir, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        manifest = {"step": step, "leaves": {}, "extra": extra or {},
+                    "skeleton": _skeleton(meta_tree)}
+        for path, leaf in leaves_with_path(meta_tree):
+            key = "/".join(map(str, path))
+            _, name = _np_dtype(leaf.dtype)
+            manifest["leaves"][key] = {"file": _file_of(key), "dtype": name,
+                                       "shape": list(leaf.shape)}
+        if mesh.rank == 0:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            for path, leaf in leaves_with_path(meta_tree):
+                key = "/".join(map(str, path))
+                np.lib.format.open_memmap(
+                    os.path.join(tmp, _file_of(key)), mode="w+",
+                    dtype=_np_dtype(leaf.dtype)[0], shape=tuple(leaf.shape))
+        dist.barrier(group=mesh.host_group)     # every file exists
+        self._pending = (mesh, tmp, final, manifest)
+
+        def work():
+            t1 = time.perf_counter()
+            try:
+                for key, index, t in host:
+                    mm = np.load(os.path.join(tmp, _file_of(key)),
+                                 mmap_mode="r+")
+                    mm[index] = _host_array(t)[0]
+                    mm.flush()
+                    del mm
+            except BaseException as e:        # re-raised by ``wait``
+                self._error = e
+            self.last_write_s = time.perf_counter() - t1
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
 
     def save_async(self, step: int, tree: Any, extra: Optional[dict] = None,
                    layout=None) -> None:
@@ -194,16 +290,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, placement=None,
-            template: Any = None):
+            template: Any = None, mmap: bool = False):
     """(tree, step, extra) of ``step`` (default: the latest complete one).
 
-    Leaves come back as CPU torch tensors; with ``template`` (a tree of
-    the same structure, a named tuple standing for its restored dict)
-    each is cast to the template leaf's dtype.  ``placement`` moves them:
-    a device, or ``(mesh, specs)`` to keep only this rank's slice of
-    every leaf (``parallel.sharding.shard_tree`` with ``specs`` from
-    ``build_specs``) on the mesh's device, where the reference gives
-    ``jax.device_put`` its shardings."""
+    Leaves come back as CPU torch tensors (with ``mmap``, backed by
+    copy-on-write memory maps of the files, so only what is read of them
+    is loaded); with ``template`` (a tree of the same structure, a named
+    tuple standing for its restored dict) each is cast to the template
+    leaf's dtype.  ``placement`` moves them: a device, or ``(mesh,
+    specs)`` to keep only this rank's slice of every leaf
+    (``parallel.sharding.shard_tree`` with ``specs`` from
+    ``build_specs``; the files memory-mapped) on the mesh's device,
+    where the reference gives ``jax.device_put`` its shardings."""
+    mmap = mmap or isinstance(placement, tuple)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -213,7 +312,8 @@ def restore(ckpt_dir: str, step: Optional[int] = None, placement=None,
         manifest = json.load(f)
     leaves = {}
     for key, meta in manifest["leaves"].items():
-        t = torch.from_numpy(np.load(os.path.join(d, meta["file"])))
+        t = torch.from_numpy(np.load(os.path.join(d, meta["file"]),
+                                     mmap_mode="c" if mmap else None))
         if meta["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
         leaves[key] = t

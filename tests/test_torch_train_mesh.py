@@ -10,12 +10,16 @@ single process is in turn held against the reference's ``Trainer`` with
 the same microbatches on the same pipeline, so the ranks' mean and the
 microbatch mean are each tied to the reference, not only to one
 another.  The ranks' checkpoint restores and is placed back on the mesh
-(``reshard_to``); a (1, 2) mesh is refused by name, and the launcher
-trains under ``torchrun`` on (2, 1) and refuses (1, 2).
+(``reshard_to``); a Mamba config and an encoder-decoder on a (1, 2)
+mesh are refused by name (tensor-parallel training itself is held
+against the reference in ``tests/test_torch_train_tp.py``), and the
+launcher trains under ``torchrun`` on (2, 1) replicated, on (1, 2) and
+on (2, 1) with fsdp, and refuses a Mamba config on (1, 2).
 """
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 
@@ -145,24 +149,50 @@ def test_data_parallel_ranks_agree_and_split_the_batch(trained):
                                            "equal": True}
 
 
-def test_tensor_parallel_mesh_refused(trained):
+@pytest.mark.parametrize("arch,what", [("mamba2_2_7b", "Mamba layers"),
+                                       ("whisper_medium",
+                                        "an encoder-decoder")])
+def test_tensor_parallel_refusals(trained, arch, what):
+    """A model axis above 1 refuses, by name, the configs its plans do
+    not cover, pointing at the ROADMAP entry."""
     for res, _ in trained[0]:
-        msg = res["train"]["tp_refusal"]
-        assert msg is not None and "training's next cut" in msg
+        msg = res["train"]["tp_refusals"][arch]
+        assert msg is not None and what in msg
+        assert "tensor-parallel training of Mamba and encoder-decoder " \
+            "configs" in msg
+
+
+def _launch(tmp_path, mesh, *extra):
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--device", "cpu", "--steps", "2", "--seq-len", "16",
+         "--global-batch", "4", "--ckpt-dir", str(tmp_path), "--mesh", mesh,
+         *extra], capture_output=True, text=True, env=env, timeout=300)
 
 
 def test_launcher_under_torchrun(tmp_path):
-    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
-    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-            "--device", "cpu", "--steps", "2", "--seq-len", "16",
-            "--global-batch", "4", "--ckpt-dir", str(tmp_path)]
-    out = subprocess.run(base + ["--mesh", "2x1"], capture_output=True,
-                         text=True, env=env, timeout=300)
+    out = _launch(tmp_path, "2x1", "--fsdp", "0")
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "replicated over data" in out.stdout
+    assert "fsdp=0" in out.stdout
     assert out.stdout.count("[launch.train] finished at step 2") == 1
-    out = subprocess.run(base + ["--mesh", "1x2"], capture_output=True,
-                         text=True, env=env, timeout=300)
+    out = _launch(tmp_path / "mamba", "1x2", "--arch", "mamba2_2_7b")
     assert out.returncode != 0
-    assert "training's next cut" in out.stderr
+    assert "Mamba layers" in out.stderr
+
+
+@pytest.mark.parametrize("mesh,extra", [("1x2", ()), ("2x1", ("--fsdp",
+                                                              "1"))])
+def test_launcher_shards_under_torchrun(tmp_path, mesh, extra):
+    """``--mesh 1x2`` trains tensor-parallel and ``--mesh 2x1 --fsdp 1``
+    with the state cut over ``data``: each rank holds less than the
+    unsharded bytes, and the run finishes with no refusal."""
+    out = _launch(tmp_path, mesh, *extra)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("[launch.train] finished at step 2") == 1
+    got = re.search(r"holds ([\d.]+) MB of weights and ([\d.]+) MB of "
+                    r"AdamW moments, of ([\d.]+) and ([\d.]+) MB unsharded",
+                    out.stdout)
+    weights, moments, whole_w, whole_m = (float(x) for x in got.groups())
+    assert weights < whole_w and moments < whole_m

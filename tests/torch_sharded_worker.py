@@ -6,7 +6,9 @@
 
 ``JOB.pkl`` holds the mesh shape, the device type (default the CPU),
 optionally a data-parallel training job (``run_train``, for
-``tests/test_torch_train_mesh.py``) and the scenarios, each with its
+``tests/test_torch_train_mesh.py``), a sharded training job
+(``run_tp_train``, for ``tests/test_torch_train_tp.py``) and the
+scenarios, each with its
 OPT config (reduced, or ``full`` width) and overrides, its numpy
 parameter tree (the reference's, quantized where the scenario is) and
 its engine arguments; every rank serves each scenario through
@@ -202,7 +204,7 @@ def run_train(tj, mesh, out_dir):
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import from_jax_params
+    from repro_torch.models import Model, from_jax_params
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves
     from repro_torch.train.trainer import TrainConfig, Trainer
@@ -221,23 +223,135 @@ def run_train(tj, mesh, out_dir):
              *[t.detach().cpu().numpy() for t in tree_leaves(state["params"])])
     out = {"hist": hist, "recoveries": tr.recoveries,
            "batch": pipe.batch_at(0)["tokens"].tolist()}
-    # the checkpoint rank 0 wrote, restored by a trainer off the mesh and
-    # placed on it
+    # the checkpoint the ranks wrote, restored by a trainer off the mesh
+    # (a whole model of its own) and placed on it
     before = [t.detach().clone() for t in tree_leaves(state)]
-    solo = Trainer(model, adamw.AdamWConfig(**tj["opt"]),
+    solo = Trainer(from_jax_params(tj["params"], cfg, device=mesh.device),
+                   adamw.AdamWConfig(**tj["opt"]),
                    TrainConfig(ckpt_dir=tj["ckpt_dir"]))
     restored, at = solo._restore(tj["steps"])
     placed = solo.reshard_to(mesh, restored)
     out["reshard"] = {"step": at, "on_mesh": solo.mesh is mesh, "equal": all(
         torch.equal(a, b) for a, b in zip(tree_leaves(placed), before))}
+    # what a model axis still refuses, by name
     tp = make_mesh((1, mesh.size_total), ("data", "model"),
                    device_type=mesh.device.type)
-    try:
-        Trainer(model, adamw.AdamWConfig(), TrainConfig(), mesh=tp)
-        out["tp_refusal"] = None
-    except NotImplementedError as e:
-        out["tp_refusal"] = str(e)
+    out["tp_refusals"] = {}
+    for arch in ("mamba2_2_7b", "whisper_medium"):
+        try:
+            Trainer(Model(get_reduced(arch), device="meta"),
+                    adamw.AdamWConfig(), TrainConfig(), mesh=tp)
+            out["tp_refusals"][arch] = None
+        except NotImplementedError as e:
+            out["tp_refusals"][arch] = str(e)
     return out
+
+
+class _Rows:
+    """This data shard's rows of a pipeline's global batch."""
+
+    def __init__(self, pipe, shard, shards):
+        self.pipe, self.shard, self.shards = pipe, shard, shards
+
+    def batch_at(self, step):
+        t = self.pipe.batch_at(step)["tokens"]
+        n = t.shape[0] // self.shards
+        return {"tokens": t[self.shard * n:(self.shard + 1) * n]}
+
+
+def run_tp_train(tj, mesh, out_dir):
+    """Train each case's reduced config (f32, the job's numpy weights) on
+    ``mesh`` under ``make_rules(fsdp, act_shard)``.  Rank 0 writes, per
+    case, ``tp_{name}.npz``: the whole (gathered) gradients of the job's
+    batch, then the whole params and moments after ``steps`` trainer
+    steps on the global batch of ``SyntheticLM(seed=1)`` (each rank its
+    data shard's rows), and with ``restore_from`` the whole state of
+    that checkpoint placed on this mesh by ``reshard_to``.  Returns per
+    case the loss, the history, whether the sharded init equals the
+    unsharded one from the same seed, and this rank's element counts of
+    every leaf's weight and moments beside the whole leaf's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import Model, from_jax_params
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+    d, n_data = mesh.index("data"), mesh.size("data")
+    res = {}
+    for case in tj["cases"]:
+        cfg = get_reduced(case["arch"]).replace(**case["over"])
+        rules = make_rules(fsdp=case["fsdp"], act_shard=case["act"])
+        tcfg = TrainConfig(steps=tj["steps"], ckpt_every=tj["steps"],
+                           ckpt_dir=case["ckpt_dir"], fsdp=case["fsdp"],
+                           log_every=100)
+        opt = adamw.AdamWConfig(**tj["opt"])
+        out, arrays = {}, {}
+        # the sharded init against the unsharded one, seed 7
+        tr = Trainer(Model(cfg, device="meta", dtype=torch.float32), opt,
+                     tcfg, mesh=mesh, rules=rules)
+        st = tr.init_state(7)
+        whole = tr.plan.whole([t.detach() for t in
+                               tree_leaves(st["params"])])
+        ref = Model(cfg, device="cpu", dtype=torch.float32)
+        ref.init_params(torch.Generator().manual_seed(7))
+        out["init_equal"] = all(torch.equal(a, b) for a, b in zip(
+            whole, tree_leaves(ref.train_params())))
+        del tr, st, whole, ref
+        model = from_jax_params(case["params"], cfg, device=mesh.device)
+        tr = Trainer(model, opt, tcfg, mesh=mesh, rules=rules)
+        state = tr.fresh_state()
+        plan = tr.plan
+        tokens = case["tokens"]
+        rows = tokens.shape[0] // n_data
+        leaves = tree_leaves(state["params"])
+        loss, grads = tr._value_and_grad(
+            leaves, {"tokens": torch.as_tensor(
+                tokens[d * rows:(d + 1) * rows])})
+        if n_data > 1:
+            grads, loss = tr._data_mean(grads, loss)
+        out["loss"] = float(loss)
+        arrays["grads"] = plan.whole(grads)
+        out["sizes"] = [
+            [p.numel(), m.numel(), v.numel(), w.numel(), list(axes)]
+            for p, m, v, w, axes in zip(
+                leaves, tree_leaves(state["opt"].m),
+                tree_leaves(state["opt"].v), plan._meta, plan.cut_axes)]
+        if not case.get("grads_only"):
+            pipe = _Rows(SyntheticLM(vocab_size=cfg.vocab_size,
+                                     seq_len=tokens.shape[1],
+                                     global_batch=tokens.shape[0], seed=1),
+                         d, n_data)
+            state, hist = tr.run(pipe, state=state)
+            out["hist"], out["recoveries"] = hist, tr.recoveries
+            for key, tree in (("params", state["params"]),
+                              ("m", state["opt"].m), ("v", state["opt"].v)):
+                arrays[key] = plan.whole([t.detach() for t in
+                                          tree_leaves(tree)])
+        if case.get("restore_from"):
+            restored, at, _ = ckpt.restore(case["restore_from"], mmap=True)
+            back = Trainer(Model(cfg, device="meta", dtype=torch.float32),
+                           opt, tcfg, rules=rules)
+            placed = back.reshard_to(mesh, restored)
+            out["restored_step"] = int(at)
+            for key, tree in (("r_params", placed["params"]),
+                              ("r_m", placed["opt"].m),
+                              ("r_v", placed["opt"].v)):
+                arrays[key] = back.plan.whole(tree_leaves(tree))
+        if mesh.rank == 0:
+            np.savez(os.path.join(out_dir, f"tp_{case['name']}.npz"), **{
+                f"{key}.{i}": t.detach().cpu().numpy()
+                for key, ts in arrays.items() for i, t in enumerate(ts)})
+        res[case["name"]] = out
+    # the reduce-scatter's values and counted bytes on this mesh
+    mesh.reset_counters()
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6) * (mesh.rank + 1)
+    part = mesh.reduce_scatter(x, "data", dim=0)
+    from repro_torch.roofline.analysis import collective_bytes
+    res["reduce_scatter"] = {"out": part.tolist(),
+                             "bytes": collective_bytes(mesh)}
+    return res
 
 
 def main():
@@ -253,6 +367,8 @@ def main():
         res[sc["name"]] = run_scenario(sc, mesh)
     if "train" in job:
         res["train"] = run_train(job["train"], mesh, out_dir)
+    if "tp_train" in job:
+        res["tp_train"] = run_tp_train(job["tp_train"], mesh, out_dir)
     res["collectives"] = mesh.collectives
     res["host_syncs"] = mesh.host_syncs
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
